@@ -1,0 +1,296 @@
+// Flash-attention forward off one fused head-major qkv array, for sm_90a.
+//
+// Replaces the Pallas TPU kernel `_fwd_kernel` in
+// aigv_assessor_tpu/ops/pallas_attention.py (reached through
+// `flash_attention_qkv` -> `_fwd_qkv`), in the form the scoring path runs:
+// forward only, no logsumexp, output [B, Hq, S, D] in bf16.
+//
+//   qkv  [B, Hq + 2*Hkv, S, D] bf16, heads ordered [q | k | v], read through
+//        its strides (batch, head, row; D contiguous), so a permuted view of
+//        a projection output needs no copy. q head h reads kv head h / G,
+//        G = Hq / Hkv (rows Hq + h/G and Hq + Hkv + h/G).
+//   out  [B, Hq, S, D] bf16, contiguous.
+//   Keys at or beyond kv_valid are masked (the ViT pads 1025 tokens to 1032
+//   and the tail rows hold evolved values, not zeros); `causal` masks keys
+//   after the query. The ragged edge of S is masked here; nothing is padded.
+//
+// Design. One block of 4 warps per (64-row q tile, q head, batch). Each warp
+// owns 16 q rows, keeps its Q fragments in registers and loops over 64-key
+// K/V tiles staged in shared memory. S = Q K^T and O += P V run on the
+// tensor cores as mma.sync m16n8k16 bf16 with fp32 accumulation. The
+// softmax is online, in base 2 (scale * log2(e) folded into the scores),
+// with fp32 running max m and sum l per row; P is rounded to bf16 before
+// the PV product, as the Pallas kernel does. Causal blocks stop at the
+// diagonal tile; only tiles that cross the diagonal, kv_valid or S pay for
+// the element mask. K/V rows at or beyond kv_valid are zero-filled in shared
+// memory, so a non-finite garbage tail cannot reach the output through 0*inf.
+//
+// What bounds it. At the scoring shapes attention is compute-bound: the ViT
+// (B=32, H=16, S=1032, D=64) does 4*B*H*S^2*D = 0.14 TFLOP per layer against
+// 0.27 GB of qkv and output (~520 FLOP/byte); the LLM (B=4, Hq=16, Hkv=8,
+// S=2113, D=128, causal) 0.07 TFLOP against 0.10 GB (~700 FLOP/byte). Both
+// are above the H100's ~295 bf16 FLOP/byte, so the limit is the tensor-core rate,
+// and this first version reaches only a part of it: mma.sync instead of
+// wgmma, fragments loaded from shared memory with plain loads instead of
+// ldmatrix, and no overlap of the next tile's loads with the current tile's
+// math. Rows in shared memory are padded by 8 elements so that the fragment
+// loads hit distinct banks. wgmma, TMA and warp specialisation are later
+// work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;           // q rows per block
+constexpr int BK = 64;           // keys per tile
+constexpr int NWARPS = BQ / 16;  // one warp per 16 q rows
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int PAD = 8;           // bf16 elements of padding per smem row
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats -> one register of two bf16, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
+                 int S, int kv_valid, int hq, int hkv, long long sb, long long sh,
+                 long long ss, float scale_log2) {
+  constexpr int LD = D + PAD;     // smem row stride, elements
+  constexpr int CHUNKS = D / 8;   // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + BQ * LD;
+  __nv_bfloat16* sV = sK + BK * LD;
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const __nv_bfloat16* qp = qkv + b * sb + h * sh;
+  const __nv_bfloat16* kp = qkv + b * sb + (hq + kvh) * sh;
+  const __nv_bfloat16* vp = qkv + b * sb + (hq + hkv + kvh) * sh;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gr = lane >> 2;  // fragment row group 0..7
+  const int tq = lane & 3;   // thread within the group 0..3
+
+  for (int i = tid; i < BQ * CHUNKS; i += NTHREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (q0 + r < S) v = *reinterpret_cast<const uint4*>(qp + (q0 + r) * ss + c);
+    *reinterpret_cast<uint4*>(sQ + r * LD + c) = v;
+  }
+  __syncthreads();
+
+  // A fragments of this warp's 16 q rows: a[0] = (row g, cols 2t..2t+1),
+  // a[1] = row g+8, a[2] = row g cols +8, a[3] = row g+8 cols +8
+  const int wr = warp * 16;
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const __nv_bfloat16* p = sQ + (wr + gr) * LD + kk * 16 + tq * 2;
+    qf[kk][0] = ld32(p);
+    qf[kk][1] = ld32(p + 8 * LD);
+    qf[kk][2] = ld32(p + 8);
+    qf[kk][3] = ld32(p + 8 * LD + 8);
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  // per thread: rows r0 = q0 + wr + gr (elements 0,1) and r0 + 8 (2,3)
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // partial row sums over this thread's columns
+  const int r0 = q0 + wr + gr;
+
+  int n_tiles = (kv_valid + BK - 1) / BK;
+  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // every warp is done with the previous tile
+    for (int i = tid; i < BK * CHUNKS; i += NTHREADS) {
+      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (k0 + r < kv_valid) {
+        kv = *reinterpret_cast<const uint4*>(kp + (k0 + r) * ss + c);
+        vv = *reinterpret_cast<const uint4*>(vp + (k0 + r) * ss + c);
+      }
+      *reinterpret_cast<uint4*>(sK + r * LD + c) = kv;
+      *reinterpret_cast<uint4*>(sV + r * LD + c) = vv;
+    }
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x BK keys per warp, as BK/8 n-tiles of 8 keys.
+    // B fragment (k = d, n = key): b[0] = K[key g][d 2t..2t+1], b[1] = d +8
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const __nv_bfloat16* p = sK + (nt * 8 + gr) * LD + kk * 16 + tq * 2;
+        const uint32_t bfr[2] = {ld32(p), ld32(p + 8)};
+        mma_16816(s[nt], qf[kk], bfr);
+      }
+    }
+
+    const bool need_mask =
+        k0 + BK > kv_valid || (CAUSAL && k0 + BK - 1 > q0 + wr);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[nt][e] * scale_log2;
+        if (need_mask) {
+          const int col = k0 + nt * 8 + tq * 2 + (e & 1);
+          const int row = r0 + (e >> 1) * 8;
+          if (col >= kv_valid || (CAUSAL && col > row)) v = -INFINITY;
+        }
+        s[nt][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+    float corr[2], mref[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // the four threads of a row group hold one row's columns
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffff, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffff, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row with no valid key yet keeps m = -inf; exponentiate against 0
+      mref[i] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i] = exp2f(m[i] - mref[i]);
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nt][e] - mref[e >> 1]);
+        s[nt][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o[dt][0] *= corr[0];
+      o[dt][1] *= corr[0];
+      o[dt][2] *= corr[1];
+      o[dt][3] *= corr[1];
+    }
+
+    // O += P V over BK/16 steps of 16 keys. The accumulator layout of two
+    // neighbouring 8-key score tiles is the A fragment of one 16-key step.
+    // B fragment (k = key, n = d): b[0] = V[keys 2t, 2t+1][d g], b[1] = keys +8
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pf[4] = {
+          pack_f32(s[2 * kk][0], s[2 * kk][1]), pack_f32(s[2 * kk][2], s[2 * kk][3]),
+          pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const __nv_bfloat16* p = sV + (kk * 16 + tq * 2) * LD + dt * 8 + gr;
+        const uint32_t bfr[2] = {pack_bf16(p[0], p[LD]), pack_bf16(p[8 * LD], p[9 * LD])};
+        mma_16816(o[dt], pf, bfr);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffff, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+  __nv_bfloat16* op = out + (static_cast<long long>(b) * hq + h) * S * D;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + tq * 2;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(op + static_cast<long long>(r0) * D + col) =
+          pack_f32(o[dt][0] * inv[0], o[dt][1] * inv[0]);
+    if (r0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(op + static_cast<long long>(r0 + 8) * D + col) =
+          pack_f32(o[dt][2] * inv[1], o[dt][3] * inv[1]);
+  }
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int hq, int hkv,
+                   int S, int kv_valid, long long sb, long long sh, long long ss,
+                   float scale_log2, cudaStream_t stream) {
+  const int smem = (BQ + 2 * BK) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
+  auto kernel = flash_fwd_kernel<D, CAUSAL>;
+  // D=128 needs 52 KB, above the 48 KB a block gets without opting in
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + BQ - 1) / BQ, hq, B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(qkv, out, S, kv_valid, hq, hkv, sb, sh, ss,
+                                           scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, else the cudaError_t of the failed launch. Shapes,
+// dtypes, strides and alignment are checked by the Python wrapper.
+int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, int B, int hq, int hkv, int S,
+                            int D, int kv_valid, int causal, long long sb, long long sh,
+                            long long ss, float scale, void* stream) {
+  const auto* in = static_cast<const __nv_bfloat16*>(qkv);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (B <= 0 || S <= 0 || hkv <= 0 || hq % hkv != 0 || kv_valid <= 0 || kv_valid > S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B > 65535 || hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err;
+  if (D == 64)
+    err = causal ? launch<64, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st)
+                 : launch<64, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st);
+  else if (D == 128)
+    err = causal ? launch<128, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st)
+                 : launch<128, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+const char* aigv_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,20 @@
+"""Token strings and normalization constants of the data contract (copied
+from `aigv_assessor_tpu/data/constants.py`, which the port cannot import
+without jax)."""
+
+IMG_CONTEXT_TOKEN = "<IMG_CONTEXT>"
+IMG_START_TOKEN = "<img>"
+IMG_END_TOKEN = "</img>"
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+CLIP_MEAN = (0.4814546, 0.4578275, 0.40821073)
+CLIP_STD = (0.2686295, 0.2613025, 0.2757711)
+SIGLIP_MEAN = (0.5, 0.5, 0.5)
+SIGLIP_STD = (0.5, 0.5, 0.5)
+
+NORMALIZE_STATS = {
+    "imagenet": (IMAGENET_MEAN, IMAGENET_STD),
+    "clip": (CLIP_MEAN, CLIP_STD),
+    "siglip": (SIGLIP_MEAN, SIGLIP_STD),
+}

@@ -1,0 +1,117 @@
+"""InternLM2 decoder (`aigv_assessor_tpu/models/internlm2.py`), the
+cache-free forward that scoring runs.
+
+GQA attention off one fused `wqkv` projection whose output heads are
+ordered [q heads | k heads | v heads] (the JAX checkpoint converter
+de-interleaves the reference's layout once; this port takes that order),
+RoPE with dynamic-NTK scaling, causal flash attention, SwiGLU feed-forward,
+RMSNorm. The untied LM head `output` is part of the weights but the scoring
+forward does not run it.
+
+Attention applies the causal mask only, as the JAX fast path does: right
+padding needs no key mask because pad keys are only attended by pad
+queries, whose outputs are never read.
+
+Not ported yet (ROADMAP.md, Queue 1): the KV cache and decoding, the
+logits path, LoRA, int8/int4/W8A8 weights, tied embeddings.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aigv_assessor_torch.core.config import LLMConfig
+from aigv_assessor_torch.ops.attention import fused_qkv_attention
+from aigv_assessor_torch.ops.norms import RMSNorm
+from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
+
+
+class InternLM2Attention(nn.Module):
+    def __init__(self, config: LLMConfig):
+        super().__init__()
+        self.hq = config.num_attention_heads
+        self.hkv = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        c = config.hidden_size
+        self.wqkv = nn.Linear(
+            c, (self.hq + 2 * self.hkv) * self.head_dim, bias=config.effective_qkv_bias
+        )
+        self.wo = nn.Linear(self.hq * self.head_dim, c, bias=config.effective_o_bias)
+
+    def forward(self, x, cos, sin, position_ids):
+        b, s, _ = x.shape
+        hq, hkv, d = self.hq, self.hkv, self.head_dim
+        qkv = self.wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
+        q, k = apply_rope(qkv[:, :hq], qkv[:, hq : hq + hkv], cos, sin, position_ids)
+        # re-fuse after rope so the kernel reads q/k/v from one array
+        qkv = torch.cat([q, k, qkv[:, hq + hkv :]], dim=1)
+        out = fused_qkv_attention(qkv, hq, hkv, causal=True)  # [B, Hq, S, D]
+        return self.wo(out.transpose(1, 2).reshape(b, s, hq * d))
+
+
+class InternLM2MLP(nn.Module):
+    def __init__(self, config: LLMConfig):
+        super().__init__()
+        c, f = config.hidden_size, config.intermediate_size
+        self.w1 = nn.Linear(c, f, bias=False)
+        self.w3 = nn.Linear(c, f, bias=False)
+        self.w2 = nn.Linear(f, c, bias=False)
+
+    def forward(self, x):
+        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+
+
+class InternLM2DecoderLayer(nn.Module):
+    def __init__(self, config: LLMConfig):
+        super().__init__()
+        self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.attention = InternLM2Attention(config)
+        self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.feed_forward = InternLM2MLP(config)
+
+    def forward(self, x, cos, sin, position_ids):
+        x = x + self.attention(self.attention_norm(x), cos, sin, position_ids)
+        return x + self.feed_forward(self.ffn_norm(x))
+
+
+class InternLM2ForCausalLM(nn.Module):
+    def __init__(self, config: LLMConfig):
+        super().__init__()
+        if config.tie_word_embeddings:
+            raise NotImplementedError(
+                "tied embeddings are not ported yet (ROADMAP.md, Queue 1)"
+            )
+        self.config = config
+        self.tok_embeddings = nn.Embedding(config.vocab_size, config.hidden_size)
+        self.layers = nn.ModuleList(
+            InternLM2DecoderLayer(config) for _ in range(config.num_hidden_layers)
+        )
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.output = nn.Linear(config.hidden_size, config.vocab_size, bias=False)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.tok_embeddings(input_ids)
+
+    def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
+        """[B, S, C] embeddings at positions 0..S-1 -> final hidden state
+        (after the last norm), [B, S, C]."""
+        cfg = self.config
+        b, s, _ = inputs_embeds.shape
+        device = inputs_embeds.device
+        position_ids = torch.arange(s, device=device).expand(b, s)
+        rs = cfg.rope_scaling
+        cos, sin = rope_cos_sin(
+            s,
+            cfg.head_dim,
+            base=cfg.rope_theta,
+            scaling_type=rs.type if rs else None,
+            scaling_factor=rs.factor if rs else 1.0,
+            max_position_embeddings=cfg.max_position_embeddings,
+            device=device,
+        )
+        x = inputs_embeds.to(self.norm.weight.dtype)
+        for layer in self.layers:
+            x = layer(x, cos, sin, position_ids)
+        return self.norm(x)

@@ -1,0 +1,143 @@
+"""InternViT-300M vision encoder (`aigv_assessor_tpu/models/vit.py`),
+inference only.
+
+Patch embedding (14x14 conv, stride 14), class token, learned position
+embedding, then pre-norm layers with LayerScale: attention off one fused qkv
+projection through the flash-attention kernel, and a tanh-GELU MLP.
+
+The public layout is the JAX package's: pixels [B, H, W, 3]. The encoder
+pads the token axis once, 1025 -> 1032 at 448 px, as the JAX encoder does;
+the pad rows evolve through the layers, so attention masks keys at or beyond
+the real token count (`kv_valid`), and the pad is cut off at the end.
+
+Not ported yet (ROADMAP.md, Queue 1): QK-normalization, position-embedding
+interpolation for another input size, `select_layer` other than -1, LoRA,
+W8A8. Drop path is a training feature and is not part of inference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aigv_assessor_torch.core.config import VisionConfig
+from aigv_assessor_torch.ops.attention import fused_qkv_attention
+from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
+
+
+def make_norm(norm_type: str, dim: int, eps: float) -> nn.Module:
+    return RMSNorm(dim, eps) if norm_type == "rms_norm" else LayerNorm(dim, eps)
+
+
+class InternVisionEmbeddings(nn.Module):
+    def __init__(self, config: VisionConfig):
+        super().__init__()
+        self.config = config
+        c = config.hidden_size
+        self.class_embedding = nn.Parameter(torch.zeros(1, 1, c))
+        self.position_embedding = nn.Parameter(torch.zeros(1, config.num_patches + 1, c))
+        self.patch_embedding = nn.Conv2d(
+            config.num_channels, c, config.patch_size, stride=config.patch_size
+        )
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] -> [B, 1 + (H/p)*(W/p), C]."""
+        cfg = self.config
+        dtype = self.patch_embedding.weight.dtype
+        x = self.patch_embedding(pixel_values.to(dtype).permute(0, 3, 1, 2))
+        b, c, h, w = x.shape
+        if (h, w) != (cfg.num_patches_per_side,) * 2:
+            raise NotImplementedError(
+                f"{h}x{w} patch grid, position embeddings are "
+                f"{cfg.num_patches_per_side}x{cfg.num_patches_per_side}: "
+                "position-embedding interpolation is not ported yet "
+                "(ROADMAP.md, Queue 1)"
+            )
+        x = x.flatten(2).transpose(1, 2)  # [B, h*w, C], row-major over (h, w)
+        cls = self.class_embedding.to(x.dtype).expand(b, 1, c)
+        x = torch.cat([cls, x], dim=1)
+        return x + self.position_embedding.to(x.dtype)
+
+
+class InternAttention(nn.Module):
+    def __init__(self, config: VisionConfig):
+        super().__init__()
+        if config.qk_normalization:
+            raise NotImplementedError(
+                "ViT QK-normalization is not ported yet (ROADMAP.md, Queue 1)"
+            )
+        self.num_heads = config.num_attention_heads
+        c = config.hidden_size
+        self.qkv = nn.Linear(c, 3 * c, bias=config.qkv_bias)
+        self.proj = nn.Linear(c, c)
+
+    def forward(self, x: torch.Tensor, kv_valid: int | None = None) -> torch.Tensor:
+        b, n, c = x.shape
+        h = self.num_heads
+        # [B, N, 3H, D] viewed head-major as [B, 3H, N, D]: the kernel reads
+        # q/k/v through the strides, no copy
+        qkv = self.qkv(x).view(b, n, 3 * h, c // h).transpose(1, 2)
+        out = fused_qkv_attention(qkv, h, h, causal=False, kv_valid=kv_valid)
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+class InternMLP(nn.Module):
+    def __init__(self, config: VisionConfig):
+        super().__init__()
+        self.approximate = "tanh" if config.approximate_gelu else "none"
+        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size)
+        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+
+
+class InternVisionEncoderLayer(nn.Module):
+    def __init__(self, config: VisionConfig):
+        super().__init__()
+        c = config.hidden_size
+        self.initializer_factor = config.initializer_factor
+        self.ls1 = nn.Parameter(torch.full((c,), config.initializer_factor))
+        self.ls2 = nn.Parameter(torch.full((c,), config.initializer_factor))
+        self.norm1 = make_norm(config.norm_type, c, config.layer_norm_eps)
+        self.attn = InternAttention(config)
+        self.norm2 = make_norm(config.norm_type, c, config.layer_norm_eps)
+        self.mlp = InternMLP(config)
+
+    def forward(self, x: torch.Tensor, kv_valid: int | None = None) -> torch.Tensor:
+        attn_out = self.attn(self.norm1(x), kv_valid)
+        x = x + attn_out * self.ls1.to(attn_out.dtype)
+        mlp_out = self.mlp(self.norm2(x))
+        return x + mlp_out * self.ls2.to(mlp_out.dtype)
+
+
+class InternVisionModel(nn.Module):
+    """Full encoder: [B, H, W, 3] -> last hidden state [B, 1 + P, C]."""
+
+    def __init__(self, config: VisionConfig):
+        super().__init__()
+        self.config = config
+        self.embeddings = InternVisionEmbeddings(config)
+        self.layers = nn.ModuleList(
+            InternVisionEncoderLayer(config) for _ in range(config.num_hidden_layers)
+        )
+
+    def forward(self, pixel_values: torch.Tensor, select_layer: int = -1) -> torch.Tensor:
+        if select_layer != -1:
+            raise NotImplementedError(
+                "partial-depth ViT features (select_layer != -1) are not "
+                "ported yet (ROADMAP.md, Queue 1)"
+            )
+        x = self.embeddings(pixel_values)
+        # pad the token axis once for the whole encoder (1025 -> 1032), as
+        # the JAX encoder does for its kernel's 8-row tiles; the pad rows are
+        # masked as keys and cut off at the end
+        n_tok = x.shape[1]
+        n_pad = (-n_tok) % 8
+        kv_valid = n_tok if n_pad else None
+        if n_pad:
+            x = F.pad(x, (0, 0, 0, n_pad))
+        for layer in self.layers:
+            x = layer(x, kv_valid)
+        return x[:, :n_tok]

@@ -1,0 +1,113 @@
+"""The port's attention against the JAX package.
+
+The port's plain fused-qkv attention (the plain version of the CUDA kernel,
+which the wrapper runs for CPU tensors) is held against the Pallas kernel
+`flash_attention_qkv` run in interpret mode, as tests/test_attention.py runs
+it, in fp32 at atol/rtol 1e-4. The kernel itself is tested on the card in
+tests/test_torch_gpu.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aigv_assessor_torch.ops.attention import fused_qkv_attention, plain_attention
+from aigv_assessor_torch.ops.flash_attention import (
+    flash_attention_qkv,
+    plain_attention_qkv,
+)
+from aigv_assessor_tpu.ops.attention import xla_attention
+
+TOL = 1e-4
+
+
+def _fused(seed, b, hq, hkv, s, d, kv_valid=None):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, hq + 2 * hkv, s, d)).astype(np.float32)
+    if kv_valid is not None:  # garbage beyond kv_valid must be masked
+        qkv[:, hq : hq + hkv, kv_valid:] = 1e3
+        qkv[:, hq + hkv :, kv_valid:] = -1e3
+    return qkv
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        # the ViT's form: non-causal MHA, D=64, a garbage tail past kv_valid
+        dict(causal=False, hq=4, hkv=4, d=64, s=200, kv_valid=150),
+        # the LLM's form: causal GQA, D=128, S not a tile multiple
+        dict(causal=True, hq=4, hkv=2, d=128, s=200, kv_valid=None),
+    ],
+    ids=["mha_d64_kv_valid", "gqa_causal_d128"],
+)
+def test_plain_fused_qkv_matches_pallas_interpret(case):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from aigv_assessor_tpu.ops.pallas_attention import flash_attention_qkv as jax_flash
+
+    qkv = _fused(7, 2, case["hq"], case["hkv"], case["s"], case["d"], case["kv_valid"])
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash(
+            jnp.asarray(qkv), case["hq"], case["hkv"], causal=case["causal"],
+            kv_valid=case["kv_valid"],
+        )
+    got = plain_attention_qkv(
+        torch.from_numpy(qkv), case["hq"], case["hkv"], causal=case["causal"],
+        kv_valid=case["kv_valid"],
+    )
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_attention_matches_xla_attention(causal):
+    """`plain_attention` is the counterpart of `xla_attention`: GQA, causal
+    with a decode offset (Sq < Skv), and a boolean key mask."""
+    rng = np.random.default_rng(1)
+    b, sq, skv, hq, hkv, d = 2, 5, 9, 8, 2, 16
+    q = rng.normal(size=(b, sq, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, skv, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, skv, hkv, d)).astype(np.float32)
+    mask = rng.random((b, sq, skv)) > 0.3
+    mask[:, :, -1] = True  # every row keeps a key
+    got = plain_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, mask=torch.from_numpy(mask),
+    )
+    want = xla_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        mask=jnp.asarray(mask),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_wrapper_runs_plain_version_on_cpu_without_counting():
+    """On a CPU tensor the kernel wrapper (and the model-facing dispatch) is
+    the plain version, and no kernel launch is counted."""
+    qkv = torch.from_numpy(_fused(3, 1, 4, 2, 40, 64))
+    before = flash_attention_qkv.launches
+    want = plain_attention_qkv(qkv, 4, 2, causal=True)
+    torch.testing.assert_close(flash_attention_qkv(qkv, 4, 2, causal=True), want)
+    torch.testing.assert_close(fused_qkv_attention(qkv, 4, 2, causal=True), want)
+    assert flash_attention_qkv.launches == before
+
+
+def test_plain_version_reads_a_strided_view():
+    """The ViT hands the wrapper a head-major view of its [B, N, 3H*D]
+    projection output; reading it must equal reading a contiguous copy."""
+    rng = np.random.default_rng(5)
+    b, n, h, d = 2, 24, 4, 64
+    proj = torch.from_numpy(rng.normal(size=(b, n, 3 * h * d)).astype(np.float32))
+    view = proj.view(b, n, 3 * h, d).transpose(1, 2)
+    assert not view.is_contiguous()
+    torch.testing.assert_close(
+        plain_attention_qkv(view, h, h, kv_valid=17),
+        plain_attention_qkv(view.contiguous(), h, h, kv_valid=17),
+    )
+
+
+def test_wrapper_rejects_other_devices():
+    qkv = torch.empty((1, 3, 16, 64), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_qkv(qkv, 1, 1)

@@ -1,0 +1,208 @@
+"""The PyTorch port's configs and primitive ops against the JAX package.
+
+Inputs come from a numpy seed and go through both functions in fp32; the
+port must agree to atol 1e-5 (one rounding order apart at most).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aigv_assessor_torch.core import config as tcfg
+from aigv_assessor_torch.ops import norms as tnorms
+from aigv_assessor_torch.ops import pixel_shuffle as tps
+from aigv_assessor_torch.ops import preprocess as tpre
+from aigv_assessor_torch.ops import rope as trope
+from aigv_assessor_torch.ops import splice as tsplice
+from aigv_assessor_tpu.core import config as jcfg
+from aigv_assessor_tpu.ops import norms as jnorms
+from aigv_assessor_tpu.ops.pixel_shuffle import pixel_shuffle as jax_pixel_shuffle
+from aigv_assessor_tpu.ops import preprocess as jpre
+from aigv_assessor_tpu.ops import rope as jrope
+from aigv_assessor_tpu.ops.splice import splice_image_embeds as jax_splice
+
+ATOL = 1e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _close(got, want, atol=ATOL):
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=atol, atol=atol
+    )
+
+
+# ------------------------------------------------------------------ config --
+
+CONFIG_CLASSES = ["VisionConfig", "RopeScaling", "LLMConfig", "MotionConfig", "AssessorConfig"]
+
+
+@pytest.mark.parametrize("name", CONFIG_CLASSES)
+def test_config_fields_match_jax(name):
+    """Same field names, order and defaults as the JAX dataclass."""
+    t_fields = dataclasses.fields(getattr(tcfg, name))
+    j_fields = dataclasses.fields(getattr(jcfg, name))
+    assert [f.name for f in t_fields] == [f.name for f in j_fields]
+    assert dataclasses.asdict(getattr(tcfg, name)()) == dataclasses.asdict(
+        getattr(jcfg, name)()
+    )
+
+
+@pytest.mark.parametrize("scale", ["tiny", "default", "2b"])
+def test_config_values_and_properties_match_jax(scale):
+    from aigv_assessor_tpu.cli.common import LLM_2B
+
+    if scale == "tiny":
+        t, j = tcfg.AssessorConfig.tiny(stage=2), jcfg.AssessorConfig.tiny(stage=2)
+    elif scale == "2b":
+        t, j = tcfg.AssessorConfig(llm=tcfg.LLM_2B), jcfg.AssessorConfig(llm=LLM_2B)
+    else:
+        t, j = tcfg.AssessorConfig(), jcfg.AssessorConfig()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    for prop in ("num_image_token", "vit_hidden_size", "llm_hidden_size"):
+        assert getattr(t, prop) == getattr(j, prop)
+    for prop in ("head_dim", "num_patches_per_side", "num_patches"):
+        assert getattr(t.vision, prop) == getattr(j.vision, prop)
+    for prop in ("head_dim", "num_key_value_groups", "effective_qkv_bias", "effective_o_bias"):
+        assert getattr(t.llm, prop) == getattr(j.llm, prop)
+
+
+def test_port_imports_without_jax():
+    """The port's scoring path imports in a process where jax, flax and the
+    JAX package cannot be imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'aigv_assessor_tpu'): sys.modules[m] = None\n"
+        "import aigv_assessor_torch.cli.score, aigv_assessor_torch.models.loading\n"
+        "import aigv_assessor_torch.ops.flash_attention\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+# ------------------------------------------------------------------- norms --
+
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norms(kind):
+    rng = np.random.default_rng(0)
+    x = rng.normal(2.0, 3.0, (3, 5, 48)).astype(np.float32)
+    w = rng.normal(1.0, 0.1, 48).astype(np.float32)
+    b = rng.normal(0.0, 0.1, 48).astype(np.float32)
+    if kind == "rms":
+        got = tnorms.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
+        want = jnorms.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5)
+    else:
+        got = tnorms.layer_norm(
+            torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), 1e-6
+        )
+        want = jnorms.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-6)
+    _close(got, want)
+
+
+# -------------------------------------------------------------------- rope --
+
+
+@pytest.mark.parametrize(
+    "seq_len,scaling", [(64, "dynamic"), (300, "dynamic"), (64, "linear"), (64, None)]
+)
+def test_rope_tables(seq_len, scaling):
+    """seq_len 300 > max_position_embeddings 256 takes the NTK-scaled base."""
+    kw = dict(base=10_000.0, scaling_type=scaling, scaling_factor=2.0,
+              max_position_embeddings=256)
+    assert trope.ntk_scaled_base(10_000.0, 16, seq_len, 256, 2.0) == pytest.approx(
+        jrope.ntk_scaled_base(10_000.0, 16, seq_len, 256, 2.0)
+    )
+    tc, ts = trope.rope_cos_sin(seq_len, 16, **kw)
+    jc, js = jrope.rope_cos_sin(seq_len, 16, **kw)
+    _close(tc, jc)
+    _close(ts, js)
+
+
+def test_apply_rope_bhsd():
+    rng = np.random.default_rng(1)
+    b, hq, hkv, s, d = 2, 4, 2, 12, 16
+    q = rng.normal(size=(b, hq, s, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    pos = np.stack([np.arange(s), np.arange(3, 3 + s)]).astype(np.int32)
+    jc, js = jrope.rope_cos_sin(32, d, base=10_000.0)
+    tc, ts = trope.rope_cos_sin(32, d, base=10_000.0)
+    gq, gk = trope.apply_rope(
+        torch.from_numpy(q), torch.from_numpy(k), tc, ts, torch.from_numpy(pos).long()
+    )
+    wq, wk = jrope.apply_rope(
+        jnp.asarray(q), jnp.asarray(k), jc, js, jnp.asarray(pos), layout="bhsd"
+    )
+    _close(gq, wq)
+    _close(gk, wk)
+
+
+# ----------------------------------------------------- pixel shuffle/splice --
+
+
+@pytest.mark.parametrize("ps_version", ["v1", "v2"])
+def test_pixel_shuffle(ps_version):
+    x = np.random.default_rng(2).normal(size=(3, 4, 4, 8)).astype(np.float32)
+    got = tps.pixel_shuffle(torch.from_numpy(x), 0.5, ps_version)
+    want = jax_pixel_shuffle(jnp.asarray(x), 0.5, ps_version)
+    assert tuple(got.shape) == want.shape
+    _close(got, want, atol=0)
+
+
+@pytest.mark.parametrize("with_motion", [True, False])
+def test_splice(with_motion):
+    rng = np.random.default_rng(3)
+    b, n, c, n_vit, ctx = 2, 20, 8, 6, 7
+    ids = rng.integers(10, 50, (b, n)).astype(np.int32)
+    ids[0, 2:9] = ctx  # 7 slots: 6 ViT rows + motion in the last
+    ids[1, [1, 4, 5, 8, 11, 12, 15]] = ctx  # scattered slots
+    emb = rng.normal(size=(b, n, c)).astype(np.float32)
+    vit = rng.normal(size=(b, n_vit, c)).astype(np.float32)
+    motion = rng.normal(size=(b, c)).astype(np.float32) if with_motion else None
+    got = tsplice.splice_image_embeds(
+        torch.from_numpy(emb), torch.from_numpy(ids).long(), torch.from_numpy(vit), ctx,
+        torch.from_numpy(motion) if with_motion else None,
+    )
+    want = jax_splice(
+        jnp.asarray(emb), jnp.asarray(ids), jnp.asarray(vit), ctx,
+        jnp.asarray(motion) if with_motion else None,
+    )
+    _close(got, want, atol=0)
+
+
+# -------------------------------------------------------------- preprocess --
+
+
+@pytest.mark.parametrize("normalize_type", ["imagenet", "clip"])
+def test_normalize_matches_identity_resize(normalize_type):
+    """The scoring path's `resize_normalize(size=frame size)`."""
+    px = np.random.default_rng(4).integers(0, 256, (2, 3, 28, 28, 3), dtype=np.uint8)
+    got = tpre.resize_normalize(
+        torch.from_numpy(px), size=28, normalize_type=normalize_type, dtype=torch.float32
+    )
+    want = jpre.resize_normalize(
+        jnp.asarray(px), size=28, normalize_type=normalize_type, dtype=jnp.float32
+    )
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,exc",
+    [
+        ((2, 28, 30, 3), torch.uint8, NotImplementedError),  # not square
+        ((2, 32, 32, 3), torch.uint8, NotImplementedError),  # needs a resize
+        ((2, 28, 28, 3), torch.float32, ValueError),  # not uint8
+    ],
+)
+def test_normalize_rejects(shape, dtype, exc):
+    with pytest.raises(exc):
+        tpre.resize_normalize(torch.zeros(shape, dtype=dtype), size=28)
