@@ -1,7 +1,7 @@
 """Batch video scoring (`aigv_assessor_tpu/cli/score.py`), the device side.
 
 - `build_serving_model`: the stage-2 model on a device in the serving
-  precision, with weights made from a seed.
+  precision (bf16, or W8A8 with `w8a8=True`), with weights made from a seed.
 - `score_batch`: uint8 frames -> normalization -> `score_perspectives`, one
   call per chunk of videos (the JAX CLI's jitted `score_batch`).
 - `score_chunks`: the chunk loop: pads the tail chunk to the batch size and
@@ -14,6 +14,7 @@ building, the video list, the flags and the CSV) is not ported yet
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence
 
 import numpy as np
@@ -22,7 +23,7 @@ import torch
 from aigv_assessor_torch.core.config import AssessorConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.assessor import AIGVAssessor
-from aigv_assessor_torch.models.loading import init_random_
+from aigv_assessor_torch.models.loading import init_random_, quantize_for_serving
 from aigv_assessor_torch.ops.preprocess import resize_normalize
 
 
@@ -36,22 +37,33 @@ def build_serving_model(
     int4: bool = False,
     w8a8: bool = False,
 ) -> AIGVAssessor:
-    """The model built straight on `device` in `precision.compute_dtype`,
-    weights from `init_random_(seed)`. The quantized serving modes of the JAX
-    CLI (--int8, --int4, --w8a8) raise until they are ported."""
-    for flag, on, item in (
-        ("int8", int8, "generation and weight-only serving (kernel K6)"),
-        ("int4", int4, "generation and weight-only serving (kernel K7)"),
-        ("w8a8", w8a8, "W8A8 serving (kernels K1 bsd, K4, K5)"),
-    ):
+    """The model on `device` in `precision.compute_dtype`, as the JAX CLI's
+    `build_serving_stack` makes it: fp32 weights from `init_random_(seed)`,
+    quantized for W8A8 (`w8a8=True` or `precision.w8a8`) from those fp32
+    values, then everything else cast to the compute dtype, the W8A8 scales
+    kept fp32. One seed gives the same weights in both precisions. The fp32
+    weights are held only while the model is built (~8.8 GB at 2B). The
+    weight-only modes of the JAX CLI (--int8, --int4) raise until they are
+    ported."""
+    for flag, on, kernel in (("int8", int8, "K6"), ("int4", int4, "K7")):
         if on:
             raise NotImplementedError(
-                f"--{flag} is not ported yet: ROADMAP.md, Queue 1, {item}"
+                f"--{flag} is not ported yet: ROADMAP.md, Queue 1, generation and "
+                f"weight-only serving (kernel {kernel})"
             )
+    w8a8 = w8a8 or precision.w8a8
+    float_precision = dataclasses.replace(precision, w8a8=False)
     with torch.device("meta"):
-        model = AIGVAssessor(config, precision)
-    model = model.to(precision.compute_dtype).to_empty(device=device)
-    return init_random_(model, seed).eval()
+        model = AIGVAssessor(config, float_precision)
+    model = init_random_(model.to_empty(device=device), seed)  # fp32
+    if w8a8:
+        state = quantize_for_serving(model.state_dict(), config)
+        del model
+        with torch.device("meta"):
+            model = AIGVAssessor(config, dataclasses.replace(precision, w8a8=True))
+        model.load_state_dict(state, strict=True, assign=True)
+        del state
+    return model.to(precision.compute_dtype).eval()
 
 
 @torch.inference_mode()

@@ -2,14 +2,18 @@
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // aigv_assessor_tpu/ops/pallas_attention.py (reached through
-// `flash_attention_qkv` -> `_fwd_qkv`), in the form the scoring path runs:
-// forward only, no logsumexp, output [B, Hq, S, D] in bf16.
+// `flash_attention_qkv` -> `_fwd_qkv`), in the forms the scoring path runs:
+// forward only, no logsumexp, bf16 output either head-major [B, Hq, S, D]
+// (`bhsd`) or as the dense rows [B, S, Hq*D] an out-projection reads
+// (`bsd`, the Pallas kernel's `dense_out`).
 //
 //   qkv  [B, Hq + 2*Hkv, S, D] bf16, heads ordered [q | k | v], read through
 //        its strides (batch, head, row; D contiguous), so a permuted view of
 //        a projection output needs no copy. q head h reads kv head h / G,
 //        G = Hq / Hkv (rows Hq + h/G and Hq + Hkv + h/G).
-//   out  [B, Hq, S, D] bf16, contiguous.
+//   out  bf16, written through its strides (batch, head, row; D
+//        contiguous): [B, Hq, S, D] for `bhsd`, [B, S, Hq*D] for `bsd`. The
+//        two layouts differ only in the store addresses.
 //   Keys at or beyond kv_valid are masked (the ViT pads 1025 tokens to 1032
 //   and the tail rows hold evolved values, not zeros); `causal` masks keys
 //   after the query. The ragged edge of S is masked here; nothing is padded.
@@ -78,7 +82,8 @@ template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
                  int S, int kv_valid, int hq, int hkv, long long sb, long long sh,
-                 long long ss, float scale_log2) {
+                 long long ss, long long ob, long long oh, long long os,
+                 float scale_log2) {
   constexpr int LD = D + PAD;     // smem row stride, elements
   constexpr int CHUNKS = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -232,15 +237,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
     l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
-  __nv_bfloat16* op = out + (static_cast<long long>(b) * hq + h) * S * D;
+  __nv_bfloat16* op = out + b * ob + h * oh;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + tq * 2;
     if (r0 < S)
-      *reinterpret_cast<uint32_t*>(op + static_cast<long long>(r0) * D + col) =
+      *reinterpret_cast<uint32_t*>(op + r0 * os + col) =
           pack_f32(o[dt][0] * inv[0], o[dt][1] * inv[0]);
     if (r0 + 8 < S)
-      *reinterpret_cast<uint32_t*>(op + static_cast<long long>(r0 + 8) * D + col) =
+      *reinterpret_cast<uint32_t*>(op + (r0 + 8) * os + col) =
           pack_f32(o[dt][2] * inv[1], o[dt][3] * inv[1]);
   }
 }
@@ -248,7 +253,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
 template <int D, bool CAUSAL>
 cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int hq, int hkv,
                    int S, int kv_valid, long long sb, long long sh, long long ss,
-                   float scale_log2, cudaStream_t stream) {
+                   long long ob, long long oh, long long os, float scale_log2,
+                   cudaStream_t stream) {
   const int smem = (BQ + 2 * BK) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
   auto kernel = flash_fwd_kernel<D, CAUSAL>;
   // D=128 needs 52 KB, above the 48 KB a block gets without opting in
@@ -257,7 +263,7 @@ cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int hq, 
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, hq, B);
   kernel<<<grid, NTHREADS, smem, stream>>>(qkv, out, S, kv_valid, hq, hkv, sb, sh, ss,
-                                           scale_log2);
+                                           ob, oh, os, scale_log2);
   return cudaGetLastError();
 }
 
@@ -266,10 +272,13 @@ cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int hq, 
 extern "C" {
 
 // Returns 0 on success, else the cudaError_t of the failed launch. Shapes,
-// dtypes, strides and alignment are checked by the Python wrapper.
+// dtypes, strides and alignment are checked by the Python wrapper. sb/sh/ss
+// are qkv's strides and ob/oh/os the output's, in elements, for (batch,
+// head, row).
 int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, int B, int hq, int hkv, int S,
                             int D, int kv_valid, int causal, long long sb, long long sh,
-                            long long ss, float scale, void* stream) {
+                            long long ss, long long ob, long long oh, long long os,
+                            float scale, void* stream) {
   const auto* in = static_cast<const __nv_bfloat16*>(qkv);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -279,11 +288,11 @@ int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, int B, int hq, int hkv, 
   if (B > 65535 || hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err;
   if (D == 64)
-    err = causal ? launch<64, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st)
-                 : launch<64, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st);
+    err = causal ? launch<64, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
+                 : launch<64, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
   else if (D == 128)
-    err = causal ? launch<128, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st)
-                 : launch<128, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, scale_log2, st);
+    err = causal ? launch<128, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
+                 : launch<128, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

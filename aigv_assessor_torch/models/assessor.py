@@ -13,6 +13,9 @@ the stage-2 scoring forward.
 Submodule and parameter names follow the JAX package, so that
 `models/loading.state_dict_from_jax` maps one tree onto the other.
 
+Under `Precision.w8a8` both towers run their projections in int8 (see
+`models/vit.py`, `models/internlm2.py`).
+
 Not ported yet (ROADMAP.md, Queue 1): stage-1 text loss, logits, training
 losses, shared-prefix perspective scoring, generation, LoRA, Phi-3.
 """
@@ -87,8 +90,10 @@ class AIGVAssessor(nn.Module):
         self.precision = precision
         c_llm = config.llm.hidden_size
         shuffle = int(round(1 / config.downsample_ratio)) ** 2
-        self.vision_model = InternVisionModel(config.vision)
-        self.language_model = InternLM2ForCausalLM(config.llm)
+        # W8A8 covers both towers' projections; the projectors, the score
+        # head, the embeddings and SlowFast stay float
+        self.vision_model = InternVisionModel(config.vision, precision)
+        self.language_model = InternLM2ForCausalLM(config.llm, precision)
         self.mlp1 = ProjectorMLP(
             config.vision.hidden_size * shuffle, c_llm, precision.norm_dtype
         )

@@ -12,8 +12,16 @@ Attention applies the causal mask only, as the JAX fast path does: right
 padding needs no key mask because pad keys are only attended by pad
 queries, whose outputs are never read.
 
+Under W8A8 (`Precision.w8a8`) the five projections are `W8A8Linear`s with
+unfused feeds, the JAX decoder's default
+(`aigv_assessor_tpu/models/internlm2.py:143-212`, `:293-327`): each norm
+returns the compute dtype and the projection quantizes it with the plain
+`quantize_rows`; the attention kernel writes the dense `bsd` rows that `wo`
+quantizes the same way; w1 and w3 share one quantization of their common
+input, bit for bit what quantizing it twice gives. The LM head stays float.
+
 Not ported yet (ROADMAP.md, Queue 1): the KV cache and decoding, the
-logits path, LoRA, int8/int4/W8A8 weights, tied embeddings.
+logits path, LoRA, int8/int4 weight-only serving, tied embeddings.
 """
 
 from __future__ import annotations
@@ -23,53 +31,76 @@ import torch.nn.functional as F
 from torch import nn
 
 from aigv_assessor_torch.core.config import LLMConfig
+from aigv_assessor_torch.core.precision import Precision
+from aigv_assessor_torch.models.lora import W8A8Linear
 from aigv_assessor_torch.ops.attention import fused_qkv_attention
 from aigv_assessor_torch.ops.norms import RMSNorm
 from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
+from aigv_assessor_torch.ops.w8a8 import quantize_rows
 
 
 class InternLM2Attention(nn.Module):
-    def __init__(self, config: LLMConfig):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
         super().__init__()
-        self.hq = config.num_attention_heads
-        self.hkv = config.num_key_value_heads
-        self.head_dim = config.head_dim
+        self.hq = hq = config.num_attention_heads
+        self.hkv = hkv = config.num_key_value_heads
+        self.head_dim = d = config.head_dim
+        self.w8a8 = precision.w8a8
         c = config.hidden_size
-        self.wqkv = nn.Linear(
-            c, (self.hq + 2 * self.hkv) * self.head_dim, bias=config.effective_qkv_bias
-        )
-        self.wo = nn.Linear(self.hq * self.head_dim, c, bias=config.effective_o_bias)
+        if self.w8a8:
+            dt = precision.compute_dtype
+            self.wqkv = W8A8Linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
+                                   out_dtype=dt, heads=hq + 2 * hkv)
+            self.wo = W8A8Linear(hq * d, c, bias=config.effective_o_bias, out_dtype=dt)
+        else:
+            self.wqkv = nn.Linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias)
+            self.wo = nn.Linear(hq * d, c, bias=config.effective_o_bias)
 
     def forward(self, x, cos, sin, position_ids):
         b, s, _ = x.shape
         hq, hkv, d = self.hq, self.hkv, self.head_dim
-        qkv = self.wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
+        if self.w8a8:
+            qkv = self.wqkv(x)  # [B, H, S, D], a view of the int8 product
+        else:
+            qkv = self.wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
         q, k = apply_rope(qkv[:, :hq], qkv[:, hq : hq + hkv], cos, sin, position_ids)
         # re-fuse after rope so the kernel reads q/k/v from one array
         qkv = torch.cat([q, k, qkv[:, hq + hkv :]], dim=1)
+        if self.w8a8:
+            # the kernel writes wo's dense [B, S, Hq*D] input rows
+            return self.wo(fused_qkv_attention(qkv, hq, hkv, causal=True, out_layout="bsd"))
         out = fused_qkv_attention(qkv, hq, hkv, causal=True)  # [B, Hq, S, D]
         return self.wo(out.transpose(1, 2).reshape(b, s, hq * d))
 
 
 class InternLM2MLP(nn.Module):
-    def __init__(self, config: LLMConfig):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
         super().__init__()
         c, f = config.hidden_size, config.intermediate_size
-        self.w1 = nn.Linear(c, f, bias=False)
-        self.w3 = nn.Linear(c, f, bias=False)
-        self.w2 = nn.Linear(f, c, bias=False)
+        self.w8a8 = precision.w8a8
+        if self.w8a8:
+            dt = precision.compute_dtype
+            self.w1 = W8A8Linear(c, f, bias=False, out_dtype=dt)
+            self.w3 = W8A8Linear(c, f, bias=False, out_dtype=dt)
+            self.w2 = W8A8Linear(f, c, bias=False, out_dtype=dt)
+        else:
+            self.w1 = nn.Linear(c, f, bias=False)
+            self.w3 = nn.Linear(c, f, bias=False)
+            self.w2 = nn.Linear(f, c, bias=False)
 
     def forward(self, x):
+        if self.w8a8:
+            x = quantize_rows(x)  # one quantization feeds both w1 and w3
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
 class InternLM2DecoderLayer(nn.Module):
-    def __init__(self, config: LLMConfig):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
         super().__init__()
         self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.attention = InternLM2Attention(config)
+        self.attention = InternLM2Attention(config, precision)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.feed_forward = InternLM2MLP(config)
+        self.feed_forward = InternLM2MLP(config, precision)
 
     def forward(self, x, cos, sin, position_ids):
         x = x + self.attention(self.attention_norm(x), cos, sin, position_ids)
@@ -77,7 +108,7 @@ class InternLM2DecoderLayer(nn.Module):
 
 
 class InternLM2ForCausalLM(nn.Module):
-    def __init__(self, config: LLMConfig):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
         super().__init__()
         if config.tie_word_embeddings:
             raise NotImplementedError(
@@ -86,7 +117,8 @@ class InternLM2ForCausalLM(nn.Module):
         self.config = config
         self.tok_embeddings = nn.Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList(
-            InternLM2DecoderLayer(config) for _ in range(config.num_hidden_layers)
+            InternLM2DecoderLayer(config, precision)
+            for _ in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.output = nn.Linear(config.hidden_size, config.vocab_size, bias=False)

@@ -12,9 +12,14 @@ leaves (what `jax.device_get(model.init(...))` returns) and gives the
   head-major projections keep the JAX head order, which is the order of the
   Linear's output features;
 - conv kernels HWIO / DHWIO become OIHW / OIDHW;
-- `embedding` and the flax LayerNorm's `scale` become `weight`.
+- `embedding` and the flax LayerNorm's `scale` become `weight`;
+- a W8A8 tree's `kernel_int8` [in, out] becomes the int8 `weight` [out, in]
+  of a `W8A8Linear`, and its fp32 `kernel_scale` becomes `weight_scale`.
 
 Any key left over or missing, or any shape that differs, raises.
+
+`quantize_for_serving` makes the W8A8 weights from float ones, as the JAX
+`quantize_for_serving(w8a8=True)` does.
 
 Reading a checkpoint from disk (`params.msgpack` needs flax, the reference
 safetensors need `safetensors`) is not ported yet (ROADMAP.md, Queue 1).
@@ -28,10 +33,12 @@ import numpy as np
 import torch
 
 from aigv_assessor_torch.core.config import AssessorConfig
+from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.assessor import AIGVAssessor
 from aigv_assessor_torch.models.motion import FrozenBatchNorm
 from aigv_assessor_torch.models.vit import InternVisionEncoderLayer
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
+from aigv_assessor_torch.ops.w8a8 import quantize_kernel
 
 INIT_STD = 0.02  # the configs' initializer_range
 
@@ -55,7 +62,9 @@ def _convert_leaf(path: Tuple[str, ...], x: np.ndarray) -> Tuple[str, torch.Tens
     path = tuple(p for p in path if p != "base")
     name = path[-1]
     t = _to_torch(x)
-    if name == "kernel":
+    if name == "kernel_scale":
+        name = "weight_scale"
+    elif name in ("kernel", "kernel_int8"):
         name = "weight"
         if t.ndim == 2:  # Dense [in, out] -> Linear [out, in]
             t = t.t()
@@ -70,14 +79,20 @@ def _convert_leaf(path: Tuple[str, ...], x: np.ndarray) -> Tuple[str, torch.Tens
     return ".".join(path[:-1] + (name,)), t.contiguous()
 
 
-def expected_shapes(config: AssessorConfig) -> Dict[str, Tuple[int, ...]]:
+def expected_shapes(
+    config: AssessorConfig, precision: Precision = Precision()
+) -> Dict[str, Tuple[int, ...]]:
     """Names and shapes of the port model's state_dict, built without memory."""
     with torch.device("meta"):
-        model = AIGVAssessor(config)
+        model = AIGVAssessor(config, precision)
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
-def state_dict_from_jax(params: Mapping[str, Any], config: AssessorConfig) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(
+    params: Mapping[str, Any], config: AssessorConfig, precision: Precision = Precision()
+) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for `AIGVAssessor(config, precision)`; a W8A8
+    tree (JAX `quantize_for_serving(w8a8=True)`) needs `precision.w8a8`."""
     tree = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     for path, x in _flatten(tree):
@@ -89,7 +104,7 @@ def state_dict_from_jax(params: Mapping[str, Any], config: AssessorConfig) -> Di
         else:
             key, t = _convert_leaf(path, x)
             out[key] = t
-    want = expected_shapes(config)
+    want = expected_shapes(config, precision)
     missing = sorted(set(want) - set(out))
     unused = sorted(set(out) - set(want))
     if missing or unused:
@@ -97,6 +112,32 @@ def state_dict_from_jax(params: Mapping[str, Any], config: AssessorConfig) -> Di
     bad = {k: (tuple(out[k].shape), want[k]) for k in want if tuple(out[k].shape) != want[k]}
     if bad:
         raise ValueError(f"shape mismatch (got, want): {bad}")
+    return out
+
+
+@torch.no_grad()
+def quantize_for_serving(
+    state_dict: Mapping[str, torch.Tensor], config: AssessorConfig
+) -> Dict[str, torch.Tensor]:
+    """W8A8 serving weights from the fp32 state_dict of `AIGVAssessor(config)`:
+    the state_dict of the same model under `Precision(w8a8=True)`.
+
+    The weights quantized are those the W8A8 model holds as `W8A8Linear`s,
+    the set JAX's `quantize_tree(only_base=True)` picks over both towers: the
+    ViT's qkv, proj, fc1, fc2 and InternLM2's wqkv, wo, w1, w2, w3 in every
+    layer. The LM head and everything outside the towers stay float. The
+    weights must be fp32: quantizing bf16-rounded copies adds error, and
+    JAX quantizes before it casts."""
+    want = expected_shapes(config, Precision(w8a8=True))
+    out = dict(state_dict)
+    for key in want:
+        if not key.endswith(".weight_scale"):
+            continue
+        prefix = key[: -len("_scale")]  # "<module>.weight"
+        w = out[prefix]
+        if w.dtype != torch.float32:
+            raise TypeError(f"{prefix} is {w.dtype}: quantize from the fp32 weights")
+        out[prefix], out[key] = quantize_kernel(w)
     return out
 
 

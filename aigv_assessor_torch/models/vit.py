@@ -10,9 +10,17 @@ pads the token axis once, 1025 -> 1032 at 448 px, as the JAX encoder does;
 the pad rows evolve through the layers, so attention masks keys at or beyond
 the real token count (`kv_valid`), and the pad is cut off at the end.
 
+Under W8A8 (`Precision.w8a8`) the four projections are `W8A8Linear`s and
+are fed as the JAX layer feeds them (`aigv_assessor_tpu/models/vit.py:150-197`,
+`:229-266`, `:298-326`): norm1 and norm2 through the fused LayerNorm +
+quantize kernel (K4a), the attention kernel's dense `bsd` rows through the
+one-pass quantize (K4c) into `proj`, and fc1's output through the fused
+tanh-GELU + quantize (K4b) into fc2. The pad rows go through the feeds like
+any row.
+
 Not ported yet (ROADMAP.md, Queue 1): QK-normalization, position-embedding
-interpolation for another input size, `select_layer` other than -1, LoRA,
-W8A8. Drop path is a training feature and is not part of inference.
+interpolation for another input size, `select_layer` other than -1, LoRA.
+Drop path is a training feature and is not part of inference.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from aigv_assessor_torch.core.config import VisionConfig
+from aigv_assessor_torch.core.precision import Precision
+from aigv_assessor_torch.models.lora import W8A8Linear
+from aigv_assessor_torch.ops import quant_fuse
 from aigv_assessor_torch.ops.attention import fused_qkv_attention
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
 
@@ -61,20 +72,34 @@ class InternVisionEmbeddings(nn.Module):
 
 
 class InternAttention(nn.Module):
-    def __init__(self, config: VisionConfig):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
         super().__init__()
         if config.qk_normalization:
             raise NotImplementedError(
                 "ViT QK-normalization is not ported yet (ROADMAP.md, Queue 1)"
             )
-        self.num_heads = config.num_attention_heads
+        self.num_heads = h = config.num_attention_heads
+        self.w8a8 = precision.w8a8
         c = config.hidden_size
-        self.qkv = nn.Linear(c, 3 * c, bias=config.qkv_bias)
-        self.proj = nn.Linear(c, c)
+        if self.w8a8:
+            dt = precision.compute_dtype
+            self.qkv = W8A8Linear(c, 3 * c, bias=config.qkv_bias, out_dtype=dt, heads=3 * h)
+            self.proj = W8A8Linear(c, c, out_dtype=dt)
+        else:
+            self.qkv = nn.Linear(c, 3 * c, bias=config.qkv_bias)
+            self.proj = nn.Linear(c, c)
 
-    def forward(self, x: torch.Tensor, kv_valid: int | None = None) -> torch.Tensor:
-        b, n, c = x.shape
+    def forward(self, x, kv_valid: int | None = None) -> torch.Tensor:
+        """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
         h = self.num_heads
+        if self.w8a8:
+            # head-major int8 product -> attention writing the dense [B, N, C]
+            # rows -> one-pass quantize (K4c) -> int8 proj
+            qkv = self.qkv(x)  # [B, 3H, N, D], a view
+            out = fused_qkv_attention(qkv, h, h, causal=False, kv_valid=kv_valid,
+                                      out_layout="bsd")
+            return self.proj(quant_fuse.quant_rows(out))
+        b, n, c = x.shape
         # [B, N, 3H, D] viewed head-major as [B, 3H, N, D]: the kernel reads
         # q/k/v through the strides, no copy
         qkv = self.qkv(x).view(b, n, 3 * h, c // h).transpose(1, 2)
@@ -83,44 +108,64 @@ class InternAttention(nn.Module):
 
 
 class InternMLP(nn.Module):
-    def __init__(self, config: VisionConfig):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
         super().__init__()
         self.approximate = "tanh" if config.approximate_gelu else "none"
-        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size)
-        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size)
+        self.w8a8 = precision.w8a8
+        c, f = config.hidden_size, config.intermediate_size
+        if self.w8a8:
+            self.fc1 = W8A8Linear(c, f, out_dtype=precision.compute_dtype)
+            self.fc2 = W8A8Linear(f, c, out_dtype=precision.compute_dtype)
+        else:
+            self.fc1 = nn.Linear(c, f)
+            self.fc2 = nn.Linear(f, c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x) -> torch.Tensor:
+        """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
+        if self.w8a8 and self.approximate == "tanh":
+            # fused tanh-GELU + quantize (K4b) of fc1's output
+            return self.fc2(quant_fuse.gelu_quant(self.fc1(x)))
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 class InternVisionEncoderLayer(nn.Module):
-    def __init__(self, config: VisionConfig):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
         super().__init__()
         c = config.hidden_size
         self.initializer_factor = config.initializer_factor
+        self.w8a8 = precision.w8a8
         self.ls1 = nn.Parameter(torch.full((c,), config.initializer_factor))
         self.ls2 = nn.Parameter(torch.full((c,), config.initializer_factor))
         self.norm1 = make_norm(config.norm_type, c, config.layer_norm_eps)
-        self.attn = InternAttention(config)
+        self.attn = InternAttention(config, precision)
         self.norm2 = make_norm(config.norm_type, c, config.layer_norm_eps)
-        self.mlp = InternMLP(config)
+        self.mlp = InternMLP(config, precision)
+
+    def _feed(self, norm: nn.Module, x: torch.Tensor):
+        """The norm's output; under W8A8 with a LayerNorm, its int8 rows and
+        scales from the fused kernel (K4a). An RMSNorm feed stays unfused and
+        the projection quantizes it, as in the JAX layer."""
+        if self.w8a8 and isinstance(norm, LayerNorm):
+            return quant_fuse.layernorm_quant(x, norm.weight, norm.bias, norm.eps)
+        return norm(x)
 
     def forward(self, x: torch.Tensor, kv_valid: int | None = None) -> torch.Tensor:
-        attn_out = self.attn(self.norm1(x), kv_valid)
+        attn_out = self.attn(self._feed(self.norm1, x), kv_valid)
         x = x + attn_out * self.ls1.to(attn_out.dtype)
-        mlp_out = self.mlp(self.norm2(x))
+        mlp_out = self.mlp(self._feed(self.norm2, x))
         return x + mlp_out * self.ls2.to(mlp_out.dtype)
 
 
 class InternVisionModel(nn.Module):
     """Full encoder: [B, H, W, 3] -> last hidden state [B, 1 + P, C]."""
 
-    def __init__(self, config: VisionConfig):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
         super().__init__()
         self.config = config
         self.embeddings = InternVisionEmbeddings(config)
         self.layers = nn.ModuleList(
-            InternVisionEncoderLayer(config) for _ in range(config.num_hidden_layers)
+            InternVisionEncoderLayer(config, precision)
+            for _ in range(config.num_hidden_layers)
         )
 
     def forward(self, pixel_values: torch.Tensor, select_layer: int = -1) -> torch.Tensor:

@@ -62,14 +62,16 @@ def fused_qkv_attention(
     *,
     causal: bool = False,
     kv_valid: Optional[int] = None,
+    out_layout: str = "bhsd",
 ) -> torch.Tensor:
-    """-> [B, hq, S, D]. kv_valid: keys at or beyond it are masked (the
-    caller padded S and the tail holds garbage)."""
+    """-> [B, hq, S, D] (`bhsd`) or [B, S, hq*D] (`bsd`, the dense rows the
+    W8A8 out-projection reads). kv_valid: keys at or beyond it are masked
+    (the caller padded S and the tail holds garbage)."""
     # looked up at call time, so that a caller can swap the kernel for its
     # plain version (chip_smoke.py does, to compare whole forwards); and
     # flash_attention imports this module for plain_attention
     from aigv_assessor_torch.ops import flash_attention
 
     return flash_attention.flash_attention_qkv(
-        qkv, hq, hkv, causal=causal, kv_valid=kv_valid
+        qkv, hq, hkv, causal=causal, kv_valid=kv_valid, out_layout=out_layout
     )

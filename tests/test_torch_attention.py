@@ -3,7 +3,8 @@
 The port's plain fused-qkv attention (the plain version of the CUDA kernel,
 which the wrapper runs for CPU tensors) is held against the Pallas kernel
 `flash_attention_qkv` run in interpret mode, as tests/test_attention.py runs
-it, in fp32 at atol/rtol 1e-4. The kernel itself is tested on the card in
+it, in fp32 at atol/rtol 1e-4, in both output layouts (head-major `bhsd`
+and dense `bsd`). The kernel itself is tested on the card in
 tests/test_torch_gpu.py.
 """
 
@@ -31,16 +32,16 @@ def _fused(seed, b, hq, hkv, s, d, kv_valid=None):
     return qkv
 
 
-@pytest.mark.parametrize(
-    "case",
-    [
-        # the ViT's form: non-causal MHA, D=64, a garbage tail past kv_valid
-        dict(causal=False, hq=4, hkv=4, d=64, s=200, kv_valid=150),
-        # the LLM's form: causal GQA, D=128, S not a tile multiple
-        dict(causal=True, hq=4, hkv=2, d=128, s=200, kv_valid=None),
-    ],
-    ids=["mha_d64_kv_valid", "gqa_causal_d128"],
-)
+FUSED_CASES = [
+    # the ViT's form: non-causal MHA, D=64, a garbage tail past kv_valid
+    dict(causal=False, hq=4, hkv=4, d=64, s=200, kv_valid=150),
+    # the LLM's form: causal GQA, D=128, S not a tile multiple
+    dict(causal=True, hq=4, hkv=2, d=128, s=200, kv_valid=None),
+]
+FUSED_IDS = ["mha_d64_kv_valid", "gqa_causal_d128"]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=FUSED_IDS)
 def test_plain_fused_qkv_matches_pallas_interpret(case):
     from jax.experimental.pallas import tpu as pltpu
 
@@ -58,6 +59,27 @@ def test_plain_fused_qkv_matches_pallas_interpret(case):
     )
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=FUSED_IDS)
+def test_plain_fused_qkv_bsd_matches_pallas_interpret(case):
+    """The dense `bsd` output [B, S, hq*D] that the W8A8 out-projections
+    read, against the Pallas kernel's `dense_out` form, and equal to the
+    `bhsd` output transposed."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from aigv_assessor_tpu.ops.pallas_attention import flash_attention_qkv as jax_flash
+
+    hq, hkv, s, d = case["hq"], case["hkv"], case["s"], case["d"]
+    qkv = _fused(8, 2, hq, hkv, s, d, case["kv_valid"])
+    kw = dict(causal=case["causal"], kv_valid=case["kv_valid"])
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash(jnp.asarray(qkv), hq, hkv, out_layout="bsd", **kw)
+    got = plain_attention_qkv(torch.from_numpy(qkv), hq, hkv, out_layout="bsd", **kw)
+    assert tuple(got.shape) == want.shape == (2, s, hq * d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    bhsd = plain_attention_qkv(torch.from_numpy(qkv), hq, hkv, **kw)
+    torch.testing.assert_close(got, bhsd.transpose(1, 2).reshape(2, s, hq * d), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -111,3 +133,9 @@ def test_wrapper_rejects_other_devices():
     qkv = torch.empty((1, 3, 16, 64), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention_qkv(qkv, 1, 1)
+
+
+def test_plain_version_rejects_an_unknown_layout():
+    qkv = torch.from_numpy(_fused(3, 1, 2, 2, 16, 64))
+    with pytest.raises(ValueError, match="out_layout"):
+        plain_attention_qkv(qkv, 2, 2, out_layout="bshd")

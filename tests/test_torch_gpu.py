@@ -1,23 +1,34 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 jax-free, so that it runs where jax is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Both sides get the same bf16 inputs; the plain version computes in fp32 from
-them, the kernel accumulates in fp32 and rounds P to bf16 before the PV
-product, as the Pallas kernel does. Tolerance atol = rtol = 2e-2, about four
-bf16 ulps at the outputs' scale.
+- The flash-attention kernel (K1). Both sides get the same bf16 inputs; the
+  plain version computes in fp32 from them, the kernel accumulates in fp32
+  and rounds P to bf16 before the PV product, as the Pallas kernel does.
+  Tolerance atol = rtol = 2e-2, about four bf16 ulps at the outputs' scale.
+  Its dense `bsd` output equals its `bhsd` output transposed, bit for bit:
+  only the store addresses differ.
+- The fused quantize kernels (K4a-c). The kernel sums a row in another
+  order than the plain version, and tanh and rsqrt come from other library
+  code, so y / s can land on the other side of a half: the scales agree to
+  rtol 1e-5, and at most 1e-3 of the int8 values differ, each by one.
+- The int8 product's checks on the card.
 """
 
 import pytest
 import torch
 
+from aigv_assessor_torch.ops import quant_fuse as qf
+from aigv_assessor_torch.ops import w8a8
 from aigv_assessor_torch.ops.flash_attention import flash_attention_qkv, plain_attention_qkv
 
 pytestmark = pytest.mark.gpu
 
 TOL = 2e-2
+SCALE_RTOL = 1e-5
+FLIP_FRACTION = 1e-3
 
 # (B, hq, hkv, S, D, causal, kv_valid): the two forms the scoring path runs at
 # 2B scale, and a small ragged shape whose keys past kv_valid hold +-1e3
@@ -83,3 +94,110 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention_qkv(qkv, 4, 4, kv_valid=0)
     with pytest.raises(ValueError, match="qkv"):
         flash_attention_qkv(qkv, 4, 2)
+    with pytest.raises(ValueError, match="out_layout"):
+        flash_attention_qkv(qkv, 4, 4, out_layout="bshd")
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_bsd_output_is_bhsd_transposed(cuda, name):
+    shape = SHAPES[name]
+    b, hq, hkv, s, d, causal, kv_valid = shape
+    qkv = make_qkv(shape, cuda, seed=2)
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    before = flash_attention_qkv.launches
+    dense = flash_attention_qkv(qkv, hq, hkv, out_layout="bsd", **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_qkv.launches == before + 1
+    assert dense.shape == (b, s, hq * d) and dense.is_contiguous()
+    bhsd = flash_attention_qkv(qkv, hq, hkv, **kw)
+    torch.testing.assert_close(dense, bhsd.transpose(1, 2).reshape(b, s, hq * d),
+                               atol=0, rtol=0)
+    want = plain_attention_qkv(qkv, hq, hkv, out_layout="bsd", **kw)
+    torch.testing.assert_close(dense.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+# (rows, cols) of each feed on the 2B ViT path (32 frames x 1032 tokens),
+# and a ragged row count
+FEEDS = {
+    "ln_quant": (33024, 1024),
+    "gelu_quant": (33024, 4096),
+    "ident_quant": (33024, 1024),
+}
+RAGGED_ROWS = 1000
+
+
+def feed_calls(name):
+    """(kernel wrapper, plain version, extra args maker) of one feed."""
+    if name == "ln_quant":
+        def norm(c, device, gen):
+            w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+            return w.to(torch.bfloat16), (0.1 * torch.randn(c, generator=gen,
+                                                            device=device)).to(torch.bfloat16)
+        return qf.layernorm_quant, qf.plain_layernorm_quant, norm
+    if name == "gelu_quant":
+        return qf.gelu_quant, qf.plain_gelu_quant, lambda c, device, gen: ()
+    return qf.quant_rows, qf.plain_quant_rows, lambda c, device, gen: ()
+
+
+def assert_quantized_close(got, want):
+    (q, s), (q2, s2) = got, want
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == q2.shape and s.shape == s2.shape
+    torch.testing.assert_close(s, s2, rtol=SCALE_RTOL, atol=0)
+    diff = (q.int() - q2.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= FLIP_FRACTION
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["path", "ragged"])
+@pytest.mark.parametrize("name", list(FEEDS))
+def test_feed_kernel_matches_plain(cuda, name, ragged):
+    rows, cols = FEEDS[name]
+    rows = RAGGED_ROWS if ragged else rows
+    kernel, plain, extra = feed_calls(name)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (2.0 * torch.randn((rows, cols), generator=gen, device=cuda)).to(torch.bfloat16)
+    args = extra(cols, cuda, gen)
+    before = kernel.launches
+    got = kernel(x, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert_quantized_close(got, plain(x, *args))
+
+
+def test_feed_kernels_keep_leading_dims(cuda):
+    x = torch.randn((4, 250, 1024), device=cuda).to(torch.bfloat16)
+    q, s = qf.quant_rows(x)
+    assert q.shape == x.shape and s.shape == (4, 250, 1)
+    assert_quantized_close((q, s), qf.plain_quant_rows(x))
+
+
+def test_feed_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.randn((64, 1024), device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        qf.quant_rows(x)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qf.gelu_quant(xb[:, :1020].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        qf.quant_rows(xb[:, ::2])
+    w = torch.ones(512, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="norm weight"):
+        qf.layernorm_quant(xb, w, w)
+
+
+def test_int8_product_checks_on_the_card(cuda):
+    x = torch.randn((64, 256), device=cuda)
+    wq = torch.randint(-127, 128, (128, 256), device=cuda, dtype=torch.int8)
+    sw = torch.rand(128, device=cuda) + 0.5
+    y = w8a8.w8a8_matmul(x, wq, sw, out_dtype=torch.float32)
+    want = w8a8.w8a8_matmul(x.cpu(), wq.cpu(), sw.cpu(), out_dtype=torch.float32)
+    torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="M > 16"):
+        w8a8.w8a8_matmul(x[:16], wq, sw)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        w8a8.w8a8_matmul(x, wq[:100], sw[:100])
+    with pytest.raises(ValueError, match="weight"):
+        w8a8.w8a8_matmul(x, wq.float(), sw)
+    with pytest.raises(TypeError, match="int8"):
+        w8a8.w8a8_matmul((x, torch.ones(64, 1, device=cuda)), wq, sw)

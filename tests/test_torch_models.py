@@ -159,7 +159,7 @@ def test_score_chunks_pads_tail_and_scales(pair):
 def test_unported_serving_options_raise(pair):
     _, _, port, cfg = pair
     tcfg = TorchConfig.tiny(stage=2)
-    for flag in ("int8", "int4", "w8a8"):
+    for flag in ("int8", "int4"):  # W8A8 is ported: tests/test_torch_w8a8.py
         with pytest.raises(NotImplementedError, match=flag):
             build_serving_model(tcfg, device="cpu", **{flag: True})
     ids, mask = _prompts(cfg, 1, 2, 11)
