@@ -167,6 +167,19 @@ class MotionConfig:
 
 
 @dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA adapter config: alpha = 2*r, dropout 0.05."""
+
+    r: int = 8
+    alpha: int = 16
+    dropout: float = 0.05
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
+
+
+@dataclass(frozen=True)
 class AssessorConfig:
     """Composite model config (vision + LLM + motion + projection heads)."""
 

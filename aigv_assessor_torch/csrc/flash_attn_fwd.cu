@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // aigv_assessor_tpu/ops/pallas_attention.py (reached through
-// `flash_attention_qkv` -> `_fwd_qkv`), in the forms the scoring path runs:
-// forward only, no logsumexp, bf16 output either head-major [B, Hq, S, D]
-// (`bhsd`) or as the dense rows [B, S, Hq*D] an out-projection reads
-// (`bsd`, the Pallas kernel's `dense_out`).
+// `flash_attention_qkv` -> `_fwd_qkv`), in the forms the scoring and training
+// paths run: bf16 output either head-major [B, Hq, S, D] (`bhsd`) or as the
+// dense rows [B, S, Hq*D] an out-projection reads (`bsd`, the Pallas kernel's
+// `dense_out`), and optionally the per-row logsumexp that the backward
+// kernels (flash_attn_bwd.cu) read (`with_lse` in the Pallas kernel).
 //
 //   qkv  [B, Hq + 2*Hkv, S, D] bf16, heads ordered [q | k | v], read through
 //        its strides (batch, head, row; D contiguous), so a permuted view of
@@ -14,6 +15,9 @@
 //   out  bf16, written through its strides (batch, head, row; D
 //        contiguous): [B, Hq, S, D] for `bhsd`, [B, S, Hq*D] for `bsd`. The
 //        two layouts differ only in the store addresses.
+//   lse  fp32 [B, Hq, S] contiguous or null: log(sum_k exp(scale * q.k)) over
+//        the unmasked keys, natural-log units; -inf for a row with no valid
+//        key (its output row is 0). Storing it changes nothing in `out`.
 //   Keys at or beyond kv_valid are masked (the ViT pads 1025 tokens to 1032
 //   and the tail rows hold evolved values, not zeros); `causal` masks keys
 //   after the query. The ragged edge of S is masked here; nothing is padded.
@@ -34,17 +38,18 @@
 // 0.27 GB of qkv and output (~520 FLOP/byte); the LLM (B=4, Hq=16, Hkv=8,
 // S=2113, D=128, causal) 0.07 TFLOP against 0.10 GB (~700 FLOP/byte). Both
 // are above the H100's ~295 bf16 FLOP/byte, so the limit is the tensor-core rate,
-// and this first version reaches only a part of it: mma.sync instead of
-// wgmma, fragments loaded from shared memory with plain loads instead of
-// ldmatrix, and no overlap of the next tile's loads with the current tile's
-// math. Rows in shared memory are padded by 8 elements so that the fragment
-// loads hit distinct banks. wgmma, TMA and warp specialisation are later
-// work.
+// and this version reaches only a part of it: mma.sync instead of wgmma, and
+// no overlap of the next tile's loads with the current tile's math. Fragments
+// come from shared memory through ldmatrix (mma_fragments.cuh); rows there
+// are padded by 8 elements so that its 16-byte row reads hit distinct banks.
+// wgmma, TMA and warp specialisation are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_fragments.cuh"
 
 namespace {
 
@@ -52,36 +57,14 @@ constexpr int BQ = 64;           // q rows per block
 constexpr int BK = 64;           // keys per tile
 constexpr int NWARPS = BQ / 16;  // one warp per 16 q rows
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;           // bf16 elements of padding per smem row
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
+// D = 64 fits 128 registers and D = 128 fits 170, so four and three blocks
+// share an SM: hold the compiler to that
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 3)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                 int S, int kv_valid, int hq, int hkv, long long sb, long long sh,
+                 float* __restrict__ lse, int S, int kv_valid, int hq, int hkv,
+                 long long sb, long long sh,
                  long long ss, long long ob, long long oh, long long os,
                  float scale_log2) {
   constexpr int LD = D + PAD;     // smem row stride, elements
@@ -112,18 +95,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
   }
   __syncthreads();
 
-  // A fragments of this warp's 16 q rows: a[0] = (row g, cols 2t..2t+1),
-  // a[1] = row g+8, a[2] = row g cols +8, a[3] = row g+8 cols +8
+  // A fragments of this warp's 16 q rows
   const int wr = warp * 16;
   uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = sQ + (wr + gr) * LD + kk * 16 + tq * 2;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * LD);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * LD + 8);
-  }
+  for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], sQ, wr, kk * 16, lane);
 
   float o[D / 8][4];
 #pragma unroll
@@ -151,17 +127,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
     }
     __syncthreads();
 
-    // S = Q K^T: 16 rows x BK keys per warp, as BK/8 n-tiles of 8 keys.
-    // B fragment (k = d, n = key): b[0] = K[key g][d 2t..2t+1], b[1] = d +8
+    // S = Q K^T: 16 rows x BK keys per warp, as BK/8 n-tiles of 8 keys, two
+    // tiles per fragment load
     float s[BK / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; nt += 2) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      s[nt + 1][0] = s[nt + 1][1] = s[nt + 1][2] = s[nt + 1][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* p = sK + (nt * 8 + gr) * LD + kk * 16 + tq * 2;
-        const uint32_t bfr[2] = {ld32(p), ld32(p + 8)};
-        mma_16816(s[nt], qf[kk], bfr);
+        uint32_t bk[4];
+        load_b_rows<LD>(bk, sK, nt * 8, kk * 16, lane);
+        mma_16816(s[nt], qf[kk], bk[0], bk[1]);
+        mma_16816(s[nt + 1], qf[kk], bk[2], bk[3]);
       }
     }
 
@@ -214,7 +192,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
 
     // O += P V over BK/16 steps of 16 keys. The accumulator layout of two
     // neighbouring 8-key score tiles is the A fragment of one 16-key step.
-    // B fragment (k = key, n = d): b[0] = V[keys 2t, 2t+1][d g], b[1] = keys +8
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t pf[4] = {
@@ -222,10 +199,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
           pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
           pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* p = sV + (kk * 16 + tq * 2) * LD + dt * 8 + gr;
-        const uint32_t bfr[2] = {pack_bf16(p[0], p[LD]), pack_bf16(p[8 * LD], p[9 * LD])};
-        mma_16816(o[dt], pf, bfr);
+      for (int dt = 0; dt < D / 8; dt += 2) {
+        uint32_t bv[4];
+        load_b_cols<LD>(bv, sV, kk * 16, dt * 8, lane);
+        mma_16816(o[dt], pf, bv[0], bv[1]);
+        mma_16816(o[dt + 1], pf, bv[2], bv[3]);
       }
     }
   }
@@ -248,11 +226,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
       *reinterpret_cast<uint32_t*>(op + (r0 + 8) * os + col) =
           pack_f32(o[dt][2] * inv[1], o[dt][3] * inv[1]);
   }
+  if (lse != nullptr && tq == 0) {
+    // m is in base-2 units of the scaled scores; l = 0 and m = -inf give -inf
+    float* lp = lse + (static_cast<long long>(b) * hq + h) * S;
+    if (r0 < S) lp[r0] = (m[0] + log2f(l[0])) * 0.6931471805599453f;
+    if (r0 + 8 < S) lp[r0 + 8] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
+  }
 }
 
 template <int D, bool CAUSAL>
-cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int hq, int hkv,
-                   int S, int kv_valid, long long sb, long long sh, long long ss,
+cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, float* lse, int B,
+                   int hq, int hkv, int S, int kv_valid, long long sb, long long sh, long long ss,
                    long long ob, long long oh, long long os, float scale_log2,
                    cudaStream_t stream) {
   const int smem = (BQ + 2 * BK) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
@@ -262,8 +246,8 @@ cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int hq, 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, hq, B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(qkv, out, S, kv_valid, hq, hkv, sb, sh, ss,
-                                           ob, oh, os, scale_log2);
+  kernel<<<grid, NTHREADS, smem, stream>>>(qkv, out, lse, S, kv_valid, hq, hkv, sb, sh,
+                                           ss, ob, oh, os, scale_log2);
   return cudaGetLastError();
 }
 
@@ -274,13 +258,14 @@ extern "C" {
 // Returns 0 on success, else the cudaError_t of the failed launch. Shapes,
 // dtypes, strides and alignment are checked by the Python wrapper. sb/sh/ss
 // are qkv's strides and ob/oh/os the output's, in elements, for (batch,
-// head, row).
-int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, int B, int hq, int hkv, int S,
+// head, row). lse is null (no logsumexp) or a contiguous fp32 [B, hq, S].
+int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, void* lse, int B, int hq, int hkv, int S,
                             int D, int kv_valid, int causal, long long sb, long long sh,
                             long long ss, long long ob, long long oh, long long os,
                             float scale, void* stream) {
   const auto* in = static_cast<const __nv_bfloat16*>(qkv);
   auto* o = static_cast<__nv_bfloat16*>(out);
+  auto* l = static_cast<float*>(lse);
   const auto st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * 1.4426950408889634f;
   if (B <= 0 || S <= 0 || hkv <= 0 || hq % hkv != 0 || kv_valid <= 0 || kv_valid > S)
@@ -288,11 +273,11 @@ int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, int B, int hq, int hkv, 
   if (B > 65535 || hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err;
   if (D == 64)
-    err = causal ? launch<64, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
-                 : launch<64, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
+    err = causal ? launch<64, true>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
+                 : launch<64, false>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
   else if (D == 128)
-    err = causal ? launch<128, true>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
-                 : launch<128, false>(in, o, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
+    err = causal ? launch<128, true>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
+                 : launch<128, false>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

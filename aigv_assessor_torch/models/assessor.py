@@ -1,5 +1,5 @@
 """AIGV-Assessor composite model (`aigv_assessor_tpu/models/assessor.py`),
-the stage-2 scoring forward.
+the stage-2 scoring and training forward.
 
 - `vision_model` (InternViT) -> drop the class token -> pixel shuffle ->
   `mlp1` projector, per frame;
@@ -16,8 +16,17 @@ Submodule and parameter names follow the JAX package, so that
 Under `Precision.w8a8` both towers run their projections in int8 (see
 `models/vit.py`, `models/internlm2.py`).
 
-Not ported yet (ROADMAP.md, Queue 1): stage-1 text loss, logits, training
-losses, shared-prefix perspective scoring, generation, LoRA, Phi-3.
+Training (stage 2): `use_backbone_lora` / `use_llm_lora` put LoRA adapters
+of that rank (alpha = 2r, `lora_dropout`) on both towers' projections;
+`forward(..., mos=...)` also returns `loss = mean |score - mos|`. The module's
+mode is the JAX `deterministic` switch: `train()` turns on adapter dropout
+and drop path (drawn from the generator that `models/lora.set_generator`
+hands in), `eval()` turns them off. SlowFast always runs without gradient
+and its features are detached. The LM head is not run: the cross-entropy is
+no part of the stage-2 loss.
+
+Not ported yet (ROADMAP.md, Queue 1): stage-1 text loss, logits,
+shared-prefix perspective scoring, generation, Phi-3.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aigv_assessor_torch.core.config import AssessorConfig
+from aigv_assessor_torch.core.config import AssessorConfig, LoRAConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.internlm2 import InternLM2ForCausalLM
 from aigv_assessor_torch.models.motion import SlowFastR50
@@ -48,8 +57,11 @@ class ScoreMLP(nn.Module):
         self.num_layers = len(dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the weights may be fp32 masters under training: cast to the
+        # activations' dtype, as the JAX head casts its fp32 parameters
         for i in range(self.num_layers):
-            x = F.relu(getattr(self, f"fc{i + 1}")(x))
+            fc = getattr(self, f"fc{i + 1}")
+            x = F.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))
         return x
 
 
@@ -74,14 +86,15 @@ class ProjectorMLP(nn.Module):
 
 
 class AIGVAssessor(nn.Module):
-    def __init__(self, config: AssessorConfig, precision: Precision = Precision()):
+    def __init__(self, config: AssessorConfig, precision: Precision = Precision(),
+                 grad_checkpoint: bool = False):
+        """grad_checkpoint: recompute each tower layer's activations in the
+        backward (the JAX model's `remat`)."""
         super().__init__()
         if config.stage < 2:
             raise NotImplementedError(
                 "stage-1 (text) forward is not ported yet (ROADMAP.md, Queue 1)"
             )
-        if config.use_backbone_lora or config.use_llm_lora:
-            raise NotImplementedError("LoRA is not ported yet (ROADMAP.md, Queue 1)")
         if config.llm.architecture != "InternLM2ForCausalLM":
             raise NotImplementedError(
                 f"{config.llm.architecture} is not ported yet (ROADMAP.md, Queue 1)"
@@ -92,8 +105,16 @@ class AIGVAssessor(nn.Module):
         shuffle = int(round(1 / config.downsample_ratio)) ** 2
         # W8A8 covers both towers' projections; the projectors, the score
         # head, the embeddings and SlowFast stay float
-        self.vision_model = InternVisionModel(config.vision, precision)
-        self.language_model = InternLM2ForCausalLM(config.llm, precision)
+        vit_lora, llm_lora = (
+            LoRAConfig(r=r, alpha=2 * r, dropout=config.lora_dropout) if r else None
+            for r in (config.use_backbone_lora, config.use_llm_lora)
+        )
+        self.vision_model = InternVisionModel(
+            config.vision, precision, lora=vit_lora, grad_checkpoint=grad_checkpoint
+        )
+        self.language_model = InternLM2ForCausalLM(
+            config.llm, precision, lora=llm_lora, grad_checkpoint=grad_checkpoint
+        )
         self.mlp1 = ProjectorMLP(
             config.vision.hidden_size * shuffle, c_llm, precision.norm_dtype
         )
@@ -120,8 +141,9 @@ class AIGVAssessor(nn.Module):
         return self.mlp1(vit_embeds.reshape(n, -1, vit_embeds.shape[-1]))
 
     def extract_motion(self, frames: torch.Tensor) -> torch.Tensor:
-        """[B, T, H, W, 3] -> [B, C_llm]."""
-        feat = self.slowfast_model(frames)
+        """[B, T, H, W, 3] -> [B, C_llm]. SlowFast runs without gradient."""
+        with torch.no_grad():
+            feat = self.slowfast_model(frames)
         return self.motion_mlp(feat.to(self.precision.compute_dtype))
 
     def _encode(self, pixel_values: torch.Tensor):
@@ -157,9 +179,11 @@ class AIGVAssessor(nn.Module):
         input_ids: torch.Tensor,  # [B, N]
         pixel_values: torch.Tensor,  # [B, T, H, W, 3] normalized
         attention_mask: Optional[torch.Tensor] = None,  # [B, N], 1 = real
+        mos: Optional[torch.Tensor] = None,  # [B], in the score's range
     ) -> Dict[str, torch.Tensor]:
         """Teacher-forced stage-2 forward without logits:
-        {'hidden' [B, N, C], 'readout' [B, C], 'score' [B] fp32}."""
+        {'hidden' [B, N, C], 'readout' [B, C], 'score' [B] fp32}, and with
+        `mos` also 'loss' = mean |score - mos| (fp32 scalar)."""
         cfg = self.config
         vit_embeds, motion_embeds = self._encode(pixel_values)
         embeds = splice_image_embeds(
@@ -168,7 +192,10 @@ class AIGVAssessor(nn.Module):
         )
         hidden = self.language_model(embeds)
         readout = self.readout(hidden, attention_mask)
-        return {"hidden": hidden, "readout": readout, "score": self.score(readout)}
+        out = {"hidden": hidden, "readout": readout, "score": self.score(readout)}
+        if mos is not None:
+            out["loss"] = (out["score"] - mos.to(torch.float32)).abs().mean()
+        return out
 
     def score_perspectives(
         self,

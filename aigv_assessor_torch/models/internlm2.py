@@ -1,5 +1,5 @@
 """InternLM2 decoder (`aigv_assessor_tpu/models/internlm2.py`), the
-cache-free forward that scoring runs.
+cache-free forward that scoring and training run.
 
 GQA attention off one fused `wqkv` projection whose output heads are
 ordered [q heads | k heads | v heads] (the JAX checkpoint converter
@@ -20,28 +20,44 @@ returns the compute dtype and the projection quantizes it with the plain
 quantizes the same way; w1 and w3 share one quantization of their common
 input, bit for bit what quantizing it twice gives. The LM head stays float.
 
+Training (`lora` set): the five projections are `LoRALinear`s, `wqkv`
+head-major out and `wo` head-major in, so attention stays on the fused-qkv
+kernel and its backward kernels; with `grad_checkpoint` each layer's
+activations are recomputed in the backward (`ops/remat.py`).
+
 Not ported yet (ROADMAP.md, Queue 1): the KV cache and decoding, the
-logits path, LoRA, int8/int4 weight-only serving, tied embeddings.
+logits path, LoRA over a W8A8 base, int8/int4 weight-only serving, tied
+embeddings.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aigv_assessor_torch.core.config import LLMConfig
+from aigv_assessor_torch.core.config import LLMConfig, LoRAConfig
 from aigv_assessor_torch.core.precision import Precision
-from aigv_assessor_torch.models.lora import W8A8Linear
+from aigv_assessor_torch.models.lora import (
+    LoRALinear,
+    W8A8Linear,
+    make_linear,
+    reject_w8a8_lora,
+)
 from aigv_assessor_torch.ops.attention import fused_qkv_attention
 from aigv_assessor_torch.ops.norms import RMSNorm
+from aigv_assessor_torch.ops.remat import checkpoint_layer
 from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
 from aigv_assessor_torch.ops.w8a8 import quantize_rows
 
 
 class InternLM2Attention(nn.Module):
-    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None):
         super().__init__()
+        reject_w8a8_lora(precision, lora)
         self.hq = hq = config.num_attention_heads
         self.hkv = hkv = config.num_key_value_heads
         self.head_dim = d = config.head_dim
@@ -53,14 +69,16 @@ class InternLM2Attention(nn.Module):
                                    out_dtype=dt, heads=hq + 2 * hkv)
             self.wo = W8A8Linear(hq * d, c, bias=config.effective_o_bias, out_dtype=dt)
         else:
-            self.wqkv = nn.Linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias)
-            self.wo = nn.Linear(hq * d, c, bias=config.effective_o_bias)
+            self.wqkv = make_linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
+                                    lora=lora, heads=hq + 2 * hkv)
+            self.wo = make_linear(hq * d, c, bias=config.effective_o_bias, lora=lora,
+                                  head_major_in=True)
 
     def forward(self, x, cos, sin, position_ids):
         b, s, _ = x.shape
         hq, hkv, d = self.hq, self.hkv, self.head_dim
-        if self.w8a8:
-            qkv = self.wqkv(x)  # [B, H, S, D], a view of the int8 product
+        if self.w8a8 or isinstance(self.wqkv, LoRALinear):
+            qkv = self.wqkv(x)  # [B, H, S, D], a view of the dense product
         else:
             qkv = self.wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
         q, k = apply_rope(qkv[:, :hq], qkv[:, hq : hq + hkv], cos, sin, position_ids)
@@ -70,12 +88,16 @@ class InternLM2Attention(nn.Module):
             # the kernel writes wo's dense [B, S, Hq*D] input rows
             return self.wo(fused_qkv_attention(qkv, hq, hkv, causal=True, out_layout="bsd"))
         out = fused_qkv_attention(qkv, hq, hkv, causal=True)  # [B, Hq, S, D]
+        if isinstance(self.wo, LoRALinear):
+            return self.wo(out)  # head-major in
         return self.wo(out.transpose(1, 2).reshape(b, s, hq * d))
 
 
 class InternLM2MLP(nn.Module):
-    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None):
         super().__init__()
+        reject_w8a8_lora(precision, lora)
         c, f = config.hidden_size, config.intermediate_size
         self.w8a8 = precision.w8a8
         if self.w8a8:
@@ -84,9 +106,9 @@ class InternLM2MLP(nn.Module):
             self.w3 = W8A8Linear(c, f, bias=False, out_dtype=dt)
             self.w2 = W8A8Linear(f, c, bias=False, out_dtype=dt)
         else:
-            self.w1 = nn.Linear(c, f, bias=False)
-            self.w3 = nn.Linear(c, f, bias=False)
-            self.w2 = nn.Linear(f, c, bias=False)
+            self.w1 = make_linear(c, f, bias=False, lora=lora)
+            self.w3 = make_linear(c, f, bias=False, lora=lora)
+            self.w2 = make_linear(f, c, bias=False, lora=lora)
 
     def forward(self, x):
         if self.w8a8:
@@ -95,12 +117,13 @@ class InternLM2MLP(nn.Module):
 
 
 class InternLM2DecoderLayer(nn.Module):
-    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None):
         super().__init__()
         self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.attention = InternLM2Attention(config, precision)
+        self.attention = InternLM2Attention(config, precision, lora)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.feed_forward = InternLM2MLP(config, precision)
+        self.feed_forward = InternLM2MLP(config, precision, lora)
 
     def forward(self, x, cos, sin, position_ids):
         x = x + self.attention(self.attention_norm(x), cos, sin, position_ids)
@@ -108,16 +131,19 @@ class InternLM2DecoderLayer(nn.Module):
 
 
 class InternLM2ForCausalLM(nn.Module):
-    def __init__(self, config: LLMConfig, precision: Precision = Precision()):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None, grad_checkpoint: bool = False):
         super().__init__()
         if config.tie_word_embeddings:
             raise NotImplementedError(
                 "tied embeddings are not ported yet (ROADMAP.md, Queue 1)"
             )
         self.config = config
+        self.grad_checkpoint = grad_checkpoint
+        self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
         self.tok_embeddings = nn.Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList(
-            InternLM2DecoderLayer(config, precision)
+            InternLM2DecoderLayer(config, precision, lora)
             for _ in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
@@ -144,6 +170,10 @@ class InternLM2ForCausalLM(nn.Module):
             device=device,
         )
         x = inputs_embeds.to(self.norm.weight.dtype)
+        remat = self.grad_checkpoint and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, cos, sin, position_ids)
+            if remat:
+                x = checkpoint_layer(layer, self.generator, x, cos, sin, position_ids)
+            else:
+                x = layer(x, cos, sin, position_ids)
         return self.norm(x)

@@ -7,7 +7,8 @@ leaves (what `jax.device_get(model.init(...))` returns) and gives the
 
 - `layers` stacked by scan-over-layers (leading [L] axis) become one entry
   per layer of a `ModuleList` (`layers.0`, `layers.1`, ...);
-- the `base` level of the JAX LoRA wrappers is dropped;
+- the `base` level of the JAX LoRA wrappers is dropped; the adapter leaves
+  `lora_a` [in, r] and `lora_b` [r, out] keep their names and layout;
 - flax `Dense` kernels [in, out] become `nn.Linear` weights [out, in];
   head-major projections keep the JAX head order, which is the order of the
   Linear's output features;
@@ -18,8 +19,15 @@ leaves (what `jax.device_get(model.init(...))` returns) and gives the
 
 Any key left over or missing, or any shape that differs, raises.
 
+`jax_paths` is the inverse name map: each parameter or buffer name of the
+port's model -> its JAX path and layer index, which the LoRA artifact
+(`train/checkpoint.py`) and the leaf-by-leaf tests are keyed by.
+
 `quantize_for_serving` makes the W8A8 weights from float ones, as the JAX
 `quantize_for_serving(w8a8=True)` does.
+
+`init_random_` fills a model from a seed; `init_lora_` and `init_score_head_`
+draw the adapters and the score head as the JAX modules initialise them.
 
 Reading a checkpoint from disk (`params.msgpack` needs flax, the reference
 safetensors need `safetensors`) is not ported yet (ROADMAP.md, Queue 1).
@@ -27,14 +35,16 @@ safetensors need `safetensors`) is not ported yet (ROADMAP.md, Queue 1).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from aigv_assessor_torch.core.config import AssessorConfig
 from aigv_assessor_torch.core.precision import Precision
-from aigv_assessor_torch.models.assessor import AIGVAssessor
+from aigv_assessor_torch.models.assessor import AIGVAssessor, ScoreMLP
+from aigv_assessor_torch.models.lora import LoRALinear, W8A8Linear, is_lora_param
 from aigv_assessor_torch.models.motion import FrozenBatchNorm
 from aigv_assessor_torch.models.vit import InternVisionEncoderLayer
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
@@ -115,6 +125,44 @@ def state_dict_from_jax(
     return out
 
 
+# tower projections: a JAX `LoRADense`, whose dense layer sits under `base`
+_TOWER_PROJECTIONS = {
+    "vision_model": ("qkv", "proj", "fc1", "fc2"),
+    "language_model": ("wqkv", "wo", "w1", "w2", "w3"),
+}
+
+
+def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Optional[int]]]:
+    """{state_dict name: (JAX path joined by '/', layer index or None)} for
+    every parameter and buffer of the port's model: the inverse of
+    `state_dict_from_jax`'s renaming. A leaf of `layers.<i>` maps to the
+    scan-stacked JAX leaf under `layers` and the index i of its leading
+    axis."""
+    out: Dict[str, Tuple[str, Optional[int]]] = {}
+    for name in model.state_dict():
+        parts = name.split(".")
+        module = model.get_submodule(".".join(parts[:-1])) if len(parts) > 1 else model
+        leaf, layer, path = parts[-1], None, []
+        for i, p in enumerate(parts[:-1]):
+            if i and parts[i - 1] == "layers" and p.isdigit():
+                layer = int(p)
+            else:
+                path.append(p)
+        if isinstance(module, W8A8Linear):
+            leaf = {"weight": "kernel_int8", "weight_scale": "kernel_scale"}.get(leaf, leaf)
+        elif isinstance(module, (torch.nn.Linear, LoRALinear, torch.nn.Conv2d, torch.nn.Conv3d)):
+            leaf = "kernel" if leaf == "weight" else leaf
+        elif isinstance(module, torch.nn.Embedding):
+            leaf = "embedding"
+        elif isinstance(module, torch.nn.LayerNorm):  # flax LayerNorm
+            leaf = "scale" if leaf == "weight" else leaf
+        if (layer is not None and path[-1] in _TOWER_PROJECTIONS.get(path[0], ())
+                and leaf not in ("lora_a", "lora_b")):
+            path.append("base")
+        out[name] = ("/".join(path + [leaf]), layer)
+    return out
+
+
 @torch.no_grad()
 def quantize_for_serving(
     state_dict: Mapping[str, torch.Tensor], config: AssessorConfig
@@ -147,12 +195,15 @@ def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     device: normal(0, INIT_STD) for weights and biases, norms at weight 1 and
     bias 0, frozen batch norm at the identity, LayerScale at the vision
     config's `initializer_factor`. Random rather than zero, so that attention
-    is not uniform and a masking fault shows."""
+    is not uniform and a masking fault shows. Adapter leaves are skipped
+    (`init_lora_` draws them), so one seed gives a model the same base
+    weights with and without adapters."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    for p in model.parameters():
-        p.normal_(0.0, INIT_STD, generator=gen)
+    for name, p in model.named_parameters():
+        if not is_lora_param(name):
+            p.normal_(0.0, INIT_STD, generator=gen)
     for m in model.modules():
         if isinstance(m, (LayerNorm, RMSNorm, torch.nn.LayerNorm)):
             m.weight.fill_(1.0)
@@ -166,4 +217,36 @@ def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         elif isinstance(m, InternVisionEncoderLayer):
             m.ls1.fill_(m.initializer_factor)
             m.ls2.fill_(m.initializer_factor)
+    return model
+
+
+@torch.no_grad()
+def init_lora_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Draw every adapter as the JAX `LoRADense` initialises it: `lora_a`
+    uniform with variance (1 / r) / fan_in, `lora_b` zeros, so the model
+    computes the base function until `lora_b` moves."""
+    gen: Optional[torch.Generator] = None
+    for m in model.modules():
+        if not isinstance(m, LoRALinear):
+            continue
+        if gen is None:
+            gen = torch.Generator(device=m.lora_a.device).manual_seed(seed)
+        fan_in, r = m.lora_a.shape
+        bound = math.sqrt(3.0 * (1.0 / r) / fan_in)
+        m.lora_a.uniform_(-bound, bound, generator=gen)
+        m.lora_b.zero_()
+    return model
+
+
+@torch.no_grad()
+def init_score_head_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Draw the score head as the JAX `ScoreMLP` initialises it: weights
+    uniform in (-0.1, 0.1), biases zero."""
+    for m in model.modules():
+        if isinstance(m, ScoreMLP):
+            gen = torch.Generator(device=m.fc1.weight.device).manual_seed(seed)
+            for i in range(m.num_layers):
+                fc = getattr(m, f"fc{i + 1}")
+                fc.weight.uniform_(-0.1, 0.1, generator=gen)
+                fc.bias.zero_()
     return model

@@ -1,5 +1,4 @@
-"""InternViT-300M vision encoder (`aigv_assessor_tpu/models/vit.py`),
-inference only.
+"""InternViT-300M vision encoder (`aigv_assessor_tpu/models/vit.py`).
 
 Patch embedding (14x14 conv, stride 14), class token, learned position
 embedding, then pre-norm layers with LayerScale: attention off one fused qkv
@@ -18,23 +17,38 @@ one-pass quantize (K4c) into `proj`, and fc1's output through the fused
 tanh-GELU + quantize (K4b) into fc2. The pad rows go through the feeds like
 any row.
 
+Training (`lora` set, `module.train()`): the four projections are
+`LoRALinear`s, `qkv` head-major out and `proj` head-major in, so attention
+stays on the fused-qkv kernel and its backward kernels; each residual branch
+is dropped per sample with rates linspace(0, drop_path_rate, L) (stochastic
+depth); with `grad_checkpoint` each layer's activations are recomputed in
+the backward (`ops/remat.py`). In `eval()` the layers are deterministic.
+
 Not ported yet (ROADMAP.md, Queue 1): QK-normalization, position-embedding
-interpolation for another input size, `select_layer` other than -1, LoRA.
-Drop path is a training feature and is not part of inference.
+interpolation for another input size, `select_layer` other than -1, LoRA
+over a W8A8 base.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aigv_assessor_torch.core.config import VisionConfig
+from aigv_assessor_torch.core.config import LoRAConfig, VisionConfig
 from aigv_assessor_torch.core.precision import Precision
-from aigv_assessor_torch.models.lora import W8A8Linear
+from aigv_assessor_torch.models.lora import (
+    LoRALinear,
+    W8A8Linear,
+    make_linear,
+    reject_w8a8_lora,
+)
 from aigv_assessor_torch.ops import quant_fuse
 from aigv_assessor_torch.ops.attention import fused_qkv_attention
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
+from aigv_assessor_torch.ops.remat import checkpoint_layer
 
 
 def make_norm(norm_type: str, dim: int, eps: float) -> nn.Module:
@@ -72,12 +86,14 @@ class InternVisionEmbeddings(nn.Module):
 
 
 class InternAttention(nn.Module):
-    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None):
         super().__init__()
         if config.qk_normalization:
             raise NotImplementedError(
                 "ViT QK-normalization is not ported yet (ROADMAP.md, Queue 1)"
             )
+        reject_w8a8_lora(precision, lora)
         self.num_heads = h = config.num_attention_heads
         self.w8a8 = precision.w8a8
         c = config.hidden_size
@@ -86,12 +102,17 @@ class InternAttention(nn.Module):
             self.qkv = W8A8Linear(c, 3 * c, bias=config.qkv_bias, out_dtype=dt, heads=3 * h)
             self.proj = W8A8Linear(c, c, out_dtype=dt)
         else:
-            self.qkv = nn.Linear(c, 3 * c, bias=config.qkv_bias)
-            self.proj = nn.Linear(c, c)
+            self.qkv = make_linear(c, 3 * c, bias=config.qkv_bias, lora=lora, heads=3 * h)
+            self.proj = make_linear(c, c, lora=lora, head_major_in=True)
 
     def forward(self, x, kv_valid: int | None = None) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
         h = self.num_heads
+        if isinstance(self.qkv, LoRALinear):
+            # head-major out -> attention -> head-major in: [B, 3H, N, D] ->
+            # [B, H, N, D] -> [B, N, C]
+            out = fused_qkv_attention(self.qkv(x), h, h, causal=False, kv_valid=kv_valid)
+            return self.proj(out)
         if self.w8a8:
             # head-major int8 product -> attention writing the dense [B, N, C]
             # rows -> one-pass quantize (K4c) -> int8 proj
@@ -108,8 +129,10 @@ class InternAttention(nn.Module):
 
 
 class InternMLP(nn.Module):
-    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None):
         super().__init__()
+        reject_w8a8_lora(precision, lora)
         self.approximate = "tanh" if config.approximate_gelu else "none"
         self.w8a8 = precision.w8a8
         c, f = config.hidden_size, config.intermediate_size
@@ -117,8 +140,8 @@ class InternMLP(nn.Module):
             self.fc1 = W8A8Linear(c, f, out_dtype=precision.compute_dtype)
             self.fc2 = W8A8Linear(f, c, out_dtype=precision.compute_dtype)
         else:
-            self.fc1 = nn.Linear(c, f)
-            self.fc2 = nn.Linear(f, c)
+            self.fc1 = make_linear(c, f, lora=lora)
+            self.fc2 = make_linear(f, c, lora=lora)
 
     def forward(self, x) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
@@ -129,17 +152,20 @@ class InternMLP(nn.Module):
 
 
 class InternVisionEncoderLayer(nn.Module):
-    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None, drop_path_rate: float = 0.0):
         super().__init__()
         c = config.hidden_size
         self.initializer_factor = config.initializer_factor
         self.w8a8 = precision.w8a8
+        self.drop_path_rate = drop_path_rate
+        self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
         self.ls1 = nn.Parameter(torch.full((c,), config.initializer_factor))
         self.ls2 = nn.Parameter(torch.full((c,), config.initializer_factor))
         self.norm1 = make_norm(config.norm_type, c, config.layer_norm_eps)
-        self.attn = InternAttention(config, precision)
+        self.attn = InternAttention(config, precision, lora)
         self.norm2 = make_norm(config.norm_type, c, config.layer_norm_eps)
-        self.mlp = InternMLP(config, precision)
+        self.mlp = InternMLP(config, precision, lora)
 
     def _feed(self, norm: nn.Module, x: torch.Tensor):
         """The norm's output; under W8A8 with a LayerNorm, its int8 rows and
@@ -149,23 +175,44 @@ class InternVisionEncoderLayer(nn.Module):
             return quant_fuse.layernorm_quant(x, norm.weight, norm.bias, norm.eps)
         return norm(x)
 
+    def _drop_path(self, branch: torch.Tensor) -> torch.Tensor:
+        """Stochastic depth: in training, drop the whole residual branch per
+        sample and scale the kept ones by 1 / keep."""
+        if not self.training or self.drop_path_rate == 0.0:
+            return branch
+        if self.generator is None:
+            raise RuntimeError("drop path in training needs a generator: call "
+                               "models/lora.set_generator first")
+        keep = 1.0 - self.drop_path_rate
+        mask = torch.empty(
+            (branch.shape[0],) + (1,) * (branch.ndim - 1), dtype=branch.dtype,
+            device=branch.device,
+        ).bernoulli_(keep, generator=self.generator)
+        return (branch / keep) * mask
+
     def forward(self, x: torch.Tensor, kv_valid: int | None = None) -> torch.Tensor:
         attn_out = self.attn(self._feed(self.norm1, x), kv_valid)
-        x = x + attn_out * self.ls1.to(attn_out.dtype)
+        x = x + self._drop_path(attn_out * self.ls1.to(attn_out.dtype))
         mlp_out = self.mlp(self._feed(self.norm2, x))
-        return x + mlp_out * self.ls2.to(mlp_out.dtype)
+        return x + self._drop_path(mlp_out * self.ls2.to(mlp_out.dtype))
 
 
 class InternVisionModel(nn.Module):
     """Full encoder: [B, H, W, 3] -> last hidden state [B, 1 + P, C]."""
 
-    def __init__(self, config: VisionConfig, precision: Precision = Precision()):
+    def __init__(self, config: VisionConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None, grad_checkpoint: bool = False):
         super().__init__()
         self.config = config
+        self.grad_checkpoint = grad_checkpoint
+        self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
         self.embeddings = InternVisionEmbeddings(config)
+        n = config.num_hidden_layers
+        # stochastic-depth rates: linspace(0, drop_path_rate, L)
+        rates = [config.drop_path_rate * i / (n - 1) for i in range(n)] if n > 1 else [
+            config.drop_path_rate]
         self.layers = nn.ModuleList(
-            InternVisionEncoderLayer(config, precision)
-            for _ in range(config.num_hidden_layers)
+            InternVisionEncoderLayer(config, precision, lora, rates[i]) for i in range(n)
         )
 
     def forward(self, pixel_values: torch.Tensor, select_layer: int = -1) -> torch.Tensor:
@@ -183,6 +230,10 @@ class InternVisionModel(nn.Module):
         kv_valid = n_tok if n_pad else None
         if n_pad:
             x = F.pad(x, (0, 0, 0, n_pad))
+        remat = self.grad_checkpoint and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, kv_valid)
+            if remat:
+                x = checkpoint_layer(layer, self.generator, x, kv_valid)
+            else:
+                x = layer(x, kv_valid)
         return x[:, :n_tok]

@@ -2,8 +2,9 @@
 
 - `fused_qkv_attention`: attention straight off one fused head-major qkv
   array, as the ViT and InternLM2 call it. It goes to the hand-written
-  kernel's wrapper (`ops/flash_attention.py`), which launches the CUDA
-  kernel for a CUDA tensor and runs `plain_attention` for a CPU tensor.
+  kernels' wrapper (`ops/flash_attention.py`), which launches the CUDA
+  kernels for a CUDA tensor (forward, and backward under autograd) and runs
+  the plain versions for a CPU tensor.
 - `plain_attention`: the counterpart of the JAX `xla_attention`, einsums
   with an fp32 softmax. It is the kernel's plain version.
 
@@ -28,22 +29,26 @@ def plain_attention(
     *,
     causal: bool = False,
     mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Softmax attention with fp32 logits and softmax, scale D**-0.5.
 
     causal: query i attends to key j <= i + (Skv - Sq).
     mask: bool [B, Sq, Skv], True = attend.
-    Products are taken in fp32 from the input values, the probabilities are
-    rounded to v's dtype before the PV product (as the JAX reference and
-    the kernels do), and the result has q's dtype."""
+    Products are taken in fp32 (fp64 for fp64 inputs) from the input values,
+    the probabilities are rounded to v's dtype before the PV product (as the
+    JAX reference and the kernels do), and the result has q's dtype.
+    return_lse: also return the logsumexp of the masked logits per row,
+    [B, Hq, Sq] in the accumulation dtype, natural-log units."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
     g = hq // hkv
+    acc = torch.promote_types(q.dtype, torch.float32)
 
-    qg = q.reshape(b, sq, hkv, g, d).float()
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d**-0.5
+    qg = q.reshape(b, sq, hkv, g, d).to(acc)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(acc)) * d**-0.5
     if causal:
         qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
         kj = torch.arange(skv, device=q.device)[None, :]
@@ -51,8 +56,11 @@ def plain_attention(
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None], _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(acc), v.to(acc))
+    out = out.reshape(b, sq, hq, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)
+    return out
 
 
 def fused_qkv_attention(
@@ -66,7 +74,8 @@ def fused_qkv_attention(
 ) -> torch.Tensor:
     """-> [B, hq, S, D] (`bhsd`) or [B, S, hq*D] (`bsd`, the dense rows the
     W8A8 out-projection reads). kv_valid: keys at or beyond it are masked
-    (the caller padded S and the tail holds garbage)."""
+    (the caller padded S and the tail holds garbage). Differentiable in
+    the `bhsd` layout; `bsd` is forward-only, as in the JAX package."""
     # looked up at call time, so that a caller can swap the kernel for its
     # plain version (chip_smoke.py does, to compare whole forwards); and
     # flash_attention imports this module for plain_attention

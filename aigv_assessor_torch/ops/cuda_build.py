@@ -2,8 +2,9 @@
 
 Each source has a plain C interface and becomes one shared library under
 `build/kernels/` at the root of the checkout, loaded with ctypes. A library
-is built at first use, or when its source is newer; `build` compiles
-several at once, one nvcc process per source, all started together.
+is built at first use, or when its source or a header in `csrc/` is newer;
+`build` compiles several at once, one nvcc process per source, all started
+together.
 """
 
 from __future__ import annotations
@@ -46,7 +47,10 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def up_to_date(self) -> bool:
-        return self.path.exists() and self.path.stat().st_mtime >= self.source.stat().st_mtime
+        if not self.path.exists():
+            return False
+        inputs = [self.source, *CSRC.glob("*.cuh")]  # any source may include any header
+        return self.path.stat().st_mtime >= max(f.stat().st_mtime for f in inputs)
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:

@@ -1,26 +1,50 @@
-"""Fused-qkv flash-attention forward: CUDA kernel wrapper and plain version.
+"""Fused-qkv flash attention: CUDA kernel wrappers and plain versions.
 
-Replaces the Pallas kernel `aigv_assessor_tpu/ops/pallas_attention.py`
-`_fwd_kernel` (`:106`) in the forms `flash_attention_qkv` (`:905`) takes on
-the scoring path: forward only, no logsumexp, and either the head-major
-`bhsd` output (bf16 serving) or the dense `bsd` output that an
-out-projection reads (`dense_out`, W8A8 serving). The kernel source is
-`aigv_assessor_torch/csrc/flash_attn_fwd.cu`; its header comment says what
-bounds it on the card and how it is laid out.
+Replaces the Pallas kernels of `aigv_assessor_tpu/ops/pallas_attention.py`
+that `flash_attention_qkv` (`:905`) reaches:
 
-- `flash_attention_qkv` is the wrapper. On a CUDA tensor it launches the
-  kernel or raises; on a CPU tensor it runs the plain version. It counts its
-  kernel launches in `flash_attention_qkv.launches`.
-- `plain_attention_qkv` is the plain PyTorch version with the same masking.
+- the forward `_fwd_kernel` (`:106`), in its three forms: head-major `bhsd`
+  output without logsumexp (bf16 serving), dense `bsd` output that an
+  out-projection reads (`dense_out`, W8A8 serving), and `bhsd` output with
+  the per-row logsumexp that the backward reads (`with_lse`, training).
+  Source: `aigv_assessor_torch/csrc/flash_attn_fwd.cu`.
+- the backward `_bwd_dq_kernel` (`:384`) and `_bwd_dkv_kernel` (`:455`).
+  Source: `aigv_assessor_torch/csrc/flash_attn_bwd.cu`.
 
-The kernel is built with nvcc at first use (`ops/cuda_build.py`) and loaded
+Each source's header comment says what bounds its kernels on the card and how
+they are laid out.
+
+- `flash_attention_qkv` is the entry point. Without a gradient to take it is
+  the forward-only wrapper; when `qkv` requires a gradient it goes through
+  `FlashAttentionQKV`, as the JAX `custom_vjp` splits its primal and `fwd`
+  rules.
+- `flash_attention_qkv_lse`, `flash_attention_qkv_bwd_dq` and
+  `flash_attention_qkv_bwd_dkv` wrap the other three kernels, and
+  `flash_attention_qkv_bwd` is the whole backward (delta, then both
+  kernels, into one `dqkv`).
+- On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+  it runs the plain version. Each counts its kernel launches in `.launches`.
+- `plain_attention_qkv` and `plain_attention_qkv_bwd` are the plain PyTorch
+  versions with the same masking. The backward is written from the formulas
+  (p from the saved logsumexp, delta, ds), not through autograd, and rounds p
+  and ds to the input dtype where the kernels round them to bf16; at fp32
+  both roundings are the identity and it follows the JAX kernels.
+
+A row with no valid key has logsumexp -inf and the backward kernels give it
+p = 0. With `kv_valid >= 1`, and the causal mask keeping the diagonal, no row
+of the callers' shapes is such a row.
+
+delta = rowsum(dout * out) stays a PyTorch expression in fp32, outside the
+kernels, as the JAX `_bwd` computes it outside its kernels.
+
+The kernels are built with nvcc at first use (`ops/cuda_build.py`) and loaded
 with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,20 +54,46 @@ from aigv_assessor_torch.ops.cuda_build import CudaLibrary
 HEAD_DIMS = (64, 128)
 OUT_LAYOUTS = ("bhsd", "bsd")
 
+_STRIDES = [ctypes.c_longlong] * 3  # (batch, head, row), in elements
+
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.aigv_flash_attn_qkv_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,  # qkv, out
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, out, lse or null
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, S
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # qkv strides b, h, s
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # out strides b, h, s
+        *_STRIDES, *_STRIDES,  # qkv, out
         ctypes.c_float, ctypes.c_void_p,  # scale, stream
     ]
     lib.aigv_flash_attn_qkv_fwd.restype = ctypes.c_int
 
 
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    for fn in (lib.aigv_flash_attn_qkv_bwd_dq, lib.aigv_flash_attn_qkv_bwd_dkv):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, dout, lse
+            ctypes.c_void_p, ctypes.c_void_p,  # delta, dqkv
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, S
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
+            *_STRIDES, *_STRIDES, *_STRIDES,  # qkv, dout, dqkv
+            ctypes.c_float, ctypes.c_void_p,  # scale, stream
+        ]
+        fn.restype = ctypes.c_int
+
+
 LIB = CudaLibrary("flash_attn_fwd.cu", _declare)
+LIB_BWD = CudaLibrary("flash_attn_bwd.cu", _declare_bwd)
+
+
+# ------------------------------------------------------------ plain versions --
+
+
+def _key_mask(qkv: torch.Tensor, kv_valid: Optional[int]) -> Optional[torch.Tensor]:
+    b, _, s, _ = qkv.shape
+    if kv_valid is None or kv_valid >= s:
+        return None
+    keys = torch.arange(s, device=qkv.device) < kv_valid
+    return keys[None, None, :].expand(b, s, s)
 
 
 def plain_attention_qkv(
@@ -54,9 +104,11 @@ def plain_attention_qkv(
     causal: bool = False,
     kv_valid: Optional[int] = None,
     out_layout: str = "bhsd",
-) -> torch.Tensor:
-    """The kernel's plain version -> [B, hq, S, D] (`bhsd`) or [B, S, hq*D]
-    (`bsd`): fp32 logits and softmax, keys at or beyond `kv_valid` masked."""
+    return_lse: bool = False,
+):
+    """The forward kernel's plain version -> [B, hq, S, D] (`bhsd`) or
+    [B, S, hq*D] (`bsd`): fp32 logits and softmax, keys at or beyond
+    `kv_valid` masked. With `return_lse` also the logsumexp [B, hq, S]."""
     if out_layout not in OUT_LAYOUTS:
         raise ValueError(f"out_layout {out_layout!r} not in {OUT_LAYOUTS}")
     b, _, s, d = qkv.shape
@@ -64,12 +116,64 @@ def plain_attention_qkv(
         t.transpose(1, 2)
         for t in (qkv[:, :hq], qkv[:, hq : hq + hkv], qkv[:, hq + hkv :])
     )
-    mask = None
+    res = plain_attention(
+        q, k, v, causal=causal, mask=_key_mask(qkv, kv_valid), return_lse=return_lse
+    )  # [B, S, hq, D], and with return_lse [B, hq, S]
+    out, lse = res if return_lse else (res, None)
+    out = out.reshape(b, s, hq * d) if out_layout == "bsd" else out.transpose(1, 2)
+    return (out, lse) if return_lse else out
+
+
+def plain_attention_qkv_bwd(
+    qkv: torch.Tensor,  # [B, hq + 2*hkv, S, D]
+    out: torch.Tensor,  # [B, hq, S, D], the forward's output
+    lse: torch.Tensor,  # [B, hq, S], the forward's logsumexp
+    dout: torch.Tensor,  # [B, hq, S, D]
+    hq: int,
+    hkv: int,
+    *,
+    causal: bool = False,
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """The backward kernels' plain version -> dqkv [B, hq + 2*hkv, S, D].
+
+    p = exp(scale * q.k - lse), 0 where masked; delta = rowsum(dout * out);
+    dv = p^T dout; ds = p * (dout.v - delta); dq = scale * ds k;
+    dk = scale * ds^T q, dk and dv summed over the query heads of a group.
+    Sums run in fp32 (fp64 for fp64 inputs); p and ds are rounded to qkv's
+    dtype before the dv, dq and dk products, where the kernels round them to
+    bf16 (the JAX kernels keep them fp32; at fp32 the two agree)."""
+    b, _, s, d = qkv.shape
+    g = hq // hkv
+    dtype = qkv.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    scale = d**-0.5
+    qg = qkv[:, :hq].reshape(b, hkv, g, s, d).to(acc)
+    k = qkv[:, hq : hq + hkv].to(acc)
+    v = qkv[:, hq + hkv :].to(acc)
+    dog = dout.reshape(b, hkv, g, s, d).to(acc)
+
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
+    p = torch.exp(logits - lse.to(acc).reshape(b, hkv, g, s, 1))
+    valid = torch.ones((s, s), dtype=torch.bool, device=qkv.device)
+    if causal:
+        valid = torch.tril(valid)
     if kv_valid is not None and kv_valid < s:
-        keys = torch.arange(s, device=qkv.device) < kv_valid
-        mask = keys[None, None, :].expand(b, s, s)
-    out = plain_attention(q, k, v, causal=causal, mask=mask)  # [B, S, hq, D]
-    return out.reshape(b, s, hq * d) if out_layout == "bsd" else out.transpose(1, 2)
+        valid[:, kv_valid:] = False
+    # where, not a product: a masked logit may have overflowed to inf
+    p = torch.where(valid, p, torch.zeros((), dtype=acc, device=qkv.device))
+    del logits
+    delta = (dout.to(acc) * out.to(acc)).sum(-1).reshape(b, hkv, g, s, 1)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(dtype).to(acc), dog)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dog, v) - delta)
+    del p
+    ds = ds.to(dtype).to(acc)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    return torch.cat([dq.reshape(b, hq, s, d), dk, dv], dim=1).to(dtype)
+
+
+# ----------------------------------------------------------- kernel wrappers --
 
 
 def _check(qkv: torch.Tensor, hq: int, hkv: int, kv_valid: int, out_layout: str) -> None:
@@ -86,17 +190,182 @@ def _check(qkv: torch.Tensor, hq: int, hkv: int, kv_valid: int, out_layout: str)
     d = qkv.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    # rows of D are read as 16-byte vectors: D contiguous, every other
-    # stride a multiple of 8 elements, and a 16-byte aligned base
-    if qkv.stride(-1) != 1 or any(st % 8 for st in qkv.stride()[:3]):
-        raise ValueError(
-            f"qkv needs a contiguous head dim and strides that are multiples "
-            f"of 8, got {qkv.stride()}"
-        )
-    if qkv.data_ptr() % 16:
-        raise ValueError("qkv data must be 16-byte aligned")
+    _check_rows(qkv, "qkv")
     if not 0 < kv_valid <= qkv.shape[2]:
         raise ValueError(f"kv_valid {kv_valid} outside (0, {qkv.shape[2]}]")
+
+
+def _check_rows(t: torch.Tensor, name: str) -> None:
+    # rows of D are read as 16-byte vectors: D contiguous, every other
+    # stride a multiple of 8 elements, and a 16-byte aligned base
+    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]):
+        raise ValueError(
+            f"{name} needs a contiguous head dim and strides that are multiples "
+            f"of 8, got {t.stride()}"
+        )
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} data must be 16-byte aligned")
+
+
+def _launch_fwd(
+    qkv: torch.Tensor, hq: int, hkv: int, causal: bool, kv_valid: Optional[int],
+    out_layout: str, with_lse: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_attention_qkv runs on cuda or cpu, not {qkv.device}")
+    b, _, s, d = qkv.shape
+    kv_valid = s if kv_valid is None else kv_valid
+    _check(qkv, hq, hkv, kv_valid, out_layout)
+    dense = out_layout == "bsd"
+    out = torch.empty(
+        (b, s, hq, d) if dense else (b, hq, s, d), dtype=qkv.dtype, device=qkv.device
+    )
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=qkv.device) if with_lse else None
+    # (batch, head, row) strides of the output
+    out_strides = (out.stride(0), out.stride(2), out.stride(1)) if dense else out.stride()[:3]
+    lib = LIB.load()
+    with torch.cuda.device(qkv.device):
+        rc = lib.aigv_flash_attn_qkv_fwd(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
+            b, hq, hkv, s, d, kv_valid, int(causal), *qkv.stride()[:3], *out_strides,
+            d**-0.5, torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    LIB.check(rc, "flash attention kernel")
+    return (out.view(b, s, hq * d) if dense else out), lse
+
+
+def flash_attention_qkv_lse(
+    qkv: torch.Tensor,
+    hq: int,
+    hkv: int,
+    *,
+    causal: bool = False,
+    kv_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward in the form training runs: -> (out [B, hq, S, D],
+    logsumexp [B, hq, S] fp32, natural-log units). `out` is bit-equal to the
+    forward without the logsumexp. A CPU tensor goes to the plain version."""
+    if qkv.device.type == "cpu":
+        return plain_attention_qkv(
+            qkv, hq, hkv, causal=causal, kv_valid=kv_valid, return_lse=True
+        )
+    out, lse = _launch_fwd(qkv, hq, hkv, causal, kv_valid, "bhsd", True)
+    flash_attention_qkv_lse.launches += 1
+    return out, lse
+
+
+flash_attention_qkv_lse.launches = 0
+
+
+def _launch_bwd(
+    name: str, qkv: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, dqkv: torch.Tensor, hq: int, hkv: int, causal: bool,
+    kv_valid: Optional[int],
+) -> None:
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda, not {qkv.device}")
+    b, _, s, d = qkv.shape
+    kv_valid = s if kv_valid is None else kv_valid
+    _check(qkv, hq, hkv, kv_valid, "bhsd")
+    for t, label, shape, dtype in (
+        (dout, "dout", (b, hq, s, d), torch.bfloat16),
+        (dqkv, "dqkv", tuple(qkv.shape), torch.bfloat16),
+        (lse, "lse", (b, hq, s), torch.float32),
+        (delta, "delta", (b, hq, s), torch.float32),
+    ):
+        if t.device != qkv.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: {label} must be {dtype} {shape} on {qkv.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    _check_rows(dout, "dout")
+    _check_rows(dqkv, "dqkv")
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError(f"{name}: lse and delta must be contiguous")
+    lib = LIB_BWD.load()
+    with torch.cuda.device(qkv.device):
+        rc = getattr(lib, name)(
+            qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), b, hq, hkv, s, d, kv_valid, int(causal),
+            *qkv.stride()[:3], *dout.stride()[:3], *dqkv.stride()[:3], d**-0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    LIB_BWD.check(rc, f"{name} kernel")
+
+
+def flash_attention_qkv_bwd_dq(
+    qkv, dout, lse, delta, dqkv, hq: int, hkv: int, *, causal: bool = False,
+    kv_valid: Optional[int] = None,
+) -> None:
+    """dq kernel: writes heads [0, hq) of `dqkv` in place. CUDA only."""
+    _launch_bwd("aigv_flash_attn_qkv_bwd_dq", qkv, dout, lse, delta, dqkv, hq, hkv,
+                causal, kv_valid)
+    flash_attention_qkv_bwd_dq.launches += 1
+
+
+def flash_attention_qkv_bwd_dkv(
+    qkv, dout, lse, delta, dqkv, hq: int, hkv: int, *, causal: bool = False,
+    kv_valid: Optional[int] = None,
+) -> None:
+    """dk/dv kernel: writes heads [hq, hq + 2*hkv) of `dqkv` in place, the
+    query heads of a group summed in fp32. CUDA only."""
+    _launch_bwd("aigv_flash_attn_qkv_bwd_dkv", qkv, dout, lse, delta, dqkv, hq, hkv,
+                causal, kv_valid)
+    flash_attention_qkv_bwd_dkv.launches += 1
+
+
+flash_attention_qkv_bwd_dq.launches = 0
+flash_attention_qkv_bwd_dkv.launches = 0
+
+
+def flash_attention_qkv_bwd(
+    qkv: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    hq: int,
+    hkv: int,
+    *,
+    causal: bool = False,
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """The whole backward -> dqkv [B, hq + 2*hkv, S, D]: delta in PyTorch,
+    then the dq and the dk/dv kernel, each writing its heads of one array.
+    A CPU tensor goes to `plain_attention_qkv_bwd`."""
+    if qkv.device.type == "cpu":
+        return plain_attention_qkv_bwd(
+            qkv, out, lse, dout, hq, hkv, causal=causal, kv_valid=kv_valid
+        )
+    if dout.stride(-1) != 1 or any(st % 8 for st in dout.stride()[:3]):
+        dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(-1)
+    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    flash_attention_qkv_bwd_dq(qkv, dout, lse, delta, dqkv, hq, hkv, **kw)
+    flash_attention_qkv_bwd_dkv(qkv, dout, lse, delta, dqkv, hq, hkv, **kw)
+    return dqkv
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """Differentiable fused-qkv attention, `bhsd` layout: the forward with
+    logsumexp saves (qkv, out, lse); the backward is the two backward
+    kernels. On CPU tensors both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, qkv, hq, hkv, causal, kv_valid):
+        out, lse = flash_attention_qkv_lse(qkv, hq, hkv, causal=causal, kv_valid=kv_valid)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.meta = (hq, hkv, causal, kv_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        hq, hkv, causal, kv_valid = ctx.meta
+        dqkv = flash_attention_qkv_bwd(
+            qkv, out, lse, dout, hq, hkv, causal=causal, kv_valid=kv_valid
+        )
+        return dqkv, None, None, None, None
 
 
 def flash_attention_qkv(
@@ -108,40 +377,31 @@ def flash_attention_qkv(
     kv_valid: Optional[int] = None,
     out_layout: str = "bhsd",
 ) -> torch.Tensor:
-    """Flash-attention forward off a fused head-major qkv, softmax scale
-    D**-0.5 -> [B, hq, S, D] (`bhsd`) or the dense rows [B, S, hq*D] that an
+    """Flash attention off a fused head-major qkv, softmax scale D**-0.5 ->
+    [B, hq, S, D] (`bhsd`) or the dense rows [B, S, hq*D] that an
     out-projection reads (`bsd`). The two layouts differ only in where the
     kernel stores each row.
 
     q head h reads kv head h // (hq // hkv). q/k/v are read in place through
     `qkv`'s strides, so a permuted view of a projection output needs no copy.
     Keys at or beyond `kv_valid` (default S) are masked; `causal` masks keys
-    after the query. A CPU tensor goes to `plain_attention_qkv`."""
+    after the query. A CPU tensor goes to the plain versions.
+
+    When `qkv` requires a gradient the call is differentiable through
+    `FlashAttentionQKV` (`bhsd` only: `bsd` is forward-only, as in the JAX
+    package); otherwise it is the forward without logsumexp."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        if out_layout != "bhsd":
+            raise ValueError(f"out_layout {out_layout!r} is forward-only; 'bhsd' "
+                             "is the differentiable layout")
+        return FlashAttentionQKV.apply(qkv, hq, hkv, causal, kv_valid)
     if qkv.device.type == "cpu":
         return plain_attention_qkv(
             qkv, hq, hkv, causal=causal, kv_valid=kv_valid, out_layout=out_layout
         )
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_qkv runs on cuda or cpu, not {qkv.device}")
-    b, _, s, d = qkv.shape
-    kv_valid = s if kv_valid is None else kv_valid
-    _check(qkv, hq, hkv, kv_valid, out_layout)
-    dense = out_layout == "bsd"
-    out = torch.empty(
-        (b, s, hq, d) if dense else (b, hq, s, d), dtype=qkv.dtype, device=qkv.device
-    )
-    # (batch, head, row) strides of the output
-    out_strides = (out.stride(0), out.stride(2), out.stride(1)) if dense else out.stride()[:3]
-    lib = LIB.load()
-    with torch.cuda.device(qkv.device):
-        rc = lib.aigv_flash_attn_qkv_fwd(
-            qkv.data_ptr(), out.data_ptr(), b, hq, hkv, s, d, kv_valid,
-            int(causal), *qkv.stride()[:3], *out_strides, d**-0.5,
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    LIB.check(rc, "flash attention kernel")
+    out, _ = _launch_fwd(qkv, hq, hkv, causal, kv_valid, out_layout, False)
     flash_attention_qkv.launches += 1
-    return out.view(b, s, hq * d) if dense else out
+    return out
 
 
 flash_attention_qkv.launches = 0

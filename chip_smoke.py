@@ -8,15 +8,26 @@ Phases, each printing one line or more (and failing the run by raising):
 1. device: a CUDA card is required; prints its name, and its name and power
    limit as nvidia-smi gives them.
 2. build: compiles the port's CUDA sources for sm_90a, one nvcc per source,
-   all started together: the flash-attention kernel
-   (`aigv_assessor_torch/csrc/flash_attn_fwd.cu`) and the fused quantize
-   kernels (`csrc/quant_fuse.cu`).
+   all started together: the flash-attention forward
+   (`aigv_assessor_torch/csrc/flash_attn_fwd.cu`), its backward
+   (`csrc/flash_attn_bwd.cu`) and the fused quantize kernels
+   (`csrc/quant_fuse.cu`).
 3. kernel: each kernel against its plain PyTorch version on the same inputs,
-   both timed with CUDA events after warm-up.
+   both timed with CUDA events after warm-up, beside its bound (the larger of
+   bytes / 3.35 TB/s and operations / 989 TFLOP/s, from this run's shapes)
+   and, for attention, `F.scaled_dot_product_attention` on the same q/k/v
+   views (GQA through `enable_gqa=True`, `kv_valid` by slicing k and v) as
+   the library yardstick, which nothing in the port calls.
    - The flash-attention kernel in both output layouts, at the ViT's and the
      LLM's shapes of the 2B model and at a small ragged shape with a +-1e3
      garbage tail, to atol = rtol = 2e-2. Its dense `bsd` output must equal
      its head-major `bhsd` output transposed, bit for bit.
+   - The forward with logsumexp and the two backward kernels (dq, dk/dv) at
+     the same three shapes: `out` bit-equal to the forward without
+     logsumexp; the logsumexp within LSE_TOL of the plain fp32 one; dq, dk
+     and dv each within BWD_TOL relative L2 of `plain_attention_qkv_bwd` on
+     the same (qkv, out, lse, dout), which rounds p and ds to bf16 where the
+     kernels do; dk/dv rows of the keys at or beyond kv_valid exactly 0.
    - The LayerNorm / tanh-GELU / identity + int8 quantize kernels at the 2B
      ViT's feed shapes and at a ragged row count: scales within rtol 1e-5,
      int8 values differing by at most one on at most 1e-3 of the elements.
@@ -36,6 +47,22 @@ Phases, each printing one line or more (and failing the run by raising):
    with fp32 activations (tolerances at W8A8_READOUT_TOL); and the W8A8
    readout's cosine to the bf16 readout at least W8A8_COSINE.
 
+6. slice (train): stage-2 LoRA training of the same model
+   (`cli/stage2_train.build_training_model`, rank 8 in both towers, bf16 with
+   fp32 adapters and score head, per-layer checkpointing, adapter dropout
+   0.05, drop path 0.1) through `train_steps`: TRAIN_STEPS optimizer steps on
+   one batch of four videos with MOS from the seed, constant learning rate
+   TRAIN_LR. Checks finite losses; per micro-batch 96 launches of the
+   forward with logsumexp (the first pass and the recompute of 48 layers), 48
+   of the dq and 48 of the dk/dv kernel, none of the forward without
+   logsumexp; every frozen tensor bit-equal before and after; `lora_b`
+   non-zero after step 1 in the first and last layer of both towers; the
+   dropout-off loss on the batch lower after the steps than before; and, with
+   dropout off, the adapters' and the score head's gradients of the kernel
+   path against the same backward through the plain attention, and both
+   against an fp32 backward of the same weights (tolerances at
+   TRAIN_GRAD_TOL).
+
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -45,8 +72,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -54,6 +83,27 @@ import numpy as np
 import torch
 
 TOL = 2e-2  # attention kernel vs plain, atol = rtol, bf16 outputs
+# logsumexp: fp32 on both sides, exp2/log2 in the kernel against exp/log in
+# the plain version; a few fp32 ulps at |lse| < 16
+LSE_TOL = 1e-4
+# backward kernels vs the plain backward, relative L2 of dq, dk, dv each. Both
+# round p and ds to bf16 at the same places and sum in fp32, so what is left is
+# the summation order and the bf16 rounding of the results (2^-9 relative per
+# element at most): measured 6e-5 to 2.2e-4 on an H100
+BWD_TOL = 2e-3
+# Gradients of the adapters and the score head (dropout off), all of them as
+# one vector, after 48 bf16 layers forward and 48 back. Two bf16 backwards
+# that differ only in rounding order are ~1e-1 apart in relative L2, and a
+# bf16 backward is far from an fp32 backward of the same weights: on an H100
+# the kernel path was 1.057e-1 from autograd through the plain attention, and
+# they were 5.875e-1 and 5.845e-1 from the fp32 backward (random weights, an
+# L1 loss through a ReLU head: rounding moves the ReLU pattern). So, as for
+# the readout, the kernel path must (a) stay within 2e-1 of the plain path and
+# (b) be no more than REF_RATIO as far from the fp32 backward as the plain
+# bf16 path is.
+TRAIN_GRAD_TOL = 2e-1
+TRAIN_STEPS, TRAIN_LR, LORA_RANK = 3, 4e-5, 8  # the shipping learning rate
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 # Readout hidden state (len - 4) after 48 bf16 layers. Two bf16 forwards that
 # differ only in rounding order are ~2e-2 apart in relative L2 there: on an
 # H100 the plain-attention bf16 path was 2.09e-2 from an fp32 forward of the
@@ -115,15 +165,60 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def make_qkv(shape, device) -> torch.Tensor:
+    b, hq, hkv, s, d, _, kv_valid = shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    qkv = torch.randn((b, hq + 2 * hkv, s, d), generator=gen, device=device)
+    if kv_valid is not None:  # a garbage tail: +-1e3 in k and v
+        qkv[:, hq : hq + hkv, kv_valid:] = 1e3
+        qkv[:, hq + hkv :, kv_valid:] = -1e3
+    return qkv.to(torch.bfloat16)
+
+
+def attention_work(shape) -> dict:
+    """FLOPs and bytes of the attention kernels at one shape, from what this
+    run's masks leave: S * kv_valid (query, key) pairs, or the causal
+    triangle. Products per pair and head dim element: forward 2 (QK^T, PV),
+    dq 3 (QK^T, dO V^T, dS K), dk/dv 4 (QK^T, dO V^T, P^T dO, dS^T Q). Bytes:
+    each input read once, each output written once."""
+    b, hq, hkv, s, d, causal, kv_valid = shape
+    pairs = s * (s + 1) // 2 if causal else s * (kv_valid or s)
+    per_product = 2 * b * hq * pairs * d
+    qkv, out, stat = b * (hq + 2 * hkv) * s * d * 2, b * hq * s * d * 2, b * hq * s * 4
+    kv_out = b * 2 * hkv * s * d * 2
+    return {
+        "fwd": (2 * per_product, qkv + out),
+        "fwd_lse": (2 * per_product, qkv + out + stat),
+        "dq": (3 * per_product, qkv + out + 2 * stat + out),
+        "dkv": (4 * per_product, qkv + out + 2 * stat + kv_out),
+    }
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sdpa_views(qkv, shape, requires_grad=False):
+    """q, k, v as `F.scaled_dot_product_attention` takes them: views of the
+    fused array, k and v cut at kv_valid."""
+    _, hq, hkv, _, _, _, kv_valid = shape
+    q, k, v = qkv[:, :hq], qkv[:, hq : hq + hkv, :kv_valid], qkv[:, hq + hkv :, :kv_valid]
+    if requires_grad:
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    return q, k, v
+
+
+def sdpa(q, k, v, shape):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=shape[5], enable_gqa=shape[1] != shape[2])
+
+
 def check_attention(fa, device) -> dict:
     results = {}
-    for name, (b, hq, hkv, s, d, causal, kv_valid) in SHAPES.items():
-        gen = torch.Generator(device=device).manual_seed(0)
-        qkv = torch.randn((b, hq + 2 * hkv, s, d), generator=gen, device=device)
-        if kv_valid is not None:
-            qkv[:, hq : hq + hkv, kv_valid:] = 1e3
-            qkv[:, hq + hkv :, kv_valid:] = -1e3
-        qkv = qkv.to(torch.bfloat16)
+    for name, shape in SHAPES.items():
+        b, hq, hkv, s, d, causal, kv_valid = shape
+        qkv = make_qkv(shape, device)
         kw = dict(causal=causal, kv_valid=kv_valid)
         got = fa.flash_attention_qkv(qkv, hq, hkv, **kw)
         dense = fa.flash_attention_qkv(qkv, hq, hkv, out_layout="bsd", **kw)
@@ -146,15 +241,104 @@ def check_attention(fa, device) -> dict:
         bsd = dict(out_layout="bsd", **kw)
         ms_dense = time_ms(lambda: fa.flash_attention_qkv(qkv, hq, hkv, **bsd), 20)
         plain_ms_dense = time_ms(lambda: fa.plain_attention_qkv(qkv, hq, hkv, **bsd), 5)
-        shape = f"B={b} hq={hq} hkv={hkv} S={s} D={d} causal={causal} kv_valid={kv_valid}"
+        with torch.no_grad():
+            q, k, v = sdpa_views(qkv, shape)
+            lib = sdpa(q, k, v, shape)
+            lib_err = (lib.float() - want.float()).abs().max().item()
+            library_ms = time_ms(lambda: sdpa(q, k, v, shape), 20)
+        bound, bound_by = bound_ms(*attention_work(shape)["fwd"])
+        text = f"B={b} hq={hq} hkv={hkv} S={s} D={d} causal={causal} kv_valid={kv_valid}"
         results[name] = dict(
-            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            shape=text, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bsd_max_abs_err=err_dense, bsd_ms=ms_dense, bsd_plain_ms=plain_ms_dense,
+            bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+            library_max_abs_err=lib_err,
         )
-        phase("kernel", f"attention {name}: {shape} max_abs_err bhsd {err:.3e} bsd "
+        phase("kernel", f"attention {name}: {text} max_abs_err bhsd {err:.3e} bsd "
               f"{err_dense:.3e} (atol=rtol={TOL}), bsd == bhsd transposed exactly; "
               f"bhsd kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bsd kernel "
-              f"{ms_dense:.4f} ms, plain {plain_ms_dense:.4f} ms")
+              f"{ms_dense:.4f} ms, plain {plain_ms_dense:.4f} ms; bound {bound:.4f} ms "
+              f"({bound_by}); SDPA {library_ms:.4f} ms (max_abs_err to plain {lib_err:.3e})")
+    return results
+
+
+def check_attention_training(fa, device) -> dict:
+    """The forward with logsumexp and the dq and dk/dv kernels."""
+    results = {}
+    for name, shape in SHAPES.items():
+        b, hq, hkv, s, d, causal, kv_valid = shape
+        qkv = make_qkv(shape, device)
+        kw = dict(causal=causal, kv_valid=kv_valid)
+        gen = torch.Generator(device=device).manual_seed(1)
+        dout = torch.randn((b, hq, s, d), generator=gen, device=device)
+        if kv_valid is not None:  # the callers' pad query rows carry no gradient
+            dout[:, :, kv_valid:] = 0.0
+        dout = dout.to(torch.bfloat16)
+
+        out, lse = fa.flash_attention_qkv_lse(qkv, hq, hkv, **kw)
+        no_lse = fa.flash_attention_qkv(qkv, hq, hkv, **kw)
+        dqkv = fa.flash_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, no_lse):
+            raise RuntimeError(f"{name}: out with logsumexp differs from out without")
+        plain_out, plain_lse = fa.plain_attention_qkv(qkv, hq, hkv, return_lse=True, **kw)
+        lse_err = (lse - plain_lse).abs().max().item()
+        if not (torch.isfinite(lse).all() and lse_err <= LSE_TOL):
+            raise RuntimeError(f"{name}: logsumexp max abs err {lse_err} above {LSE_TOL}")
+        want = fa.plain_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
+        if not torch.isfinite(dqkv).all():
+            raise RuntimeError(f"{name}: dqkv is not finite")
+        parts = {"dq": slice(0, hq), "dk": slice(hq, hq + hkv), "dv": slice(hq + hkv, None)}
+        rel = {k: relative_l2(dqkv[:, sl].float(), want[:, sl].float()) for k, sl in parts.items()}
+        err = {k: (dqkv[:, sl].float() - want[:, sl].float()).abs().max().item()
+               for k, sl in parts.items()}
+        if not all(r <= BWD_TOL for r in rel.values()):
+            raise RuntimeError(f"{name}: backward relative L2 {rel} above {BWD_TOL}")
+        if kv_valid is not None and dqkv[:, hq:, kv_valid:].any():
+            raise RuntimeError(f"{name}: dk/dv rows of masked keys are not exactly 0")
+        del want, plain_out, plain_lse
+
+        delta = (dout.float() * out.float()).sum(-1)
+        args = (qkv, dout, lse, delta, dqkv, hq, hkv)
+        ms_lse = time_ms(lambda: fa.flash_attention_qkv_lse(qkv, hq, hkv, **kw), 20)
+        ms_dq = time_ms(lambda: fa.flash_attention_qkv_bwd_dq(*args, **kw), 20)
+        ms_dkv = time_ms(lambda: fa.flash_attention_qkv_bwd_dkv(*args, **kw), 20)
+        ms_delta = time_ms(lambda: (dout.float() * out.float()).sum(-1), 20)
+        plain_lse_ms = time_ms(
+            lambda: fa.plain_attention_qkv(qkv, hq, hkv, return_lse=True, **kw), 5)
+        plain_bwd_ms = time_ms(
+            lambda: fa.plain_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw), 3, warmup=1)
+        # the library's backward gives dq, dk and dv in one call
+        q, k, v = sdpa_views(qkv, shape, requires_grad=True)
+        lib_out = sdpa(q, k, v, shape)
+        lib_grads = torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True)
+        lib_rel = {
+            "dq": relative_l2(lib_grads[0].float(), dqkv[:, :hq].float()),
+            "dk": relative_l2(lib_grads[1].float(), dqkv[:, hq : hq + hkv, :kv_valid].float()),
+            "dv": relative_l2(lib_grads[2].float(), dqkv[:, hq + hkv :, :kv_valid].float()),
+        }
+        library_bwd_ms = time_ms(
+            lambda: torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True), 20)
+        del lib_out, lib_grads, q, k, v
+        work = attention_work(shape)
+        bounds = {k: bound_ms(*work[k]) for k in ("fwd_lse", "dq", "dkv")}
+        text = f"B={b} hq={hq} hkv={hkv} S={s} D={d} causal={causal} kv_valid={kv_valid}"
+        results[name] = dict(
+            shape=text, lse_max_abs_err=lse_err, rel_l2=rel, max_abs_err=err,
+            lse_ms=ms_lse, dq_ms=ms_dq, dkv_ms=ms_dkv, delta_ms=ms_delta,
+            plain_lse_ms=plain_lse_ms, plain_bwd_ms=plain_bwd_ms,
+            library_bwd_ms=library_bwd_ms, library_rel_l2=lib_rel,
+            bounds={k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()},
+        )
+        phase("kernel", f"attention training {name}: {text}: out bit-equal with and without "
+              f"lse, lse max_abs_err {lse_err:.3e} (tol {LSE_TOL}); rel L2 dq {rel['dq']:.3e} "
+              f"dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol {BWD_TOL}), masked-key rows "
+              f"exactly 0; fwd+lse {ms_lse:.4f} ms (plain {plain_lse_ms:.4f}, bound "
+              f"{bounds['fwd_lse'][0]:.4f}), dq {ms_dq:.4f} ms (bound {bounds['dq'][0]:.4f}), "
+              f"dk/dv {ms_dkv:.4f} ms (bound {bounds['dkv'][0]:.4f}), delta {ms_delta:.4f} ms, "
+              f"plain backward {plain_bwd_ms:.4f} ms, SDPA backward {library_bwd_ms:.4f} ms "
+              f"(rel L2 to the kernels dq {lib_rel['dq']:.3e} dk {lib_rel['dk']:.3e} dv "
+              f"{lib_rel['dv']:.3e})")
     return results
 
 
@@ -217,6 +401,146 @@ def relative_l2(x: torch.Tensor, y: torch.Tensor) -> float:
     return ((x - y).norm() / y.norm()).item()
 
 
+def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: str) -> dict:
+    """Phase 6 -> launches of each attention kernel form over the
+    TRAIN_STEPS steps. per_forward: attention layers of one forward."""
+    from aigv_assessor_torch.cli.stage2_train import (
+        LORA_FILE, build_training_model, prepare_batch, train_steps)
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models.lora import set_generator
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.train.trainer import TrainConfig, Trainer
+
+    batch_size, seq = ids.shape[0], ids.shape[-1]
+    # same seed as the serving slices, so the same frozen weights
+    lora_cfg = cfg.replace(use_backbone_lora=LORA_RANK, use_llm_lora=LORA_RANK)
+    t0 = time.perf_counter()
+    model = build_training_model(lora_cfg, device=device, seed=0)
+    with torch.no_grad():
+        # the score head ends in a ReLU; positive last-layer weights keep it
+        # open for every sample whatever the seed drew, so the loss has a
+        # gradient to follow
+        getattr(model.mlpscore, f"fc{model.mlpscore.num_layers}").weight.abs_()
+    mos = torch.as_tensor(rng.uniform(20.0, 90.0, batch_size), dtype=torch.float32)
+    batch = {"input_ids": ids[:, 0], "pixels_u8": px_u8, "attention_mask": mask[:, 0],
+             "mos": mos}
+    train_kernels = (fa.flash_attention_qkv, fa.flash_attention_qkv_lse,
+                     fa.flash_attention_qkv_bwd_dq, fa.flash_attention_qkv_bwd_dkv)
+    with tempfile.TemporaryDirectory() as out_dir:
+        tc = TrainConfig(output_dir=out_dir, learning_rate=TRAIN_LR, warmup_ratio=0.0,
+                         lr_scheduler_type="constant", num_train_epochs=1, save_steps=0, seed=0)
+        trainer = Trainer(model, tc, TRAIN_STEPS)  # freezes; frozen part to bf16
+        torch.cuda.synchronize()
+        init_train_s = time.perf_counter() - t0
+        trained = set(trainer.trainable)
+        n_trainable = sum(p.numel() for p in trainer.trainable_parameters().values())
+        weights_train = torch.cuda.memory_allocated(device) / 2**30
+        frozen = {n: t.detach().clone() for n, t in model.state_dict().items()
+                  if n not in trained}
+        prepared = prepare_batch(model, **batch)
+
+        def eval_loss() -> float:
+            model.eval()
+            with torch.no_grad():
+                return model(prepared["input_ids"], prepared["pixel_values"],
+                             prepared["attention_mask"], mos=prepared["mos"])["loss"].item()
+
+        loss_before = eval_loss()
+        torch.cuda.reset_peak_memory_stats(device)
+        for c in train_kernels:
+            c.launches = 0
+        t0 = time.perf_counter()
+        train_steps(model, [batch], tc, trainer=trainer)  # step 1
+        torch.cuda.synchronize()
+        step1_ms = (time.perf_counter() - t0) * 1e3
+        towers = (model.vision_model.layers, model.language_model.layers)
+        ends = [m for layers in towers for layer in (layers[0], layers[-1])
+                for m in layer.modules() if hasattr(m, "lora_b")]
+        if len(ends) != 2 * 4 + 2 * 5 or not all(m.lora_b.any() for m in ends):
+            raise RuntimeError("a lora_b of a first or last layer is still zero after step 1")
+        t0 = time.perf_counter()
+        train_steps(model, [batch] * (TRAIN_STEPS - 1), tc, trainer=trainer)
+        torch.cuda.synchronize()
+        later_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+        train_counts = {c.__name__: c.launches for c in train_kernels}
+        peak_train = torch.cuda.max_memory_allocated(device) / 2**30
+        with open(f"{out_dir}/train_log.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in log]
+        # between two steps of one call: the step alone, batch preparation
+        # included, the LoRA dump not
+        steady_ms = (log[-1]["time"] - log[-2]["time"]) * 1e3
+        lora_bytes = os.path.getsize(f"{out_dir}/{LORA_FILE}")
+    want = {"flash_attention_qkv": 0,
+            "flash_attention_qkv_lse": 2 * per_forward * TRAIN_STEPS,
+            "flash_attention_qkv_bwd_dq": per_forward * TRAIN_STEPS,
+            "flash_attention_qkv_bwd_dkv": per_forward * TRAIN_STEPS}
+    if train_counts != want:
+        raise RuntimeError(f"train: launches {train_counts} for {TRAIN_STEPS} steps of one "
+                           f"micro-batch, expected {want}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or trainer.step != TRAIN_STEPS:
+        raise RuntimeError(f"train: losses {losses} after {trainer.step} steps")
+    moved = [n for n, t in model.state_dict().items() if n in frozen and not torch.equal(t, frozen[n])]
+    if moved:
+        raise RuntimeError(f"train: frozen tensors changed: {moved[:5]}")
+    del frozen
+    loss_after = eval_loss()
+    if not loss_after < loss_before:
+        raise RuntimeError(f"train: dropout-off loss {loss_before} before, {loss_after} after "
+                           f"{TRAIN_STEPS} steps at lr {TRAIN_LR}")
+
+    def eval_grads(m) -> torch.Tensor:
+        """Dropout off (eval mode), checkpointing on: all trainable gradients
+        as one fp32 vector."""
+        m.eval()
+        for p in m.parameters():
+            p.grad = None
+        dtype = m.precision.compute_dtype
+        m(prepared["input_ids"], prepared["pixel_values"].to(dtype),
+          prepared["attention_mask"], mos=prepared["mos"])["loss"].backward()
+        return torch.cat([p.grad.float().flatten() for n, p in m.named_parameters()
+                          if n in trained])
+
+    before = [c.launches for c in train_kernels]
+    g_kernel = eval_grads(model)
+    if [c.launches - b for c, b in zip(train_kernels, before)] != [0, 2 * per_forward,
+                                                                   per_forward, per_forward]:
+        raise RuntimeError("the dropout-off backward did not go through the kernels")
+    launched = [c.launches for c in train_kernels]
+    set_generator(model, None)  # eval mode draws nothing
+    ref = copy.deepcopy(model).float()
+    ref.precision = Precision.fp32()
+    # autograd through the plain forward, in bf16 and in fp32
+    with mock.patch.object(fa, "flash_attention_qkv", fa.plain_attention_qkv):
+        g_plain = eval_grads(model)
+        g_ref = eval_grads(ref)
+    if [c.launches for c in train_kernels] != launched:
+        raise RuntimeError("the plain backwards launched a kernel")
+    del ref
+    gk, gp, gr = relative_l2(g_kernel, g_plain), relative_l2(g_kernel, g_ref), relative_l2(
+        g_plain, g_ref)
+    if not torch.isfinite(g_kernel).all() or not gk <= TRAIN_GRAD_TOL:
+        raise RuntimeError(f"train: gradient relative L2 kernel vs plain {gk} above "
+                           f"{TRAIN_GRAD_TOL}")
+    if not gr <= REF_RATIO * gp:
+        raise RuntimeError(f"train: kernel-path gradient {gr} from the fp32 reference, plain "
+                           f"bf16 path {gp}: more than {REF_RATIO}x farther")
+    per_step = {k: v // TRAIN_STEPS for k, v in train_counts.items()}
+    phase("slice", f"train InternVL2-2B stage 2, LoRA r={LORA_RANK} both towers, bf16 with "
+          f"fp32 masters ({n_trainable} trainable values), checkpointing on, dropout "
+          f"{lora_cfg.lora_dropout}, drop path {cfg.vision.drop_path_rate}, {batch_size} videos x "
+          f"{px_u8.shape[1]} frames {px_u8.shape[2]}px, seq {seq}, {TRAIN_STEPS} steps at constant lr {TRAIN_LR}: "
+          f"launches per micro-batch {per_step}; {steady_ms:.1f} ms/step (the last); with "
+          f"the LoRA dump of {lora_bytes} bytes, step 1 {step1_ms:.1f} ms, later steps "
+          f"{later_ms:.1f} ms/step; peak "
+          f"{peak_train:.2f} GiB allocated (weights {weights_train:.2f} GiB), init "
+          f"{init_train_s:.1f} s; training losses {np.round(losses, 5).tolist()}; dropout-off "
+          f"loss {loss_before:.5f} -> {loss_after:.5f}; frozen tensors bit-equal; gradient rel "
+          f"L2 kernel vs plain {gk:.3e} (tol {TRAIN_GRAD_TOL}), vs fp32 reference: kernel "
+          f"{gr:.3e}, plain {gp:.3e} (tol {REF_RATIO}x) [{smi}]")
+    return train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
@@ -245,7 +569,7 @@ def main() -> int:
     from aigv_assessor_torch.ops.preprocess import resize_normalize
 
     # 2. build, always from the checkout's sources
-    libs = (fa.LIB, qf.LIB)
+    libs = (fa.LIB, fa.LIB_BWD, qf.LIB)
     for lib in libs:
         lib.path.unlink(missing_ok=True)
     build_s = cuda_build.build(libs, verbose=True)
@@ -254,6 +578,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     shapes = check_attention(fa, device)
+    train_shapes = check_attention_training(fa, device)
     feeds = check_feeds(qf, device)
 
     # 4. the bf16 scoring slice at 2B
@@ -398,30 +723,95 @@ def main() -> int:
           f"{cosine:.5f} (tol {W8A8_COSINE}); "
           f"scores {np.round(arr8[:, 0], 4).tolist()} [{smi}]")
 
-    attention = dict(route="cuda", source="aigv_assessor_torch/csrc/flash_attn_fwd.cu",
-                     replaces="aigv_assessor_tpu/ops/pallas_attention.py:106")
-    # ms and plain_ms: one forward's launches at the path's shapes
+    del model, kernel_out, plain_out, ref_out, pv
+    torch.cuda.empty_cache()
+
+    # 6. the stage-2 training slice
+    train_counts = run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward, smi)
+
+    # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
+    # the sums over the launches of one unit of the main path (one scoring
+    # forward, or one training micro-batch) at the path's shapes; the
+    # per-launch numbers at each shape are under `shapes`.
+    fwd_src = dict(route="cuda", source="aigv_assessor_torch/csrc/flash_attn_fwd.cu",
+                   replaces="aigv_assessor_tpu/ops/pallas_attention.py:106")
+    bwd_src = dict(route="cuda", source="aigv_assessor_torch/csrc/flash_attn_bwd.cu")
+
+    def per_unit(table, key, times=1):
+        return times * (n_vit * table["vit"][key] + n_llm * table["llm"][key])
+
+    def per_unit_bound(kind, times=1):
+        return times * (n_vit * train_shapes["vit"]["bounds"][kind]["bound_ms"]
+                        + n_llm * train_shapes["llm"]["bounds"][kind]["bound_ms"])
+
+    sdpa_note = ("F.scaled_dot_product_attention on the same q/k/v views, enable_gqa for "
+                 "GQA, k and v cut at kv_valid")
     kernels = [
-        dict(name="flash_attn_qkv_fwd", **attention, launches=launches_bhsd,
+        dict(name="flash_attn_qkv_fwd", **fwd_src, launches=launches_bhsd,
              max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
-             ms=n_vit * shapes["vit"]["ms"] + n_llm * shapes["llm"]["ms"],
-             plain_ms=n_vit * shapes["vit"]["plain_ms"] + n_llm * shapes["llm"]["plain_ms"],
+             ms=per_unit(shapes, "ms"), plain_ms=per_unit(shapes, "plain_ms"),
+             bound_ms=per_unit(shapes, "bound_ms"), bound_by=shapes["vit"]["bound_by"],
+             library_ms=per_unit(shapes, "library_ms"), library=sdpa_note,
+             unit="one scoring forward: 24 launches at the vit shape, 24 at the llm shape",
              shapes=shapes),
-        dict(name="flash_attn_qkv_fwd_bsd", **attention,
+        dict(name="flash_attn_qkv_fwd_bsd", **fwd_src,
              launches=counts8["flash_attention_qkv"],
              max_abs_err=max(r["bsd_max_abs_err"] for r in shapes.values()),
-             ms=n_vit * shapes["vit"]["bsd_ms"] + n_llm * shapes["llm"]["bsd_ms"],
-             plain_ms=n_vit * shapes["vit"]["bsd_plain_ms"]
-             + n_llm * shapes["llm"]["bsd_plain_ms"]),
+             ms=per_unit(shapes, "bsd_ms"), plain_ms=per_unit(shapes, "bsd_plain_ms"),
+             bound_ms=per_unit(shapes, "bound_ms"), bound_by=shapes["vit"]["bound_by"],
+             library_ms=per_unit(shapes, "library_ms"),
+             library=sdpa_note + "; its output is head-major, the dense rows would cost a copy",
+             unit="one W8A8 scoring forward: 24 + 24 launches"),
+        dict(name="flash_attn_qkv_fwd_lse", **fwd_src,
+             launches=train_counts["flash_attention_qkv_lse"],
+             max_abs_err=max(r["lse_max_abs_err"] for r in train_shapes.values()),
+             ms=per_unit(train_shapes, "lse_ms", 2),
+             plain_ms=per_unit(train_shapes, "plain_lse_ms", 2),
+             bound_ms=per_unit_bound("fwd_lse", 2),
+             bound_by=train_shapes["vit"]["bounds"]["fwd_lse"]["bound_by"],
+             library_ms=per_unit(shapes, "library_ms", 2),
+             library=sdpa_note + " (forward; it keeps its own logsumexp)",
+             unit="one training micro-batch: first pass and recompute, 2 x (24 + 24) launches",
+             shapes=train_shapes),
+        dict(name="flash_attn_qkv_bwd_dq", **bwd_src,
+             replaces="aigv_assessor_tpu/ops/pallas_attention.py:384",
+             launches=train_counts["flash_attention_qkv_bwd_dq"],
+             max_abs_err=max(r["max_abs_err"]["dq"] for r in train_shapes.values()),
+             ms=per_unit(train_shapes, "dq_ms"), plain_ms=per_unit(train_shapes, "plain_bwd_ms"),
+             bound_ms=per_unit_bound("dq"),
+             bound_by=train_shapes["vit"]["bounds"]["dq"]["bound_by"],
+             library_ms=per_unit(train_shapes, "library_bwd_ms"),
+             library=sdpa_note + ": its backward gives dq, dk and dv in one call, so the same "
+             "time stands beside both backward kernels; plain_ms is the whole plain backward",
+             unit="one training micro-batch: 24 + 24 launches"),
+        dict(name="flash_attn_qkv_bwd_dkv", **bwd_src,
+             replaces="aigv_assessor_tpu/ops/pallas_attention.py:455",
+             launches=train_counts["flash_attention_qkv_bwd_dkv"],
+             max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"])
+                             for r in train_shapes.values()),
+             ms=per_unit(train_shapes, "dkv_ms"), plain_ms=per_unit(train_shapes, "plain_bwd_ms"),
+             bound_ms=per_unit_bound("dkv"),
+             bound_by=train_shapes["vit"]["bounds"]["dkv"]["bound_by"],
+             library_ms=per_unit(train_shapes, "library_bwd_ms"),
+             library="as for flash_attn_qkv_bwd_dq",
+             unit="one training micro-batch: 24 + 24 launches"),
     ]
     for name, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
                           ("ident_quant", "quant_rows")):
         rows, cols, per_fwd, replaces = FEEDS[name]
         f = feeds[name]
+        # bf16 in, int8 and one fp32 scale per row out (and the norm's weight
+        # and bias); some ten fp32 operations per element outside the tensor
+        # cores (67 TFLOP/s) stay far below the bytes' time
+        nbytes = rows * cols * 3 + rows * 4 + (4 * cols if name == "ln_quant" else 0)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 10 * rows * cols / 67e12 * 1e3
         kernels.append(dict(
             name=name, route="cuda", source="aigv_assessor_torch/csrc/quant_fuse.cu",
             replaces=replaces, launches=counts8[counter], max_abs_err=f["max_abs_err"],
-            ms=per_fwd * f["ms"], plain_ms=per_fwd * f["plain_ms"], detail=f))
+            ms=per_fwd * f["ms"], plain_ms=per_fwd * f["plain_ms"],
+            bound_ms=per_fwd * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+            unit=f"one W8A8 scoring forward: {per_fwd} launches", detail=f))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,13 @@ jax-free, so that it runs where jax is not installed:
   Tolerance atol = rtol = 2e-2, about four bf16 ulps at the outputs' scale.
   Its dense `bsd` output equals its `bhsd` output transposed, bit for bit:
   only the store addresses differ.
+- The forward with logsumexp (K1 lse) and the backward kernels (K3a dq, K3b
+  dk/dv). `out` is bit-equal to the forward without logsumexp; the logsumexp
+  is within 1e-4 of the plain fp32 one; dq, dk and dv are each within 2e-3
+  relative L2 of `plain_attention_qkv_bwd`, which rounds p and ds to bf16
+  where the kernels do (the JAX kernels keep them fp32), so what is left is
+  the summation order and the bf16 rounding of the results.
+  `FlashAttentionQKV` is run end to end through `torch.autograd.grad`.
 - The fused quantize kernels (K4a-c). The kernel sums a row in another
   order than the plain version, and tanh and rsqrt come from other library
   code, so y / s can land on the other side of a half: the scales agree to
@@ -22,11 +29,22 @@ import torch
 
 from aigv_assessor_torch.ops import quant_fuse as qf
 from aigv_assessor_torch.ops import w8a8
-from aigv_assessor_torch.ops.flash_attention import flash_attention_qkv, plain_attention_qkv
+from aigv_assessor_torch.ops.attention import fused_qkv_attention
+from aigv_assessor_torch.ops.flash_attention import (
+    flash_attention_qkv,
+    flash_attention_qkv_bwd,
+    flash_attention_qkv_bwd_dkv,
+    flash_attention_qkv_bwd_dq,
+    flash_attention_qkv_lse,
+    plain_attention_qkv,
+    plain_attention_qkv_bwd,
+)
 
 pytestmark = pytest.mark.gpu
 
 TOL = 2e-2
+LSE_TOL = 1e-4
+BWD_TOL = 2e-3
 SCALE_RTOL = 1e-5
 FLIP_FRACTION = 1e-3
 
@@ -36,6 +54,14 @@ SHAPES = {
     "vit": (32, 16, 16, 1032, 64, False, 1025),
     "llm": (4, 16, 8, 2113, 128, True, None),
     "ragged": (2, 4, 4, 200, 64, False, 150),
+}
+# small shapes for the backward: both head dims, GQA with groups of 2 and 4,
+# causal and not, S off the 64-row tiles, a garbage tail
+BWD_SHAPES = {
+    "ragged": SHAPES["ragged"],
+    "gqa2_causal_d128": (2, 4, 2, 200, 128, True, None),
+    "gqa4_causal_d64": (1, 8, 2, 131, 64, True, None),
+    "gqa2_tail_d128": (1, 4, 2, 136, 128, False, 129),
 }
 
 
@@ -114,6 +140,102 @@ def test_bsd_output_is_bhsd_transposed(cuda, name):
                                atol=0, rtol=0)
     want = plain_attention_qkv(qkv, hq, hkv, out_layout="bsd", **kw)
     torch.testing.assert_close(dense.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+def make_dout(shape, device, seed=5):
+    b, hq, _, s, d, _, _ = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((b, hq, s, d), generator=gen, device=device).to(torch.bfloat16)
+
+
+def relative_l2(x, y):
+    return ((x.float() - y.float()).norm() / y.float().norm()).item()
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_forward_with_lse_matches_plain(cuda, name):
+    shape = SHAPES[name]
+    _, hq, hkv, _, _, causal, kv_valid = shape
+    qkv = make_qkv(shape, cuda, seed=3)
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    before = flash_attention_qkv_lse.launches, flash_attention_qkv.launches
+    out, lse = flash_attention_qkv_lse(qkv, hq, hkv, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_qkv_lse.launches, flash_attention_qkv.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(out, flash_attention_qkv(qkv, hq, hkv, **kw))
+    _, want = plain_attention_qkv(qkv, hq, hkv, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape and lse.is_contiguous()
+    torch.testing.assert_close(lse, want, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", list(BWD_SHAPES))
+def test_backward_kernels_match_plain(cuda, name):
+    shape = BWD_SHAPES[name]
+    _, hq, hkv, _, _, causal, kv_valid = shape
+    qkv, dout = make_qkv(shape, cuda, seed=4), make_dout(shape, cuda)
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    out, lse = flash_attention_qkv_lse(qkv, hq, hkv, **kw)
+    before = flash_attention_qkv_bwd_dq.launches, flash_attention_qkv_bwd_dkv.launches
+    got = flash_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_qkv_bwd_dq.launches, flash_attention_qkv_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = plain_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    for part in (slice(0, hq), slice(hq, hq + hkv), slice(hq + hkv, None)):
+        assert relative_l2(got[:, part], want[:, part]) <= BWD_TOL
+    if kv_valid is not None:  # nothing flows back into the masked keys
+        assert not got[:, hq:, kv_valid:].any()
+
+
+def test_autograd_function_end_to_end(cuda):
+    """`fused_qkv_attention` on a strided view that requires a gradient, as
+    the LLM hands it over after RoPE: forward with lse, both backward
+    kernels, and the gradient lands on the projection output."""
+    b, s, hq, hkv, d = 2, 200, 4, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    proj = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen, device=cuda)
+    proj = proj.to(torch.bfloat16).requires_grad_()
+    dout = make_dout((b, hq, hkv, s, d, True, None), cuda)
+    counters = (flash_attention_qkv_lse, flash_attention_qkv_bwd_dq, flash_attention_qkv_bwd_dkv)
+    before = [c.launches for c in counters]
+    view = proj.view(b, s, hq + 2 * hkv, d).transpose(1, 2)
+    out = fused_qkv_attention(view, hq, hkv, causal=True)
+    (got,) = torch.autograd.grad(out, proj, dout)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    ref = proj.detach().clone().requires_grad_()
+    ref_out = plain_attention_qkv(ref.view(b, s, hq + 2 * hkv, d).transpose(1, 2), hq, hkv,
+                                  causal=True)
+    (want,) = torch.autograd.grad(ref_out, ref, dout)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL, rtol=TOL)
+    assert relative_l2(got, want) <= 1e-2  # autograd keeps p and ds in fp32
+
+
+def test_training_wrappers_raise_rather_than_fall_back(cuda):
+    shape = BWD_SHAPES["ragged"]
+    qkv, dout = make_qkv(shape, cuda), make_dout(shape, cuda)
+    out, lse = flash_attention_qkv_lse(qkv, 4, 4, kv_valid=150)
+    delta = (dout.float() * out.float()).sum(-1)
+    dqkv = torch.empty_like(qkv)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attention_qkv_lse(qkv.float(), 4, 4)
+    with pytest.raises(TypeError, match="bf16"):  # an fp32 tensor that needs a gradient
+        flash_attention_qkv(qkv.float().requires_grad_(), 4, 4)
+    with pytest.raises(ValueError, match="forward-only"):
+        flash_attention_qkv(qkv.clone().requires_grad_(), 4, 4, out_layout="bsd")
+    for kernel in (flash_attention_qkv_bwd_dq, flash_attention_qkv_bwd_dkv):
+        with pytest.raises(ValueError, match="dout"):
+            kernel(qkv, dout.float(), lse, delta, dqkv, 4, 4, kv_valid=150)
+        with pytest.raises(ValueError, match="lse"):
+            kernel(qkv, dout, lse.double(), delta, dqkv, 4, 4, kv_valid=150)
+        with pytest.raises(ValueError, match="contiguous head dim"):
+            kernel(qkv, dout.transpose(2, 3).contiguous().transpose(2, 3), lse, delta, dqkv,
+                   4, 4, kv_valid=150)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(qkv, dout, lse.transpose(1, 2).contiguous().transpose(1, 2), delta, dqkv,
+                   4, 4, kv_valid=150)
 
 
 # (rows, cols) of each feed on the 2B ViT path (32 frames x 1032 tokens),

@@ -39,7 +39,8 @@ def _close(got, want, atol=ATOL):
 
 # ------------------------------------------------------------------ config --
 
-CONFIG_CLASSES = ["VisionConfig", "RopeScaling", "LLMConfig", "MotionConfig", "AssessorConfig"]
+CONFIG_CLASSES = ["VisionConfig", "RopeScaling", "LLMConfig", "MotionConfig", "LoRAConfig",
+                  "AssessorConfig"]
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
@@ -72,14 +73,34 @@ def test_config_values_and_properties_match_jax(scale):
         assert getattr(t.llm, prop) == getattr(j.llm, prop)
 
 
+def test_train_config_fields_match_jax():
+    """`TrainConfig`: same field names, order and defaults as the JAX one."""
+    from aigv_assessor_torch.train.trainer import TrainConfig
+    from aigv_assessor_tpu.train.trainer import TrainConfig as JaxTrainConfig
+
+    assert [f.name for f in dataclasses.fields(TrainConfig)] == [
+        f.name for f in dataclasses.fields(JaxTrainConfig)]
+    assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(JaxTrainConfig())
+
+
 def test_port_imports_without_jax():
-    """The port's scoring path imports in a process where jax, flax and the
-    JAX package cannot be imported."""
+    """Every module of the port (the scoring and training paths, the tools)
+    and `chip_smoke.py` import in a process where jax, flax, optax, orbax and
+    the JAX package cannot be imported."""
     code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'aigv_assessor_tpu'): sys.modules[m] = None\n"
-        "import aigv_assessor_torch.cli.score, aigv_assessor_torch.models.loading\n"
-        "import aigv_assessor_torch.ops.flash_attention\n"
+        "import sys, importlib, pkgutil\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'aigv_assessor_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import aigv_assessor_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(aigv_assessor_torch.__path__,\n"
+        "                                               'aigv_assessor_torch.')]\n"
+        "for needed in ('cli.score', 'cli.stage2_train', 'train.trainer', 'train.freeze',\n"
+        "               'train.layer_decay', 'train.checkpoint', 'ops.flash_attention',\n"
+        "               'ops.remat', 'models.loading'):\n"
+        "    assert 'aigv_assessor_torch.' + needed in names, needed\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -87,6 +108,38 @@ def test_port_imports_without_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_kernel_library_is_stale_when_its_source_or_a_header_is_newer(tmp_path, monkeypatch):
+    """`CudaLibrary.up_to_date`: a built library is rebuilt after an edit of
+    its source or of any header in `csrc/` (the attention kernels share
+    `mma_fragments.cuh`)."""
+    from aigv_assessor_torch.ops import cuda_build
+
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir(), out.mkdir()
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", out)
+    source, header = csrc / "k.cu", csrc / "h.cuh"
+    source.write_text("// kernel\n"), header.write_text("// helpers\n")
+    lib = cuda_build.CudaLibrary("k.cu", lambda _: None)
+    assert lib.path == out / "libk.so" and not lib.up_to_date()
+    lib.path.write_bytes(b"")
+    for age, f in ((30, source), (20, header), (10, lib.path)):  # seconds ago
+        t = lib.path.stat().st_mtime - age
+        os.utime(f, (t, t))
+    assert lib.up_to_date()
+    for newer in (source, header):
+        t = lib.path.stat().st_mtime
+        os.utime(newer, (t + 5, t + 5))
+        assert not lib.up_to_date()
+        os.utime(newer, (t - 5, t - 5))
+    assert lib.up_to_date()
+    # the shipped sources include the header from their own directory
+    shipped = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
+    for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        assert '#include "mma_fragments.cuh"' in (shipped / name).read_text()
+    assert (shipped / "mma_fragments.cuh").exists()
 
 
 # ------------------------------------------------------------------- norms --
