@@ -4,9 +4,11 @@ A port of `aigv_assessor_tpu` (JAX/Pallas), which stays the reference the
 port is tested against. Module names follow the JAX package so that each
 counterpart is easy to find. This package imports `torch` and never `jax`.
 
-Ported so far: stage-2 scoring (`cli/score.py`) in bf16 with one question
-per video, for the InternVL2-2B model. Its attention runs through the
-fused-qkv flash-attention forward in `csrc/flash_attn_fwd.cu`.
+Ported so far, for the InternVL2-2B model: stage-2 scoring (`cli/score.py`)
+with one question per video, in bf16, W8A8 or weight-only int8 / int4, and
+stage-2 LoRA training (`cli/stage2_train.py`). The hand-written kernels are
+in `csrc/`: the flash-attention forward and backward, the fused quantize
+feeds and the weight-only matmuls.
 """
 
 __version__ = "0.1.0"

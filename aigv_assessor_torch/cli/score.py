@@ -1,7 +1,9 @@
 """Batch video scoring (`aigv_assessor_tpu/cli/score.py`), the device side.
 
 - `build_serving_model`: the stage-2 model on a device in the serving
-  precision (bf16, or W8A8 with `w8a8=True`), with weights made from a seed.
+  precision (bf16; W8A8 with `w8a8=True`; weight-only W8A16 with `int8=True`
+  or W4A16 with `int4=True`, the JAX CLI's `--w8a8`, `--int8`, `--int4`),
+  with weights made from a seed.
 - `score_batch`: uint8 frames -> normalization -> `score_perspectives`, one
   call per chunk of videos (the JAX CLI's jitted `score_batch`).
 - `score_chunks`: the chunk loop: pads the tail chunk to the batch size and
@@ -39,28 +41,29 @@ def build_serving_model(
 ) -> AIGVAssessor:
     """The model on `device` in `precision.compute_dtype`, as the JAX CLI's
     `build_serving_stack` makes it: fp32 weights from `init_random_(seed)`,
-    quantized for W8A8 (`w8a8=True` or `precision.w8a8`) from those fp32
-    values, then everything else cast to the compute dtype, the W8A8 scales
-    kept fp32. One seed gives the same weights in both precisions. The fp32
-    weights are held only while the model is built (~8.8 GB at 2B). The
-    weight-only modes of the JAX CLI (--int8, --int4) raise until they are
-    ported."""
-    for flag, on, kernel in (("int8", int8, "K6"), ("int4", int4, "K7")):
-        if on:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: ROADMAP.md, Queue 1, generation and "
-                f"weight-only serving (kernel {kernel})"
-            )
+    quantized from those fp32 values for W8A8 (`w8a8=True` or
+    `precision.w8a8`: both towers' projections) or for weight-only serving
+    (`int8=True` / `int4=True` or the precision's `int8_weights` /
+    `int4_weights`: the decoder's projections and the LM head; int4 first
+    when both are set), then everything else cast to the compute dtype, the
+    quantization scales kept fp32. One seed gives the same base weights in
+    every precision. The fp32 weights are held only while the model is built
+    (~8.8 GB at 2B). `w8a8` with `int8` or `int4` raises ValueError."""
     w8a8 = w8a8 or precision.w8a8
-    float_precision = dataclasses.replace(precision, w8a8=False)
+    int4 = int4 or precision.int4_weights
+    int8 = (int8 or precision.int8_weights) and not int4
+    float_precision = dataclasses.replace(
+        precision, w8a8=False, int8_weights=False, int4_weights=False)
+    target = dataclasses.replace(float_precision, w8a8=w8a8, int8_weights=int8,
+                                 int4_weights=int4)  # raises on w8a8 with int8/int4
     with torch.device("meta"):
         model = AIGVAssessor(config, float_precision)
     model = init_random_(model.to_empty(device=device), seed)  # fp32
-    if w8a8:
-        state = quantize_for_serving(model.state_dict(), config)
+    if target != float_precision:
+        state = quantize_for_serving(model.state_dict(), config, int8=int8, int4=int4)
         del model
         with torch.device("meta"):
-            model = AIGVAssessor(config, dataclasses.replace(precision, w8a8=True))
+            model = AIGVAssessor(config, target)
         model.load_state_dict(state, strict=True, assign=True)
         del state
     return model.to(precision.compute_dtype).eval()

@@ -1,12 +1,21 @@
 """Precision policy, as `aigv_assessor_tpu/core/precision.py` serves it:
-bf16 compute with fp32 norm statistics and fp32 scores, and optionally W8A8.
+bf16 compute with fp32 norm statistics and fp32 scores, and optionally one
+of three quantized serving modes.
 
 W8A8 runs both towers' projections as int8 x int8 -> int32 products over
 per-channel int8 weights and per-row int8 activations (`ops/w8a8.py`,
 `models/lora.W8A8Linear`); the embeddings, the LM head, the projectors, the
 score head and SlowFast stay in the compute dtype, SlowFast on cuDNN as the
-JAX default keeps it. The weight-only int8/int4 modes, the int8 KV cache and
-W8A8 of the SlowFast convs (`w8a8_motion`) are not ported yet."""
+JAX default keeps it.
+
+The weight-only modes (`int8_weights`, W8A16; `int4_weights`, W4A16) keep the
+activations in the compute dtype and store the decoder's projections and the
+LM head as per-channel int8 or nibble-packed int4, decoded inside the matmul
+kernel (`ops/int8_matmul.py`, `models/lora.Int8Linear` / `Int4Linear`). The
+ViT and everything outside the decoder stay float. They exclude W8A8.
+
+The int8 KV cache (`kv_int8`) and W8A8 of the SlowFast convs (`w8a8_motion`)
+are not ported yet."""
 
 from __future__ import annotations
 
@@ -21,6 +30,25 @@ class Precision:
     norm_dtype: torch.dtype = torch.float32  # norm statistics
     logits_dtype: torch.dtype = torch.float32  # scores
     w8a8: bool = False  # int8 x int8 projections in both towers
+    int8_weights: bool = False  # W8A16: int8 decoder weights, decoded in-kernel
+    int4_weights: bool = False  # W4A16: nibble-packed int4 decoder weights
+
+    def __post_init__(self):
+        if self.w8a8 and (self.int8_weights or self.int4_weights):
+            raise ValueError(
+                "w8a8 excludes int8/int4 weight-only serving: w8a8 quantizes the "
+                "projections for int8 products, the others feed int8/int4 weights "
+                "into compute-dtype products"
+            )
+
+    @property
+    def weight_only(self) -> bool:
+        return self.int8_weights or self.int4_weights
+
+    @classmethod
+    def int8(cls) -> "Precision":
+        """bf16 activations over int8 decoder weights (serving)."""
+        return cls(int8_weights=True)
 
     @classmethod
     def fp32(cls) -> "Precision":

@@ -1,26 +1,34 @@
-// Flash-attention forward off one fused head-major qkv array, for sm_90a.
+// Flash-attention forward for sm_90a, with two entry points over one kernel.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
-// aigv_assessor_tpu/ops/pallas_attention.py (reached through
-// `flash_attention_qkv` -> `_fwd_qkv`), in the forms the scoring and training
-// paths run: bf16 output either head-major [B, Hq, S, D] (`bhsd`) or as the
-// dense rows [B, S, Hq*D] an out-projection reads (`bsd`, the Pallas kernel's
-// `dense_out`), and optionally the per-row logsumexp that the backward
-// kernels (flash_attn_bwd.cu) read (`with_lse` in the Pallas kernel).
+// aigv_assessor_tpu/ops/pallas_attention.py as both of its callers reach it:
 //
-//   qkv  [B, Hq + 2*Hkv, S, D] bf16, heads ordered [q | k | v], read through
-//        its strides (batch, head, row; D contiguous), so a permuted view of
-//        a projection output needs no copy. q head h reads kv head h / G,
-//        G = Hq / Hkv (rows Hq + h/G and Hq + Hkv + h/G).
+// - `aigv_flash_attn_qkv_fwd`: off one fused head-major qkv array
+//   (`flash_attention_qkv` -> `_fwd_qkv`), in the forms the scoring and
+//   training paths run: bf16 output either head-major [B, Hq, S, D] (`bhsd`)
+//   or as the dense rows [B, S, Hq*D] an out-projection reads (`bsd`, the
+//   Pallas kernel's `dense_out`), and optionally the per-row logsumexp that
+//   the backward kernels (flash_attn_bwd.cu) read (`with_lse`).
+// - `aigv_flash_attn_fwd`: on three separate tensors (`flash_attention` ->
+//   `_fwd`), q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D] (`bshd`) or
+//   head-major (`bhsd`), which the weight-only decoder runs. Sq and Skv may
+//   differ when not causal.
+//
+//   q, k, v  bf16, each read through its own strides (batch, head, row; D
+//        contiguous), so slices and permuted views of a projection output
+//        need no copy. The fused entry passes three pointers into the one
+//        array, heads ordered [q | k | v]. q head h reads kv head h / G,
+//        G = Hq / Hkv.
 //   out  bf16, written through its strides (batch, head, row; D
-//        contiguous): [B, Hq, S, D] for `bhsd`, [B, S, Hq*D] for `bsd`. The
-//        two layouts differ only in the store addresses.
-//   lse  fp32 [B, Hq, S] contiguous or null: log(sum_k exp(scale * q.k)) over
-//        the unmasked keys, natural-log units; -inf for a row with no valid
-//        key (its output row is 0). Storing it changes nothing in `out`.
-//   Keys at or beyond kv_valid are masked (the ViT pads 1025 tokens to 1032
-//   and the tail rows hold evolved values, not zeros); `causal` masks keys
-//   after the query. The ragged edge of S is masked here; nothing is padded.
+//        contiguous): [B, Hq, Sq, D] for `bhsd`, [B, Sq, Hq*D] for `bsd` and
+//        `bshd`. The layouts differ only in the store addresses.
+//   lse  fp32 [B, Hq, Sq] contiguous or null: log(sum_k exp(scale * q.k))
+//        over the unmasked keys, natural-log units; -inf for a row with no
+//        valid key (its output row is 0). Storing it changes nothing in `out`.
+//   Keys at or beyond kv_valid (<= Skv) are masked (the ViT pads 1025 tokens
+//   to 1032 and the tail rows hold evolved values, not zeros); `causal`
+//   (Sq == Skv) masks keys after the query. The ragged edges of Sq and Skv
+//   are masked here; nothing is padded.
 //
 // Design. One block of 4 warps per (64-row q tile, q head, batch). Each warp
 // owns 16 q rows, keeps its Q fragments in registers and loops over 64-key
@@ -58,15 +66,19 @@ constexpr int BK = 64;           // keys per tile
 constexpr int NWARPS = BQ / 16;  // one warp per 16 q rows
 constexpr int NTHREADS = NWARPS * 32;
 
+// strides of one tensor in elements; D is contiguous
+struct Strides {
+  long long batch, head, row;
+};
+
 // D = 64 fits 128 registers and D = 128 fits 170, so four and three blocks
 // share an SM: hold the compiler to that
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 3)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse, int S, int kv_valid, int hq, int hkv,
-                 long long sb, long long sh,
-                 long long ss, long long ob, long long oh, long long os,
-                 float scale_log2) {
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ vals, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int kv_valid, int hq, int hkv,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
   constexpr int LD = D + PAD;     // smem row stride, elements
   constexpr int CHUNKS = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -78,9 +90,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (hq / hkv);
-  const __nv_bfloat16* qp = qkv + b * sb + h * sh;
-  const __nv_bfloat16* kp = qkv + b * sb + (hq + kvh) * sh;
-  const __nv_bfloat16* vp = qkv + b * sb + (hq + hkv + kvh) * sh;
+  const __nv_bfloat16* qp = q + b * qs.batch + h * qs.head;
+  const __nv_bfloat16* kp = k + b * ks.batch + kvh * ks.head;
+  const __nv_bfloat16* vp = vals + b * vs.batch + kvh * vs.head;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -90,7 +102,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
   for (int i = tid; i < BQ * CHUNKS; i += NTHREADS) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (q0 + r < S) v = *reinterpret_cast<const uint4*>(qp + (q0 + r) * ss + c);
+    if (q0 + r < Sq) v = *reinterpret_cast<const uint4*>(qp + (q0 + r) * qs.row + c);
     *reinterpret_cast<uint4*>(sQ + r * LD + c) = v;
   }
   __syncthreads();
@@ -119,8 +131,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
       const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (k0 + r < kv_valid) {
-        kv = *reinterpret_cast<const uint4*>(kp + (k0 + r) * ss + c);
-        vv = *reinterpret_cast<const uint4*>(vp + (k0 + r) * ss + c);
+        kv = *reinterpret_cast<const uint4*>(kp + (k0 + r) * ks.row + c);
+        vv = *reinterpret_cast<const uint4*>(vp + (k0 + r) * vs.row + c);
       }
       *reinterpret_cast<uint4*>(sK + r * LD + c) = kv;
       *reinterpret_cast<uint4*>(sV + r * LD + c) = vv;
@@ -215,29 +227,29 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
     l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
-  __nv_bfloat16* op = out + b * ob + h * oh;
+  __nv_bfloat16* op = out + b * os.batch + h * os.head;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + tq * 2;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(op + r0 * os + col) =
+    if (r0 < Sq)
+      *reinterpret_cast<uint32_t*>(op + r0 * os.row + col) =
           pack_f32(o[dt][0] * inv[0], o[dt][1] * inv[0]);
-    if (r0 + 8 < S)
-      *reinterpret_cast<uint32_t*>(op + (r0 + 8) * os + col) =
+    if (r0 + 8 < Sq)
+      *reinterpret_cast<uint32_t*>(op + (r0 + 8) * os.row + col) =
           pack_f32(o[dt][2] * inv[1], o[dt][3] * inv[1]);
   }
   if (lse != nullptr && tq == 0) {
     // m is in base-2 units of the scaled scores; l = 0 and m = -inf give -inf
-    float* lp = lse + (static_cast<long long>(b) * hq + h) * S;
-    if (r0 < S) lp[r0] = (m[0] + log2f(l[0])) * 0.6931471805599453f;
-    if (r0 + 8 < S) lp[r0 + 8] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
+    float* lp = lse + (static_cast<long long>(b) * hq + h) * Sq;
+    if (r0 < Sq) lp[r0] = (m[0] + log2f(l[0])) * 0.6931471805599453f;
+    if (r0 + 8 < Sq) lp[r0 + 8] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
   }
 }
 
 template <int D, bool CAUSAL>
-cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, float* lse, int B,
-                   int hq, int hkv, int S, int kv_valid, long long sb, long long sh, long long ss,
-                   long long ob, long long oh, long long os, float scale_log2,
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   __nv_bfloat16* out, float* lse, int B, int hq, int hkv, int Sq, int kv_valid,
+                   Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
                    cudaStream_t stream) {
   const int smem = (BQ + 2 * BK) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
   auto kernel = flash_fwd_kernel<D, CAUSAL>;
@@ -245,42 +257,67 @@ cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, float* lse, int
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, hq, B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(qkv, out, lse, S, kv_valid, hq, hkv, sb, sh,
-                                           ss, ob, oh, os, scale_log2);
+  const dim3 grid((Sq + BQ - 1) / BQ, hq, B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(q, k, v, out, lse, Sq, kv_valid, hq, hkv, qs, ks, vs,
+                                           os, scale_log2);
   return cudaGetLastError();
+}
+
+// Checks what the kernel relies on and picks the instantiation.
+int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+             __nv_bfloat16* out, float* lse, int B, int hq, int hkv, int Sq, int Skv, int D,
+             int kv_valid, int causal, Strides qs, Strides ks, Strides vs, Strides os,
+             float scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || hkv <= 0 || hq % hkv != 0 || kv_valid <= 0 ||
+      kv_valid > Skv || (causal && Sq != Skv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B > 65535 || hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err;
+  if (D == 64)
+    err = causal ? launch<64, true>(q, k, v, out, lse, B, hq, hkv, Sq, kv_valid, qs, ks, vs, os, scale_log2, st)
+                 : launch<64, false>(q, k, v, out, lse, B, hq, hkv, Sq, kv_valid, qs, ks, vs, os, scale_log2, st);
+  else if (D == 128)
+    err = causal ? launch<128, true>(q, k, v, out, lse, B, hq, hkv, Sq, kv_valid, qs, ks, vs, os, scale_log2, st)
+                 : launch<128, false>(q, k, v, out, lse, B, hq, hkv, Sq, kv_valid, qs, ks, vs, os, scale_log2, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns 0 on success, else the cudaError_t of the failed launch. Shapes,
-// dtypes, strides and alignment are checked by the Python wrapper. sb/sh/ss
-// are qkv's strides and ob/oh/os the output's, in elements, for (batch,
-// head, row). lse is null (no logsumexp) or a contiguous fp32 [B, hq, S].
+// Both return 0 on success, else the cudaError_t of the failed launch. Shapes,
+// dtypes, strides and alignment are checked by the Python wrappers. Strides
+// are in elements, for (batch, head, row). lse is null (no logsumexp) or a
+// contiguous fp32 [B, hq, Sq].
+
+// The fused array: sb/sh/ss are qkv's strides and ob/oh/os the output's.
 int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, void* lse, int B, int hq, int hkv, int S,
                             int D, int kv_valid, int causal, long long sb, long long sh,
                             long long ss, long long ob, long long oh, long long os,
                             float scale, void* stream) {
-  const auto* in = static_cast<const __nv_bfloat16*>(qkv);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  auto* l = static_cast<float*>(lse);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  if (B <= 0 || S <= 0 || hkv <= 0 || hq % hkv != 0 || kv_valid <= 0 || kv_valid > S)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 65535 || hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err;
-  if (D == 64)
-    err = causal ? launch<64, true>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
-                 : launch<64, false>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
-  else if (D == 128)
-    err = causal ? launch<128, true>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st)
-                 : launch<128, false>(in, o, l, B, hq, hkv, S, kv_valid, sb, sh, ss, ob, oh, os, scale_log2, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const Strides in{sb, sh, ss};
+  return dispatch(q, q + hq * sh, q + (hq + hkv) * sh, static_cast<__nv_bfloat16*>(out),
+                  static_cast<float*>(lse), B, hq, hkv, S, S, D, kv_valid, causal, in, in, in,
+                  Strides{ob, oh, os}, scale, stream);
+}
+
+// Three tensors: strides[0..2] are q's, [3..5] k's, [6..8] v's, [9..11] the
+// output's.
+int aigv_flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int B, int hq,
+                        int hkv, int Sq, int Skv, int D, int kv_valid, int causal,
+                        const long long* strides, float scale, void* stream) {
+  const long long* s = strides;
+  return dispatch(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                  static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), nullptr,
+                  B, hq, hkv, Sq, Skv, D, kv_valid, causal, Strides{s[0], s[1], s[2]},
+                  Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
+                  Strides{s[9], s[10], s[11]}, scale, stream);
 }
 
 const char* aigv_cuda_error_string(int err) {

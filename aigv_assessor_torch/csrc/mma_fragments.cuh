@@ -1,5 +1,6 @@
 // Tensor-core fragment helpers shared by the flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): mma.sync m16n8k16 bf16 with fp32
+// (flash_attn_fwd.cu, flash_attn_bwd.cu) and the weight-only matmuls
+// (weight_only_matmul.cu): mma.sync m16n8k16 bf16 with fp32
 // accumulation, and its operands loaded from padded row-major shared-memory
 // tiles with ldmatrix.
 //

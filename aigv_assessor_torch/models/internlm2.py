@@ -20,14 +20,20 @@ returns the compute dtype and the projection quantizes it with the plain
 quantizes the same way; w1 and w3 share one quantization of their common
 input, bit for bit what quantizing it twice gives. The LM head stays float.
 
+Under the weight-only modes (`Precision.int8_weights`, `int4_weights`) the
+decoder takes the JAX decoder's row-major branch (`:215-284`, `:295-327`):
+the five projections and the LM head are `Int8Linear` / `Int4Linear`s; q, k
+and v are [B, S, H, D] views of the one projection output; RoPE runs in that
+layout and attention is `multi_head_attention` on the three tensors, whose
+[B, S, Hq, D] output reshapes into `wo`'s input without a copy.
+
 Training (`lora` set): the five projections are `LoRALinear`s, `wqkv`
 head-major out and `wo` head-major in, so attention stays on the fused-qkv
 kernel and its backward kernels; with `grad_checkpoint` each layer's
 activations are recomputed in the backward (`ops/remat.py`).
 
 Not ported yet (ROADMAP.md, Queue 1): the KV cache and decoding, the
-logits path, LoRA over a W8A8 base, int8/int4 weight-only serving, tied
-embeddings.
+logits path, LoRA over a quantized base, tied embeddings.
 """
 
 from __future__ import annotations
@@ -44,9 +50,10 @@ from aigv_assessor_torch.models.lora import (
     LoRALinear,
     W8A8Linear,
     make_linear,
-    reject_w8a8_lora,
+    reject_quantized_lora,
+    weight_only_linear,
 )
-from aigv_assessor_torch.ops.attention import fused_qkv_attention
+from aigv_assessor_torch.ops.attention import fused_qkv_attention, multi_head_attention
 from aigv_assessor_torch.ops.norms import RMSNorm
 from aigv_assessor_torch.ops.remat import checkpoint_layer
 from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
@@ -57,14 +64,20 @@ class InternLM2Attention(nn.Module):
     def __init__(self, config: LLMConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        reject_w8a8_lora(precision, lora)
+        reject_quantized_lora(precision, lora)
         self.hq = hq = config.num_attention_heads
         self.hkv = hkv = config.num_key_value_heads
         self.head_dim = d = config.head_dim
         self.w8a8 = precision.w8a8
+        self.weight_only = precision.weight_only
         c = config.hidden_size
-        if self.w8a8:
-            dt = precision.compute_dtype
+        dt = precision.compute_dtype
+        if self.weight_only:
+            linear = weight_only_linear(precision)
+            self.wqkv = linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
+                               out_dtype=dt)
+            self.wo = linear(hq * d, c, bias=config.effective_o_bias, out_dtype=dt)
+        elif self.w8a8:
             self.wqkv = W8A8Linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
                                    out_dtype=dt, heads=hq + 2 * hkv)
             self.wo = W8A8Linear(hq * d, c, bias=config.effective_o_bias, out_dtype=dt)
@@ -77,6 +90,14 @@ class InternLM2Attention(nn.Module):
     def forward(self, x, cos, sin, position_ids):
         b, s, _ = x.shape
         hq, hkv, d = self.hq, self.hkv, self.head_dim
+        if self.weight_only:
+            qkv = self.wqkv(x)  # [B, S, (Hq + 2*Hkv)*D]; q, k, v are views of it
+            q = qkv[..., : hq * d].view(b, s, hq, d)
+            k = qkv[..., hq * d : (hq + hkv) * d].view(b, s, hkv, d)
+            v = qkv[..., (hq + hkv) * d :].view(b, s, hkv, d)
+            q, k = apply_rope(q, k, cos, sin, position_ids, layout="bshd")
+            out = multi_head_attention(q, k, v, causal=True)  # [B, S, Hq, D]
+            return self.wo(out.reshape(b, s, hq * d))
         if self.w8a8 or isinstance(self.wqkv, LoRALinear):
             qkv = self.wqkv(x)  # [B, H, S, D], a view of the dense product
         else:
@@ -97,11 +118,16 @@ class InternLM2MLP(nn.Module):
     def __init__(self, config: LLMConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        reject_w8a8_lora(precision, lora)
+        reject_quantized_lora(precision, lora)
         c, f = config.hidden_size, config.intermediate_size
         self.w8a8 = precision.w8a8
-        if self.w8a8:
-            dt = precision.compute_dtype
+        dt = precision.compute_dtype
+        if precision.weight_only:
+            linear = weight_only_linear(precision)
+            self.w1 = linear(c, f, bias=False, out_dtype=dt)
+            self.w3 = linear(c, f, bias=False, out_dtype=dt)
+            self.w2 = linear(f, c, bias=False, out_dtype=dt)
+        elif self.w8a8:
             self.w1 = W8A8Linear(c, f, bias=False, out_dtype=dt)
             self.w3 = W8A8Linear(c, f, bias=False, out_dtype=dt)
             self.w2 = W8A8Linear(f, c, bias=False, out_dtype=dt)
@@ -147,7 +173,12 @@ class InternLM2ForCausalLM(nn.Module):
             for _ in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.output = nn.Linear(config.hidden_size, config.vocab_size, bias=False)
+        if precision.weight_only:
+            self.output = weight_only_linear(precision)(
+                config.hidden_size, config.vocab_size, bias=False,
+                out_dtype=precision.compute_dtype)
+        else:
+            self.output = nn.Linear(config.hidden_size, config.vocab_size, bias=False)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.tok_embeddings(input_ids)

@@ -14,8 +14,13 @@ leaves (what `jax.device_get(model.init(...))` returns) and gives the
   Linear's output features;
 - conv kernels HWIO / DHWIO become OIHW / OIDHW;
 - `embedding` and the flax LayerNorm's `scale` become `weight`;
-- a W8A8 tree's `kernel_int8` [in, out] becomes the int8 `weight` [out, in]
-  of a `W8A8Linear`, and its fp32 `kernel_scale` becomes `weight_scale`.
+- a W8A8 or int8 tree's `kernel_int8` [in, out] becomes the int8 `weight`
+  [out, in] of a `W8A8Linear` / `Int8Linear`, and its fp32 `kernel_scale`
+  becomes `weight_scale`;
+- an int4 tree's `kernel_int4` [ceil(in/2), out] becomes the `weight`
+  [out, ceil(in/2)] of an `Int4Linear` (the same bytes, transposed), its
+  `kernel_scale4` becomes `weight_scale`, and the `kernel_in_dim` scalars
+  are dropped, as `strip_int4_meta` drops them.
 
 Any key left over or missing, or any shape that differs, raises.
 
@@ -23,8 +28,8 @@ Any key left over or missing, or any shape that differs, raises.
 port's model -> its JAX path and layer index, which the LoRA artifact
 (`train/checkpoint.py`) and the leaf-by-leaf tests are keyed by.
 
-`quantize_for_serving` makes the W8A8 weights from float ones, as the JAX
-`quantize_for_serving(w8a8=True)` does.
+`quantize_for_serving` makes the W8A8, int8 or int4 weights from float ones,
+as the JAX `quantize_for_serving(w8a8=True | int8=True | int4=True)` does.
 
 `init_random_` fills a model from a seed; `init_lora_` and `init_score_head_`
 draw the adapters and the score head as the JAX modules initialise them.
@@ -44,10 +49,17 @@ import torch
 from aigv_assessor_torch.core.config import AssessorConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.assessor import AIGVAssessor, ScoreMLP
-from aigv_assessor_torch.models.lora import LoRALinear, W8A8Linear, is_lora_param
+from aigv_assessor_torch.models.lora import (
+    Int4Linear,
+    Int8Linear,
+    LoRALinear,
+    W8A8Linear,
+    is_lora_param,
+)
 from aigv_assessor_torch.models.motion import FrozenBatchNorm
 from aigv_assessor_torch.models.vit import InternVisionEncoderLayer
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
+from aigv_assessor_torch.ops.int8_matmul import quantize_kernel_int4
 from aigv_assessor_torch.ops.w8a8 import quantize_kernel
 
 INIT_STD = 0.02  # the configs' initializer_range
@@ -72,9 +84,9 @@ def _convert_leaf(path: Tuple[str, ...], x: np.ndarray) -> Tuple[str, torch.Tens
     path = tuple(p for p in path if p != "base")
     name = path[-1]
     t = _to_torch(x)
-    if name == "kernel_scale":
+    if name in ("kernel_scale", "kernel_scale4"):
         name = "weight_scale"
-    elif name in ("kernel", "kernel_int8"):
+    elif name in ("kernel", "kernel_int8", "kernel_int4"):
         name = "weight"
         if t.ndim == 2:  # Dense [in, out] -> Linear [out, in]
             t = t.t()
@@ -101,11 +113,14 @@ def expected_shapes(
 def state_dict_from_jax(
     params: Mapping[str, Any], config: AssessorConfig, precision: Precision = Precision()
 ) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for `AIGVAssessor(config, precision)`; a W8A8
-    tree (JAX `quantize_for_serving(w8a8=True)`) needs `precision.w8a8`."""
+    """The port's state_dict for `AIGVAssessor(config, precision)`; a
+    quantized tree (JAX `quantize_for_serving(w8a8=True | int8=True |
+    int4=True)`) needs the precision that call returns."""
     tree = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     for path, x in _flatten(tree):
+        if path[-1] == "kernel_in_dim":  # int4 bookkeeping, no model parameter
+            continue
         if "layers" in path:  # scan-stacked: leading [L] axis
             i = path.index("layers")
             for layer in range(np.shape(x)[0]):
@@ -148,7 +163,9 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Optional[int]]]:
                 layer = int(p)
             else:
                 path.append(p)
-        if isinstance(module, W8A8Linear):
+        if isinstance(module, Int4Linear):
+            leaf = {"weight": "kernel_int4", "weight_scale": "kernel_scale4"}.get(leaf, leaf)
+        elif isinstance(module, (W8A8Linear, Int8Linear)):
             leaf = {"weight": "kernel_int8", "weight_scale": "kernel_scale"}.get(leaf, leaf)
         elif isinstance(module, (torch.nn.Linear, LoRALinear, torch.nn.Conv2d, torch.nn.Conv3d)):
             leaf = "kernel" if leaf == "weight" else leaf
@@ -165,27 +182,45 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Optional[int]]]:
 
 @torch.no_grad()
 def quantize_for_serving(
-    state_dict: Mapping[str, torch.Tensor], config: AssessorConfig
+    state_dict: Mapping[str, torch.Tensor],
+    config: AssessorConfig,
+    *,
+    int8: bool = False,
+    int4: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """W8A8 serving weights from the fp32 state_dict of `AIGVAssessor(config)`:
-    the state_dict of the same model under `Precision(w8a8=True)`.
+    """Quantized serving weights from the fp32 state_dict of
+    `AIGVAssessor(config)`: the state_dict of the same model under
+    `Precision(w8a8=True)`, or with `int8` / `int4` under
+    `Precision(int8_weights=True)` / `(int4_weights=True)` (int4 first when
+    both are set, as in the JAX package).
 
-    The weights quantized are those the W8A8 model holds as `W8A8Linear`s,
-    the set JAX's `quantize_tree(only_base=True)` picks over both towers: the
+    W8A8 quantizes the weights the W8A8 model holds as `W8A8Linear`s, the
+    set JAX's `quantize_tree(only_base=True)` picks over both towers: the
     ViT's qkv, proj, fc1, fc2 and InternLM2's wqkv, wo, w1, w2, w3 in every
-    layer. The LM head and everything outside the towers stay float. The
-    weights must be fp32: quantizing bf16-rounded copies adds error, and
+    layer. The LM head and everything outside the towers stay float.
+
+    int8 / int4 quantize what `quantize_tree` / `quantize_tree_int4` pick
+    with `scope="language_model"` and their default `min_size` of 4096 on
+    any config at least as wide as `LLMConfig.tiny()`: every dense weight
+    under `language_model`, the LM head included, the embedding excluded.
+    These are the weights the weight-only model holds as `Int8Linear` /
+    `Int4Linear`; it has no float form of a decoder projection.
+
+    The weights must be fp32: quantizing bf16-rounded copies adds error, and
     JAX quantizes before it casts."""
-    want = expected_shapes(config, Precision(w8a8=True))
+    if not (int8 or int4):
+        want = expected_shapes(config, Precision(w8a8=True))
+        quantize = quantize_kernel
+    else:
+        want = expected_shapes(config, Precision(int4_weights=int4, int8_weights=not int4))
+        quantize = quantize_kernel_int4 if int4 else quantize_kernel
+    prefixes = [key[: -len("_scale")] for key in want if key.endswith(".weight_scale")]
     out = dict(state_dict)
-    for key in want:
-        if not key.endswith(".weight_scale"):
-            continue
-        prefix = key[: -len("_scale")]  # "<module>.weight"
+    for prefix in prefixes:  # "<module>.weight"
         w = out[prefix]
         if w.dtype != torch.float32:
             raise TypeError(f"{prefix} is {w.dtype}: quantize from the fp32 weights")
-        out[prefix], out[key] = quantize_kernel(w)
+        out[prefix], out[prefix + "_scale"] = quantize(w)
     return out
 
 

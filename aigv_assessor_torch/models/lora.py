@@ -8,7 +8,12 @@ base weights, as `aigv_assessor_tpu/tools/merge_lora.py` does.
 `W8A8Linear` is the counterpart of `W8A8Dense` (`:98`): int8 weights with
 per-output-channel fp32 scales, activations quantized per row on the fly
 or handed in pre-quantized by a fused producer (`ops/quant_fuse.py`).
-LoRA over a W8A8 base, `Int8Dense` and `Int4Dense` are not ported yet
+
+`Int8Linear` and `Int4Linear` are the counterparts of `Int8Dense` (`:28`)
+and `Int4Dense` (`:62`): weight-only int8 / nibble-packed int4 under float
+activations, decoded inside the matmul kernel (`ops/int8_matmul.py`).
+
+LoRA over a quantized base (W8A8, int8 or int4) is not ported yet
 (ROADMAP.md, Queue 1).
 
 Randomness. Dropout draws from an explicit `torch.Generator` that the owner
@@ -26,7 +31,7 @@ from torch import nn
 
 from aigv_assessor_torch.core.config import LoRAConfig
 from aigv_assessor_torch.core.precision import Precision
-from aigv_assessor_torch.ops import w8a8
+from aigv_assessor_torch.ops import int8_matmul, w8a8
 
 LORA_LEAVES = ("lora_a", "lora_b")
 
@@ -114,10 +119,17 @@ class LoRALinear(nn.Module):
                 f"heads={self.heads}, head_major_in={self.head_major_in}")
 
 
-def reject_w8a8_lora(precision: Precision, lora: Optional[LoRAConfig]) -> None:
-    if precision.w8a8 and lora is not None and lora.r > 0:
+def reject_quantized_lora(precision: Precision, lora: Optional[LoRAConfig]) -> None:
+    if lora is None or lora.r <= 0:
+        return
+    if precision.w8a8:
         raise NotImplementedError(
             "LoRA over a W8A8 base is not ported yet (ROADMAP.md, Queue 1)"
+        )
+    if precision.weight_only:
+        raise NotImplementedError(
+            "LoRA over an int8/int4 weight-only base is not ported yet (ROADMAP.md, "
+            "Queue 1, item 7)"
         )
 
 
@@ -159,7 +171,38 @@ def lora_free_state_dict(model: nn.Module) -> dict:
     return {k: v for k, v in model.state_dict().items() if not is_lora_param(k)}
 
 
-class W8A8Linear(nn.Module):
+class QuantizedLinear(nn.Module):
+    """Common part of the quantized dense layers: an int8 `weight` buffer
+    with one row per output channel, an fp32 `weight_scale` [out] that stays
+    fp32 whatever the model is cast to, and an optional float `bias`."""
+
+    def __init__(self, out_features: int, weight_cols: int, bias: bool,
+                 out_dtype: torch.dtype):
+        super().__init__()
+        self.out_dtype = out_dtype
+        self.register_buffer("weight", torch.zeros(out_features, weight_cols, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def _apply(self, fn, recurse=True):
+        # `.to(torch.bfloat16)` casts every floating tensor; the dequant scale
+        # stays fp32, as JAX's `cast_params_for_inference` keeps kernel_scale
+        # and kernel_scale4. It only follows the device, which `fn` shows on
+        # an empty slice.
+        scale = self._buffers.pop("weight_scale")
+        try:
+            super()._apply(fn, recurse)
+            device = fn(scale[:0]).device
+            if scale.is_meta and device.type != "meta":  # to_empty
+                scale = torch.empty_like(scale, device=device)
+            else:
+                scale = scale.to(device)
+        finally:
+            self._buffers["weight_scale"] = scale
+        return self
+
+
+class W8A8Linear(QuantizedLinear):
     """y = dequant(quantize_rows(x) @ weight^T) + bias in `out_dtype`.
 
     - `weight`: int8 [out, in] (the JAX `kernel_int8` [in, out], transposed);
@@ -179,28 +222,8 @@ class W8A8Linear(nn.Module):
         out_dtype: torch.dtype = torch.bfloat16,
         heads: Optional[int] = None,
     ):
-        super().__init__()
-        self.out_dtype = out_dtype
+        super().__init__(out_features, in_features, bias, out_dtype)
         self.heads = heads
-        self.register_buffer("weight", torch.zeros(out_features, in_features, dtype=torch.int8))
-        self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
-
-    def _apply(self, fn, recurse=True):
-        # `.to(torch.bfloat16)` casts every floating tensor; the dequant scale
-        # stays fp32, as JAX's `cast_params_for_inference` keeps kernel_scale.
-        # It only follows the device, which `fn` shows on an empty slice.
-        scale = self._buffers.pop("weight_scale")
-        try:
-            super()._apply(fn, recurse)
-            device = fn(scale[:0]).device
-            if scale.is_meta and device.type != "meta":  # to_empty
-                scale = torch.empty_like(scale, device=device)
-            else:
-                scale = scale.to(device)
-        finally:
-            self._buffers["weight_scale"] = scale
-        return self
 
     def forward(self, x):
         if self.heads:
@@ -213,3 +236,59 @@ class W8A8Linear(nn.Module):
         out_f, in_f = self.weight.shape
         return (f"in_features={in_f}, out_features={out_f}, bias={self.bias is not None}, "
                 f"heads={self.heads}, out_dtype={self.out_dtype}")
+
+
+class Int8Linear(QuantizedLinear):
+    """W8A16: y = (x @ weight^T) * weight_scale + bias in `out_dtype`, the
+    int8 weight cast inside the kernel (`ops/int8_matmul.int8_matmul`).
+
+    - `weight`: int8 [out, in], the JAX `kernel_int8` [in, out] transposed,
+      so each output channel's K values are contiguous, as the kernel reads
+      them;
+    - `weight_scale`: fp32 [out] (`kernel_scale`);
+    - `bias`: optional [out], cast with the model."""
+
+    @staticmethod
+    def weight_cols(in_features: int) -> int:
+        """Bytes of one output channel's row of `weight`."""
+        return in_features
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = False, *,
+                 out_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(out_features, self.weight_cols(in_features), bias, out_dtype)
+        self.in_features = in_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_matmul.int8_dense_apply(
+            x.to(self.out_dtype), self.weight, self.weight_scale, self.bias, self.out_dtype
+        )
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features={self.weight.shape[0]}, "
+                f"bias={self.bias is not None}, out_dtype={self.out_dtype}")
+
+
+class Int4Linear(Int8Linear):
+    """W4A16: the same over nibble-packed int4 (`ops/int8_matmul.int4_matmul`).
+
+    - `weight`: int8 [out, ceil(in / 2)], the JAX `kernel_int4`
+      [ceil(in / 2), out] transposed: byte j of a row packs the channel's
+      weights 2j (low nibble) and 2j + 1 (high nibble);
+    - `weight_scale`: fp32 [out] (`kernel_scale4`)."""
+
+    @staticmethod
+    def weight_cols(in_features: int) -> int:
+        return (in_features + 1) // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.in_features:  # an odd K shares its byte count with K + 1
+            raise ValueError(f"expected {self.in_features} input features, got {x.shape[-1]}")
+        return int8_matmul.int4_dense_apply(
+            x.to(self.out_dtype), self.weight, self.weight_scale, self.bias, self.out_dtype
+        )
+
+
+def weight_only_linear(precision: Precision):
+    """`Int4Linear` or `Int8Linear`, as `LoRADense` picks its base: int4
+    first."""
+    return Int4Linear if precision.int4_weights else Int8Linear

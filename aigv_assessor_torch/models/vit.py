@@ -43,7 +43,7 @@ from aigv_assessor_torch.models.lora import (
     LoRALinear,
     W8A8Linear,
     make_linear,
-    reject_w8a8_lora,
+    reject_quantized_lora,
 )
 from aigv_assessor_torch.ops import quant_fuse
 from aigv_assessor_torch.ops.attention import fused_qkv_attention
@@ -93,7 +93,7 @@ class InternAttention(nn.Module):
             raise NotImplementedError(
                 "ViT QK-normalization is not ported yet (ROADMAP.md, Queue 1)"
             )
-        reject_w8a8_lora(precision, lora)
+        reject_quantized_lora(precision, lora)
         self.num_heads = h = config.num_attention_heads
         self.w8a8 = precision.w8a8
         c = config.hidden_size
@@ -132,7 +132,7 @@ class InternMLP(nn.Module):
     def __init__(self, config: VisionConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        reject_w8a8_lora(precision, lora)
+        reject_quantized_lora(precision, lora)
         self.approximate = "tanh" if config.approximate_gelu else "none"
         self.w8a8 = precision.w8a8
         c, f = config.hidden_size, config.intermediate_size

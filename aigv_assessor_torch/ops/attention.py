@@ -5,8 +5,11 @@
   kernels' wrapper (`ops/flash_attention.py`), which launches the CUDA
   kernels for a CUDA tensor (forward, and backward under autograd) and runs
   the plain versions for a CPU tensor.
+- `multi_head_attention`: attention on three separate tensors, as the
+  weight-only decoder calls it; it goes to the same wrapper module's
+  `flash_attention`.
 - `plain_attention`: the counterpart of the JAX `xla_attention`, einsums
-  with an fp32 softmax. It is the kernel's plain version.
+  with an fp32 softmax. It is the kernels' plain version.
 
 Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] with Hq % Hkv == 0 (GQA).
 Queries are grouped as [B, Sq, Hkv, G, D] against their shared KV head, so
@@ -83,4 +86,26 @@ def fused_qkv_attention(
 
     return flash_attention.flash_attention_qkv(
         qkv, hq, hkv, causal=causal, kv_valid=kv_valid, out_layout=out_layout
+    )
+
+
+def multi_head_attention(
+    q: torch.Tensor,  # [B, Sq, Hq, D] (`bshd`) or [B, Hq, Sq, D] (`bhsd`)
+    k: torch.Tensor,  # [B, Skv, Hkv, D] or [B, Hkv, Skv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """Multi-head (optionally grouped-query) attention -> q's shape.
+    kv_valid: keys at or beyond it are masked (the caller padded Skv).
+
+    The JAX entry point also takes a boolean `mask`, which it sends to its
+    plain attention. No caller in the port has one yet: it comes with the
+    shared-prefix scorer (ROADMAP.md, Queue 1)."""
+    from aigv_assessor_torch.ops import flash_attention  # see fused_qkv_attention
+
+    return flash_attention.flash_attention(
+        q, k, v, causal=causal, layout=layout, kv_valid=kv_valid
     )

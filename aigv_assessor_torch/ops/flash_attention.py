@@ -1,7 +1,8 @@
-"""Fused-qkv flash attention: CUDA kernel wrappers and plain versions.
+"""Flash attention: CUDA kernel wrappers and plain versions.
 
-Replaces the Pallas kernels of `aigv_assessor_tpu/ops/pallas_attention.py`
-that `flash_attention_qkv` (`:905`) reaches:
+Replaces the Pallas kernels of `aigv_assessor_tpu/ops/pallas_attention.py`.
+Those that `flash_attention_qkv` (`:905`) reaches, off one fused head-major
+qkv array:
 
 - the forward `_fwd_kernel` (`:106`), in its three forms: head-major `bhsd`
   output without logsumexp (bf16 serving), dense `bsd` output that an
@@ -11,8 +12,17 @@ that `flash_attention_qkv` (`:905`) reaches:
 - the backward `_bwd_dq_kernel` (`:384`) and `_bwd_dkv_kernel` (`:455`).
   Source: `aigv_assessor_torch/csrc/flash_attn_bwd.cu`.
 
+And the forward that `flash_attention` (`:689`) reaches, on three separate
+tensors in the `bshd` or `bhsd` layout, which the weight-only decoder runs:
+the second entry of `csrc/flash_attn_fwd.cu`, over the same kernel body.
+Forward only: its logsumexp form and a backward over separate tensors are
+not ported yet (ROADMAP.md, Queue 2).
+
 Each source's header comment says what bounds its kernels on the card and how
 they are laid out.
+
+- `flash_attention` wraps the three-tensor forward and `plain_flash_attention`
+  is its plain version.
 
 - `flash_attention_qkv` is the entry point. Without a gradient to take it is
   the forward-only wrapper; when `qkv` requires a gradient it goes through
@@ -66,6 +76,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ctypes.c_void_p,  # scale, stream
     ]
     lib.aigv_flash_attn_qkv_fwd.restype = ctypes.c_int
+    lib.aigv_flash_attn_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, Sq, Skv
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
+        ctypes.POINTER(ctypes.c_longlong),  # 12 strides: q, k, v, out
+        ctypes.c_float, ctypes.c_void_p,  # scale, stream
+    ]
+    lib.aigv_flash_attn_fwd.restype = ctypes.c_int
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
@@ -405,3 +423,98 @@ def flash_attention_qkv(
 
 
 flash_attention_qkv.launches = 0
+
+
+# ---------------------------------------------------- three separate tensors --
+
+LAYOUTS = ("bshd", "bhsd")
+
+
+def plain_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """The three-tensor kernel's plain version: `plain_attention` with the
+    keys at or beyond `kv_valid` masked, in either layout."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    if layout == "bhsd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    b, sq = q.shape[:2]
+    skv = k.shape[1]
+    mask = None
+    if kv_valid is not None and kv_valid < skv:
+        mask = (torch.arange(skv, device=q.device) < kv_valid)[None, None, :].expand(b, sq, skv)
+    out = plain_attention(q, k, v, causal=causal, mask=mask)
+    return out.transpose(1, 2) if layout == "bhsd" else out
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, Hq, D] (`bshd`) or [B, Hq, Sq, D] (`bhsd`)
+    k: torch.Tensor,  # [B, Skv, Hkv, D] or [B, Hkv, Skv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash attention on three separate tensors, softmax scale D**-0.5 ->
+    q's shape, contiguous (so a `bshd` result reshapes to [B, Sq, Hq*D]
+    without a copy).
+
+    q head h reads kv head h // (Hq // Hkv). Each tensor is read in place
+    through its strides: slices of one projection output and permuted views
+    need no copy. `causal` needs Sq == Skv; without it Sq and Skv may differ.
+    Keys at or beyond `kv_valid` (default Skv) are masked. On the card: bf16,
+    D in (64, 128). Forward only: a tensor that needs a gradient raises. A
+    CPU tensor goes to `plain_flash_attention`."""
+    if q.device.type == "cpu":
+        return plain_flash_attention(q, k, v, causal=causal, layout=layout, kv_valid=kv_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention on separate tensors is forward-only: its logsumexp and "
+            "backward are not ported yet (ROADMAP.md, Queue 2)"
+        )
+    seq, head = (2, 1) if layout == "bhsd" else (1, 2)
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.dtype != torch.bfloat16 or t.ndim != 4 or t.device != q.device:
+            raise TypeError(f"flash_attention takes 4-d bf16 tensors on one device, got {name} "
+                            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        _check_rows(t, name)
+    b, d = q.shape[0], q.shape[3]
+    sq, hq, skv, hkv = q.shape[seq], q.shape[head], k.shape[seq], k.shape[head]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if hkv <= 0 or hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if causal and sq != skv:
+        raise ValueError(f"causal attention needs Sq == Skv, got {sq} and {skv}")
+    kv_valid = skv if kv_valid is None else kv_valid
+    if not 0 < kv_valid <= skv:
+        raise ValueError(f"kv_valid {kv_valid} outside (0, {skv}]")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, head, seq)]
+    lib = LIB.load()
+    with torch.cuda.device(q.device):
+        rc = lib.aigv_flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
+            kv_valid, int(causal), (ctypes.c_longlong * 12)(*strides), d**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    LIB.check(rc, "flash attention kernel")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -59,15 +59,21 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rope(
-    q: torch.Tensor,  # [B, Hq, S, D]
-    k: torch.Tensor,  # [B, Hkv, S, D]
+    q: torch.Tensor,  # [B, Hq, S, D] (`bhsd`) or [B, S, Hq, D] (`bshd`)
+    k: torch.Tensor,  # [B, Hkv, S, D] or [B, S, Hkv, D]
     cos: torch.Tensor,  # [rope_len, D]
     sin: torch.Tensor,
     position_ids: torch.Tensor,  # [B, S]
+    layout: str = "bhsd",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RoPE on head-major q/k; the tables are cast to q's dtype first."""
-    cos_g = cos[position_ids][:, None].to(q.dtype)  # [B, 1, S, D]
-    sin_g = sin[position_ids][:, None].to(q.dtype)
+    """RoPE on head-major (`bhsd`, the fused-qkv paths) or row-major (`bshd`,
+    the JAX default, which the weight-only decoder runs) q/k; the tables are
+    cast to q's dtype first."""
+    if layout not in ("bhsd", "bshd"):
+        raise ValueError(f"layout {layout!r} not in ('bhsd', 'bshd')")
+    heads = 1 if layout == "bhsd" else 2  # the axis the tables broadcast over
+    cos_g = cos[position_ids].unsqueeze(heads).to(q.dtype)  # [B, 1, S, D] or [B, S, 1, D]
+    sin_g = sin[position_ids].unsqueeze(heads).to(q.dtype)
     q_rot = q * cos_g + rotate_half(q) * sin_g
     k_rot = k * cos_g + rotate_half(k) * sin_g
     return q_rot, k_rot

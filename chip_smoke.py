@@ -10,8 +10,9 @@ Phases, each printing one line or more (and failing the run by raising):
 2. build: compiles the port's CUDA sources for sm_90a, one nvcc per source,
    all started together: the flash-attention forward
    (`aigv_assessor_torch/csrc/flash_attn_fwd.cu`), its backward
-   (`csrc/flash_attn_bwd.cu`) and the fused quantize kernels
-   (`csrc/quant_fuse.cu`).
+   (`csrc/flash_attn_bwd.cu`), the fused quantize kernels
+   (`csrc/quant_fuse.cu`) and the weight-only matmuls
+   (`csrc/weight_only_matmul.cu`).
 3. kernel: each kernel against its plain PyTorch version on the same inputs,
    both timed with CUDA events after warm-up, beside its bound (the larger of
    bytes / 3.35 TB/s and operations / 989 TFLOP/s, from this run's shapes)
@@ -31,6 +32,23 @@ Phases, each printing one line or more (and failing the run by raising):
    - The LayerNorm / tanh-GELU / identity + int8 quantize kernels at the 2B
      ViT's feed shapes and at a ragged row count: scales within rtol 1e-5,
      int8 values differing by at most one on at most 1e-3 of the elements.
+   - The forward on three separate tensors at the LLM's shape (`bshd` views
+     of one row-major projection output, causal, GQA), at the ViT's shape in
+     both layouts with kv_valid 1025 of 1032, at a non-causal Sq != Skv shape
+     and at the ragged shape, to the same atol = rtol = 2e-2; and against the
+     fused-qkv kernel on the same data, with which it shares its body:
+     bit-equal. Yardstick: SDPA on the same views.
+   - The weight-only int8 and int4 matmuls at the decoder's projection
+     shapes with M = 8452 rows (4 videos x 2113 tokens), at the decode sizes
+     M = 4 and M = 1 of the same shapes (timed over enough copies of the
+     weight that none is found in the L2 cache), at the LM head
+     (2048 -> 92553) with M = 4, and for int4 at an odd K: relative L2 at most
+     WO_TOL from the plain version, which multiplies the same bf16 inputs in
+     fp32; against that version rounded to bf16, all but WO_UNEQUAL_SHARE of
+     the elements equal and all but WO_ULP_SHARE within one bf16 ulp; and
+     exactly 0 for an all-zero weight column. Yardstick, which
+     nothing in the port calls: `F.linear` in bf16 on a weight dequantized
+     beforehand, the same product with two or four times the weight bytes.
 4. slice (bf16): stage-2 scoring of the InternVL2-2B model (full depth and
    width, random weights from a seed) through `cli/score.score_chunks`, two
    chunks of four synthetic 8-frame 448 px videos with the 2113-token
@@ -46,8 +64,20 @@ Phases, each printing one line or more (and failing the run by raising):
    its plain version, and against a W8A8 forward of the same int8 weights
    with fp32 activations (tolerances at W8A8_READOUT_TOL); and the W8A8
    readout's cosine to the bf16 readout at least W8A8_COSINE.
+6. slices (int8, int4): the same weights, seed and videos served weight-only
+   (`build_serving_model(int8=True)` / `(int4=True)`): the ViT in bf16 on
+   the fused-qkv kernel, the decoder's projections int8 or packed int4 on
+   the weight-only matmuls, its attention on the three-tensor forward.
+   Checks finite [4, 1] scores; per forward 24 fused-qkv launches, 24
+   three-tensor launches and 120 of the one matmul kernel, none of the
+   other, of the quantize feeds or of the training kernels; the readout of
+   the kernel path against (a) the same model with every kernel swapped for
+   its plain version and (b) the bf16 model whose decoder weights are the
+   dequantized int8 / int4 values, both within WEIGHT_ONLY_READOUT_TOL; and
+   prints the readout's cosine to the bf16 readout (int8: at least
+   INT8_COSINE).
 
-6. slice (train): stage-2 LoRA training of the same model
+7. slice (train): stage-2 LoRA training of the same model
    (`cli/stage2_train.build_training_model`, rank 8 in both towers, bf16 with
    fp32 adapters and score head, per-layer checkpointing, adapter dropout
    0.05, drop path 0.1) through `train_steps`: TRAIN_STEPS optimizer steps on
@@ -130,6 +160,28 @@ W8A8_COSINE = 0.99
 # a half
 SCALE_RTOL = 1e-5
 FLIP_FRACTION = 1e-3
+# weight-only matmuls vs the plain version (fp32 products of the same bf16
+# inputs, fp32 out): the summation order and one bf16 rounding of the result,
+# 2^-9 relative per element at most. That rounding takes most of WO_TOL, so
+# the kernel's bf16 output is also held against the plain version rounded to
+# bf16: the fp32 sums differ by the summation order only, far below a bf16
+# ulp, so nearly every element is the same bf16 value and the rest its
+# neighbour. At most WO_UNEQUAL_SHARE of the elements may differ at all, at
+# most WO_ULP_SHARE by more than one bf16 ulp (results near 0 after
+# cancellation, where an ulp is smaller than the sums' rounding).
+WO_TOL = 2e-3
+WO_UNEQUAL_SHARE = 2e-2
+WO_ULP_SHARE = 1e-3
+# Weight-only readout after 24 bf16 ViT and 24 weight-only decoder layers. The
+# weights are fixed integers, so nothing flips as under W8A8: the paths differ
+# as two bf16 forwards do (2.03e-2 on an H100, above). (a) the plain path
+# multiplies in fp32 and rounds each projection's output to bf16 like the
+# kernels; (b) the bf16 model of the dequantized weights also rounds q * scale
+# to bf16 where the kernels apply the scale to the fp32 sum.
+WEIGHT_ONLY_READOUT_TOL = 5e-2
+# int8 weight-only against bf16 of the same weights: the bound W8A8 is held to,
+# which quantizes these weights and the activations too
+INT8_COSINE = 0.99
 CTX = 7  # <IMG_CONTEXT> id of the synthetic prompts
 FRAMES, IMAGE, TEXT, BATCH, CHUNKS = 8, 448, 64, 4, 2
 # (B, hq, hkv, S, D, causal, kv_valid)
@@ -146,6 +198,18 @@ FEEDS = {
     "ident_quant": (33024, 1024, 24, "aigv_assessor_tpu/ops/quant_fuse.py:140"),
 }
 RAGGED_ROWS = 1000
+# the 2B decoder's projections: (K, N, launches per layer)
+PROJECTIONS = {
+    "wqkv": (2048, 4096, 1),
+    "wo": (2048, 2048, 1),
+    "w1_w3": (2048, 8192, 2),
+    "w2": (8192, 2048, 1),
+}
+PREFILL_ROWS = 4 * 2113
+DECODE_ROWS = (4, 1)
+LM_HEAD = (2048, 92553)
+ODD_K = (2047, 4096)  # int4 pads a nibble, x loses its 16-byte rows
+L2_BYTES = 50e6
 
 
 def phase(name: str, msg: str) -> None:
@@ -397,6 +461,233 @@ def check_feeds(qf, device) -> dict:
     return results
 
 
+def check_attention_separate(fa, device) -> dict:
+    """The forward on three separate tensors: against its plain version,
+    against the fused-qkv kernel on the same data, and timed at the two
+    shapes of the 2B model."""
+    results = {}
+
+    def compare(name, q, k, v, kw, fused=None):
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = fa.plain_flash_attention(q, k, v, **kw)
+        if got.shape != q.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"three-tensor attention at {name}: output not finite {q.shape}")
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+        err = (got.float() - want.float()).abs().max().item()
+        equal = None if fused is None else torch.equal(got.reshape(fused.shape), fused)
+        diff = (None if fused is None else
+                (got.reshape(fused.shape).float() - fused.float()).abs().max().item())
+        if fused is not None and not equal:  # one body: the fused kernel's check covers this one
+            raise RuntimeError(f"three-tensor attention at {name}: not bit-equal to the "
+                               f"fused-qkv kernel on the same data, max abs diff {diff:.3e}")
+        return got, want, err, equal, diff
+
+    def sdpa_ms(q, k, v, kw, want, layout):
+        # the library takes head-major tensors: views, no copy; kv_valid by slicing
+        if layout == "bshd":
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        kv_valid = kw.get("kv_valid")
+        k, v = k[:, :, :kv_valid], v[:, :, :kv_valid]
+        gqa = q.shape[1] != k.shape[1]
+
+        def call():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=kw.get("causal", False), enable_gqa=gqa)
+        with torch.no_grad():
+            lib = call()
+            if layout == "bshd":
+                lib = lib.transpose(1, 2)
+            lib_err = (lib.float() - want.float()).abs().max().item()
+            return time_ms(call, 20), lib_err
+
+    # the LLM's call: [B, S, H, D] views of one row-major projection output
+    b, hq, hkv, s, d, _, _ = SHAPES["llm"]
+    gen = torch.Generator(device=device).manual_seed(2)
+    proj = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen, device=device).to(torch.bfloat16)
+    q = proj[..., : hq * d].view(b, s, hq, d)
+    k = proj[..., hq * d : (hq + hkv) * d].view(b, s, hkv, d)
+    v = proj[..., (hq + hkv) * d :].view(b, s, hkv, d)
+    kw = dict(causal=True)
+    fused = fa.flash_attention_qkv(proj.view(b, s, hq + 2 * hkv, d).transpose(1, 2), hq, hkv,
+                                   causal=True, out_layout="bsd")
+    _, want, err, equal, diff = compare("llm", q, k, v, kw, fused)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
+    plain_ms = time_ms(lambda: fa.plain_flash_attention(q, k, v, **kw), 5)
+    library_ms, lib_err = sdpa_ms(q, k, v, kw, want, "bshd")
+    bound, bound_by = bound_ms(*attention_work(SHAPES["llm"])["fwd"])
+    results["llm"] = dict(
+        shape=f"bshd views of one [B, S, {(hq + 2 * hkv) * d}] projection, B={b} hq={hq} "
+        f"hkv={hkv} S={s} D={d} causal", max_abs_err=err, equals_fused=equal,
+        max_abs_diff_to_fused=diff, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by)
+
+    # the ViT's shape as separate tensors with a garbage tail, both layouts
+    shape = SHAPES["vit"]
+    b, hq, hkv, s, d, _, kv_valid = shape
+    qkv = make_qkv(shape, device)
+    kw = dict(kv_valid=kv_valid)
+    parts = (qkv[:, :hq], qkv[:, hq : hq + hkv], qkv[:, hq + hkv :])
+    fused = {"bhsd": fa.flash_attention_qkv(qkv, hq, hkv, **kw),
+             "bshd": fa.flash_attention_qkv(qkv, hq, hkv, out_layout="bsd", **kw)}
+    bound, bound_by = bound_ms(*attention_work(shape)["fwd"])
+    for layout in ("bhsd", "bshd"):
+        q, k, v = parts if layout == "bhsd" else (t.transpose(1, 2) for t in parts)
+        kwl = dict(layout=layout, **kw)
+        _, want, err, equal, diff = compare(f"vit {layout}", q, k, v, kwl, fused[layout])
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kwl), 20)
+        plain_ms = time_ms(lambda: fa.plain_flash_attention(q, k, v, **kwl), 5)
+        library_ms, lib_err = sdpa_ms(q, k, v, kw, want, layout)
+        results[f"vit_{layout}"] = dict(
+            shape=f"{layout} views of the fused array, B={b} H={hq} S={s} D={d} "
+            f"kv_valid={kv_valid}", max_abs_err=err, equals_fused=equal,
+            max_abs_diff_to_fused=diff, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by)
+
+    # non-causal with Sq != Skv, and the ragged shape with its garbage tail
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v = (torch.randn((8, n, 16, 64), generator=gen, device=device).to(torch.bfloat16)
+               for n in (257, 1025, 1025))
+    _, _, err, _, _ = compare("cross", q, k, v, {})
+    results["cross"] = dict(shape="bshd B=8 H=16 Sq=257 Skv=1025 D=64", max_abs_err=err)
+    shape = SHAPES["ragged"]
+    _, hq, hkv, _, _, _, kv_valid = shape
+    qkv = make_qkv(shape, device)
+    parts = (qkv[:, :hq], qkv[:, hq : hq + hkv], qkv[:, hq + hkv :])
+    fused = fa.flash_attention_qkv(qkv, hq, hkv, kv_valid=kv_valid)
+    _, _, err, equal, diff = compare("ragged", *parts, dict(layout="bhsd", kv_valid=kv_valid),
+                                     fused)
+    results["ragged"] = dict(shape="bhsd B=2 H=4 S=200 D=64 kv_valid=150", max_abs_err=err,
+                             equals_fused=equal, max_abs_diff_to_fused=diff)
+    for name, r in results.items():
+        timed = (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA {r['library_ms']:.4f} ms "
+                 f"(max_abs_err to plain {r['library_max_abs_err']:.3e})" if "ms" in r else "")
+        fused_text = ("" if r.get("equals_fused") is None else
+                      f", bit-equal to the fused-qkv kernel: {r['equals_fused']} (max abs "
+                      f"diff {r['max_abs_diff_to_fused']:.3e})")
+        phase("kernel", f"three-tensor attention {name}: {r['shape']}: max_abs_err "
+              f"{r['max_abs_err']:.3e} (atol=rtol={TOL}){fused_text}{timed}")
+    return results
+
+
+def check_weight_only(wo, device) -> dict:
+    """The int8 and int4 matmuls against their plain versions: at the
+    decoder's shapes with the prefill's rows (timed), at the decode sizes
+    (timed with every weight read from device memory), at the LM head and,
+    for int4, at an odd K."""
+    results = {}
+    shares = []  # per comparison: (share of elements unequal, share beyond one bf16 ulp)
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def operands(bits, m, k, n):
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device=device) * 0.02
+        w[n // 2] = 0.0  # an all-zero output channel: scale 1, output exactly 0
+        q, scale = (wo.quantize_weight if bits == 8 else wo.quantize_kernel_int4)(w)
+        deq = (wo.dequantize_kernel(q, scale, torch.bfloat16) if bits == 8 else
+               wo.dequantize_kernel_int4(q, scale, k, torch.bfloat16))
+        return x, q, scale, deq
+
+    def compare(label, kernel, plain, x, q, scale):
+        n = q.shape[0]
+        got = kernel(x, q, scale)
+        torch.cuda.synchronize()
+        want = plain(x, q, scale, out_dtype=torch.float32)
+        rel = relative_l2(got.float(), want)
+        if not (torch.isfinite(got).all() and rel <= WO_TOL):
+            raise RuntimeError(f"{label}: relative L2 to the plain version {rel} above {WO_TOL}")
+        if scale[n // 2] != 1.0 or got[:, n // 2].any():
+            raise RuntimeError(f"{label}: an all-zero weight column did not give exactly 0")
+        rounded = want.to(torch.bfloat16).float()
+        diff = (got.float() - rounded).abs()
+        ulp = torch.ldexp(torch.ones_like(rounded), torch.frexp(rounded).exponent - 8)
+        unequal, beyond = (diff > 0).float().mean().item(), (diff > ulp).float().mean().item()
+        if unequal > WO_UNEQUAL_SHARE or beyond > WO_ULP_SHARE:
+            raise RuntimeError(
+                f"{label}: against the plain version rounded to bf16, {unequal:.3e} of the "
+                f"elements differ (tol {WO_UNEQUAL_SHARE}) and {beyond:.3e} by more than one "
+                f"bf16 ulp (tol {WO_ULP_SHARE})")
+        shares.append((unequal, beyond))
+        return rel, (got.float() - want).abs().max().item()
+
+    def work(bits, m, k, n):
+        return 2.0 * m * n * k, 2 * m * k + n * ((k + 1) // 2 if bits == 4 else k) + 4 * n + 2 * m * n
+
+    for bits, kernel, plain in ((8, wo.int8_matmul, wo.plain_int8_matmul),
+                                (4, wo.int4_matmul, wo.plain_int4_matmul)):
+        table = {}
+        for name, (k, n, _) in PROJECTIONS.items():
+            x, q, scale, deq = operands(bits, PREFILL_ROWS, k, n)
+            rel, err = compare(f"int{bits} {name}", kernel, plain, x, q, scale)
+            bound, bound_by = bound_ms(*work(bits, PREFILL_ROWS, k, n))
+            entry = dict(
+                K=k, N=n, M=PREFILL_ROWS, rel_l2=rel, max_abs_err=err,
+                ms=time_ms(lambda: kernel(x, q, scale), 10),
+                plain_ms=time_ms(lambda: plain(x, q, scale), 3, warmup=1),
+                library_ms=time_ms(lambda: torch.nn.functional.linear(x, deq), 10),
+                bound_ms=bound, bound_by=bound_by, decode={})
+            # decode sizes: cycle over copies of the weight that together
+            # exceed the L2 cache, as a decoder walking its layers finds them
+            copies = int(L2_BYTES * 2 // q.numel()) + 1
+            qs, deqs = [q.clone() for _ in range(copies)], [deq.clone() for _ in range(copies)]
+            for m in DECODE_ROWS:
+                xm = x[:m].contiguous()
+                rel_m, err_m = compare(f"int{bits} {name} M={m}", kernel, plain, xm, q, scale)
+
+                def cycle(fn, ws):
+                    def run():
+                        for w in ws:
+                            fn(w)
+                    return time_ms(run, 5, warmup=1) / len(ws)
+                b_m, by_m = bound_ms(*work(bits, m, k, n))
+                entry["decode"][m] = dict(
+                    rel_l2=rel_m, max_abs_err=err_m, weight_copies=copies,
+                    ms=cycle(lambda w: kernel(xm, w, scale), qs),
+                    library_ms=cycle(lambda w: torch.nn.functional.linear(xm, w), deqs),
+                    bound_ms=b_m, bound_by=by_m)
+            del qs, deqs
+            table[name] = entry
+            dec = ", ".join(
+                f"M={m}: rel L2 {r['rel_l2']:.3e}, kernel {r['ms'] * 1e3:.1f} us, F.linear "
+                f"{r['library_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+                f"({r['bound_by']})" for m, r in entry["decode"].items())
+            phase("kernel", f"int{bits} matmul {name} K={k} N={n} M={PREFILL_ROWS}: rel L2 to "
+                  f"plain {rel:.3e} (tol {WO_TOL}), max_abs_err {err:.3e}, zero column exactly "
+                  f"0; kernel {entry['ms']:.4f} ms ({2e-9 * PREFILL_ROWS * k * n / entry['ms']:.1f} "
+                  f"TFLOP/s), plain {entry['plain_ms']:.4f} ms, F.linear bf16 on the dequantized "
+                  f"weight {entry['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
+                  f"decode, weights from device memory ({copies} copies): {dec}")
+        # the LM head: N off every tile, rows of y off their 4-byte alignment
+        k, n = LM_HEAD
+        x, q, scale, deq = operands(bits, DECODE_ROWS[0], k, n)
+        rel, err = compare(f"int{bits} LM head", kernel, plain, x, q, scale)
+        b_h, by_h = bound_ms(*work(bits, DECODE_ROWS[0], k, n))
+        table["lm_head"] = dict(
+            K=k, N=n, M=DECODE_ROWS[0], rel_l2=rel, max_abs_err=err,
+            ms=time_ms(lambda: kernel(x, q, scale), 10),
+            library_ms=time_ms(lambda: torch.nn.functional.linear(x, deq), 10),
+            bound_ms=b_h, bound_by=by_h)
+        h = table["lm_head"]
+        phase("kernel", f"int{bits} matmul LM head K={k} N={n} M={DECODE_ROWS[0]}: rel L2 {rel:.3e}, "
+              f"kernel {h['ms']:.4f} ms, F.linear {h['library_ms']:.4f} ms, bound {b_h:.4f} ms "
+              f"({by_h})")
+        del x, q, scale, deq
+        if bits == 4:
+            k, n = ODD_K
+            x, q, scale, _ = operands(bits, DECODE_ROWS[0], k, n)
+            rel, err = compare("int4 odd K", kernel, plain, x, q, scale)
+            table["odd_k"] = dict(K=k, N=n, M=DECODE_ROWS[0], rel_l2=rel, max_abs_err=err)
+            phase("kernel", f"int4 matmul odd K={k} N={n} M={DECODE_ROWS[0]}: rel L2 {rel:.3e}")
+        results[bits] = table
+        phase("kernel", f"int{bits} matmul against the plain version rounded to bf16, worst of "
+              f"{len(shares)} shapes: {max(u for u, _ in shares):.3e} of the elements differ "
+              f"(tol {WO_UNEQUAL_SHARE}), {max(b for _, b in shares):.3e} by more than one "
+              f"bf16 ulp (tol {WO_ULP_SHARE})")
+        shares.clear()
+    return results
+
+
 def relative_l2(x: torch.Tensor, y: torch.Tensor) -> float:
     return ((x - y).norm() / y.norm()).item()
 
@@ -565,11 +856,12 @@ def main() -> int:
     from aigv_assessor_torch.models.assessor import AIGVAssessor
     from aigv_assessor_torch.ops import cuda_build
     from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import int8_matmul as wo
     from aigv_assessor_torch.ops import quant_fuse as qf
     from aigv_assessor_torch.ops.preprocess import resize_normalize
 
     # 2. build, always from the checkout's sources
-    libs = (fa.LIB, fa.LIB_BWD, qf.LIB)
+    libs = (fa.LIB, fa.LIB_BWD, qf.LIB, wo.LIB)
     for lib in libs:
         lib.path.unlink(missing_ok=True)
     build_s = cuda_build.build(libs, verbose=True)
@@ -580,6 +872,8 @@ def main() -> int:
     shapes = check_attention(fa, device)
     train_shapes = check_attention_training(fa, device)
     feeds = check_feeds(qf, device)
+    separate = check_attention_separate(fa, device)
+    matmuls = check_weight_only(wo, device)
 
     # 4. the bf16 scoring slice at 2B
     cfg = AssessorConfig(llm=LLM_2B, stage=2).replace(img_context_token_id=CTX)
@@ -612,7 +906,10 @@ def main() -> int:
             raise RuntimeError(f"{label}: scores {tuple(scores.shape)} not finite "
                                f"[{BATCH}, 1]: {scores}")
         torch.cuda.reset_peak_memory_stats(device)
-        counters = (fa.flash_attention_qkv, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows)
+        counters = (fa.flash_attention_qkv, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows,
+                    fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
+                    fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
+                    fa.flash_attention_qkv_bwd_dkv)
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
@@ -627,9 +924,15 @@ def main() -> int:
                                f"[{CHUNKS * BATCH}, 1]")
         return counts, elapsed / CHUNKS * 1e3, peak_gib, weights_gib, arr
 
+    def expected(**per_forward_launches) -> dict:
+        """Launch counts of CHUNKS forwards: the named kernels, 0 of the rest."""
+        names = ("flash_attention_qkv", "layernorm_quant", "gelu_quant", "quant_rows",
+                 "flash_attention", "int8_matmul", "int4_matmul", "flash_attention_qkv_lse",
+                 "flash_attention_qkv_bwd_dq", "flash_attention_qkv_bwd_dkv")
+        return {n: per_forward_launches.get(n, 0) * CHUNKS for n in names}
+
     counts, ms_bf16, peak_bf16, weights_bf16, arr = run_slice(model, "bf16")
-    want = {"flash_attention_qkv": per_forward * CHUNKS, "layernorm_quant": 0,
-            "gelu_quant": 0, "quant_rows": 0}
+    want = expected(flash_attention_qkv=per_forward)
     if counts != want:
         raise RuntimeError(f"bf16: launches {counts} for {CHUNKS} forwards, expected {want}")
     launches_bhsd = counts["flash_attention_qkv"]
@@ -669,10 +972,8 @@ def main() -> int:
     torch.cuda.synchronize()
     init8_s = time.perf_counter() - t0
     counts8, ms_w8a8, peak_w8a8, weights_w8a8, arr8 = run_slice(model, "W8A8")
-    want = {"flash_attention_qkv": per_forward * CHUNKS,
-            "layernorm_quant": FEEDS["ln_quant"][2] * CHUNKS,
-            "gelu_quant": FEEDS["gelu_quant"][2] * CHUNKS,
-            "quant_rows": FEEDS["ident_quant"][2] * CHUNKS}
+    want = expected(flash_attention_qkv=per_forward, layernorm_quant=FEEDS["ln_quant"][2],
+                    gelu_quant=FEEDS["gelu_quant"][2], quant_rows=FEEDS["ident_quant"][2])
     if counts8 != want:
         raise RuntimeError(f"W8A8: launches {counts8} for {CHUNKS} forwards, expected {want}")
 
@@ -726,7 +1027,89 @@ def main() -> int:
     del model, kernel_out, plain_out, ref_out, pv
     torch.cuda.empty_cache()
 
-    # 6. the stage-2 training slice
+    # 6. the weight-only scoring slices: same seed, same videos
+    def run_weight_only_slice(bits: int) -> dict:
+        label = f"int{bits}"
+        matmul = f"int{bits}_matmul"
+        t0 = time.perf_counter()
+        model = build_serving_model(cfg, device=device, seed=0, **{label: True})
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        llm = model.language_model
+        quantized = [m for m in llm.modules() if hasattr(m, "weight_scale")]
+        linear = type(llm.output).__name__
+        if (len(quantized) != 5 * n_llm + 1 or {type(m).__name__ for m in quantized} != {linear}
+                or linear != f"Int{bits}Linear"
+                or any(hasattr(m, "weight_scale") for m in model.vision_model.modules())):
+            raise RuntimeError(f"{label}: the decoder's projections and LM head are not all "
+                               f"Int{bits}Linear, or the ViT is not float")
+        counts_q, ms_q, peak_q, weights_q, arr_q = run_slice(model, label)
+        want = expected(**{"flash_attention_qkv": n_vit, "flash_attention": n_llm,
+                           matmul: 5 * n_llm})
+        if counts_q != want:
+            raise RuntimeError(f"{label}: launches {counts_q} for {CHUNKS} forwards, "
+                               f"expected {want}")
+        swaps = ((fa, "flash_attention_qkv", fa.plain_attention_qkv),
+                 (fa, "flash_attention", fa.plain_flash_attention),
+                 (wo, "int8_matmul", wo.plain_int8_matmul),
+                 (wo, "int4_matmul", wo.plain_int4_matmul))
+        # the bf16 model whose decoder weights are the dequantized values
+        state = {}
+        for name, t in model.state_dict().items():
+            if name.endswith(".weight_scale"):
+                continue
+            if t.dtype == torch.int8:
+                module = model.get_submodule(name[: -len(".weight")])
+                deq = (wo.dequantize_kernel(t, module.weight_scale) if bits == 8 else
+                       wo.dequantize_kernel_int4(t, module.weight_scale, module.in_features))
+                t = deq.to(torch.bfloat16)
+            state[name] = t
+        with torch.device("meta"):
+            ref = AIGVAssessor(cfg, Precision())
+        ref.load_state_dict(state, strict=True, assign=True)
+        del state
+        with torch.inference_mode():
+            pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.bfloat16)
+            kernel_out = model(ids[:, 0], pv, mask[:, 0])
+            deq_out = ref.eval()(ids[:, 0], pv, mask[:, 0])
+            launched = [getattr(m, n).launches for m, n, _ in swaps]
+            with contextlib.ExitStack() as stack:
+                for module, name, plain in swaps:
+                    stack.enter_context(mock.patch.object(module, name, plain))
+                plain_out = model(ids[:, 0], pv, mask[:, 0])
+            if [getattr(m, n).launches for m, n, _ in swaps] != launched:
+                raise RuntimeError(f"the plain {label} forward launched a kernel")
+        del ref
+        kq, pq, dq = (o["readout"].float() for o in (kernel_out, plain_out, deq_out))
+        rel_plain, rel_deq = relative_l2(kq, pq), relative_l2(kq, dq)
+        if not torch.isfinite(kq).all() or not rel_plain <= WEIGHT_ONLY_READOUT_TOL:
+            raise RuntimeError(f"{label} readout relative L2 kernel vs plain {rel_plain} above "
+                               f"{WEIGHT_ONLY_READOUT_TOL}")
+        if not rel_deq <= WEIGHT_ONLY_READOUT_TOL:
+            raise RuntimeError(f"{label} readout relative L2 kernel path vs the bf16 model of "
+                               f"the dequantized weights {rel_deq} above "
+                               f"{WEIGHT_ONLY_READOUT_TOL}")
+        a, bf = kq.flatten(), readout_bf16.flatten()
+        cosine = (a @ bf / (a.norm() * bf.norm())).item()
+        if bits == 8 and not cosine >= INT8_COSINE:
+            raise RuntimeError(f"int8 readout cosine to bf16 {cosine} below {INT8_COSINE}")
+        per_fwd = {k: v // CHUNKS for k, v in counts_q.items() if v}
+        phase("slice", f"{label} weight-only InternVL2-2B stage-2 scoring, same seed and "
+              f"videos: launches per forward {per_fwd}, {ms_q:.1f} ms/chunk (bf16 "
+              f"{ms_bf16:.1f}), peak {peak_q:.2f} GiB allocated (bf16 {peak_bf16:.2f}), weights "
+              f"{weights_q:.2f} GiB (bf16 {weights_bf16:.2f}), init {init_s:.1f} s; readout rel "
+              f"L2 kernel vs plain versions {rel_plain:.3e}, vs the bf16 model of the "
+              f"dequantized weights {rel_deq:.3e} (tol {WEIGHT_ONLY_READOUT_TOL}), cosine to "
+              f"bf16 {cosine:.5f}{f' (tol {INT8_COSINE})' if bits == 8 else ''}; scores "
+              f"{np.round(arr_q[:, 0], 4).tolist()} [{smi}]")
+        return counts_q
+
+    counts_int8 = run_weight_only_slice(8)
+    torch.cuda.empty_cache()
+    counts_int4 = run_weight_only_slice(4)
+    torch.cuda.empty_cache()
+
+    # 7. the stage-2 training slice
     train_counts = run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward, smi)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
@@ -796,6 +1179,38 @@ def main() -> int:
              library="as for flash_attn_qkv_bwd_dq",
              unit="one training micro-batch: 24 + 24 launches"),
     ]
+    llm_sep = separate["llm"]
+    kernels.append(dict(
+        name="flash_attn_fwd", route="cuda",
+        source="aigv_assessor_torch/csrc/flash_attn_fwd.cu",
+        replaces="aigv_assessor_tpu/ops/pallas_attention.py:352",
+        launches=counts_int8["flash_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in separate.values()),
+        ms=n_llm * llm_sep["ms"], plain_ms=n_llm * llm_sep["plain_ms"],
+        bound_ms=n_llm * llm_sep["bound_ms"], bound_by=llm_sep["bound_by"],
+        library_ms=n_llm * llm_sep["library_ms"],
+        library="F.scaled_dot_product_attention on head-major views of the same q, k, v",
+        unit="one weight-only scoring forward: 24 launches at the llm shape, bshd views of one "
+        "row-major projection", shapes=separate))
+    for bits, replaces, counts_q in ((8, 31, counts_int8), (4, 113, counts_int4)):
+        table = matmuls[bits]
+
+        def per_forward_sum(key):
+            return n_llm * sum(per_layer * table[name][key]
+                               for name, (_, _, per_layer) in PROJECTIONS.items())
+        kernels.append(dict(
+            name=f"weight_only_int{bits}_matmul", route="cuda",
+            source="aigv_assessor_torch/csrc/weight_only_matmul.cu",
+            replaces=f"aigv_assessor_tpu/ops/int8_matmul.py:{replaces}",
+            launches=counts_q[f"int{bits}_matmul"],
+            max_abs_err=max(r["max_abs_err"] for r in table.values()),
+            ms=per_forward_sum("ms"), plain_ms=per_forward_sum("plain_ms"),
+            bound_ms=per_forward_sum("bound_ms"), bound_by=table["w2"]["bound_by"],
+            library_ms=per_forward_sum("library_ms"),
+            library="F.linear in bf16 on a weight dequantized beforehand: the same product "
+            f"with {16 // bits} times the weight bytes",
+            unit=f"one int{bits} scoring forward: 24 layers x (wqkv, wo, w1, w3, w2) at M = "
+            f"{PREFILL_ROWS}", shapes=table))
     for name, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
                           ("ident_quant", "quant_rows")):
         rows, cols, per_fwd, replaces = FEEDS[name]

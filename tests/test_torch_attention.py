@@ -4,8 +4,15 @@ The port's plain fused-qkv attention (the plain version of the CUDA kernel,
 which the wrapper runs for CPU tensors) is held against the Pallas kernel
 `flash_attention_qkv` run in interpret mode, as tests/test_attention.py runs
 it, in fp32 at atol/rtol 1e-4, in both output layouts (head-major `bhsd`
-and dense `bsd`). The kernel itself is tested on the card in
-tests/test_torch_gpu.py.
+and dense `bsd`).
+
+The plain three-tensor attention (`plain_flash_attention`, what
+`flash_attention` and `multi_head_attention` run for CPU tensors) is held
+against the Pallas kernel `flash_attention` in interpret mode and against
+`xla_attention`, in fp32 at 1e-5: `bshd` and `bhsd`, GQA, causal, non-causal
+with Sq != Skv, `kv_valid`, D = 64 and 128.
+
+The kernels themselves are tested on the card in tests/test_torch_gpu.py.
 """
 
 import jax.numpy as jnp
@@ -13,11 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-from aigv_assessor_torch.ops.attention import fused_qkv_attention, plain_attention
+from aigv_assessor_torch.ops.attention import (
+    fused_qkv_attention,
+    multi_head_attention,
+    plain_attention,
+)
 from aigv_assessor_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_qkv,
     plain_attention_qkv,
+    plain_flash_attention,
 )
+from aigv_assessor_tpu.ops.attention import multi_head_attention as jax_multi_head_attention
 from aigv_assessor_tpu.ops.attention import xla_attention
 
 TOL = 1e-4
@@ -139,3 +153,71 @@ def test_plain_version_rejects_an_unknown_layout():
     qkv = torch.from_numpy(_fused(3, 1, 2, 2, 16, 64))
     with pytest.raises(ValueError, match="out_layout"):
         plain_attention_qkv(qkv, 2, 2, out_layout="bshd")
+
+
+# ------------------------------------------------- three separate tensors ---
+
+SEP_TOL = 1e-5
+# (Sq, Skv, hq, hkv, D, causal, kv_valid)
+SEPARATE = {
+    "gqa_causal_d128": (72, 72, 4, 2, 128, True, None),
+    "mha_tail_d64": (72, 72, 4, 4, 64, False, 50),
+    "cross_d64": (40, 104, 4, 4, 64, False, None),
+    "cross_gqa_tail_d128": (24, 88, 4, 2, 128, False, 81),
+}
+
+
+def _separate(case, layout, seed=11):
+    sq, skv, hq, hkv, d, _, kv_valid = case
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(2, sq, hq, d)).astype(np.float32)
+    k = rng.normal(size=(2, skv, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(2, skv, hkv, d)).astype(np.float32)
+    if kv_valid is not None:  # garbage beyond kv_valid must be masked
+        k[:, kv_valid:], v[:, kv_valid:] = 1e3, -1e3
+    if layout == "bhsd":
+        q, k, v = (np.ascontiguousarray(t.transpose(0, 2, 1, 3)) for t in (q, k, v))
+    return q, k, v
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("name", list(SEPARATE))
+def test_plain_flash_attention_matches_pallas_interpret(name, layout):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from aigv_assessor_tpu.ops.pallas_attention import flash_attention as jax_flash
+
+    case = SEPARATE[name]
+    q, k, v = _separate(case, layout)
+    kw = dict(causal=case[5], layout=layout, kv_valid=case[6])
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    got = plain_flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), **kw)
+    assert tuple(got.shape) == want.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SEP_TOL, atol=SEP_TOL)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("name", list(SEPARATE))
+def test_multi_head_attention_matches_jax_dispatch(name, layout):
+    """`multi_head_attention` on CPU tensors against the JAX entry point on
+    the CPU (`xla_attention` behind the same layout and kv_valid handling),
+    without a kernel launch counted."""
+    case = SEPARATE[name]
+    q, k, v = _separate(case, layout, seed=12)
+    kw = dict(causal=case[5], layout=layout, kv_valid=case[6])
+    want = jax_multi_head_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    before = flash_attention.launches
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = multi_head_attention(tq, tk, tv, **kw)
+    assert flash_attention.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SEP_TOL, atol=SEP_TOL)
+    torch.testing.assert_close(flash_attention(tq, tk, tv, **kw), got, rtol=0, atol=0)
+
+
+def test_three_tensor_wrapper_rejects():
+    q = torch.empty((1, 16, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="layout"):
+        plain_flash_attention(*(torch.zeros(1, 8, 2, 16),) * 3, layout="sbhd")

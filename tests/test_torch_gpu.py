@@ -22,15 +22,26 @@ jax-free, so that it runs where jax is not installed:
   code, so y / s can land on the other side of a half: the scales agree to
   rtol 1e-5, and at most 1e-3 of the int8 values differ, each by one.
 - The int8 product's checks on the card.
+- The three-tensor forward (K2): against `plain_flash_attention` at the same
+  2e-2, in both layouts, on views of one projection output, with GQA, causal,
+  `kv_valid` and Sq != Skv; and bit-equal to K1 on the same data, whose
+  kernel body it shares.
+- The weight-only matmuls (K6 int8, K7 int4): relative L2 at most 2e-3 from
+  the plain version, which multiplies the same bf16 inputs in fp32 (what is
+  left is the summation order and one bf16 rounding of the result), at ragged
+  M, N and K, with and without a bias; an all-zero weight column with scale 1
+  gives exactly 0.
 """
 
 import pytest
 import torch
 
+from aigv_assessor_torch.ops import int8_matmul as wo
 from aigv_assessor_torch.ops import quant_fuse as qf
 from aigv_assessor_torch.ops import w8a8
-from aigv_assessor_torch.ops.attention import fused_qkv_attention
+from aigv_assessor_torch.ops.attention import fused_qkv_attention, multi_head_attention
 from aigv_assessor_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_qkv,
     flash_attention_qkv_bwd,
     flash_attention_qkv_bwd_dkv,
@@ -38,6 +49,7 @@ from aigv_assessor_torch.ops.flash_attention import (
     flash_attention_qkv_lse,
     plain_attention_qkv,
     plain_attention_qkv_bwd,
+    plain_flash_attention,
 )
 
 pytestmark = pytest.mark.gpu
@@ -323,3 +335,146 @@ def test_int8_product_checks_on_the_card(cuda):
         w8a8.w8a8_matmul(x, wq.float(), sw)
     with pytest.raises(TypeError, match="int8"):
         w8a8.w8a8_matmul((x, torch.ones(64, 1, device=cuda)), wq, sw)
+
+
+# ------------------------------------------------ three separate tensors (K2) --
+
+# (B, Sq, Skv, hq, hkv, D, causal, kv_valid)
+SEPARATE = {
+    "gqa_causal_d128": (2, 200, 200, 4, 2, 128, True, None),
+    "mha_tail_d64": (2, 200, 200, 4, 4, 64, False, 150),
+    "cross_d64": (2, 257, 1025, 4, 4, 64, False, None),
+    "cross_gqa_tail_d128": (1, 70, 333, 8, 2, 128, False, 300),
+}
+
+
+def make_separate(case, device, layout, seed=11):
+    b, sq, skv, hq, hkv, d, _, kv_valid = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=device)
+    k = torch.randn((b, skv, hkv, d), generator=gen, device=device)
+    v = torch.randn((b, skv, hkv, d), generator=gen, device=device)
+    if kv_valid is not None:
+        k[:, kv_valid:], v[:, kv_valid:] = 1e3, -1e3
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    if layout == "bhsd":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return q, k, v
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("name", list(SEPARATE))
+def test_separate_kernel_matches_plain(cuda, name, layout):
+    case = SEPARATE[name]
+    q, k, v = make_separate(case, cuda, layout)
+    kw = dict(causal=case[6], layout=layout, kv_valid=case[7])
+    before = flash_attention.launches, flash_attention_qkv.launches
+    got = multi_head_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_qkv.launches) == (before[0] + 1, before[1])
+    want = plain_flash_attention(q, k, v, **kw)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+def test_separate_kernel_reads_views_and_equals_the_fused_kernel(cuda):
+    """q, k and v as the weight-only decoder hands them over: [B, S, H, D]
+    slices of one row-major projection output. The same data as one
+    head-major fused view through K1 gives the same bits."""
+    b, s, hq, hkv, d = 2, 200, 4, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    proj = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen, device=cuda).to(torch.bfloat16)
+    q = proj[..., : hq * d].view(b, s, hq, d)
+    k = proj[..., hq * d : (hq + hkv) * d].view(b, s, hkv, d)
+    v = proj[..., (hq + hkv) * d :].view(b, s, hkv, d)
+    assert not v.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    fused = flash_attention_qkv(proj.view(b, s, hq + 2 * hkv, d).transpose(1, 2), hq, hkv,
+                                causal=True, out_layout="bsd")
+    assert torch.equal(got.reshape(b, s, hq * d), fused)
+    torch.testing.assert_close(
+        got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True),
+        atol=0, rtol=0)
+
+
+def test_separate_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = make_separate(SEPARATE["gqa_causal_d128"], cuda, "bshd")
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k[:, :100], v[:, :100], causal=True)
+    with pytest.raises(ValueError, match="kv_valid"):
+        flash_attention(q, k, v, kv_valid=201)
+    with pytest.raises(ValueError, match="layout"):
+        flash_attention(q, k, v, layout="sbhd")
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        flash_attention(q.clone().requires_grad_(), k, v)
+
+
+# ------------------------------------------------ weight-only matmuls (K6, K7) --
+
+WO_TOL = 2e-3
+# (M, K, N): a decoder projection at a ragged M, single rows, N off the 128
+# tiles and odd (rows of y lose their 4-byte alignment), K off the 32 steps,
+# K odd (x loses its 16-byte rows; int4 pads a nibble)
+WO_SHAPES = [(300, 2048, 512), (1, 2048, 256), (4, 1024, 1001), (70, 200, 130), (33, 2047, 96)]
+
+
+def make_weight_only(bits, m, k, n, device, bias, seed=13):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=gen, device=device) * 0.02
+    w[n // 2] = 0.0  # an all-zero output channel: scale 1, output exactly 0
+    q, scale = (wo.quantize_weight if bits == 8 else wo.quantize_kernel_int4)(w)
+    b = (torch.randn(n, generator=gen, device=device) * 0.1).to(torch.bfloat16) if bias else None
+    return x, q, scale, b
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("shape", WO_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_weight_only_kernel_matches_plain(cuda, bits, shape, bias):
+    m, k, n = shape
+    kernel, plain = ((wo.int8_matmul, wo.plain_int8_matmul) if bits == 8
+                     else (wo.int4_matmul, wo.plain_int4_matmul))
+    x, q, scale, b = make_weight_only(bits, m, k, n, cuda, bias)
+    before = kernel.launches
+    got = kernel(x, q, scale, b)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(x, q, scale, b, out_dtype=torch.float32)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert relative_l2(got, want) <= WO_TOL
+    if not bias:
+        assert scale[n // 2] == 1.0 and not got[:, n // 2].any()
+
+
+def test_weight_only_dense_apply_keeps_leading_dims(cuda):
+    x, q, scale, _ = make_weight_only(8, 6 * 50, 256, 384, cuda, False)
+    got = wo.int8_dense_apply(x.view(6, 50, 256), q, scale)
+    assert got.shape == (6, 50, 384)
+    torch.testing.assert_close(got.view(300, 384), wo.int8_matmul(x, q, scale), atol=0, rtol=0)
+    p, s4 = wo.quantize_kernel_int4(wo.dequantize_kernel(q, scale))
+    assert wo.int4_dense_apply(x.view(6, 50, 256), p, s4).shape == (6, 50, 384)
+
+
+def test_weight_only_kernels_reject_what_they_do_not_take(cuda):
+    x, q, scale, _ = make_weight_only(8, 16, 256, 128, cuda, False)
+    with pytest.raises(TypeError, match="bf16"):
+        wo.int8_matmul(x.float(), q, scale)
+    with pytest.raises(TypeError, match="bf16"):
+        wo.int8_matmul(x, q, scale, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="weight"):
+        wo.int8_matmul(x, q.float(), scale)
+    with pytest.raises(ValueError, match="weight"):
+        wo.int4_matmul(x, q, scale)  # 256 bytes per row where int4 has 128
+    with pytest.raises(ValueError, match="scale"):
+        wo.int8_matmul(x, q, scale.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        wo.int8_matmul(x, q.t().contiguous().t(), scale)
+    with pytest.raises(TypeError, match="bias"):
+        wo.int8_matmul(x, q, scale, torch.zeros(128, device=cuda))

@@ -20,7 +20,7 @@ from aigv_assessor_torch.models.lora import (
     lora_free_state_dict,
     make_linear,
     merge_lora_,
-    reject_w8a8_lora,
+    reject_quantized_lora,
     set_generator,
 )
 from aigv_assessor_tpu.core.config import LoRAConfig
@@ -182,7 +182,7 @@ def test_make_linear_without_an_adapter_is_a_plain_linear():
 def test_lora_over_a_w8a8_base_is_not_ported():
     from aigv_assessor_torch.core.precision import Precision
 
-    reject_w8a8_lora(Precision(w8a8=True), None)
-    reject_w8a8_lora(Precision(), TorchLoRAConfig())
+    reject_quantized_lora(Precision(w8a8=True), None)
+    reject_quantized_lora(Precision(), TorchLoRAConfig())
     with pytest.raises(NotImplementedError, match="W8A8"):
-        reject_w8a8_lora(Precision(w8a8=True), TorchLoRAConfig())
+        reject_quantized_lora(Precision(w8a8=True), TorchLoRAConfig())

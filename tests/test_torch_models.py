@@ -157,11 +157,14 @@ def test_score_chunks_pads_tail_and_scales(pair):
 
 
 def test_unported_serving_options_raise(pair):
+    """W8A8, int8 and int4 are ported (tests/test_torch_w8a8.py,
+    tests/test_torch_weight_only.py); combining W8A8 with a weight-only mode
+    is refused, and the shared prefix is not ported yet."""
     _, _, port, cfg = pair
     tcfg = TorchConfig.tiny(stage=2)
-    for flag in ("int8", "int4"):  # W8A8 is ported: tests/test_torch_w8a8.py
-        with pytest.raises(NotImplementedError, match=flag):
-            build_serving_model(tcfg, device="cpu", **{flag: True})
+    for flag in ("int8", "int4"):
+        with pytest.raises(ValueError, match="w8a8 excludes"):
+            build_serving_model(tcfg, device="cpu", w8a8=True, **{flag: True})
     ids, mask = _prompts(cfg, 1, 2, 11)
     video = np.zeros((T, 56, 56, 3), np.uint8)
     with pytest.raises(NotImplementedError, match="shared-prefix"):

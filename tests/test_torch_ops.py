@@ -96,7 +96,8 @@ def test_port_imports_without_jax():
         "                                               'aigv_assessor_torch.')]\n"
         "for needed in ('cli.score', 'cli.stage2_train', 'train.trainer', 'train.freeze',\n"
         "               'train.layer_decay', 'train.checkpoint', 'ops.flash_attention',\n"
-        "               'ops.remat', 'models.loading'):\n"
+        "               'ops.remat', 'ops.int8_matmul', 'tools.profile_score',\n"
+        "               'models.loading'):\n"
         "    assert 'aigv_assessor_torch.' + needed in names, needed\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -137,7 +138,7 @@ def test_kernel_library_is_stale_when_its_source_or_a_header_is_newer(tmp_path, 
     assert lib.up_to_date()
     # the shipped sources include the header from their own directory
     shipped = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
-    for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+    for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "weight_only_matmul.cu"):
         assert '#include "mma_fragments.cuh"' in (shipped / name).read_text()
     assert (shipped / "mma_fragments.cuh").exists()
 
@@ -197,6 +198,33 @@ def test_apply_rope_bhsd():
     )
     _close(gq, wq)
     _close(gk, wk)
+
+
+def test_apply_rope_bshd():
+    """The row-major layout the weight-only decoder runs (the JAX default)."""
+    rng = np.random.default_rng(2)
+    b, hq, hkv, s, d = 2, 4, 2, 12, 16
+    q = rng.normal(size=(b, s, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    pos = np.stack([np.arange(s), np.arange(3, 3 + s)]).astype(np.int32)
+    jc, js = jrope.rope_cos_sin(32, d, base=10_000.0)
+    tc, ts = trope.rope_cos_sin(32, d, base=10_000.0)
+    gq, gk = trope.apply_rope(
+        torch.from_numpy(q), torch.from_numpy(k), tc, ts, torch.from_numpy(pos).long(),
+        layout="bshd",
+    )
+    wq, wk = jrope.apply_rope(jnp.asarray(q), jnp.asarray(k), jc, js, jnp.asarray(pos))
+    _close(gq, wq)
+    _close(gk, wk)
+    # a strided view, as the decoder slices q and k out of one projection
+    proj = torch.from_numpy(rng.normal(size=(b, s, (hq + hkv) * d)).astype(np.float32))
+    vq, vk = proj[..., : hq * d].view(b, s, hq, d), proj[..., hq * d :].view(b, s, hkv, d)
+    cq, ck = trope.apply_rope(vq, vk, tc, ts, torch.from_numpy(pos).long(), layout="bshd")
+    rq, rk = trope.apply_rope(vq.contiguous(), vk.contiguous(), tc, ts,
+                              torch.from_numpy(pos).long(), layout="bshd")
+    assert torch.equal(cq, rq) and torch.equal(ck, rk)
+    with pytest.raises(ValueError, match="layout"):
+        trope.apply_rope(vq, vk, tc, ts, torch.from_numpy(pos).long(), layout="sbhd")
 
 
 # ----------------------------------------------------- pixel shuffle/splice --
