@@ -2,12 +2,16 @@
 
 - `build_serving_model`: the stage-2 model on a device in the serving
   precision (bf16; W8A8 with `w8a8=True`; weight-only W8A16 with `int8=True`
-  or W4A16 with `int4=True`, the JAX CLI's `--w8a8`, `--int8`, `--int4`),
-  with weights made from a seed.
+  or W4A16 with `int4=True`, the JAX CLI's `--w8a8`, `--int8`, `--int4`;
+  `kv_int8=True` for an int8 KV cache under generation), with weights made
+  from a seed.
 - `score_batch`: uint8 frames -> normalization -> `score_perspectives`, one
   call per chunk of videos (the JAX CLI's jitted `score_batch`).
+- `compute_shared_prefix_len`: the longest token prefix the perspective
+  prompts share, if shared-prefix scoring can use it.
 - `score_chunks`: the chunk loop: pads the tail chunk to the batch size and
-  scales the scores back to the MOS range.
+  scales the scores back to the MOS range. With more than one perspective it
+  shares the prompts' common prefix by default (`--shared_prefix`).
 
 The host side of the JAX CLI (video decode, the tokenizer and prompt
 building, the video list, the flags and the CSV) is not ported yet
@@ -17,7 +21,7 @@ building, the video list, the flags and the CSV) is not ported yet
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,7 +29,11 @@ import torch
 from aigv_assessor_torch.core.config import AssessorConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.assessor import AIGVAssessor
-from aigv_assessor_torch.models.loading import init_random_, quantize_for_serving
+from aigv_assessor_torch.models.loading import (
+    init_random_,
+    quantize_for_serving,
+    serving_precision,
+)
 from aigv_assessor_torch.ops.preprocess import resize_normalize
 
 
@@ -38,6 +46,7 @@ def build_serving_model(
     int8: bool = False,
     int4: bool = False,
     w8a8: bool = False,
+    kv_int8: bool = False,
 ) -> AIGVAssessor:
     """The model on `device` in `precision.compute_dtype`, as the JAX CLI's
     `build_serving_stack` makes it: fp32 weights from `init_random_(seed)`,
@@ -48,19 +57,18 @@ def build_serving_model(
     when both are set), then everything else cast to the compute dtype, the
     quantization scales kept fp32. One seed gives the same base weights in
     every precision. The fp32 weights are held only while the model is built
-    (~8.8 GB at 2B). `w8a8` with `int8` or `int4` raises ValueError."""
-    w8a8 = w8a8 or precision.w8a8
-    int4 = int4 or precision.int4_weights
-    int8 = (int8 or precision.int8_weights) and not int4
+    (~8.8 GB at 2B). `w8a8` with `int8` or `int4` raises ValueError.
+    `kv_int8` (or `precision.kv_int8`) changes no weight: generation then
+    keeps its KV cache in int8, under any of the modes above."""
+    target = serving_precision(precision, w8a8=w8a8, int8=int8, int4=int4, kv_int8=kv_int8)
     float_precision = dataclasses.replace(
-        precision, w8a8=False, int8_weights=False, int4_weights=False)
-    target = dataclasses.replace(float_precision, w8a8=w8a8, int8_weights=int8,
-                                 int4_weights=int4)  # raises on w8a8 with int8/int4
+        target, w8a8=False, int8_weights=False, int4_weights=False)
     with torch.device("meta"):
         model = AIGVAssessor(config, float_precision)
     model = init_random_(model.to_empty(device=device), seed)  # fp32
     if target != float_precision:
-        state = quantize_for_serving(model.state_dict(), config, int8=int8, int4=int4)
+        state = quantize_for_serving(model.state_dict(), config, int8=target.int8_weights,
+                                     int4=target.int4_weights)
         del model
         with torch.device("meta"):
             model = AIGVAssessor(config, target)
@@ -75,13 +83,51 @@ def score_batch(
     input_ids: torch.Tensor,  # [B, P, N]
     pixels_u8: torch.Tensor,  # [B, T, H, W, 3] uint8
     attention_mask: torch.Tensor,  # [B, P, N]
+    shared_prefix_len: Optional[int] = None,
 ) -> torch.Tensor:
     """-> [B, P] fp32 scores in the model's range (mos / 100). Frames are
-    normalized with the ImageNet statistics, as the JAX CLI's default."""
+    normalized with the ImageNet statistics, as the JAX CLI's default.
+    `shared_prefix_len`: see `AIGVAssessor.score_perspectives`."""
     pixel_values = resize_normalize(
         pixels_u8, size=pixels_u8.shape[-2], dtype=model.precision.compute_dtype
     )
-    return model.score_perspectives(input_ids, pixel_values, attention_mask)
+    return model.score_perspectives(input_ids, pixel_values, attention_mask,
+                                    shared_prefix_len=shared_prefix_len)
+
+
+def compute_shared_prefix_len(
+    prompts: Sequence[Sequence[int]],
+    img_context_token_id: int,
+    *,
+    min_prefix: int = 8,
+    min_suffix: int = 4,
+) -> int:
+    """Longest common token prefix of the perspective prompts (each without
+    its padding), or 0 when shared-prefix scoring cannot use it: with fewer
+    than two prompts; when the prefix is shorter than `min_prefix`; when it
+    does not hold EVERY `<IMG_CONTEXT>` token (the frames and the motion
+    embedding are spliced in the prefix pass only); or when some perspective
+    keeps fewer than `min_suffix` tokens after it, so that its read-out at
+    (length - 4) would fall outside its own suffix."""
+    if len(prompts) < 2:
+        return 0
+    shortest = min(len(p) for p in prompts)
+    first = prompts[0]
+    prefix_len = shortest
+    for p in prompts[1:]:
+        i = 0
+        while i < prefix_len and p[i] == first[i]:
+            i += 1
+        prefix_len = i
+    ctx = np.nonzero(np.asarray(first) == img_context_token_id)[0]
+    if (
+        prefix_len < min_prefix
+        or ctx.size == 0
+        or int(ctx.max()) >= prefix_len
+        or shortest - prefix_len < min_suffix
+    ):
+        return 0
+    return prefix_len
 
 
 def score_chunks(
@@ -99,16 +145,17 @@ def score_chunks(
     size, so every call has the same shape. Scores are read back one chunk
     late, so the host prepares chunk N+1 while the device runs chunk N.
 
-    With more than one perspective the JAX CLI shares the prompts' common
-    prefix by default; that path is not ported yet, so P > 1 needs
-    `shared_prefix=False`."""
+    `shared_prefix`, with more than one perspective: the LLM runs the
+    prompts' common token prefix (the system turn and every frame and motion
+    slot) once per video and the question suffixes against that cache
+    (`score_perspectives(shared_prefix_len=)`). Where the prompts share no
+    usable prefix (`compute_shared_prefix_len` gives 0) each prompt runs in
+    full, as with `shared_prefix=False`."""
     n_persp = ids_pn.shape[0]
-    if n_persp > 1 and shared_prefix:
-        raise NotImplementedError(
-            "shared-prefix perspective scoring is not ported yet: ROADMAP.md, "
-            "Queue 1, shared-prefix scoring; pass shared_prefix=False to score "
-            "each prompt in full"
-        )
+    prefix_len = 0
+    if shared_prefix and n_persp > 1:
+        prompts = [ids_pn[i, : int(mask_pn[i].sum())] for i in range(n_persp)]
+        prefix_len = compute_shared_prefix_len(prompts, model.config.img_context_token_id)
     device = next(model.parameters()).device
     ids = torch.as_tensor(np.tile(ids_pn[None], (batch_size, 1, 1)), device=device)
     mask = torch.as_tensor(np.tile(mask_pn[None], (batch_size, 1, 1)), device=device)
@@ -125,7 +172,7 @@ def score_chunks(
             raise ValueError(f"chunk of {len(chunk)} videos for batch size {batch_size}")
         videos = list(chunk) + [chunk[-1]] * (batch_size - len(chunk))
         pixels = torch.as_tensor(np.stack(videos)).to(device)
-        scores = score_batch(model, ids, pixels, mask)
+        scores = score_batch(model, ids, pixels, mask, prefix_len or None)
         if pending is not None:
             flush(*pending)
         pending = (len(chunk), scores)

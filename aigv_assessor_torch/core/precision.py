@@ -14,8 +14,10 @@ LM head as per-channel int8 or nibble-packed int4, decoded inside the matmul
 kernel (`ops/int8_matmul.py`, `models/lora.Int8Linear` / `Int4Linear`). The
 ViT and everything outside the decoder stay float. They exclude W8A8.
 
-The int8 KV cache (`kv_int8`) and W8A8 of the SlowFast convs (`w8a8_motion`)
-are not ported yet."""
+`kv_int8` stores the decoder's KV cache as int8 with one fp32 scale per
+(position, kv head) (`ops/kv_quant.py`); it composes with every mode above.
+
+W8A8 of the SlowFast convs (`w8a8_motion`) is not ported yet."""
 
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class Precision:
     w8a8: bool = False  # int8 x int8 projections in both towers
     int8_weights: bool = False  # W8A16: int8 decoder weights, decoded in-kernel
     int4_weights: bool = False  # W4A16: nibble-packed int4 decoder weights
+    kv_int8: bool = False  # int8 KV cache with per-(position, kv head) scales
 
     def __post_init__(self):
         if self.w8a8 and (self.int8_weights or self.int4_weights):

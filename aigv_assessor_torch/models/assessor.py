@@ -25,8 +25,12 @@ hands in), `eval()` turns them off. SlowFast always runs without gradient
 and its features are detached. The LM head is not run: the cross-entropy is
 no part of the stage-2 loss.
 
-Not ported yet (ROADMAP.md, Queue 1): stage-1 text loss, logits,
-shared-prefix perspective scoring, generation, Phi-3.
+Generation (`models/generation.py`) enters through `embed_multimodal`,
+`prefill` and `decode_step`, which run the decoder against a `KVCache`.
+`score_perspectives(shared_prefix_len=)` prefills the prompts' common token
+prefix once per video and runs the P suffixes against that cache.
+
+Not ported yet (ROADMAP.md, Queue 1): stage-1 text loss, Phi-3.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from torch import nn
 
 from aigv_assessor_torch.core.config import AssessorConfig, LoRAConfig
 from aigv_assessor_torch.core.precision import Precision
-from aigv_assessor_torch.models.internlm2 import InternLM2ForCausalLM
+from aigv_assessor_torch.models.internlm2 import InternLM2ForCausalLM, KVCache
 from aigv_assessor_torch.models.motion import SlowFastR50
 from aigv_assessor_torch.models.vit import InternVisionModel
 from aigv_assessor_torch.ops.pixel_shuffle import pixel_shuffle
@@ -155,6 +159,29 @@ class AIGVAssessor(nn.Module):
             pixel_values
         )
 
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.language_model.embed(input_ids)
+
+    def embed_multimodal(
+        self,
+        input_ids: torch.Tensor,  # [B, N]
+        pixel_values: torch.Tensor,  # [B, T, H, W, 3] normalized
+        with_motion: bool = True,
+    ) -> torch.Tensor:
+        """Prompt embeddings with the frames' ViT embeddings in the
+        `<IMG_CONTEXT>` slots. `with_motion`: the last slot takes the motion
+        embedding; without it every slot takes a ViT embedding (what the
+        reference's `generate()` does)."""
+        b, t = pixel_values.shape[:2]
+        frames = pixel_values.reshape((b * t,) + pixel_values.shape[2:])
+        vit_embeds = self.extract_feature(frames)
+        vit_embeds = vit_embeds.reshape(b, -1, vit_embeds.shape[-1])
+        motion_embeds = self.extract_motion(pixel_values) if with_motion else None
+        return splice_image_embeds(
+            self.language_model.embed(input_ids), input_ids, vit_embeds,
+            self.config.img_context_token_id, motion_embeds,
+        )
+
     def readout(
         self, hidden: torch.Tensor, attention_mask: Optional[torch.Tensor]
     ) -> torch.Tensor:
@@ -184,13 +211,8 @@ class AIGVAssessor(nn.Module):
         """Teacher-forced stage-2 forward without logits:
         {'hidden' [B, N, C], 'readout' [B, C], 'score' [B] fp32}, and with
         `mos` also 'loss' = mean |score - mos| (fp32 scalar)."""
-        cfg = self.config
-        vit_embeds, motion_embeds = self._encode(pixel_values)
-        embeds = splice_image_embeds(
-            self.language_model.embed(input_ids), input_ids, vit_embeds,
-            cfg.img_context_token_id, motion_embeds,
-        )
-        hidden = self.language_model(embeds)
+        embeds = self.embed_multimodal(input_ids, pixel_values)
+        _, hidden, _ = self.language_model(inputs_embeds=embeds, with_logits=False)
         readout = self.readout(hidden, attention_mask)
         out = {"hidden": hidden, "readout": readout, "score": self.score(readout)}
         if mos is not None:
@@ -202,20 +224,113 @@ class AIGVAssessor(nn.Module):
         input_ids: torch.Tensor,  # [B, P, N]: P perspective prompts per video
         pixel_values: torch.Tensor,  # [B, T, H, W, 3] normalized
         attention_mask: Optional[torch.Tensor] = None,  # [B, P, N]
+        shared_prefix_len: Optional[int] = None,
     ) -> torch.Tensor:
-        """Score P prompts per video off ONE encode of its frames and motion:
-        the P prompts run through the LLM as B*P sequences. Returns [B, P]
-        fp32. (The JAX package can also share the prompts' common token
-        prefix; that path is not ported yet.)"""
+        """Score P prompts per video off ONE encode of its frames and motion
+        -> [B, P] fp32.
+
+        Without `shared_prefix_len` the P prompts run through the LLM as B*P
+        full sequences. With it, the prompts also share their first
+        `shared_prefix_len` tokens (the system turn and every image and
+        motion slot; only the question after them differs): the LLM runs that
+        prefix once per video, keeping each layer's k/v, and the P suffixes
+        ride one sequence axis against that cache with a block-diagonal
+        causal mask (`two_part_cached_attention(block_causal=)`), so no
+        cache is copied per perspective. The caller's contract: the first
+        `shared_prefix_len` tokens are the same in every perspective, hold
+        every `<IMG_CONTEXT>` slot and are not padded
+        (`cli/score.compute_shared_prefix_len`)."""
         cfg = self.config
         b, p, n = input_ids.shape
         vit_embeds, motion_embeds = self._encode(pixel_values)
+        if shared_prefix_len is not None:
+            return self._score_suffixes_on_shared_prefix(
+                input_ids, attention_mask, vit_embeds, motion_embeds, shared_prefix_len)
         ids_flat = input_ids.reshape(b * p, n)
         embeds = splice_image_embeds(
             self.language_model.embed(ids_flat), ids_flat,
             vit_embeds.repeat_interleave(p, dim=0), cfg.img_context_token_id,
             motion_embeds.repeat_interleave(p, dim=0),
         )
-        hidden = self.language_model(embeds)
+        _, hidden, _ = self.language_model(inputs_embeds=embeds, with_logits=False)
         mask_flat = attention_mask.reshape(b * p, n) if attention_mask is not None else None
         return self.score(self.readout(hidden, mask_flat)).reshape(b, p)
+
+    def _score_suffixes_on_shared_prefix(
+        self,
+        input_ids: torch.Tensor,  # [B, P, N]
+        attention_mask: Optional[torch.Tensor],  # [B, P, N]
+        vit_embeds: torch.Tensor,  # [B, tok, C]
+        motion_embeds: torch.Tensor,  # [B, C]
+        prefix_len: int,
+    ) -> torch.Tensor:
+        cfg = self.config
+        b, p, n = input_ids.shape
+        s_suf = n - prefix_len
+        if s_suf < -cfg.score_readout_pos:
+            raise ValueError("suffix too short for the score read-out position")
+
+        # 1) the common prefix once per video, keeping the roped k/v
+        prefix_ids = input_ids[:, 0, :prefix_len]
+        prefix_embeds = splice_image_embeds(
+            self.language_model.embed(prefix_ids), prefix_ids, vit_embeds,
+            cfg.img_context_token_id, motion_embeds,
+        )
+        # Both passes build their rope tables from one length. The suffix
+        # pass takes it from its cache's capacity, and dynamic-NTK scaling
+        # changes the frequencies with the table's length: a prefix roped for
+        # its own length would not match the suffix queries once the
+        # capacity crosses the scaling threshold.
+        rope_len = prefix_len + p * s_suf
+        _, _, kv = self.language_model(
+            inputs_embeds=prefix_embeds, with_logits=False, capture_kv=True, rope_len=rope_len)
+
+        # 2) the P suffixes on one sequence axis [B, P*s_suf] against that
+        # cache: block-diagonal causal among themselves, the whole prefix
+        # visible. The capacity covers the suffix rows the layer loop writes
+        # at [prefix_len, ...); they are never read, since old rows end at
+        # index = prefix_len.
+        cache = KVCache.from_prefix(kv.k, kv.v, p * s_suf)
+        suffix_ids = input_ids[:, :, prefix_len:].reshape(b, p * s_suf)
+        pos = prefix_len + torch.arange(s_suf, device=input_ids.device).repeat(p)
+        _, hidden, _ = self.language_model(
+            inputs_embeds=self.language_model.embed(suffix_ids),
+            position_ids=pos.expand(b, p * s_suf), cache=cache, with_logits=False,
+            block_causal=s_suf,
+        )  # [B, P*s_suf, C]
+
+        # 3) each perspective reads out at its (real suffix length - 4)
+        if attention_mask is not None:
+            real = attention_mask[:, :, prefix_len:].to(torch.int64).sum(dim=2)
+        else:
+            real = torch.full((b, p), s_suf, dtype=torch.int64, device=hidden.device)
+        idx = torch.arange(p, device=hidden.device)[None] * s_suf + (
+            real + cfg.score_readout_pos).clamp(0, s_suf - 1)
+        row = hidden[torch.arange(b, device=hidden.device)[:, None], idx]  # [B, P, C]
+        row = torch.nan_to_num(row, nan=0.0, posinf=1e9, neginf=-1e9)
+        return self.score(row)
+
+    # ------------------------------------------------------------ decoding --
+
+    def prefill(
+        self,
+        input_embeds: torch.Tensor,  # [B, S, C]
+        cache: KVCache,
+        position_ids: Optional[torch.Tensor] = None,
+        kv_mask: Optional[torch.Tensor] = None,
+    ):
+        """Run the prompt through the LLM, filling the KV cache ->
+        (logits [B, S, V], hidden, cache)."""
+        return self.language_model(
+            inputs_embeds=input_embeds, position_ids=position_ids, cache=cache, kv_mask=kv_mask)
+
+    def decode_step(
+        self,
+        token_ids: torch.Tensor,  # [B, 1]
+        cache: KVCache,
+        kv_mask: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+    ):
+        """One autoregressive step -> (logits [B, 1, V], hidden, cache)."""
+        return self.language_model(
+            input_ids=token_ids, cache=cache, kv_mask=kv_mask, position_ids=position_ids)

@@ -1,12 +1,13 @@
-"""InternLM2 decoder (`aigv_assessor_tpu/models/internlm2.py`), the
-cache-free forward that scoring and training run.
+"""InternLM2 decoder (`aigv_assessor_tpu/models/internlm2.py`): the
+cache-free forward that scoring and training run, and the forward against a
+fixed-capacity KV cache that generation and shared-prefix scoring run.
 
 GQA attention off one fused `wqkv` projection whose output heads are
 ordered [q heads | k heads | v heads] (the JAX checkpoint converter
 de-interleaves the reference's layout once; this port takes that order),
 RoPE with dynamic-NTK scaling, causal flash attention, SwiGLU feed-forward,
-RMSNorm. The untied LM head `output` is part of the weights but the scoring
-forward does not run it.
+RMSNorm. The untied LM head `output` gives the logits (`with_logits`); the
+scoring and training forwards leave it out.
 
 Attention applies the causal mask only, as the JAX fast path does: right
 padding needs no key mask because pad keys are only attended by pad
@@ -32,13 +33,26 @@ head-major out and `wo` head-major in, so attention stays on the fused-qkv
 kernel and its backward kernels; with `grad_checkpoint` each layer's
 activations are recomputed in the backward (`ops/remat.py`).
 
-Not ported yet (ROADMAP.md, Queue 1): the KV cache and decoding, the
-logits path, LoRA over a quantized base, tied embeddings.
+With a cache (`KVCache`) every precision takes the row-major branch, as in
+JAX: `wqkv` and `wo` are applied in their row-major form (the same weights;
+bf16 and W8A8 hold them for head-major use), the block of new tokens attends
+(old cache rows) + (itself) in one softmax, and the layer loop writes the
+block's roped k/v rows into the cache in place. A single new token on a
+float cache goes through the decode-attention kernel
+(`ops/decode_attention.py`) whenever the head shape passes
+`decode_kernel_supported`; a longer block, `block_causal` or an int8 cache
+goes through `ops/attention.two_part_cached_attention`. Without a cache,
+`capture_kv` hands back every layer's roped k/v in cache layout, which the
+shared-prefix scorer turns into a cache.
+
+Not ported yet (ROADMAP.md, Queue 1): LoRA over a quantized base, tied
+embeddings.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,11 +67,91 @@ from aigv_assessor_torch.models.lora import (
     reject_quantized_lora,
     weight_only_linear,
 )
-from aigv_assessor_torch.ops.attention import fused_qkv_attention, multi_head_attention
+from aigv_assessor_torch.ops.attention import (
+    fused_qkv_attention,
+    multi_head_attention,
+    two_part_cached_attention,
+)
+from aigv_assessor_torch.ops.decode_attention import (
+    cached_decode_attention,
+    decode_kernel_supported,
+)
+from aigv_assessor_torch.ops.kv_quant import is_quantized, make_cache_rows
 from aigv_assessor_torch.ops.norms import RMSNorm
 from aigv_assessor_torch.ops.remat import checkpoint_layer
 from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
+from aigv_assessor_torch.ops import w8a8
 from aigv_assessor_torch.ops.w8a8 import quantize_rows
+
+
+@dataclass
+class KVCache:
+    """Fixed-capacity KV cache, stacked over layers.
+
+    `k` and `v` are [L, B, max_len, Hkv, D] tensors, or under
+    `Precision.kv_int8` `(int8 [L, B, max_len, Hkv, D], fp32 [L, B, max_len,
+    Hkv])` pairs (`ops/kv_quant.py`). The decoder writes new rows into them
+    in place: a forward hands back a `KVCache` over the same storage with the
+    index advanced, and the cache it was given must not be used again.
+
+    Where the index lives. `index`, the number of filled positions, is a
+    Python int on the host: slices, masks and the rope positions are made
+    from it without asking the device. `index_dev` is the same number as an
+    int32 scalar on the cache's device, which the decode-attention kernel
+    reads as the end of its window; a forward advances it with a device add.
+    So a decode step copies nothing between host and device for the index."""
+
+    k: Any  # [L, B, max_len, Hkv, D], or (int8 data, fp32 scale [L, B, max_len, Hkv])
+    v: Any
+    index: int
+    index_dev: torch.Tensor  # int32 scalar, equal to `index`
+
+    @classmethod
+    def init(cls, config: LLMConfig, batch: int, max_len: int,
+             dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
+             device: Optional[torch.device | str] = None) -> "KVCache":
+        shape = (config.num_hidden_layers, batch, max_len, config.num_key_value_heads,
+                 config.head_dim)
+
+        def kv():
+            if quantized:
+                return (torch.zeros(shape, dtype=torch.int8, device=device),
+                        torch.ones(shape[:-1], dtype=torch.float32, device=device))
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(k=kv(), v=kv(), index=0,
+                   index_dev=torch.zeros((), dtype=torch.int32, device=device))
+
+    @classmethod
+    def from_prefix(cls, k: torch.Tensor, v: torch.Tensor, extra: int) -> "KVCache":
+        """A cache whose first rows are the captured k/v of a prefix
+        ([L, B, S, Hkv, D], `capture_kv`), with room for `extra` more."""
+        s = k.shape[2]
+        if extra:
+            pad = (0, 0, 0, 0, 0, extra)
+            k, v = F.pad(k, pad), F.pad(v, pad)
+        return cls(k=k, v=v, index=s,
+                   index_dev=torch.full((), s, dtype=torch.int32, device=k.device))
+
+    @property
+    def max_len(self) -> int:
+        return (self.k[0] if is_quantized(self.k) else self.k).shape[2]
+
+
+def _layer_slot(part, i: int):
+    """Layer i of a stacked cache part (a tensor or an (int8, scale) pair)."""
+    return tuple(t[i] for t in part) if is_quantized(part) else part[i]
+
+
+def _write_rows(part, new, i: int, at: int) -> None:
+    """Write a layer's new rows into the stacked cache part in place at
+    [i, :, at : at + s]: data [B, s, Hkv, D] and, for an int8 cache, scales
+    [B, s, Hkv] alike."""
+    if is_quantized(part):
+        for t, n in zip(part, new):
+            t[i, :, at : at + n.shape[1]] = n
+    else:
+        part[i, :, at : at + new.shape[1]] = new
 
 
 class InternLM2Attention(nn.Module):
@@ -87,31 +181,67 @@ class InternLM2Attention(nn.Module):
             self.wo = make_linear(hq * d, c, bias=config.effective_o_bias, lora=lora,
                                   head_major_in=True)
 
-    def forward(self, x, cos, sin, position_ids):
+    def _project_rows(self, linear: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """`wqkv` or `wo` in its row-major form, [B, S, in] -> [B, S, out]:
+        the same weight as the head-major form the cache-free paths use."""
+        if isinstance(linear, W8A8Linear):
+            return w8a8.w8a8_matmul(x, linear.weight, linear.weight_scale, linear.bias,
+                                    linear.out_dtype)
+        if isinstance(linear, LoRALinear):
+            raise NotImplementedError("a KV cache under LoRA adapters is not ported: merge "
+                                      "the adapters and serve without them")
+        return linear(x)
+
+    def forward(self, x, cos, sin, position_ids, cache_k=None, cache_v=None,
+                cache_index: Optional[int] = None,
+                cache_index_dev: Optional[torch.Tensor] = None,
+                kv_mask: Optional[torch.Tensor] = None, capture_kv: bool = False,
+                block_causal: Optional[int] = None):
+        """-> (out [B, S, C], new rows). New rows: with a cache, the block's
+        roped (k, v) as the cache stores them (`make_cache_rows`), for the
+        caller to write at [cache_index, cache_index + S); without one, the
+        roped (k, v) in cache layout [B, S, Hkv, D] if `capture_kv`, else
+        None."""
         b, s, _ = x.shape
         hq, hkv, d = self.hq, self.hkv, self.head_dim
-        if self.weight_only:
-            qkv = self.wqkv(x)  # [B, S, (Hq + 2*Hkv)*D]; q, k, v are views of it
+        if self.weight_only or cache_k is not None:
+            # row-major: q, k, v are [B, S, H, D] views of one projection output
+            qkv = self._project_rows(self.wqkv, x) if cache_k is not None else self.wqkv(x)
             q = qkv[..., : hq * d].view(b, s, hq, d)
             k = qkv[..., hq * d : (hq + hkv) * d].view(b, s, hkv, d)
             v = qkv[..., (hq + hkv) * d :].view(b, s, hkv, d)
             q, k = apply_rope(q, k, cos, sin, position_ids, layout="bshd")
-            out = multi_head_attention(q, k, v, causal=True)  # [B, S, Hq, D]
-            return self.wo(out.reshape(b, s, hq * d))
+            if cache_k is None:
+                new_rows = (k, v) if capture_kv else None
+                out = multi_head_attention(q, k, v, causal=True)  # [B, S, Hq, D]
+                return self.wo(out.reshape(b, s, hq * d)), new_rows
+            new_rows = make_cache_rows(k, v, cache_k, cache_v)
+            if (s == 1 and block_causal is None and not is_quantized(cache_k)
+                    and decode_kernel_supported(hq, hkv, d)):
+                out = cached_decode_attention(q, k, v, cache_k, cache_v, cache_index_dev,
+                                              kv_mask)
+            else:
+                out = two_part_cached_attention(q, k, v, cache_k, cache_v, cache_index,
+                                                kv_mask, block_causal=block_causal)
+            return self._project_rows(self.wo, out.to(x.dtype).reshape(b, s, hq * d)), new_rows
         if self.w8a8 or isinstance(self.wqkv, LoRALinear):
             qkv = self.wqkv(x)  # [B, H, S, D], a view of the dense product
         else:
             qkv = self.wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
         q, k = apply_rope(qkv[:, :hq], qkv[:, hq : hq + hkv], cos, sin, position_ids)
+        v = qkv[:, hq + hkv :]
+        # the roped k/v in cache layout, for a caller that builds a cache of them
+        new_rows = (k.transpose(1, 2), v.transpose(1, 2)) if capture_kv else None
         # re-fuse after rope so the kernel reads q/k/v from one array
-        qkv = torch.cat([q, k, qkv[:, hq + hkv :]], dim=1)
+        qkv = torch.cat([q, k, v], dim=1)
         if self.w8a8:
             # the kernel writes wo's dense [B, S, Hq*D] input rows
-            return self.wo(fused_qkv_attention(qkv, hq, hkv, causal=True, out_layout="bsd"))
+            out = fused_qkv_attention(qkv, hq, hkv, causal=True, out_layout="bsd")
+            return self.wo(out), new_rows
         out = fused_qkv_attention(qkv, hq, hkv, causal=True)  # [B, Hq, S, D]
         if isinstance(self.wo, LoRALinear):
-            return self.wo(out)  # head-major in
-        return self.wo(out.transpose(1, 2).reshape(b, s, hq * d))
+            return self.wo(out), new_rows  # head-major in
+        return self.wo(out.transpose(1, 2).reshape(b, s, hq * d)), new_rows
 
 
 class InternLM2MLP(nn.Module):
@@ -151,9 +281,15 @@ class InternLM2DecoderLayer(nn.Module):
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.feed_forward = InternLM2MLP(config, precision, lora)
 
-    def forward(self, x, cos, sin, position_ids):
-        x = x + self.attention(self.attention_norm(x), cos, sin, position_ids)
-        return x + self.feed_forward(self.ffn_norm(x))
+    def forward(self, x, cos, sin, position_ids, cache_k=None, cache_v=None,
+                cache_index=None, cache_index_dev=None, kv_mask=None, capture_kv=False,
+                block_causal=None):
+        """-> (x, the attention's new rows)."""
+        attn, new_rows = self.attention(
+            self.attention_norm(x), cos, sin, position_ids, cache_k, cache_v, cache_index,
+            cache_index_dev, kv_mask, capture_kv, block_causal)
+        x = x + attn
+        return x + self.feed_forward(self.ffn_norm(x)), new_rows
 
 
 class InternLM2ForCausalLM(nn.Module):
@@ -165,7 +301,9 @@ class InternLM2ForCausalLM(nn.Module):
                 "tied embeddings are not ported yet (ROADMAP.md, Queue 1)"
             )
         self.config = config
+        self.precision = precision
         self.grad_checkpoint = grad_checkpoint
+        self._rope = {}  # (rope_len, device) -> (cos, sin)
         self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
         self.tok_embeddings = nn.Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList(
@@ -183,28 +321,84 @@ class InternLM2ForCausalLM(nn.Module):
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.tok_embeddings(input_ids)
 
-    def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
-        """[B, S, C] embeddings at positions 0..S-1 -> final hidden state
-        (after the last norm), [B, S, C]."""
-        cfg = self.config
+    def _rope_tables(self, rope_len: int, device: torch.device):
+        """The cos/sin tables of one length on one device, built once: a decode
+        loop asks for the same table every step, and building it anew would
+        copy it from the host each time."""
+        key = (rope_len, device)
+        if key not in self._rope:
+            cfg = self.config
+            rs = cfg.rope_scaling
+            # ordinary tensors even when first asked for under inference_mode:
+            # a later training forward may save them for its backward
+            with torch.inference_mode(False):
+                self._rope[key] = rope_cos_sin(
+                    rope_len,
+                    cfg.head_dim,
+                    base=cfg.rope_theta,
+                    scaling_type=rs.type if rs else None,
+                    scaling_factor=rs.factor if rs else 1.0,
+                    max_position_embeddings=cfg.max_position_embeddings,
+                    device=device,
+                )
+        return self._rope[key]
+
+    def forward(
+        self,
+        input_ids: Optional[torch.Tensor] = None,  # [B, S]
+        inputs_embeds: Optional[torch.Tensor] = None,  # [B, S, C]
+        position_ids: Optional[torch.Tensor] = None,  # [B, S]
+        cache: Optional[KVCache] = None,
+        kv_mask: Optional[torch.Tensor] = None,  # [B, max_len] bool, pad slots False
+        rope_len: Optional[int] = None,
+        with_logits: bool = True,
+        capture_kv: bool = False,
+        block_causal: Optional[int] = None,
+    ) -> Tuple[Optional[torch.Tensor], torch.Tensor, Optional[KVCache]]:
+        """-> (logits [B, S, V] in `precision.logits_dtype` or None, final
+        hidden state after the last norm [B, S, C], new cache or None).
+
+        Positions default to `cache.index + arange(S)` (0 without a cache).
+        The rope tables have `rope_len` rows: by default the cache's capacity
+        with a cache, else S. With a cache its rows [index, index + S) are
+        written in place and the returned cache has the index advanced.
+        Without one, `capture_kv` returns the layers' roped k/v
+        [L, B, S, Hkv, D] as a cache with index S."""
+        if inputs_embeds is None:
+            inputs_embeds = self.tok_embeddings(input_ids)
         b, s, _ = inputs_embeds.shape
         device = inputs_embeds.device
-        position_ids = torch.arange(s, device=device).expand(b, s)
-        rs = cfg.rope_scaling
-        cos, sin = rope_cos_sin(
-            s,
-            cfg.head_dim,
-            base=cfg.rope_theta,
-            scaling_type=rs.type if rs else None,
-            scaling_factor=rs.factor if rs else 1.0,
-            max_position_embeddings=cfg.max_position_embeddings,
-            device=device,
-        )
+        if position_ids is None:
+            start = cache.index if cache is not None else 0
+            position_ids = torch.arange(start, start + s, device=device).expand(b, s)
+        if rope_len is None:
+            rope_len = cache.max_len if cache is not None else s
+        cos, sin = self._rope_tables(rope_len, device)
+
         x = inputs_embeds.to(self.norm.weight.dtype)
-        remat = self.grad_checkpoint and torch.is_grad_enabled()
-        for layer in self.layers:
-            if remat:
-                x = checkpoint_layer(layer, self.generator, x, cos, sin, position_ids)
+        remat = self.grad_checkpoint and torch.is_grad_enabled() and cache is None
+        captured = []
+        for i, layer in enumerate(self.layers):
+            if cache is not None:
+                x, (kn, vn) = layer(
+                    x, cos, sin, position_ids, _layer_slot(cache.k, i), _layer_slot(cache.v, i),
+                    cache.index, cache.index_dev, kv_mask, False, block_causal)
+                _write_rows(cache.k, kn, i, cache.index)
+                _write_rows(cache.v, vn, i, cache.index)
+            elif remat and not capture_kv:
+                x = checkpoint_layer(lambda *a, layer=layer: layer(*a)[0], self.generator,
+                                     x, cos, sin, position_ids)
             else:
-                x = layer(x, cos, sin, position_ids)
-        return self.norm(x)
+                x, rows = layer(x, cos, sin, position_ids, capture_kv=capture_kv)
+                captured.append(rows)
+        hidden = self.norm(x)
+        logits = self.output(hidden).to(self.precision.logits_dtype) if with_logits else None
+
+        new_cache = None
+        if cache is not None:
+            new_cache = KVCache(k=cache.k, v=cache.v, index=cache.index + s,
+                                index_dev=cache.index_dev + s)
+        elif capture_kv:
+            new_cache = KVCache.from_prefix(torch.stack([kv[0] for kv in captured]),
+                                            torch.stack([kv[1] for kv in captured]), 0)
+        return logits, hidden, new_cache

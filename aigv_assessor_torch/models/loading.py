@@ -29,7 +29,9 @@ port's model -> its JAX path and layer index, which the LoRA artifact
 (`train/checkpoint.py`) and the leaf-by-leaf tests are keyed by.
 
 `quantize_for_serving` makes the W8A8, int8 or int4 weights from float ones,
-as the JAX `quantize_for_serving(w8a8=True | int8=True | int4=True)` does.
+as the JAX `quantize_for_serving(w8a8=True | int8=True | int4=True)` does,
+and `serving_precision` the precision that call returns beside them,
+`kv_int8` included.
 
 `init_random_` fills a model from a seed; `init_lora_` and `init_score_head_`
 draw the adapters and the score head as the JAX modules initialise them.
@@ -40,6 +42,7 @@ safetensors need `safetensors`) is not ported yet (ROADMAP.md, Queue 1).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -178,6 +181,26 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Optional[int]]]:
             path.append("base")
         out[name] = ("/".join(path + [leaf]), layer)
     return out
+
+
+def serving_precision(
+    precision: Precision = Precision(),
+    *,
+    w8a8: bool = False,
+    int8: bool = False,
+    int4: bool = False,
+    kv_int8: bool = False,
+) -> Precision:
+    """The precision the JAX `quantize_for_serving` hands back for these
+    flags: each flag adds to what `precision` already says; int4 goes before
+    int8 when both are set; `kv_int8` composes with every weight mode; W8A8
+    with a weight-only mode raises ValueError."""
+    w8a8 = w8a8 or precision.w8a8
+    int4 = int4 or precision.int4_weights
+    int8 = (int8 or precision.int8_weights) and not int4
+    return dataclasses.replace(
+        precision, w8a8=w8a8, int8_weights=int8, int4_weights=int4,
+        kv_int8=kv_int8 or precision.kv_int8)
 
 
 @torch.no_grad()

@@ -10,6 +10,11 @@
   `flash_attention`.
 - `plain_attention`: the counterpart of the JAX `xla_attention`, einsums
   with an fp32 softmax. It is the kernels' plain version.
+- `two_part_cached_attention`: attention of a block of new tokens over
+  (the read-only KV cache) + (the block itself) with one softmax, in plain
+  PyTorch as it is plain JAX einsums there. Prefill into a cache, the
+  shared-prefix scorer's suffix pass and decode steps on an int8 cache run
+  it; single-token steps on a float cache go to `ops/decode_attention.py`.
 
 Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] with Hq % Hkv == 0 (GQA).
 Queries are grouped as [B, Sq, Hkv, G, D] against their shared KV head, so
@@ -21,6 +26,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from aigv_assessor_torch.ops.kv_quant import is_quantized
 
 _NEG_INF = -1e30
 
@@ -102,10 +109,90 @@ def multi_head_attention(
     kv_valid: keys at or beyond it are masked (the caller padded Skv).
 
     The JAX entry point also takes a boolean `mask`, which it sends to its
-    plain attention. No caller in the port has one yet: it comes with the
-    shared-prefix scorer (ROADMAP.md, Queue 1)."""
+    plain attention. No caller in the port has one."""
     from aigv_assessor_torch.ops import flash_attention  # see fused_qkv_attention
 
     return flash_attention.flash_attention(
         q, k, v, causal=causal, layout=layout, kv_valid=kv_valid
     )
+
+
+def two_part_cached_attention(
+    q: torch.Tensor,  # [B, S, Hq, D], the current block, rope applied
+    k: torch.Tensor,  # [B, S, Hkv, D], the current block, rope applied
+    v: torch.Tensor,  # [B, S, Hkv, D]
+    cache_k,  # [B, max_len, Hkv, D], read-only, or (int8 data, fp32 scale [B, max_len, Hkv])
+    cache_v,
+    cache_index: int,  # valid cache rows
+    kv_mask: Optional[torch.Tensor] = None,  # [B, max_len] bool
+    block_causal: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention over (read-only old cache) + (current block) with one
+    softmax spanning both -> [B, S, Hq, D] in q's dtype.
+
+    Old rows are valid below `cache_index` and where `kv_mask` is set. The
+    block is causal; `block_causal=g` makes it S / g independent groups of g
+    rows, causal within a group and blind across groups, every group still
+    attending the whole cache: the shared-prefix scorer runs its P suffixes
+    as one block against one prefix cache. With a `kv_mask` the block's own
+    columns, slots [cache_index, cache_index + S), are masked by it too
+    (left-padded prefill).
+
+    The cache is never copied here: the caller writes the new rows at
+    [cache_index, cache_index + S).
+
+    Logits and softmax are fp32 (fp64 for fp64 inputs); the probabilities
+    are rounded to the value dtype before the two PV products, which are
+    summed in fp32. With an int8 cache the int8 values enter the products
+    directly: the K scale multiplies the logits per (position, kv head) and
+    the V scale the probabilities, so no dequantized cache is built. The
+    current block's k and v stay unquantized. The order of the arithmetic is
+    the JAX function's."""
+    k_scale = v_scale = None
+    if is_quantized(cache_k):
+        cache_k, k_scale = cache_k
+        cache_v, v_scale = cache_v
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = d**-0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, s, hkv, g, d).to(acc)
+    neg = torch.full((), _NEG_INF, dtype=acc, device=q.device)
+
+    lo = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache_k.to(acc)) * scale  # [B, Hkv, G, S, max_len]
+    if k_scale is not None:
+        lo = lo * k_scale.transpose(1, 2)[:, :, None, None, :]
+    slots = torch.arange(cache_k.shape[1], device=q.device)
+    valid_old = (slots < cache_index)[None, :]  # slots fill in order
+    if kv_mask is not None:
+        valid_old = valid_old & kv_mask
+    lo = torch.where(valid_old[:, None, None, None, :], lo, neg)
+
+    ln = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(acc)) * scale  # [B, Hkv, G, S, S]
+    rows = torch.arange(s, device=q.device)
+    valid_new = rows[None, :] <= rows[:, None]
+    if block_causal is not None:
+        valid_new = valid_new & (
+            (rows[:, None] // block_causal) == (rows[None, :] // block_causal)
+        )
+    valid_new = valid_new[None]
+    if kv_mask is not None:
+        valid_new = valid_new & kv_mask[:, None, cache_index : cache_index + s]
+    ln = torch.where(valid_new[:, None, None], ln, neg)
+
+    m = torch.maximum(lo.amax(dim=-1, keepdim=True), ln.amax(dim=-1, keepdim=True))
+    po = torch.exp(lo - m)
+    pn = torch.exp(ln - m)
+    denom = po.sum(-1, keepdim=True) + pn.sum(-1, keepdim=True)
+    po = po / denom
+    if v_scale is not None:
+        po = (po * v_scale.transpose(1, 2)[:, :, None, None, :]).to(v.dtype)
+        cache_v = cache_v.to(v.dtype)
+    else:
+        po = po.to(cache_v.dtype)
+    pn = (pn / denom).to(v.dtype)
+    ctx = torch.einsum("bhgqk,bkhd->bqhgd", po.to(acc), cache_v.to(acc)) + torch.einsum(
+        "bhgqk,bkhd->bqhgd", pn.to(acc), v.to(acc)
+    )
+    return ctx.reshape(b, s, hq, d).to(q.dtype)

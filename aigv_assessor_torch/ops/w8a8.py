@@ -23,6 +23,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 Quantized = Tuple[torch.Tensor, torch.Tensor]  # (int8 [..., K], fp32 [..., 1])
+_MIN_ROWS = 16  # cuBLASLt's int8 product takes more rows than this
 
 
 def quantize_rows(x: torch.Tensor) -> Quantized:
@@ -66,13 +67,17 @@ def _int_mm(xq: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         n = weight.shape[0]
         # cuBLASLt's int8 product: more than 16 rows, K and N multiples of 8
         # (every W8A8 projection of the scoring path meets this)
-        if m <= 16 or k % 8 or n % 8:
+        if k % 8 or n % 8:
             raise ValueError(
-                f"int8 product on the card needs M > 16 and K, N multiples of 8, "
-                f"got M={m} K={k} N={n}"
+                f"int8 product on the card needs K, N multiples of 8, got K={k} N={n}"
             )
         if not weight.is_contiguous():
             raise ValueError("the int8 weight must be stored [out, in] contiguous")
+        if m <= _MIN_ROWS:
+            # a decode step has one row per sample: zero rows fill it up
+            padded = xq.new_zeros((_MIN_ROWS + 1, k))
+            padded[:m] = xq
+            return torch._int_mm(padded, weight.t())[:m]
     return torch._int_mm(xq.contiguous(), weight.t())
 
 

@@ -32,10 +32,11 @@ import torch
 CTX, FRAMES, IMAGE, TEXT, BATCH = 7, 8, 448, 64, 4
 MODES = ("bf16", "w8a8", "int8", "int4")
 KINDS = (  # (label, substrings of the kernel's name)
+    ("decode_attention", ("decode_attention_partial", "decode_attention_combine")),
     ("attention_fwd", ("flash_fwd_kernel",)),
     ("weight_only_matmul", ("weight_only_matmul_kernel",)),
     ("quantize_feeds", ("quant_rows_kernel",)),
-    ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
+    ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "cublas")),
     ("cudnn", ("cudnn", "conv")),
 )
 

@@ -11,8 +11,9 @@ Phases, each printing one line or more (and failing the run by raising):
    all started together: the flash-attention forward
    (`aigv_assessor_torch/csrc/flash_attn_fwd.cu`), its backward
    (`csrc/flash_attn_bwd.cu`), the fused quantize kernels
-   (`csrc/quant_fuse.cu`) and the weight-only matmuls
-   (`csrc/weight_only_matmul.cu`).
+   (`csrc/quant_fuse.cu`), the weight-only matmuls
+   (`csrc/weight_only_matmul.cu`) and the decode attention
+   (`csrc/decode_attention.cu`).
 3. kernel: each kernel against its plain PyTorch version on the same inputs,
    both timed with CUDA events after warm-up, beside its bound (the larger of
    bytes / 3.35 TB/s and operations / 989 TFLOP/s, from this run's shapes)
@@ -49,6 +50,18 @@ Phases, each printing one line or more (and failing the run by raising):
      exactly 0 for an all-zero weight column. Yardstick, which
      nothing in the port calls: `F.linear` in bf16 on a weight dequantized
      beforehand, the same product with two or four times the weight bytes.
+   - The decode-attention kernel at the decode step's shape (B = 4, 16 / 8
+     heads, D = 128, a cache of 2177 rows; `end` = 2113 with full windows and
+     2150 with ragged `starts`), with `end` = 0, with windows of one row and
+     at D = 64: `out` within DECODE_TOL of `plain_decode_attention`, `m` and
+     `l` within DECODE_ML_RTOL; rows outside the windows hold NaN for the
+     kernel, which must not load them; merged with the current token against
+     `two_part_cached_attention`. Timed over a stack of layers larger than the
+     L2 cache, as a CUDA graph's replay (device time) and call by call (with
+     the host's launch cost), beside its byte bound, the plain version, the eager
+     `two_part_cached_attention` with one token and SDPA with a one-token
+     query; and with every window DECODE_SHORT rows long, which must not take
+     longer than full windows.
 4. slice (bf16): stage-2 scoring of the InternVL2-2B model (full depth and
    width, random weights from a seed) through `cli/score.score_chunks`, two
    chunks of four synthetic 8-frame 448 px videos with the 2113-token
@@ -92,6 +105,26 @@ Phases, each printing one line or more (and failing the run by raising):
    path against the same backward through the plain attention, and both
    against an fp32 backward of the same weights (tolerances at
    TRAIN_GRAD_TOL).
+
+8. generation: `models/generation.generate` on the same model, B = 4, the
+   2113-token prompt with the motion embedding, GEN_TOKENS new tokens,
+   greedy, in bf16, with int8 weights, and in bf16 with the int8 KV cache.
+   Checks [4, GEN_TOKENS] token ids; decode-attention launches = 24 x decode
+   steps (0 under `kv_int8`), 121 int8 matmuls per prefill and per step, 24
+   fused-qkv launches (the ViT); then, under a fixed token sequence
+   (teacher forcing), the decode logits of the kernel path against the same
+   steps on the plain decode attention and against the cache-free forward
+   (DECODE_LOGITS_TOL), in bf16 also against an fp32 run of the same weights
+   (REF_RATIO); token agreement where the top-two margin exceeds the
+   measured difference; the cache rows against the cache-free forward's
+   `capture_kv` rows. Prints ms per prefill and per decode step, tokens per
+   second, cache bytes and peak memory.
+9. shared prefix: P = 4 prompts that share their first 2081 tokens through
+   `score_chunks(shared_prefix=True)` against `shared_prefix=False` on the
+   same videos: launches per chunk (24 + 24 fused-qkv, no decode attention),
+   the read-out rows within READOUT_TOL of each other and the shared path no
+   more than REF_RATIO as far from an fp32 reference as the unshared one,
+   scores within SCORE_TOL; ms per chunk and peak memory of both.
 
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -182,6 +215,35 @@ WEIGHT_ONLY_READOUT_TOL = 5e-2
 # int8 weight-only against bf16 of the same weights: the bound W8A8 is held to,
 # which quantizes these weights and the activations too
 INT8_COSINE = 0.99
+# decode attention vs plain: `out` is bf16 (2^-9 relative), and the kernel
+# keeps p in fp32 where the plain version rounds it to bf16, an error of the
+# same size before the sum over the window averages it out
+DECODE_TOL = 2e-2
+# m and l: fp32 on both sides; __expf against exp and another summation order
+DECODE_ML_RTOL = 1e-4
+DECODE_SHORT = 64  # rows of a short window
+# (B, hq, hkv, D, max_len, end, starts)
+DECODE_SHAPES = {
+    "path": (4, 16, 8, 128, 2177, 2113, (0, 0, 0, 0)),
+    "ragged": (4, 16, 8, 128, 2177, 2150, (0, 500, 1500, 2100)),
+    "end_zero": (4, 16, 8, 128, 2177, 0, (0, 0, 0, 0)),
+    "one_row": (4, 16, 8, 128, 2177, 2113, (2112, 2112, 0, 2112)),
+    "d64": (4, 16, 16, 64, 1100, 1025, (0, 0, 3, 1000)),
+}
+DECODE_LAYERS = 6  # cache layers cycled while timing: 214 MB, above the L2 cache
+GEN_TOKENS = 32
+FORCED = 8  # teacher-forced decode steps
+# Decode logits after 24 bf16 layers, relative L2 over the forced steps. The
+# kernel path and the plain path differ in the attention's rounding only, as
+# two bf16 forwards do (2.03e-2 at the readout, above); the cache-free forward
+# also takes another attention kernel and another rope layout.
+DECODE_LOGITS_TOL = 3e-2
+# the int8 cache rounds every cached value to 1 / 127 of its row's maximum
+KV_INT8_LOGITS_TOL = 1e-1
+PERSPECTIVES, SUFFIX = 4, 32  # prompts per video; tokens after the shared prefix
+# Scores of the shared-prefix path against the unshared, largest difference
+# over the largest score: a small head on readouts READOUT_TOL apart
+SCORE_TOL = 5e-2
 CTX = 7  # <IMG_CONTEXT> id of the synthetic prompts
 FRAMES, IMAGE, TEXT, BATCH, CHUNKS = 8, 448, 64, 4, 2
 # (B, hq, hkv, S, D, causal, kv_valid)
@@ -227,6 +289,19 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, iters: int) -> float:
+    """Device time of one call: the calls `fns` are captured into one CUDA
+    graph and replayed, so the host's launch cost is not in the time. -> ms
+    per call."""
+    fns[0]()  # builds and warms up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    return time_ms(graph.replay, iters) / len(fns)
 
 
 def make_qkv(shape, device) -> torch.Tensor:
@@ -693,7 +768,7 @@ def relative_l2(x: torch.Tensor, y: torch.Tensor) -> float:
 
 
 def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: str) -> dict:
-    """Phase 6 -> launches of each attention kernel form over the
+    """Phase 7 -> launches of each attention kernel form over the
     TRAIN_STEPS steps. per_forward: attention layers of one forward."""
     from aigv_assessor_torch.cli.stage2_train import (
         LORA_FILE, build_training_model, prepare_batch, train_steps)
@@ -832,6 +907,390 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
     return train_counts
 
 
+def check_decode_attention(dec, two_part, device) -> dict:
+    """The decode-attention kernel against its plain version at DECODE_SHAPES,
+    merged against `two_part_cached_attention`, and timed at the path shape."""
+    results = {}
+    for name, (b, hq, hkv, d, max_len, end_i, starts_t) in DECODE_SHAPES.items():
+        gen = torch.Generator(device=device).manual_seed(5)
+        q = torch.randn((b, hq, d), generator=gen, device=device).to(torch.bfloat16)
+        # layers of a stacked cache, read through their strides
+        stack = torch.randn((2, DECODE_LAYERS, b, max_len, hkv, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+        ck, cv = stack[0, 1], stack[1, 1]
+        k_new, v_new = (torch.randn((b, 1, hkv, d), generator=gen, device=device)
+                        .to(torch.bfloat16) for _ in range(2))
+        starts = torch.tensor(starts_t, dtype=torch.int32, device=device)
+        end = torch.tensor(end_i, dtype=torch.int32, device=device)
+        rows = torch.arange(max_len, device=device)
+        inside = (rows[None] >= starts[:, None]) & (rows[None] < end)
+        ck_nan, cv_nan = ck.clone(), cv.clone()
+        ck_nan[~inside] = float("nan")
+        cv_nan[~inside] = float("nan")
+        out, m, l = dec.decode_attention(q, ck_nan, cv_nan, starts, end)
+        torch.cuda.synchronize()
+        w_out, w_m, w_l = dec.plain_decode_attention(q, ck, cv, starts, end)
+        if not (torch.isfinite(out).all() and torch.isfinite(m).all() and torch.isfinite(l).all()):
+            raise RuntimeError(f"decode attention {name}: a row outside the window was read, "
+                               "or the output is not finite")
+        err = (out.float() - w_out.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), w_out.float(), atol=DECODE_TOL, rtol=DECODE_TOL)
+        torch.testing.assert_close(m, w_m, atol=1e-5, rtol=DECODE_ML_RTOL)
+        torch.testing.assert_close(l, w_l, atol=1e-6, rtol=DECODE_ML_RTOL)
+        empty = ~inside.any(dim=1)
+        if out[empty].any() or l[empty].any() or not (m[empty] == -1e30).all():
+            raise RuntimeError(f"decode attention {name}: an empty window did not give "
+                               "out = 0, l = 0, m = -1e30")
+        kv_mask = rows[None] >= starts[:, None]
+        merged = dec.cached_decode_attention(q[:, None], k_new, v_new, ck, cv, end, kv_mask)
+        want = two_part(q[:, None], k_new, v_new, ck, cv, end_i, kv_mask)
+        merged_err = (merged.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(merged.float(), want.float(), atol=DECODE_TOL, rtol=DECODE_TOL)
+        n_rows = int(inside.sum())
+        r = dict(shape=f"B={b} hq={hq} hkv={hkv} D={d} max_len={max_len} end={end_i} "
+                 f"starts={list(starts_t)}", rows=n_rows, max_abs_err=err,
+                 merged_max_abs_err=merged_err,
+                 m_max_rel_err=((m - w_m).abs() / w_m.abs().clamp_min(1e-6)).max().item(),
+                 l_max_rel_err=((l - w_l).abs() / w_l.abs().clamp_min(1e-6)).max().item())
+        if name in ("path", "ragged"):
+            layers = [(stack[0, i], stack[1, i]) for i in range(DECODE_LAYERS)]
+
+            def cycle(fn, iters=5):
+                """Device ms per call over the stack's layers (graph replay),
+                and ms per call of the same calls made one by one, which on
+                a small kernel is the host's launch cost."""
+                calls = [lambda lk=lk, lv=lv: fn(lk, lv) for lk, lv in layers]
+
+                def run():
+                    for call in calls:
+                        call()
+                return graph_ms(calls, iters), time_ms(run, iters, warmup=2) / len(layers)
+            r["ms"], r["eager_ms"] = cycle(
+                lambda lk, lv: dec.decode_attention(q, lk, lv, starts, end), 20)
+            r["plain_ms"], _ = cycle(
+                lambda lk, lv: dec.plain_decode_attention(q, lk, lv, starts, end))
+            r["two_part_ms"], r["two_part_eager_ms"] = cycle(
+                lambda lk, lv: two_part(q[:, None], k_new, v_new, lk, lv, end_i, kv_mask))
+            r["merge_ms"], r["merge_eager_ms"] = cycle(
+                lambda lk, lv: dec.merge_new_token(out, m, l, q, k_new, v_new), 20)
+            # the library: a one-token query against the cache rows below `end`,
+            # head-major views, a mask where the windows are ragged
+            qs = q[:, :, None]
+            mask = None if not starts.any() else inside[:, None, None, :end_i]
+
+            def sdpa_call(lk, lv):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, lk[:, :end_i].transpose(1, 2), lv[:, :end_i].transpose(1, 2),
+                    attn_mask=mask, enable_gqa=hq != hkv)
+            lib = sdpa_call(ck, cv)[:, :, 0]
+            r["library_max_abs_err"] = (lib.float() - w_out.float()).abs().max().item()
+            r["library_ms"], r["library_eager_ms"] = cycle(sdpa_call, 20)
+            # each K and V row of the windows read once, q read and out, m, l
+            # written once; 2 products of D terms per row and query head, in
+            # fp32 outside the tensor cores (67 TFLOP/s)
+            nbytes = n_rows * hkv * d * 2 * 2 + 2 * b * hq * d * 2 + 2 * b * hq * 4
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = 4.0 * n_rows * hq * d / 67e12 * 1e3
+            r.update(bound_ms=max(t_bytes, t_ops), bytes=nbytes,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if name == "path":
+            short = (end - DECODE_SHORT).expand(b).contiguous()
+            r["short_ms"], _ = cycle(
+                lambda lk, lv: dec.decode_attention(q, lk, lv, short, end), 20)
+            if not r["short_ms"] <= r["ms"]:
+                raise RuntimeError(f"decode attention: windows of {DECODE_SHORT} rows took "
+                                   f"{r['short_ms']:.4f} ms, full windows {r['ms']:.4f} ms")
+        results[name] = r
+        timed = ("" if "ms" not in r else
+                 f"; device time by graph replay (and call by call, host included): kernel "
+                 f"{r['ms'] * 1e3:.1f} ({r['eager_ms'] * 1e3:.1f}) us, plain "
+                 f"{r['plain_ms'] * 1e3:.1f} us, eager two_part_cached_attention "
+                 f"{r['two_part_ms'] * 1e3:.1f} ({r['two_part_eager_ms'] * 1e3:.1f}) us, SDPA "
+                 f"{r['library_ms'] * 1e3:.1f} ({r['library_eager_ms'] * 1e3:.1f}) us "
+                 f"(max_abs_err to plain {r['library_max_abs_err']:.3e}), bound "
+                 f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, {r['bytes']} bytes), "
+                 f"merge_new_token {r['merge_ms'] * 1e3:.1f} ({r['merge_eager_ms'] * 1e3:.1f}) us" +
+                 (f", windows of {DECODE_SHORT} rows {r['short_ms'] * 1e3:.1f} us"
+                  if "short_ms" in r else ""))
+        phase("kernel", f"decode attention {name}: {r['shape']} ({n_rows} rows): out max_abs_err "
+              f"{err:.3e} (atol=rtol={DECODE_TOL}), m / l max rel err {r['m_max_rel_err']:.2e} / "
+              f"{r['l_max_rel_err']:.2e} (tol {DECODE_ML_RTOL}), rows outside the windows NaN "
+              f"and not read, merged with the current token vs two_part_cached_attention "
+              f"{merged_err:.3e}{timed}")
+    return results
+
+
+def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vit: int,
+                   bf16_logits=None, **flags) -> dict:
+    """Phase 8 for one precision -> launches of the main path's run, times,
+    and the kernel path's teacher-forced logits."""
+    from aigv_assessor_torch.cli.score import build_serving_model
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models.generation import GenerationConfig, decode_loop, generate
+    from aigv_assessor_torch.models.internlm2 import KVCache
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import int8_matmul as wo
+    from aigv_assessor_torch.ops import kv_quant
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    model = build_serving_model(cfg, device=device, seed=0, **flags)
+    lm = model.language_model
+    kv_int8, int8 = model.precision.kv_int8, model.precision.int8_weights
+    dtype = model.precision.compute_dtype
+    batch, seq = ids.shape
+    max_len = seq + GEN_TOKENS
+    gcfg = GenerationConfig(max_new_tokens=GEN_TOKENS, eos_token_id=-1)  # never stops
+    counters = (dec.decode_attention, wo.int8_matmul, wo.int4_matmul, fa.flash_attention_qkv,
+                fa.flash_attention)
+    with torch.inference_mode():
+        pv = resize_normalize(px_u8, size=IMAGE, dtype=dtype)
+        generate(model, None, ids, pv, gcfg=GenerationConfig(max_new_tokens=2, eos_token_id=-1),
+                 with_motion=True)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        # the main path, every count at 0 just before it
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        tokens = generate(model, None, ids, pv, gcfg=gcfg, with_motion=True)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        counts = {c.__name__: c.launches for c in counters}
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    steps = GEN_TOKENS - 1
+    per_pass = 5 * n_llm + 1  # the projections and the LM head
+    want = {"decode_attention": 0 if kv_int8 else n_llm * steps,
+            "int8_matmul": per_pass * (1 + steps) if int8 else 0, "int4_matmul": 0,
+            "flash_attention_qkv": n_vit, "flash_attention": 0}
+    if counts != want:
+        raise RuntimeError(f"generation {label}: launches {counts}, expected {want}")
+    if tokens.shape != (batch, GEN_TOKENS) or tokens.min() < 0 or tokens.max() >= cfg.llm.vocab_size:
+        raise RuntimeError(f"generation {label}: token ids {tokens.shape} out of range")
+
+    def new_cache(m):
+        # in the model's dtype, which is generate()'s bf16 for the served model
+        return KVCache.init(cfg.llm, batch, max_len, dtype=m.precision.compute_dtype,
+                            quantized=m.precision.kv_int8, device=device)
+
+    forced = torch.as_tensor(np.random.default_rng(1).integers(10, cfg.llm.vocab_size,
+                                                               (batch, FORCED)), device=device)
+
+    def forced_logits(m, embeds):
+        """Prefill, then FORCED decode steps on fixed tokens -> logits
+        [B, 1 + FORCED, V] fp32 (the prompt's last position and each step) and
+        the cache."""
+        logits, _, cache = m.prefill(embeds, new_cache(m))
+        rows = [logits[:, -1].float()]
+        del logits
+        for i in range(FORCED):
+            logits, _, cache = m.decode_step(forced[:, i : i + 1], cache)
+            rows.append(logits[:, -1].float())
+        return torch.stack(rows, dim=1), cache
+
+    with torch.inference_mode():
+        embeds = model.embed_multimodal(ids, pv, with_motion=True)
+        # times: the prefill, and decode steps enqueued back to back
+        prefill_ms = time_ms(lambda: model.prefill(embeds, new_cache(model)), 2, warmup=1)
+        _, _, cache = model.prefill(embeds, new_cache(model))
+        first = torch.zeros(batch, dtype=torch.int64, device=device)
+        start_pos = torch.full((batch,), seq, dtype=torch.int64, device=device)
+        kv_mask = torch.ones((batch, max_len), dtype=torch.bool, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_loop(model, first, cache, start_pos, kv_mask, gcfg)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        del cache
+
+        before = dec.decode_attention.launches
+        k_logits, k_cache = forced_logits(model, embeds)
+        if dec.decode_attention.launches - before != (0 if kv_int8 else n_llm * FORCED):
+            raise RuntimeError(f"generation {label}: the forced steps did not go through the "
+                               "decode-attention kernel once per layer")
+        kernel, launched = dec.decode_attention, dec.decode_attention.launches
+        with mock.patch.object(dec, "decode_attention", dec.plain_decode_attention):
+            p_logits, _ = forced_logits(model, embeds)
+            if kernel.launches != launched:
+                raise RuntimeError("the plain decode path launched the kernel")
+            r_logits = None
+            if bf16_logits is None and not int8:  # the bf16 phase: an fp32 run of the same weights
+                ref = copy.deepcopy(model).float()
+                ref.precision = ref.language_model.precision = Precision.fp32()
+                r_logits, _ = forced_logits(ref, embeds.float())
+                del ref
+        # the cache-free forward over prompt + forced tokens, with its k/v rows
+        all_embeds = torch.cat([embeds, model.embed_tokens(forced)], dim=1)
+        _, hidden, captured = lm(inputs_embeds=all_embeds, with_logits=False, capture_kv=True,
+                                 rope_len=max_len)
+        f_logits = lm.output(hidden[:, seq - 1 :]).float()
+        del hidden, all_embeds
+        n = seq + FORCED
+        got_k, got_v = k_cache.k, k_cache.v
+        if kv_int8:
+            got_k, got_v = (kv_quant.dequantize_kv_rows(q8[:, :, :n], sc[:, :, :n])
+                            for q8, sc in (got_k, got_v))
+        rows_rel = max(relative_l2(got_k[:, :, :n].float(), captured.k.float()),
+                       relative_l2(got_v[:, :, :n].float(), captured.v.float()))
+        rows0_rel = max(relative_l2(got_k[0, :, :n].float(), captured.k[0].float()),
+                        relative_l2(got_v[0, :, :n].float(), captured.v[0].float()))
+        del captured, k_cache, got_k, got_v
+
+    if not torch.isfinite(k_logits).all():
+        raise RuntimeError(f"generation {label}: logits not finite")
+    rel_plain, rel_free = relative_l2(k_logits, p_logits), relative_l2(k_logits, f_logits)
+    # the cache-free forward attends unrounded rows, an int8 cache rounded ones
+    free_tol = KV_INT8_LOGITS_TOL if kv_int8 else DECODE_LOGITS_TOL
+    if not (rel_plain <= DECODE_LOGITS_TOL and rel_free <= free_tol):
+        raise RuntimeError(f"generation {label}: forced logits relative L2 kernel vs plain path "
+                           f"{rel_plain} (tol {DECODE_LOGITS_TOL}), vs the cache-free forward "
+                           f"{rel_free} (tol {free_tol})")
+    ref_text = ""
+    if r_logits is not None:
+        rel_kr, rel_pr = relative_l2(k_logits, r_logits), relative_l2(p_logits, r_logits)
+        if not rel_kr <= REF_RATIO * rel_pr:
+            raise RuntimeError(f"generation {label}: kernel path {rel_kr} from the fp32 "
+                               f"reference, plain path {rel_pr}: more than {REF_RATIO}x farther")
+        ref_text = f", vs fp32 reference: kernel {rel_kr:.3e}, plain {rel_pr:.3e} (tol {REF_RATIO}x)"
+    if bf16_logits is not None and kv_int8:
+        rel_q = relative_l2(k_logits, bf16_logits)
+        if not rel_q <= KV_INT8_LOGITS_TOL:
+            raise RuntimeError(f"generation {label}: logits {rel_q} from the bf16 cache's, above "
+                               f"{KV_INT8_LOGITS_TOL}")
+        ref_text = f", vs the bf16 cache's logits {rel_q:.3e} (tol {KV_INT8_LOGITS_TOL})"
+    # Greedy tokens: nearly flat logits on random weights, so an argmax may
+    # flip between two right paths; held only where the plain path's top-two
+    # margin exceeds twice the largest difference measured
+    top2 = p_logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = k_logits.argmax(-1) == p_logits.argmax(-1)
+    clear = margin > 2 * (k_logits - p_logits).abs().max()
+    if not agree[clear].all():
+        raise RuntimeError(f"generation {label}: an argmax differs where the margin is clear")
+    # layer 0's rows come from the same products: rope layout and, for k, the
+    # same rounding; every layer within the tolerance of two bf16 forwards
+    row_tol = KV_INT8_LOGITS_TOL if kv_int8 else READOUT_TOL
+    if not (rows_rel <= row_tol and rows0_rel <= (row_tol if kv_int8 else 2.0**-8)):
+        raise RuntimeError(f"generation {label}: cache rows vs capture_kv rows: relative L2 "
+                           f"{rows_rel} over all layers, {rows0_rel} in layer 0")
+    kv_bytes = 2 * n_llm * batch * max_len * cfg.llm.num_key_value_heads * cfg.llm.head_dim
+    cache_bytes = kv_bytes * 2 if not kv_int8 else kv_bytes + kv_bytes // cfg.llm.head_dim * 4
+    phase("slice", f"generation {label} InternVL2-2B, {batch} x {seq}-token prompt with motion, "
+          f"{GEN_TOKENS} new tokens greedy: launches {counts} ({n_llm} decode attention per "
+          f"step); generate {total_ms:.1f} ms; prefill {prefill_ms:.1f} ms, decode step "
+          f"{step_ms:.3f} ms, {batch * 1e3 / step_ms:.1f} tokens/s; cache {cache_bytes} bytes "
+          f"for {max_len} rows; peak {peak_gib:.2f} GiB allocated; forced logits rel L2 kernel "
+          f"vs plain decode attention {rel_plain:.3e}, vs cache-free forward {rel_free:.3e} "
+          f"(tol {DECODE_LOGITS_TOL}, cache-free {free_tol}){ref_text}; argmax agrees on {int(agree.sum())} of "
+          f"{agree.numel()} ({int(clear.sum())} with a clear margin, all agree); cache rows vs "
+          f"capture_kv rows rel L2 {rows_rel:.3e}, layer 0 {rows0_rel:.3e}; tokens of sample 0 "
+          f"{tokens[0, :8].tolist()} [{smi}]")
+    del model
+    torch.cuda.empty_cache()
+    return dict(counts=counts, prefill_ms=prefill_ms, step_ms=step_ms, total_ms=total_ms,
+                peak_gib=peak_gib, cache_bytes=cache_bytes, logits=k_logits)
+
+
+def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int) -> dict:
+    """Phase 9: P prompts per video through `score_chunks`, with and without
+    the shared prefix."""
+    from aigv_assessor_torch.cli.score import (
+        build_serving_model, compute_shared_prefix_len, score_chunks)
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    n_ctx = FRAMES * cfg.num_image_token + 1
+    seq = n_ctx + TEXT
+    prefix = seq - SUFFIX
+    ids_pn = rng.integers(10, cfg.llm.vocab_size, (PERSPECTIVES, seq))
+    ids_pn[:, :prefix] = ids_pn[0, :prefix]
+    ids_pn[:, 1 : 1 + n_ctx] = CTX
+    ids_pn[:, prefix] = 10 + np.arange(PERSPECTIVES)  # the questions differ from their first token
+    mask_pn = np.ones((PERSPECTIVES, seq), bool)
+    mask_pn[-1, -5:] = False  # one shorter question, right-padded
+    ids_pn[-1, -5:] = cfg.llm.pad_token_id
+    prompts = [ids_pn[i, : mask_pn[i].sum()] for i in range(PERSPECTIVES)]
+    if compute_shared_prefix_len(prompts, CTX) != prefix:
+        raise RuntimeError("the synthetic prompts do not share the expected prefix")
+    chunks = [list(videos[i : i + BATCH]) for i in range(0, len(videos), BATCH)]
+
+    model = build_serving_model(cfg, device=device, seed=0)
+    with torch.no_grad():  # the head ends in a ReLU: keep it open, as in training
+        getattr(model.mlpscore, f"fc{model.mlpscore.num_layers}").weight.abs_()
+    readouts = []
+    hook = model.mlpscore.register_forward_hook(
+        lambda _m, args, _out: readouts.append(args[0].detach().float().reshape(
+            -1, PERSPECTIVES, args[0].shape[-1])))
+    counters = (fa.flash_attention_qkv, fa.flash_attention, dec.decode_attention)
+    out = {}
+    for shared in (True, False):
+        score_chunks(model, chunks[:1], ids_pn, mask_pn, batch_size=BATCH,
+                     shared_prefix=shared)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        readouts.clear()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rows = score_chunks(model, chunks, ids_pn, mask_pn, batch_size=BATCH,
+                            shared_prefix=shared)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(chunks)
+        counts = {c.__name__: c.launches for c in counters}
+        want = {"flash_attention_qkv": (n_vit + n_llm) * len(chunks), "flash_attention": 0,
+                "decode_attention": 0}
+        if counts != want:
+            raise RuntimeError(f"shared_prefix={shared}: launches {counts}, expected {want}")
+        arr = np.asarray(rows)
+        if arr.shape != (len(videos), PERSPECTIVES) or not np.isfinite(arr).all():
+            raise RuntimeError(f"shared_prefix={shared}: score rows {arr.shape} not finite")
+        out[shared] = dict(ms=ms, peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                           scores=arr, readout=torch.cat(readouts), counts=counts)
+    hook.remove()
+    rs, ru = out[True]["readout"], out[False]["readout"]
+    rel = relative_l2(rs, ru)
+    score_err = float(np.abs(out[True]["scores"] - out[False]["scores"]).max()
+                      / np.abs(out[False]["scores"]).max())
+    if not (rel <= READOUT_TOL and score_err <= SCORE_TOL):
+        raise RuntimeError(f"shared prefix: readouts {rel} apart (tol {READOUT_TOL}), scores "
+                           f"{score_err} (tol {SCORE_TOL})")
+    if not np.abs(out[True]["scores"]).max() > 0:
+        raise RuntimeError("shared prefix: every score is 0, the comparison saw nothing")
+    # the first chunk's first video in fp32 through the plain attention,
+    # unshared: the reference both bf16 paths are measured against
+    ref = copy.deepcopy(model).float()
+    ref.precision = ref.language_model.precision = Precision.fp32()
+    ref_rows = []
+    ref.mlpscore.register_forward_hook(lambda _m, args, _out: ref_rows.append(args[0].float()))
+    with torch.inference_mode(), mock.patch.object(fa, "flash_attention_qkv",
+                                                   fa.plain_attention_qkv):
+        pv = resize_normalize(torch.as_tensor(videos[:1], device=device), size=IMAGE,
+                              dtype=torch.float32)
+        ref.score_perspectives(torch.as_tensor(ids_pn[None], device=device), pv,
+                               torch.as_tensor(mask_pn[None], device=device))
+    del ref
+    r = ref_rows[0].reshape(1, PERSPECTIVES, -1)
+    rel_sr, rel_ur = relative_l2(rs[:1], r), relative_l2(ru[:1], r)
+    if not rel_sr <= REF_RATIO * rel_ur:
+        raise RuntimeError(f"shared prefix: shared path {rel_sr} from the fp32 reference, "
+                           f"unshared {rel_ur}: more than {REF_RATIO}x farther")
+    s, u = out[True], out[False]
+    phase("slice", f"shared prefix bf16 InternVL2-2B, {PERSPECTIVES} prompts of {seq} tokens "
+          f"sharing {prefix}, {len(chunks)} chunks x {BATCH} videos: shared {s['ms']:.1f} "
+          f"ms/chunk, peak {s['peak_gib']:.2f} GiB; unshared ({BATCH * PERSPECTIVES} full "
+          f"sequences) {u['ms']:.1f} ms/chunk, peak {u['peak_gib']:.2f} GiB; launches per chunk "
+          f"{ {k: v // len(chunks) for k, v in s['counts'].items()} } both ways; readouts rel "
+          f"L2 shared vs unshared {rel:.3e} (tol {READOUT_TOL}), vs fp32 reference: shared "
+          f"{rel_sr:.3e}, unshared {rel_ur:.3e} (tol {REF_RATIO}x); max score difference over the "
+          f"largest score {score_err:.3e} (tol {SCORE_TOL}); scores of video 0 shared "
+          f"{np.round(s['scores'][0], 3).tolist()} unshared {np.round(u['scores'][0], 3).tolist()} "
+          f"[{smi}]")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
@@ -855,13 +1314,15 @@ def main() -> int:
     from aigv_assessor_torch.core.precision import Precision
     from aigv_assessor_torch.models.assessor import AIGVAssessor
     from aigv_assessor_torch.ops import cuda_build
+    from aigv_assessor_torch.ops import decode_attention as dec
     from aigv_assessor_torch.ops import flash_attention as fa
     from aigv_assessor_torch.ops import int8_matmul as wo
     from aigv_assessor_torch.ops import quant_fuse as qf
+    from aigv_assessor_torch.ops.attention import two_part_cached_attention
     from aigv_assessor_torch.ops.preprocess import resize_normalize
 
     # 2. build, always from the checkout's sources
-    libs = (fa.LIB, fa.LIB_BWD, qf.LIB, wo.LIB)
+    libs = (fa.LIB, fa.LIB_BWD, qf.LIB, wo.LIB, dec.LIB)
     for lib in libs:
         lib.path.unlink(missing_ok=True)
     build_s = cuda_build.build(libs, verbose=True)
@@ -874,6 +1335,7 @@ def main() -> int:
     feeds = check_feeds(qf, device)
     separate = check_attention_separate(fa, device)
     matmuls = check_weight_only(wo, device)
+    decode = check_decode_attention(dec, two_part_cached_attention, device)
 
     # 4. the bf16 scoring slice at 2B
     cfg = AssessorConfig(llm=LLM_2B, stage=2).replace(img_context_token_id=CTX)
@@ -909,7 +1371,7 @@ def main() -> int:
         counters = (fa.flash_attention_qkv, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows,
                     fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
                     fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
-                    fa.flash_attention_qkv_bwd_dkv)
+                    fa.flash_attention_qkv_bwd_dkv, dec.decode_attention)
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
@@ -928,7 +1390,8 @@ def main() -> int:
         """Launch counts of CHUNKS forwards: the named kernels, 0 of the rest."""
         names = ("flash_attention_qkv", "layernorm_quant", "gelu_quant", "quant_rows",
                  "flash_attention", "int8_matmul", "int4_matmul", "flash_attention_qkv_lse",
-                 "flash_attention_qkv_bwd_dq", "flash_attention_qkv_bwd_dkv")
+                 "flash_attention_qkv_bwd_dq", "flash_attention_qkv_bwd_dkv",
+                 "decode_attention")
         return {n: per_forward_launches.get(n, 0) * CHUNKS for n in names}
 
     counts, ms_bf16, peak_bf16, weights_bf16, arr = run_slice(model, "bf16")
@@ -1111,6 +1574,18 @@ def main() -> int:
 
     # 7. the stage-2 training slice
     train_counts = run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward, smi)
+    torch.cuda.empty_cache()
+
+    # 8. generation: bf16, int8 weights, bf16 with the int8 KV cache
+    gen_kw = dict(n_llm=n_llm, n_vit=n_vit)
+    gen_bf16 = run_generation(cfg, device, ids[:, 0], px_u8, smi, label="bf16", **gen_kw)
+    gen_int8 = run_generation(cfg, device, ids[:, 0], px_u8, smi, label="int8", int8=True,
+                              bf16_logits=gen_bf16["logits"], **gen_kw)
+    run_generation(cfg, device, ids[:, 0], px_u8, smi, label="bf16 + kv_int8", kv_int8=True,
+                   bf16_logits=gen_bf16["logits"], **gen_kw)
+
+    # 9. shared-prefix perspective scoring
+    run_shared_prefix(cfg, device, videos, rng, smi, n_vit=n_vit, n_llm=n_llm)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -1227,6 +1702,25 @@ def main() -> int:
             bound_ms=per_fwd * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
             unit=f"one W8A8 scoring forward: {per_fwd} launches", detail=f))
+    path = decode["path"]
+    kernels.append(dict(
+        name="decode_attention", route="cuda",
+        source="aigv_assessor_torch/csrc/decode_attention.cu",
+        replaces="aigv_assessor_tpu/ops/decode_attention.py:64",
+        launches=gen_bf16["counts"]["decode_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in decode.values()),
+        ms=n_llm * path["ms"], plain_ms=n_llm * path["plain_ms"],
+        bound_ms=n_llm * path["bound_ms"], bound_by=path["bound_by"],
+        library_ms=n_llm * path["library_ms"], eager_ms=n_llm * path["eager_ms"],
+        library="F.scaled_dot_product_attention with a one-token query on head-major views "
+        "of the cache rows below end, enable_gqa",
+        eager_two_part_ms=n_llm * path["two_part_ms"],
+        unit=f"one decode step of the bf16 generate: {n_llm} launches at B = {BATCH}, end = "
+        f"{DECODE_SHAPES['path'][5]}, cache layers read from device memory; ms, plain_ms, "
+        "library_ms and eager_two_part_ms are device times by CUDA graph replay, eager_ms is "
+        "the wrapper called launch by launch with the host's cost; launches are those "
+        f"of one {GEN_TOKENS}-token generate ({gen_int8['counts']['decode_attention']} with int8 "
+        "weights, 0 under kv_int8)", shapes=decode))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -31,15 +31,31 @@ jax-free, so that it runs where jax is not installed:
   left is the summation order and one bf16 rounding of the result), at ragged
   M, N and K, with and without a bias; an all-zero weight column with scale 1
   gives exactly 0.
+- The decode-attention kernel (K8): `out` within bf16 rounding of the plain
+  version (atol = rtol = 2e-2; the kernel keeps p in fp32 where the plain
+  version rounds it to bf16, below the rounding of `out`), `m` and `l` within
+  1e-4 relative; ragged windows, empty and one-row windows, rows outside the
+  window holding NaN (never loaded), the cache read through its strides as a
+  layer of a stacked cache, every group size; merged with the current token
+  against `two_part_cached_attention`.
+- The two cached paths of the decoder on the card at a small width: a
+  prefill and decode steps in bf16, W8A8 and int8 against the same model on
+  the plain decode attention, and shared-prefix scores against the unshared
+  path.
 """
 
 import pytest
 import torch
 
+from aigv_assessor_torch.ops import decode_attention as dec
 from aigv_assessor_torch.ops import int8_matmul as wo
 from aigv_assessor_torch.ops import quant_fuse as qf
 from aigv_assessor_torch.ops import w8a8
-from aigv_assessor_torch.ops.attention import fused_qkv_attention, multi_head_attention
+from aigv_assessor_torch.ops.attention import (
+    fused_qkv_attention,
+    multi_head_attention,
+    two_part_cached_attention,
+)
 from aigv_assessor_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_qkv,
@@ -327,8 +343,10 @@ def test_int8_product_checks_on_the_card(cuda):
     y = w8a8.w8a8_matmul(x, wq, sw, out_dtype=torch.float32)
     want = w8a8.w8a8_matmul(x.cpu(), wq.cpu(), sw.cpu(), out_dtype=torch.float32)
     torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError, match="M > 16"):
-        w8a8.w8a8_matmul(x[:16], wq, sw)
+    # a decode step's few rows: padded up to what the library's product takes
+    for m in (1, 4, 16):
+        y = w8a8.w8a8_matmul(x[:m], wq, sw, out_dtype=torch.float32)
+        torch.testing.assert_close(y.cpu(), want[:m], rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="multiples of 8"):
         w8a8.w8a8_matmul(x, wq[:100], sw[:100])
     with pytest.raises(ValueError, match="weight"):
@@ -478,3 +496,164 @@ def test_weight_only_kernels_reject_what_they_do_not_take(cuda):
         wo.int8_matmul(x, q.t().contiguous().t(), scale)
     with pytest.raises(TypeError, match="bias"):
         wo.int8_matmul(x, q, scale, torch.zeros(128, device=cuda))
+
+
+# ---------------------------------------------------- decode attention (K8) --
+
+ML_RTOL = 1e-4  # m and l: fp32 on both sides, __expf against exp, another order
+# (B, hq, hkv, D, max_len, end, starts)
+DECODE = {
+    "path_2b": (4, 16, 8, 128, 2177, 2113, (0, 0, 0, 0)),
+    "ragged": (4, 16, 8, 128, 2177, 2150, (0, 700, 2100, 2149)),
+    "empty_and_one_row": (3, 16, 8, 128, 300, 200, (200, 199, 150)),
+    "end_zero": (2, 8, 8, 64, 128, 0, (0, 0)),
+    "mha_d64": (2, 8, 8, 64, 333, 301, (0, 37)),
+    "group8_d64": (2, 16, 2, 64, 500, 499, (3, 0)),
+    "group4_d128": (1, 8, 2, 128, 70, 70, (0,)),
+    "group3_d64": (2, 9, 3, 64, 200, 150, (0, 20)),
+    "batch1_many_splits": (1, 16, 8, 128, 4096, 4000, (5,)),
+}
+
+
+def make_decode(name, device, seed=21):
+    b, hq, hkv, d, max_len, end, starts = DECODE[name]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=gen, device=device).to(torch.bfloat16)
+    # a layer of a stacked cache: read through its strides, no copy
+    stack = torch.randn((2, 2, b, max_len, hkv, d), generator=gen, device=device)
+    ck, cv = stack.to(torch.bfloat16)[:, 1]
+    starts = torch.tensor(starts, dtype=torch.int32, device=device)
+    end = torch.tensor(end, dtype=torch.int32, device=device)
+    return q, ck, cv, starts, end
+
+
+@pytest.mark.parametrize("name", list(DECODE))
+def test_decode_attention_kernel_matches_plain(cuda, name):
+    q, ck, cv, starts, end = make_decode(name, cuda)
+    rows = torch.arange(ck.shape[1], device=cuda)
+    outside = ~((rows[None] >= starts[:, None]) & (rows[None] < end))
+    ck_nan, cv_nan = ck.clone(), cv.clone()
+    ck_nan[outside] = float("nan")  # never loaded: cannot reach the output
+    cv_nan[outside] = float("nan")
+    before = dec.decode_attention.launches
+    out, m, l = dec.decode_attention(q, ck_nan, cv_nan, starts, end)
+    torch.cuda.synchronize()
+    assert dec.decode_attention.launches == before + 1
+    w_out, w_m, w_l = dec.plain_decode_attention(q, ck, cv, starts, end)
+    assert out.dtype == torch.bfloat16 and m.dtype == l.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(m).all() and torch.isfinite(l).all()
+    torch.testing.assert_close(out.float(), w_out.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(m, w_m, atol=1e-5, rtol=ML_RTOL)
+    torch.testing.assert_close(l, w_l, atol=1e-6, rtol=ML_RTOL)
+    empty = (end - starts.clamp(max=int(end))) <= 0
+    assert not out[empty].any() and not l[empty].any() and (m[empty] == -1e30).all()
+
+
+@pytest.mark.parametrize("name", ["path_2b", "ragged", "empty_and_one_row"])
+def test_cached_decode_attention_matches_two_part(cuda, name):
+    q, ck, cv, starts, end = make_decode(name, cuda)
+    b, hq, d = q.shape
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    k, v = (torch.randn((b, 1, ck.shape[2], d), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    kv_mask = torch.arange(ck.shape[1], device=cuda)[None] >= starts[:, None]
+    got = dec.cached_decode_attention(q[:, None], k, v, ck, cv, end, kv_mask)
+    want = two_part_cached_attention(q[:, None], k, v, ck, cv, int(end), kv_mask)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+def test_decode_attention_rejects_what_it_does_not_take(cuda):
+    q, ck, cv, starts, end = make_decode("mha_d64", cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        dec.decode_attention(q.float(), ck, cv, starts, end)
+    with pytest.raises(TypeError, match="device memory"):
+        dec.decode_attention(q, ck, cv, starts, 301)
+    with pytest.raises(ValueError, match="starts"):
+        dec.decode_attention(q, ck, cv, starts.long(), end)
+    shifted = torch.empty(ck.numel() + 1, dtype=ck.dtype, device=cuda)[1:].view(ck.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        dec.decode_attention(q, shifted, cv, starts, end)
+    with pytest.raises(ValueError, match="unsupported"):
+        dec.decode_attention(q[:, :4], ck[:, :, :4], cv[:, :, :4], starts, end)
+    with pytest.raises(ValueError, match="does not match"):
+        dec.decode_attention(q[:1], ck, cv, starts[:1], end)
+
+
+# ------------------------------------------------- the cached decoder paths --
+
+
+def small_model(cuda, **flags):
+    """Two decoder layers at the 2B head shape (16 query / 8 kv heads of 128)."""
+    import dataclasses
+
+    from aigv_assessor_torch.cli.score import build_serving_model
+    from aigv_assessor_torch.core.config import AssessorConfig, LLMConfig, VisionConfig
+
+    llm = dataclasses.replace(LLMConfig.tiny(), hidden_size=2048, intermediate_size=512,
+                              num_attention_heads=16, num_key_value_heads=8)
+    # 4 heads of 64, a head dim the attention kernel takes
+    vision = dataclasses.replace(VisionConfig.tiny(), hidden_size=256)
+    cfg = AssessorConfig.tiny(stage=2).replace(llm=llm, vision=vision, img_context_token_id=7)
+    return build_serving_model(cfg, device=cuda, seed=0, **flags), cfg
+
+
+@pytest.mark.parametrize("mode", ["bf16", "w8a8", "int8", "kv_int8"])
+def test_prefill_and_decode_steps_on_the_card(cuda, mode):
+    """Decode steps launch the kernel once per layer (never under kv_int8)
+    and agree with the same steps on the plain decode attention."""
+    from unittest import mock
+
+    from aigv_assessor_torch.models.internlm2 import KVCache
+
+    model, cfg = small_model(cuda, **({} if mode == "bf16" else {mode: True}))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ids = torch.randint(10, cfg.llm.vocab_size, (4, 40), generator=gen, device=cuda)
+    kv_mask = torch.ones((4, 48), dtype=torch.bool, device=cuda)
+    kv_mask[1, :5] = False  # a left-padded row
+
+    def run():
+        cache = KVCache.init(cfg.llm, 4, 48, quantized=model.precision.kv_int8, device=cuda)
+        outs = []
+        with torch.inference_mode():
+            logits, _, cache = model.prefill(model.embed_tokens(ids[:, :36]), cache,
+                                             kv_mask=kv_mask)
+            outs.append(logits[:, -1])
+            for i in range(36, 40):
+                logits, _, cache = model.decode_step(ids[:, i : i + 1], cache, kv_mask)
+                outs.append(logits[:, -1])
+        assert cache.index == 40 == int(cache.index_dev)
+        return torch.stack(outs).float()
+
+    before = dec.decode_attention.launches
+    got = run()
+    layers = cfg.llm.num_hidden_layers
+    assert dec.decode_attention.launches - before == (0 if mode == "kv_int8" else 4 * layers)
+    with mock.patch.object(dec, "decode_attention", dec.plain_decode_attention):
+        want = run()
+    assert torch.isfinite(got).all()
+    assert relative_l2(got, want) <= 2e-2
+
+
+def test_shared_prefix_scores_on_the_card(cuda):
+    from aigv_assessor_torch.cli.score import score_batch
+
+    model, cfg = small_model(cuda)
+    n_ctx = 4 * cfg.num_image_token + 1
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ids = torch.randint(10, cfg.llm.vocab_size, (2, 4, n_ctx + 3 + 12), generator=gen,
+                        device=cuda)
+    ids[:, :, : n_ctx + 3] = ids[:, :1, : n_ctx + 3]
+    ids[:, :, 1 : 1 + n_ctx] = 7
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    mask[:, 2, -3:] = False
+    px = torch.randint(0, 256, (2, 4, 56, 56, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    # random weights close most of the head's ReLUs: compare what it reads
+    rows = []
+    model.mlpscore.register_forward_hook(
+        lambda _m, args, _out: rows.append(args[0].float().reshape(2, 4, -1)))
+    shared = score_batch(model, ids, px, mask, n_ctx + 3)
+    full = score_batch(model, ids, px, mask)
+    assert shared.shape == (2, 4) and torch.isfinite(shared).all()
+    assert torch.isfinite(rows[0]).all() and rows[0].abs().max() > 0
+    assert relative_l2(rows[0], rows[1]) <= 3e-2  # two bf16 forwards of two layers
+    torch.testing.assert_close(shared, full, atol=2e-2, rtol=5e-2)

@@ -8,6 +8,8 @@ takes the kernel's plain version; the tolerance is atol/rtol 2e-4, as the
 JAX package's own differential tests hold (STATUS.md).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -91,7 +93,7 @@ def test_internlm2_hidden_matches(pair):
         method=lambda m, e: m.language_model(inputs_embeds=e, with_logits=False)[1],
     )
     with torch.no_grad():
-        got = port.language_model(torch.from_numpy(embeds))
+        got = port.language_model(inputs_embeds=torch.from_numpy(embeds), with_logits=False)[1]
     _close(got, want)
 
 
@@ -159,7 +161,9 @@ def test_score_chunks_pads_tail_and_scales(pair):
 def test_unported_serving_options_raise(pair):
     """W8A8, int8 and int4 are ported (tests/test_torch_w8a8.py,
     tests/test_torch_weight_only.py); combining W8A8 with a weight-only mode
-    is refused, and the shared prefix is not ported yet."""
+    is refused. The shared prefix is ported too (tests/test_torch_generation.py):
+    two prompts through `score_chunks` share it by default and score as they
+    do in full. What is still refused: stage 1, Phi-3, tied embeddings."""
     _, _, port, cfg = pair
     tcfg = TorchConfig.tiny(stage=2)
     for flag in ("int8", "int4"):
@@ -167,8 +171,16 @@ def test_unported_serving_options_raise(pair):
             build_serving_model(tcfg, device="cpu", w8a8=True, **{flag: True})
     ids, mask = _prompts(cfg, 1, 2, 11)
     video = np.zeros((T, 56, 56, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="shared-prefix"):
-        score_chunks(port, [[video]], ids[0], mask[0], batch_size=1)
+    shared = score_chunks(port, [[video]], ids[0], mask[0], batch_size=1)
+    full = score_chunks(port, [[video]], ids[0], mask[0], batch_size=1, shared_prefix=False)
+    np.testing.assert_allclose(np.asarray(shared), np.asarray(full), rtol=1e-4, atol=1e-2)
+    with pytest.raises(NotImplementedError, match="stage-1"):
+        TorchAssessor(TorchConfig.tiny(stage=1))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        TorchAssessor(tcfg.replace(llm=dataclasses.replace(tcfg.llm,
+                                                           architecture="Phi3ForCausalLM")))
+    with pytest.raises(NotImplementedError, match="tied embeddings"):
+        TorchAssessor(tcfg.replace(llm=dataclasses.replace(tcfg.llm, tie_word_embeddings=True)))
 
 
 def test_state_dict_from_jax_rejects_mismatch(pair):
