@@ -5,15 +5,36 @@ anything under `aigv_assessor_tpu` runs its package `__init__`, which pulls
 in jax. These copies keep the same fields, defaults and derived properties;
 `tests/test_torch_ops.py` holds them field for field against the originals.
 
-Loading a config from a checkpoint's `config.json` (`from_dict`) is not
-ported yet; the scoring slice builds its configs in code.
+`AssessorConfig.from_json` / `from_dict` read a checkpoint's `config.json`
+in the reference's composite format (`vision_config`, `llm_config`, the
+repo's `motion_config` extension and the top-level pipeline fields), as the
+JAX `from_dict`s do (`aigv_assessor_tpu/core/config.py:76-78`, `:146-176`,
+`:298-339`). Only the InternLM2 decoder is ported: a config whose
+`architectures` names Phi-3, Llama or Qwen2 raises NotImplementedError
+(ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+PORTED_ARCHITECTURES = ("", "InternLM2ForCausalLM")
+
+
+def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def _check_architecture(arch: str) -> None:
+    if arch not in PORTED_ARCHITECTURES:
+        raise NotImplementedError(
+            f"decoder architecture {arch!r}: only InternLM2ForCausalLM is ported; Phi-3 and "
+            "the Llama / Qwen2 dispatch wait for ROADMAP.md, Queue 1 item 7"
+        )
 
 
 @dataclass(frozen=True)
@@ -54,6 +75,10 @@ class VisionConfig:
     @property
     def num_patches(self) -> int:
         return self.num_patches_per_side**2
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "VisionConfig":
+        return cls(**_filter_kwargs(cls, d))
 
     @classmethod
     def tiny(cls) -> "VisionConfig":
@@ -109,6 +134,19 @@ class LLMConfig:
     @property
     def num_key_value_groups(self) -> int:
         return self.num_attention_heads // self.num_key_value_heads
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LLMConfig":
+        d = dict(d)
+        if d.get("architectures"):
+            d["architecture"] = d["architectures"][0]
+        _check_architecture(d.get("architecture", ""))
+        rs = d.get("rope_scaling")
+        if isinstance(rs, dict):
+            d["rope_scaling"] = RopeScaling(
+                type=rs.get("type", "dynamic"), factor=float(rs.get("factor", 1.0))
+            )
+        return cls(**_filter_kwargs(cls, d))
 
     @property
     def effective_qkv_bias(self) -> bool:
@@ -226,6 +264,31 @@ class AssessorConfig:
     @property
     def llm_hidden_size(self) -> int:
         return self.llm.hidden_size
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AssessorConfig":
+        d = dict(d)
+        if "vision_config" in d:
+            d["vision"] = VisionConfig.from_dict(d.pop("vision_config"))
+        if "motion_config" in d:
+            # the repo's extension: reference checkpoints carry no SlowFast
+            # config (R50 scale, the MotionConfig default)
+            md = {k: tuple(v) if isinstance(v, list) else v
+                  for k, v in d.pop("motion_config").items()}
+            d["motion"] = MotionConfig(**_filter_kwargs(MotionConfig, md))
+        if isinstance(d.get("score_head_dims"), list):
+            d["score_head_dims"] = tuple(d["score_head_dims"])
+        if "llm_config" in d:
+            llm_d = d.pop("llm_config")
+            archs = llm_d.get("architectures") or [llm_d.get("architecture", "")]
+            _check_architecture(archs[0] if archs else "")
+            d["llm"] = LLMConfig.from_dict(llm_d)
+        return cls(**_filter_kwargs(cls, d))
+
+    @classmethod
+    def from_json(cls, path: str) -> "AssessorConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
 
     @classmethod
     def tiny(cls, stage: int = 1, **kw) -> "AssessorConfig":

@@ -14,6 +14,19 @@ LM head as per-channel int8 or nibble-packed int4, decoded inside the matmul
 kernel (`ops/int8_matmul.py`, `models/lora.Int8Linear` / `Int4Linear`). The
 ViT and everything outside the decoder stay float. They exclude W8A8.
 
+Under W8A8, `fuse_quant` and `quant_rows` say in which towers ("vit",
+"llm") the projections are fed by the fused quantize kernels
+(`ops/quant_fuse.py`), as JAX's `fuse_enabled(component)` and
+`quant_rows_enabled(component)` gates say (`aigv_assessor_tpu/ops/
+quant_fuse.py:38-71`). `fuse_quant`: the norm -> int8 feeds of both towers
+(LayerNorm K4a, RMSNorm K5a), the ViT's tanh-GELU -> fc2 feed (K4b) and the
+decoder's SwiGLU -> w2 feed (K5b). `quant_rows`: the attention kernel's
+output -> proj / wo feed (K4c; in the decoder on the cache-free branch
+only). A tower left out of a set quantizes the producer's output inside the
+projection instead. Both default to {"vit"}, JAX's default. The models read
+these fields; only the CLI reads JAX's `AIGV_FUSE_QUANT` / `AIGV_QUANT_ROWS`
+(`cli/common.quant_components`).
+
 `kv_int8` stores the decoder's KV cache as int8 with one fp32 scale per
 (position, kv head) (`ops/kv_quant.py`); it composes with every mode above.
 
@@ -22,8 +35,11 @@ W8A8 of the SlowFast convs (`w8a8_motion`) is not ported yet."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import FrozenSet
 
 import torch
+
+COMPONENTS = frozenset({"vit", "llm"})  # the towers a fused feed can serve
 
 
 @dataclass(frozen=True)
@@ -35,8 +51,17 @@ class Precision:
     int8_weights: bool = False  # W8A16: int8 decoder weights, decoded in-kernel
     int4_weights: bool = False  # W4A16: nibble-packed int4 decoder weights
     kv_int8: bool = False  # int8 KV cache with per-(position, kv head) scales
+    # W8A8 towers fed by the fused kernels: norms, GELU, SwiGLU / attention output
+    fuse_quant: FrozenSet[str] = frozenset({"vit"})
+    quant_rows: FrozenSet[str] = frozenset({"vit"})
 
     def __post_init__(self):
+        for name in ("fuse_quant", "quant_rows"):
+            value = frozenset(getattr(self, name))
+            if not value <= COMPONENTS:
+                raise ValueError(f"{name} takes components of {sorted(COMPONENTS)}, "
+                                 f"got {sorted(value)}")
+            object.__setattr__(self, name, value)
         if self.w8a8 and (self.int8_weights or self.int4_weights):
             raise ValueError(
                 "w8a8 excludes int8/int4 weight-only serving: w8a8 quantizes the "

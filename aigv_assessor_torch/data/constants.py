@@ -5,6 +5,24 @@ without jax)."""
 IMG_CONTEXT_TOKEN = "<IMG_CONTEXT>"
 IMG_START_TOKEN = "<img>"
 IMG_END_TOKEN = "</img>"
+QUAD_START_TOKEN = "<quad>"
+QUAD_END_TOKEN = "</quad>"
+REF_START_TOKEN = "<ref>"
+REF_END_TOKEN = "</ref>"
+BOX_START_TOKEN = "<box>"
+BOX_END_TOKEN = "</box>"
+
+SPECIAL_TOKENS = (
+    IMG_START_TOKEN,
+    IMG_END_TOKEN,
+    IMG_CONTEXT_TOKEN,
+    QUAD_START_TOKEN,
+    QUAD_END_TOKEN,
+    REF_START_TOKEN,
+    REF_END_TOKEN,
+    BOX_START_TOKEN,
+    BOX_END_TOKEN,
+)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)

@@ -13,13 +13,25 @@ Attention applies the causal mask only, as the JAX fast path does: right
 padding needs no key mask because pad keys are only attended by pad
 queries, whose outputs are never read.
 
-Under W8A8 (`Precision.w8a8`) the five projections are `W8A8Linear`s with
-unfused feeds, the JAX decoder's default
+Under W8A8 (`Precision.w8a8`) the five projections are `W8A8Linear`s. By
+default their feeds are unfused, the JAX decoder's default
 (`aigv_assessor_tpu/models/internlm2.py:143-212`, `:293-327`): each norm
 returns the compute dtype and the projection quantizes it with the plain
 `quantize_rows`; the attention kernel writes the dense `bsd` rows that `wo`
 quantizes the same way; w1 and w3 share one quantization of their common
-input, bit for bit what quantizing it twice gives. The LM head stays float.
+input, bit for bit what quantizing it twice gives. With "llm" in
+`Precision.fuse_quant` (JAX's `AIGV_FUSE_QUANT=llm`, `:50-58`, `:309-320`,
+`:352-383`) attention_norm and ffn_norm emit the (int8, scale) pair through
+the fused RMSNorm + quantize kernel (K5a), w1 and w3 share that pair, and
+silu(w1) * w3 reaches w2 through the fused SwiGLU + quantize kernel (K5b);
+the pair flows through both branches below, the cache-free one and the
+row-major one with a cache. With "llm" in `Precision.quant_rows` (JAX's
+`AIGV_QUANT_ROWS=llm`, `:195-203`) the attention kernel's `bsd` rows go
+through the one-pass quantize (K4c) into `wo`, on the cache-free branch
+only. K5a multiplies the norm weight in fp32 where the unfused norm rounds
+the normalized x to the compute dtype first (`ops/norms.rms_norm`), so the
+two configurations give other int8 values, not only other speeds. The LM
+head stays float.
 
 Under the weight-only modes (`Precision.int8_weights`, `int4_weights`) the
 decoder takes the JAX decoder's row-major branch (`:215-284`, `:295-327`):
@@ -80,7 +92,7 @@ from aigv_assessor_torch.ops.kv_quant import is_quantized, make_cache_rows
 from aigv_assessor_torch.ops.norms import RMSNorm
 from aigv_assessor_torch.ops.remat import checkpoint_layer
 from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
-from aigv_assessor_torch.ops import w8a8
+from aigv_assessor_torch.ops import quant_fuse, w8a8
 from aigv_assessor_torch.ops.w8a8 import quantize_rows
 
 
@@ -163,6 +175,7 @@ class InternLM2Attention(nn.Module):
         self.hkv = hkv = config.num_key_value_heads
         self.head_dim = d = config.head_dim
         self.w8a8 = precision.w8a8
+        self.quant_rows = precision.w8a8 and "llm" in precision.quant_rows
         self.weight_only = precision.weight_only
         c = config.hidden_size
         dt = precision.compute_dtype
@@ -197,12 +210,13 @@ class InternLM2Attention(nn.Module):
                 cache_index_dev: Optional[torch.Tensor] = None,
                 kv_mask: Optional[torch.Tensor] = None, capture_kv: bool = False,
                 block_causal: Optional[int] = None):
-        """-> (out [B, S, C], new rows). New rows: with a cache, the block's
+        """x: [B, S, C], or under fused W8A8 feeds its (int8, scale) rows.
+        -> (out [B, S, C], new rows). New rows: with a cache, the block's
         roped (k, v) as the cache stores them (`make_cache_rows`), for the
         caller to write at [cache_index, cache_index + S); without one, the
         roped (k, v) in cache layout [B, S, Hkv, D] if `capture_kv`, else
         None."""
-        b, s, _ = x.shape
+        b, s, _ = (x[0] if isinstance(x, tuple) else x).shape
         hq, hkv, d = self.hq, self.hkv, self.head_dim
         if self.weight_only or cache_k is not None:
             # row-major: q, k, v are [B, S, H, D] views of one projection output
@@ -223,7 +237,8 @@ class InternLM2Attention(nn.Module):
             else:
                 out = two_part_cached_attention(q, k, v, cache_k, cache_v, cache_index,
                                                 kv_mask, block_causal=block_causal)
-            return self._project_rows(self.wo, out.to(x.dtype).reshape(b, s, hq * d)), new_rows
+            out = out.to(qkv.dtype).reshape(b, s, hq * d)  # the projection's dtype
+            return self._project_rows(self.wo, out), new_rows
         if self.w8a8 or isinstance(self.wqkv, LoRALinear):
             qkv = self.wqkv(x)  # [B, H, S, D], a view of the dense product
         else:
@@ -237,7 +252,7 @@ class InternLM2Attention(nn.Module):
         if self.w8a8:
             # the kernel writes wo's dense [B, S, Hq*D] input rows
             out = fused_qkv_attention(qkv, hq, hkv, causal=True, out_layout="bsd")
-            return self.wo(out), new_rows
+            return self.wo(quant_fuse.quant_rows(out) if self.quant_rows else out), new_rows
         out = fused_qkv_attention(qkv, hq, hkv, causal=True)  # [B, Hq, S, D]
         if isinstance(self.wo, LoRALinear):
             return self.wo(out), new_rows  # head-major in
@@ -251,6 +266,7 @@ class InternLM2MLP(nn.Module):
         reject_quantized_lora(precision, lora)
         c, f = config.hidden_size, config.intermediate_size
         self.w8a8 = precision.w8a8
+        self.fuse = precision.w8a8 and "llm" in precision.fuse_quant
         dt = precision.compute_dtype
         if precision.weight_only:
             linear = weight_only_linear(precision)
@@ -267,8 +283,11 @@ class InternLM2MLP(nn.Module):
             self.w2 = make_linear(f, c, bias=False, lora=lora)
 
     def forward(self, x):
-        if self.w8a8:
+        """x: [B, S, C], or under fused W8A8 feeds its (int8, scale) rows."""
+        if self.w8a8 and not isinstance(x, tuple):
             x = quantize_rows(x)  # one quantization feeds both w1 and w3
+        if self.fuse:
+            return self.w2(quant_fuse.silu_mul_quant(self.w1(x), self.w3(x)))
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
@@ -280,16 +299,24 @@ class InternLM2DecoderLayer(nn.Module):
         self.attention = InternLM2Attention(config, precision, lora)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.feed_forward = InternLM2MLP(config, precision, lora)
+        self.fuse = precision.w8a8 and "llm" in precision.fuse_quant
+
+    def _feed(self, norm: RMSNorm, x: torch.Tensor):
+        """The norm's output; with fused W8A8 feeds its int8 rows and scales
+        from the fused kernel (K5a)."""
+        if self.fuse:
+            return quant_fuse.rmsnorm_quant(x, norm.weight, norm.eps)
+        return norm(x)
 
     def forward(self, x, cos, sin, position_ids, cache_k=None, cache_v=None,
                 cache_index=None, cache_index_dev=None, kv_mask=None, capture_kv=False,
                 block_causal=None):
         """-> (x, the attention's new rows)."""
         attn, new_rows = self.attention(
-            self.attention_norm(x), cos, sin, position_ids, cache_k, cache_v, cache_index,
-            cache_index_dev, kv_mask, capture_kv, block_causal)
+            self._feed(self.attention_norm, x), cos, sin, position_ids, cache_k, cache_v,
+            cache_index, cache_index_dev, kv_mask, capture_kv, block_causal)
         x = x + attn
-        return x + self.feed_forward(self.ffn_norm(x)), new_rows
+        return x + self.feed_forward(self._feed(self.ffn_norm, x)), new_rows
 
 
 class InternLM2ForCausalLM(nn.Module):

@@ -36,14 +36,18 @@ and `serving_precision` the precision that call returns beside them,
 `init_random_` fills a model from a seed; `init_lora_` and `init_score_head_`
 draw the adapters and the score head as the JAX modules initialise them.
 
-Reading a checkpoint from disk (`params.msgpack` needs flax, the reference
-safetensors need `safetensors`) is not ported yet (ROADMAP.md, Queue 1).
+`load_reference_checkpoint` reads a reference-format checkpoint from disk
+(sharded safetensors with their index, or torch `.bin` / `.pth` shards)
+through `tools/convert_weights.convert` and `state_dict_from_jax`: fp32
+weights for `AIGVAssessor(config)`. The JAX package's own `params.msgpack`
+needs flax, which the port does not use.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -245,6 +249,32 @@ def quantize_for_serving(
             raise TypeError(f"{prefix} is {w.dtype}: quantize from the fp32 weights")
         out[prefix], out[prefix + "_scale"] = quantize(w)
     return out
+
+
+def load_reference_checkpoint(path: str, config: AssessorConfig) -> Dict[str, torch.Tensor]:
+    """fp32 state_dict of `AIGVAssessor(config)` from a reference-format
+    checkpoint (a directory or weight files): the JAX converter's name map
+    (`tools/convert_weights.convert`), then `state_dict_from_jax`. Raises
+    ValueError for a flax `params.msgpack`, FileNotFoundError where there are
+    no weights."""
+    from aigv_assessor_torch.tools.convert_weights import (
+        convert, load_torch_state_dict, resolve_checkpoint_files)
+
+    flax_note = (f"{path}: a flax params.msgpack needs flax, which the port does not use; "
+                 "load the reference checkpoint (safetensors or .bin) it was converted from")
+    if os.path.isdir(path):
+        try:
+            files = resolve_checkpoint_files(path)
+        except FileNotFoundError:
+            if os.path.exists(os.path.join(path, "params.msgpack")):
+                raise ValueError(flax_note) from None
+            raise
+    else:
+        files = [path]
+    if any(f.endswith(".msgpack") for f in files):
+        raise ValueError(flax_note)
+    tree = convert(load_torch_state_dict(files), config)
+    return {k: v.float() for k, v in state_dict_from_jax(tree, config).items()}
 
 
 @torch.no_grad()

@@ -11,11 +11,14 @@ the real token count (`kv_valid`), and the pad is cut off at the end.
 
 Under W8A8 (`Precision.w8a8`) the four projections are `W8A8Linear`s and
 are fed as the JAX layer feeds them (`aigv_assessor_tpu/models/vit.py:150-197`,
-`:229-266`, `:298-326`): norm1 and norm2 through the fused LayerNorm +
-quantize kernel (K4a), the attention kernel's dense `bsd` rows through the
-one-pass quantize (K4c) into `proj`, and fc1's output through the fused
-tanh-GELU + quantize (K4b) into fc2. The pad rows go through the feeds like
-any row.
+`:229-266`, `:298-326`). With "vit" in `Precision.fuse_quant` (the default)
+norm1 and norm2 go through the fused LayerNorm + quantize kernel (K4a) and
+fc1's output through the fused tanh-GELU + quantize (K4b) into fc2; with
+"vit" in `Precision.quant_rows` (the default) the attention kernel's dense
+`bsd` rows go through the one-pass quantize (K4c) into `proj`. Without them
+the norm, the GELU or the attention writes its compute-dtype output and the
+projection quantizes it, as JAX does with its gates off. The pad rows go
+through the feeds like any row.
 
 Training (`lora` set, `module.train()`): the four projections are
 `LoRALinear`s, `qkv` head-major out and `proj` head-major in, so attention
@@ -96,6 +99,7 @@ class InternAttention(nn.Module):
         reject_quantized_lora(precision, lora)
         self.num_heads = h = config.num_attention_heads
         self.w8a8 = precision.w8a8
+        self.quant_rows = precision.w8a8 and "vit" in precision.quant_rows
         c = config.hidden_size
         if self.w8a8:
             dt = precision.compute_dtype
@@ -119,7 +123,7 @@ class InternAttention(nn.Module):
             qkv = self.qkv(x)  # [B, 3H, N, D], a view
             out = fused_qkv_attention(qkv, h, h, causal=False, kv_valid=kv_valid,
                                       out_layout="bsd")
-            return self.proj(quant_fuse.quant_rows(out))
+            return self.proj(quant_fuse.quant_rows(out) if self.quant_rows else out)
         b, n, c = x.shape
         # [B, N, 3H, D] viewed head-major as [B, 3H, N, D]: the kernel reads
         # q/k/v through the strides, no copy
@@ -135,6 +139,7 @@ class InternMLP(nn.Module):
         reject_quantized_lora(precision, lora)
         self.approximate = "tanh" if config.approximate_gelu else "none"
         self.w8a8 = precision.w8a8
+        self.fuse = precision.w8a8 and "vit" in precision.fuse_quant
         c, f = config.hidden_size, config.intermediate_size
         if self.w8a8:
             self.fc1 = W8A8Linear(c, f, out_dtype=precision.compute_dtype)
@@ -145,7 +150,7 @@ class InternMLP(nn.Module):
 
     def forward(self, x) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
-        if self.w8a8 and self.approximate == "tanh":
+        if self.fuse and self.approximate == "tanh":
             # fused tanh-GELU + quantize (K4b) of fc1's output
             return self.fc2(quant_fuse.gelu_quant(self.fc1(x)))
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
@@ -157,7 +162,7 @@ class InternVisionEncoderLayer(nn.Module):
         super().__init__()
         c = config.hidden_size
         self.initializer_factor = config.initializer_factor
-        self.w8a8 = precision.w8a8
+        self.fuse = precision.w8a8 and "vit" in precision.fuse_quant
         self.drop_path_rate = drop_path_rate
         self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
         self.ls1 = nn.Parameter(torch.full((c,), config.initializer_factor))
@@ -168,10 +173,11 @@ class InternVisionEncoderLayer(nn.Module):
         self.mlp = InternMLP(config, precision, lora)
 
     def _feed(self, norm: nn.Module, x: torch.Tensor):
-        """The norm's output; under W8A8 with a LayerNorm, its int8 rows and
-        scales from the fused kernel (K4a). An RMSNorm feed stays unfused and
-        the projection quantizes it, as in the JAX layer."""
-        if self.w8a8 and isinstance(norm, LayerNorm):
+        """The norm's output; under W8A8 with "vit" in `fuse_quant` and a
+        LayerNorm, its int8 rows and scales from the fused kernel (K4a). An
+        RMSNorm feed stays unfused and the projection quantizes it, as in the
+        JAX layer."""
+        if self.fuse and isinstance(norm, LayerNorm):
             return quant_fuse.layernorm_quant(x, norm.weight, norm.bias, norm.eps)
         return norm(x)
 

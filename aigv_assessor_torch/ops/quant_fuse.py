@@ -1,13 +1,20 @@
 """Fused producer + per-row int8 quantize (`aigv_assessor_tpu/ops/quant_fuse.py`):
 CUDA kernel wrappers and plain versions.
 
-The W8A8 ViT feeds its int8 projections through three of them, each one
-read of the producer's input instead of the producer's write plus the
-quantizer's passes:
+The W8A8 towers feed their int8 projections through them, each one read of
+the producer's input instead of the producer's write plus the quantizer's
+passes:
 
-- `layernorm_quant` (K4a): LayerNorm -> int8, the norm1/norm2 -> qkv/fc1 feeds;
-- `gelu_quant` (K4b): tanh-GELU -> int8, the fc1 -> fc2 feed;
-- `quant_rows` (K4c): identity -> int8, the attention output -> proj feed.
+- `layernorm_quant` (K4a): LayerNorm -> int8, the ViT's norm1/norm2 -> qkv/fc1
+  feeds;
+- `gelu_quant` (K4b): tanh-GELU -> int8, the ViT's fc1 -> fc2 feed;
+- `quant_rows` (K4c): identity -> int8, the attention output -> proj / wo feed;
+- `rmsnorm_quant` (K5a): RMSNorm -> int8, the decoder's attention_norm /
+  ffn_norm -> wqkv / w1+w3 feeds;
+- `silu_mul_quant` (K5b): silu(h1) * h3 -> int8, the decoder's SwiGLU -> w2
+  feed.
+
+Which feeds a model fuses is `Precision.fuse_quant` / `Precision.quant_rows`.
 
 Each returns (q int8 [..., C], scale fp32 [..., 1]), what
 `ops/w8a8.w8a8_matmul` takes as a pre-quantized input. On a CUDA tensor the
@@ -20,21 +27,23 @@ launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from aigv_assessor_torch.ops.cuda_build import CudaLibrary
 from aigv_assessor_torch.ops.w8a8 import Quantized, quantize_rows
 
-_IDENTITY, _LAYERNORM, _GELU_TANH = 0, 1, 2  # the kernel's producers
-MAX_COLS = 8192  # the kernel keeps a row of at most 8 x 1024 values in registers
+_IDENTITY, _LAYERNORM, _GELU_TANH, _RMSNORM, _SILU_MUL = 0, 1, 2, 3, 4  # the kernel's producers
+MAX_COLS = 16384  # the kernel keeps a row of at most 8 x 2048 values in registers
 _SQRT_2_OVER_PI = 0.7978845608028654
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.aigv_quant_rows_fwd.argtypes = [
         ctypes.c_int,  # producer
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, gamma, beta
+        ctypes.c_void_p, ctypes.c_void_p,  # x, x2
+        ctypes.c_void_p, ctypes.c_void_p,  # gamma, beta
         ctypes.c_float,  # eps
         ctypes.c_void_p, ctypes.c_void_p,  # q, scale
         ctypes.c_longlong, ctypes.c_int,  # rows, cols
@@ -67,13 +76,36 @@ def plain_gelu_quant(x: torch.Tensor) -> Quantized:
     return quantize_rows(y)
 
 
+def plain_rmsnorm_quant(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> Quantized:
+    """`_rmsnorm_quant_xla`: the weight multiplies the fp32 normalized x."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return quantize_rows(y * weight.float())
+
+
+def plain_silu_mul_quant(h1: torch.Tensor, h3: torch.Tensor) -> Quantized:
+    """`_silu_mul_quant_xla`: silu(h1) * h3 in fp32, silu as h1 * sigmoid(h1)."""
+    h1f = h1.float()
+    return quantize_rows(h1f * torch.sigmoid(h1f) * h3.float())
+
+
 plain_quant_rows = quantize_rows  # the identity producer's plain version
 
 
 # --------------------------------------------------------------- kernel ---
 
 
-def _launch(producer: int, x: torch.Tensor, *norm: torch.Tensor, eps: float = 0.0) -> Quantized:
+def _check_operand(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> None:
+    if (t.dtype != torch.bfloat16 or tuple(t.shape) != shape or t.device != device
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(
+            f"{what} must be contiguous bf16 {list(shape)} on {device}, 16-byte aligned, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def _launch(producer: int, x: torch.Tensor, *norm: torch.Tensor,
+            x2: Optional[torch.Tensor] = None, eps: float = 0.0) -> Quantized:
     if x.device.type != "cuda":
         raise ValueError(f"the quantize kernels run on cuda or cpu, not {x.device}")
     if x.dtype != torch.bfloat16:
@@ -89,20 +121,18 @@ def _launch(producer: int, x: torch.Tensor, *norm: torch.Tensor, eps: float = 0.
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
     for t in norm:
-        if (t.dtype != torch.bfloat16 or t.shape != (cols,) or t.device != x.device
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(
-                f"norm weight and bias must be contiguous bf16 [{cols}] on {x.device}, "
-                f"16-byte aligned, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+        _check_operand(t, "norm weight and bias", (cols,), x.device)
+    if x2 is not None:
+        _check_operand(x2, "the second input", tuple(x.shape), x.device)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
-    gamma, beta = (t.data_ptr() for t in norm) if norm else (None, None)
+    gamma, beta = ([t.data_ptr() for t in norm] + [None, None])[:2]
     lib = LIB.load()
     with torch.cuda.device(x.device):
         rc = lib.aigv_quant_rows_fwd(
-            producer, x.data_ptr(), gamma, beta, eps, q.data_ptr(), s.data_ptr(),
-            rows, cols, torch.cuda.current_stream(x.device).cuda_stream,
+            producer, x.data_ptr(), None if x2 is None else x2.data_ptr(), gamma, beta, eps,
+            q.data_ptr(), s.data_ptr(), rows, cols,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     LIB.check(rc, "quantize kernel")
     return q, s
@@ -138,6 +168,27 @@ def quant_rows(x: torch.Tensor) -> Quantized:
     return out
 
 
+def rmsnorm_quant(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> Quantized:
+    """RMSNorm over the last dim (fp32, weight applied in fp32), then
+    per-row int8 (K5a)."""
+    if x.device.type == "cpu":
+        return plain_rmsnorm_quant(x, weight, eps)
+    out = _launch(_RMSNORM, x, weight, eps=eps)
+    rmsnorm_quant.launches += 1
+    return out
+
+
+def silu_mul_quant(h1: torch.Tensor, h3: torch.Tensor) -> Quantized:
+    """silu(h1) * h3 in fp32, then per-row int8 (K5b)."""
+    if h1.device.type == "cpu":
+        return plain_silu_mul_quant(h1, h3)
+    out = _launch(_SILU_MUL, h1, x2=h3)
+    silu_mul_quant.launches += 1
+    return out
+
+
 layernorm_quant.launches = 0
 gelu_quant.launches = 0
 quant_rows.launches = 0
+rmsnorm_quant.launches = 0
+silu_mul_quant.launches = 0

@@ -1,9 +1,10 @@
 """Where one scoring chunk spends its time on the card, per serving precision.
 
-    python -m aigv_assessor_torch.tools.profile_score [--modes bf16 w8a8 int8 int4]
+    python -m aigv_assessor_torch.tools.profile_score [--modes bf16 w8a8 w8a8_fused int8 int4]
 
 For each mode it builds the InternVL2-2B serving model from a seed
-(`cli/score.build_serving_model`) and scores one synthetic chunk of 4 videos
+(`cli/score.build_serving_model`; `w8a8_fused` is W8A8 with every feed fused,
+`Precision.fuse_quant` and `quant_rows` at {"vit", "llm"}) and scores one synthetic chunk of 4 videos
 x 8 frames x 448 px with a 2113-token prompt, the shapes `chip_smoke.py`
 scores at. After a warm-up it prints, as JSON lines:
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 CTX, FRAMES, IMAGE, TEXT, BATCH = 7, 8, 448, 64, 4
-MODES = ("bf16", "w8a8", "int8", "int4")
+MODES = ("bf16", "w8a8", "w8a8_fused", "int8", "int4")
 KINDS = (  # (label, substrings of the kernel's name)
     ("decode_attention", ("decode_attention_partial", "decode_attention_combine")),
     ("attention_fwd", ("flash_fwd_kernel",)),
@@ -67,6 +68,10 @@ def main() -> int:
 
     from aigv_assessor_torch.cli.score import build_serving_model, score_batch
     from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig
+    from aigv_assessor_torch.core.precision import COMPONENTS, Precision
+
+    flags = {"bf16": {}, "w8a8_fused": dict(
+        w8a8=True, precision=Precision(fuse_quant=COMPONENTS, quant_rows=COMPONENTS))}
 
     cfg = AssessorConfig(llm=LLM_2B, stage=2).replace(img_context_token_id=CTX)
     rng = np.random.default_rng(0)
@@ -79,8 +84,7 @@ def main() -> int:
         rng.integers(0, 256, (BATCH, FRAMES, IMAGE, IMAGE, 3), dtype=np.uint8), device=device)
 
     for mode in args.modes:
-        model = build_serving_model(cfg, device=device, seed=0,
-                                    **({} if mode == "bf16" else {mode: True}))
+        model = build_serving_model(cfg, device=device, seed=0, **flags.get(mode, {mode: True}))
         torch.cuda.synchronize()
         weights_gib = torch.cuda.memory_allocated(device) / 2**30 - (
             ids.numel() * 8 + mask.numel() + pixels.numel()) / 2**30

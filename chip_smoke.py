@@ -30,9 +30,12 @@ Phases, each printing one line or more (and failing the run by raising):
      and dv each within BWD_TOL relative L2 of `plain_attention_qkv_bwd` on
      the same (qkv, out, lse, dout), which rounds p and ds to bf16 where the
      kernels do; dk/dv rows of the keys at or beyond kv_valid exactly 0.
-   - The LayerNorm / tanh-GELU / identity + int8 quantize kernels at the 2B
-     ViT's feed shapes and at a ragged row count: scales within rtol 1e-5,
-     int8 values differing by at most one on at most 1e-3 of the elements.
+   - The LayerNorm / tanh-GELU / identity + int8 quantize kernels (device
+     time by CUDA graph replay, and call by call with the host) at the 2B
+     ViT's feed shapes, and the RMSNorm / SwiGLU + int8 kernels at the 2B
+     decoder's (K5b also at the 8B decoder's 14336-wide feed), each also at a
+     ragged row count: scales within rtol 1e-5, int8 values differing by at
+     most one on at most 1e-3 of the elements.
    - The forward on three separate tensors at the LLM's shape (`bshd` views
      of one row-major projection output, causal, GQA), at the ViT's shape in
      both layouts with kv_valid 1025 of 1032, at a non-causal Sq != Skv shape
@@ -77,6 +80,14 @@ Phases, each printing one line or more (and failing the run by raising):
    its plain version, and against a W8A8 forward of the same int8 weights
    with fp32 activations (tolerances at W8A8_READOUT_TOL); and the W8A8
    readout's cosine to the bf16 readout at least W8A8_COSINE.
+   Then the same int8 weights with every feed fused (`Precision.fuse_quant`
+   and `quant_rows` at {"vit", "llm"}): per forward 48 attention, 48
+   LayerNorm-quantize, 24 GELU-quantize, 48 identity-quantize (ViT proj and
+   decoder wo), 48 RMSNorm-quantize and 24 SwiGLU-quantize launches; the
+   readout against the same forward on the plain versions and against the
+   fp32-activation forward of the same configuration (W8A8_READOUT_TOL,
+   REF_RATIO), its cosine to bf16 at least W8A8_COSINE, and its cosine to the
+   unfused W8A8 readout, printed with ms per chunk and peak memory.
 6. slices (int8, int4): the same weights, seed and videos served weight-only
    (`build_serving_model(int8=True)` / `(int4=True)`): the ViT in bf16 on
    the fused-qkv kernel, the decoder's projections int8 or packed int4 on
@@ -101,10 +112,10 @@ Phases, each printing one line or more (and failing the run by raising):
    logsumexp; every frozen tensor bit-equal before and after; `lora_b`
    non-zero after step 1 in the first and last layer of both towers; the
    dropout-off loss on the batch lower after the steps than before; and, with
-   dropout off, the adapters' and the score head's gradients of the kernel
-   path against the same backward through the plain attention, and both
-   against an fp32 backward of the same weights (tolerances at
-   TRAIN_GRAD_TOL).
+   dropout off, the adapters' gradients of a fixed linear functional of the
+   readout (readout . u, u drawn from a seed) on the kernel path against the
+   same backward through the plain attention, and both against an fp32
+   backward of the same weights (tolerances at TRAIN_GRAD_TOL).
 
 8. generation: `models/generation.generate` on the same model, B = 4, the
    2113-token prompt with the motion embedding, GEN_TOKENS new tokens,
@@ -125,6 +136,13 @@ Phases, each printing one line or more (and failing the run by raising):
    the read-out rows within READOUT_TOL of each other and the shared path no
    more than REF_RATIO as far from an fp32 reference as the unshared one,
    scores within SCORE_TOL; ms per chunk and peak memory of both.
+10. CLI: `cli/score.main`, the command users run, on 8 mp4 files (cv2, 30
+    frames, 640 x 360) and one GIF written to a temporary directory: the 2B
+    model from seed 0 served W8A8 with `AIGV_FUSE_QUANT=vit,llm
+    AIGV_QUANT_ROWS=vit,llm`, two questions on the shared prefix, batch 4.
+    Checks 9 CSV rows of 2 finite scores, the JSON summary line, and the
+    RMSNorm- and SwiGLU-quantize launches of the run; prints videos per
+    second with decode included and the decoder that ran.
 
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -134,6 +152,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
+import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -154,17 +175,16 @@ LSE_TOL = 1e-4
 # the summation order and the bf16 rounding of the results (2^-9 relative per
 # element at most): measured 6e-5 to 2.2e-4 on an H100
 BWD_TOL = 2e-3
-# Gradients of the adapters and the score head (dropout off), all of them as
-# one vector, after 48 bf16 layers forward and 48 back. Two bf16 backwards
-# that differ only in rounding order are ~1e-1 apart in relative L2, and a
-# bf16 backward is far from an fp32 backward of the same weights: on an H100
-# the kernel path was 1.057e-1 from autograd through the plain attention, and
-# they were 5.875e-1 and 5.845e-1 from the fp32 backward (random weights, an
-# L1 loss through a ReLU head: rounding moves the ReLU pattern). So, as for
-# the readout, the kernel path must (a) stay within 2e-1 of the plain path and
-# (b) be no more than REF_RATIO as far from the fp32 backward as the plain
-# bf16 path is.
-TRAIN_GRAD_TOL = 2e-1
+# Gradients of the adapters (dropout off), all of them as one vector, of a
+# fixed linear functional of the readout, (readout . u).sum() with u from a
+# seed, after 48 bf16 layers forward and 48 back. On an H100 the kernel path
+# was 2.625e-2 from autograd through the plain attention, and 9.897e-2 and
+# 9.711e-2 from the fp32 backward. (Through the L1 loss and the ReLU score
+# head, as checked before, rounding moved the ReLU pattern of the random
+# head: 1.057e-1 and 5.9e-1.) The kernel path must (a) stay within
+# TRAIN_GRAD_TOL of the plain path and (b) be no more than REF_RATIO as far
+# from the fp32 backward as the plain bf16 path is.
+TRAIN_GRAD_TOL = 5e-2
 TRAIN_STEPS, TRAIN_LR, LORA_RANK = 3, 4e-5, 8  # the shipping learning rate
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 # Readout hidden state (len - 4) after 48 bf16 layers. Two bf16 forwards that
@@ -258,8 +278,14 @@ FEEDS = {
     "ln_quant": (33024, 1024, 48, "aigv_assessor_tpu/ops/quant_fuse.py:120"),
     "gelu_quant": (33024, 4096, 24, "aigv_assessor_tpu/ops/quant_fuse.py:132"),
     "ident_quant": (33024, 1024, 24, "aigv_assessor_tpu/ops/quant_fuse.py:140"),
+    # the 2B decoder's feeds (4 videos x 2113 tokens) under fused W8A8
+    "rmsnorm_quant": (8452, 2048, 48, "aigv_assessor_tpu/ops/quant_fuse.py:148"),
+    "silu_mul_quant": (8452, 8192, 24, "aigv_assessor_tpu/ops/quant_fuse.py:160"),
 }
+WIDE_SILU = 14336  # the 8B decoder's SwiGLU feed: K5b's widest row
+CLI_VIDEOS, CLI_FRAMES, CLI_SIZE = 8, 30, (640, 360)  # mp4 files; one GIF besides
 RAGGED_ROWS = 1000
+GRAPH_CALLS = 10  # launches of a feed kernel captured into one timed CUDA graph
 # the 2B decoder's projections: (K, N, launches per layer)
 PROJECTIONS = {
     "wqkv": (2048, 4096, 1),
@@ -484,11 +510,27 @@ def check_attention_training(fa, device) -> dict:
 def feed_inputs(name: str, rows: int, cols: int, device) -> tuple:
     gen = torch.Generator(device=device).manual_seed(1)
     x = (2.0 * torch.randn((rows, cols), generator=gen, device=device)).to(torch.bfloat16)
-    if name != "ln_quant":
+    if name == "silu_mul_quant":
+        return x, (2.0 * torch.randn((rows, cols), generator=gen, device=device)).to(
+            torch.bfloat16)
+    if name not in ("ln_quant", "rmsnorm_quant"):
         return (x,)
     w = (1.0 + 0.2 * torch.randn(cols, generator=gen, device=device)).to(torch.bfloat16)
+    if name == "rmsnorm_quant":
+        return x, w
     b = (0.1 * torch.randn(cols, generator=gen, device=device)).to(torch.bfloat16)
     return x, w, b
+
+
+def feed_bound(name: str, rows: int, cols: int) -> tuple:
+    """(bound ms, bound_by) of one launch: bf16 in (two inputs for silu-mul,
+    and the norm's weight and bias), int8 and one fp32 scale per row out; some
+    ten fp32 operations per element outside the tensor cores (67 TFLOP/s)."""
+    inputs = 2 if name == "silu_mul_quant" else 1
+    vectors = {"ln_quant": 2, "rmsnorm_quant": 1}.get(name, 0)
+    nbytes = rows * cols * (2 * inputs + 1) + rows * 4 + 2 * vectors * cols
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 10 * rows * cols / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check_feeds(qf, device) -> dict:
@@ -496,17 +538,24 @@ def check_feeds(qf, device) -> dict:
         "ln_quant": (qf.layernorm_quant, qf.plain_layernorm_quant),
         "gelu_quant": (qf.gelu_quant, qf.plain_gelu_quant),
         "ident_quant": (qf.quant_rows, qf.plain_quant_rows),
+        "rmsnorm_quant": (qf.rmsnorm_quant, qf.plain_rmsnorm_quant),
+        "silu_mul_quant": (qf.silu_mul_quant, qf.plain_silu_mul_quant),
     }
     results = {}
     for name, (rows, cols, _, _) in FEEDS.items():
         kernel, plain = calls[name]
         stats = {}
-        for label, n in (("path", rows), ("ragged", RAGGED_ROWS)):
-            args = feed_inputs(name, n, cols, device)
+        shapes = [("path", rows, cols), ("ragged", RAGGED_ROWS, cols)]
+        if name == "silu_mul_quant":
+            shapes.append(("wide", rows, WIDE_SILU))
+        if name == "ident_quant":  # the decoder's wo feed under fused W8A8
+            shapes.append(("decoder_wo", PREFILL_ROWS, FEEDS["rmsnorm_quant"][1]))
+        for label, n, c in shapes:
+            args = feed_inputs(name, n, c, device)
             q, s = kernel(*args)
             torch.cuda.synchronize()
             q2, s2 = plain(*args)
-            if q.dtype != torch.int8 or q.shape != (n, cols) or s.shape != (n, 1):
+            if q.dtype != torch.int8 or q.shape != (n, c) or s.shape != (n, 1):
                 raise RuntimeError(f"{name}: outputs {q.dtype} {tuple(q.shape)} {tuple(s.shape)}")
             scale_err = ((s - s2).abs() / s2.abs()).max().item()
             diff = (q.int() - q2.int()).abs()
@@ -514,25 +563,37 @@ def check_feeds(qf, device) -> dict:
             if not (scale_err <= SCALE_RTOL and diff.max().item() <= 1
                     and flips <= FLIP_FRACTION):
                 raise RuntimeError(
-                    f"{name} at {n}x{cols}: scale rel err {scale_err:.3e} (tol "
+                    f"{name} at {n}x{c}: scale rel err {scale_err:.3e} (tol "
                     f"{SCALE_RTOL}), int8 max diff {diff.max().item()}, flipped "
                     f"share {flips:.3e} (tol {FLIP_FRACTION})")
             deq_err = (q.float() * s - q2.float() * s2).abs().max().item()
-            stats[label] = dict(rows=n, scale_rel_err=scale_err, flipped_share=flips,
+            stats[label] = dict(rows=n, cols=c, scale_rel_err=scale_err, flipped_share=flips,
                                 dequant_max_abs_err=deq_err)
-        args = feed_inputs(name, rows, cols, device)
-        ms = time_ms(lambda: kernel(*args), 20)
-        plain_ms = time_ms(lambda: plain(*args), 5)
-        p, r = stats["path"], stats["ragged"]
+            if label != "ragged":
+                # device time by graph replay: a launch of the smaller feeds
+                # takes less device time than the wrapper's host cost, so
+                # call by call the loop would time the host
+                r = stats[label]
+                r["ms"] = graph_ms([lambda: kernel(*args)] * GRAPH_CALLS, 20)
+                r["call_ms"] = time_ms(lambda: kernel(*args), 20)
+                r["plain_ms"] = graph_ms([lambda: plain(*args)] * GRAPH_CALLS, 5)
+                r["bound_ms"], r["bound_by"] = feed_bound(name, n, c)
+            del args, q, s, q2, s2, diff
+        p = stats["path"]
         results[name] = dict(
-            cols=cols, ms=ms, plain_ms=plain_ms, path=p, ragged=r,
-            max_abs_err=max(p["dequant_max_abs_err"], r["dequant_max_abs_err"]),
+            cols=cols, ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+            bound_by=p["bound_by"], shapes=stats,
+            max_abs_err=max(r["dequant_max_abs_err"] for r in stats.values()),
         )
-        phase("kernel", f"{name}: {rows}x{cols} and {RAGGED_ROWS}x{cols} bf16: scale rel "
-              f"err {p['scale_rel_err']:.3e} / {r['scale_rel_err']:.3e} (tol {SCALE_RTOL}), "
-              f"int8 flipped share {p['flipped_share']:.3e} / {r['flipped_share']:.3e} "
-              f"(tol {FLIP_FRACTION}, each by one); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms at {rows}x{cols}")
+        text = "; ".join(
+            f"{r['rows']}x{r['cols']}: scale rel err {r['scale_rel_err']:.3e}, int8 flipped "
+            f"share {r['flipped_share']:.3e}" + (
+                f", kernel {r['ms']:.4f} ms (call by call, host included: {r['call_ms']:.4f}), "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                if "ms" in r else "")
+            for r in stats.values())
+        phase("kernel", f"{name} bf16 (tol: scales {SCALE_RTOL}, flips {FLIP_FRACTION} each "
+              f"by one): {text}")
     return results
 
 
@@ -855,17 +916,23 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
         raise RuntimeError(f"train: dropout-off loss {loss_before} before, {loss_after} after "
                            f"{TRAIN_STEPS} steps at lr {TRAIN_LR}")
 
+    # a fixed linear functional of the readout: its gradient reaches every
+    # adapter, and no ReLU of the random score head decides which
+    u = torch.randn((batch_size, cfg.llm.hidden_size), device=device,
+                    generator=torch.Generator(device=device).manual_seed(7))
+
     def eval_grads(m) -> torch.Tensor:
-        """Dropout off (eval mode), checkpointing on: all trainable gradients
-        as one fp32 vector."""
+        """Dropout off (eval mode), checkpointing on: the adapters' gradients
+        of (readout . u).sum() as one fp32 vector."""
         m.eval()
         for p in m.parameters():
             p.grad = None
         dtype = m.precision.compute_dtype
-        m(prepared["input_ids"], prepared["pixel_values"].to(dtype),
-          prepared["attention_mask"], mos=prepared["mos"])["loss"].backward()
+        readout = m(prepared["input_ids"], prepared["pixel_values"].to(dtype),
+                    prepared["attention_mask"], mos=prepared["mos"])["readout"]
+        (readout.float() * u).sum().backward()
         return torch.cat([p.grad.float().flatten() for n, p in m.named_parameters()
-                          if n in trained])
+                          if n in trained and p.grad is not None])
 
     before = [c.launches for c in train_kernels]
     g_kernel = eval_grads(model)
@@ -883,6 +950,8 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
     if [c.launches for c in train_kernels] != launched:
         raise RuntimeError("the plain backwards launched a kernel")
     del ref
+    if not g_kernel.numel() == g_plain.numel() == g_ref.numel() > 0:
+        raise RuntimeError("train: the three backwards reached other adapters")
     gk, gp, gr = relative_l2(g_kernel, g_plain), relative_l2(g_kernel, g_ref), relative_l2(
         g_plain, g_ref)
     if not torch.isfinite(g_kernel).all() or not gk <= TRAIN_GRAD_TOL:
@@ -901,8 +970,9 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
           f"{later_ms:.1f} ms/step; peak "
           f"{peak_train:.2f} GiB allocated (weights {weights_train:.2f} GiB), init "
           f"{init_train_s:.1f} s; training losses {np.round(losses, 5).tolist()}; dropout-off "
-          f"loss {loss_before:.5f} -> {loss_after:.5f}; frozen tensors bit-equal; gradient rel "
-          f"L2 kernel vs plain {gk:.3e} (tol {TRAIN_GRAD_TOL}), vs fp32 reference: kernel "
+          f"loss {loss_before:.5f} -> {loss_after:.5f}; frozen tensors bit-equal; adapter "
+          f"gradients of (readout . u) ({g_kernel.numel()} values) rel L2 kernel vs plain "
+          f"{gk:.3e} (tol {TRAIN_GRAD_TOL}), vs fp32 reference: kernel "
           f"{gr:.3e}, plain {gp:.3e} (tol {REF_RATIO}x) [{smi}]")
     return train_counts
 
@@ -1291,6 +1361,103 @@ def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int) 
     return out
 
 
+def write_cli_videos(folder: str) -> None:
+    """CLI_VIDEOS mp4 files of CLI_FRAMES frames at CLI_SIZE, and one GIF."""
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    w, h = CLI_SIZE
+    for i in range(CLI_VIDEOS):
+        writer = cv2.VideoWriter(os.path.join(folder, f"video{i}.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+        if not writer.isOpened():
+            raise RuntimeError("cv2.VideoWriter cannot write mp4v here")
+        base = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for t in range(CLI_FRAMES):  # a moving picture: the frame rolls right
+            writer.write(np.roll(base, 8 * t, axis=1))
+        writer.release()
+    frames = [Image.fromarray(rng.integers(0, 256, (240, 320, 3), dtype=np.uint8))
+              for _ in range(12)]
+    frames[0].save(os.path.join(folder, "clip.gif"), save_all=True, append_images=frames[1:],
+                   duration=100)
+
+
+def run_score_cli(device, smi, *, n_llm: int) -> None:
+    """Phase 10: `cli/score.main` on video files, 2B, W8A8 with every feed
+    fused."""
+    from aigv_assessor_torch.cli import score
+    from aigv_assessor_torch.data import native_decode
+    from aigv_assessor_torch.data.tokenizer import build_test_tokenizer
+    from aigv_assessor_torch.data.video import frames_to_uint8, load_video
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import quant_fuse as qf
+
+    counters = (qf.rmsnorm_quant, qf.silu_mul_quant, qf.quant_rows, qf.layernorm_quant,
+                qf.gelu_quant, fa.flash_attention_qkv)
+    questions = ["How would you rate the static quality of this video?",
+                 "How would you rate the temporal smoothness of this video?"]
+    env = {**os.environ, "AIGV_FUSE_QUANT": "vit,llm", "AIGV_QUANT_ROWS": "vit,llm"}
+    with tempfile.TemporaryDirectory() as d:
+        write_cli_videos(d)
+        out = os.path.join(d, "scores.csv")
+        argv = ["--videos", d, "--model_scale", "2b", "--w8a8", "True", "--batch_size",
+                str(BATCH), "--num_segments", str(FRAMES), "--out", out,
+                "--device", str(device), *[a for q in questions for a in ("--question", q)]]
+        for c in counters:
+            c.launches = 0
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        # the switches are read once, from os.environ, by cli/common.py
+        with mock.patch.object(os, "environ", env), contextlib.redirect_stdout(stdout):
+            score.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        with open(out) as f:
+            table = list(csv.reader(f))
+        # the host side alone, one video at a time: decode as the CLI's
+        # workers do it, and the tokenizer's prompt
+        decode_ms = {}
+        for path in score.list_videos(d):
+            t0 = time.perf_counter()
+            frames = load_video(path, num_segments=FRAMES, out_size=IMAGE)
+            frames_to_uint8(frames, input_size=IMAGE)
+            decode_ms[os.path.basename(path)] = (time.perf_counter() - t0) * 1e3
+        tok = build_test_tokenizer()
+        t0 = time.perf_counter()
+        score.build_prompt_ids(tok, "internlm2-chat", questions[0], FRAMES, 256)
+        prompt_ms = (time.perf_counter() - t0) * 1e3
+    n_videos = CLI_VIDEOS + 1
+    rows = np.asarray([[float(v) for v in r[1:]] for r in table[1:]])
+    if (table[0] != ["video_name", "pred_score_1", "pred_score_2"]
+            or rows.shape != (n_videos, 2) or not np.isfinite(rows).all()):
+        raise RuntimeError(f"CLI: CSV header {table[0]}, scores {rows.shape}, not {n_videos} "
+                           "rows of 2 finite scores")
+    if summary.get("n_videos") != n_videos or summary.get("n_perspectives") != 2:
+        raise RuntimeError(f"CLI: summary line {summary}")
+    # each chunk: the shared prefix's cache-free pass and the questions' pass
+    # over its cache, each 2 K5a and 1 K5b per decoder layer
+    chunks = -(-n_videos // BATCH)
+    want = {"rmsnorm_quant": chunks * 2 * 2 * n_llm, "silu_mul_quant": chunks * 2 * n_llm}
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"CLI: launches {counts}, expected {want}")
+    decoder = ("native libvideodec.so (mp4), PIL (GIF)" if native_decode.available()
+               else "OpenCV (mp4; native libvideodec.so did not load), PIL (GIF)")
+    phase("cli", f"cli.score.main --model_scale 2b --w8a8 True, AIGV_FUSE_QUANT = "
+          f"AIGV_QUANT_ROWS = vit,llm, {len(questions)} questions on the shared prefix, batch "
+          f"{BATCH}, {FRAMES} frames: {CLI_VIDEOS} mp4 ({CLI_FRAMES} frames, {CLI_SIZE[0]}x"
+          f"{CLI_SIZE[1]}) + 1 GIF -> {n_videos} CSV rows of 2 finite scores; decoder "
+          f"{decoder}; {summary['value']} videos/s with decode included (the CLI's own line, "
+          f"model build excluded), {wall_s:.1f} s for the whole call with the 2B model's build; "
+          f"host side alone, one video at a time: decode to {FRAMES} frames of {IMAGE} px "
+          f"{np.mean([v for k, v in decode_ms.items() if k.endswith('.mp4')]):.1f} ms per mp4, "
+          f"{decode_ms['clip.gif']:.1f} ms for the GIF, prompt tokenization {prompt_ms:.2f} ms; "
+          f"launches {counts} over {chunks} chunks; scores of the first video "
+          f"{np.round(rows[0], 3).tolist()} [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
@@ -1311,7 +1478,7 @@ def main() -> int:
 
     from aigv_assessor_torch.cli.score import build_serving_model, score_batch, score_chunks
     from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig
-    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.core.precision import COMPONENTS, Precision
     from aigv_assessor_torch.models.assessor import AIGVAssessor
     from aigv_assessor_torch.ops import cuda_build
     from aigv_assessor_torch.ops import decode_attention as dec
@@ -1369,6 +1536,7 @@ def main() -> int:
                                f"[{BATCH}, 1]: {scores}")
         torch.cuda.reset_peak_memory_stats(device)
         counters = (fa.flash_attention_qkv, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows,
+                    qf.rmsnorm_quant, qf.silu_mul_quant,
                     fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
                     fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
                     fa.flash_attention_qkv_bwd_dkv, dec.decode_attention)
@@ -1389,6 +1557,7 @@ def main() -> int:
     def expected(**per_forward_launches) -> dict:
         """Launch counts of CHUNKS forwards: the named kernels, 0 of the rest."""
         names = ("flash_attention_qkv", "layernorm_quant", "gelu_quant", "quant_rows",
+                 "rmsnorm_quant", "silu_mul_quant",
                  "flash_attention", "int8_matmul", "int4_matmul", "flash_attention_qkv_lse",
                  "flash_attention_qkv_bwd_dq", "flash_attention_qkv_bwd_dkv",
                  "decode_attention")
@@ -1486,8 +1655,69 @@ def main() -> int:
           f"{rel8_kr:.3e}, plain {rel8_pr:.3e} (tol {REF_RATIO}x), cosine to bf16 "
           f"{cosine:.5f} (tol {W8A8_COSINE}); "
           f"scores {np.round(arr8[:, 0], 4).tolist()} [{smi}]")
+    del kernel_out, plain_out, ref_out, pv
 
-    del model, kernel_out, plain_out, ref_out, pv
+    # 5b. the same int8 weights with every feed fused: K5a, K5b and K4c into wo
+    fused_precision = dataclasses.replace(model.precision, fuse_quant=COMPONENTS,
+                                          quant_rows=COMPONENTS)
+    with torch.device("meta"):
+        fused = AIGVAssessor(cfg, fused_precision)
+    fused.load_state_dict(model.state_dict(), strict=True, assign=True)  # shares the tensors
+    fused.eval()
+    counts_f, ms_fused, peak_fused, _, arr_f = run_slice(fused, "W8A8 fused")
+    want = expected(flash_attention_qkv=per_forward, layernorm_quant=FEEDS["ln_quant"][2],
+                    gelu_quant=FEEDS["gelu_quant"][2], quant_rows=n_vit + n_llm,
+                    rmsnorm_quant=FEEDS["rmsnorm_quant"][2],
+                    silu_mul_quant=FEEDS["silu_mul_quant"][2])
+    if counts_f != want:
+        raise RuntimeError(f"W8A8 fused: launches {counts_f} for {CHUNKS} forwards, expected "
+                           f"{want}")
+    fused_swaps = plain_swaps + ((qf, "rmsnorm_quant", qf.plain_rmsnorm_quant),
+                                 (qf, "silu_mul_quant", qf.plain_silu_mul_quant))
+    with torch.device("meta"):
+        ref = AIGVAssessor(cfg, dataclasses.replace(fused_precision, compute_dtype=torch.float32))
+    ref.load_state_dict({k: v.float() if v.is_floating_point() else v
+                         for k, v in fused.state_dict().items()}, strict=True, assign=True)
+    with torch.inference_mode():
+        pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.float32)
+        kernel_out = fused(ids[:, 0], pv.to(torch.bfloat16), mask[:, 0])
+        launched = [getattr(m, n).launches for m, n, _ in fused_swaps]
+        with contextlib.ExitStack() as stack:
+            for module, name, plain in fused_swaps:
+                stack.enter_context(mock.patch.object(module, name, plain))
+            plain_out = fused(ids[:, 0], pv.to(torch.bfloat16), mask[:, 0])
+            ref_out = ref.eval()(ids[:, 0], pv, mask[:, 0])
+        if [getattr(m, n).launches for m, n, _ in fused_swaps] != launched:
+            raise RuntimeError("the plain fused W8A8 forwards launched a kernel")
+    del ref
+    kf, pf, rf = (o["readout"].float() for o in (kernel_out, plain_out, ref_out))
+    relf, relf_kr, relf_pr = relative_l2(kf, pf), relative_l2(kf, rf), relative_l2(pf, rf)
+    if not torch.isfinite(kf).all() or not relf <= W8A8_READOUT_TOL:
+        raise RuntimeError(f"W8A8 fused readout relative L2 kernel vs plain {relf} above "
+                           f"{W8A8_READOUT_TOL}")
+    if not relf_kr <= REF_RATIO * relf_pr:
+        raise RuntimeError(f"W8A8 fused kernel path {relf_kr} from the fp32-activation "
+                           f"reference, plain path {relf_pr}: more than {REF_RATIO}x farther")
+
+    def cosine(x, y):
+        x, y = x.flatten(), y.flatten()
+        return (x @ y / (x.norm() * y.norm())).item()
+
+    cos_bf16, cos_unfused = cosine(kf, readout_bf16), cosine(kf, k8)
+    if not cos_bf16 >= W8A8_COSINE:
+        raise RuntimeError(f"W8A8 fused readout cosine to bf16 {cos_bf16} below {W8A8_COSINE}")
+    phase("slice", f"W8A8 fused decoder feeds (fuse_quant = quant_rows = vit, llm), same int8 "
+          f"weights, seed and videos: launches per forward "
+          f"{ {k: v // CHUNKS for k, v in counts_f.items() if v} }, {ms_fused:.1f} ms/chunk "
+          f"(unfused W8A8 {ms_w8a8:.1f}, bf16 {ms_bf16:.1f}), peak {peak_fused:.2f} GiB "
+          f"allocated (unfused {peak_w8a8:.2f}, bf16 {peak_bf16:.2f}); readout rel L2 kernel vs "
+          f"plain {relf:.3e} (tol {W8A8_READOUT_TOL}), vs fp32-activation fused reference: "
+          f"kernel {relf_kr:.3e}, plain {relf_pr:.3e} (tol {REF_RATIO}x); cosine to bf16 "
+          f"{cos_bf16:.5f} (tol {W8A8_COSINE}), to the unfused W8A8 readout {cos_unfused:.5f}; "
+          f"scores {np.round(arr_f[:, 0], 4).tolist()} [{smi}]")
+    fused_stats = dict(ms=ms_fused, peak_gib=peak_fused, counts=counts_f,
+                       cosine_bf16=cos_bf16, cosine_unfused=cos_unfused)
+    del model, fused, kernel_out, plain_out, ref_out, pv
     torch.cuda.empty_cache()
 
     # 6. the weight-only scoring slices: same seed, same videos
@@ -1586,6 +1816,10 @@ def main() -> int:
 
     # 9. shared-prefix perspective scoring
     run_shared_prefix(cfg, device, videos, rng, smi, n_vit=n_vit, n_llm=n_llm)
+    torch.cuda.empty_cache()
+
+    # 10. the score CLI on video files
+    run_score_cli(device, smi, n_llm=n_llm)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -1687,21 +1921,26 @@ def main() -> int:
             unit=f"one int{bits} scoring forward: 24 layers x (wqkv, wo, w1, w3, w2) at M = "
             f"{PREFILL_ROWS}", shapes=table))
     for name, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
-                          ("ident_quant", "quant_rows")):
+                          ("ident_quant", "quant_rows"), ("rmsnorm_quant", "rmsnorm_quant"),
+                          ("silu_mul_quant", "silu_mul_quant")):
         rows, cols, per_fwd, replaces = FEEDS[name]
         f = feeds[name]
-        # bf16 in, int8 and one fp32 scale per row out (and the norm's weight
-        # and bias); some ten fp32 operations per element outside the tensor
-        # cores (67 TFLOP/s) stay far below the bytes' time
-        nbytes = rows * cols * 3 + rows * 4 + (4 * cols if name == "ln_quant" else 0)
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 10 * rows * cols / 67e12 * 1e3
+        decoder = name in ("rmsnorm_quant", "silu_mul_quant")
+        unit = (f"one W8A8 scoring forward with fused decoder feeds: {per_fwd} launches"
+                if decoder else f"one W8A8 scoring forward: {per_fwd} launches")
+        extra = {}
+        if name == "ident_quant":  # and 24 more into the decoder's wo when fused
+            extra = dict(launches_fused_feeds=fused_stats["counts"]["quant_rows"],
+                         unit_fused_feeds=f"{n_vit} at {rows}x{cols} (ViT proj) + {n_llm} at "
+                         f"{PREFILL_ROWS}x{cfg.llm.hidden_size} (decoder wo) per forward")
         kernels.append(dict(
             name=name, route="cuda", source="aigv_assessor_torch/csrc/quant_fuse.cu",
-            replaces=replaces, launches=counts8[counter], max_abs_err=f["max_abs_err"],
-            ms=per_fwd * f["ms"], plain_ms=per_fwd * f["plain_ms"],
-            bound_ms=per_fwd * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
-            unit=f"one W8A8 scoring forward: {per_fwd} launches", detail=f))
+            replaces=replaces,
+            launches=fused_stats["counts"][counter] if decoder else counts8[counter],
+            max_abs_err=f["max_abs_err"], ms=per_fwd * f["ms"], plain_ms=per_fwd * f["plain_ms"],
+            bound_ms=per_fwd * f["bound_ms"], bound_by=f["bound_by"], library_ms=None,
+            library="none: no single PyTorch call computes the fused function",
+            unit=unit, detail=f, **extra))
     path = decode["path"]
     kernels.append(dict(
         name="decode_attention", route="cuda",

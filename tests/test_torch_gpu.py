@@ -17,10 +17,12 @@ jax-free, so that it runs where jax is not installed:
   where the kernels do (the JAX kernels keep them fp32), so what is left is
   the summation order and the bf16 rounding of the results.
   `FlashAttentionQKV` is run end to end through `torch.autograd.grad`.
-- The fused quantize kernels (K4a-c). The kernel sums a row in another
-  order than the plain version, and tanh and rsqrt come from other library
-  code, so y / s can land on the other side of a half: the scales agree to
-  rtol 1e-5, and at most 1e-3 of the int8 values differ, each by one.
+- The fused quantize kernels (K4a-c, K5a, K5b) at the 2B path's shapes, at
+  the 8B decoder's 14336-wide SwiGLU feed, at a ragged row count and at
+  small widths. The kernel sums a row in another order than the plain
+  version, and tanh, exp and rsqrt come from other library code, so y / s can
+  land on the other side of a half: the scales agree to rtol 1e-5, and at
+  most 1e-3 of the int8 values differ, each by one.
 - The int8 product's checks on the card.
 - The three-tensor forward (K2): against `plain_flash_attention` at the same
   2e-2, in both layouts, on views of one projection output, with GQA, causal,
@@ -39,9 +41,10 @@ jax-free, so that it runs where jax is not installed:
   layer of a stacked cache, every group size; merged with the current token
   against `two_part_cached_attention`.
 - The two cached paths of the decoder on the card at a small width: a
-  prefill and decode steps in bf16, W8A8 and int8 against the same model on
-  the plain decode attention, and shared-prefix scores against the unshared
-  path.
+  prefill and decode steps in bf16, W8A8 (unfused, and with the fused
+  decoder feeds, which launch K5a and K5b in every pass) and int8 against the
+  same model on the plain decode attention, and shared-prefix scores against
+  the unshared path.
 """
 
 import pytest
@@ -266,27 +269,41 @@ def test_training_wrappers_raise_rather_than_fall_back(cuda):
                    4, 4, kv_valid=150)
 
 
-# (rows, cols) of each feed on the 2B ViT path (32 frames x 1032 tokens),
-# and a ragged row count
+# (rows, cols) of each feed on the 2B path: the ViT's (32 frames x 1032
+# tokens) and the decoder's (4 videos x 2113 tokens; the SwiGLU feed also at
+# the 8B decoder's 14336), and a ragged row count
 FEEDS = {
     "ln_quant": (33024, 1024),
     "gelu_quant": (33024, 4096),
     "ident_quant": (33024, 1024),
+    "rms_quant": (8452, 2048),
+    "silu_mul_quant": (8452, 8192),
+    "silu_mul_quant_8b": (8452, 14336),
 }
 RAGGED_ROWS = 1000
 
 
 def feed_calls(name):
-    """(kernel wrapper, plain version, extra args maker) of one feed."""
+    """(kernel wrapper, plain version, maker of the arguments after x) of one
+    feed."""
+    def norm(x, gen, bias=True):
+        c = x.shape[-1]
+        w = (1.0 + 0.2 * torch.randn(c, generator=gen, device=x.device)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(c, generator=gen, device=x.device)).to(torch.bfloat16)
+        return (w, b) if bias else (w,)
+
     if name == "ln_quant":
-        def norm(c, device, gen):
-            w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
-            return w.to(torch.bfloat16), (0.1 * torch.randn(c, generator=gen,
-                                                            device=device)).to(torch.bfloat16)
         return qf.layernorm_quant, qf.plain_layernorm_quant, norm
+    if name == "rms_quant":
+        return qf.rmsnorm_quant, qf.plain_rmsnorm_quant, lambda x, gen: norm(x, gen, False)
+    if name.startswith("silu_mul_quant"):
+        def h3(x, gen):
+            return ((2.0 * torch.randn(x.shape, generator=gen, device=x.device))
+                    .to(torch.bfloat16),)
+        return qf.silu_mul_quant, qf.plain_silu_mul_quant, h3
     if name == "gelu_quant":
-        return qf.gelu_quant, qf.plain_gelu_quant, lambda c, device, gen: ()
-    return qf.quant_rows, qf.plain_quant_rows, lambda c, device, gen: ()
+        return qf.gelu_quant, qf.plain_gelu_quant, lambda x, gen: ()
+    return qf.quant_rows, qf.plain_quant_rows, lambda x, gen: ()
 
 
 def assert_quantized_close(got, want):
@@ -307,12 +324,43 @@ def test_feed_kernel_matches_plain(cuda, name, ragged):
     kernel, plain, extra = feed_calls(name)
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = (2.0 * torch.randn((rows, cols), generator=gen, device=cuda)).to(torch.bfloat16)
-    args = extra(cols, cuda, gen)
+    args = extra(x, gen)
     before = kernel.launches
     got = kernel(x, *args)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert_quantized_close(got, plain(x, *args))
+
+
+@pytest.mark.parametrize("cols", [64, 1000, 2048])
+def test_decoder_feed_kernels_at_small_widths(cuda, cols):
+    """K5a / K5b on a few rows of the tiny and small widths, leading dims kept."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 7, cols), generator=gen, device=cuda).to(torch.bfloat16)
+    h3 = torch.randn((2, 7, cols), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (1.0 + 0.2 * torch.randn(cols, generator=gen, device=cuda)).to(torch.bfloat16)
+    q, s = qf.rmsnorm_quant(x, w, 1e-5)
+    assert q.shape == x.shape and s.shape == (2, 7, 1)
+    assert_quantized_close((q, s), qf.plain_rmsnorm_quant(x, w, 1e-5))
+    assert_quantized_close(qf.silu_mul_quant(x, h3), qf.plain_silu_mul_quant(x, h3))
+
+
+def test_decoder_feed_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.randn((64, 2048), device=cuda)
+    xb = x.to(torch.bfloat16)
+    w = torch.ones(2048, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        qf.rmsnorm_quant(x, w)
+    with pytest.raises(TypeError, match="bf16"):
+        qf.silu_mul_quant(x, xb)
+    with pytest.raises(ValueError, match="second input"):
+        qf.silu_mul_quant(xb, x)  # an fp32 second input
+    with pytest.raises(ValueError, match="second input"):
+        qf.silu_mul_quant(xb, xb[:32])
+    with pytest.raises(ValueError, match="norm weight"):
+        qf.rmsnorm_quant(xb, w.float())
+    with pytest.raises(ValueError, match="at most 16384"):
+        qf.silu_mul_quant(*(torch.zeros((4, 16392), device=cuda, dtype=torch.bfloat16),) * 2)
 
 
 def test_feed_kernels_keep_leading_dims(cuda):
@@ -597,7 +645,7 @@ def small_model(cuda, **flags):
     return build_serving_model(cfg, device=cuda, seed=0, **flags), cfg
 
 
-@pytest.mark.parametrize("mode", ["bf16", "w8a8", "int8", "kv_int8"])
+@pytest.mark.parametrize("mode", ["bf16", "w8a8", "w8a8_fused", "int8", "kv_int8"])
 def test_prefill_and_decode_steps_on_the_card(cuda, mode):
     """Decode steps launch the kernel once per layer (never under kv_int8)
     and agree with the same steps on the plain decode attention."""
@@ -605,7 +653,12 @@ def test_prefill_and_decode_steps_on_the_card(cuda, mode):
 
     from aigv_assessor_torch.models.internlm2 import KVCache
 
-    model, cfg = small_model(cuda, **({} if mode == "bf16" else {mode: True}))
+    from aigv_assessor_torch.core.precision import Precision
+
+    flags = {"bf16": {}, "w8a8_fused": {"w8a8": True, "precision": Precision(
+        fuse_quant={"vit", "llm"}, quant_rows={"vit", "llm"})}}.get(mode, {mode: True})
+    model, cfg = small_model(cuda, **flags)
+    fused = qf.rmsnorm_quant.launches, qf.silu_mul_quant.launches
     gen = torch.Generator(device=cuda).manual_seed(3)
     ids = torch.randint(10, cfg.llm.vocab_size, (4, 40), generator=gen, device=cuda)
     kv_mask = torch.ones((4, 48), dtype=torch.bool, device=cuda)
@@ -628,6 +681,10 @@ def test_prefill_and_decode_steps_on_the_card(cuda, mode):
     got = run()
     layers = cfg.llm.num_hidden_layers
     assert dec.decode_attention.launches - before == (0 if mode == "kv_int8" else 4 * layers)
+    # a prefill and 4 steps: K5a twice and K5b once per layer each
+    per_pass = (2 * layers, layers) if mode == "w8a8_fused" else (0, 0)
+    assert (qf.rmsnorm_quant.launches - fused[0], qf.silu_mul_quant.launches - fused[1]) == (
+        5 * per_pass[0], 5 * per_pass[1])
     with mock.patch.object(dec, "decode_attention", dec.plain_decode_attention):
         want = run()
     assert torch.isfinite(got).all()
