@@ -116,14 +116,16 @@ def build_serving_model(
     """The model on `device` in `precision.compute_dtype`, as the JAX CLI's
     `build_serving_stack` makes it: fp32 weights, `weights` (an fp32
     state_dict of `AIGVAssessor(config)`, e.g. `load_reference_checkpoint`'s)
-    or else drawn by `init_random_(seed)` on the device, quantized from those
-    fp32 values for W8A8 (`w8a8=True` or `precision.w8a8`: both towers'
-    projections) or for weight-only serving (`int8=True` / `int4=True` or the
+    or else drawn by `init_random_(seed)` on the device (in a float precision
+    straight into the compute dtype, the fp32 values rounded tensor by
+    tensor, so that InternVL2-26B's 25.5 G values fit the card in bf16),
+    quantized from those fp32 values for W8A8 (`w8a8=True` or
+    `precision.w8a8`: both towers' projections) or for weight-only serving (`int8=True` / `int4=True` or the
     precision's `int8_weights` / `int4_weights`: the decoder's projections
     and the LM head; int4 first when both are set), then everything else cast
     to the compute dtype, the quantization scales kept fp32. One seed gives
-    the same base weights in every precision. The fp32 weights are held only
-    while the model is built (~8.8 GB at 2B). `w8a8` with `int8` or `int4`
+    the same base weights in every precision. A quantized precision holds
+    the fp32 weights while the model is built (~8.8 GB at 2B). `w8a8` with `int8` or `int4`
     raises ValueError. `kv_int8` (or `precision.kv_int8`) changes no weight:
     generation then keeps its KV cache in int8, under any of the modes above.
     The precision's `fuse_quant` / `quant_rows` pick the W8A8 feeds."""
@@ -132,8 +134,12 @@ def build_serving_model(
         target, w8a8=False, int8_weights=False, int4_weights=False)
     with torch.device("meta"):
         model = AIGVAssessor(config, float_precision)
-    if weights is None:
-        model = init_random_(model.to_empty(device=device), seed)  # fp32
+    if weights is None and target == float_precision:
+        # straight in the compute dtype: each tensor drawn in fp32 and stored
+        # rounded, bit-equal to the fp32 model cast
+        model = init_random_(model.to(precision.compute_dtype).to_empty(device=device), seed)
+    elif weights is None:
+        model = init_random_(model.to_empty(device=device), seed)  # fp32, for the quantizers
     else:
         model.load_state_dict({k: v.to(device, torch.float32) for k, v in weights.items()},
                               strict=True, assign=True)

@@ -11,8 +11,10 @@
 //   the backward kernels (flash_attn_bwd.cu) read (`with_lse`).
 // - `aigv_flash_attn_fwd`: on three separate tensors (`flash_attention` ->
 //   `_fwd`), q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D] (`bshd`) or
-//   head-major (`bhsd`), which the weight-only decoder runs. Sq and Skv may
-//   differ when not causal.
+//   head-major (`bhsd`), which the weight-only decoder and the QK-normalized
+//   ViT run, with the logsumexp when the call is differentiated (`_flash_fwd`
+//   -> `_fwd(with_lse=True)`, the form the three-tensor backward in
+//   flash_attn_bwd.cu reads). Sq and Skv may differ when not causal.
 //
 //   q, k, v  bf16, each read through its own strides (batch, head, row; D
 //        contiguous), so slices and permuted views of a projection output
@@ -309,15 +311,15 @@ int aigv_flash_attn_qkv_fwd(const void* qkv, void* out, void* lse, int B, int hq
 
 // Three tensors: strides[0..2] are q's, [3..5] k's, [6..8] v's, [9..11] the
 // output's.
-int aigv_flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int B, int hq,
-                        int hkv, int Sq, int Skv, int D, int kv_valid, int causal,
+int aigv_flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                        int hq, int hkv, int Sq, int Skv, int D, int kv_valid, int causal,
                         const long long* strides, float scale, void* stream) {
   const long long* s = strides;
   return dispatch(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                  static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), nullptr,
-                  B, hq, hkv, Sq, Skv, D, kv_valid, causal, Strides{s[0], s[1], s[2]},
-                  Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
-                  Strides{s[9], s[10], s[11]}, scale, stream);
+                  static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+                  static_cast<float*>(lse), B, hq, hkv, Sq, Skv, D, kv_valid, causal,
+                  Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]},
+                  Strides{s[6], s[7], s[8]}, Strides{s[9], s[10], s[11]}, scale, stream);
 }
 
 const char* aigv_cuda_error_string(int err) {

@@ -36,3 +36,5 @@ NORMALIZE_STATS = {
     "clip": (CLIP_MEAN, CLIP_STD),
     "siglip": (SIGLIP_MEAN, SIGLIP_STD),
 }
+
+IGNORE_TOKEN_ID = -100

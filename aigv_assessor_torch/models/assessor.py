@@ -1,5 +1,5 @@
 """AIGV-Assessor composite model (`aigv_assessor_tpu/models/assessor.py`),
-the stage-2 scoring and training forward.
+the stage-1 and stage-2 scoring and training forward.
 
 - `vision_model` (InternViT) -> drop the class token -> pixel shuffle ->
   `mlp1` projector, per frame;
@@ -7,8 +7,12 @@ the stage-2 scoring and training forward.
 - the embeddings go into the `<IMG_CONTEXT>` slots of the prompt, the motion
   embedding into the last one;
 - `language_model` (InternLM2) runs the prompt;
-- `mlpscore` reads the final hidden state at (real length - 4), with ReLU
-  after every layer including the last, so scores are non-negative.
+- `mlpscore` (stage 2 only) reads the final hidden state at (real length -
+  4), with ReLU after every layer including the last, so scores are
+  non-negative;
+- with `labels` the LM head's fp32 logits give the shifted cross-entropy
+  (`models/internlm2.cross_entropy_loss`): stage 1's loss, and stage 2's when
+  no `mos` is given.
 
 Submodule and parameter names follow the JAX package, so that
 `models/loading.state_dict_from_jax` maps one tree onto the other.
@@ -22,15 +26,18 @@ of that rank (alpha = 2r, `lora_dropout`) on both towers' projections;
 mode is the JAX `deterministic` switch: `train()` turns on adapter dropout
 and drop path (drawn from the generator that `models/lora.set_generator`
 hands in), `eval()` turns them off. SlowFast always runs without gradient
-and its features are detached. The LM head is not run: the cross-entropy is
-no part of the stage-2 loss.
+and its features are detached. Without `labels` or `with_logits` the LM head
+is not run: the cross-entropy is no part of the stage-2 loss.
+
+Training (stage 1): `mlp1` and `motion_mlp` train on the text loss with both
+towers frozen (`train/freeze.py`); the model has no `mlpscore`, as in JAX.
 
 Generation (`models/generation.py`) enters through `embed_multimodal`,
 `prefill` and `decode_step`, which run the decoder against a `KVCache`.
 `score_perspectives(shared_prefix_len=)` prefills the prompts' common token
 prefix once per video and runs the P suffixes against that cache.
 
-Not ported yet (ROADMAP.md, Queue 1): stage-1 text loss, Phi-3.
+Not ported yet (ROADMAP.md, Queue 1): Phi-3.
 """
 
 from __future__ import annotations
@@ -43,7 +50,11 @@ from torch import nn
 
 from aigv_assessor_torch.core.config import AssessorConfig, LoRAConfig
 from aigv_assessor_torch.core.precision import Precision
-from aigv_assessor_torch.models.internlm2 import InternLM2ForCausalLM, KVCache
+from aigv_assessor_torch.models.internlm2 import (
+    InternLM2ForCausalLM,
+    KVCache,
+    cross_entropy_loss,
+)
 from aigv_assessor_torch.models.motion import SlowFastR50
 from aigv_assessor_torch.models.vit import InternVisionModel
 from aigv_assessor_torch.ops.pixel_shuffle import pixel_shuffle
@@ -95,10 +106,6 @@ class AIGVAssessor(nn.Module):
         """grad_checkpoint: recompute each tower layer's activations in the
         backward (the JAX model's `remat`)."""
         super().__init__()
-        if config.stage < 2:
-            raise NotImplementedError(
-                "stage-1 (text) forward is not ported yet (ROADMAP.md, Queue 1)"
-            )
         if config.llm.architecture != "InternLM2ForCausalLM":
             raise NotImplementedError(
                 f"{config.llm.architecture} is not ported yet (ROADMAP.md, Queue 1)"
@@ -126,7 +133,8 @@ class AIGVAssessor(nn.Module):
             config.motion.feature_dim, c_llm, precision.norm_dtype
         )
         self.slowfast_model = SlowFastR50(config.motion)
-        self.mlpscore = ScoreMLP(c_llm, config.score_head_dims)
+        if config.stage >= 2:
+            self.mlpscore = ScoreMLP(c_llm, config.score_head_dims)
 
     # ------------------------------------------------------------ features --
 
@@ -144,11 +152,14 @@ class AIGVAssessor(nn.Module):
         )
         return self.mlp1(vit_embeds.reshape(n, -1, vit_embeds.shape[-1]))
 
-    def extract_motion(self, frames: torch.Tensor) -> torch.Tensor:
-        """[B, T, H, W, 3] -> [B, C_llm]. SlowFast runs without gradient."""
-        with torch.no_grad():
-            feat = self.slowfast_model(frames)
-        return self.motion_mlp(feat.to(self.precision.compute_dtype))
+    def extract_motion(self, frames: torch.Tensor,
+                       features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, T, H, W, 3] -> [B, C_llm]. SlowFast runs without gradient;
+        `features` ([B, feature_dim], precomputed) takes its place."""
+        if features is None:
+            with torch.no_grad():
+                features = self.slowfast_model(frames)
+        return self.motion_mlp(features.detach().to(self.precision.compute_dtype))
 
     def _encode(self, pixel_values: torch.Tensor):
         """Per-video ViT tokens [B, T*tok, C] and motion embedding [B, C]."""
@@ -167,16 +178,19 @@ class AIGVAssessor(nn.Module):
         input_ids: torch.Tensor,  # [B, N]
         pixel_values: torch.Tensor,  # [B, T, H, W, 3] normalized
         with_motion: bool = True,
+        motion_features: Optional[torch.Tensor] = None,  # [B, feature_dim]
     ) -> torch.Tensor:
         """Prompt embeddings with the frames' ViT embeddings in the
         `<IMG_CONTEXT>` slots. `with_motion`: the last slot takes the motion
-        embedding; without it every slot takes a ViT embedding (what the
-        reference's `generate()` does)."""
+        embedding (from `motion_features` when given, else from SlowFast);
+        without it every slot takes a ViT embedding (what the reference's
+        `generate()` does)."""
         b, t = pixel_values.shape[:2]
         frames = pixel_values.reshape((b * t,) + pixel_values.shape[2:])
         vit_embeds = self.extract_feature(frames)
         vit_embeds = vit_embeds.reshape(b, -1, vit_embeds.shape[-1])
-        motion_embeds = self.extract_motion(pixel_values) if with_motion else None
+        motion_embeds = (self.extract_motion(pixel_values, motion_features) if with_motion
+                         else None)
         return splice_image_embeds(
             self.language_model.embed(input_ids), input_ids, vit_embeds,
             self.config.img_context_token_id, motion_embeds,
@@ -206,17 +220,43 @@ class AIGVAssessor(nn.Module):
         input_ids: torch.Tensor,  # [B, N]
         pixel_values: torch.Tensor,  # [B, T, H, W, 3] normalized
         attention_mask: Optional[torch.Tensor] = None,  # [B, N], 1 = real
+        labels: Optional[torch.Tensor] = None,  # [B, N], -100 = ignored
         mos: Optional[torch.Tensor] = None,  # [B], in the score's range
+        position_ids: Optional[torch.Tensor] = None,  # [B, N]
+        with_logits: bool = False,
+        motion_features: Optional[torch.Tensor] = None,  # [B, feature_dim]
     ) -> Dict[str, torch.Tensor]:
-        """Teacher-forced stage-2 forward without logits:
-        {'hidden' [B, N, C], 'readout' [B, C], 'score' [B] fp32}, and with
-        `mos` also 'loss' = mean |score - mos| (fp32 scalar)."""
-        embeds = self.embed_multimodal(input_ids, pixel_values)
-        _, hidden, _ = self.language_model(inputs_embeds=embeds, with_logits=False)
-        readout = self.readout(hidden, attention_mask)
-        out = {"hidden": hidden, "readout": readout, "score": self.score(readout)}
-        if mos is not None:
-            out["loss"] = (out["score"] - mos.to(torch.float32)).abs().mean()
+        """Teacher-forced forward, the JAX `__call__` rule for rule
+        (`aigv_assessor_tpu/models/assessor.py:239-306`): {'hidden' [B, N, C]}
+        and
+        - with `with_logits`, or whenever `labels` are given, 'logits'
+          [B, N, V] fp32; with `labels` 'ce_loss', the shifted cross-entropy;
+        - stage 2: 'readout' [B, C] and 'score' [B] fp32; 'loss' = mean
+          |score - mos| with `mos`, else the cross-entropy when `labels` are
+          given;
+        - stage 1: 'loss' = the cross-entropy when `labels` are given.
+        `motion_features` replaces SlowFast's output."""
+        embeds = self.embed_multimodal(input_ids, pixel_values,
+                                       motion_features=motion_features)
+        with_logits = with_logits or labels is not None
+        logits, hidden, _ = self.language_model(
+            inputs_embeds=embeds, position_ids=position_ids, with_logits=with_logits)
+        out = {"hidden": hidden}
+        if with_logits:
+            out["logits"] = logits
+        ce = None
+        if labels is not None:
+            ce = out["ce_loss"] = cross_entropy_loss(logits, labels)
+        if self.config.stage >= 2:
+            readout = self.readout(hidden, attention_mask)
+            out["readout"] = readout
+            out["score"] = self.score(readout)
+            if mos is not None:
+                out["loss"] = (out["score"] - mos.to(torch.float32)).abs().mean()
+            elif ce is not None:
+                out["loss"] = ce
+        elif ce is not None:
+            out["loss"] = ce
         return out
 
     def score_perspectives(

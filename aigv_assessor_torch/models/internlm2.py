@@ -6,8 +6,10 @@ GQA attention off one fused `wqkv` projection whose output heads are
 ordered [q heads | k heads | v heads] (the JAX checkpoint converter
 de-interleaves the reference's layout once; this port takes that order),
 RoPE with dynamic-NTK scaling, causal flash attention, SwiGLU feed-forward,
-RMSNorm. The untied LM head `output` gives the logits (`with_logits`); the
-scoring and training forwards leave it out.
+RMSNorm. The untied LM head `output` gives the logits (`with_logits`, in
+`Precision.logits_dtype`, fp32 by default) over every position; the stage-2
+scoring and training forwards leave it out, stage 1 reads it through
+`cross_entropy_loss`.
 
 Attention applies the causal mask only, as the JAX fast path does: right
 padding needs no key mask because pad keys are only attended by pad
@@ -429,3 +431,22 @@ class InternLM2ForCausalLM(nn.Module):
             new_cache = KVCache.from_prefix(torch.stack([kv[0] for kv in captured]),
                                             torch.stack([kv[1] for kv in captured]), 0)
         return logits, hidden, new_cache
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # [B, S, V], fp32
+    labels: torch.Tensor,  # [B, S] int, ignore = ignore_index
+    ignore_index: int = -100,
+) -> torch.Tensor:
+    """Shifted next-token cross-entropy, the mean over the non-ignored
+    tokens (at least one counted), with an fp32 log-softmax
+    (`aigv_assessor_tpu/models/internlm2.py:651-666`)."""
+    shift_logits = logits[:, :-1, :]
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != ignore_index
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    count = valid.sum().clamp(min=1)
+    return nll.sum() / count

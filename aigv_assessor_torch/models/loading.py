@@ -33,8 +33,10 @@ as the JAX `quantize_for_serving(w8a8=True | int8=True | int4=True)` does,
 and `serving_precision` the precision that call returns beside them,
 `kv_int8` included.
 
-`init_random_` fills a model from a seed; `init_lora_` and `init_score_head_`
-draw the adapters and the score head as the JAX modules initialise them.
+`init_random_` fills a model from a seed, each tensor drawn in fp32 and
+stored in its own dtype, so a model can be built straight in bf16;
+`init_lora_` and `init_score_head_` draw the adapters and the score head as
+the JAX modules initialise them.
 
 `load_reference_checkpoint` reads a reference-format checkpoint from disk
 (sharded safetensors with their index, or torch `.bin` / `.pth` shards)
@@ -285,13 +287,23 @@ def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     config's `initializer_factor`. Random rather than zero, so that attention
     is not uniform and a masking fault shows. Adapter leaves are skipped
     (`init_lora_` draws them), so one seed gives a model the same base
-    weights with and without adapters."""
+    weights with and without adapters.
+
+    Each tensor is drawn in fp32 from the same generator sequence whatever
+    its dtype, and stored rounded to the parameter's own dtype: a model held
+    in bf16 gets, bit for bit, the fp32 draw cast to bf16, and never holds
+    more than one fp32 tensor at a time."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     for name, p in model.named_parameters():
-        if not is_lora_param(name):
+        if is_lora_param(name):
+            continue
+        if p.dtype == torch.float32:
             p.normal_(0.0, INIT_STD, generator=gen)
+        else:
+            p.copy_(torch.empty(p.shape, dtype=torch.float32, device=device).normal_(
+                0.0, INIT_STD, generator=gen))
     for m in model.modules():
         if isinstance(m, (LayerNorm, RMSNorm, torch.nn.LayerNorm)):
             m.weight.fill_(1.0)

@@ -1,8 +1,16 @@
-"""InternViT-300M vision encoder (`aigv_assessor_tpu/models/vit.py`).
+"""InternViT vision encoder (`aigv_assessor_tpu/models/vit.py`): InternViT-300M
+(InternVL2-2B) and InternViT-6B (InternVL2-26B).
 
 Patch embedding (14x14 conv, stride 14), class token, learned position
 embedding, then pre-norm layers with LayerScale: attention off one fused qkv
 projection through the flash-attention kernel, and a tanh-GELU MLP.
+
+With `qk_normalization` (InternViT-6B: RMSNorm layers, no qkv bias) the
+layer follows the JAX layer's other branch (`models/vit.py:199-226`): `qkv`
+is a plain [B, N, 3C] projection; q and k go through `q_norm` / `k_norm`, an
+RMSNorm over the flattened C; the three [B, N, H, D] tensors go to
+`multi_head_attention` (the three-tensor kernel K2 in `bshd`, and in
+training its logsumexp form and backward); `proj` is a plain projection.
 
 The public layout is the JAX package's: pixels [B, H, W, 3]. The encoder
 pads the token axis once, 1025 -> 1032 at 448 px, as the JAX encoder does;
@@ -22,14 +30,16 @@ through the feeds like any row.
 
 Training (`lora` set, `module.train()`): the four projections are
 `LoRALinear`s, `qkv` head-major out and `proj` head-major in, so attention
-stays on the fused-qkv kernel and its backward kernels; each residual branch
+stays on the fused-qkv kernel and its backward kernels (with
+`qk_normalization`, plain projections around the three-tensor kernel and
+its backward kernels); each residual branch
 is dropped per sample with rates linspace(0, drop_path_rate, L) (stochastic
 depth); with `grad_checkpoint` each layer's activations are recomputed in
 the backward (`ops/remat.py`). In `eval()` the layers are deterministic.
 
-Not ported yet (ROADMAP.md, Queue 1): QK-normalization, position-embedding
-interpolation for another input size, `select_layer` other than -1, LoRA
-over a W8A8 base.
+Not ported yet (ROADMAP.md, Queue 1): position-embedding interpolation for
+another input size, `select_layer` other than -1, LoRA over a W8A8 base, a
+QK-normalized tower under W8A8, int8 or int4.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ from aigv_assessor_torch.models.lora import (
     reject_quantized_lora,
 )
 from aigv_assessor_torch.ops import quant_fuse
-from aigv_assessor_torch.ops.attention import fused_qkv_attention
+from aigv_assessor_torch.ops.attention import fused_qkv_attention, multi_head_attention
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
 from aigv_assessor_torch.ops.remat import checkpoint_layer
 
@@ -92,16 +102,23 @@ class InternAttention(nn.Module):
     def __init__(self, config: VisionConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        if config.qk_normalization:
-            raise NotImplementedError(
-                "ViT QK-normalization is not ported yet (ROADMAP.md, Queue 1)"
-            )
         reject_quantized_lora(precision, lora)
         self.num_heads = h = config.num_attention_heads
+        self.qk_normalization = config.qk_normalization
         self.w8a8 = precision.w8a8
         self.quant_rows = precision.w8a8 and "vit" in precision.quant_rows
         c = config.hidden_size
-        if self.w8a8:
+        if self.qk_normalization:
+            if precision.w8a8 or precision.weight_only:
+                raise NotImplementedError(
+                    "a QK-normalized ViT under W8A8, int8 or int4 is not ported yet "
+                    "(ROADMAP.md, Queue 1 item 2)"
+                )
+            self.qkv = make_linear(c, 3 * c, bias=config.qkv_bias, lora=lora)
+            self.q_norm = RMSNorm(c, config.layer_norm_eps)
+            self.k_norm = RMSNorm(c, config.layer_norm_eps)
+            self.proj = make_linear(c, c, lora=lora)
+        elif self.w8a8:
             dt = precision.compute_dtype
             self.qkv = W8A8Linear(c, 3 * c, bias=config.qkv_bias, out_dtype=dt, heads=3 * h)
             self.proj = W8A8Linear(c, c, out_dtype=dt)
@@ -112,6 +129,14 @@ class InternAttention(nn.Module):
     def forward(self, x, kv_valid: int | None = None) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
         h = self.num_heads
+        if self.qk_normalization:
+            b, n, c = x.shape
+            q, k, v = self.qkv(x).split(c, dim=-1)  # each [B, N, C]; v a strided view
+            q = self.q_norm(q).view(b, n, h, c // h)
+            k = self.k_norm(k).view(b, n, h, c // h)
+            out = multi_head_attention(q, k, v.view(b, n, h, c // h), causal=False,
+                                       kv_valid=kv_valid)  # [B, N, H, D]
+            return self.proj(out.reshape(b, n, c))
         if isinstance(self.qkv, LoRALinear):
             # head-major out -> attention -> head-major in: [B, 3H, N, D] ->
             # [B, H, N, D] -> [B, N, C]

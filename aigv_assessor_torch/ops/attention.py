@@ -6,8 +6,9 @@
   kernels for a CUDA tensor (forward, and backward under autograd) and runs
   the plain versions for a CPU tensor.
 - `multi_head_attention`: attention on three separate tensors, as the
-  weight-only decoder calls it; it goes to the same wrapper module's
-  `flash_attention`.
+  weight-only decoder and the QK-normalized ViT call it; it goes to the same
+  wrapper module's `flash_attention` (forward, and under autograd its
+  logsumexp form and backward kernels).
 - `plain_attention`: the counterpart of the JAX `xla_attention`, einsums
   with an fp32 softmax. It is the kernels' plain version.
 - `two_part_cached_attention`: attention of a block of new tokens over
@@ -107,6 +108,7 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """Multi-head (optionally grouped-query) attention -> q's shape.
     kv_valid: keys at or beyond it are masked (the caller padded Skv).
+    Differentiable in q, k and v (`flash_attention.FlashAttention`).
 
     The JAX entry point also takes a boolean `mask`, which it sends to its
     plain attention. No caller in the port has one."""

@@ -12,17 +12,22 @@ qkv array:
 - the backward `_bwd_dq_kernel` (`:384`) and `_bwd_dkv_kernel` (`:455`).
   Source: `aigv_assessor_torch/csrc/flash_attn_bwd.cu`.
 
-And the forward that `flash_attention` (`:689`) reaches, on three separate
-tensors in the `bshd` or `bhsd` layout, which the weight-only decoder runs:
-the second entry of `csrc/flash_attn_fwd.cu`, over the same kernel body.
-Forward only: its logsumexp form and a backward over separate tensors are
-not ported yet (ROADMAP.md, Queue 2).
+And those that `flash_attention` (`:689`) reaches, on three separate tensors
+in the `bshd` or `bhsd` layout, which the weight-only decoder and the
+QK-normalized ViT run: the forward (K2) and its logsumexp form, the second
+entry of `csrc/flash_attn_fwd.cu` over the same kernel body, and under
+`jax.grad` (`_flash_bwd` `:677`) the same two backward kernels, through the
+second pair of entries of `csrc/flash_attn_bwd.cu`.
 
 Each source's header comment says what bounds its kernels on the card and how
 they are laid out.
 
-- `flash_attention` wraps the three-tensor forward and `plain_flash_attention`
-  is its plain version.
+- `flash_attention` is the three-tensor entry point: the forward without
+  logsumexp, or, when q, k or v requires a gradient, `FlashAttention`.
+  `flash_attention_lse`, `flash_attention_bwd_dq`, `flash_attention_bwd_dkv`
+  wrap its three training kernels and `flash_attention_bwd` is its whole
+  backward; `plain_flash_attention(return_lse=)` and
+  `plain_flash_attention_bwd` are their plain versions.
 
 - `flash_attention_qkv` is the entry point. Without a gradient to take it is
   the forward-only wrapper; when `qkv` requires a gradient it goes through
@@ -35,10 +40,11 @@ they are laid out.
 - On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
   it runs the plain version. Each counts its kernel launches in `.launches`.
 - `plain_attention_qkv` and `plain_attention_qkv_bwd` are the plain PyTorch
-  versions with the same masking. The backward is written from the formulas
-  (p from the saved logsumexp, delta, ds), not through autograd, and rounds p
-  and ds to the input dtype where the kernels round them to bf16; at fp32
-  both roundings are the identity and it follows the JAX kernels.
+  versions with the same masking. The backward (`plain_flash_attention_bwd`
+  under both) is written from the formulas (p from the saved logsumexp,
+  delta, ds), not through autograd, and rounds p and ds to the input dtype
+  where the kernels round them to bf16; at fp32 both roundings are the
+  identity and it follows the JAX kernels.
 
 A row with no valid key has logsumexp -inf and the backward kernels give it
 p = 0. With `kv_valid >= 1`, and the causal mask keeping the diagonal, no row
@@ -78,6 +84,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aigv_flash_attn_qkv_fwd.restype = ctypes.c_int
     lib.aigv_flash_attn_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, out
+        ctypes.c_void_p,  # lse or null
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, Sq, Skv
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
         ctypes.POINTER(ctypes.c_longlong),  # 12 strides: q, k, v, out
@@ -94,6 +101,16 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, S
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
             *_STRIDES, *_STRIDES, *_STRIDES,  # qkv, dout, dqkv
+            ctypes.c_float, ctypes.c_void_p,  # scale, stream
+        ]
+        fn.restype = ctypes.c_int
+    for fn in (lib.aigv_flash_attn_bwd_dq, lib.aigv_flash_attn_bwd_dkv):
+        fn.argtypes = [
+            *[ctypes.c_void_p] * 4,  # q, k, v, dout
+            ctypes.c_void_p, ctypes.c_void_p,  # lse, delta
+            *[ctypes.c_void_p] * 3,  # dq, dk, dv (the entry's own outputs; the rest null)
+            *[ctypes.c_int] * 8,  # B, hq, hkv, Sq, Skv, D, kv_valid, causal
+            ctypes.POINTER(ctypes.c_longlong),  # 21 strides: q, k, v, dout, dq, dk, dv
             ctypes.c_float, ctypes.c_void_p,  # scale, stream
         ]
         fn.restype = ctypes.c_int
@@ -153,42 +170,12 @@ def plain_attention_qkv_bwd(
     causal: bool = False,
     kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
-    """The backward kernels' plain version -> dqkv [B, hq + 2*hkv, S, D].
-
-    p = exp(scale * q.k - lse), 0 where masked; delta = rowsum(dout * out);
-    dv = p^T dout; ds = p * (dout.v - delta); dq = scale * ds k;
-    dk = scale * ds^T q, dk and dv summed over the query heads of a group.
-    Sums run in fp32 (fp64 for fp64 inputs); p and ds are rounded to qkv's
-    dtype before the dv, dq and dk products, where the kernels round them to
-    bf16 (the JAX kernels keep them fp32; at fp32 the two agree)."""
-    b, _, s, d = qkv.shape
-    g = hq // hkv
-    dtype = qkv.dtype
-    acc = torch.promote_types(dtype, torch.float32)
-    scale = d**-0.5
-    qg = qkv[:, :hq].reshape(b, hkv, g, s, d).to(acc)
-    k = qkv[:, hq : hq + hkv].to(acc)
-    v = qkv[:, hq + hkv :].to(acc)
-    dog = dout.reshape(b, hkv, g, s, d).to(acc)
-
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
-    p = torch.exp(logits - lse.to(acc).reshape(b, hkv, g, s, 1))
-    valid = torch.ones((s, s), dtype=torch.bool, device=qkv.device)
-    if causal:
-        valid = torch.tril(valid)
-    if kv_valid is not None and kv_valid < s:
-        valid[:, kv_valid:] = False
-    # where, not a product: a masked logit may have overflowed to inf
-    p = torch.where(valid, p, torch.zeros((), dtype=acc, device=qkv.device))
-    del logits
-    delta = (dout.to(acc) * out.to(acc)).sum(-1).reshape(b, hkv, g, s, 1)
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(dtype).to(acc), dog)
-    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dog, v) - delta)
-    del p
-    ds = ds.to(dtype).to(acc)
-    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k) * scale
-    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
-    return torch.cat([dq.reshape(b, hq, s, d), dk, dv], dim=1).to(dtype)
+    """The backward kernels' plain version -> dqkv [B, hq + 2*hkv, S, D]:
+    `plain_flash_attention_bwd` on the q, k, v head ranges of `qkv`."""
+    grads = plain_flash_attention_bwd(
+        qkv[:, :hq], qkv[:, hq : hq + hkv], qkv[:, hq + hkv :], out, lse, dout,
+        causal=causal, layout="bhsd", kv_valid=kv_valid)
+    return torch.cat(grads, dim=1)
 
 
 # ----------------------------------------------------------- kernel wrappers --
@@ -430,6 +417,13 @@ flash_attention_qkv.launches = 0
 LAYOUTS = ("bshd", "bhsd")
 
 
+def _head_major(layout: str, *ts: torch.Tensor):
+    """The tensors as [B, H, S, D] views (`bhsd` is already)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    return ts if layout == "bhsd" else tuple(t.transpose(1, 2) for t in ts)
+
+
 def plain_flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -438,9 +432,11 @@ def plain_flash_attention(
     causal: bool = False,
     layout: str = "bshd",
     kv_valid: Optional[int] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The three-tensor kernel's plain version: `plain_attention` with the
-    keys at or beyond `kv_valid` masked, in either layout."""
+    keys at or beyond `kv_valid` masked, in either layout. With `return_lse`
+    also the logsumexp [B, Hq, Sq] of the masked scaled logits."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
     if layout == "bhsd":
@@ -450,40 +446,71 @@ def plain_flash_attention(
     mask = None
     if kv_valid is not None and kv_valid < skv:
         mask = (torch.arange(skv, device=q.device) < kv_valid)[None, None, :].expand(b, sq, skv)
-    out = plain_attention(q, k, v, causal=causal, mask=mask)
-    return out.transpose(1, 2) if layout == "bhsd" else out
+    res = plain_attention(q, k, v, causal=causal, mask=mask, return_lse=return_lse)
+    out, lse = res if return_lse else (res, None)
+    out = out.transpose(1, 2) if layout == "bhsd" else out
+    return (out, lse) if return_lse else out
 
 
-def flash_attention(
-    q: torch.Tensor,  # [B, Sq, Hq, D] (`bshd`) or [B, Hq, Sq, D] (`bhsd`)
-    k: torch.Tensor,  # [B, Skv, Hkv, D] or [B, Hkv, Skv, D]
+def plain_flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
     v: torch.Tensor,
+    out: torch.Tensor,  # the forward's output, q's shape
+    lse: torch.Tensor,  # [B, Hq, Sq], the forward's logsumexp
+    dout: torch.Tensor,  # q's shape
     *,
     causal: bool = False,
     layout: str = "bshd",
     kv_valid: Optional[int] = None,
-) -> torch.Tensor:
-    """Flash attention on three separate tensors, softmax scale D**-0.5 ->
-    q's shape, contiguous (so a `bshd` result reshapes to [B, Sq, Hq*D]
-    without a copy).
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' plain version -> (dq, dk, dv) in the input
+    layout and q's dtype.
 
-    q head h reads kv head h // (Hq // Hkv). Each tensor is read in place
-    through its strides: slices of one projection output and permuted views
-    need no copy. `causal` needs Sq == Skv; without it Sq and Skv may differ.
-    Keys at or beyond `kv_valid` (default Skv) are masked. On the card: bf16,
-    D in (64, 128). Forward only: a tensor that needs a gradient raises. A
-    CPU tensor goes to `plain_flash_attention`."""
-    if q.device.type == "cpu":
-        return plain_flash_attention(q, k, v, causal=causal, layout=layout, kv_valid=kv_valid)
+    p = exp(scale * q.k - lse), 0 where masked; delta = rowsum(dout * out);
+    dv = p^T dout; ds = p * (dout.v - delta); dq = scale * ds k;
+    dk = scale * ds^T q, dk and dv summed over the query heads of a group.
+    Sums run in fp32 (fp64 for fp64 inputs); p and ds are rounded to q's
+    dtype before the dv, dq and dk products, where the kernels round them to
+    bf16 (the JAX kernels keep them fp32; at fp32 the two agree)."""
+    q, k, v, out, dout = _head_major(layout, q, k, v, out, dout)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dtype = q.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    scale = d**-0.5
+    qg = q.reshape(b, hkv, g, sq, d).to(acc)
+    kf, vf = k.to(acc), v.to(acc)
+    dog = dout.reshape(b, hkv, g, sq, d).to(acc)
+
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
+    p = torch.exp(logits - lse.to(acc).reshape(b, hkv, g, sq, 1))
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = torch.tril(valid, diagonal=skv - sq)
+    if kv_valid is not None and kv_valid < skv:
+        valid[:, kv_valid:] = False
+    # where, not a product: a masked logit may have overflowed to inf
+    p = torch.where(valid, p, torch.zeros((), dtype=acc, device=q.device))
+    del logits
+    delta = (dout.to(acc) * out.to(acc)).sum(-1).reshape(b, hkv, g, sq, 1)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(dtype).to(acc), dog)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dog, vf) - delta)
+    del p
+    ds = ds.to(dtype).to(acc)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf).reshape(b, hq, sq, d) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    return _head_major(layout, dq.to(dtype), dk.to(dtype), dv.to(dtype))
+
+
+def _separate_dims(q, k, v, causal: bool, layout: str, kv_valid: Optional[int]):
+    """Checks q, k, v for the kernels -> (B, Hq, Hkv, Sq, Skv, D, kv_valid,
+    (seq axis, head axis))."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on separate tensors is forward-only: its logsumexp and "
-            "backward are not ported yet (ROADMAP.md, Queue 2)"
-        )
     seq, head = (2, 1) if layout == "bhsd" else (1, 2)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.dtype != torch.bfloat16 or t.ndim != 4 or t.device != q.device:
@@ -503,16 +530,196 @@ def flash_attention(
     kv_valid = skv if kv_valid is None else kv_valid
     if not 0 < kv_valid <= skv:
         raise ValueError(f"kv_valid {kv_valid} outside (0, {skv}]")
+    return b, hq, hkv, sq, skv, d, kv_valid, (seq, head)
+
+
+def _strides(ts, axes) -> list:
+    """(batch, head, row) strides of each tensor, in elements."""
+    seq, head = axes
+    return [t.stride(i) for t in ts for i in (0, head, seq)]
+
+
+def _launch_separate_fwd(q, k, v, causal: bool, layout: str, kv_valid: Optional[int],
+                         with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    b, hq, hkv, sq, skv, d, kv_valid, axes = _separate_dims(q, k, v, causal, layout, kv_valid)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, head, seq)]
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    strides = _strides((q, k, v, out), axes)
     lib = LIB.load()
     with torch.cuda.device(q.device):
         rc = lib.aigv_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
-            kv_valid, int(causal), (ctypes.c_longlong * 12)(*strides), d**-0.5,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, hq, hkv, sq, skv, d, kv_valid,
+            int(causal), (ctypes.c_longlong * 12)(*strides), d**-0.5,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     LIB.check(rc, "flash attention kernel")
+    return out, lse
+
+
+def flash_attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The three-tensor forward in the form training runs: -> (out in q's
+    shape, logsumexp [B, Hq, Sq] fp32, natural-log units). `out` is bit-equal
+    to the forward without the logsumexp. A CPU tensor goes to the plain
+    version."""
+    if q.device.type == "cpu":
+        return plain_flash_attention(q, k, v, causal=causal, layout=layout, kv_valid=kv_valid,
+                                     return_lse=True)
+    out, lse = _launch_separate_fwd(q, k, v, causal, layout, kv_valid, True)
+    flash_attention_lse.launches += 1
+    return out, lse
+
+
+flash_attention_lse.launches = 0
+
+
+def _launch_separate_bwd(name: str, q, k, v, dout, lse, delta, dq, dk, dv, causal: bool,
+                         layout: str, kv_valid: Optional[int]) -> None:
+    b, hq, hkv, sq, skv, d, kv_valid, axes = _separate_dims(q, k, v, causal, layout, kv_valid)
+    grads = [(t, label, ref) for t, label, ref in ((dq, "dq", q), (dk, "dk", k), (dv, "dv", v))
+             if t is not None]
+    for t, label, shape, dtype in (
+        (dout, "dout", tuple(q.shape), torch.bfloat16),
+        *((t, label, tuple(ref.shape), torch.bfloat16) for t, label, ref in grads),
+        (lse, "lse", (b, hq, sq), torch.float32),
+        (delta, "delta", (b, hq, sq), torch.float32),
+    ):
+        if t.device != q.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: {label} must be {dtype} {shape} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    _check_rows(dout, "dout")
+    for t, label, _ in grads:
+        _check_rows(t, label)
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError(f"{name}: lse and delta must be contiguous")
+    # an absent output gets a null pointer and the strides of the entry's own
+    # output (dq's for the dq entry, dk's for the dk/dv entry); the entry
+    # reads neither
+    own = dq if dq is not None else dk
+    strides = _strides((q, k, v, dout, *(own if t is None else t for t in (dq, dk, dv))), axes)
+    lib = LIB_BWD.load()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(None if t is None else t.data_ptr() for t in (dq, dk, dv)),
+            b, hq, hkv, sq, skv, d, kv_valid, int(causal), (ctypes.c_longlong * 21)(*strides),
+            d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    LIB_BWD.check(rc, f"{name} kernel")
+
+
+def flash_attention_bwd_dq(
+    q, k, v, dout, lse, delta, dq, *, causal: bool = False, layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> None:
+    """dq kernel on three tensors: writes `dq` (q's shape) in place. CUDA
+    only."""
+    _launch_separate_bwd("aigv_flash_attn_bwd_dq", q, k, v, dout, lse, delta, dq, None, None,
+                         causal, layout, kv_valid)
+    flash_attention_bwd_dq.launches += 1
+
+
+def flash_attention_bwd_dkv(
+    q, k, v, dout, lse, delta, dk, dv, *, causal: bool = False, layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> None:
+    """dk/dv kernel on three tensors: writes `dk` and `dv` (k's shape) in
+    place, the query heads of a group summed in fp32. CUDA only."""
+    _launch_separate_bwd("aigv_flash_attn_bwd_dkv", q, k, v, dout, lse, delta, None, dk, dv,
+                         causal, layout, kv_valid)
+    flash_attention_bwd_dkv.launches += 1
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = False,
+    layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole three-tensor backward -> (dq, dk, dv), contiguous in the
+    input layout: delta in PyTorch, then the dq and the dk/dv kernel. A CPU
+    tensor goes to `plain_flash_attention_bwd`."""
+    kw = dict(causal=causal, layout=layout, kv_valid=kv_valid)
+    if q.device.type == "cpu":
+        return plain_flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    if dout.stride(-1) != 1 or any(st % 8 for st in dout.stride()[:3]):
+        dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(-1)
+    delta = (delta if layout == "bhsd" else delta.transpose(1, 2)).contiguous()  # [B, Hq, Sq]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, **kw)
+    flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention on three tensors: the forward with
+    logsumexp saves (q, k, v, out, lse); the backward is the two backward
+    kernels. On CPU tensors both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, layout, kv_valid):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, layout=layout, kv_valid=kv_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.meta = dict(causal=causal, layout=layout, kv_valid=kv_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.meta)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, Hq, D] (`bshd`) or [B, Hq, Sq, D] (`bhsd`)
+    k: torch.Tensor,  # [B, Skv, Hkv, D] or [B, Hkv, Skv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash attention on three separate tensors, softmax scale D**-0.5 ->
+    q's shape, contiguous (so a `bshd` result reshapes to [B, Sq, Hq*D]
+    without a copy).
+
+    q head h reads kv head h // (Hq // Hkv). Each tensor is read in place
+    through its strides: slices of one projection output and permuted views
+    need no copy. `causal` needs Sq == Skv; without it Sq and Skv may differ.
+    Keys at or beyond `kv_valid` (default Skv) are masked. On the card: bf16,
+    D in (64, 128). A CPU tensor goes to the plain versions.
+
+    When any of q, k, v requires a gradient the call is differentiable
+    through `FlashAttention`, as the JAX `custom_vjp` splits its primal and
+    `fwd` rules; otherwise it is the forward without logsumexp."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, layout, kv_valid)
+    if q.device.type == "cpu":
+        return plain_flash_attention(q, k, v, causal=causal, layout=layout, kv_valid=kv_valid)
+    out, _ = _launch_separate_fwd(q, k, v, causal, layout, kv_valid, False)
     flash_attention.launches += 1
     return out
 

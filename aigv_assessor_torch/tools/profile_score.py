@@ -1,8 +1,10 @@
 """Where one scoring chunk spends its time on the card, per serving precision.
 
     python -m aigv_assessor_torch.tools.profile_score [--modes bf16 w8a8 w8a8_fused int8 int4]
+        [--config CONFIG.json]
 
-For each mode it builds the InternVL2-2B serving model from a seed
+For each mode it builds the InternVL2-2B serving model from a seed (or the
+model of a reference-format `config.json`, `--config`, e.g. InternVL2-26B's)
 (`cli/score.build_serving_model`; `w8a8_fused` is W8A8 with every feed fused,
 `Precision.fuse_quant` and `quant_rows` at {"vit", "llm"}) and scores one synthetic chunk of 4 videos
 x 8 frames x 448 px with a 2113-token prompt, the shapes `chip_smoke.py`
@@ -54,6 +56,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--modes", nargs="+", choices=MODES, default=list(MODES))
     parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--config", help="a reference-format config.json (default: 2B)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_score: needs a CUDA card", file=sys.stderr)
@@ -73,7 +76,8 @@ def main() -> int:
     flags = {"bf16": {}, "w8a8_fused": dict(
         w8a8=True, precision=Precision(fuse_quant=COMPONENTS, quant_rows=COMPONENTS))}
 
-    cfg = AssessorConfig(llm=LLM_2B, stage=2).replace(img_context_token_id=CTX)
+    cfg = AssessorConfig.from_json(args.config) if args.config else AssessorConfig(llm=LLM_2B)
+    cfg = cfg.replace(stage=2, img_context_token_id=CTX)
     rng = np.random.default_rng(0)
     n_ctx = FRAMES * cfg.num_image_token + 1
     ids = rng.integers(10, cfg.llm.vocab_size, (BATCH, 1, n_ctx + TEXT))

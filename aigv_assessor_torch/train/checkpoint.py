@@ -6,6 +6,9 @@
   stacked on a leading axis as the JAX tree holds them. The JAX package
   writes the same flat dictionary as msgpack, which needs flax; the keys and
   arrays are the same.
+- `save_trainable_weights`: any set of parameters (stage 1: `mlp1` and
+  `motion_mlp`) the same way, in the JAX tree's layout (a dense kernel
+  [in, out]).
 - `CheckpointManager`: the trainer's state (trainable parameters, optimizer
   moments, step, generator state) under `step_<n>/`, the newest
   `save_total_limit` kept, and a single `best/` slot. The frozen weights are
@@ -31,14 +34,19 @@ from aigv_assessor_torch.models.lora import is_lora_param
 logger = logging.getLogger(__name__)
 
 
-def _lora_leaves(model: nn.Module) -> Dict[str, List[torch.nn.Parameter]]:
-    """{JAX path: the port's parameters of layers 0..L-1, in order}."""
+def _leaves(model: nn.Module, keep) -> Dict[str, List[torch.nn.Parameter]]:
+    """{JAX path: the port's parameters named by `keep`, of layers 0..L-1 in
+    order, or the one parameter outside the layers}."""
     params = dict(model.named_parameters())
     by_path: Dict[str, Dict[int, torch.nn.Parameter]] = {}
     for name, (path, layer) in loading.jax_paths(model).items():
-        if is_lora_param(name):
-            by_path.setdefault(path, {})[layer] = params[name]
+        if name in params and keep(name):
+            by_path.setdefault(path, {})[0 if layer is None else layer] = params[name]
     return {path: [layers[i] for i in range(len(layers))] for path, layers in by_path.items()}
+
+
+def _lora_leaves(model: nn.Module) -> Dict[str, List[torch.nn.Parameter]]:
+    return _leaves(model, is_lora_param)
 
 
 def extract_lora(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -47,6 +55,31 @@ def extract_lora(model: nn.Module) -> Dict[str, torch.Tensor]:
         path: torch.stack([p.detach().cpu() for p in leaves])
         for path, leaves in _lora_leaves(model).items()
     }
+
+
+def extract_params(model: nn.Module, names) -> Dict[str, torch.Tensor]:
+    """Flat {JAX path: tensor on the CPU} of the named parameters in the JAX
+    tree's layout: a dense `kernel` [in, out], layers stacked on a leading
+    axis."""
+    wanted = set(names)
+    paths = dict(loading.jax_paths(model).values())
+    out = {}
+    for path, leaves in _leaves(model, lambda n: n in wanted).items():
+        ts = [p.detach().cpu() for p in leaves]
+        if path.endswith("kernel"):
+            ts = [t.t() if t.ndim == 2 else t for t in ts]
+        out[path] = torch.stack(ts).contiguous() if paths[path] is not None else ts[0].contiguous()
+    return out
+
+
+def save_trainable_weights(path: str, model: nn.Module, names) -> None:
+    """The named parameters (`extract_params`) as one safetensors file."""
+    from safetensors.torch import save_file
+
+    tensors = extract_params(model, names)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    save_file(tensors, path)
+    logger.info("saved %d trainable tensors to %s", len(tensors), path)
 
 
 def save_lora_weights(path: str, model: nn.Module) -> None:

@@ -3,8 +3,9 @@ freeze, gradient accumulation, logging, periodic evaluation and checkpoints.
 
 One optimizer step, as the JAX `Trainer._train_step` takes it:
 
-- the model's forward with `mos` in `train()` mode gives the loss, and
-  autograd runs over the trainable parameters only (`train/freeze.py`);
+- the model's forward with the micro-batch's `labels` (stage 1) or `mos`
+  (stage 2) in `train()` mode gives the loss, and autograd runs over the
+  trainable parameters only (`train/freeze.py`);
 - the gradients of the micro-batches are summed and divided by their count,
   in fp32 (the trainable parameters are fp32 masters);
 - clipping by the global norm as optax does it: scaled by
@@ -220,8 +221,9 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum, count = None, 0
         for mb in micro_batches:
-            out = self.model(mb["input_ids"], mb["pixel_values"],
-                             mb.get("attention_mask"), mos=mb.get("mos"))
+            out = self.model(mb["input_ids"], mb["pixel_values"], mb.get("attention_mask"),
+                             labels=mb.get("labels"), mos=mb.get("mos"),
+                             position_ids=mb.get("position_ids"))
             out["loss"].backward()
             loss = out["loss"].detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -252,7 +254,8 @@ class Trainer:
     def train(self, data_iter_fn: Callable[[int], Iterable[Any]]):
         """data_iter_fn(epoch) -> iterable of steps, each a sequence of
         micro-batch dicts (`input_ids`, `pixel_values`, `attention_mask`,
-        `mos`, tensors on the model's device)."""
+        `labels` or `mos`, optionally `position_ids`, tensors on the model's
+        device)."""
         cfg = self.cfg
         os.makedirs(cfg.output_dir, exist_ok=True)
         t_start = time.time()

@@ -42,6 +42,18 @@ Phases, each printing one line or more (and failing the run by raising):
      and at the ragged shape, to the same atol = rtol = 2e-2; and against the
      fused-qkv kernel on the same data, with which it shares its body:
      bit-equal. Yardstick: SDPA on the same views.
+   - K2's training forms on three tensors (the forward with logsumexp, the
+     dq and the dk/dv kernel) at InternViT-6B's shape (B = 32 frames of a
+     scoring chunk, and the frames of one 26B training micro-batch; 25
+     heads, S = 1032 with kv_valid 1025, D = 128, `bshd`, q and k from the
+     norms, v a strided view of the projection), at the 2B decoder's
+     row-major shape (B = 4, 16 / 8 heads, S = 2113, causal, `bshd` views)
+     and at a ragged non-causal Sq != Skv shape (`bhsd`, GQA, garbage tail):
+     `out` bit-equal to the forward without logsumexp, the logsumexp within
+     LSE_TOL, dq, dk and dv within BWD_TOL relative L2 of
+     `plain_flash_attention_bwd`, dk / dv of masked keys exactly 0. Timed by
+     CUDA graph replay beside the bound, the plain versions, SDPA's forward
+     and SDPA's forward + backward.
    - The weight-only int8 and int4 matmuls at the decoder's projection
      shapes with M = 8452 rows (4 videos x 2113 tokens), at the decode sizes
      M = 4 and M = 1 of the same shapes (timed over enough copies of the
@@ -117,6 +129,17 @@ Phases, each printing one line or more (and failing the run by raising):
    same backward through the plain attention, and both against an fp32
    backward of the same weights (tolerances at TRAIN_GRAD_TOL).
 
+7b. stage 1: `cli/stage1_train.train_steps` on a stage-1 InternVL2-2B
+   (no score head), TRAIN_STEPS steps on 4 videos x 8 frames x 448 px whose
+   labels come from `data/preprocess.preprocess_internlm` on the answer
+   STAGE1_ANSWER (the port's template and test tokenizer, no padding), bf16
+   frozen towers, fp32 `mlp1` / `motion_mlp`, checkpointing on, drop path
+   0.1, constant lr TRAIN_LR. Checks per micro-batch 24 launches of the
+   forward without logsumexp (the frozen ViT runs no backward), 48 with it
+   (the LLM's pass and recompute), 24 dq, 24 dk/dv; every tower and
+   SlowFast tensor bit-equal and `mlp1` / `motion_mlp` moved; the losses
+   finite and the dropout-off loss lower after the steps.
+
 8. generation: `models/generation.generate` on the same model, B = 4, the
    2113-token prompt with the motion embedding, GEN_TOKENS new tokens,
    greedy, in bf16, with int8 weights, and in bf16 with the int8 KV cache.
@@ -143,6 +166,27 @@ Phases, each printing one line or more (and failing the run by raising):
     Checks 9 CSV rows of 2 finite scores, the JSON summary line, and the
     RMSNorm- and SwiGLU-quantize launches of the run; prints videos per
     second with decode included and the decoder that ran.
+
+11. InternVL2-26B (INTERNVL2_26B, the published config.json of
+    OpenGVLab/InternVL2-26B through `AssessorConfig.from_dict`: InternViT-6B,
+    45 layers, 25 heads of 128, RMSNorm, QK-normalization, no qkv bias;
+    internlm2-chat-20b, 48 layers, 48 / 8 heads of 128), weights from seed 0,
+    after every earlier model is freed.
+    (a) At full width and DEPTH_CUT layers per tower: the readout of the
+    kernel path against the plain path and both against an fp32 forward
+    (READOUT_TOL, REF_RATIO), and the adapters' gradients of (readout . u),
+    every adapter live, against the plain path and fp32 (TRAIN_GRAD_TOL,
+    REF_RATIO).
+    (b) Scoring one chunk of 4 videos in bf16 at full depth (47.5 GiB of
+    weights, built straight in bf16): per forward 45 three-tensor (K2) and 48
+    fused-qkv (K1) launches, finite scores and readout, the readout's
+    distance to the plain path; ms per chunk, peak memory.
+    (c) TRAIN_STEPS stage-2 LoRA steps at full depth through `train_steps`
+    (r = 8 both towers, bf16 frozen, checkpointing, dropout 0.05, drop path
+    0.1, micro-batch TRAIN_26B_VIDEOS videos): per micro-batch 90 K2
+    logsumexp (pass and recompute), 45 K2 dq, 45 K2 dk/dv, 96 K1 lse, 48
+    K3a, 48 K3b launches; the frozen tensors bit-equal to a host copy taken
+    before the steps; ms per step, peak memory.
 
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -267,6 +311,18 @@ SCORE_TOL = 5e-2
 CTX = 7  # <IMG_CONTEXT> id of the synthetic prompts
 FRAMES, IMAGE, TEXT, BATCH, CHUNKS = 8, 448, 64, 4, 2
 # (B, hq, hkv, S, D, causal, kv_valid)
+TRAIN_26B_VIDEOS = 2  # videos per micro-batch of the InternVL2-26B training phase
+# K2's training forms on three tensors: (B, Sq, Skv, hq, hkv, D, causal,
+# kv_valid, layout). InternViT-6B's attention over a scoring chunk's 32 frames
+# and over a 26B training micro-batch's frames (q, k from the norms, v a
+# strided view of the projection); the 2B decoder's row-major branch; a
+# ragged non-causal Sq != Skv case with GQA and a garbage tail
+SEPARATE_TRAIN = {
+    "vit_6b": (32, 1032, 1032, 25, 25, 128, False, 1025, "bshd"),
+    "vit_6b_train": (TRAIN_26B_VIDEOS * 8, 1032, 1032, 25, 25, 128, False, 1025, "bshd"),
+    "llm_2b_rows": (4, 2113, 2113, 16, 8, 128, True, None, "bshd"),
+    "cross": (2, 333, 1025, 8, 2, 128, False, 1000, "bhsd"),
+}
 SHAPES = {
     "vit": (32, 16, 16, 1032, 64, False, 1025),
     "llm": (4, 16, 8, 2113, 128, True, None),
@@ -341,22 +397,10 @@ def make_qkv(shape, device) -> torch.Tensor:
 
 
 def attention_work(shape) -> dict:
-    """FLOPs and bytes of the attention kernels at one shape, from what this
-    run's masks leave: S * kv_valid (query, key) pairs, or the causal
-    triangle. Products per pair and head dim element: forward 2 (QK^T, PV),
-    dq 3 (QK^T, dO V^T, dS K), dk/dv 4 (QK^T, dO V^T, P^T dO, dS^T Q). Bytes:
-    each input read once, each output written once."""
+    """FLOPs and bytes of the fused-qkv attention kernels at one SHAPES
+    entry: `separate_work` with Sq = Skv = S."""
     b, hq, hkv, s, d, causal, kv_valid = shape
-    pairs = s * (s + 1) // 2 if causal else s * (kv_valid or s)
-    per_product = 2 * b * hq * pairs * d
-    qkv, out, stat = b * (hq + 2 * hkv) * s * d * 2, b * hq * s * d * 2, b * hq * s * 4
-    kv_out = b * 2 * hkv * s * d * 2
-    return {
-        "fwd": (2 * per_product, qkv + out),
-        "fwd_lse": (2 * per_product, qkv + out + stat),
-        "dq": (3 * per_product, qkv + out + 2 * stat + out),
-        "dkv": (4 * per_product, qkv + out + 2 * stat + kv_out),
-    }
+    return separate_work((b, s, s, hq, hkv, d, causal, kv_valid, "bhsd"))
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -1458,6 +1502,547 @@ def run_score_cli(device, smi, *, n_llm: int) -> None:
           f"{np.round(rows[0], 3).tolist()} [{smi}]")
 
 
+# ------------------------------------------- K2's training forms (three tensors) --
+
+
+def separate_inputs(name: str, shape, device):
+    """q, k, v and dout for one SEPARATE_TRAIN shape, as its caller hands
+    them over."""
+    from aigv_assessor_torch.ops.norms import rms_norm
+
+    b, sq, skv, hq, hkv, d, causal, kv_valid, layout = shape
+    gen = torch.Generator(device=device).manual_seed(20)
+    if name.startswith("vit"):
+        # the QK-normalized ViT: q and k from the norms over the flattened C
+        # (contiguous), v a strided view of the [B, N, 3C] projection; the
+        # pad rows' k and v hold garbage, and carry no gradient
+        c = hq * d
+        proj = torch.randn((b, sq, 3 * c), generator=gen, device=device).to(torch.bfloat16)
+        proj[:, kv_valid:, c:] = 1e3
+        q, k, v = proj.split(c, dim=-1)
+        ones = torch.ones(c, device=device)
+        q, k = (rms_norm(t, ones).view(b, sq, hq, d) for t in (q, k))
+        v = v.view(b, sq, hq, d)
+    elif name.startswith("llm"):
+        # the decoder's row-major branch: [B, S, H, D] views of one projection
+        proj = torch.randn((b, sq, (hq + 2 * hkv) * d), generator=gen, device=device)
+        proj = proj.to(torch.bfloat16)
+        q = proj[..., : hq * d].view(b, sq, hq, d)
+        k = proj[..., hq * d : (hq + hkv) * d].view(b, sq, hkv, d)
+        v = proj[..., (hq + hkv) * d :].view(b, sq, hkv, d)
+    else:
+        q = torch.randn((b, hq, sq, d), generator=gen, device=device)
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=device) for _ in range(2))
+        if kv_valid is not None:
+            k[:, :, kv_valid:], v[:, :, kv_valid:] = 1e3, -1e3
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    dout = torch.randn(q.shape, generator=gen, device=device)
+    if name.startswith("vit"):
+        dout[:, kv_valid:] = 0.0
+    return q, k, v, dout.to(torch.bfloat16)
+
+
+def separate_work(shape) -> dict:
+    """FLOPs and bytes of the attention kernels at one shape, from what this
+    run's masks leave: Sq * kv_valid (query, key) pairs, or the causal
+    triangle. Products per pair and head dim element: forward 2 (QK^T, PV),
+    dq 3 (QK^T, dO V^T, dS K), dk/dv 4 (QK^T, dO V^T, P^T dO, dS^T Q). Bytes:
+    each input read once, each output written once."""
+    b, sq, skv, hq, hkv, d, causal, kv_valid, _ = shape
+    pairs = sq * (sq + 1) // 2 if causal else sq * (kv_valid or skv)
+    per_product = 2 * b * hq * pairs * d
+    q_bytes, kv_bytes, stat = b * hq * sq * d * 2, b * hkv * skv * d * 2, b * hq * sq * 4
+    qkv = q_bytes + 2 * kv_bytes
+    return {
+        "fwd": (2 * per_product, qkv + q_bytes),
+        "fwd_lse": (2 * per_product, qkv + q_bytes + stat),
+        "dq": (3 * per_product, qkv + q_bytes + 2 * stat + q_bytes),
+        "dkv": (4 * per_product, qkv + q_bytes + 2 * stat + 2 * kv_bytes),
+    }
+
+
+def check_attention_separate_training(fa, device, shapes) -> dict:
+    """K2's forward with logsumexp and its dq and dk/dv kernels against the
+    plain versions, timed by CUDA graph replay, beside the bound, the plain
+    versions and SDPA."""
+    results = {}
+    for name, shape in shapes.items():
+        b, sq, skv, hq, hkv, d, causal, kv_valid, layout = shape
+        q, k, v, dout = separate_inputs(name, shape, device)
+        kw = dict(causal=causal, layout=layout, kv_valid=kv_valid)
+        out, lse = fa.flash_attention_lse(q, k, v, **kw)
+        no_lse = fa.flash_attention(q, k, v, **kw)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, no_lse):
+            raise RuntimeError(f"K2 {name}: out with logsumexp differs from out without")
+        _, plain_lse = fa.plain_flash_attention(q, k, v, return_lse=True, **kw)
+        lse_err = (lse - plain_lse).abs().max().item()
+        if not (torch.isfinite(lse).all() and lse_err <= LSE_TOL):
+            raise RuntimeError(f"K2 {name}: logsumexp max abs err {lse_err} above {LSE_TOL}")
+        want = fa.plain_flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        got = {"dq": dq, "dk": dk, "dv": dv}
+        if not all(torch.isfinite(t).all() for t in got.values()):
+            raise RuntimeError(f"K2 {name}: a gradient is not finite")
+        rel = {n: relative_l2(t.float(), w.float()) for (n, t), w in zip(got.items(), want)}
+        err = {n: (t.float() - w.float()).abs().max().item()
+               for (n, t), w in zip(got.items(), want)}
+        if not all(r <= BWD_TOL for r in rel.values()):
+            raise RuntimeError(f"K2 {name}: backward relative L2 {rel} above {BWD_TOL}")
+        seq = 2 if layout == "bhsd" else 1
+        if kv_valid is not None and (dk.narrow(seq, kv_valid, skv - kv_valid).any()
+                                     or dv.narrow(seq, kv_valid, skv - kv_valid).any()):
+            raise RuntimeError(f"K2 {name}: dk/dv rows of masked keys are not exactly 0")
+        del want, plain_lse
+
+        delta = (dout.float() * out.float()).sum(-1)
+        delta = (delta if layout == "bhsd" else delta.transpose(1, 2)).contiguous()
+        ms_lse = graph_ms([lambda: fa.flash_attention_lse(q, k, v, **kw)] * 3, 5)
+        ms_dq = graph_ms([lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, **kw)]
+                         * 3, 5)
+        ms_dkv = graph_ms([lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv,
+                                                              **kw)] * 3, 5)
+        plain_lse_ms = time_ms(
+            lambda: fa.plain_flash_attention(q, k, v, return_lse=True, **kw), 3, warmup=1)
+        plain_bwd_ms = time_ms(
+            lambda: fa.plain_flash_attention_bwd(q, k, v, out, lse, dout, **kw), 3, warmup=1)
+        # the library takes head-major views, k and v cut at kv_valid
+        hm = (lambda t: t) if layout == "bhsd" else (lambda t: t.transpose(1, 2))
+        qs, ks, vs = hm(q), hm(k)[:, :, :kv_valid], hm(v)[:, :, :kv_valid]
+        dos = hm(dout)
+        lib_shape = (b, hq, hkv, sq, d, causal, kv_valid)
+        with torch.no_grad():
+            library_ms = time_ms(lambda: sdpa(qs, ks, vs, lib_shape), 10)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qs, ks, vs))
+
+        def fwd_bwd():
+            torch.autograd.grad(sdpa(qg, kg, vg, lib_shape), (qg, kg, vg), dos)
+
+        library_fwd_bwd_ms = time_ms(fwd_bwd, 10)
+        work = separate_work(shape)
+        bounds = {n: bound_ms(*work[n]) for n in ("fwd_lse", "dq", "dkv")}
+        text = (f"{layout} B={b} Sq={sq} Skv={skv} hq={hq} hkv={hkv} D={d} causal={causal} "
+                f"kv_valid={kv_valid}")
+        results[name] = dict(
+            shape=text, lse_max_abs_err=lse_err, rel_l2=rel, max_abs_err=err,
+            lse_ms=ms_lse, dq_ms=ms_dq, dkv_ms=ms_dkv, plain_lse_ms=plain_lse_ms,
+            plain_bwd_ms=plain_bwd_ms, library_ms=library_ms,
+            library_fwd_bwd_ms=library_fwd_bwd_ms,
+            bounds={n: dict(bound_ms=v[0], bound_by=v[1]) for n, v in bounds.items()})
+        phase("kernel", f"K2 training {name}: {text}: out bit-equal with and without lse, lse "
+              f"max_abs_err {lse_err:.3e} (tol {LSE_TOL}); rel L2 dq {rel['dq']:.3e} dk "
+              f"{rel['dk']:.3e} dv {rel['dv']:.3e} (tol {BWD_TOL}), masked-key rows exactly 0; "
+              f"by graph replay fwd+lse {ms_lse:.4f} ms (bound {bounds['fwd_lse'][0]:.4f}, "
+              f"plain {plain_lse_ms:.4f}, SDPA fwd {library_ms:.4f}), dq {ms_dq:.4f} ms (bound "
+              f"{bounds['dq'][0]:.4f}), dk/dv {ms_dkv:.4f} ms (bound {bounds['dkv'][0]:.4f}), "
+              f"plain backward {plain_bwd_ms:.4f} ms, SDPA fwd+bwd {library_fwd_bwd_ms:.4f} ms")
+        del q, k, v, dout, out, lse, dq, dk, dv, delta, qg, kg, vg
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------- stage 1 on InternVL2-2B --
+
+
+STAGE1_ANSWER = "The static quality of the video is good."
+
+
+def stage1_batch(cfg, px_u8):
+    """A stage-1 batch: the prompt through the port's template and test
+    tokenizer, labels from `preprocess_internlm` (only the answer counts)."""
+    from aigv_assessor_torch.data.preprocess import preprocess_internlm
+    from aigv_assessor_torch.data.tokenizer import build_test_tokenizer
+
+    tokenizer = build_test_tokenizer()
+    blocks = "\n".join(f"Frame{i + 1}: <image>" for i in range(FRAMES))
+    question = blocks + "\nMotion Feature: <image>\nHow would you rate the static quality of this video?"
+    source = [{"from": "human", "value": question}, {"from": "gpt", "value": STAGE1_ANSWER}]
+    # no padding (group_by_length): every sample has the same length
+    (sample,) = preprocess_internlm(cfg.template, [source], tokenizer,
+                                    [cfg.num_image_token] * FRAMES + [1], group_by_length=True)
+    answer = tokenizer.decode([int(t) for t in sample.input_ids[sample.labels != -100]])
+    if sample.mismatch or not answer.startswith(STAGE1_ANSWER):
+        raise RuntimeError(f"stage 1: labels cover {answer!r}, not the answer")
+    if int((sample.input_ids == tokenizer.img_context_token_id).sum()) != (
+            FRAMES * cfg.num_image_token + 1):
+        raise RuntimeError("stage 1: the prompt lost <IMG_CONTEXT> slots")
+    n = px_u8.shape[0]
+
+    def rows(a):
+        return torch.as_tensor(np.tile(a[None], (n, 1)))
+
+    return {"input_ids": rows(sample.input_ids.astype(np.int64)),
+            "labels": rows(sample.labels.astype(np.int64)),
+            "attention_mask": rows(sample.attention_mask), "pixels_u8": px_u8}, int(
+                tokenizer.img_context_token_id)
+
+
+def run_stage1_slice(device, px_u8, n_vit: int, n_llm: int, smi: str) -> dict:
+    """Stage 1 at InternVL2-2B: TRAIN_STEPS steps through
+    `cli/stage1_train.train_steps` -> launches over the steps."""
+    from aigv_assessor_torch.cli import stage1_train
+    from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.train.trainer import TrainConfig
+
+    cfg = AssessorConfig(llm=LLM_2B, stage=1)
+    batch, ctx_id = stage1_batch(cfg, px_u8)
+    cfg = cfg.replace(img_context_token_id=ctx_id)
+    seq = batch["input_ids"].shape[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        tc = TrainConfig(output_dir=out_dir, learning_rate=TRAIN_LR, warmup_ratio=0.0,
+                         lr_scheduler_type="constant", num_train_epochs=1, save_steps=0,
+                         seed=0, freeze_backbone=True, freeze_llm=True, freeze_mlp=False)
+        t0 = time.perf_counter()
+        model = stage1_train.build_training_model(cfg, device=device, seed=0, train_config=tc)
+        trainer = stage1_train.Trainer(model, tc, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        trained = set(trainer.trainable)
+        if {n.split(".", 1)[0] for n in trained} != {"mlp1", "motion_mlp"}:
+            raise RuntimeError(f"stage 1: trainable {sorted(trained)[:5]}..., expected mlp1 and "
+                               "motion_mlp")
+        weights = torch.cuda.memory_allocated(device) / 2**30
+        before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        prepared = stage1_train.prepare_batch(model, batch["input_ids"], batch["pixels_u8"],
+                                              batch["attention_mask"], batch["labels"])
+
+        def eval_loss() -> float:
+            model.eval()
+            with torch.no_grad():
+                return model(prepared["input_ids"], prepared["pixel_values"],
+                             prepared["attention_mask"], labels=prepared["labels"])["loss"].item()
+
+        loss_before = eval_loss()
+        torch.cuda.reset_peak_memory_stats(device)
+        for c in training_counters(fa):
+            c.launches = 0
+        t0 = time.perf_counter()
+        stage1_train.train_steps(model, [batch] * TRAIN_STEPS, tc, trainer=trainer)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        counts = {c.__name__: c.launches for c in training_counters(fa)}
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        with open(f"{out_dir}/train_log.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        artifact = os.path.getsize(f"{out_dir}/{stage1_train.TRAINABLE_FILE}")
+    losses = [r["loss"] for r in log]
+    steady_ms = (log[-1]["time"] - log[-2]["time"]) * 1e3
+    per_step = {"flash_attention_qkv": n_vit, "flash_attention_qkv_lse": 2 * n_llm,
+                "flash_attention_qkv_bwd_dq": n_llm, "flash_attention_qkv_bwd_dkv": n_llm}
+    want = {n: per_step.get(n, 0) * TRAIN_STEPS for n in counts}
+    if counts != want:
+        raise RuntimeError(f"stage 1: launches {counts} for {TRAIN_STEPS} steps, expected {want}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"stage 1: losses {losses}")
+    state = model.state_dict()
+    changed = sorted(n for n in state if not torch.equal(state[n], before[n]))
+    frozen_changed = [n for n in changed if n not in trained]
+    if frozen_changed:
+        raise RuntimeError(f"stage 1: frozen tensors changed: {frozen_changed[:5]}")
+    for top in ("mlp1", "motion_mlp"):
+        if not any(n.startswith(top + ".") for n in changed):
+            raise RuntimeError(f"stage 1: {top} did not move")
+    loss_after = eval_loss()
+    if not loss_after < loss_before:
+        raise RuntimeError(f"stage 1: dropout-off loss {loss_before} before, {loss_after} after "
+                           f"{TRAIN_STEPS} steps at lr {TRAIN_LR}")
+    n_labels = int((batch["labels"][0, 1:] != -100).sum())
+    phase("slice", f"stage 1 InternVL2-2B through cli/stage1_train.train_steps: "
+          f"{px_u8.shape[0]} videos x {px_u8.shape[1]} frames {px_u8.shape[2]}px, seq {seq} "
+          f"(test tokenizer, no padding), {n_labels} label tokens per video ({STAGE1_ANSWER!r} and "
+          f"<|im_end|>), bf16 frozen towers, fp32 mlp1 / motion_mlp, checkpointing on, drop "
+          f"path {cfg.vision.drop_path_rate}, {TRAIN_STEPS} steps at constant lr {TRAIN_LR}: "
+          f"launches per micro-batch { {k: v // TRAIN_STEPS for k, v in counts.items() if v} }; "
+          f"{steady_ms:.1f} ms/step (the last), {total_ms / TRAIN_STEPS:.1f} ms/step over the "
+          f"call with the {artifact}-byte artifact; peak {peak:.2f} GiB allocated (weights "
+          f"{weights:.2f} GiB), init {init_s:.1f} s; losses {np.round(losses, 5).tolist()}, "
+          f"dropout-off loss {loss_before:.5f} -> {loss_after:.5f}; towers and SlowFast "
+          f"bit-equal, {len(changed)} mlp1 / motion_mlp tensors moved [{smi}]")
+    del model, trainer, before, state, prepared
+    return dict(counts=counts, ms=steady_ms, peak_gib=peak)
+
+
+def training_counters(fa):
+    """Every attention kernel's wrapper, for launch counts of a training run."""
+    return (fa.flash_attention_qkv, fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
+            fa.flash_attention_qkv_bwd_dkv, fa.flash_attention, fa.flash_attention_lse,
+            fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+
+
+# --------------------------------------------------------------- InternVL2-26B --
+
+# The published config.json of OpenGVLab/InternVL2-26B (InternViT-6B-448px-V1-5
+# with internlm2-chat-20b), as `AssessorConfig.from_dict` reads a checkpoint's.
+INTERNVL2_26B = {
+    "architectures": ["InternVLChatModel"],
+    "downsample_ratio": 0.5,
+    "force_image_size": 448,
+    "ps_version": "v2",
+    "select_layer": -1,
+    "template": "internlm2-chat",
+    "use_backbone_lora": 0,
+    "use_llm_lora": 0,
+    "vision_config": {
+        "architectures": ["InternVisionModel"], "hidden_size": 3200,
+        "intermediate_size": 12800, "num_hidden_layers": 45, "num_attention_heads": 25,
+        "image_size": 448, "patch_size": 14, "num_channels": 3, "hidden_act": "gelu",
+        "norm_type": "rms_norm", "qk_normalization": True, "qkv_bias": False,
+        "layer_norm_eps": 1e-6, "initializer_factor": 0.1, "drop_path_rate": 0.0,
+        "dropout": 0.0, "attention_dropout": 0.0, "use_flash_attn": True,
+    },
+    "llm_config": {
+        "architectures": ["InternLM2ForCausalLM"], "hidden_size": 6144,
+        "intermediate_size": 16384, "num_hidden_layers": 48, "num_attention_heads": 48,
+        "num_key_value_heads": 8, "vocab_size": 92553, "hidden_act": "silu",
+        "rms_norm_eps": 1e-5, "rope_theta": 1000000, "max_position_embeddings": 32768,
+        "rope_scaling": {"type": "dynamic", "factor": 2.0}, "bias": False,
+        "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 2,
+    },
+}
+DEPTH_CUT = 2  # layers per tower of the 26B checks against fp32
+
+
+def internvl2_26b(layers=None, **kw):
+    from aigv_assessor_torch.core.config import AssessorConfig
+
+    d = copy.deepcopy(INTERNVL2_26B)
+    if layers is not None:
+        d["vision_config"]["num_hidden_layers"] = d["llm_config"]["num_hidden_layers"] = layers
+    return AssessorConfig.from_dict(d).replace(stage=2, img_context_token_id=CTX, **kw)
+
+
+def plain_attention_patches(fa):
+    """Both attention entry points swapped for their plain versions."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(fa, "flash_attention_qkv", fa.plain_attention_qkv))
+    stack.enter_context(mock.patch.object(fa, "flash_attention", fa.plain_flash_attention))
+    return stack
+
+
+def run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi) -> dict:
+    """The InternVL2-26B phase: checks at full width and DEPTH_CUT layers per
+    tower, then scoring a chunk and training TRAIN_STEPS LoRA steps at full
+    depth. -> its numbers and launch counts."""
+    import gc
+
+    from aigv_assessor_torch.cli.score import build_serving_model, score_batch, score_chunks
+    from aigv_assessor_torch.cli.stage2_train import build_training_model, train_steps
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models.lora import LoRALinear, set_generator
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+    from aigv_assessor_torch.train.trainer import TrainConfig, Trainer
+
+    full = internvl2_26b()
+    n_vit, n_llm = full.vision.num_hidden_layers, full.llm.num_hidden_layers
+    pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.float32)
+    out = {}
+
+    # (a) full width, DEPTH_CUT layers per tower: scoring against the plain
+    # path and an fp32 forward
+    cut = internvl2_26b(DEPTH_CUT)
+    model = build_serving_model(cut, device=device, seed=0)
+    ref = copy.deepcopy(model).float()
+    ref.precision = Precision.fp32()
+    with torch.inference_mode():
+        kernel_out = model(ids[:, 0], pv.to(torch.bfloat16), mask[:, 0])
+        launched = [c.launches for c in training_counters(fa)]
+        with plain_attention_patches(fa):
+            plain_out = model(ids[:, 0], pv.to(torch.bfloat16), mask[:, 0])
+            ref_out = ref(ids[:, 0], pv, mask[:, 0])
+        if [c.launches for c in training_counters(fa)] != launched:
+            raise RuntimeError("26B: the plain forwards launched a kernel")
+    k_, p_, r_ = (o["readout"].float() for o in (kernel_out, plain_out, ref_out))
+    rel_kp, rel_kr, rel_pr = relative_l2(k_, p_), relative_l2(k_, r_), relative_l2(p_, r_)
+    if not torch.isfinite(k_).all() or not rel_kp <= READOUT_TOL:
+        raise RuntimeError(f"26B x{DEPTH_CUT}: readout kernel vs plain {rel_kp} above {READOUT_TOL}")
+    if not rel_kr <= REF_RATIO * rel_pr:
+        raise RuntimeError(f"26B x{DEPTH_CUT}: kernel path {rel_kr} from fp32, plain {rel_pr}: "
+                           f"more than {REF_RATIO}x farther")
+    del model, ref, kernel_out, plain_out, ref_out
+
+    # (a') the adapters' gradients of (readout . u) at the same cut, every
+    # adapter live (lora_b drawn small instead of zero)
+    lora_kw = dict(use_backbone_lora=LORA_RANK, use_llm_lora=LORA_RANK)
+    model = build_training_model(cut.replace(**lora_kw), device=device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(8)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LoRALinear):
+                m.lora_b.normal_(0.0, 0.02, generator=gen)
+    adapters = [n for n, _ in model.named_parameters() if "lora_" in n]
+    for n, p in model.named_parameters():
+        p.requires_grad_(n in adapters)
+    u = torch.randn((BATCH, full.llm.hidden_size), device=device,
+                    generator=torch.Generator(device=device).manual_seed(7))
+
+    def eval_grads(m) -> torch.Tensor:
+        m.eval()
+        for p in m.parameters():
+            p.grad = None
+        dtype = m.precision.compute_dtype
+        readout = m(ids[:, 0], pv.to(dtype), mask[:, 0])["readout"]
+        (readout.float() * u).sum().backward()
+        return torch.cat([p.grad.float().flatten() for n, p in m.named_parameters()
+                          if n in adapters])
+
+    before = [c.launches for c in training_counters(fa)]
+    g_kernel = eval_grads(model)
+    grad_launches = [c.launches - b for c, b in zip(training_counters(fa), before)]
+    # forward + recompute, one backward: K2 lse, dq, dk/dv and K1 lse, K3a, K3b
+    want_launches = [0, 2 * DEPTH_CUT, DEPTH_CUT, DEPTH_CUT, 0, 2 * DEPTH_CUT, DEPTH_CUT,
+                     DEPTH_CUT]
+    if grad_launches != want_launches:
+        raise RuntimeError(f"26B x{DEPTH_CUT}: the backward launched {grad_launches}, "
+                           f"expected {want_launches}")
+    ref = copy.deepcopy(model).float()
+    ref.precision = Precision.fp32()
+    launched = [c.launches for c in training_counters(fa)]
+    with plain_attention_patches(fa):
+        g_plain = eval_grads(model)
+        g_ref = eval_grads(ref)
+    if [c.launches for c in training_counters(fa)] != launched:
+        raise RuntimeError("26B: the plain backwards launched a kernel")
+    del ref, model
+    gk, gp, gr = relative_l2(g_kernel, g_plain), relative_l2(g_plain, g_ref), relative_l2(
+        g_kernel, g_ref)
+    if not torch.isfinite(g_kernel).all() or not gk <= TRAIN_GRAD_TOL:
+        raise RuntimeError(f"26B x{DEPTH_CUT}: adapter gradients kernel vs plain {gk} above "
+                           f"{TRAIN_GRAD_TOL}")
+    if not gr <= REF_RATIO * gp:
+        raise RuntimeError(f"26B x{DEPTH_CUT}: kernel-path gradient {gr} from fp32, plain {gp}: "
+                           f"more than {REF_RATIO}x farther")
+    phase("slice", f"InternVL2-26B at full width, {DEPTH_CUT} layers per tower: readout rel L2 "
+          f"kernel vs plain {rel_kp:.3e} (tol {READOUT_TOL}), vs fp32: kernel {rel_kr:.3e}, "
+          f"plain {rel_pr:.3e} (tol {REF_RATIO}x); adapter gradients of (readout . u) "
+          f"({g_kernel.numel()} values, launches {grad_launches}) rel L2 kernel vs plain "
+          f"{gk:.3e} (tol {TRAIN_GRAD_TOL}), vs fp32: kernel {gr:.3e}, plain {gp:.3e} (tol "
+          f"{REF_RATIO}x) [{smi}]")
+    out.update(cut_readout=dict(kernel_plain=rel_kp, kernel_fp32=rel_kr, plain_fp32=rel_pr),
+               cut_grads=dict(kernel_plain=gk, kernel_fp32=gr, plain_fp32=gp))
+    del g_kernel, g_plain, g_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) scoring one chunk at full depth
+    t0 = time.perf_counter()
+    model = build_serving_model(full, device=device, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated(device) / 2**30
+    n_params = sum(p.numel() for p in model.parameters())
+    scores = score_batch(model, ids, px_u8, mask)  # warm-up
+    torch.cuda.synchronize()
+    if tuple(scores.shape) != (BATCH, 1) or not torch.isfinite(scores).all():
+        raise RuntimeError(f"26B: scores {tuple(scores.shape)} not finite [{BATCH}, 1]")
+    torch.cuda.reset_peak_memory_stats(device)
+    for c in training_counters(fa):
+        c.launches = 0
+    t0 = time.perf_counter()
+    rows = score_chunks(model, [list(videos[:BATCH])], ids_pn, mask_pn, batch_size=BATCH)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    score_counts = {c.__name__: c.launches for c in training_counters(fa)}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    want = {n: 0 for n in score_counts}
+    want.update(flash_attention=n_vit, flash_attention_qkv=n_llm)
+    if score_counts != want:
+        raise RuntimeError(f"26B scoring: launches {score_counts}, expected {want}")
+    arr = np.asarray(rows)
+    if arr.shape != (BATCH, 1) or not np.isfinite(arr).all():
+        raise RuntimeError(f"26B scoring: rows {arr.shape} not finite")
+    with torch.inference_mode():
+        kernel_out = model(ids[:, 0], pv.to(torch.bfloat16), mask[:, 0])["readout"].float()
+        with plain_attention_patches(fa):
+            plain_out = model(ids[:, 0], pv.to(torch.bfloat16), mask[:, 0])["readout"].float()
+    if not torch.isfinite(kernel_out).all():
+        raise RuntimeError("26B scoring: the readout is not finite")
+    rel_full = relative_l2(kernel_out, plain_out)
+    phase("slice", f"InternVL2-26B stage-2 scoring, full depth ({n_vit} + {n_llm} layers, "
+          f"{n_params / 1e9:.2f} G values in bf16), one chunk of {BATCH} videos x {FRAMES} "
+          f"frames {IMAGE}px, seq {ids.shape[-1]}: launches per forward "
+          f"{ {k: v for k, v in score_counts.items() if v} }, {chunk_ms:.1f} ms/chunk, peak "
+          f"{peak:.2f} GiB allocated (weights {weights:.2f} GiB), init {init_s:.1f} s; readout "
+          f"rel L2 kernel vs plain {rel_full:.3e}; scores {np.round(arr[:, 0], 4).tolist()} "
+          f"[{smi}]")
+    out.update(score_counts=score_counts, chunk_ms=chunk_ms, score_peak_gib=peak,
+               weights_gib=weights, full_readout_kernel_plain=rel_full)
+    del model, kernel_out, plain_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) TRAIN_STEPS stage-2 LoRA steps at full depth
+    lora_cfg = full.replace(**lora_kw)
+    lora_cfg = lora_cfg.replace(vision=dataclasses.replace(lora_cfg.vision, drop_path_rate=0.1))
+    rng = np.random.default_rng(3)
+    batch = {"input_ids": ids[:TRAIN_26B_VIDEOS, 0], "pixels_u8": px_u8[:TRAIN_26B_VIDEOS],
+             "attention_mask": mask[:TRAIN_26B_VIDEOS, 0],
+             "mos": torch.as_tensor(rng.uniform(20.0, 90.0, TRAIN_26B_VIDEOS),
+                                    dtype=torch.float32)}
+    with tempfile.TemporaryDirectory() as out_dir:
+        tc = TrainConfig(output_dir=out_dir, learning_rate=TRAIN_LR, warmup_ratio=0.0,
+                         lr_scheduler_type="constant", num_train_epochs=1, save_steps=0, seed=0)
+        t0 = time.perf_counter()
+        model = build_training_model(lora_cfg, device=device, seed=0, train_config=tc)
+        with torch.no_grad():  # keep the score head's last ReLU open, as phase 7 does
+            getattr(model.mlpscore, f"fc{model.mlpscore.num_layers}").weight.abs_()
+        trainer = Trainer(model, tc, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        init_train_s = time.perf_counter() - t0
+        trained = set(trainer.trainable)
+        weights_train = torch.cuda.memory_allocated(device) / 2**30
+        # the frozen tensors, held on the host to be compared after the steps
+        t0 = time.perf_counter()
+        frozen = {n: t.detach().cpu() for n, t in model.state_dict().items() if n not in trained}
+        copy_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+        for c in training_counters(fa):
+            c.launches = 0
+        t0 = time.perf_counter()
+        train_steps(model, [batch] * TRAIN_STEPS, tc, trainer=trainer)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        train_counts = {c.__name__: c.launches for c in training_counters(fa)}
+        peak_train = torch.cuda.max_memory_allocated(device) / 2**30
+        with open(f"{out_dir}/train_log.jsonl") as f:
+            log = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in log]
+    steady_ms = (log[-1]["time"] - log[-2]["time"]) * 1e3
+    per_step = {"flash_attention_lse": 2 * n_vit, "flash_attention_bwd_dq": n_vit,
+                "flash_attention_bwd_dkv": n_vit, "flash_attention_qkv_lse": 2 * n_llm,
+                "flash_attention_qkv_bwd_dq": n_llm, "flash_attention_qkv_bwd_dkv": n_llm}
+    want = {n: per_step.get(n, 0) * TRAIN_STEPS for n in train_counts}
+    if train_counts != want:
+        raise RuntimeError(f"26B train: launches {train_counts} for {TRAIN_STEPS} steps, "
+                           f"expected {want}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"26B train: losses {losses}")
+    state = model.state_dict()
+    moved = [n for n, t in frozen.items() if not torch.equal(state[n].cpu(), t)]
+    if moved:
+        raise RuntimeError(f"26B train: frozen tensors changed: {moved[:5]}")
+    n_frozen = sum(t.numel() for t in frozen.values())
+    del frozen, state
+    phase("slice", f"InternVL2-26B stage-2 LoRA training, full depth, r={LORA_RANK} both towers, "
+          f"bf16 frozen ({n_frozen / 1e9:.2f} G values) with fp32 adapters and score head, "
+          f"checkpointing on, dropout {lora_cfg.lora_dropout}, drop path "
+          f"{lora_cfg.vision.drop_path_rate}, micro-batch {TRAIN_26B_VIDEOS} videos x {FRAMES} "
+          f"frames {IMAGE}px, seq {ids.shape[-1]}, {TRAIN_STEPS} steps at constant lr "
+          f"{TRAIN_LR}: launches per micro-batch "
+          f"{ {k: v // TRAIN_STEPS for k, v in train_counts.items() if v} }; {steady_ms:.1f} "
+          f"ms/step (the last), {total_ms / TRAIN_STEPS:.1f} ms/step over the call; peak "
+          f"{peak_train:.2f} GiB allocated (weights {weights_train:.2f} GiB), init "
+          f"{init_train_s:.1f} s; losses {np.round(losses, 5).tolist()}; frozen tensors "
+          f"bit-equal (host copy, {copy_s:.1f} s) [{smi}]")
+    out.update(train_counts=train_counts, step_ms=steady_ms, train_peak_gib=peak_train,
+               n_vit=n_vit, n_llm=n_llm)
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
@@ -1501,6 +2086,7 @@ def main() -> int:
     train_shapes = check_attention_training(fa, device)
     feeds = check_feeds(qf, device)
     separate = check_attention_separate(fa, device)
+    separate_train = check_attention_separate_training(fa, device, SEPARATE_TRAIN)
     matmuls = check_weight_only(wo, device)
     decode = check_decode_attention(dec, two_part_cached_attention, device)
 
@@ -1806,6 +2392,10 @@ def main() -> int:
     train_counts = run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward, smi)
     torch.cuda.empty_cache()
 
+    # 7b. stage-1 training at 2B
+    run_stage1_slice(device, px_u8, n_vit, n_llm, smi)
+    torch.cuda.empty_cache()
+
     # 8. generation: bf16, int8 weights, bf16 with the int8 KV cache
     gen_kw = dict(n_llm=n_llm, n_vit=n_vit)
     gen_bf16 = run_generation(cfg, device, ids[:, 0], px_u8, smi, label="bf16", **gen_kw)
@@ -1820,6 +2410,13 @@ def main() -> int:
 
     # 10. the score CLI on video files
     run_score_cli(device, smi, n_llm=n_llm)
+
+    # 11. InternVL2-26B: every earlier model is gone; the 26B model takes
+    # 47.5 GiB in bf16
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    big = run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -1960,6 +2557,42 @@ def main() -> int:
         "the wrapper called launch by launch with the host's cost; launches are those "
         f"of one {GEN_TOKENS}-token generate ({gen_int8['counts']['decode_attention']} with int8 "
         "weights, 0 under kv_int8)", shapes=decode))
+    # K2's training forms: one 26B training micro-batch, n_vit launches of each
+    # at the vit_6b_train shape (the logsumexp form twice: pass and recompute)
+    n_vit26 = big["n_vit"]
+    unit26 = SEPARATE_TRAIN["vit_6b_train"]
+    k2_unit = (f"one InternVL2-26B training micro-batch of {TRAIN_26B_VIDEOS} videos: "
+               f"{{}} launches at the vit_6b_train shape ({unit26[0]} frames)")
+    k2 = separate_train["vit_6b_train"]
+
+    def k2_entry(name, key, kind, counter, replaces, times, library_ms, library):
+        return dict(
+            name=name, route="cuda", source=f"aigv_assessor_torch/csrc/{key}",
+            replaces=f"aigv_assessor_tpu/ops/pallas_attention.py:{replaces}",
+            launches=big["train_counts"][counter],
+            max_abs_err=max((r["lse_max_abs_err"] if kind == "fwd_lse" else
+                             max(r["max_abs_err"][g] for g in kind_grads[kind]))
+                            for r in separate_train.values()),
+            ms=times * n_vit26 * k2[f"{kind_ms[kind]}_ms"],
+            plain_ms=times * n_vit26 * k2["plain_lse_ms" if kind == "fwd_lse" else "plain_bwd_ms"],
+            bound_ms=times * n_vit26 * k2["bounds"][kind]["bound_ms"],
+            bound_by=k2["bounds"][kind]["bound_by"], library_ms=times * n_vit26 * library_ms,
+            library=library, unit=k2_unit.format(times * n_vit26), shapes=separate_train)
+
+    kind_grads = {"dq": ("dq",), "dkv": ("dk", "dv")}
+    kind_ms = {"fwd_lse": "lse", "dq": "dq", "dkv": "dkv"}
+    k2_lib = ("F.scaled_dot_product_attention on head-major views of the same q, k, v, k and "
+              "v cut at kv_valid")
+    kernels += [
+        k2_entry("flash_attn_fwd_lse", "flash_attn_fwd.cu", "fwd_lse", "flash_attention_lse",
+                 352, 2, k2["library_ms"], k2_lib + " (forward; it keeps its own logsumexp)"),
+        k2_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "dq", "flash_attention_bwd_dq", 602,
+                 1, k2["library_fwd_bwd_ms"], k2_lib + ": forward and backward in one timed "
+                 "call, the same time beside both backward kernels; plain_ms is the whole "
+                 "plain backward"),
+        k2_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "dkv", "flash_attention_bwd_dkv",
+                 618, 1, k2["library_fwd_bwd_ms"], "as for flash_attn_bwd_dq"),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

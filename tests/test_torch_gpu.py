@@ -28,6 +28,13 @@ jax-free, so that it runs where jax is not installed:
   2e-2, in both layouts, on views of one projection output, with GQA, causal,
   `kv_valid` and Sq != Skv; and bit-equal to K1 on the same data, whose
   kernel body it shares.
+- K2's training forms: the forward with logsumexp (out bit-equal to the
+  forward without, lse within 1e-4) and the dq and dk/dv kernels on three
+  tensors (each within 2e-3 relative L2 of `plain_flash_attention_bwd`, dk /
+  dv of masked keys exactly 0), at the small shapes in both layouts and at
+  InternViT-6B's (32 frames, 25 heads, 1032 rows, kv_valid 1025, D = 128,
+  q / k contiguous and v a strided view of the projection);
+  `FlashAttention` end to end through `torch.autograd.grad`.
 - The weight-only matmuls (K6 int8, K7 int4): relative L2 at most 2e-3 from
   the plain version, which multiplies the same bf16 inputs in fp32 (what is
   left is the summation order and one bf16 rounding of the result), at ragged
@@ -61,6 +68,10 @@ from aigv_assessor_torch.ops.attention import (
 )
 from aigv_assessor_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_lse,
     flash_attention_qkv,
     flash_attention_qkv_bwd,
     flash_attention_qkv_bwd_dkv,
@@ -69,6 +80,7 @@ from aigv_assessor_torch.ops.flash_attention import (
     plain_attention_qkv,
     plain_attention_qkv_bwd,
     plain_flash_attention,
+    plain_flash_attention_bwd,
 )
 
 pytestmark = pytest.mark.gpu
@@ -477,8 +489,126 @@ def test_separate_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q, k, v, kv_valid=201)
     with pytest.raises(ValueError, match="layout"):
         flash_attention(q, k, v, layout="sbhd")
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention(q.clone().requires_grad_(), k, v)
+    # a tensor that needs a gradient goes through FlashAttention's kernels
+    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    qg = q.clone().requires_grad_()
+    out = flash_attention(qg, k, v, causal=True)
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    (grad,) = torch.autograd.grad(out, qg, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1, 1]
+    assert grad.shape == q.shape and torch.isfinite(grad).all()
+
+
+# (B, Sq, Skv, hq, hkv, D, causal, kv_valid) of InternViT-6B: 32 frames, 25
+# heads of 128, 1025 tokens padded to 1032
+VIT_6B = (32, 1032, 1032, 25, 25, 128, False, 1025)
+
+
+def make_vit_6b(device, seed=14):
+    """q and k as the norms give them (contiguous [B, N, H, D]) and v a
+    strided view of the [B, N, 3C] projection, with a garbage tail."""
+    b, n, _, h, _, d, _, kv_valid = VIT_6B
+    gen = torch.Generator(device=device).manual_seed(seed)
+    proj = torch.randn((b, n, 3 * h * d), generator=gen, device=device)
+    proj[:, kv_valid:, h * d :] = 1e3  # garbage k and v rows
+    proj = proj.to(torch.bfloat16)
+    q, k, v = proj.split(h * d, dim=-1)
+    return (q.reshape(b, n, h, d), k.reshape(b, n, h, d), v.view(b, n, h, d))
+
+
+def check_separate_training(q, k, v, kw, seed=15):
+    """The three training kernels on (q, k, v) against the plain versions."""
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(torch.bfloat16)
+    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1, 1]
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    _, want_lse = plain_flash_attention(q, k, v, return_lse=True, **kw)
+    assert lse.shape == want_lse.shape and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=0)
+    want = plain_flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for got, ref, t in zip((dq, dk, dv), want, (q, k, v)):
+        assert got.shape == t.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert torch.isfinite(got).all()
+        assert relative_l2(got, ref) <= BWD_TOL
+    kv_valid = kw.get("kv_valid")
+    if kv_valid is not None:  # nothing flows back into the masked keys
+        seq = 2 if kw["layout"] == "bhsd" else 1
+        assert not dk.narrow(seq, kv_valid, k.shape[seq] - kv_valid).any()
+        assert not dv.narrow(seq, kv_valid, k.shape[seq] - kv_valid).any()
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("name", list(SEPARATE))
+def test_separate_training_kernels_match_plain(cuda, name, layout):
+    case = SEPARATE[name]
+    q, k, v = make_separate(case, cuda, layout, seed=16)
+    check_separate_training(q, k, v, dict(causal=case[6], layout=layout, kv_valid=case[7]))
+
+
+def test_separate_training_kernels_at_the_vit_6b_shape(cuda):
+    q, k, v = make_vit_6b(cuda)
+    assert not v.is_contiguous()
+    check_separate_training(q, k, v, dict(layout="bshd", kv_valid=VIT_6B[7]))
+
+
+def test_separate_autograd_function_end_to_end(cuda):
+    """`multi_head_attention` on the QK-normalized ViT's tensors, all three
+    needing a gradient through one projection output: the gradient lands on
+    the projection, close to autograd through the plain forward."""
+    b, n, h, d, kv_valid = 2, 200, 5, 128, 193
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    proj = torch.randn((b, n, 3 * h * d), generator=gen, device=cuda)
+    proj = proj.to(torch.bfloat16).requires_grad_()
+    dout = torch.randn((b, n, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+
+    def split(t):
+        q, k, v = t.split(h * d, dim=-1)
+        return (x.reshape(b, n, h, d) for x in (q, k, v))
+
+    counters = (flash_attention_lse, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out = multi_head_attention(*split(proj), kv_valid=kv_valid)
+    (got,) = torch.autograd.grad(out, proj, dout)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [c + 1 for c in before]
+    ref = proj.detach().clone().requires_grad_()
+    ref_out = plain_flash_attention(*split(ref), kv_valid=kv_valid)
+    (want,) = torch.autograd.grad(ref_out, ref, dout)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL, rtol=TOL)
+    assert relative_l2(got, want) <= 1e-2  # autograd keeps p and ds in fp32
+
+
+def test_separate_training_wrappers_raise_rather_than_fall_back(cuda):
+    q, k, v = make_separate(SEPARATE["mha_tail_d64"], cuda, "bshd")
+    out, lse = flash_attention_lse(q, k, v, kv_valid=150)
+    dout = torch.ones_like(q)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attention_lse(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="layout"):
+        flash_attention_lse(q, k, v, layout="sbhd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd_dq(q, k, v, dout.float(), lse, delta, dq)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_dq(q, k, v, dout, lse[:, :2], delta, dq)
+    with pytest.raises(ValueError, match="dq"):
+        flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq[:, :100])
+    with pytest.raises(ValueError, match="strides"):  # D not contiguous
+        flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk.transpose(1, 3).contiguous()
+                                .transpose(1, 3), dv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd_dkv(q, k, v, dout, lse.transpose(1, 2).contiguous().transpose(1, 2),
+                                delta, dk, dv)
 
 
 # ------------------------------------------------ weight-only matmuls (K6, K7) --

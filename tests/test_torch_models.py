@@ -163,7 +163,8 @@ def test_unported_serving_options_raise(pair):
     tests/test_torch_weight_only.py); combining W8A8 with a weight-only mode
     is refused. The shared prefix is ported too (tests/test_torch_generation.py):
     two prompts through `score_chunks` share it by default and score as they
-    do in full. What is still refused: stage 1, Phi-3, tied embeddings."""
+    do in full. Stage 1 builds (tests/test_torch_stage1.py). What is still
+    refused: Phi-3, tied embeddings."""
     _, _, port, cfg = pair
     tcfg = TorchConfig.tiny(stage=2)
     for flag in ("int8", "int4"):
@@ -174,8 +175,10 @@ def test_unported_serving_options_raise(pair):
     shared = score_chunks(port, [[video]], ids[0], mask[0], batch_size=1)
     full = score_chunks(port, [[video]], ids[0], mask[0], batch_size=1, shared_prefix=False)
     np.testing.assert_allclose(np.asarray(shared), np.asarray(full), rtol=1e-4, atol=1e-2)
-    with pytest.raises(NotImplementedError, match="stage-1"):
-        TorchAssessor(TorchConfig.tiny(stage=1))
+    # stage 1 is ported (tests/test_torch_stage1.py): the model builds, without
+    # the score head, as in JAX
+    stage1 = TorchAssessor(TorchConfig.tiny(stage=1))
+    assert stage1.config.stage == 1 and not hasattr(stage1, "mlpscore")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TorchAssessor(tcfg.replace(llm=dataclasses.replace(tcfg.llm,
                                                            architecture="Phi3ForCausalLM")))

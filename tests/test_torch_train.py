@@ -487,8 +487,12 @@ def test_train_steps_end_to_end_then_merge_and_serve(tmp_path):
 
 
 def test_build_training_model_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="stage-1"):
-        build_training_model(TorchConfig.tiny(stage=1), device="cpu")
+    # stage 1 is ported (tests/test_torch_stage1.py): no score head, the
+    # frozen towers built in bf16, the trainable projectors in fp32
+    model = build_training_model(TorchConfig.tiny(stage=1), device="cpu")
+    assert model.config.stage == 1 and not hasattr(model, "mlpscore")
+    assert model.mlp1.fc1.weight.dtype == torch.float32
+    assert model.vision_model.layers[0].attn.qkv.weight.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="W8A8"):
         build_training_model(TorchConfig.tiny(stage=2, use_llm_lora=2), device="cpu",
                              precision=TorchPrecision(w8a8=True))
