@@ -9,12 +9,18 @@ tokenizer -> model, for the serving CLIs.
   parsed as JAX parses them ('0' none, '1' both towers, else a comma list of
   'vit' / 'llm'; unset means 'vit'). This is the only place in the port that
   reads them: the models read `Precision.fuse_quant` / `quant_rows`.
-- `build_serving_model`: the model on a device in the serving precision, from
-  fp32 weights (a checkpoint's, or drawn from a seed).
-- `build_serving_stack`: all of the above, `(config, model, tokenizer)`.
+- `build_serving_model`: the model on a device in a float or quantized
+  precision, from a state_dict or a seed, LoRA adapters merged.
+- `model_weights`: the weights of `--model_name_or_path`, or None (`--seed`).
+- `build_model_and_tokenizer`: all of the above from the CLI flags,
+  `(config, model, tokenizer)`: the eval CLIs' assembly (stage 1 or 2, on
+  `--device`, bf16 or fp32 with `--bf16 False`); `build_serving_stack`, the
+  score CLI's, fills the flags it does not take with the training CLIs'
+  defaults.
 
 The `--vision_path` / `--llm_path` / `--mlp_path` grafts and
-position-embedding resizing are not ported (ROADMAP.md, Queue 1).
+position-embedding resizing are not ported (ROADMAP.md, Queue 1 item 4):
+the grafts raise.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import dataclasses
 import logging
 import os
 from types import SimpleNamespace
-from typing import FrozenSet, Mapping, Optional, Tuple
+from typing import Dict, FrozenSet, Mapping, Optional, Tuple
 
 import torch
 
@@ -32,14 +38,17 @@ from aigv_assessor_torch.core.precision import COMPONENTS, Precision
 from aigv_assessor_torch.data.tokenizer import AIGVTokenizer, build_test_tokenizer
 from aigv_assessor_torch.models.assessor import AIGVAssessor
 from aigv_assessor_torch.models.loading import (
+    init_lora_,
     init_random_,
+    init_score_head_,
     load_reference_checkpoint,
     quantize_for_serving,
     serving_precision,
 )
+from aigv_assessor_torch.models.lora import is_lora_param, lora_free_state_dict, merge_lora_
 
-__all__ = ["LLM_2B", "build_serving_model", "build_serving_stack", "config_from_args",
-           "load_tokenizer", "quant_components"]
+__all__ = ["LLM_2B", "build_model_and_tokenizer", "build_serving_model", "build_serving_stack",
+           "config_from_args", "load_tokenizer", "model_weights", "quant_components"]
 
 logger = logging.getLogger(__name__)
 
@@ -101,6 +110,7 @@ def quant_components(name: str, environ: Optional[Mapping[str, str]] = None) -> 
     return frozenset(c for c in v.split(",") if c in COMPONENTS)
 
 
+@torch.no_grad()
 def build_serving_model(
     config: AssessorConfig,
     *,
@@ -113,36 +123,64 @@ def build_serving_model(
     w8a8: bool = False,
     kv_int8: bool = False,
 ) -> AIGVAssessor:
-    """The model on `device` in `precision.compute_dtype`, as the JAX CLI's
-    `build_serving_stack` makes it: fp32 weights, `weights` (an fp32
-    state_dict of `AIGVAssessor(config)`, e.g. `load_reference_checkpoint`'s)
-    or else drawn by `init_random_(seed)` on the device (in a float precision
-    straight into the compute dtype, the fp32 values rounded tensor by
-    tensor, so that InternVL2-26B's 25.5 G values fit the card in bf16),
-    quantized from those fp32 values for W8A8 (`w8a8=True` or
-    `precision.w8a8`: both towers' projections) or for weight-only serving (`int8=True` / `int4=True` or the
-    precision's `int8_weights` / `int4_weights`: the decoder's projections
-    and the LM head; int4 first when both are set), then everything else cast
-    to the compute dtype, the quantization scales kept fp32. One seed gives
-    the same base weights in every precision. A quantized precision holds
-    the fp32 weights while the model is built (~8.8 GB at 2B). `w8a8` with `int8` or `int4`
-    raises ValueError. `kv_int8` (or `precision.kv_int8`) changes no weight:
-    generation then keeps its KV cache in int8, under any of the modes above.
-    The precision's `fuse_quant` / `quant_rows` pick the W8A8 feeds."""
+    """The model on `device` in `precision.compute_dtype`, in eval mode, as
+    the JAX CLIs' `build_serving_stack` and `fused_main` make it.
+
+    `weights`, a float state_dict of `AIGVAssessor(config)` (e.g.
+    `load_reference_checkpoint`'s), fills what it holds; what it lacks may
+    only be the score head, then drawn by `init_score_head_(seed + 1)`, and
+    the LoRA adapters, then drawn by `init_lora_(seed + 2)` with `lora_b`
+    zero. Without `weights` all but the adapters come from
+    `init_random_(seed)`: one seed gives the same base weights in every
+    precision. In a float precision the model is built straight in the
+    compute dtype, each tensor drawn or loaded in fp32 and stored rounded, so
+    that InternVL2-26B's 25.5 G values fit the card in bf16; a quantized
+    precision holds the fp32 weights while the model is built (~8.8 GB at
+    2B).
+
+    Adapters (the config's `use_backbone_lora` / `use_llm_lora`, which a
+    stage-2 checkpoint carries) are merged into their base weights
+    (`merge_lora_`), and the model is the config's without adapters: serving
+    and eval train nothing, and the KV cache, the shared prefix and the
+    quantized layers run adapter-free.
+
+    Then the quantized modes, from the fp32 values: W8A8 (`w8a8=True` or
+    `precision.w8a8`: both towers' projections) or weight-only (`int8=True` /
+    `int4=True` or the precision's `int8_weights` / `int4_weights`: the
+    decoder's projections and the LM head; int4 first when both are set),
+    everything else cast to the compute dtype, the scales kept fp32. `w8a8`
+    with `int8` or `int4` raises ValueError. `kv_int8` (or
+    `precision.kv_int8`) changes no weight: generation then keeps its KV
+    cache in int8, under any of the modes above. The precision's
+    `fuse_quant` / `quant_rows` pick the W8A8 feeds."""
     target = serving_precision(precision, w8a8=w8a8, int8=int8, int4=int4, kv_int8=kv_int8)
     float_precision = dataclasses.replace(
         target, w8a8=False, int8_weights=False, int4_weights=False)
+    dtype = precision.compute_dtype if target == float_precision else torch.float32
     with torch.device("meta"):
         model = AIGVAssessor(config, float_precision)
-    if weights is None and target == float_precision:
-        # straight in the compute dtype: each tensor drawn in fp32 and stored
-        # rounded, bit-equal to the fp32 model cast
-        model = init_random_(model.to(precision.compute_dtype).to_empty(device=device), seed)
-    elif weights is None:
-        model = init_random_(model.to_empty(device=device), seed)  # fp32, for the quantizers
+    model = model.to(dtype).to_empty(device=device)
+    if weights is None:
+        init_random_(model, seed)
+        missing = [k for k in model.state_dict() if is_lora_param(k)]
     else:
-        model.load_state_dict({k: v.to(device, torch.float32) for k, v in weights.items()},
-                              strict=True, assign=True)
+        missing, unexpected = model.load_state_dict(weights, strict=False)
+        drawn = [k for k in missing if not (is_lora_param(k) or k.startswith("mlpscore."))]
+        if unexpected or drawn:
+            raise KeyError(f"weights do not match the model: missing {drawn}, "
+                           f"unexpected {unexpected}")
+        if any(k.startswith("mlpscore.") for k in missing):
+            init_score_head_(model, seed + 1)
+    if any(is_lora_param(k) for k in missing):
+        init_lora_(model, seed + 2)
+    if config.use_backbone_lora or config.use_llm_lora:
+        config = config.replace(use_backbone_lora=0, use_llm_lora=0)
+        state = lora_free_state_dict(merge_lora_(model))
+        del model
+        with torch.device("meta"):
+            model = AIGVAssessor(config, float_precision)
+        model.load_state_dict(state, strict=True, assign=True)
+        del state
     if target != float_precision:
         state = quantize_for_serving(model.state_dict(), config, int8=target.int8_weights,
                                      int4=target.int4_weights)
@@ -152,6 +190,54 @@ def build_serving_model(
         model.load_state_dict(state, strict=True, assign=True)
         del state
     return model.to(precision.compute_dtype).eval()
+
+
+def model_weights(args, config: AssessorConfig) -> Optional[Dict[str, torch.Tensor]]:
+    """fp32 weights of `AIGVAssessor(config)` from `--model_name_or_path`
+    (`load_reference_checkpoint`), or None when it names no checkpoint or
+    one without weights: the model is then drawn from `--seed`. The
+    `--vision_path` / `--llm_path` / `--mlp_path` grafts raise."""
+    for flag in ("vision_path", "llm_path", "mlp_path"):
+        if getattr(args, flag, None):
+            raise NotImplementedError(
+                f"--{flag}: grafting a separate checkpoint is not ported yet "
+                "(ROADMAP.md Queue 1 item 4)")
+    path = args.model_name_or_path
+    if not path:
+        logger.info("initializing weights from seed %d", args.seed)
+        return None
+    try:
+        weights = load_reference_checkpoint(path, config)
+    except FileNotFoundError:
+        logger.info("no weights under %s: initializing from seed %d", path, args.seed)
+        return None
+    logger.info("loaded weights from %s", path)
+    return weights
+
+
+def build_model_and_tokenizer(
+    args, stage: int, *, w8a8: bool = False, int8: bool = False, int4: bool = False,
+    kv_int8: bool = False,
+) -> Tuple[AssessorConfig, AIGVAssessor, AIGVTokenizer]:
+    """(config, model, tokenizer) from the CLI flags, as the JAX
+    `build_model_and_tokenizer` assembles them: the config from the flags and
+    the checkpoint, the img_context token id from the tokenizer, the weights
+    from `model_weights`, the model from `build_serving_model` on
+    `args.device` in bf16 (fp32 with `--bf16 False`), adapters merged, in
+    the quantized mode asked for; the W8A8 feeds picked by `AIGV_FUSE_QUANT`
+    / `AIGV_QUANT_ROWS`."""
+    config = config_from_args(args, stage)
+    tokenizer = load_tokenizer(args, config)
+    config = config.replace(img_context_token_id=int(tokenizer.img_context_token_id))
+    precision = dataclasses.replace(
+        Precision() if args.bf16 else Precision.fp32(),
+        fuse_quant=quant_components("AIGV_FUSE_QUANT"),
+        quant_rows=quant_components("AIGV_QUANT_ROWS"),
+    )
+    model = build_serving_model(config, device=args.device, precision=precision,
+                                seed=args.seed, weights=model_weights(args, config),
+                                w8a8=w8a8, int8=int8, int4=int4, kv_int8=kv_int8)
+    return config, model, tokenizer
 
 
 def build_serving_stack(
@@ -166,11 +252,10 @@ def build_serving_stack(
     stage: int = 2,
     device: torch.device | str = "cuda",
 ) -> Tuple[AssessorConfig, AIGVAssessor, AIGVTokenizer]:
-    """(config, model, tokenizer) for the serving CLIs: the training CLIs'
-    assembly with inference defaults, plus the quantized serving modes. The
-    weights are the checkpoint's (`load_reference_checkpoint`) when
-    `model_name_or_path` holds reference-format weights, else drawn from seed
-    0, as the JAX CLI initialises a checkpoint without `params.msgpack`."""
+    """(config, model, tokenizer) for the serving CLIs:
+    `build_model_and_tokenizer` with the training CLIs' defaults for the
+    other flags, no adapters, and seed 0, as the JAX CLI initialises a
+    checkpoint without weights."""
     args = SimpleNamespace(
         model_name_or_path=model_name_or_path,
         model_scale=model_scale,
@@ -188,25 +273,9 @@ def build_serving_stack(
         use_llm_lora=0,
         drop_path_rate=0.0,
         force_image_size=448,
+        seed=0,
+        bf16=bf16,
+        device=device,
     )
-    config = config_from_args(args, stage)
-    tokenizer = load_tokenizer(args, config)
-    config = config.replace(img_context_token_id=int(tokenizer.img_context_token_id))
-    weights = None
-    if model_name_or_path:
-        try:
-            weights = load_reference_checkpoint(model_name_or_path, config)
-            logger.info("loaded weights from %s", model_name_or_path)
-        except FileNotFoundError:
-            logger.info("no weights under %s: initializing from seed 0", model_name_or_path)
-    else:
-        logger.info("initializing weights from seed 0")
-    precision = dataclasses.replace(
-        Precision() if bf16 else Precision.fp32(),
-        fuse_quant=quant_components("AIGV_FUSE_QUANT"),
-        quant_rows=quant_components("AIGV_QUANT_ROWS"),
-    )
-    model = build_serving_model(config, device=device, precision=precision, seed=0,
-                                weights=weights, int8=int8, int4=int4, w8a8=w8a8,
-                                kv_int8=kv_int8)
-    return config, model, tokenizer
+    return build_model_and_tokenizer(args, stage, w8a8=w8a8, int8=int8, int4=int4,
+                                     kv_int8=kv_int8)

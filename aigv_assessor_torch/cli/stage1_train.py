@@ -16,9 +16,10 @@ The frozen ViT sits before `mlp1`, so autograd runs no backward through it:
 its attention runs the forward without logsumexp. The LLM's backward runs
 because its input embeddings depend on `mlp1` and `motion_mlp`.
 
-The host side of the JAX CLI (datasets, loader, evaluation to CSV, the best
-checkpoint by quality-level accuracy) is not ported yet (ROADMAP.md, Queue 1
-item 5): callers hand in token ids, labels and uint8 frames.
+The JAX CLI's `main` (a meta file's datasets through the loader, periodic
+evaluation to CSV, the best checkpoint by quality-level accuracy) is not
+ported yet (ROADMAP.md, Queue 1 item 5), though its pieces are (`data/`,
+`train/evaluate.py`): callers hand in token ids, labels and uint8 frames.
 """
 
 from __future__ import annotations

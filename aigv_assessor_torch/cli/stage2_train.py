@@ -12,10 +12,11 @@ L1(score, mos / 100), with a LoRA-only artifact written at the end.
   `run_steps`, which stage 1 shares), then the LoRA artifact
   `lora_weights.safetensors` in the output directory.
 
-The host side of the JAX CLI (dataset and sampler, tokenizer, video decode,
-the flags, evaluation to CSV) is not ported yet (ROADMAP.md, Queue 1):
-callers hand in token ids, uint8 frames and MOS values. Weights come from a
-seed until a checkpoint can be loaded.
+The pieces of the JAX CLI's host side are ported (the flags in
+`cli/args.py`, datasets, sampler and loader under `data/`, evaluation to CSV
+in `train/evaluate.py`), but its `main`, which trains from a meta file, is
+not yet (ROADMAP.md, Queue 1 item 5): callers hand in token ids, uint8
+frames and MOS values. Weights come from a seed.
 """
 
 from __future__ import annotations

@@ -38,3 +38,6 @@ NORMALIZE_STATS = {
 }
 
 IGNORE_TOKEN_ID = -100
+
+# quality word -> level of the stage-1 evaluation, checked in this order
+QUALITY_LEVELS = {"bad": 1, "poor": 2, "fair": 3, "good": 4, "excellent": 5}

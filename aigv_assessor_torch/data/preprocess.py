@@ -11,6 +11,10 @@
   sample's labels all -100 (and `mismatch` set) where the counts disagree.
 - `_preprocess_turns` with its two fronts `preprocess_mpt` (Hermes-2) and
   `preprocess_phi3`: the turn-splitting maskers of the other templates.
+- `preprocess_plain`: the generic masker of every other registered template
+  (in the registry, `internvl_zh`).
+- `get_preprocess_function`: template name -> masker, as the reference
+  selects it.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from aigv_assessor_torch.data.constants import (
     IMG_END_TOKEN,
     IMG_START_TOKEN,
 )
-from aigv_assessor_torch.data.conversation import get_conv_template
+from aigv_assessor_torch.data.conversation import _TEMPLATES, get_conv_template
 from aigv_assessor_torch.data.tokenizer import AIGVTokenizer
 
 
@@ -223,3 +227,74 @@ def preprocess_phi3(*args, **kw) -> List[PreprocessedSample]:
         turn_len_fn=lambda n, i: n if i == 0 else n - 1,
         instr_len_fn=lambda n, i: n - 1 if i == 0 else n - 2, mask_endoftext=True,
     )
+
+
+def preprocess_plain(
+    template_name: str,
+    sources: Sequence[Sequence[Dict[str, str]]],
+    tokenizer: AIGVTokenizer,
+    num_image_token_list: Sequence[int],
+    text_only: bool = False,
+    group_by_length: bool = False,
+    ds_name: str = None,
+) -> List[PreprocessedSample]:
+    """The generic (fastchat / vicuna-style) masker of every template other
+    than internlm2-chat, Hermes-2 and phi3-chat: turns split at `conv.sep2`,
+    the instruction prefix `sep + roles[1] + ': '`, and the reference's
+    llama-tokenizer offsets (-2, and -1 per later turn when the tokenizer is
+    not `legacy`)."""
+    conv = get_conv_template(template_name)
+    conversations = [render_conversation(template_name, s) for s in sources]
+    if not text_only:
+        conversations = [expand_image_tokens(c, num_image_token_list) for c in conversations]
+
+    max_len = tokenizer.model_max_length
+    sep = conv.sep + conv.roles[1] + ": "
+    legacy = bool(getattr(tokenizer, "legacy", True))
+    results = []
+    for conversation in conversations:
+        ids, real_len = _encode_padded(tokenizer, conversation, group_by_length, add_bos=True)
+        target = np.asarray(ids, np.int32).copy()
+
+        cur_len = 1
+        target[:cur_len] = IGNORE_TOKEN_ID
+        for i, turn in enumerate(conversation.split(conv.sep2)):
+            if turn == "":
+                break
+            turn_len = len(tokenizer.encode(turn, add_bos=True))
+            parts = turn.split(sep)
+            if len(parts) != 2:
+                break
+            parts[0] += sep
+            # the reference's hard-coded llama-tokenizer offset
+            instruction_len = len(tokenizer.encode(parts[0], add_bos=True)) - 2
+            if i != 0 and not legacy:
+                instruction_len -= 1
+            target[cur_len : cur_len + instruction_len] = IGNORE_TOKEN_ID
+            cur_len += turn_len
+            if i != 0 and not legacy:
+                cur_len -= 1
+        target[cur_len:] = IGNORE_TOKEN_ID
+
+        mismatch = cur_len < max_len and cur_len != real_len
+        if mismatch:
+            target[:] = IGNORE_TOKEN_ID
+        results.append(_sample(ids, target, real_len, mismatch))
+    return results
+
+
+PREPROCESSORS = {
+    "internlm2-chat": preprocess_internlm,
+    "Hermes-2": preprocess_mpt,
+    "phi3-chat": preprocess_phi3,
+}
+
+
+def get_preprocess_function(template_name: str):
+    """The three named maskers; every other registered template goes to
+    `preprocess_plain`; an unknown name raises NotImplementedError."""
+    if template_name in PREPROCESSORS:
+        return PREPROCESSORS[template_name]
+    if template_name in _TEMPLATES:
+        return preprocess_plain
+    raise NotImplementedError(f"no preprocessor for template {template_name!r}")

@@ -153,14 +153,15 @@ def make_linear(
 
 @torch.no_grad()
 def merge_lora_(model: nn.Module) -> nn.Module:
-    """Fold every adapter into its base in place, W += (alpha / r) * (A B)^T,
-    and zero `lora_b`, so the model computes the same function with inert
-    adapters. The merged `weight`s load into a model built without LoRA
-    (`lora_free_state_dict`), which the serving paths run."""
+    """Fold every adapter into its base in place, W += (alpha / r) * (A B)^T
+    summed in fp32 and rounded once to W's dtype, and zero `lora_b`, so the
+    model computes the same function with inert adapters. The merged
+    `weight`s load into a model built without LoRA (`lora_free_state_dict`),
+    which the serving paths run."""
     for m in model.modules():
         if isinstance(m, LoRALinear):
             delta = (m.lora_a.float() @ m.lora_b.float()) * m.lora.scaling  # [in, out]
-            m.weight += delta.t().to(m.weight.dtype)
+            m.weight.copy_(m.weight.float() + delta.t())
             m.lora_b.zero_()
     return model
 

@@ -12,8 +12,9 @@ Phases, each printing one line or more (and failing the run by raising):
    (`aigv_assessor_torch/csrc/flash_attn_fwd.cu`), its backward
    (`csrc/flash_attn_bwd.cu`), the fused quantize kernels
    (`csrc/quant_fuse.cu`), the weight-only matmuls
-   (`csrc/weight_only_matmul.cu`) and the decode attention
-   (`csrc/decode_attention.cu`).
+   (`csrc/weight_only_matmul.cu`), the decode attention
+   (`csrc/decode_attention.cu`) and the fp8 decode matmul
+   (`csrc/fp8_matmul.cu`).
 3. kernel: each kernel against its plain PyTorch version on the same inputs,
    both timed with CUDA events after warm-up, beside its bound (the larger of
    bytes / 3.35 TB/s and operations / 989 TFLOP/s, from this run's shapes)
@@ -77,6 +78,17 @@ Phases, each printing one line or more (and failing the run by raising):
      `two_part_cached_attention` with one token and SDPA with a one-token
      query; and with every window DECODE_SHORT rows long, which must not take
      longer than full windows.
+   - The fp8 (e4m3) decode matmul (K9) at the fp8 probe's three decode
+     matvecs of InternLM2-1.8B (wqkv 2048 -> 4096, w1 / w3 fused 2048 ->
+     16384, w2 8192 -> 2048) at M = 1, 4, 8 and at a ragged M = 3, K = 2050,
+     N = 4100: the quantized weight holds no NaN byte, and the kernel is
+     within FP8_TOL relative L2 of the plain version rounded to bf16. Timed by
+     CUDA graph replay over weight copies that exceed the L2 cache, beside its
+     byte bound, the plain version and `F.linear` on the bf16 weight.
+3b. fp8 probe: `tools/fp8_decode_probe.run`, K9's path, with every count set
+   to 0 just before it: the four candidates (F.linear on bf16, the upcast
+   fp8 weight, K9, K7's int4) on the same three shapes; K9 and K7 must
+   launch, K9's error against the float product at most FP8_PROBE_ERR.
 4. slice (bf16): stage-2 scoring of the InternVL2-2B model (full depth and
    width, random weights from a seed) through `cli/score.score_chunks`, two
    chunks of four synthetic 8-frame 448 px videos with the 2113-token
@@ -166,6 +178,19 @@ Phases, each printing one line or more (and failing the run by raising):
     Checks 9 CSV rows of 2 finite scores, the JSON summary line, and the
     RMSNorm- and SwiGLU-quantize launches of the run; prints videos per
     second with decode included and the decoder that ran.
+10b. eval: the same videos under a meta file with two perspectives:
+    `cli/stage1_eval.main` and `cli/stage2_eval.main`, solo and with
+    `--fused_meta_paths`, at `--model_scale 2b`, batch 4, the CLIs' seed and
+    the test tokenizer; the stage-2 runs in bf16, the fused one also under
+    `--eval_w8a8`, and both again in fp32 through the plain attention.
+    Checks the CSV headers and rows and the metrics lines; 48 fused-qkv
+    attention launches per forward and no other attention kernel (W8A8: and
+    the ViT's K4a-c feeds); the fused path (on the shared prefix) against
+    the solo stage-2 eval (every prompt in full): in fp32 within
+    EVAL_FP32_TOL, in bf16 the readouts within READOUT_TOL and no more than
+    REF_RATIO as far from the fp32 readouts as the solo path's, the scores
+    within EVAL_SCORE_TOL; W8A8's scores within W8A8_EVAL_DRIFT of bf16;
+    prints the fused eval's videos/s lines and each call's peak memory.
 
 11. InternVL2-26B (INTERNVL2_26B, the published config.json of
     OpenGVLab/InternVL2-26B through `AssessorConfig.from_dict`: InternViT-6B,
@@ -198,6 +223,7 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -354,6 +380,34 @@ DECODE_ROWS = (4, 1)
 LM_HEAD = (2048, 92553)
 ODD_K = (2047, 4096)  # int4 pads a nibble, x loses its 16-byte rows
 L2_BYTES = 50e6
+# fp8 decode matmul (K9) vs its plain version rounded to bf16, relative L2:
+# both sum exact products (e4m3 x bf16) in fp32, so what is left is the
+# summation order and one bf16 rounding
+FP8_TOL = 1e-3
+# the probe's decode matvecs of InternLM2-1.8B (K, N): wqkv, w1 / w3 fused, w2
+FP8_SHAPES = {"wqkv": (2048, 4096), "w13": (2048, 16384), "w2": (8192, 2048)}
+FP8_ROWS = (1, 4, 8)  # decode rows; 8 is the probe's
+# The probe's error of K9 against the float product (largest difference over
+# the largest value): e4m3 keeps 3 mantissa bits, and the plain version gives
+# 2.6e-2 to 2.7e-2 at these shapes
+FP8_PROBE_ERR = 5e-2
+FP8_RAGGED = (3, 2050, 4100)  # (M, K, N): K off the 16-byte spans, N off the 16 channels
+EVAL_PERSPECTIVES = ("How would you rate the static quality of this video?",
+                     "How would you rate the temporal smoothness of this video?")
+# The fused eval (shared prefix, uint8 frames normalized on the card) against
+# the solo stage-2 eval (every prompt in full, frames normalized on the host),
+# both in fp32 through the plain attention: the largest score difference over
+# the largest score and the readouts' relative L2. Only the summation order
+# differs, so a fault in the fused path's wiring (the prefix, the padding,
+# the ids layout) shows far above it (3.1e-6 and 4.4e-6 on an H100). In bf16
+# the same comparison is held to READOUT_TOL / REF_RATIO at the readout and
+# to EVAL_SCORE_TOL, the smoke's bf16 tolerance, at the score
+EVAL_FP32_TOL = 1e-3
+EVAL_SCORE_TOL = 3e-2
+# --eval_w8a8 against the bf16 fused eval, largest score difference over the
+# largest bf16 score: the relative part of tests/test_fused_eval.py's bound
+# (0.15 x the largest score + 0.05; the 0.05 would swamp scores of ~2e-3)
+W8A8_EVAL_DRIFT = 0.15
 
 
 def phase(name: str, msg: str) -> None:
@@ -866,6 +920,76 @@ def check_weight_only(wo, device) -> dict:
               f"bf16 ulp (tol {WO_ULP_SHARE})")
         shares.clear()
     return results
+
+
+def check_fp8(f8, device) -> dict:
+    """The fp8 decode matmul against its plain version at the probe's shapes
+    and decode rows and at a ragged shape; timed by CUDA graph replay over
+    weight copies that together exceed the L2 cache, beside its byte bound,
+    the plain version and `F.linear` on the bf16 weight dequantized
+    beforehand."""
+    results = {}
+    gen = torch.Generator(device=device).manual_seed(8)
+    nan_bytes = torch.tensor([0x7F, 0xFF], dtype=torch.uint8, device=device)
+    cases = [(name, m, k, n) for name, (k, n) in FP8_SHAPES.items() for m in FP8_ROWS]
+    cases.append(("ragged", *FP8_RAGGED))
+    for name, m, k, n in cases:
+        w = torch.randn((n, k), generator=gen, device=device) * 0.02
+        w8, scale = f8.quantize_weight_fp8(w)
+        if torch.isin(w8.view(torch.uint8), nan_bytes).any():
+            raise RuntimeError(f"fp8 {name}: the quantized weight holds a NaN byte")
+        deq = f8.dequantize_weight_fp8(w8, scale, torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        got = f8.fp8_matmul(x, w8, scale)
+        torch.cuda.synchronize()
+        want = f8.plain_fp8_matmul(x, w8, scale)
+        rel = relative_l2(got.float(), want.float())
+        if not (torch.isfinite(got).all() and rel <= FP8_TOL):
+            raise RuntimeError(f"fp8 {name} M={m}: relative L2 to the plain version {rel} "
+                               f"above {FP8_TOL}")
+        flops = 2.0 * m * n * k
+        nbytes = n * k + 2 * m * k + 2 * m * n + 4 * n
+        bound, bound_by = bound_ms(flops, nbytes)
+        copies = int(2 * L2_BYTES // (n * k)) + 1
+        ws = [(w8, scale, deq)] + [(w8.clone(), scale, deq.clone()) for _ in range(copies - 1)]
+        err = (got.float() - want.float()).abs().max().item()
+        r = dict(M=m, K=k, N=n, rel_l2=rel, max_abs_err=err, weight_copies=copies, bound_ms=bound, bound_by=bound_by,
+                 ms=graph_ms([lambda c=c: f8.fp8_matmul(x, c[0], c[1]) for c in ws], 20),
+                 plain_ms=graph_ms([lambda c=c: f8.plain_fp8_matmul(x, c[0], c[1])
+                                    for c in ws[:2]], 5),
+                 library_ms=graph_ms([lambda c=c: torch.nn.functional.linear(x, c[2])
+                                      for c in ws], 20))
+        results[f"{name}_m{m}" if name != "ragged" else name] = r
+        del ws
+        phase("kernel", f"fp8 matmul (K9) {name} M={m} K={k} N={n}: rel L2 to plain {rel:.3e} "
+              f"(tol {FP8_TOL}), no NaN byte; {r['ms'] * 1e3:.2f} us per launch (graph replay, "
+              f"{copies} weight copies), bound {bound * 1e3:.2f} us ({bound_by}, "
+              f"{bound / r['ms'] * 100:.0f}%), F.linear bf16 {r['library_ms'] * 1e3:.2f} us, "
+              f"plain {r['plain_ms'] * 1e3:.2f} us")
+    return results
+
+
+def run_fp8_probe(f8, wo, smi: str) -> dict:
+    """Phase 3b, the K9 path: `tools/fp8_decode_probe.run`, the port of the
+    probe, with the counts set to 0 just before it."""
+    from aigv_assessor_torch.tools import fp8_decode_probe as probe
+
+    f8.fp8_matmul.launches = wo.int4_matmul.launches = 0
+    report = probe.run(iters=10, verbose=False)
+    counts = {"fp8_matmul": f8.fp8_matmul.launches, "int4_matmul": wo.int4_matmul.launches}
+    if not all(counts.values()):
+        raise RuntimeError(f"fp8 probe: launches {counts}, every candidate kernel must run")
+    errs = {k: v for k, v in report.items() if k.endswith("_pallas_fp8_rel_err")}
+    if not all(v <= FP8_PROBE_ERR for v in errs.values()):
+        raise RuntimeError(f"fp8 probe: relative errors against the float product {errs}")
+    table = "; ".join(
+        f"{name} M=8: " + ", ".join(f"{c} {report[f'{name}_{c}_us']:.2f} us "
+                                    f"({report[f'{name}_{c}_gbps']:.0f} GB/s)"
+                                    for c in probe.WEIGHT_BYTES)
+        for name in probe.SHAPES)
+    phase("probe", f"tools/fp8_decode_probe.run: launches {counts}; {table}; fp8 rel err "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } [{smi}]")
+    return dict(counts=counts, report=report)
 
 
 def relative_l2(x: torch.Tensor, y: torch.Tensor) -> float:
@@ -1502,6 +1626,211 @@ def run_score_cli(device, smi, *, n_llm: int) -> None:
           f"{np.round(rows[0], 3).tolist()} [{smi}]")
 
 
+def write_eval_metas(folder: str) -> tuple:
+    """The CLI's videos (`write_cli_videos`) under one annotation per
+    EVAL_PERSPECTIVES entry, answers with quality words and mos from a seed,
+    and a meta JSON for each -> the metas' paths."""
+    write_cli_videos(folder)
+    videos = sorted(f for f in os.listdir(folder) if f.endswith((".mp4", ".gif")))
+    rng = np.random.default_rng(11)
+    words = ("excellent", "good", "fair", "poor", "bad")
+    metas = []
+    for p, question in enumerate(EVAL_PERSPECTIVES):
+        rows = [{"video": v, "mos": float(rng.uniform(10, 90)), "conversations": [
+            {"from": "human", "value": question},
+            {"from": "gpt", "value": f"The quality of the video is {words[(i + p) % 5]}."}]}
+            for i, v in enumerate(videos)]
+        ann = os.path.join(folder, f"eval_p{p + 1}.jsonl")
+        with open(ann, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        meta = os.path.join(folder, f"meta_p{p + 1}.json")
+        with open(meta, "w") as f:
+            json.dump({f"persp{p + 1}": {"root": folder, "annotation": ann, "repeat_time": 1,
+                                         "data_augment": False}}, f)
+        metas.append(meta)
+    return tuple(metas)
+
+
+def run_eval_clis(device, smi, *, n_vit: int, n_llm: int) -> None:
+    """Phase 10b: the stage-1 and stage-2 eval CLIs (`cli/stage1_eval.main`,
+    `cli/stage2_eval.main`) on a meta file at 2B, weights from the CLIs' seed,
+    the test tokenizer; the stage-2 runs with the score head's last layer made
+    non-negative and its bias 0, so that the scores are not all 0 and follow
+    the readout, which is recorded."""
+    from aigv_assessor_torch.cli import common, stage1_eval, stage2_eval
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import quant_fuse as qf
+
+    build = common.build_serving_model
+    readouts = []
+
+    def opened_head(*args, **kw):
+        model = build(*args, **kw)
+        if hasattr(model, "mlpscore"):
+            last = getattr(model.mlpscore, f"fc{model.mlpscore.num_layers}")
+            with torch.no_grad():
+                last.weight.abs_()
+                last.bias.zero_()
+            model.mlpscore.register_forward_hook(lambda _m, args, _out: readouts.append(
+                args[0].detach().float().reshape(-1, args[0].shape[-1])))
+        return model
+
+    counters = (fa.flash_attention_qkv, fa.flash_attention, fa.flash_attention_qkv_lse,
+                dec.decode_attention, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows,
+                qf.rmsnorm_quant, qf.silu_mul_quant)
+    # the W8A8 feeds at JAX's default (`AIGV_FUSE_QUANT` unset: the ViT's)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AIGV_")}
+    n_videos = CLI_VIDEOS + 1
+    batches = -(-n_videos // BATCH)
+    p_count = len(EVAL_PERSPECTIVES)
+    with tempfile.TemporaryDirectory() as d:
+        metas = write_eval_metas(d)
+        runs = {}
+
+        def run(label, fn, meta, *extra, launches=None, fp32=False):
+            argv = ["--meta_path", meta, "--model_scale", "2b", "--eval_batch_size", str(BATCH),
+                    "--num_segments", str(FRAMES), "--output_dir", os.path.join(d, label),
+                    "--device", str(device), *extra]
+            if fp32:
+                argv += ["--bf16", "False"]
+            for c in counters:
+                c.launches = 0
+            readouts.clear()
+            stdout = io.StringIO()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(mock.patch.object(common, "build_serving_model", opened_head))
+                stack.enter_context(mock.patch.object(os, "environ", env))
+                stack.enter_context(contextlib.redirect_stdout(stdout))
+                if fp32:  # the kernels take bf16: the fp32 runs take the plain attention
+                    stack.enter_context(mock.patch.object(fa, "flash_attention_qkv",
+                                                          fa.plain_attention_qkv))
+                fn(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = {c.__name__: c.launches for c in counters}
+            want = {c.__name__: 0 for c in counters}
+            if not fp32:
+                want["flash_attention_qkv"] = batches * (n_vit + n_llm)
+            want.update({k: batches * v for k, v in (launches or {}).items()})
+            if counts != want:
+                raise RuntimeError(f"eval {label}: launches {counts}, expected {want} "
+                                   f"({batches} forwards)")
+            runs[label] = dict(
+                printed=stdout.getvalue(), s=wall_s,
+                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                readout=torch.cat(readouts) if readouts else None)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        def table(label, name):
+            with open(os.path.join(d, label, name)) as f:
+                return list(csv.reader(f))
+
+        def metric_keys(label, name):
+            with open(os.path.join(d, label, name)) as f:
+                return [line.split(": ")[0] for line in f]
+
+        def fused_line(label):
+            line = [ln for ln in runs[label]["printed"].splitlines()
+                    if ln.startswith("fused eval:")]
+            if len(line) != 1:
+                raise RuntimeError(f"{label}: no 'fused eval:' line in "
+                                   f"{runs[label]['printed']!r}")
+            return line[0]
+
+        def fused_scores(label):
+            """-> the p1 scores by video, after checking both perspectives'
+            files."""
+            fused = [table(label, f"results_p{p}.csv") for p in range(1, p_count + 1)]
+            for p, t in enumerate(fused, 1):
+                scores = np.asarray([float(r[3]) for r in t[1:]])
+                if (t[0] != ["video_name", "answer", "mos", "pred_score"]
+                        or len(scores) != n_videos or not np.isfinite(scores).all()
+                        or metric_keys(label, f"metrics_p{p}.txt") != [
+                            "SRCC_score", "PLCC_score", "KRCC_score"]):
+                    raise RuntimeError(f"{label} perspective {p}: CSV header {t[0]}, scores "
+                                       f"{scores}")
+            return {r[0]: float(r[3]) for r in fused[0][1:]}
+
+        def solo_scores(label):
+            s2 = table(label, "results.csv")
+            if (s2[0] != ["video_name", "answer", "output", "mos", "level", "pred_score"]
+                    or len(s2) != n_videos + 1 or metric_keys(label, "metrics.txt") != [
+                        "Accuracy", "SRCC", "PLCC", "KRCC", "SRCC_score", "PLCC_score",
+                        "KRCC_score"]):
+                raise RuntimeError(f"{label}: CSV header {s2[0]}, {len(s2) - 1} rows")
+            return {r[0]: float(r[5]) for r in s2[1:]}
+
+        def score_diff(a, b):
+            """Largest difference over b's largest score."""
+            if set(a) != set(b) or max(abs(v) for v in b.values()) <= 0:
+                raise RuntimeError(f"eval: videos or scores {a} against {b}")
+            return max(abs(a[v] - b[v]) for v in b) / max(abs(v) for v in b.values())
+
+        def first_perspective(label):
+            readout = runs[label]["readout"]
+            return readout.reshape(-1, p_count, readout.shape[-1])[:, 0]
+
+        fused_args = ("--fused_meta_paths", *metas[1:])
+        run("s1", stage1_eval.main, metas[0])
+        s1 = table("s1", "results.csv")
+        if (s1[0] != ["video_name", "answer", "output", "mos", "level"] or len(s1) != n_videos + 1
+                or metric_keys("s1", "metrics.txt") != ["Accuracy", "SRCC", "PLCC", "KRCC"]):
+            raise RuntimeError(f"stage-1 eval: CSV header {s1[0]}, {len(s1) - 1} rows, metrics "
+                               f"{metric_keys('s1', 'metrics.txt')}")
+        run("fused", stage2_eval.main, metas[0], *fused_args)
+        run("s2", stage2_eval.main, metas[0])
+        run("fused_w8a8", stage2_eval.main, metas[0], *fused_args, "--eval_w8a8", "True",
+            launches=dict(layernorm_quant=2 * n_vit, gelu_quant=n_vit, quant_rows=n_vit))
+        run("fused_fp32", stage2_eval.main, metas[0], *fused_args, fp32=True)
+        run("s2_fp32", stage2_eval.main, metas[0], fp32=True)
+        fused, solo = fused_scores("fused"), solo_scores("s2")
+        fused32, solo32 = fused_scores("fused_fp32"), solo_scores("s2_fp32")
+        fused8 = fused_scores("fused_w8a8")
+
+        # fp32: the wiring check
+        diff32 = score_diff(fused32, solo32)
+        ref = runs["s2_fp32"]["readout"]
+        rel32 = relative_l2(first_perspective("fused_fp32"), ref)
+        if not (diff32 <= EVAL_FP32_TOL and rel32 <= EVAL_FP32_TOL):
+            raise RuntimeError(f"fp32 fused eval against the fp32 solo eval: scores {diff32}, "
+                               f"readouts {rel32} (tol {EVAL_FP32_TOL})")
+        # bf16: the same comparison, and each path against the fp32 readouts
+        diff = score_diff(fused, solo)
+        rel = relative_l2(first_perspective("fused"), runs["s2"]["readout"])
+        rel_fr = relative_l2(first_perspective("fused"), ref)
+        rel_sr = relative_l2(runs["s2"]["readout"], ref)
+        if not (diff <= EVAL_SCORE_TOL and rel <= READOUT_TOL and rel_fr <= REF_RATIO * rel_sr):
+            raise RuntimeError(
+                f"fused eval against the solo stage-2 eval: scores {diff} (tol {EVAL_SCORE_TOL}), "
+                f"readouts {rel} (tol {READOUT_TOL}); vs the fp32 readouts fused {rel_fr}, "
+                f"solo {rel_sr} (tol {REF_RATIO}x)")
+        drift = score_diff(fused8, fused)
+        rel8 = relative_l2(first_perspective("fused_w8a8"), first_perspective("fused"))
+        if not drift <= W8A8_EVAL_DRIFT:
+            raise RuntimeError(f"--eval_w8a8 against bf16: scores {drift} (tol {W8A8_EVAL_DRIFT})")
+    phase("eval", f"cli.stage1_eval.main and cli.stage2_eval.main (solo and --fused_meta_paths, "
+          f"{p_count} perspectives) on a meta file of {CLI_VIDEOS} mp4 + 1 GIF, "
+          f"--model_scale 2b, batch {BATCH}, {FRAMES} frames: CSV headers and {n_videos} rows "
+          f"each, metrics lines as JAX writes them; {n_vit + n_llm} fused-qkv attention launches "
+          f"per forward, {batches} forwards per run, W8A8 also {2 * n_vit} / {n_vit} / {n_vit} "
+          f"LayerNorm / GELU / identity quantize; fused (shared prefix) against solo, "
+          f"first perspective: fp32 scores {diff32:.3e} of the largest (tol {EVAL_FP32_TOL}), "
+          f"readouts {rel32:.3e}; bf16 scores {diff:.3e} (tol {EVAL_SCORE_TOL}), readouts "
+          f"{rel:.3e} (tol {READOUT_TOL}), vs the fp32 readouts fused {rel_fr:.3e}, solo "
+          f"{rel_sr:.3e} (tol {REF_RATIO}x); bf16 scores vs fp32 fused "
+          f"{score_diff(fused, fused32):.3e}, solo {score_diff(solo, solo32):.3e}; W8A8 vs bf16 "
+          f"fused: scores {drift:.3e} (tol {W8A8_EVAL_DRIFT}), readouts {rel8:.3e}; largest "
+          f"bf16 score {max(abs(v) for v in fused.values()):.3e}; bf16 {fused_line('fused')}; "
+          f"W8A8 {fused_line('fused_w8a8')}; whole calls with the model's build (s) and peak "
+          f"allocated (GiB): "
+          + ", ".join(f"{k} {v['s']:.1f} / {v['peak_gib']:.2f}" for k, v in runs.items())
+          + f" [{smi}]")
+
+
 # ------------------------------------------- K2's training forms (three tensors) --
 
 
@@ -1824,8 +2153,6 @@ def run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi) -> dict:
     """The InternVL2-26B phase: checks at full width and DEPTH_CUT layers per
     tower, then scoring a chunk and training TRAIN_STEPS LoRA steps at full
     depth. -> its numbers and launch counts."""
-    import gc
-
     from aigv_assessor_torch.cli.score import build_serving_model, score_batch, score_chunks
     from aigv_assessor_torch.cli.stage2_train import build_training_model, train_steps
     from aigv_assessor_torch.core.precision import Precision
@@ -2068,13 +2395,14 @@ def main() -> int:
     from aigv_assessor_torch.ops import cuda_build
     from aigv_assessor_torch.ops import decode_attention as dec
     from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import fp8_matmul as f8
     from aigv_assessor_torch.ops import int8_matmul as wo
     from aigv_assessor_torch.ops import quant_fuse as qf
     from aigv_assessor_torch.ops.attention import two_part_cached_attention
     from aigv_assessor_torch.ops.preprocess import resize_normalize
 
     # 2. build, always from the checkout's sources
-    libs = (fa.LIB, fa.LIB_BWD, qf.LIB, wo.LIB, dec.LIB)
+    libs = (fa.LIB, fa.LIB_BWD, qf.LIB, wo.LIB, dec.LIB, f8.LIB)
     for lib in libs:
         lib.path.unlink(missing_ok=True)
     build_s = cuda_build.build(libs, verbose=True)
@@ -2089,6 +2417,10 @@ def main() -> int:
     separate_train = check_attention_separate_training(fa, device, SEPARATE_TRAIN)
     matmuls = check_weight_only(wo, device)
     decode = check_decode_attention(dec, two_part_cached_attention, device)
+    fp8 = check_fp8(f8, device)
+
+    # 3b. the fp8 decode probe: K9's path (and K7's int4 candidate)
+    probe = run_fp8_probe(f8, wo, smi)
 
     # 4. the bf16 scoring slice at 2B
     cfg = AssessorConfig(llm=LLM_2B, stage=2).replace(img_context_token_id=CTX)
@@ -2411,9 +2743,11 @@ def main() -> int:
     # 10. the score CLI on video files
     run_score_cli(device, smi, n_llm=n_llm)
 
+    # 10b. the stage-1 and stage-2 eval CLIs on a meta file
+    run_eval_clis(device, smi, n_vit=n_vit, n_llm=n_llm)
+
     # 11. InternVL2-26B: every earlier model is gone; the 26B model takes
     # 47.5 GiB in bf16
-    import gc
     gc.collect()
     torch.cuda.empty_cache()
     big = run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi)
@@ -2593,6 +2927,31 @@ def main() -> int:
         k2_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "dkv", "flash_attention_bwd_dkv",
                  618, 1, k2["library_fwd_bwd_ms"], "as for flash_attn_bwd_dq"),
     ]
+    m8 = [fp8[f"{name}_m8"] for name in FP8_SHAPES]
+    kernels.append(dict(
+        name="fp8_matmul", route="cuda", source="aigv_assessor_torch/csrc/fp8_matmul.cu",
+        replaces="benchmarks/fp8_decode_probe.py:40",
+        launches=probe["counts"]["fp8_matmul"],
+        max_abs_err=max(r["max_abs_err"] for r in fp8.values()),
+        ms=sum(r["ms"] for r in m8), plain_ms=sum(r["plain_ms"] for r in m8),
+        bound_ms=sum(r["bound_ms"] for r in m8), bound_by=m8[0]["bound_by"],
+        library_ms=sum(r["library_ms"] for r in m8),
+        library="F.linear in bf16 on the weight dequantized beforehand: the same product with "
+        "twice the weight bytes (torch._scaled_mm takes x in fp8 too: another function)",
+        unit="the probe's three decode matvecs of InternLM2-1.8B at M = 8 (wqkv 2048 -> 4096, "
+        "w1 / w3 fused 2048 -> 16384, w2 8192 -> 2048), one launch each, weights from device "
+        "memory; launches are those of the probe's run (tools/fp8_decode_probe.run), its only "
+        "caller: no model serves fp8 weights", shapes=fp8))
+    ids_by_name = {
+        "flash_attn_qkv_fwd": "K1 bhsd", "flash_attn_qkv_fwd_bsd": "K1 bsd",
+        "flash_attn_qkv_fwd_lse": "K1 lse", "flash_attn_qkv_bwd_dq": "K3a",
+        "flash_attn_qkv_bwd_dkv": "K3b", "flash_attn_fwd": "K2 fwd",
+        "weight_only_int8_matmul": "K6", "weight_only_int4_matmul": "K7", "ln_quant": "K4a",
+        "gelu_quant": "K4b", "ident_quant": "K4c", "rmsnorm_quant": "K5a",
+        "silu_mul_quant": "K5b", "decode_attention": "K8", "flash_attn_fwd_lse": "K2 lse",
+        "flash_attn_bwd_dq": "K2 dq", "flash_attn_bwd_dkv": "K2 dk/dv", "fp8_matmul": "K9"}
+    for k in kernels:
+        k["id"] = ids_by_name[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

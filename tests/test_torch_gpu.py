@@ -47,6 +47,11 @@ jax-free, so that it runs where jax is not installed:
   window holding NaN (never loaded), the cache read through its strides as a
   layer of a stacked cache, every group size; merged with the current token
   against `two_part_cached_attention`.
+- The fp8 decode matmul (K9): relative L2 at most 1e-3 from the plain
+  version rounded to bf16 (both sum exact products in fp32; what is left is
+  the summation order), at the probe's shapes and decode rows, over two row
+  blocks, and at K and N off every span; the quantized weight holds no NaN
+  byte; an all-zero channel gives exactly 0.
 - The two cached paths of the decoder on the card at a small width: a
   prefill and decode steps in bf16, W8A8 (unfused, and with the fused
   decoder feeds, which launch K5a and K5b in every pass) and int8 against the
@@ -844,3 +849,56 @@ def test_shared_prefix_scores_on_the_card(cuda):
     assert torch.isfinite(rows[0]).all() and rows[0].abs().max() > 0
     assert relative_l2(rows[0], rows[1]) <= 3e-2  # two bf16 forwards of two layers
     torch.testing.assert_close(shared, full, atol=2e-2, rtol=5e-2)
+
+
+# ------------------------------------------------- fp8 decode matmul (K9) --
+
+FP8_TOL = 1e-3  # relative L2 to the plain version rounded to bf16
+# (M, K, N): the probe's shapes at its decode rows, M > 8 (two row blocks),
+# and a ragged case: K off the 16-byte spans and rows, N off the 16 channels
+FP8_SHAPES = [(8, 2048, 4096), (1, 2048, 16384), (4, 8192, 2048), (3, 2050, 4100),
+              (20, 2048, 1000), (8, 17, 40)]
+
+
+@pytest.mark.parametrize("shape", FP8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fp8_kernel_matches_plain(cuda, shape):
+    from aigv_assessor_torch.ops import fp8_matmul as f8
+
+    m, k, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=gen, device=cuda) * 0.02
+    w[n // 2] = 0.0  # an all-zero channel: output exactly 0
+    w8, scale = f8.quantize_weight_fp8(w)
+    assert not torch.isin(w8.view(torch.uint8), torch.tensor([0x7F, 0xFF], device=cuda)).any()
+    before = f8.fp8_matmul.launches
+    got = f8.fp8_matmul(x, w8, scale)
+    torch.cuda.synchronize()
+    assert f8.fp8_matmul.launches == before + 1
+    want = f8.plain_fp8_matmul(x, w8, scale)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert relative_l2(got, want) <= FP8_TOL
+    assert not got[:, n // 2].any()
+    lead = f8.fp8_dense_apply(x.view(1, m, k), w8, scale)
+    torch.testing.assert_close(lead.view(m, n), got, atol=0, rtol=0)
+
+
+def test_fp8_kernel_rejects_what_it_does_not_take(cuda):
+    from aigv_assessor_torch.ops import fp8_matmul as f8
+
+    x = torch.randn((4, 256), device=cuda).to(torch.bfloat16)
+    w8, scale = f8.quantize_weight_fp8(torch.randn((128, 256), device=cuda))
+    with pytest.raises(TypeError, match="bf16"):
+        f8.fp8_matmul(x.float(), w8, scale)
+    with pytest.raises(TypeError, match="bf16"):
+        f8.fp8_matmul(x, w8, scale, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="w8"):
+        f8.fp8_matmul(x, w8.view(torch.int8), scale)
+    with pytest.raises(ValueError, match="w8"):
+        f8.fp8_matmul(x[:, :200], w8, scale)
+    with pytest.raises(ValueError, match="scale"):
+        f8.fp8_matmul(x, w8, scale[:100])
+    with pytest.raises(ValueError, match="contiguous"):
+        f8.fp8_matmul(x, w8.t().contiguous().t(), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        f8.fp8_matmul(x, w8, scale.cpu())
