@@ -20,7 +20,13 @@ entry of `csrc/flash_attn_fwd.cu` over the same kernel body, and under
 second pair of entries of `csrc/flash_attn_bwd.cu`.
 
 Each source's header comment says what bounds its kernels on the card and how
-they are laid out.
+they are laid out. The forward (both entries, every form) is one Hopper
+kernel: a producer warp loads Q, K and V tiles by TMA into a ring in shared
+memory, and two (D = 128) or three (D = 64) consumer warpgroups of 64 query
+rows run both products on `wgmma` with the online softmax between them. The
+tensor maps are encoded per call from each tensor's pointer and strides;
+rows past Sq and kv_valid are zero-filled by TMA and never written, so
+nothing is padded or copied.
 
 - `flash_attention` is the three-tensor entry point: the forward without
   logsumexp, or, when q, k or v requires a gradient, `FlashAttention`.
@@ -201,8 +207,9 @@ def _check(qkv: torch.Tensor, hq: int, hkv: int, kv_valid: int, out_layout: str)
 
 
 def _check_rows(t: torch.Tensor, name: str) -> None:
-    # rows of D are read as 16-byte vectors: D contiguous, every other
-    # stride a multiple of 8 elements, and a 16-byte aligned base
+    # D contiguous, every other stride a multiple of 8 elements and a 16-byte
+    # aligned base: what a TMA tensor map describes (the forward) and what
+    # 16-byte vector loads of rows need (the backward)
     if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]):
         raise ValueError(
             f"{name} needs a contiguous head dim and strides that are multiples "

@@ -28,6 +28,12 @@ jax-free, so that it runs where jax is not installed:
   2e-2, in both layouts, on views of one projection output, with GQA, causal,
   `kv_valid` and Sq != Skv; and bit-equal to K1 on the same data, whose
   kernel body it shares.
+- The forward's tile borders (one row, 127 / 129 / 257 rows, kv_valid 1 and
+  inside a tile, causal at a ragged S, G = 6, 25 heads at D = 128, Sq > Skv
+  and Sq < Skv), through both entries, both layouts and all three forms:
+  against the plain versions at the same 2e-2 and 1e-4, with the bit-for-bit
+  equalities above; and views that a TMA tensor map cannot describe (a row
+  stride off 16 bytes, a base off 16 bytes) raise before any launch.
 - K2's training forms: the forward with logsumexp (out bit-equal to the
   forward without, lse within 1e-4) and the dq and dk/dv kernels on three
   tensors (each within 2e-3 relative L2 of `plain_flash_attention_bwd`, dk /
@@ -615,6 +621,126 @@ def test_separate_training_wrappers_raise_rather_than_fall_back(cuda):
         flash_attention_bwd_dkv(q, k, v, dout, lse.transpose(1, 2).contiguous().transpose(1, 2),
                                 delta, dk, dv)
 
+
+
+# --------------------------------------- the forward's tile borders (K1, K2) --
+
+# (B, Sq, Skv, hq, hkv, D, causal, kv_valid) at the borders of the forward's
+# tiles (128 q rows per block, 128 or 176 keys per K/V tile): one row, rows
+# one short of and one past a tile, kv_valid = 1 and inside a tile, causal at
+# a ragged S, G = 6 (internlm2-chat-20b's 48 / 8 heads), 25 heads at D = 128,
+# and non-causal Sq > Skv and Sq < Skv. Keys past kv_valid hold +-1e3.
+EDGES = {
+    "s1_causal_gqa": (3, 1, 1, 16, 8, 128, True, None),
+    "s127_kv_in_tile": (2, 127, 127, 16, 16, 64, False, 100),
+    "s129_causal": (2, 129, 129, 16, 8, 128, True, None),
+    "s257_causal_g6": (1, 257, 257, 48, 8, 128, True, None),
+    "kv_valid_1": (2, 257, 257, 16, 16, 64, False, 1),
+    "h25_d128": (2, 300, 300, 25, 25, 128, False, 257),
+    "sq_gt_skv": (2, 300, 129, 16, 8, 64, False, 100),
+    "sq_lt_skv_g6": (2, 127, 257, 48, 8, 128, False, None),
+}
+SELF_EDGES = [name for name, case in EDGES.items() if case[1] == case[2]]
+
+
+def make_edge(case, device, seed=30):
+    """q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D] with a garbage tail."""
+    b, sq, skv, hq, hkv, d, _, kv_valid = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=device)
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=device) for _ in range(2))
+    if kv_valid is not None:
+        k[:, kv_valid:], v[:, kv_valid:] = 1e3, -1e3
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("with_lse", [False, True], ids=["out", "lse"])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("name", list(EDGES))
+def test_separate_forward_at_tile_borders(cuda, name, layout, with_lse):
+    """K2 against its plain version at each border, in both layouts, with
+    and without the logsumexp; `out` is bit-equal with and without it."""
+    case = EDGES[name]
+    q, k, v = make_edge(case, cuda)
+    if layout == "bhsd":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=case[6], layout=layout, kv_valid=case[7])
+    fn = flash_attention_lse if with_lse else flash_attention
+    before = fn.launches
+    res = fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    out, lse = res if with_lse else (res, None)
+    want, want_lse = plain_flash_attention(q, k, v, return_lse=True, **kw)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    if with_lse:
+        assert torch.equal(out, flash_attention(q, k, v, **kw))
+        assert lse.shape == want_lse.shape and torch.isfinite(lse).all()
+        torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["bhsd", "bsd", "lse"])
+@pytest.mark.parametrize("name", SELF_EDGES)
+def test_fused_forward_at_tile_borders(cuda, name, form):
+    """K1 off one fused head-major array at each border with Sq == Skv, in
+    its three forms: against the plain version; `bsd` equal to `bhsd`
+    transposed and the lse form's `out` equal to the plain form's, bit for
+    bit; and K2 on the array's three head ranges equal to K1, bit for bit."""
+    b, s, _, hq, hkv, d, causal, kv_valid = EDGES[name]
+    q, k, v = make_edge(EDGES[name], cuda)
+    qkv = torch.cat([t.transpose(1, 2) for t in (q, k, v)], dim=1)  # [B, hq + 2 hkv, S, D]
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    bhsd = flash_attention_qkv(qkv, hq, hkv, **kw)
+    fn = flash_attention_qkv_lse if form == "lse" else flash_attention_qkv
+    before = fn.launches
+    if form == "lse":
+        out, lse = flash_attention_qkv_lse(qkv, hq, hkv, **kw)
+    else:
+        out = flash_attention_qkv(qkv, hq, hkv, out_layout=form, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want, want_lse = plain_attention_qkv(qkv, hq, hkv, return_lse=True, **kw)
+    if form == "bsd":
+        assert out.shape == (b, s, hq * d)
+        assert torch.equal(out, bhsd.transpose(1, 2).reshape(b, s, hq * d))
+    else:
+        assert torch.equal(out, bhsd)
+        torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    if form == "lse":
+        torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=0)
+    parts = (qkv[:, :hq], qkv[:, hq : hq + hkv], qkv[:, hq + hkv :])
+    assert torch.equal(flash_attention(*parts, layout="bhsd", **kw), bhsd)
+
+
+def test_forward_raises_on_views_tma_cannot_describe(cuda):
+    """The forward reads and writes through TMA tensor maps, which take
+    strides that are multiples of 16 bytes from a 16-byte aligned base.
+    Both entries refuse a view whose row stride is 4 bytes past that, or
+    whose base is 2 bytes off, before any launch."""
+    b, s, h, d = 2, 64, 4, 64
+    row = 3 * h * d + 2  # elements: not a multiple of 8
+    flat = torch.zeros(b * s * row + 16, dtype=torch.bfloat16, device=cuda)
+    qkv = flat[: b * s * row].view(b, s, row)[..., : 3 * h * d].unflatten(-1, (3 * h, d))
+    qkv = qkv.transpose(1, 2)  # [B, 3h, S, D], row stride 3hD + 2
+    q, k, v = (qkv[:, i * h : (i + 1) * h].transpose(1, 2) for i in range(3))
+    shifted = flat[1 : 1 + b * h * s * d].view(b, h, s, d)
+    good = torch.zeros((b, h, s, d), dtype=torch.bfloat16, device=cuda)
+    counters = (flash_attention, flash_attention_lse, flash_attention_qkv,
+                flash_attention_qkv_lse)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention_qkv(qkv, h, h)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention_qkv_lse(qkv, h, h)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(shifted, good, good, layout="bhsd")
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_lse(good, good, shifted, layout="bhsd")
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
 
 # ------------------------------------------------ weight-only matmuls (K6, K7) --
 

@@ -118,8 +118,9 @@ def test_port_imports_without_jax():
 
 def test_kernel_library_is_stale_when_its_source_or_a_header_is_newer(tmp_path, monkeypatch):
     """`CudaLibrary.up_to_date`: a built library is rebuilt after an edit of
-    its source or of any header in `csrc/` (the attention kernels share
-    `mma_fragments.cuh`)."""
+    its source or of any header in `csrc/` (the backward attention and the
+    weight-only kernels share `mma_fragments.cuh`, the forward attention
+    includes `hopper.cuh`)."""
     from aigv_assessor_torch.ops import cuda_build
 
     csrc, out = tmp_path / "csrc", tmp_path / "build"
@@ -143,9 +144,32 @@ def test_kernel_library_is_stale_when_its_source_or_a_header_is_newer(tmp_path, 
     assert lib.up_to_date()
     # the shipped sources include the header from their own directory
     shipped = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
-    for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "weight_only_matmul.cu"):
-        assert '#include "mma_fragments.cuh"' in (shipped / name).read_text()
-    assert (shipped / "mma_fragments.cuh").exists()
+    for name, header in (("flash_attn_fwd.cu", "hopper.cuh"),
+                         ("flash_attn_bwd.cu", "mma_fragments.cuh"),
+                         ("weight_only_matmul.cu", "mma_fragments.cuh")):
+        assert f'#include "{header}"' in (shipped / name).read_text()
+        assert (shipped / header).exists()
+
+
+def test_forward_attention_runs_on_wgmma_and_tma():
+    """The flash-attention forward's source (both entries, one kernel body)
+    issues its products as Hopper `wgmma` on TMA-loaded tiles and keeps no
+    `mma.sync` path: its header's wrappers are the only PTX it issues."""
+    from aigv_assessor_torch.ops import cuda_build
+
+    csrc = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
+    fwd, header = (csrc / "flash_attn_fwd.cu").read_text(), (csrc / "hopper.cuh").read_text()
+    # the instruction, not a word of a comment
+    assert "mma.sync.aligned" not in fwd + header
+    assert "mma_fragments" not in fwd and "mma_16816" not in fwd
+    for wrapper in ("wgmma_ss_n128", "wgmma_rs_n128_mn", "wgmma_rs_n64_mn", "tma_load_4d",
+                    "tma_store_4d", "setmaxnreg_inc", "mbar_wait"):
+        assert wrapper + "(" in fwd or wrapper + "<" in fwd, wrapper
+    for ptx in ("wgmma.mma_async.sync.aligned", "cp.async.bulk.tensor.4d", "setmaxnreg",
+                "mbarrier.try_wait.parity", "fence.proxy.async"):
+        assert ptx in header, ptx
+    for entry in ("int aigv_flash_attn_qkv_fwd(", "int aigv_flash_attn_fwd("):
+        assert entry in fwd
 
 
 # ------------------------------------------------------------------- norms --
