@@ -24,7 +24,14 @@ at call time.
 - `int8_matmul`, `int4_matmul`: the kernels' wrappers
   (`csrc/weight_only_matmul.cu`, built with nvcc at first use and loaded with
   ctypes). On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
-  tensor it runs its plain version. Each counts its launches in `.launches`.
+  tensor it runs its plain version. Each counts its launches in `.launches`,
+  and by form in `.form_launches`.
+- `weight_only_form`: which of the kernel's three forms a CUDA call takes,
+  from the shapes, strides and pointers: `gemm` (a warp-specialised wgmma
+  GEMM on TMA-fed tiles, the weight decoded in registers as the products'
+  register-sourced operand), `gemv` (the decode matvec shared with the fp8
+  matmul, for at most `GEMV_MAX_ROWS` rows) or `unaligned` (the original
+  mma.sync body, for pointers and strides that TMA cannot describe).
 - `plain_int8_matmul`, `plain_int4_matmul`: the plain PyTorch versions.
 - `int8_dense_apply`, `int4_dense_apply`: any leading dims.
 - `quantize_weight`, `quantize_kernel_int4`, `dequantize_kernel`,
@@ -49,16 +56,28 @@ Quantized = Tuple[torch.Tensor, torch.Tensor]  # (int8 weight, fp32 scale [N])
 quantize_weight = quantize_kernel
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    for fn in (lib.aigv_weight_only_int8_matmul, lib.aigv_weight_only_int4_matmul):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, weight, scale
-            ctypes.c_void_p, ctypes.c_void_p,  # bias or null, y
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, N, K
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # ldx, ldw, ldy
-            ctypes.c_void_p,  # stream
-        ]
-        fn.restype = ctypes.c_int
+FORMS = ("gemm", "gemv", "unaligned")
+# The decode threshold: a call of at most this many rows of x takes the GEMV
+# form. On an H100 the GEMV form beat the GEMM form at every M from 4 to 64
+# at wqkv and w2, int8 and int4 (tools/weight_only_ab.py, PERF.md): the GEMM
+# keeps few SMs busy with one 256-row tile.
+GEMV_MAX_ROWS = 64
+_ENTRIES = {"gemm": "aigv_weight_only_int{}_gemm", "gemv": "aigv_weight_only_int{}_gemv",
+            "unaligned": "aigv_weight_only_int{}_matmul"}
+
+
+def _declare(lib: ctypes.CDLL, forms=FORMS) -> None:
+    for form in forms:
+        for bits in (8, 4):
+            fn = getattr(lib, _ENTRIES[form].format(bits))
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, weight, scale
+                ctypes.c_void_p, ctypes.c_void_p,  # bias or null, y
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, N, K
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # ldx, ldw, ldy
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
 
 
 LIB = CudaLibrary("weight_only_matmul.cu", _declare)
@@ -157,10 +176,30 @@ def _check_operands(x, weight, scale, bias, *, weight_cols: int) -> None:
         raise ValueError(f"bias must be [{n}], got {tuple(bias.shape)}")
 
 
-def _launch(name: str, x, weight, scale, bias, out_dtype, weight_cols: int) -> torch.Tensor:
+def weight_only_form(m: int, k: int, n: int, bits: int, x: torch.Tensor,
+                     weight: torch.Tensor) -> str:
+    """The form of the kernel that a CUDA call on x [m, k] and the int8 or
+    int4 weight [n, ...] takes: `unaligned` where a base or a row stride is
+    off 16 bytes (a TMA tensor map cannot describe it, and the GEMV form's
+    16-byte loads would become gathers), else `gemv` for at most
+    GEMV_MAX_ROWS rows and `gemm` above. y is the wrapper's own contiguous
+    [m, n], which every form stores at any alignment, so n does not enter."""
+    row_bytes = k if bits == 8 else (k + 1) // 2
+    aligned = (x.data_ptr() % 16 == 0 and x.stride(1) == 1 and x.stride(0) % 8 == 0
+               and x.stride(0) >= k and weight.data_ptr() % 16 == 0
+               and weight.stride(0) % 16 == 0 and weight.stride(0) >= row_bytes)
+    if not aligned:
+        return "unaligned"
+    return "gemv" if m <= GEMV_MAX_ROWS else "gemm"
+
+
+def _prepare(bits: int, x, weight, scale, bias, out_dtype) -> torch.Tensor:
+    """Checks a CUDA call's operands -> x with unit column stride."""
+    name = f"int{bits}_matmul"
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    _check_operands(x, weight, scale, bias, weight_cols=weight_cols)
+    _check_operands(x, weight, scale, bias,
+                    weight_cols=x.shape[-1] if bits == 8 else (x.shape[-1] + 1) // 2)
     if x.dtype != torch.bfloat16 or out_dtype not in (None, torch.bfloat16):
         raise TypeError(f"{name} takes and gives bf16 on the card, got {x.dtype} -> {out_dtype}")
     if bias is not None and bias.dtype != torch.bfloat16:
@@ -168,19 +207,41 @@ def _launch(name: str, x, weight, scale, bias, out_dtype, weight_cols: int) -> t
     for t, label in ((weight, "weight"), (scale, "scale"), (bias, "bias")):
         if t is not None and (t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name}: {label} must be contiguous on {x.device}")
+    return x if x.stride(1) == 1 else x.contiguous()
+
+
+def _run(form: str, bits: int, x, weight, scale, bias) -> torch.Tensor:
     m, k = x.shape
-    if x.stride(1) != 1:
-        x = x.contiguous()
     y = torch.empty((m, weight.shape[0]), dtype=torch.bfloat16, device=x.device)
-    lib = LIB.load()
+    fn = getattr(LIB.load(), _ENTRIES[form].format(bits))
     with torch.cuda.device(x.device):
-        rc = getattr(lib, name)(
+        rc = fn(
             x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             m, weight.shape[0], k, x.stride(0), weight.stride(0), y.stride(0),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    LIB.check(rc, f"{name} kernel")
+    LIB.check(rc, f"int{bits}_matmul {form} kernel")
+    return y
+
+
+def _launch_form(form: str, bits: int, x, weight, scale, bias=None,
+                 out_dtype=None) -> torch.Tensor:
+    """One named form of the kernel on CUDA tensors, counted nowhere: for the
+    card's tests and `tools/weight_only_ab.py`. The gemm form raises on what
+    TMA cannot describe."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    x = _prepare(bits, x, weight, scale, bias, out_dtype)
+    return _run(form, bits, x, weight, scale, bias)
+
+
+def _launch(wrapper, bits: int, x, weight, scale, bias, out_dtype) -> torch.Tensor:
+    x = _prepare(bits, x, weight, scale, bias, out_dtype)
+    form = weight_only_form(x.shape[0], x.shape[1], weight.shape[0], bits, x, weight)
+    y = _run(form, bits, x, weight, scale, bias)
+    wrapper.launches += 1
+    wrapper.form_launches[form] += 1
     return y
 
 
@@ -191,13 +252,12 @@ def int8_matmul(
     bias: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """W8A16 matmul -> [M, N]. On the card: bf16 in and out, any M, N, K.
-    A CPU tensor goes to `plain_int8_matmul`."""
+    """W8A16 matmul -> [M, N]. On the card: bf16 in and out, any M, N, K,
+    in the form `weight_only_form` picks. A CPU tensor goes to
+    `plain_int8_matmul`."""
     if x.device.type == "cpu":
         return plain_int8_matmul(x, weight, scale, bias, out_dtype)
-    y = _launch("aigv_weight_only_int8_matmul", x, weight, scale, bias, out_dtype, x.shape[-1])
-    int8_matmul.launches += 1
-    return y
+    return _launch(int8_matmul, 8, x, weight, scale, bias, out_dtype)
 
 
 def int4_matmul(
@@ -207,18 +267,18 @@ def int4_matmul(
     bias: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """W4A16 matmul -> [M, N]. On the card: bf16 in and out, any M, N, K.
-    A CPU tensor goes to `plain_int4_matmul`."""
+    """W4A16 matmul -> [M, N]. On the card: bf16 in and out, any M, N, K,
+    in the form `weight_only_form` picks. A CPU tensor goes to
+    `plain_int4_matmul`."""
     if x.device.type == "cpu":
         return plain_int4_matmul(x, weight, scale, bias, out_dtype)
-    y = _launch("aigv_weight_only_int4_matmul", x, weight, scale, bias, out_dtype,
-                (x.shape[-1] + 1) // 2)
-    int4_matmul.launches += 1
-    return y
+    return _launch(int4_matmul, 4, x, weight, scale, bias, out_dtype)
 
 
 int8_matmul.launches = 0
 int4_matmul.launches = 0
+int8_matmul.form_launches = dict.fromkeys(FORMS, 0)
+int4_matmul.form_launches = dict.fromkeys(FORMS, 0)
 
 
 def int8_dense_apply(x, weight, scale, bias=None, out_dtype=None) -> torch.Tensor:

@@ -37,7 +37,9 @@ MODES = ("bf16", "w8a8", "w8a8_fused", "int8", "int4")
 KINDS = (  # (label, substrings of the kernel's name)
     ("decode_attention", ("decode_attention_partial", "decode_attention_combine")),
     ("attention_fwd", ("flash_fwd_kernel",)),
-    ("weight_only_matmul", ("weight_only_matmul_kernel",)),
+    # K6 / K7: the GEMM and unaligned forms, and the GEMV form's decode
+    # matvec instantiated for the int8 / int4 weights
+    ("weight_only_matmul", ("weight_only_", "int8weights", "int4weights")),
     ("quantize_feeds", ("quant_rows_kernel",)),
     ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "cublas")),
     ("cudnn", ("cudnn", "conv")),

@@ -63,17 +63,24 @@ Phases, each printing one line or more (and failing the run by raising):
      `plain_flash_attention_bwd`, dk / dv of masked keys exactly 0. Timed by
      CUDA graph replay beside the bound, the plain versions, SDPA's forward
      and SDPA's forward + backward.
-   - The weight-only int8 and int4 matmuls at the decoder's projection
-     shapes with M = 8452 rows (4 videos x 2113 tokens), at the decode sizes
-     M = 4 and M = 1 of the same shapes (timed over enough copies of the
-     weight that none is found in the L2 cache), at the LM head
-     (2048 -> 92553) with M = 4, and for int4 at an odd K: relative L2 at most
-     WO_TOL from the plain version, which multiplies the same bf16 inputs in
-     fp32; against that version rounded to bf16, all but WO_UNEQUAL_SHARE of
-     the elements equal and all but WO_ULP_SHARE within one bf16 ulp; and
-     exactly 0 for an all-zero weight column. Yardstick, which
-     nothing in the port calls: `F.linear` in bf16 on a weight dequantized
-     beforehand, the same product with two or four times the weight bytes.
+   - The weight-only int8 and int4 matmuls, each in the form its wrapper
+     picks (`ops/int8_matmul.weight_only_form`): at the decoder's projection
+     shapes with M = 8452 rows (4 videos x 2113 tokens; the GEMM form, and
+     the unaligned form on the same inputs), at the decode sizes M = 4 and
+     M = 1 of the same shapes (the GEMV form, cycling over enough copies of
+     the weight that none is found in the L2 cache), at the LM head
+     (2048 -> 92553) with M = 4, at the forms' and tiles' borders (WO_BORDERS:
+     M = 8 / 9 / 16 / 17 / 64 / 65 / 127 / 128 / 129 / 255 / 256 / 257, N =
+     127 / 128 / 129 / 255 / 256 / 257, K = 64 / 160 / 100; each through the
+     wrapper, which must take the expected form,
+     and through every form that takes it) and for int4 at an odd K (the
+     unaligned form): relative L2 at most WO_TOL from the plain version,
+     which multiplies the same bf16 inputs in fp32; against that version
+     rounded to bf16, all but WO_UNEQUAL_SHARE of the elements equal and all
+     but WO_ULP_SHARE within one bf16 ulp; and exactly 0 for an all-zero
+     weight column. Timed by CUDA graph replay. Yardstick, which nothing in
+     the port calls: `F.linear` in bf16 on a weight dequantized beforehand,
+     the same product with two or four times the weight bytes.
    - The decode-attention kernel at the decode step's shape (B = 4, 16 / 8
      heads, D = 128, a cache of 2177 rows; `end` = 2113 with full windows and
      2150 with ragged `starts`), with `end` = 0, with windows of one row and
@@ -125,13 +132,13 @@ Phases, each printing one line or more (and failing the run by raising):
    the fused-qkv kernel, the decoder's projections int8 or packed int4 on
    the weight-only matmuls, its attention on the three-tensor forward.
    Checks finite [4, 1] scores; per forward 24 fused-qkv launches, 24
-   three-tensor launches and 120 of the one matmul kernel, none of the
-   other, of the quantize feeds or of the training kernels; the readout of
-   the kernel path against (a) the same model with every kernel swapped for
-   its plain version and (b) the bf16 model whose decoder weights are the
-   dequantized int8 / int4 values, both within WEIGHT_ONLY_READOUT_TOL; and
-   prints the readout's cosine to the bf16 readout (int8: at least
-   INT8_COSINE).
+   three-tensor launches and 120 of the one matmul kernel, all in its GEMM
+   form, none of the other, of the quantize feeds or of the training
+   kernels; the readout of the kernel path against (a) the same model with
+   every kernel swapped for its plain version and (b) the bf16 model whose
+   decoder weights are the dequantized int8 / int4 values, both within
+   WEIGHT_ONLY_READOUT_TOL; and prints the readout's cosine to the bf16
+   readout (int8: at least INT8_COSINE).
 
 7. slice (train): stage-2 LoRA training of the same model
    (`cli/stage2_train.build_training_model`, rank 8 in both towers, bf16 with
@@ -164,7 +171,8 @@ Phases, each printing one line or more (and failing the run by raising):
    2113-token prompt with the motion embedding, GEN_TOKENS new tokens,
    greedy, in bf16, with int8 weights, and in bf16 with the int8 KV cache.
    Checks [4, GEN_TOKENS] token ids; decode-attention launches = 24 x decode
-   steps (0 under `kv_int8`), 121 int8 matmuls per prefill and per step, 24
+   steps (0 under `kv_int8`), 121 int8 matmuls per prefill (the GEMM form)
+   and per step (the GEMV form), 24
    fused-qkv launches (the ViT); then, under a fixed token sequence
    (teacher forcing), the decode logits of the kernel path against the same
    steps on the plain decode attention and against the cache-free forward
@@ -408,7 +416,17 @@ PROJECTIONS = {
 PREFILL_ROWS = 4 * 2113
 DECODE_ROWS = (4, 1)
 LM_HEAD = (2048, 92553)
-ODD_K = (2047, 4096)  # int4 pads a nibble, x loses its 16-byte rows
+ODD_K = (2047, 4096)  # int4 pads a nibble, x loses its 16-byte rows: the unaligned form
+# (M, K, N) across the weight-only forms' borders: M = 8 / 9 and 16 / 17 (the
+# GEMV form's 8-row blocks), M = 64 / 65 (GEMV_MAX_ROWS: the GEMV form to the
+# GEMM form), M = 127 / 128 / 129 with N = 255 / 256 / 257 (two of the GEMM's
+# 128-channel tiles), M = 255 / 256 / 257 (its 256-row tiles) with N = 127 /
+# 128 / 129, K = 64 (one K step), K = 160 (a ragged last step) and K = 100
+# (rows off 16 bytes: the unaligned form)
+WO_BORDERS = [(8, 2048, 2048), (9, 2048, 2048), (16, 2048, 2048), (17, 2048, 2048),
+              (64, 2048, 2048), (65, 2048, 2048), (127, 2048, 255), (128, 2048, 256),
+              (129, 2048, 257), (255, 2048, 127), (256, 2048, 128), (257, 2048, 129),
+              (300, 64, 1024), (300, 160, 1024), (300, 100, 1024)]
 L2_BYTES = 50e6
 # fp8 decode matmul (K9) vs its plain version rounded to bf16, relative L2:
 # both sum exact products (e4m3 x bf16) in fp32, so what is left is the
@@ -878,9 +896,12 @@ def check_attention_separate(fa, device) -> dict:
 
 def check_weight_only(wo, device) -> dict:
     """The int8 and int4 matmuls against their plain versions: at the
-    decoder's shapes with the prefill's rows (timed), at the decode sizes
-    (timed with every weight read from device memory), at the LM head and,
-    for int4, at an odd K."""
+    decoder's shapes with the prefill's rows (the GEMM form, and the
+    unaligned form on the same inputs), at the decode sizes (the GEMV form,
+    every weight read from device memory), at the LM head, at the borders of
+    the forms and their tiles (each through the wrapper, and through every
+    form that takes it) and at an odd K (the unaligned form). Times by CUDA
+    graph replay."""
     results = {}
     shares = []  # per comparison: (share of elements unequal, share beyond one bf16 ulp)
     gen = torch.Generator(device=device).manual_seed(4)
@@ -916,79 +937,127 @@ def check_weight_only(wo, device) -> dict:
         shares.append((unequal, beyond))
         return rel, (got.float() - want).abs().max().item()
 
+    def through(kernel, want_form, label):
+        """The wrapper, checked to take `want_form`."""
+        def run(x, q, scale):
+            before = dict(kernel.form_launches)
+            y = kernel(x, q, scale)
+            took = [f for f in wo.FORMS if kernel.form_launches[f] != before[f]]
+            if took != [want_form]:
+                raise RuntimeError(f"{label}: the wrapper took the {took} form, expected "
+                                   f"{want_form}")
+            return y
+        return run
+
+    def form_runs(bits, form_of):
+        """Every form that takes inputs of the form `form_of`: all three
+        unless those are unaligned, which the GEMM form refuses."""
+        forms = [f for f in wo.FORMS if f != "gemm" or form_of != "unaligned"]
+        return [(f, lambda x, q, s, f=f: wo._launch_form(f, bits, x, q, s)) for f in forms]
+
     def work(bits, m, k, n):
         return 2.0 * m * n * k, 2 * m * k + n * ((k + 1) // 2 if bits == 4 else k) + 4 * n + 2 * m * n
+
+    def cycled(fn, weights, iters=20):
+        """Device ms per call, cycling over weight copies beyond the L2."""
+        return graph_ms([lambda w=w: fn(w) for w in weights], iters)
 
     for bits, kernel, plain in ((8, wo.int8_matmul, wo.plain_int8_matmul),
                                 (4, wo.int4_matmul, wo.plain_int4_matmul)):
         table = {}
         for name, (k, n, _) in PROJECTIONS.items():
             x, q, scale, deq = operands(bits, PREFILL_ROWS, k, n)
-            rel, err = compare(f"int{bits} {name}", kernel, plain, x, q, scale)
+            rel, err = compare(f"int{bits} {name}", through(kernel, "gemm", f"int{bits} {name}"),
+                               plain, x, q, scale)
+            compare(f"int{bits} {name} unaligned form",
+                    lambda *a: wo._launch_form("unaligned", bits, *a), plain, x, q, scale)
             bound, bound_by = bound_ms(*work(bits, PREFILL_ROWS, k, n))
             entry = dict(
-                K=k, N=n, M=PREFILL_ROWS, rel_l2=rel, max_abs_err=err,
-                ms=time_ms(lambda: kernel(x, q, scale), 10),
+                K=k, N=n, M=PREFILL_ROWS, form="gemm", rel_l2=rel, max_abs_err=err,
+                ms=graph_ms([lambda: kernel(x, q, scale)] * 3, 10),
+                unaligned_ms=graph_ms(
+                    [lambda: wo._launch_form("unaligned", bits, x, q, scale)] * 3, 5),
                 plain_ms=time_ms(lambda: plain(x, q, scale), 3, warmup=1),
-                library_ms=time_ms(lambda: torch.nn.functional.linear(x, deq), 10),
+                library_ms=graph_ms([lambda: torch.nn.functional.linear(x, deq)] * 3, 10),
                 bound_ms=bound, bound_by=bound_by, decode={})
             # decode sizes: cycle over copies of the weight that together
             # exceed the L2 cache, as a decoder walking its layers finds them
             copies = int(L2_BYTES * 2 // q.numel()) + 1
-            qs, deqs = [q.clone() for _ in range(copies)], [deq.clone() for _ in range(copies)]
+            qs = [q] + [q.clone() for _ in range(copies - 1)]
+            deqs = [deq] + [deq.clone() for _ in range(copies // 2)]
             for m in DECODE_ROWS:
                 xm = x[:m].contiguous()
-                rel_m, err_m = compare(f"int{bits} {name} M={m}", kernel, plain, xm, q, scale)
-
-                def cycle(fn, ws):
-                    def run():
-                        for w in ws:
-                            fn(w)
-                    return time_ms(run, 5, warmup=1) / len(ws)
+                rel_m, err_m = compare(f"int{bits} {name} M={m}",
+                                       through(kernel, "gemv", f"int{bits} {name} M={m}"),
+                                       plain, xm, q, scale)
                 b_m, by_m = bound_ms(*work(bits, m, k, n))
                 entry["decode"][m] = dict(
-                    rel_l2=rel_m, max_abs_err=err_m, weight_copies=copies,
-                    ms=cycle(lambda w: kernel(xm, w, scale), qs),
-                    library_ms=cycle(lambda w: torch.nn.functional.linear(xm, w), deqs),
+                    form="gemv", rel_l2=rel_m, max_abs_err=err_m, weight_copies=copies,
+                    ms=cycled(lambda w: kernel(xm, w, scale), qs),
+                    library_ms=cycled(lambda w: torch.nn.functional.linear(xm, w), deqs),
                     bound_ms=b_m, bound_by=by_m)
             del qs, deqs
             table[name] = entry
             dec = ", ".join(
-                f"M={m}: rel L2 {r['rel_l2']:.3e}, kernel {r['ms'] * 1e3:.1f} us, F.linear "
-                f"{r['library_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+                f"M={m}: rel L2 {r['rel_l2']:.3e}, kernel {r['ms'] * 1e3:.2f} us "
+                f"({r['bound_ms'] / r['ms'] * 100:.0f}% of the bound), F.linear "
+                f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
                 f"({r['bound_by']})" for m, r in entry["decode"].items())
             phase("kernel", f"int{bits} matmul {name} K={k} N={n} M={PREFILL_ROWS}: rel L2 to "
                   f"plain {rel:.3e} (tol {WO_TOL}), max_abs_err {err:.3e}, zero column exactly "
-                  f"0; kernel {entry['ms']:.4f} ms ({2e-9 * PREFILL_ROWS * k * n / entry['ms']:.1f} "
-                  f"TFLOP/s), plain {entry['plain_ms']:.4f} ms, F.linear bf16 on the dequantized "
-                  f"weight {entry['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
-                  f"decode, weights from device memory ({copies} copies): {dec}")
+                  f"0; GEMM form {entry['ms']:.4f} ms "
+                  f"({2e-9 * PREFILL_ROWS * k * n / entry['ms']:.1f} TFLOP/s, "
+                  f"{bound / entry['ms'] * 100:.1f}% of the bound), unaligned form "
+                  f"{entry['unaligned_ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, F.linear "
+                  f"bf16 on the dequantized weight {entry['library_ms']:.4f} ms, bound "
+                  f"{bound:.4f} ms ({bound_by}); decode, GEMV form, weights from device "
+                  f"memory ({copies} copies): {dec}")
         # the LM head: N off every tile, rows of y off their 4-byte alignment
         k, n = LM_HEAD
         x, q, scale, deq = operands(bits, DECODE_ROWS[0], k, n)
-        rel, err = compare(f"int{bits} LM head", kernel, plain, x, q, scale)
+        rel, err = compare(f"int{bits} LM head", through(kernel, "gemv", f"int{bits} LM head"),
+                           plain, x, q, scale)
         b_h, by_h = bound_ms(*work(bits, DECODE_ROWS[0], k, n))
         table["lm_head"] = dict(
-            K=k, N=n, M=DECODE_ROWS[0], rel_l2=rel, max_abs_err=err,
-            ms=time_ms(lambda: kernel(x, q, scale), 10),
-            library_ms=time_ms(lambda: torch.nn.functional.linear(x, deq), 10),
+            K=k, N=n, M=DECODE_ROWS[0], form="gemv", rel_l2=rel, max_abs_err=err,
+            ms=graph_ms([lambda: kernel(x, q, scale)] * 3, 10),
+            library_ms=graph_ms([lambda: torch.nn.functional.linear(x, deq)] * 3, 10),
             bound_ms=b_h, bound_by=by_h)
         h = table["lm_head"]
         phase("kernel", f"int{bits} matmul LM head K={k} N={n} M={DECODE_ROWS[0]}: rel L2 {rel:.3e}, "
-              f"kernel {h['ms']:.4f} ms, F.linear {h['library_ms']:.4f} ms, bound {b_h:.4f} ms "
+              f"GEMV form {h['ms']:.4f} ms, F.linear {h['library_ms']:.4f} ms, bound {b_h:.4f} ms "
               f"({by_h})")
         del x, q, scale, deq
+        # the forms' borders: through the wrapper, then through every form
+        borders = {}
+        for m, k, n in WO_BORDERS:
+            x, q, scale, _ = operands(bits, m, k, n)
+            want_form = wo.weight_only_form(m, k, n, bits, x, q)
+            label = f"int{bits} M={m} K={k} N={n}"
+            rel, err = compare(label, through(kernel, want_form, label), plain, x, q, scale)
+            row = dict(form=want_form, rel_l2=rel, max_abs_err=err, forms={})
+            for form, fn in form_runs(bits, want_form):
+                row["forms"][form] = compare(f"{label} {form} form", fn, plain, x, q, scale)[0]
+            borders[f"{m}x{k}x{n}"] = row
+        table["borders"] = borders
+        phase("kernel", f"int{bits} matmul at the forms' borders (M, K, N: wrapper's form, rel "
+              f"L2 of every form that takes it): " + "; ".join(
+                  f"{key} {r['form']} " + ", ".join(f"{f} {v:.2e}" for f, v in r["forms"].items())
+                  for key, r in borders.items()))
         if bits == 4:
             k, n = ODD_K
             x, q, scale, _ = operands(bits, DECODE_ROWS[0], k, n)
-            rel, err = compare("int4 odd K", kernel, plain, x, q, scale)
-            table["odd_k"] = dict(K=k, N=n, M=DECODE_ROWS[0], rel_l2=rel, max_abs_err=err)
-            phase("kernel", f"int4 matmul odd K={k} N={n} M={DECODE_ROWS[0]}: rel L2 {rel:.3e}")
+            rel, err = compare("int4 odd K", through(kernel, "unaligned", "int4 odd K"), plain,
+                               x, q, scale)
+            table["odd_k"] = dict(K=k, N=n, M=DECODE_ROWS[0], form="unaligned", rel_l2=rel,
+                                  max_abs_err=err)
+            phase("kernel", f"int4 matmul odd K={k} N={n} M={DECODE_ROWS[0]}: unaligned form, "
+                  f"rel L2 {rel:.3e}")
         results[bits] = table
         phase("kernel", f"int{bits} matmul against the plain version rounded to bf16, worst of "
-              f"{len(shares)} shapes: {max(u for u, _ in shares):.3e} of the elements differ "
-              f"(tol {WO_UNEQUAL_SHARE}), {max(b for _, b in shares):.3e} by more than one "
-              f"bf16 ulp (tol {WO_ULP_SHARE})")
+              f"{len(shares)} comparisons: {max(u for u, _ in shares):.3e} of the elements "
+              f"differ (tol {WO_UNEQUAL_SHARE}), {max(b for _, b in shares):.3e} by more than "
+              f"one bf16 ulp (tol {WO_ULP_SHARE})")
         shares.clear()
     return results
 
@@ -1361,10 +1430,12 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
         # the main path, every count at 0 just before it
         for c in counters:
             c.launches = 0
+        wo.int8_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
         t0 = time.perf_counter()
         tokens = generate(model, None, ids, pv, gcfg=gcfg, with_motion=True)
         total_ms = (time.perf_counter() - t0) * 1e3
         counts = {c.__name__: c.launches for c in counters}
+        forms = dict(wo.int8_matmul.form_launches)
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     steps = GEN_TOKENS - 1
     per_pass = 5 * n_llm + 1  # the projections and the LM head
@@ -1373,6 +1444,14 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
             "flash_attention_qkv": n_vit, "flash_attention": 0}
     if counts != want:
         raise RuntimeError(f"generation {label}: launches {counts}, expected {want}")
+    # int8: the prefill's 4 x 2113 rows take the GEMM form, every decode
+    # step's 4 rows the GEMV form
+    want_forms = dict.fromkeys(wo.FORMS, 0)
+    if int8:
+        want_forms.update(gemm=per_pass, gemv=per_pass * steps)
+    if forms != want_forms:
+        raise RuntimeError(f"generation {label}: int8 matmul forms {forms}, expected "
+                           f"{want_forms}")
     if tokens.shape != (batch, GEN_TOKENS) or tokens.min() < 0 or tokens.max() >= cfg.llm.vocab_size:
         raise RuntimeError(f"generation {label}: token ids {tokens.shape} out of range")
 
@@ -1485,8 +1564,9 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
     cache_bytes = kv_bytes * 2 if not kv_int8 else kv_bytes + kv_bytes // cfg.llm.head_dim * 4
     phase("slice", f"generation {label} InternVL2-2B, {batch} x {seq}-token prompt with motion, "
           f"{GEN_TOKENS} new tokens greedy: launches {counts} ({n_llm} decode attention per "
-          f"step); generate {total_ms:.1f} ms; prefill {prefill_ms:.1f} ms, decode step "
-          f"{step_ms:.3f} ms, {batch * 1e3 / step_ms:.1f} tokens/s; cache {cache_bytes} bytes "
+          f"step), int8 matmul forms {forms}; generate {total_ms:.1f} ms; prefill "
+          f"{prefill_ms:.1f} ms, decode step {step_ms:.3f} ms, {batch * 1e3 / step_ms:.1f} "
+          f"tokens/s; cache {cache_bytes} bytes "
           f"for {max_len} rows; peak {peak_gib:.2f} GiB allocated; forced logits rel L2 kernel "
           f"vs plain decode attention {rel_plain:.3e}, vs cache-free forward {rel_free:.3e} "
           f"(tol {DECODE_LOGITS_TOL}, cache-free {free_tol}){ref_text}; argmax agrees on {int(agree.sum())} of "
@@ -1495,8 +1575,8 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
           f"{tokens[0, :8].tolist()} [{smi}]")
     del model
     torch.cuda.empty_cache()
-    return dict(counts=counts, prefill_ms=prefill_ms, step_ms=step_ms, total_ms=total_ms,
-                peak_gib=peak_gib, cache_bytes=cache_bytes, logits=k_logits)
+    return dict(counts=counts, forms=forms, prefill_ms=prefill_ms, step_ms=step_ms,
+                total_ms=total_ms, peak_gib=peak_gib, cache_bytes=cache_bytes, logits=k_logits)
 
 
 def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int) -> dict:
@@ -2547,6 +2627,8 @@ def main() -> int:
                     fa.flash_attention_qkv_bwd_dkv, dec.decode_attention)
         for c in counters:
             c.launches = 0
+        wo.int8_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
+        wo.int4_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
         t0 = time.perf_counter()
         rows = score_chunks(model, chunks, ids_pn, mask_pn, batch_size=BATCH)
         torch.cuda.synchronize()
@@ -2747,6 +2829,12 @@ def main() -> int:
         if counts_q != want:
             raise RuntimeError(f"{label}: launches {counts_q} for {CHUNKS} forwards, "
                                f"expected {want}")
+        # every projection's 4 x 2113 rows take the GEMM form
+        forms = dict(getattr(wo, matmul).form_launches)
+        want_forms = dict(dict.fromkeys(wo.FORMS, 0), gemm=5 * n_llm * CHUNKS)
+        if forms != want_forms:
+            raise RuntimeError(f"{label}: matmul forms {forms} for {CHUNKS} forwards, expected "
+                               f"{want_forms}")
         swaps = ((fa, "flash_attention_qkv", fa.plain_attention_qkv),
                  (fa, "flash_attention", fa.plain_flash_attention),
                  (wo, "int8_matmul", wo.plain_int8_matmul),
@@ -2793,18 +2881,18 @@ def main() -> int:
             raise RuntimeError(f"int8 readout cosine to bf16 {cosine} below {INT8_COSINE}")
         per_fwd = {k: v // CHUNKS for k, v in counts_q.items() if v}
         phase("slice", f"{label} weight-only InternVL2-2B stage-2 scoring, same seed and "
-              f"videos: launches per forward {per_fwd}, {ms_q:.1f} ms/chunk (bf16 "
+              f"videos: launches per forward {per_fwd} (forms {forms}), {ms_q:.1f} ms/chunk (bf16 "
               f"{ms_bf16:.1f}), peak {peak_q:.2f} GiB allocated (bf16 {peak_bf16:.2f}), weights "
               f"{weights_q:.2f} GiB (bf16 {weights_bf16:.2f}), init {init_s:.1f} s; readout rel "
               f"L2 kernel vs plain versions {rel_plain:.3e}, vs the bf16 model of the "
               f"dequantized weights {rel_deq:.3e} (tol {WEIGHT_ONLY_READOUT_TOL}), cosine to "
               f"bf16 {cosine:.5f}{f' (tol {INT8_COSINE})' if bits == 8 else ''}; scores "
               f"{np.round(arr_q[:, 0], 4).tolist()} [{smi}]")
-        return counts_q
+        return counts_q, forms
 
-    counts_int8 = run_weight_only_slice(8)
+    counts_int8, forms_int8 = run_weight_only_slice(8)
     torch.cuda.empty_cache()
-    counts_int4 = run_weight_only_slice(4)
+    counts_int4, forms_int4 = run_weight_only_slice(4)
     torch.cuda.empty_cache()
 
     # 7. the stage-2 training slice
@@ -2919,25 +3007,47 @@ def main() -> int:
         library="F.scaled_dot_product_attention on head-major views of the same q, k, v",
         unit="one weight-only scoring forward: 24 launches at the llm shape, bshd views of one "
         "row-major projection", shapes=separate))
-    for bits, replaces, counts_q in ((8, 31, counts_int8), (4, 113, counts_int4)):
+    for bits, replaces, counts_q, forms_q in ((8, 31, counts_int8, forms_int8),
+                                              (4, 113, counts_int4, forms_int4)):
         table = matmuls[bits]
 
-        def per_forward_sum(key):
-            return n_llm * sum(per_layer * table[name][key]
+        def per_forward_sum(key, m=None):
+            return n_llm * sum(per_layer * (table[name][key] if m is None else
+                                            table[name]["decode"][m][key])
                                for name, (_, _, per_layer) in PROJECTIONS.items())
+        checked = [r for r in table.values() if "max_abs_err" in r]
+        checked += list(table["borders"].values())
+        m_dec = DECODE_ROWS[0]
         kernels.append(dict(
             name=f"weight_only_int{bits}_matmul", route="cuda",
             source="aigv_assessor_torch/csrc/weight_only_matmul.cu",
             replaces=f"aigv_assessor_tpu/ops/int8_matmul.py:{replaces}",
             launches=counts_q[f"int{bits}_matmul"],
-            max_abs_err=max(r["max_abs_err"] for r in table.values()),
+            max_abs_err=max(r["max_abs_err"] for r in checked),
             ms=per_forward_sum("ms"), plain_ms=per_forward_sum("plain_ms"),
             bound_ms=per_forward_sum("bound_ms"), bound_by=table["w2"]["bound_by"],
             library_ms=per_forward_sum("library_ms"),
             library="F.linear in bf16 on a weight dequantized beforehand: the same product "
             f"with {16 // bits} times the weight bytes",
             unit=f"one int{bits} scoring forward: 24 layers x (wqkv, wo, w1, w3, w2) at M = "
-            f"{PREFILL_ROWS}", shapes=table))
+            f"{PREFILL_ROWS}, the GEMM form; launches_by_form are those of the scoring run",
+            launches_by_form=forms_q,
+            forms={
+                "gemm": dict(ms=per_forward_sum("ms"), unit="one scoring forward"),
+                "unaligned": dict(ms=per_forward_sum("unaligned_ms"),
+                                  unit="one scoring forward, the same inputs through the "
+                                  "unaligned form (the mma.sync body)"),
+                "gemv": dict(
+                    ms=per_forward_sum("ms", m_dec) + table["lm_head"]["ms"],
+                    library_ms=(per_forward_sum("library_ms", m_dec)
+                                + table["lm_head"]["library_ms"]),
+                    bound_ms=per_forward_sum("bound_ms", m_dec) + table["lm_head"]["bound_ms"],
+                    bound_by=table["lm_head"]["bound_by"],
+                    launches=gen_int8["forms"]["gemv"] if bits == 8 else None,
+                    unit=f"one decode step at M = {m_dec}: 24 layers x (wqkv, wo, w1, w3, w2) "
+                    "and the LM head, weights from device memory; launches are those of the int8 "
+                    f"{GEN_TOKENS}-token generate"),
+            }, shapes=table))
     for name, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
                           ("ident_quant", "quant_rows"), ("rmsnorm_quant", "rmsnorm_quant"),
                           ("silu_mul_quant", "silu_mul_quant")):

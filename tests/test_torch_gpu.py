@@ -44,8 +44,11 @@ jax-free, so that it runs where jax is not installed:
 - The weight-only matmuls (K6 int8, K7 int4): relative L2 at most 2e-3 from
   the plain version, which multiplies the same bf16 inputs in fp32 (what is
   left is the summation order and one bf16 rounding of the result), at ragged
-  M, N and K, with and without a bias; an all-zero weight column with scale 1
-  gives exactly 0.
+  M, N and K and across the borders of the GEMM, GEMV and unaligned forms,
+  with and without a bias; an all-zero weight column with scale 1 gives
+  exactly 0. Each form reached by name (`_launch_form`) at a shape all three
+  take; the wrappers' per-form launch counts; the GEMM form refusing rows
+  that TMA cannot describe.
 - The decode-attention kernel (K8): `out` within bf16 rounding of the plain
   version (atol = rtol = 2e-2; the kernel keeps p in fp32 where the plain
   version rounds it to bf16, below the rounding of `out`), `m` and `l` within
@@ -747,8 +750,18 @@ def test_forward_raises_on_views_tma_cannot_describe(cuda):
 WO_TOL = 2e-3
 # (M, K, N): a decoder projection at a ragged M, single rows, N off the 128
 # tiles and odd (rows of y lose their 4-byte alignment), K off the 32 steps,
-# K odd (x loses its 16-byte rows; int4 pads a nibble)
-WO_SHAPES = [(300, 2048, 512), (1, 2048, 256), (4, 1024, 1001), (70, 200, 130), (33, 2047, 96)]
+# K odd (x loses its 16-byte rows; int4 pads a nibble); then the borders of
+# the three forms (`weight_only_form`): M = 8 / 9 and 16 / 17 (the GEMV form's
+# 8-row blocks), M = 64 / 65 (GEMV_MAX_ROWS: the GEMV form to the GEMM
+# form), M = 127 / 128 / 129 with N = 255 / 256 / 257 (two of the GEMM's
+# 128-channel tiles), M = 255 / 256 / 257 (its 256-row tiles) with N = 127 /
+# 128 / 129, K = 64 (one step), K = 160 (a ragged last step), K = 100 (rows
+# off 16 bytes: unaligned), and the LM head's N = 92553
+WO_SHAPES = [(300, 2048, 512), (1, 2048, 256), (4, 1024, 1001), (70, 200, 130), (33, 2047, 96),
+             (8, 2048, 1024), (9, 2048, 1024), (16, 2048, 1024), (17, 2048, 1024),
+             (64, 2048, 1024), (65, 2048, 1024), (127, 2048, 255), (128, 2048, 256),
+             (129, 2048, 257), (255, 1024, 127), (256, 1024, 128), (257, 1024, 129),
+             (300, 64, 512), (300, 160, 512), (300, 100, 512), (4, 2048, 92553)]
 
 
 def make_weight_only(bits, m, k, n, device, bias, seed=13):
@@ -778,6 +791,48 @@ def test_weight_only_kernel_matches_plain(cuda, bits, shape, bias):
     assert relative_l2(got, want) <= WO_TOL
     if not bias:
         assert scale[n // 2] == 1.0 and not got[:, n // 2].any()
+
+
+@pytest.mark.parametrize("form", ["gemm", "gemv", "unaligned"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_weight_only_each_form_matches_plain(cuda, bits, form):
+    """Every form, reached by name, at a shape all three take (aligned rows,
+    M above the GEMV threshold, ragged M and N, a bias), counted nowhere."""
+    m, k, n = 300, 2048, 384
+    plain = wo.plain_int8_matmul if bits == 8 else wo.plain_int4_matmul
+    kernel = wo.int8_matmul if bits == 8 else wo.int4_matmul
+    x, q, scale, b = make_weight_only(bits, m, k, n, cuda, True)
+    assert wo.weight_only_form(m, k, n, bits, x, q) == "gemm"
+    before = kernel.launches, dict(kernel.form_launches)
+    got = wo._launch_form(form, bits, x, q, scale, b)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.form_launches) == before
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert relative_l2(got, plain(x, q, scale, b, out_dtype=torch.float32)) <= WO_TOL
+
+
+def test_weight_only_wrappers_count_launches_by_form(cuda):
+    """Each launch counts once in `.launches` and once under the form the
+    wrapper took: GEMV at or below GEMV_MAX_ROWS rows, GEMM above,
+    unaligned for rows off 16 bytes."""
+    for bits, kernel in ((8, wo.int8_matmul), (4, wo.int4_matmul)):
+        cases = [(wo.GEMV_MAX_ROWS, 2048, 256, "gemv"), (wo.GEMV_MAX_ROWS + 1, 2048, 256, "gemm"),
+                 (300, 2047, 256, "unaligned")]
+        for m, k, n, form in cases:
+            x, q, scale, _ = make_weight_only(bits, m, k, n, cuda, False)
+            launches, forms = kernel.launches, dict(kernel.form_launches)
+            kernel(x, q, scale)
+            forms[form] += 1
+            assert kernel.launches == launches + 1 and kernel.form_launches == forms
+    torch.cuda.synchronize()
+
+
+def test_weight_only_gemm_form_refuses_what_tma_cannot_describe(cuda):
+    x, q, scale, _ = make_weight_only(8, 64, 2047, 256, cuda, False)
+    with pytest.raises(RuntimeError, match="gemm"):
+        wo._launch_form("gemm", 8, x, q, scale)
+    with pytest.raises(ValueError, match="form"):
+        wo._launch_form("tiled", 8, x, q, scale)
 
 
 def test_weight_only_dense_apply_keeps_leading_dims(cuda):

@@ -13,6 +13,9 @@ Inputs are made with numpy and go through both packages on the CPU in fp32:
 - `quantize_for_serving(int8= | int4=)` against the leaves `quantize_tree*`
   pick, and the JAX quantized trees through `state_dict_from_jax` with
   `strict=True`;
+- `weight_only_form`, which of the CUDA kernel's three forms (GEMM, GEMV,
+  unaligned) a call on the card takes, from shapes, strides and pointers;
+  the wrappers on CPU tensors counting no launch of any form;
 - the tiny InternLM2 and the whole tiny assessor (`score_batch`) under
   `int8_weights` and `int4_weights` against the JAX model on the same
   quantized tree at 2e-4, the tolerance of the fp32 slice
@@ -194,9 +197,11 @@ def test_wrappers_run_plain_on_cpu_without_counting_and_reject():
     q = q.t().contiguous()
     p, s4 = two.quantize_kernel_int4(two.dequantize_kernel(q, scale))
     before = two.int8_matmul.launches, two.int4_matmul.launches
+    forms = dict(two.int8_matmul.form_launches), dict(two.int4_matmul.form_launches)
     assert torch.equal(two.int8_matmul(x, q, scale), two.plain_int8_matmul(x, q, scale))
     assert torch.equal(two.int4_matmul(x, p, s4), two.plain_int4_matmul(x, p, s4))
     assert (two.int8_matmul.launches, two.int4_matmul.launches) == before
+    assert (two.int8_matmul.form_launches, two.int4_matmul.form_launches) == forms
     with pytest.raises(ValueError, match="cuda or cpu"):
         two.int8_matmul(torch.empty((3, 32), device="meta"), q, scale)
     with pytest.raises(ValueError, match="weight"):
@@ -207,6 +212,54 @@ def test_wrappers_run_plain_on_cpu_without_counting_and_reject():
         two.int8_matmul(x, q, scale[:4])
     with pytest.raises(ValueError, match="bias"):
         two.int8_matmul(x, q, scale, torch.zeros(3))
+
+
+# --------------------------------------------------------- kernel forms ---
+
+
+def _form(bits, m, k, x=None, n=256):
+    """`weight_only_form` for x [m, k] (a fresh contiguous bf16 tensor unless
+    given) and a fresh contiguous weight of n channels."""
+    x = torch.empty((m, k), dtype=torch.bfloat16) if x is None else x
+    w = torch.empty((n, k if bits == 8 else (k + 1) // 2), dtype=torch.int8)
+    return two.weight_only_form(m, k, n, bits, x, w)
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_weight_only_form_by_rows(bits):
+    """At most GEMV_MAX_ROWS rows take the decode matvec, more the GEMM."""
+    gemv_rows = two.GEMV_MAX_ROWS
+    assert [_form(bits, m, 2048) for m in (1, gemv_rows)] == ["gemv", "gemv"]
+    assert [_form(bits, m, 2048) for m in (gemv_rows + 1, 8452)] == ["gemm", "gemm"]
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_weight_only_form_unaligned(bits):
+    """Rows or a base off 16 bytes, which TMA cannot describe, take the
+    unaligned form at any M."""
+    m = two.GEMV_MAX_ROWS + 1  # rows the GEMM form would take
+    for rows in (1, m, 8452):
+        assert _form(bits, rows, 2047) == "unaligned"  # x rows of 4094 bytes
+    flat = torch.empty(m * 2048 + 8, dtype=torch.bfloat16)
+    shifted = flat[1 : 1 + m * 2048].view(m, 2048)  # a base 2 bytes off 16
+    assert _form(bits, m, 2048, shifted) == "unaligned"
+    assert _form(bits, m, 2048, flat[8 : 8 + m * 2048].view(m, 2048)) == "gemm"
+    w = torch.empty((256, 2048 if bits == 8 else 1024), dtype=torch.int8)
+    x = torch.empty((m, 2048), dtype=torch.bfloat16)
+    w_shifted = torch.empty(w.numel() + 16, dtype=torch.int8)[8 : 8 + w.numel()].view(w.shape)
+    assert two.weight_only_form(m, 2048, 256, bits, x, w_shifted) == "unaligned"
+    assert two.weight_only_form(m, 2048, 256, bits, x, w) == "gemm"
+
+
+def test_weight_only_form_int4_odd_k_with_aligned_rows():
+    """An odd K whose packed rows and x's row stride are multiples of 16
+    bytes takes the GEMM form: TMA zero-fills x beyond K, and the padded
+    nibble is 0."""
+    m = two.GEMV_MAX_ROWS + 1
+    x = torch.empty((m, 64), dtype=torch.bfloat16)[:, :63]  # row stride 128 bytes
+    assert _form(4, m, 63, x) == "gemm"
+    assert _form(4, m, 63) == "unaligned"  # contiguous: rows of 126 bytes
+    assert _form(8, m, 63, x) == "unaligned"  # int8 rows of 63 bytes
 
 
 # ---------------------------------------------------------------- modules ---
