@@ -459,19 +459,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
 // ------------------------------------------------------------------- host --
 
-PFN_cuTensorMapEncodeTiled encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A [batch, heads, rows, D] bf16 view through its strides as a 4-d tensor map
 // (D innermost), boxes of [box_rows][64] in the 128-byte swizzle. Rows at or
 // beyond `rows` read as zeros and are not written.

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks as inline PTX: shared-memory addresses,
-// mbarriers, TMA tensor loads (2-d and 4-d) and stores, wgmma descriptors,
-// products, fences and groups, setmaxnreg and named barriers. Header-only; a
-// kernel that includes it is built for sm_90a (`wgmma` and `setmaxnreg` exist
-// only there).
+// mbarriers, TMA tensor loads (2-d and 4-d) and stores, cp.async into an
+// mbarrier, wgmma descriptors, products, fences and groups, setmaxnreg and
+// named barriers; and, on the host, the driver's tensor-map encoder.
+// Header-only; a kernel that includes it is built for sm_90a (`wgmma` and
+// `setmaxnreg` exist only there).
 //
 // Layout convention of the wgmma wrappers: operands in shared memory are
 // tiles written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, rows of 64 bf16 (one
@@ -15,10 +16,33 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime so that
+// nothing links libcuda; null if it cannot be had. It needs a current
+// context, which a thread that has made no CUDA runtime call yet does not
+// have (autograd's worker thread runs a backward whose tensors all came from
+// the caching allocator's cache): each call binds the current device's.
+inline PFN_cuTensorMapEncodeTiled encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled fn = nullptr;
+  int device;
+  if (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess)
+    return nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(ptr);
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -108,6 +132,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// 4 bytes from global to shared memory without blocking the thread; with
+// `valid` false the destination gets zeros and nothing is read
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier's count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // one box from shared memory to a 4-d tensor map; rows outside the map's
@@ -202,6 +241,23 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory

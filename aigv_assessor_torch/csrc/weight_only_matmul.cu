@@ -552,19 +552,6 @@ weight_only_gemm_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-PFN_cuTensorMapEncodeTiled encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A [rows][inner] matrix with a row stride of `stride` bytes as a 2-d tensor
 // map, boxes of [box_rows][box_inner] in the 128-byte swizzle; elements
 // beyond the extents read as 0

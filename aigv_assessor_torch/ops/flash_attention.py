@@ -24,9 +24,12 @@ they are laid out. The forward (both entries, every form) is one Hopper
 kernel: a producer warp loads Q, K and V tiles by TMA into a ring in shared
 memory, and two (D = 128) or three (D = 64) consumer warpgroups of 64 query
 rows run both products on `wgmma` with the online softmax between them. The
-tensor maps are encoded per call from each tensor's pointer and strides;
-rows past Sq and kv_valid are zero-filled by TMA and never written, so
-nothing is padded or copied.
+backward is two Hopper kernels built the same way: a dq kernel (one block per
+q tile, K and V streamed) and a dk/dv kernel (one block per 128-key tile, the
+group's Q and dO tiles streamed), every product on `wgmma`. The tensor maps
+are encoded per call from each tensor's pointer and strides; rows past Sq and
+kv_valid are zero-filled by TMA and never written, so nothing is padded or
+copied.
 
 - `flash_attention` is the three-tensor entry point: the forward without
   logsumexp, or, when q, k or v requires a gradient, `FlashAttention`.
@@ -41,8 +44,8 @@ nothing is padded or copied.
   rules.
 - `flash_attention_qkv_lse`, `flash_attention_qkv_bwd_dq` and
   `flash_attention_qkv_bwd_dkv` wrap the other three kernels, and
-  `flash_attention_qkv_bwd` is the whole backward (delta, then both
-  kernels, into one `dqkv`).
+  `flash_attention_qkv_bwd` is the whole backward (both kernels, into one
+  `dqkv`).
 - On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
   it runs the plain version. Each counts its kernel launches in `.launches`.
 - `plain_attention_qkv` and `plain_attention_qkv_bwd` are the plain PyTorch
@@ -56,8 +59,10 @@ A row with no valid key has logsumexp -inf and the backward kernels give it
 p = 0. With `kv_valid >= 1`, and the causal mask keeping the diagonal, no row
 of the callers' shapes is such a row.
 
-delta = rowsum(dout * out) stays a PyTorch expression in fp32, outside the
-kernels, as the JAX `_bwd` computes it outside its kernels.
+delta = rowsum(dout * out), which the JAX `_bwd` computes outside its kernels,
+is computed in fp32 inside the dq kernel on the card: the dq entries take
+`out` and write `delta` [B, Hq, Sq], which the dk/dv entries then read. The
+plain versions compute it as a PyTorch expression.
 
 The kernels are built with nvcc at first use (`ops/cuda_build.py`) and loaded
 with ctypes.
@@ -102,21 +107,21 @@ def _declare(lib: ctypes.CDLL) -> None:
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     for fn in (lib.aigv_flash_attn_qkv_bwd_dq, lib.aigv_flash_attn_qkv_bwd_dkv):
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, dout, lse
-            ctypes.c_void_p, ctypes.c_void_p,  # delta, dqkv
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, out, dout
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lse, delta, dqkv
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, S
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
-            *_STRIDES, *_STRIDES, *_STRIDES,  # qkv, dout, dqkv
+            ctypes.POINTER(ctypes.c_longlong),  # 12 strides: qkv, out, dout, dqkv
             ctypes.c_float, ctypes.c_void_p,  # scale, stream
         ]
         fn.restype = ctypes.c_int
     for fn in (lib.aigv_flash_attn_bwd_dq, lib.aigv_flash_attn_bwd_dkv):
         fn.argtypes = [
-            *[ctypes.c_void_p] * 4,  # q, k, v, dout
+            *[ctypes.c_void_p] * 5,  # q, k, v, out, dout
             ctypes.c_void_p, ctypes.c_void_p,  # lse, delta
             *[ctypes.c_void_p] * 3,  # dq, dk, dv (the entry's own outputs; the rest null)
             *[ctypes.c_int] * 8,  # B, hq, hkv, Sq, Skv, D, kv_valid, causal
-            ctypes.POINTER(ctypes.c_longlong),  # 21 strides: q, k, v, dout, dq, dk, dv
+            ctypes.POINTER(ctypes.c_longlong),  # 24 strides: q, k, v, out, dout, dq, dk, dv
             ctypes.c_float, ctypes.c_void_p,  # scale, stream
         ]
         fn.restype = ctypes.c_int
@@ -269,48 +274,54 @@ def flash_attention_qkv_lse(
 flash_attention_qkv_lse.launches = 0
 
 
+def _check_tensor(name: str, label: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: {label} must be {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
 def _launch_bwd(
-    name: str, qkv: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor, dqkv: torch.Tensor, hq: int, hkv: int, causal: bool,
-    kv_valid: Optional[int],
+    name: str, qkv: torch.Tensor, out: Optional[torch.Tensor], dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, dqkv: torch.Tensor, hq: int, hkv: int,
+    causal: bool, kv_valid: Optional[int],
 ) -> None:
     if qkv.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda, not {qkv.device}")
     b, _, s, d = qkv.shape
     kv_valid = s if kv_valid is None else kv_valid
     _check(qkv, hq, hkv, kv_valid, "bhsd")
-    for t, label, shape, dtype in (
-        (dout, "dout", (b, hq, s, d), torch.bfloat16),
-        (dqkv, "dqkv", tuple(qkv.shape), torch.bfloat16),
-        (lse, "lse", (b, hq, s), torch.float32),
-        (delta, "delta", (b, hq, s), torch.float32),
-    ):
-        if t.device != qkv.device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: {label} must be {dtype} {shape} on {qkv.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    _check_rows(dout, "dout")
-    _check_rows(dqkv, "dqkv")
+    rows = [("dout", dout), ("dqkv", dqkv)] + ([("out", out)] if out is not None else [])
+    for label, t in rows:
+        shape = qkv.shape if label == "dqkv" else (b, hq, s, d)
+        _check_tensor(name, label, t, shape, torch.bfloat16, qkv.device)
+        _check_rows(t, label)
+    for label, t in (("lse", lse), ("delta", delta)):
+        _check_tensor(name, label, t, (b, hq, s), torch.float32, qkv.device)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError(f"{name}: lse and delta must be contiguous")
+    # the dk/dv entry reads no `out`: dout's strides stand in for its own
+    strides = [*qkv.stride()[:3], *(dout if out is None else out).stride()[:3],
+               *dout.stride()[:3], *dqkv.stride()[:3]]
     lib = LIB_BWD.load()
     with torch.cuda.device(qkv.device):
         rc = getattr(lib, name)(
-            qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dqkv.data_ptr(), b, hq, hkv, s, d, kv_valid, int(causal),
-            *qkv.stride()[:3], *dout.stride()[:3], *dqkv.stride()[:3], d**-0.5,
+            qkv.data_ptr(), None if out is None else out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, hq, hkv, s, d, kv_valid,
+            int(causal), (ctypes.c_longlong * 12)(*strides), d**-0.5,
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     LIB_BWD.check(rc, f"{name} kernel")
 
 
 def flash_attention_qkv_bwd_dq(
-    qkv, dout, lse, delta, dqkv, hq: int, hkv: int, *, causal: bool = False,
+    qkv, out, dout, lse, delta, dqkv, hq: int, hkv: int, *, causal: bool = False,
     kv_valid: Optional[int] = None,
 ) -> None:
-    """dq kernel: writes heads [0, hq) of `dqkv` in place. CUDA only."""
-    _launch_bwd("aigv_flash_attn_qkv_bwd_dq", qkv, dout, lse, delta, dqkv, hq, hkv,
+    """dq kernel: writes delta = rowsum(dout * out) in fp32 into `delta`
+    [B, hq, S] and heads [0, hq) of `dqkv`, in place. CUDA only."""
+    _launch_bwd("aigv_flash_attn_qkv_bwd_dq", qkv, out, dout, lse, delta, dqkv, hq, hkv,
                 causal, kv_valid)
     flash_attention_qkv_bwd_dq.launches += 1
 
@@ -319,15 +330,23 @@ def flash_attention_qkv_bwd_dkv(
     qkv, dout, lse, delta, dqkv, hq: int, hkv: int, *, causal: bool = False,
     kv_valid: Optional[int] = None,
 ) -> None:
-    """dk/dv kernel: writes heads [hq, hq + 2*hkv) of `dqkv` in place, the
-    query heads of a group summed in fp32. CUDA only."""
-    _launch_bwd("aigv_flash_attn_qkv_bwd_dkv", qkv, dout, lse, delta, dqkv, hq, hkv,
+    """dk/dv kernel: reads the `delta` the dq kernel wrote and writes heads
+    [hq, hq + 2*hkv) of `dqkv` in place, the query heads of a group summed in
+    fp32. CUDA only."""
+    _launch_bwd("aigv_flash_attn_qkv_bwd_dkv", qkv, None, dout, lse, delta, dqkv, hq, hkv,
                 causal, kv_valid)
     flash_attention_qkv_bwd_dkv.launches += 1
 
 
 flash_attention_qkv_bwd_dq.launches = 0
 flash_attention_qkv_bwd_dkv.launches = 0
+
+
+def _rows_ok(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a contiguous copy where a TMA tensor map cannot describe it."""
+    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        return t.contiguous()
+    return t
 
 
 def flash_attention_qkv_bwd(
@@ -341,19 +360,19 @@ def flash_attention_qkv_bwd(
     causal: bool = False,
     kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
-    """The whole backward -> dqkv [B, hq + 2*hkv, S, D]: delta in PyTorch,
-    then the dq and the dk/dv kernel, each writing its heads of one array.
-    A CPU tensor goes to `plain_attention_qkv_bwd`."""
+    """The whole backward -> dqkv [B, hq + 2*hkv, S, D]: the dq kernel (which
+    computes delta) then the dk/dv kernel, each writing its heads of one
+    array. A CPU tensor goes to `plain_attention_qkv_bwd`."""
     if qkv.device.type == "cpu":
         return plain_attention_qkv_bwd(
             qkv, out, lse, dout, hq, hkv, causal=causal, kv_valid=kv_valid
         )
-    if dout.stride(-1) != 1 or any(st % 8 for st in dout.stride()[:3]):
-        dout = dout.contiguous()
-    delta = (dout.float() * out.float()).sum(-1)
+    dout = _rows_ok(dout)
+    b, _, s, _ = qkv.shape
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
     kw = dict(causal=causal, kv_valid=kv_valid)
-    flash_attention_qkv_bwd_dq(qkv, dout, lse, delta, dqkv, hq, hkv, **kw)
+    flash_attention_qkv_bwd_dq(qkv, out, dout, lse, delta, dqkv, hq, hkv, **kw)
     flash_attention_qkv_bwd_dkv(qkv, dout, lse, delta, dqkv, hq, hkv, **kw)
     return dqkv
 
@@ -588,51 +607,44 @@ def flash_attention_lse(
 flash_attention_lse.launches = 0
 
 
-def _launch_separate_bwd(name: str, q, k, v, dout, lse, delta, dq, dk, dv, causal: bool,
+def _launch_separate_bwd(name: str, q, k, v, out, dout, lse, delta, dq, dk, dv, causal: bool,
                          layout: str, kv_valid: Optional[int]) -> None:
     b, hq, hkv, sq, skv, d, kv_valid, axes = _separate_dims(q, k, v, causal, layout, kv_valid)
-    grads = [(t, label, ref) for t, label, ref in ((dq, "dq", q), (dk, "dk", k), (dv, "dv", v))
-             if t is not None]
-    for t, label, shape, dtype in (
-        (dout, "dout", tuple(q.shape), torch.bfloat16),
-        *((t, label, tuple(ref.shape), torch.bfloat16) for t, label, ref in grads),
-        (lse, "lse", (b, hq, sq), torch.float32),
-        (delta, "delta", (b, hq, sq), torch.float32),
-    ):
-        if t.device != q.device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: {label} must be {dtype} {shape} on {q.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    _check_rows(dout, "dout")
-    for t, label, _ in grads:
-        _check_rows(t, label)
+    rows = [("dout", dout, q), ("out", out, q), ("dq", dq, q), ("dk", dk, k), ("dv", dv, k)]
+    for label, t, ref in rows:
+        if t is not None:
+            _check_tensor(name, label, t, ref.shape, torch.bfloat16, q.device)
+            _check_rows(t, label)
+    for label, t in (("lse", lse), ("delta", delta)):
+        _check_tensor(name, label, t, (b, hq, sq), torch.float32, q.device)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError(f"{name}: lse and delta must be contiguous")
-    # an absent output gets a null pointer and the strides of the entry's own
-    # output (dq's for the dq entry, dk's for the dk/dv entry); the entry
-    # reads neither
+    # an absent tensor gets a null pointer and the strides of one the entry
+    # has (dout's for out, the entry's own output's for the other outputs);
+    # the entry reads neither
     own = dq if dq is not None else dk
-    strides = _strides((q, k, v, dout, *(own if t is None else t for t in (dq, dk, dv))), axes)
+    strides = _strides((q, k, v, dout if out is None else out, dout,
+                        *(own if t is None else t for t in (dq, dk, dv))), axes)
     lib = LIB_BWD.load()
     with torch.cuda.device(q.device):
         rc = getattr(lib, name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(None if t is None else t.data_ptr() for t in (dq, dk, dv)),
-            b, hq, hkv, sq, skv, d, kv_valid, int(causal), (ctypes.c_longlong * 21)(*strides),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if out is None else out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (dq, dk, dv)),
+            b, hq, hkv, sq, skv, d, kv_valid, int(causal), (ctypes.c_longlong * 24)(*strides),
             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )
     LIB_BWD.check(rc, f"{name} kernel")
 
 
 def flash_attention_bwd_dq(
-    q, k, v, dout, lse, delta, dq, *, causal: bool = False, layout: str = "bshd",
+    q, k, v, out, dout, lse, delta, dq, *, causal: bool = False, layout: str = "bshd",
     kv_valid: Optional[int] = None,
 ) -> None:
-    """dq kernel on three tensors: writes `dq` (q's shape) in place. CUDA
-    only."""
-    _launch_separate_bwd("aigv_flash_attn_bwd_dq", q, k, v, dout, lse, delta, dq, None, None,
-                         causal, layout, kv_valid)
+    """dq kernel on three tensors: writes delta = rowsum(dout * out) in fp32
+    into `delta` [B, Hq, Sq] and `dq` (q's shape), in place. CUDA only."""
+    _launch_separate_bwd("aigv_flash_attn_bwd_dq", q, k, v, out, dout, lse, delta, dq, None,
+                         None, causal, layout, kv_valid)
     flash_attention_bwd_dq.launches += 1
 
 
@@ -640,10 +652,11 @@ def flash_attention_bwd_dkv(
     q, k, v, dout, lse, delta, dk, dv, *, causal: bool = False, layout: str = "bshd",
     kv_valid: Optional[int] = None,
 ) -> None:
-    """dk/dv kernel on three tensors: writes `dk` and `dv` (k's shape) in
-    place, the query heads of a group summed in fp32. CUDA only."""
-    _launch_separate_bwd("aigv_flash_attn_bwd_dkv", q, k, v, dout, lse, delta, None, dk, dv,
-                         causal, layout, kv_valid)
+    """dk/dv kernel on three tensors: reads the `delta` the dq kernel wrote
+    and writes `dk` and `dv` (k's shape) in place, the query heads of a group
+    summed in fp32. CUDA only."""
+    _launch_separate_bwd("aigv_flash_attn_bwd_dkv", q, k, v, None, dout, lse, delta, None, dk,
+                         dv, causal, layout, kv_valid)
     flash_attention_bwd_dkv.launches += 1
 
 
@@ -664,19 +677,17 @@ def flash_attention_bwd(
     kv_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole three-tensor backward -> (dq, dk, dv), contiguous in the
-    input layout: delta in PyTorch, then the dq and the dk/dv kernel. A CPU
-    tensor goes to `plain_flash_attention_bwd`."""
+    input layout: the dq kernel (which computes delta) then the dk/dv kernel.
+    A CPU tensor goes to `plain_flash_attention_bwd`."""
     kw = dict(causal=causal, layout=layout, kv_valid=kv_valid)
     if q.device.type == "cpu":
         return plain_flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    if dout.stride(-1) != 1 or any(st % 8 for st in dout.stride()[:3]):
-        dout = dout.contiguous()
-    delta = (dout.float() * out.float()).sum(-1)
-    delta = (delta if layout == "bhsd" else delta.transpose(1, 2)).contiguous()  # [B, Hq, Sq]
+    dout = _rows_ok(dout)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)  # [B, Hq, Sq]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, **kw)
+    flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, dq, **kw)
     flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, **kw)
     return dq, dk, dv
 

@@ -205,6 +205,9 @@ def test_backward_kernel_wrappers_are_cuda_only():
     qkv, dout = (torch.from_numpy(a) for a in _inputs(7, case))
     out, lse = plain_attention_qkv(qkv, 4, 4, return_lse=True)
     delta = (dout * out).sum(-1)
-    for kernel in (flash_attention_qkv_bwd_dq, flash_attention_qkv_bwd_dkv):
-        with pytest.raises(ValueError, match="runs on cuda"):
-            kernel(qkv, dout, lse, delta, torch.empty_like(qkv), 4, 4)
+    # the dq entry reads out and writes delta; the dk/dv entry reads delta
+    with pytest.raises(ValueError, match="runs on cuda"):
+        flash_attention_qkv_bwd_dq(qkv, out, dout, lse, torch.empty_like(delta),
+                                   torch.empty_like(qkv), 4, 4)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        flash_attention_qkv_bwd_dkv(qkv, dout, lse, delta, torch.empty_like(qkv), 4, 4)

@@ -220,8 +220,10 @@ def test_training_kernel_wrappers_are_cuda_only():
     q, k, v, dout = (torch.from_numpy(t) for t in _inputs(7, case, "bshd"))
     out, lse = flash_attention_lse(q, k, v)
     delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+    # the dq entry reads out and writes delta; the dk/dv entry reads delta
     with pytest.raises(ValueError, match="runs on cuda"):
-        flash_attention_bwd_dq(q, k, v, dout, lse, delta, torch.empty_like(q))
+        flash_attention_bwd_dq(q, k, v, out, dout, lse, torch.empty_like(delta),
+                               torch.empty_like(q))
     with pytest.raises(ValueError, match="runs on cuda"):
         flash_attention_bwd_dkv(q, k, v, dout, lse, delta, torch.empty_like(k),
                                 torch.empty_like(v))

@@ -15,7 +15,10 @@ jax-free, so that it runs where jax is not installed:
   is within 1e-4 of the plain fp32 one; dq, dk and dv are each within 2e-3
   relative L2 of `plain_attention_qkv_bwd`, which rounds p and ds to bf16
   where the kernels do (the JAX kernels keep them fp32), so what is left is
-  the summation order and the bf16 rounding of the results.
+  the summation order and the bf16 rounding of the results. Also at the
+  backward kernels' tile borders and internlm2-chat-20b's shape; delta as
+  the dq kernel writes it within 1e-5 relative L2 of the fp32 expression;
+  a second run of both kernels bit-equal to the first (no atomics).
   `FlashAttentionQKV` is run end to end through `torch.autograd.grad`.
 - The fused quantize kernels (K4a-c, K5a, K5b) at the 2B path's shapes, at
   the 8B decoder's 14336-wide SwiGLU feed, at a ragged row count and at
@@ -37,7 +40,8 @@ jax-free, so that it runs where jax is not installed:
 - K2's training forms: the forward with logsumexp (out bit-equal to the
   forward without, lse within 1e-4) and the dq and dk/dv kernels on three
   tensors (each within 2e-3 relative L2 of `plain_flash_attention_bwd`, dk /
-  dv of masked keys exactly 0), at the small shapes in both layouts and at
+  dv of masked keys exactly 0, delta within 1e-5, a second run bit-equal),
+  at the small shapes and the forward's tile borders in both layouts and at
   InternViT-6B's (32 frames, 25 heads, 1032 rows, kv_valid 1025, D = 128,
   q / k contiguous and v a strided view of the projection);
   `FlashAttention` end to end through `torch.autograd.grad`.
@@ -112,14 +116,30 @@ SHAPES = {
     "llm": (4, 16, 8, 2113, 128, True, None),
     "ragged": (2, 4, 4, 200, 64, False, 150),
 }
-# small shapes for the backward: both head dims, GQA with groups of 2 and 4,
-# causal and not, S off the 64-row tiles, a garbage tail
+# shapes for the backward: both head dims, GQA with groups of 2, 4 and 6,
+# causal and not, a garbage tail, and the borders of the kernels' tiles (the
+# dq kernel's q tiles of 128 rows at D = 128 and 192 at D = 64 over K/V tiles
+# of 64 keys; the dk/dv kernel's key tiles of 128, 64 per warpgroup, over q
+# tiles of 64 rows): one row, rows one short of and one past a tile, kv_valid
+# = 1 and one past a tile; and internlm2-chat-20b's attention (InternVL2-26B's
+# decoder, 2 videos)
 BWD_SHAPES = {
     "ragged": SHAPES["ragged"],
     "gqa2_causal_d128": (2, 4, 2, 200, 128, True, None),
     "gqa4_causal_d64": (1, 8, 2, 131, 64, True, None),
     "gqa2_tail_d128": (1, 4, 2, 136, 128, False, 129),
+    "s1_causal_d128": (2, 16, 8, 1, 128, True, None),
+    "s63_d64": (2, 4, 4, 63, 64, False, None),
+    "s65_causal_d128": (2, 4, 2, 65, 128, True, None),
+    "s191_causal_d64": (1, 8, 2, 191, 64, True, None),
+    "s193_kv129_d64": (2, 4, 4, 193, 64, False, 129),
+    "s257_causal_g6": (1, 12, 2, 257, 128, True, None),
+    "kv1_d64": (2, 4, 4, 257, 64, False, 1),
+    "s300_kv65_d128": (2, 5, 5, 300, 128, False, 65),
+    "llm_20b": (2, 48, 8, 2113, 128, True, None),
 }
+DELTA_TOL = 1e-5  # delta from the dq kernel against the fp32 expression, relative L2
+ZERO_GRAD_ATOL = 1e-3  # dq and dk where every row has one valid key: 0 in exact arithmetic
 
 
 @pytest.fixture
@@ -240,10 +260,24 @@ def test_backward_kernels_match_plain(cuda, name):
         before[0] + 1, before[1] + 1)
     want = plain_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
     assert got.shape == qkv.shape and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
-    for part in (slice(0, hq), slice(hq, hq + hkv), slice(hq + hkv, None)):
-        assert relative_l2(got[:, part], want[:, part]) <= BWD_TOL
+    if min(shape[3], kv_valid or shape[3]) == 1:
+        # one valid key per row: p = 1 and ds = 0, so dq and dk are rounding
+        # noise on both sides and are held to 0; dv by relative L2
+        assert got[:, : hq + hkv].abs().max().item() <= ZERO_GRAD_ATOL
+        assert relative_l2(got[:, hq + hkv :], want[:, hq + hkv :]) <= BWD_TOL
+    else:
+        for part in (slice(0, hq), slice(hq, hq + hkv), slice(hq + hkv, None)):
+            assert relative_l2(got[:, part], want[:, part]) <= BWD_TOL
     if kv_valid is not None:  # nothing flows back into the masked keys
         assert not got[:, hq:, kv_valid:].any()
+    # the entries one by one: the dq kernel writes delta, the dk/dv kernel
+    # reads it; a second run gives the same bits (no atomics)
+    delta, again = torch.empty_like(lse), torch.empty_like(qkv)
+    flash_attention_qkv_bwd_dq(qkv, out, dout, lse, delta, again, hq, hkv, **kw)
+    flash_attention_qkv_bwd_dkv(qkv, dout, lse, delta, again, hq, hkv, **kw)
+    torch.cuda.synchronize()
+    assert relative_l2(delta, (dout.float() * out.float()).sum(-1)) <= DELTA_TOL
+    assert torch.equal(again, got)
 
 
 def test_autograd_function_end_to_end(cuda):
@@ -282,7 +316,10 @@ def test_training_wrappers_raise_rather_than_fall_back(cuda):
         flash_attention_qkv(qkv.float().requires_grad_(), 4, 4)
     with pytest.raises(ValueError, match="forward-only"):
         flash_attention_qkv(qkv.clone().requires_grad_(), 4, 4, out_layout="bsd")
-    for kernel in (flash_attention_qkv_bwd_dq, flash_attention_qkv_bwd_dkv):
+    # the dq entry takes out before dout; the dk/dv entry takes no out
+    kernels = (lambda *a, **kw: flash_attention_qkv_bwd_dq(a[0], out, *a[1:], **kw),
+               flash_attention_qkv_bwd_dkv)
+    for kernel in kernels:
         with pytest.raises(ValueError, match="dout"):
             kernel(qkv, dout.float(), lse, delta, dqkv, 4, 4, kv_valid=150)
         with pytest.raises(ValueError, match="lse"):
@@ -293,6 +330,10 @@ def test_training_wrappers_raise_rather_than_fall_back(cuda):
         with pytest.raises(ValueError, match="contiguous"):
             kernel(qkv, dout, lse.transpose(1, 2).contiguous().transpose(1, 2), delta, dqkv,
                    4, 4, kv_valid=150)
+        with pytest.raises(ValueError, match="delta"):
+            kernel(qkv, dout, lse, delta[:, :2], dqkv, 4, 4, kv_valid=150)
+    with pytest.raises(ValueError, match="out"):  # the dq entry reads out
+        flash_attention_qkv_bwd_dq(qkv, out.float(), dout, lse, delta, dqkv, 4, 4, kv_valid=150)
 
 
 # (rows, cols) of each feed on the 2B path: the ViT's (32 frames x 1032
@@ -549,15 +590,31 @@ def check_separate_training(q, k, v, kw, seed=15):
     assert lse.shape == want_lse.shape and lse.dtype == torch.float32
     torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=0)
     want = plain_flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    for got, ref, t in zip((dq, dk, dv), want, (q, k, v)):
+    seq = 2 if kw["layout"] == "bhsd" else 1
+    kv_valid = kw.get("kv_valid")
+    one_key = min(k.shape[seq], kv_valid or k.shape[seq]) == 1
+    for name, got, ref, t in zip("qkv", (dq, dk, dv), want, (q, k, v)):
         assert got.shape == t.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
         assert torch.isfinite(got).all()
-        assert relative_l2(got, ref) <= BWD_TOL
-    kv_valid = kw.get("kv_valid")
+        if one_key and name != "v":  # 0 in exact arithmetic: held to 0
+            assert got.abs().max().item() <= ZERO_GRAD_ATOL
+        else:
+            assert relative_l2(got, ref) <= BWD_TOL
     if kv_valid is not None:  # nothing flows back into the masked keys
-        seq = 2 if kw["layout"] == "bhsd" else 1
         assert not dk.narrow(seq, kv_valid, k.shape[seq] - kv_valid).any()
         assert not dv.narrow(seq, kv_valid, k.shape[seq] - kv_valid).any()
+    # the entries one by one: delta from the dq kernel; a second run gives the
+    # same bits (no atomics)
+    delta = torch.empty_like(lse)
+    again = [torch.empty_like(t) for t in (dq, dk, dv)]
+    flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, again[0], **kw)
+    flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *again[1:], **kw)
+    torch.cuda.synchronize()
+    want_delta = (dout.float() * out.float()).sum(-1)
+    if kw["layout"] == "bshd":
+        want_delta = want_delta.transpose(1, 2)
+    assert relative_l2(delta, want_delta) <= DELTA_TOL
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
 
 
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
@@ -612,11 +669,15 @@ def test_separate_training_wrappers_raise_rather_than_fall_back(cuda):
         flash_attention_lse(q, k, v, layout="sbhd")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with pytest.raises(ValueError, match="dout"):
-        flash_attention_bwd_dq(q, k, v, dout.float(), lse, delta, dq)
+        flash_attention_bwd_dq(q, k, v, out, dout.float(), lse, delta, dq)
+    with pytest.raises(ValueError, match="out"):
+        flash_attention_bwd_dq(q, k, v, out[:, :100], dout, lse, delta, dq)
     with pytest.raises(ValueError, match="lse"):
-        flash_attention_bwd_dq(q, k, v, dout, lse[:, :2], delta, dq)
+        flash_attention_bwd_dq(q, k, v, out, dout, lse[:, :2], delta, dq)
+    with pytest.raises(ValueError, match="delta"):
+        flash_attention_bwd_dq(q, k, v, out, dout, lse, delta.double(), dq)
     with pytest.raises(ValueError, match="dq"):
-        flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq[:, :100])
+        flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, dq[:, :100])
     with pytest.raises(ValueError, match="strides"):  # D not contiguous
         flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk.transpose(1, 3).contiguous()
                                 .transpose(1, 3), dv)
@@ -681,6 +742,19 @@ def test_separate_forward_at_tile_borders(cuda, name, layout, with_lse):
         assert torch.equal(out, flash_attention(q, k, v, **kw))
         assert lse.shape == want_lse.shape and torch.isfinite(lse).all()
         torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("name", list(EDGES))
+def test_separate_training_kernels_at_tile_borders(cuda, name, layout):
+    """K2's forward with logsumexp, dq and dk/dv at each border (Sq > Skv
+    and Sq < Skv among them), in both layouts: against the plain versions,
+    delta from the dq kernel, and a second run bit-equal."""
+    case = EDGES[name]
+    q, k, v = make_edge(case, cuda, seed=31)
+    if layout == "bhsd":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    check_separate_training(q, k, v, dict(causal=case[6], layout=layout, kv_valid=case[7]))
 
 
 @pytest.mark.parametrize("form", ["bhsd", "bsd", "lse"])

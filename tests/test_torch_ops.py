@@ -145,7 +145,7 @@ def test_kernel_library_is_stale_when_its_source_or_a_header_is_newer(tmp_path, 
     # the shipped sources include the header from their own directory
     shipped = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
     for name, header in (("flash_attn_fwd.cu", "hopper.cuh"),
-                         ("flash_attn_bwd.cu", "mma_fragments.cuh"),
+                         ("flash_attn_bwd.cu", "hopper.cuh"),
                          ("weight_only_matmul.cu", "mma_fragments.cuh")):
         assert f'#include "{header}"' in (shipped / name).read_text()
         assert (shipped / header).exists()
@@ -170,6 +170,25 @@ def test_forward_attention_runs_on_wgmma_and_tma():
         assert ptx in header, ptx
     for entry in ("int aigv_flash_attn_qkv_fwd(", "int aigv_flash_attn_fwd("):
         assert entry in fwd
+
+
+def test_backward_attention_runs_on_wgmma_and_tma():
+    """The flash-attention backward's source (dq and dk/dv, both pairs of
+    entries) issues every product as Hopper `wgmma` on TMA-loaded tiles,
+    computes delta inside the dq kernel and keeps no `mma.sync` path."""
+    from aigv_assessor_torch.ops import cuda_build
+
+    csrc = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
+    bwd = (csrc / "flash_attn_bwd.cu").read_text()
+    assert "mma.sync.aligned" not in bwd
+    assert "mma_fragments" not in bwd and "mma_16816" not in bwd and "ldmatrix" not in bwd
+    for wrapper in ("wgmma_ss_n64", "wgmma_rs_n128_mn", "wgmma_rs_n64_mn", "tma_load_4d",
+                    "tma_store_4d", "setmaxnreg_inc", "mbar_wait", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv_kernel"):
+        assert wrapper + "(" in bwd or wrapper + "<" in bwd, wrapper
+    for entry in ("aigv_flash_attn_qkv_bwd_dq", "aigv_flash_attn_bwd_dq"):
+        head = bwd[bwd.index(f"int {entry}("):]
+        assert "const void* out" in head[: head.index(")")], entry  # delta from out, inside
 
 
 # ------------------------------------------------------------------- norms --
