@@ -1,295 +1,460 @@
 // Single-token decode attention for sm_90a: one query token per sample
-// against the read-only KV cache, over each sample's own window of rows.
+// against the read-only KV cache, over each sample's own window of rows,
+// optionally with the current token merged in. One launch either way.
 //
 // Replaces the Pallas TPU kernel `_decode_kernel` of
-// aigv_assessor_tpu/ops/decode_attention.py (through `decode_attention`).
+// aigv_assessor_tpu/ops/decode_attention.py (through `decode_attention`) and,
+// with the merge, the whole of its `cached_decode_attention`: the kernel
+// followed by `merge_new_token`.
 //
-//   q      bf16 [B, Hq, D]          strides (q_sb, q_sh, 1)
-//   k, v   bf16 [B, max_len, Hkv, D] strides (sb, sr, sh, 1): the model's
-//          cache layout, read in place
-//   starts int32 [B], end int32 [1], both in device memory: sample b attends
-//          rows [starts[b], end) and the kernel loads no other row
-//   out    bf16 [B, Hq, D]  softmax(q k^T * scale) v over the window, or 0
-//          for an empty window
-//   m, l   fp32 [B, Hq]     the window's row maximum of the scaled scores
-//          (-1e30 for an empty window) and the sum of exp(score - m), so that
-//          the caller can fold the current token in afterwards
-//   Query heads h*G .. (h+1)*G-1 share kv head h (G = Hq / Hkv). D is 64 or
-//   128.
+//   q       bf16 [B, Hq, D]           strides (q_sb, q_sh, 1)
+//   k, v    bf16 [B, max_len, Hkv, D] strides (sb, sr, sh, 1): the model's
+//           cache layout, read in place
+//   starts  int32 [B], end int32 [1], both in device memory: sample b attends
+//           rows [starts[b], end) and the kernel loads no other row
+//   k_new, v_new  bf16 [B, Hkv, D] strides (sb, sh, 1), or null: the current
+//           token, which is not in the cache
+//   out     bf16 [B, Hq, D], contiguous
+//   m, l    fp32 [B, Hq], only without the current token
+//   Query heads h*G .. (h+1)*G-1 share kv head h (G = Hq / Hkv <= 16). D is
+//   64 or 128.
+//
+// Without k_new: out = softmax(q k^T * scale) v over the window, or 0 for an
+// empty window, with m the window's largest scaled score (-1e30 for an empty
+// window) and l the sum of exp(score - m), for a caller that merges the
+// current token itself. With k_new: out = the softmax over the window plus
+// the current token, applied to the window's v rows plus v_new; an empty
+// window gives v_new exactly.
 //
 // What bounds it. Every K and V row of the window is read once and used for
 // G dot products of D terms: 2*G operations per byte at most, so the bytes
-// bound it, (end - start_b) * Hkv * D * 2 * 2 per sample. The tensor cores
-// have nothing to do. What counts is to keep enough 16-byte loads in flight
-// on enough SMs, and to read nothing outside the window.
+// bound it, (end - start_b) * Hkv * D * 2 * 2 per sample. So the loads must
+// stay in flight on every SM while the math runs, nothing outside the
+// window is read, and no second launch is spent.
 //
 // Design. The TPU kernel walks a (B, max_len / BLK) grid in sequence with a
 // running state in scratch memory; here nothing carries over between blocks,
-// so the window is cut instead:
+// so the window is cut, and the pieces are merged inside the launch:
 //
-// - `decode_attention_partial`: one block of 8 warps per (kv head, sample,
-//   split). A split is a contiguous 1/nsplit of the sample's window, computed
-//   in the kernel from starts[b] and end; the wrapper picks nsplit from the
-//   capacity and the batch so that somewhat more blocks than SMs exist
-//   whatever the batch. D/8 lanes share a row, each loading 16 bytes of K
-//   and of V; a warp takes 32/(D/8) rows at a time and UNROLL such groups per
-//   step, so that all loads of a step are in flight before the first is used.
-//   The G scores of a row are reduced over its lanes by shuffles. Every lane
-//   group keeps its own fp32 online-softmax state (m, l, acc[G][8]), rescaled
-//   once per step; the groups of a warp are merged by shuffles and the warps
-//   through shared memory. q sits in registers. The block writes its
-//   unnormalised acc and its (m, l) to scratch.
-// - `decode_attention_combine`: one block per (query head, sample) merges
-//   the nsplit partial states, normalises and writes out, m and l.
+// - The grid is (Hkv, nsplit, B): a block of NWARPS warps takes the G query
+//   heads of one kv head and one contiguous 1/nsplit of its sample's
+//   window, computed in the kernel from starts[b] and end. The wrapper picks
+//   nsplit from B, Hkv and the card's SM count, the only sizes the host
+//   knows: two blocks share an SM (about 70 KB of shared memory each), and
+//   the grid fills 7/8 of those slots, so that the clusters below find room
+//   in one wave. A block whose piece is empty loads nothing and goes
+//   straight to the merge.
+// - Each warp owns 16 rows of every tile of TILE rows and streams them
+//   itself: a ring of STAGES slots of its own in shared memory, filled by
+//   cp.async (16 bytes a lane, rows past the piece zero-filled, not read)
+//   STAGES - 1 tiles ahead of its math and waited on per warp, so no block
+//   barrier stalls the loads. What the loads need is many warps issuing
+//   them: on an H100 at the 2B decode shape one producer warp feeding a
+//   10-slot ring for four consumer warps took 41.7 us, where every warp
+//   streaming its own rows takes 18.4. No TMA: a tensor map per layer and
+//   step would cost host time on a path bound by the host, and bulk copies
+//   of one 256-byte row each ran at 0.5 TB/s.
+// - The math runs on the tensor cores: S = Q K^T for the warp's 16 rows is
+//   mma.sync m16n8k16 with the G query heads as the A rows (padded to 16
+//   with zeros, held in registers), K through ldmatrix; the warp's online
+//   softmax runs on the accumulator fragments (rows reduced over a quad of
+//   lanes), and P, rounded to bf16 as the TPU kernel rounds it, times V is a
+//   second mma with P's accumulators as the A fragment. A first version of
+//   this kernel did the products on the CUDA cores, 8 values a lane with
+//   shuffle reductions and a block barrier per tile: without its loads it
+//   alone took 13.4 us at that shape, more than the bytes' 10.3.
+// - After the last tile the warps' states merge through shared memory. The
+//   nsplit blocks of a (kv head, sample) form one thread-block cluster:
+//   each block pushes its state, output by output, into the shared memory
+//   of the block that owns the output (distributed shared memory); after
+//   one cluster barrier every owner merges the nsplit states it holds. No
+//   scratch in device memory, no counter, no second launch: the launch can
+//   be captured in a CUDA graph and replayed as it is.
+// - The current token: its k and v rows are copied into shared memory with
+//   the first tile; after its loop the first warp computes the G scores
+//   q . k_new * scale in fp32 from the A fragments; the owner takes
+//   m_new = max(m, s_new) and
+//   out = (acc * e^(m - m_new) + e^(s_new - m_new) * v_new) /
+//         (l * e^(m - m_new) + e^(s_new - m_new))
+//   in fp32 from the unnormalised accumulator, then one bf16 rounding.
 //
-// Against the TPU kernel's numbers. Kept: scores scaled by D^-0.5 in fp32
-// after the fp32 dot product; masked rows contribute nothing (they are never
-// loaded, where the TPU kernel sets them to -1e30); out = acc / l, or 0 where
-// l == 0; m and l of the window only. Changed: p stays fp32 for p * v, where
-// the TPU kernel rounds p to the cache dtype to feed its matrix unit; there
-// is no matrix unit in this product, and the fp32 p is the more exact. The
-// difference to a version that rounds p is below the bf16 rounding of `out`.
-// exp is __expf (ex2.approx): a few fp32 ulps on m - m_new <= 0.
+// Against the TPU kernel's numbers. Kept: scores from an fp32 dot product,
+// scaled by D^-0.5 in fp32; p rounded to the cache dtype for p * v, l the sum
+// of the fp32 p; masked rows contribute nothing (they are never loaded,
+// where the TPU kernel sets them to -1e30); out = acc / l, or 0 where
+// l == 0; m and l of the window only. Changed: the merge with the current
+// token runs on the fp32 state, where JAX's `merge_new_token` takes the
+// window's output already rounded to bf16 and rounds again after the merge:
+// one rounding fewer, a difference below out's own bf16 rounding. exp is
+// __expf (ex2.approx): a few fp32 ulps on arguments <= 0.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+#include "mma_fragments.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
+constexpr int NWARPS = 4;  // each streams and computes 16 rows of a tile
+constexpr int NTHREADS = 32 * NWARPS;
+constexpr int TILE = 16 * NWARPS;  // rows of a tile
+constexpr int STAGES = 3;          // slots of each warp's ring
+constexpr int GMAX = 16;           // query heads per kv head: the A rows
+constexpr int MAX_SPLITS = 16;     // a cluster of 16 blocks: the non-portable size
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+struct Params {
+  const __nv_bfloat16 *q, *k, *v, *k_new, *v_new;
+  const int *starts, *end;
+  __nv_bfloat16* out;
+  float *m, *l;
+  int hq, hkv, max_len, nsplit;
+  long long q_sb, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, kn_sb, kn_sh, vn_sb, vn_sh;
+  float scale;
+};
+
+template <int D>
+struct Smem {
+  static constexpr int LD = D + PAD;        // padded rows: ldmatrix without bank conflicts
+  static constexpr int SLOT = 2 * 16 * LD;  // bf16: a warp's 16 K rows, then its 16 V rows
+  static constexpr int RING = NWARPS * STAGES * SLOT * 2;  // bytes
+  // after the loop the rings hold the warps' states
+  static constexpr int WARP_STATE = (NWARPS * GMAX * D + 2 * NWARPS * GMAX) * 4;
+  static_assert(WARP_STATE <= RING, "the warps' states must fit in the ring");
+  // Beside the rings: the current token's k and v rows [2][D] bf16; written by every
+  // block of the cluster, the inbox of this block's share of the outputs,
+  // acc [nsplit][share] (nsplit * share < G * D + nsplit) and m, l
+  // [nsplit][G]; then the current token's scores [G]. Sized for the
+  // launch's G and nsplit: two blocks share an SM.
+  static constexpr int bytes(int g, int nsplit) {
+    return RING + 4 * D + (g * D + nsplit + 2 * nsplit * g + g) * 4;
   }
+  static constexpr int MAX_BYTES = bytes(GMAX, MAX_SPLITS);
+};
+
+// 16 bytes global -> shared, bypassing L1; with valid == false nothing is
+// read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-// Merge the online-softmax state (m_o, l_o, acc_o) into (m, l, acc).
-__device__ __forceinline__ void merge_state(float& m, float& l, float (&acc)[8], float m_o,
-                                            float l_o, const float (&acc_o)[8]) {
-  const float m_new = fmaxf(m, m_o);
-  const float a = __expf(m - m_new), b = __expf(m_o - m_new);
-  l = l * a + l_o * b;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = acc[j] * a + acc_o[j] * b;
-  m = m_new;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int D, int G>
-__global__ void __launch_bounds__(NTHREADS)
-decode_attention_partial(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ starts,
-                         const int* __restrict__ end_ptr, float* __restrict__ part_acc,
-                         float* __restrict__ part_m, float* __restrict__ part_l, int hq, int hkv,
-                         int max_len, int nsplit, long long q_sb, long long q_sh, long long k_sb,
-                         long long k_sr, long long k_sh, long long v_sb, long long v_sr,
-                         long long v_sh, float scale) {
-  constexpr int LPR = D / 8;     // lanes per row, 16 bytes each
-  constexpr int RPW = 32 / LPR;  // rows a warp takes at a time
-  constexpr int UNROLL = G >= 4 ? 2 : 4;
-  __shared__ float s_acc[NWARPS][G][D];
-  __shared__ float s_m[NWARPS][G], s_l[NWARPS][G];
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const int group = hq / hkv;    // query heads per kv head
-  const int chunks = group / G;  // blocks per kv head, G query heads each
-  const int h = blockIdx.x / chunks;
-  const int head0 = h * group + (blockIdx.x % chunks) * G;
-  const int b = blockIdx.y, z = blockIdx.z;
+// A cluster barrier in two halves: every block arrives at its start and waits
+// before its first write into another block's shared memory, which then
+// exists (all blocks of a cluster have started).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <int D, bool MERGE>
+__global__ void __launch_bounds__(NTHREADS, 2) decode_attention_kernel(const Params p) {
+  using S = Smem<D>;
+  constexpr int LD = S::LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int z = static_cast<int>(cluster.block_rank());  // blockIdx.y
+  const int G = p.hq / p.hkv;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kn_s = reinterpret_cast<__nv_bfloat16*>(smem + S::RING);
+  __nv_bfloat16* vn_s = kn_s + D;
+  float* in_acc = reinterpret_cast<float*>(smem + S::RING + 4 * D);
+  float* in_m = in_acc + G * D + p.nsplit;
+  float* in_l = in_m + p.nsplit * G;
+  float* st_snew = in_l + p.nsplit * G;
+  const int h = blockIdx.x, head0 = h * G, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int sub = lane / LPR, col = (lane % LPR) * 8;
 
   // this block's rows [lo, hi) of the sample's window [start, end)
-  const int end = min(*end_ptr, max_len);
-  const int start = max(starts[b], 0);
+  const int end = min(*p.end, p.max_len);
+  const int start = max(p.starts[b], 0);
   const int n = max(end - start, 0);
-  const int per = (n + nsplit - 1) / nsplit;
+  const int per = (n + p.nsplit - 1) / p.nsplit;
   const int lo = start + z * per;
   const int hi = min(lo + per, end);
+  const int tiles = hi > lo ? (hi - lo + TILE - 1) / TILE : 0;
 
-  float qf[G][8];
+  cluster_arrive_relaxed();
+  // this warp's rows of tile t: [lo + t * TILE + 16 * warp, + 16), into slot
+  // t % STAGES of its ring; rows past the piece are zero-filled, not read
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  __nv_bfloat16* wring = ring + warp * STAGES * S::SLOT;
+  auto issue = [&](int t) {
+    __nv_bfloat16* slot = wring + (t % STAGES) * S::SLOT;
+    constexpr int CHUNKS = D / 8;  // 16-byte vectors a row
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    unpack8(*reinterpret_cast<const uint4*>(q + b * q_sb + (head0 + g) * q_sh + col), qf[g]);
-
-  float m[G], l[G], acc[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
+    for (int i = 0; i < 2 * 16 * CHUNKS / 32; ++i) {
+      const int c = lane + 32 * i;
+      const int kv = c / (16 * CHUNKS), r = (c / CHUNKS) % 16, cc = (c % CHUNKS) * 8;
+      const int row = lo + t * TILE + warp * 16 + r;
+      const bool ok = row < hi;
+      const long long at = ok ? row : lo;
+      cp_async_16(slot + (kv * 16 + r) * LD + cc,
+                  (kv ? vb + at * p.v_sr : kb + at * p.k_sr) + cc, ok);
+    }
+  };
+  if (MERGE && tid < D / 4) {  // read after the loop, landed with the first tile
+    const int c = tid % (D / 8) * 8;
+    cp_async_16((tid < D / 8 ? kn_s : vn_s) + c,
+                tid < D / 8 ? p.k_new + b * p.kn_sb + h * p.kn_sh + c
+                            : p.v_new + b * p.vn_sb + h * p.vn_sh + c,
+                true);
   }
-
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh + col;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh + col;
-  constexpr int STEP = NWARPS * RPW;  // rows the block takes at a time
-  // the bound is uniform over a warp, so every lane reaches the shuffles
-  for (int r0 = lo + warp * RPW; r0 < hi; r0 += STEP * UNROLL) {
-    uint4 kk[UNROLL], vv[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int row = r0 + u * STEP + sub;
-      kk[u] = vv[u] = make_uint4(0, 0, 0, 0);
-      if (row < hi) {
-        kk[u] = *reinterpret_cast<const uint4*>(kb + row * k_sr);
-        vv[u] = *reinterpret_cast<const uint4*>(vb + row * v_sr);
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < tiles) issue(t);
+    cp_async_commit();  // empty groups keep the count of groups in step
+  }
+  // a warp's state: rows gq and gq + 8 of the A fragments
+  const int gq = lane / 4, tq = lane % 4;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  {
+    // the G query rows as the A fragments, rows past G zero
+    uint32_t qa[D / 16][4];
+    const __nv_bfloat16* q0 = p.q + b * p.q_sb + (head0 + gq) * p.q_sh + 2 * tq;
+    const __nv_bfloat16* q8 = q0 + 8 * p.q_sh;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][0] = gq < G ? *reinterpret_cast<const uint32_t*>(q0 + kk * 16) : 0u;
+      qa[kk][1] = gq + 8 < G ? *reinterpret_cast<const uint32_t*>(q8 + kk * 16) : 0u;
+      qa[kk][2] = gq < G ? *reinterpret_cast<const uint32_t*>(q0 + kk * 16 + 8) : 0u;
+      qa[kk][3] = gq + 8 < G ? *reinterpret_cast<const uint32_t*>(q8 + kk * 16 + 8) : 0u;
+    }
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait<STAGES - 2>();  // this lane's copies of tile t have landed
+      __syncwarp();                 // ... and the warp's; slot t - 1 is free
+      if (t + STAGES - 1 < tiles) issue(t + STAGES - 1);
+      cp_async_commit();
+      const __nv_bfloat16* ks = wring + (t % STAGES) * S::SLOT;
+      const __nv_bfloat16* vs = ks + 16 * LD;
+      float sc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bk[4];
+        load_b_rows<LD>(bk, ks, 0, kk * 16, lane);
+        mma_16816(sc[0], qa[kk], bk[0], bk[1]);
+        mma_16816(sc[1], qa[kk], bk[2], bk[3]);
+      }
+      // scale and mask; the rows' maxima over the quad's 16 columns
+      const int key0 = lo + t * TILE + warp * 16 + 2 * tq;
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = key0 + nt * 8 + (e & 1) < hi;
+          sc[nt][e] = ok ? sc[nt][e] * p.scale : NEG;
+          mx[e / 2] = fmaxf(mx[e / 2], sc[nt][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        alpha[r] = __expf(m_r[r] - m_new);
+        m_r[r] = m_new;
+        l_r[r] *= alpha[r];
+      }
+      float pr[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pr[nt][e] = sc[nt][e] > 0.5f * NEG ? __expf(sc[nt][e] - m_r[e / 2]) : 0.f;
+          l_r[e / 2] += pr[nt][e];
+        }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+      const uint32_t pa[4] = {pack_f32(pr[0][0], pr[0][1]), pack_f32(pr[0][2], pr[0][3]),
+                              pack_f32(pr[1][0], pr[1][1]), pack_f32(pr[1][2], pr[1][3])};
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t bv[4];
+        load_b_cols<LD>(bv, vs, 0, j * 16, lane);
+        mma_16816(o[2 * j], pa, bv[0], bv[1]);
+        mma_16816(o[2 * j + 1], pa, bv[2], bv[3]);
       }
     }
-    float s[UNROLL][G];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      float kf[8];
-      unpack8(kk[u], kf);
-      const bool ok = r0 + u * STEP + sub < hi;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) d = fmaf(qf[g][j], kf[j], d);
-#pragma unroll
-        for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-        s[u][g] = ok ? d * scale : NEG;
-      }
+    for (int r = 0; r < 2; ++r) {  // each lane summed its own columns
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
+    if (MERGE && warp == 0) {
+      // the current token's scores q . k_new * scale in fp32: a quad holds a
+      // query row's D values in its A fragments; its lanes take the same
+      // columns of k_new and sum over the quad
+      cp_async_wait<0>();  // k_new's copies, in an empty block too
+      __syncwarp();
+      float d0 = 0.f, d8 = 0.f;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float m_new = m[g];
+      for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) m_new = fmaxf(m_new, s[u][g]);
-      const float alpha = __expf(m[g] - m_new);
-      m[g] = m_new;
-      l[g] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[g][j] *= alpha;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      float vf[8];
-      unpack8(vv[u], vf);
-      const bool ok = r0 + u * STEP + sub < hi;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = ok ? __expf(s[u][g] - m[g]) : 0.f;
-        l[g] += p;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[g][j] = fmaf(p, vf[j], acc[g][j]);
+        for (int half = 0; half < 2; ++half) {
+          const float2 k2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              kn_s + kk * 16 + 8 * half + 2 * tq));
+          const float2 a0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&qa[kk][2 * half]));
+          const float2 a8 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&qa[kk][2 * half + 1]));
+          d0 = fmaf(a0.x, k2.x, fmaf(a0.y, k2.y, d0));
+          d8 = fmaf(a8.x, k2.x, fmaf(a8.y, k2.y, d8));
+        }
       }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+        d8 += __shfl_xor_sync(0xffffffffu, d8, off);
+      }
+      if (tq == 0 && gq < G) st_snew[gq] = d0 * p.scale;
+      if (tq == 0 && gq + 8 < G) st_snew[gq + 8] = d8 * p.scale;
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every slot is consumed: the rings are free for the warps' states
 
-  // the lane groups of a warp hold states of different rows: merge them
+  float* w_acc = reinterpret_cast<float*>(smem);  // [NWARPS][GMAX][D]
+  float* w_m = w_acc + NWARPS * GMAX * D;         // [NWARPS][GMAX]
+  float* w_l = w_m + NWARPS * GMAX;
 #pragma unroll
-  for (int off = LPR; off < 32; off <<= 1) {
+  for (int r = 0; r < 2; ++r) {
+    const int row = gq + 8 * r;
+    if (row >= G) continue;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
-      float acc_o[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc_o[j] = __shfl_xor_sync(0xffffffffu, acc[g][j], off);
-      merge_state(m[g], l[g], acc[g], m_o, l_o, acc_o);
+    for (int j = 0; j < D / 8; ++j) {
+      w_acc[(warp * GMAX + row) * D + j * 8 + 2 * tq] = o[j][2 * r];
+      w_acc[(warp * GMAX + row) * D + j * 8 + 2 * tq + 1] = o[j][2 * r + 1];
     }
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s_acc[warp][g][col + j] = acc[g][j];
-      if (lane == 0) {
-        s_m[warp][g] = m[g];
-        s_l[warp][g] = l[g];
-      }
+    if (tq == 0) {
+      w_m[warp * GMAX + row] = m_r[r];
+      w_l[warp * GMAX + row] = l_r[r];
     }
   }
   __syncthreads();
 
-  // the warps' states into one, written unnormalised
+  // the warps' states into the block's, unnormalised, pushed into the inbox
+  // of the block that owns each output
+  const int share = (G * D + p.nsplit - 1) / p.nsplit;
+  cluster_wait();  // every block of the cluster has started
   for (int i = tid; i < G * D; i += NTHREADS) {
-    const int g = i / D, d = i % D;
+    const int g = i / D;
     float m_all = NEG;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) m_all = fmaxf(m_all, s_m[w][g]);
+    for (int w = 0; w < NWARPS; ++w) m_all = fmaxf(m_all, w_m[w * GMAX + g]);
     float l_all = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
-      const float e = __expf(s_m[w][g] - m_all);
-      l_all += s_l[w][g] * e;
-      a += s_acc[w][g][d] * e;
+      const float e = __expf(w_m[w * GMAX + g] - m_all);
+      l_all += w_l[w * GMAX + g] * e;
+      a += w_acc[(w * GMAX + g) * D + i % D] * e;
     }
-    const long long slot = (static_cast<long long>(b) * hq + head0 + g) * nsplit + z;
-    part_acc[slot * D + d] = a;
-    if (d == 0) {
-      part_m[slot] = m_all;
-      part_l[slot] = l_all;
+    const int owner = i / share;
+    *cluster.map_shared_rank(in_acc + z * share + i - owner * share, owner) = a;
+    if (i % D == 0) {
+      for (int r = 0; r < p.nsplit; ++r) {
+        *cluster.map_shared_rank(in_m + z * G + g, r) = m_all;
+        *cluster.map_shared_rank(in_l + z * G + g, r) = l_all;
+      }
+    }
+  }
+  // every push has landed; after this no block touches another's memory
+  cluster.sync();
+
+  // this block's share of the G * D outputs, from the nsplit states
+  const int i_end = min((z + 1) * share, G * D);
+  for (int i = z * share + tid; i < i_end; i += NTHREADS) {
+    const int g = i / D, d = i % D, j = i - z * share;
+    float m_all = NEG;
+    for (int r = 0; r < p.nsplit; ++r) m_all = fmaxf(m_all, in_m[r * G + g]);
+    float l_all = 0.f, a = 0.f;
+    for (int r = 0; r < p.nsplit; ++r) {
+      const float e = __expf(in_m[r * G + g] - m_all);
+      l_all += in_l[r * G + g] * e;
+      a += in_acc[r * share + j] * e;
+    }
+    const long long o_idx = (static_cast<long long>(b) * p.hq + head0 + g) * D + d;
+    if (MERGE) {
+      const float s_new = st_snew[g];
+      const float m_new = fmaxf(m_all, s_new);
+      const float alpha = __expf(m_all - m_new), p_new = __expf(s_new - m_new);
+      const float vn = __bfloat162float(vn_s[d]);
+      p.out[o_idx] = __float2bfloat16_rn((a * alpha + p_new * vn) / (l_all * alpha + p_new));
+    } else {
+      p.out[o_idx] = __float2bfloat16_rn(l_all > 0.f ? a / l_all : 0.f);
+      if (d == 0) {
+        p.m[o_idx / D] = m_all;
+        p.l[o_idx / D] = l_all;
+      }
     }
   }
 }
 
-// grid (Hq, B), D threads: the nsplit partial states of one query head
-template <int D>
-__global__ void __launch_bounds__(D)
-decode_attention_combine(const float* __restrict__ part_acc, const float* __restrict__ part_m,
-                         const float* __restrict__ part_l, __nv_bfloat16* __restrict__ out,
-                         float* __restrict__ m_out, float* __restrict__ l_out, int hq, int nsplit) {
-  const long long head = static_cast<long long>(blockIdx.y) * hq + blockIdx.x;
-  const int d = threadIdx.x;
-  float m = NEG;
-  for (int z = 0; z < nsplit; ++z) m = fmaxf(m, part_m[head * nsplit + z]);
-  float l = 0.f, a = 0.f;
-  for (int z = 0; z < nsplit; ++z) {
-    const float e = __expf(part_m[head * nsplit + z] - m);
-    l += part_l[head * nsplit + z] * e;
-    a += part_acc[(head * nsplit + z) * D + d] * e;
-  }
-  out[head * D + d] = __float2bfloat16_rn(l > 0.f ? a / l : 0.f);
-  if (d == 0) {
-    m_out[head] = m;
-    l_out[head] = l;
-  }
-}
-
-struct Args {
-  const void *q, *k, *v, *starts, *end;
-  void *part_acc, *part_m, *part_l, *out, *m, *l;
-  int B, hq, hkv, max_len, nsplit;
-  long long q_sb, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <int D, int G>
-int launch(const Args& a) {
-  const dim3 grid(a.hkv * ((a.hq / a.hkv) / G), a.B, a.nsplit);
-  decode_attention_partial<D, G><<<grid, NTHREADS, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const int*>(a.starts),
-      static_cast<const int*>(a.end), static_cast<float*>(a.part_acc),
-      static_cast<float*>(a.part_m), static_cast<float*>(a.part_l), a.hq, a.hkv, a.max_len,
-      a.nsplit, a.q_sb, a.q_sh, a.k_sb, a.k_sr, a.k_sh, a.v_sb, a.v_sr, a.v_sh, a.scale);
-  cudaError_t err = cudaGetLastError();
+template <int D, bool MERGE>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<D, MERGE>;
+  const int bytes = Smem<D>::bytes(p.hq / p.hkv, p.nsplit);
+  // set once per device: the host cost of a decode step counts
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_attention_combine<D><<<dim3(a.hq, a.B), D, 0, a.stream>>>(
-      static_cast<const float*>(a.part_acc), static_cast<const float*>(a.part_m),
-      static_cast<const float*>(a.part_l), static_cast<__nv_bfloat16*>(a.out),
-      static_cast<float*>(a.m), static_cast<float*>(a.l), a.hq, a.nsplit);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<D>::MAX_BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.hkv, p.nsplit, B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// G query heads per block: the largest of 8, 4, 2, 1 that divides the group
 template <int D>
-int launch_d(const Args& a) {
-  const int group = a.hq / a.hkv;
-  if (group % 8 == 0) return launch<D, 8>(a);
-  if (group % 4 == 0) return launch<D, 4>(a);
-  if (group % 2 == 0) return launch<D, 2>(a);
-  return launch<D, 1>(a);
+int launch_d(const Params& p, int B, cudaStream_t stream) {
+  return p.k_new ? launch<D, true>(p, B, stream) : launch<D, false>(p, B, stream);
 }
 
 }  // namespace
@@ -297,23 +462,46 @@ int launch_d(const Args& a) {
 extern "C" {
 
 // Returns 0 on success, else the cudaError_t of the failed launch. Dtypes,
-// shapes, alignment and devices are checked by the Python wrapper. Strides
-// are in elements. part_acc [B, Hq, nsplit, D], part_m and part_l
-// [B, Hq, nsplit] are fp32 scratch that the wrapper allocates.
-int aigv_decode_attention(const void* q, const void* k, const void* v, const void* starts,
-                          const void* end, void* part_acc, void* part_m, void* part_l, void* out,
-                          void* m, void* l, int B, int hq, int hkv, int max_len, int D, int nsplit,
-                          long long q_sb, long long q_sh, long long k_sb, long long k_sr,
-                          long long k_sh, long long v_sb, long long v_sr, long long v_sh,
-                          float scale, void* stream) {
-  if (B <= 0 || hkv <= 0 || hq <= 0 || hq % hkv || max_len <= 0 || nsplit <= 0 || B > 65535 ||
-      nsplit > 65535)
+// shapes and devices are checked by the Python wrapper; alignment here.
+// Strides are in elements. With k_new and v_new (both or neither) the
+// current token is merged and m, l are not written; without them m and l
+// receive the window's softmax state.
+int aigv_cached_decode_attention(const void* q, const void* k, const void* v,
+                                 const void* k_new, const void* v_new, const void* starts,
+                                 const void* end, void* out, void* m, void* l, int B, int hq,
+                                 int hkv, int max_len, int D, int nsplit, long long q_sb,
+                                 long long q_sh, long long k_sb, long long k_sr, long long k_sh,
+                                 long long v_sb, long long v_sr, long long v_sh,
+                                 long long kn_sb, long long kn_sh, long long vn_sb,
+                                 long long vn_sh, float scale, void* stream) {
+  const bool merge = k_new != nullptr;
+  if (B <= 0 || hkv <= 0 || hq <= 0 || hq % hkv || hq / hkv > GMAX || max_len <= 0 ||
+      nsplit <= 0 || nsplit > MAX_SPLITS || B > 65535 || hkv > 65535 ||
+      merge != (v_new != nullptr) || (!merge && (m == nullptr || l == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,  k,  v,   starts,  end,    part_acc, part_m, part_l, out,  m,    l,
-               B,  hq, hkv, max_len, nsplit, q_sb,     q_sh,   k_sb,   k_sr, k_sh, v_sb,
-               v_sr, v_sh, scale, static_cast<cudaStream_t>(stream)};
-  if (D == 128) return launch_d<128>(a);
-  if (D == 64) return launch_d<64>(a);
+  // 16-byte loads: aligned bases, row strides in whole 16-byte vectors
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(k_new) |
+                          reinterpret_cast<uintptr_t>(v_new);
+  const long long strides = q_sb | q_sh | k_sb | k_sr | k_sh | v_sb | v_sr | v_sh |
+                            (merge ? kn_sb | kn_sh | vn_sb | vn_sh : 0);
+  if (bases % 16 || strides % 8) return static_cast<int>(cudaErrorMisalignedAddress);
+  const Params p{static_cast<const __nv_bfloat16*>(q),
+                 static_cast<const __nv_bfloat16*>(k),
+                 static_cast<const __nv_bfloat16*>(v),
+                 static_cast<const __nv_bfloat16*>(k_new),
+                 static_cast<const __nv_bfloat16*>(v_new),
+                 static_cast<const int*>(starts),
+                 static_cast<const int*>(end),
+                 static_cast<__nv_bfloat16*>(out),
+                 static_cast<float*>(m),
+                 static_cast<float*>(l),
+                 hq, hkv, max_len, nsplit,
+                 q_sb, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, kn_sb, kn_sh, vn_sb, vn_sh,
+                 scale};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch_d<128>(p, B, st);
+  if (D == 64) return launch_d<64>(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

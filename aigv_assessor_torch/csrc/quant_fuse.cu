@@ -21,12 +21,32 @@
 // correctly rounded rsqrt (__frsqrt_rn, not rsqrtf); RMSNorm's weight applied
 // to the fp32 product x * rsqrt(mean(x^2) + eps), never to a rounded copy;
 // sigmoid as 1 / (1 + expf(-x)) with the accurate expf and an IEEE division,
-// as `jax.lax.logistic`; an IEEE division y / s, not y * (1 / s); rounding
-// half to even (rintf, not roundf); an accurate tanhf, not tanh.approx; and
+// as `jax.lax.logistic`; rint of the IEEE quotient y / s, rounding half to
+// even (below: computed without the division, with the same result); and
 // every product and sum rounded on its own (__fmul_rn / __fadd_rn, no FMA
 // contraction), as the eager plain version rounds them. The row sums are
-// taken in another order than the plain version's, so where y / s lies
-// within an ulp of a half an int8 value can differ by one.
+// taken in another order than the plain version's, and the GELU's tanh is
+// computed another way (at `gelu_tanh`), so where y / s lies within an ulp
+// of a half an int8 value can differ by one.
+//
+// The quotient. rint(y / s) with an IEEE division costs a reciprocal on the
+// special-function unit and a Newton step per element; the elements are
+// bound by instruction issue, not bytes (K4b: ~50 instructions each). So
+// t = y * inv, with inv = 1/s correctly rounded once per row, stands in for
+// q = fl(y / s), and rint(t) is taken when t is farther than 2^-15 from every
+// half-integer. Proof that rint(t) == rint(q) there: |y| <= absmax and
+// s = fl(max(absmax, 1e-8) / 127), so |y / s| <= 127 (1 + 2^-24); with
+// u = 2^-24, inv = (1/s)(1 + a), t = y inv (1 + b), q = (y/s)(1 + c),
+// |a|, |b|, |c| <= u, hence |t - q| <= |y/s| (3u + u^2) < 2.3e-5 < 2^-15.
+// No half-integer lies within 2^-15 of t, so none lies between t and q, and
+// q is no tie: both round to the same integer. Elsewhere (about 6e-5 of the
+// elements, and any NaN) the exact rintf(__fdiv_rn(y, s)) runs, clipped as
+// before. The rounding itself is t + 1.5 * 2^23 (round to nearest even at
+// unit spacing, |t| < 2^22), whose low byte is the int8 value in two's
+// complement: no conversion instruction, also a quarter-rate pipe. On the
+// fast path |rint(t)| <= 127, so the clip is void. The result is bit for bit
+// that of the division for every input (tests/test_torch_decode_fused.py
+// checks a float32 model of it).
 //
 // Design. One block per row; the row stays in registers. A block of 128
 // threads takes rows of up to 8192 values, one of 256 threads rows of up to
@@ -44,7 +64,11 @@
 // K4b 0.41 GB (33024 x 4096) a launch, 0.03 ms and 0.12 ms at the H100's
 // 3.35 TB/s; on the 2B decoder K5a moves 51.9 MB (8452 x 2048), 0.0155 ms,
 // and K5b 346.2 MB (two 8452 x 8192 inputs), 0.1033 ms. The reductions'
-// latency is hidden by the blocks an SM holds at once.
+// latency is hidden by the blocks an SM holds at once. But the per-element
+// math can bind before the bytes: on an H100 the identity producer at K4b's
+// shape runs at 89% of the byte bound and the GELU with libdevice's tanhf
+// and the IEEE division at 48%, so the quotient and the tanh above are
+// written for instruction count.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +81,8 @@ constexpr int VEC = 8;  // bf16 values per 16-byte load
 constexpr int MAX_CHUNKS = 8;  // 16-byte vectors a thread holds
 constexpr int SMALL_BLOCK = 128, LARGE_BLOCK = 256;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
+constexpr float kRoundMagic = 12582912.0f;  // 1.5 * 2^23
+constexpr float kFastLimit = 0.5f - 0.000030517578125f;  // 0.5 - 2^-15
 
 enum Producer { kIdentity = 0, kLayerNorm = 1, kGeluTanh = 2, kRmsNorm = 3, kSiluMul = 4 };
 
@@ -86,6 +112,40 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
   for (int w = 1; w < WARPS; ++w) t = fmaxf(t, red[w]);
   return t;
+}
+
+// The division's answer, for the few elements near a half-integer; out of
+// line, so that the unrolled per-element code stays small
+__device__ __noinline__ uint32_t quant_byte_exact(float y, float s) {
+  const float r = fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f);
+  return static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(r)));
+}
+
+// int8 rint(y / s), clipped to [-127, 127], in the low byte (see "The
+// quotient" above; inv = __frcp_rn(s))
+__device__ __forceinline__ uint32_t quant_byte(float y, float s, float inv) {
+  const float t = __fmul_rn(y, inv);
+  const float big = __fadd_rn(t, kRoundMagic);
+  if (fabsf(__fsub_rn(t, __fsub_rn(big, kRoundMagic))) < kFastLimit) return __float_as_uint(big);
+  return quant_byte_exact(y, s);
+}
+
+// 0.5 x (1 + tanh(u)) = x / (1 + e^(-2u)), u = sqrt(2/pi) (x + 0.044715 x^3),
+// with e^(-2u) = 2^(-2 u log2(e)) on ex2.approx and the quotient on
+// rcp.approx: two special-function instructions and no branch, where
+// libdevice's tanhf branches on |u| and took a third of K4b's time. Over
+// every finite bf16 x its largest error is 9.3 fp32 ulps where |y| >= 1e-3
+// (JAX's order with libdevice's tanhf: 372, from the cancellation in 1 + t
+// for negative x); below that, where x < -5 and y is a few 1e-9 * x or
+// less, it keeps the tail that 1 + tanh(u) rounds to 0
+// (tools/quant_fuse_ab.py measures both on the card). Against the plain
+// version it flips 2.7e-6 of K4b's int8 values.
+__device__ __forceinline__ float gelu_tanh(float v) {
+  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, v), v), v);
+  const float u = __fmul_rn(kSqrt2OverPi, __fadd_rn(v, cube));
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(__fmul_rn(-2.8853900817779268f, u)));
+  return __fdividef(v, __fadd_rn(1.0f, e));
 }
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[VEC]) {
@@ -185,17 +245,10 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       }
     }
   } else if (PRODUCER == kGeluTanh) {
-    // 0.5 * x * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x * x * x))), each
-    // product and sum rounded in this order
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float v = y[c][e];
-        const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, v), v), v);
-        const float t = tanhf(__fmul_rn(kSqrt2OverPi, __fadd_rn(v, cube)));
-        y[c][e] = __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, t));
-      }
+      for (int e = 0; e < VEC; ++e) y[c][e] = gelu_tanh(y[c][e]);
   }
 
   float amax = 0.f;
@@ -206,21 +259,32 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     for (int e = 0; e < VEC; ++e) amax = fmaxf(amax, fabsf(y[c][e]));
   }
   const float s = __fdiv_rn(fmaxf(block_max<WARPS>(amax, red), 1e-8f), 127.0f);
+  const float inv = __frcp_rn(s);
 
   int8_t* qr = q + row * cols;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
     if (!valid[c]) continue;
-    uint32_t w[2] = {0u, 0u};
+    uint32_t b[VEC];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float r = fminf(fmaxf(rintf(__fdiv_rn(y[c][e], s)), -127.f), 127.f);
-      const uint32_t byte = static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(r)));
-      w[e / 4] |= byte << (8 * (e % 4));
-    }
+    for (int e = 0; e < VEC; ++e) b[e] = quant_byte(y[c][e], s, inv);
+    // the low bytes, four to a word
+    uint32_t w[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      w[h] = __byte_perm(__byte_perm(b[4 * h], b[4 * h + 1], 0x0040),
+                         __byte_perm(b[4 * h + 2], b[4 * h + 3], 0x0040), 0x5410);
     *reinterpret_cast<uint2*>(qr + c * ROW_TILE + threadIdx.x * VEC) = make_uint2(w[0], w[1]);
   }
   if (threadIdx.x == 0) scale[row] = s;
+}
+
+// The GELU producer alone, elementwise: its error against the exact
+// function over every bf16 input, measured on the card
+__global__ void gelu_values_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
+                                   long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = gelu_tanh(__bfloat162float(x[i]));
 }
 
 template <int THREADS, int CHUNKS, int PRODUCER>
@@ -296,6 +360,16 @@ int aigv_quant_rows_fwd(int producer, const void* x, const void* x2, const void*
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// y fp32 [n] = the GELU producer of x bf16 [n], as the fused kernel computes
+// it; a measuring aid, on no model path.
+int aigv_gelu_values(const void* x, void* y, long long n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  gelu_values_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(y), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* aigv_cuda_error_string(int err) {

@@ -53,8 +53,10 @@ bf16 and W8A8 hold them for head-major use), the block of new tokens attends
 (old cache rows) + (itself) in one softmax, and the layer loop writes the
 block's roped k/v rows into the cache in place. A single new token on a
 float cache goes through the decode-attention kernel
-(`ops/decode_attention.py`) whenever the head shape passes
-`decode_kernel_supported`; a longer block, `block_causal` or an int8 cache
+(`ops/decode_attention.py`: the window and the token itself in one launch)
+whenever the head shape passes `decode_kernel_supported`, with each
+sample's first attended row computed once per step for all layers; a longer
+block, `block_causal` or an int8 cache
 goes through `ops/attention.two_part_cached_attention`. Without a cache,
 `capture_kv` hands back every layer's roped k/v in cache layout, which the
 shared-prefix scorer turns into a cache.
@@ -89,6 +91,7 @@ from aigv_assessor_torch.ops.attention import (
 from aigv_assessor_torch.ops.decode_attention import (
     cached_decode_attention,
     decode_kernel_supported,
+    window_starts,
 )
 from aigv_assessor_torch.ops.kv_quant import is_quantized, make_cache_rows
 from aigv_assessor_torch.ops.norms import RMSNorm
@@ -211,8 +214,10 @@ class InternLM2Attention(nn.Module):
                 cache_index: Optional[int] = None,
                 cache_index_dev: Optional[torch.Tensor] = None,
                 kv_mask: Optional[torch.Tensor] = None, capture_kv: bool = False,
-                block_causal: Optional[int] = None):
+                block_causal: Optional[int] = None, starts: Optional[torch.Tensor] = None):
         """x: [B, S, C], or under fused W8A8 feeds its (int8, scale) rows.
+        `starts` ([B] int32, `window_starts(kv_mask)`) serves a single-token
+        step on the decode kernel; computed here if not given.
         -> (out [B, S, C], new rows). New rows: with a cache, the block's
         roped (k, v) as the cache stores them (`make_cache_rows`), for the
         caller to write at [cache_index, cache_index + S); without one, the
@@ -235,7 +240,7 @@ class InternLM2Attention(nn.Module):
             if (s == 1 and block_causal is None and not is_quantized(cache_k)
                     and decode_kernel_supported(hq, hkv, d)):
                 out = cached_decode_attention(q, k, v, cache_k, cache_v, cache_index_dev,
-                                              kv_mask)
+                                              kv_mask, starts)
             else:
                 out = two_part_cached_attention(q, k, v, cache_k, cache_v, cache_index,
                                                 kv_mask, block_causal=block_causal)
@@ -312,11 +317,11 @@ class InternLM2DecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, position_ids, cache_k=None, cache_v=None,
                 cache_index=None, cache_index_dev=None, kv_mask=None, capture_kv=False,
-                block_causal=None):
+                block_causal=None, starts=None):
         """-> (x, the attention's new rows)."""
         attn, new_rows = self.attention(
             self._feed(self.attention_norm, x), cos, sin, position_ids, cache_k, cache_v,
-            cache_index, cache_index_dev, kv_mask, capture_kv, block_causal)
+            cache_index, cache_index_dev, kv_mask, capture_kv, block_causal, starts)
         x = x + attn
         return x + self.feed_forward(self._feed(self.ffn_norm, x)), new_rows
 
@@ -406,12 +411,15 @@ class InternLM2ForCausalLM(nn.Module):
 
         x = inputs_embeds.to(self.norm.weight.dtype)
         remat = self.grad_checkpoint and torch.is_grad_enabled() and cache is None
+        # a single-token step: each sample's first attended row, once for all layers
+        starts = (window_starts(kv_mask, b, device)
+                  if cache is not None and s == 1 and block_causal is None else None)
         captured = []
         for i, layer in enumerate(self.layers):
             if cache is not None:
                 x, (kn, vn) = layer(
                     x, cos, sin, position_ids, _layer_slot(cache.k, i), _layer_slot(cache.v, i),
-                    cache.index, cache.index_dev, kv_mask, False, block_causal)
+                    cache.index, cache.index_dev, kv_mask, False, block_causal, starts)
                 _write_rows(cache.k, kn, i, cache.index)
                 _write_rows(cache.v, vn, i, cache.index)
             elif remat and not capture_kv:

@@ -50,6 +50,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,  # stream
     ]
     lib.aigv_quant_rows_fwd.restype = ctypes.c_int
+    # the GELU producer alone (a measuring aid: tools/quant_fuse_ab.py)
+    lib.aigv_gelu_values.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_void_p]
+    lib.aigv_gelu_values.restype = ctypes.c_int
 
 
 LIB = CudaLibrary("quant_fuse.cu", _declare)

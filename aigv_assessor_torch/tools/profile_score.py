@@ -35,7 +35,7 @@ import torch
 CTX, FRAMES, IMAGE, TEXT, BATCH = 7, 8, 448, 64, 4
 MODES = ("bf16", "w8a8", "w8a8_fused", "int8", "int4")
 KINDS = (  # (label, substrings of the kernel's name)
-    ("decode_attention", ("decode_attention_partial", "decode_attention_combine")),
+    ("decode_attention", ("decode_attention",)),  # K8, either source's kernels
     ("attention_fwd", ("flash_fwd_kernel",)),
     # K6 / K7: the GEMM and unaligned forms, and the GEMV form's decode
     # matvec instantiated for the int8 / int4 weights

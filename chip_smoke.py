@@ -48,7 +48,9 @@ Phases, each printing one line or more (and failing the run by raising):
      ViT's feed shapes, and the RMSNorm / SwiGLU + int8 kernels at the 2B
      decoder's (K5b also at the 8B decoder's 14336-wide feed), each also at a
      ragged row count: scales within rtol 1e-5, int8 values differing by at
-     most one on at most 1e-3 of the elements.
+     most one on at most 1e-3 of the elements; on `tools/quant_fuse_ab.tie_grid`'s
+     rows, where every y / s is a half-integer or an integer, q and s equal
+     the exact rint(y / s) of every producer bit for bit.
    - The forward on three separate tensors at the LLM's shape (`bshd` views
      of one row-major projection output, causal, GQA), at the ViT's shape in
      both layouts with kv_valid 1025 of 1032, at a non-causal Sq != Skv shape
@@ -94,13 +96,19 @@ Phases, each printing one line or more (and failing the run by raising):
      2150 with ragged `starts`), with `end` = 0, with windows of one row and
      at D = 64: `out` within DECODE_TOL of `plain_decode_attention`, `m` and
      `l` within DECODE_ML_RTOL; rows outside the windows hold NaN for the
-     kernel, which must not load them; merged with the current token against
-     `two_part_cached_attention`. Timed over a stack of layers larger than the
-     L2 cache, as a CUDA graph's replay (device time) and call by call (with
-     the host's launch cost), beside its byte bound, the plain version, the eager
-     `two_part_cached_attention` with one token and SDPA with a one-token
-     query; and with every window DECODE_SHORT rows long, which must not take
-     longer than full windows.
+     kernel, which must not load them; the fused entry (the window and the
+     current token in one launch, `cached_decode_attention`) within
+     DECODE_TOL of `plain_cached_decode_attention` at every shape, with NaN
+     outside the windows, and of `two_part_cached_attention`; at the path
+     shape its launch captured in a CUDA graph and replayed three times,
+     bit-equal to the eager call. Timed over a stack of layers larger than
+     the L2 cache, as a CUDA graph's replay (device time) and call by call
+     (with the host's launch cost): the fused entry, the window alone (the
+     same kernel without the merge), the window plus the eager
+     `merge_new_token`, beside their byte bounds, the plain versions, the
+     eager `two_part_cached_attention` with one token and SDPA with a
+     one-token query; and with every window DECODE_SHORT rows long, which
+     must not take longer than full windows.
    - The fp8 (e4m3) decode matmul (K9) at the fp8 probe's three decode
      matvecs of InternLM2-1.8B (wqkv 2048 -> 4096, w1 / w3 fused 2048 ->
      16384, w2 8192 -> 2048) at M = 1, 4, 8 and at a ragged M = 3, K = 2050,
@@ -178,12 +186,13 @@ Phases, each printing one line or more (and failing the run by raising):
 8. generation: `models/generation.generate` on the same model, B = 4, the
    2113-token prompt with the motion embedding, GEN_TOKENS new tokens,
    greedy, in bf16, with int8 weights, and in bf16 with the int8 KV cache.
-   Checks [4, GEN_TOKENS] token ids; decode-attention launches = 24 x decode
-   steps (0 under `kv_int8`), 121 int8 matmuls per prefill (the GEMM form)
+   Checks [4, GEN_TOKENS] token ids; fused decode-attention launches = 24 x
+   decode steps (0 under `kv_int8`), no window-only launch and no call of
+   `merge_new_token`, 121 int8 matmuls per prefill (the GEMM form)
    and per step (the GEMV form), 24
    fused-qkv launches (the ViT); then, under a fixed token sequence
    (teacher forcing), the decode logits of the kernel path against the same
-   steps on the plain decode attention and against the cache-free forward
+   steps on `plain_cached_decode_attention` and against the cache-free forward
    (DECODE_LOGITS_TOL), in bf16 also against an fp32 run of the same weights
    (REF_RATIO); token agreement where the top-two margin exceeds the
    measured difference; the cache rows against the cache-free forward's
@@ -310,9 +319,9 @@ W8A8_READOUT_TOL = 1e-1
 # W8A8 against bf16 of the same weights: the JAX package's own bound
 # (tests/test_w8a8.py, hidden-state cosine > 0.99)
 W8A8_COSINE = 0.99
-# quantize kernels vs plain: the row sums run in another order and tanh and
-# rsqrt come from other library code, so y / s may land on the other side of
-# a half
+# quantize kernels vs plain: the row sums run in another order, rsqrt comes
+# from other library code and the kernel's GELU computes 0.5 x (1 + tanh(u))
+# as x / (1 + e^(-2u)), so y / s may land on the other side of a half
 SCALE_RTOL = 1e-5
 FLIP_FRACTION = 1e-3
 # weight-only matmuls vs the plain version (fp32 products of the same bf16
@@ -339,7 +348,10 @@ WEIGHT_ONLY_READOUT_TOL = 5e-2
 INT8_COSINE = 0.99
 # decode attention vs plain: `out` is bf16 (2^-9 relative), and the kernel
 # keeps p in fp32 where the plain version rounds it to bf16, an error of the
-# same size before the sum over the window averages it out
+# same size before the sum over the window averages it out. The fused entry
+# merges the current token into the unrounded fp32 state and rounds once,
+# where JAX's merge_new_token takes the window's output rounded to bf16 and
+# rounds again: a difference below out's own bf16 rounding.
 DECODE_TOL = 2e-2
 # m and l: fp32 on both sides; __expf against exp and another summation order
 DECODE_ML_RTOL = 1e-4
@@ -816,6 +828,27 @@ def check_feeds(qf, device) -> dict:
         phase("kernel", f"{name} bf16 (tol: scales {SCALE_RTOL}, flips {FLIP_FRACTION} each "
               f"by one): {text}")
     return results
+
+
+def check_feed_ties(qf, device) -> None:
+    """Every producer on rows where y / s is a half-integer or an integer: q
+    and s equal the exact rint(y / s), half to even, bit for bit (the
+    quotient's shortcut must take the division on every tie)."""
+    from aigv_assessor_torch.tools.quant_fuse_ab import PRODUCERS, tie_grid
+
+    wrappers = {"identity": qf.quant_rows, "layernorm": qf.layernorm_quant,
+                "gelu": qf.gelu_quant, "rmsnorm": qf.rmsnorm_quant,
+                "silu_mul": qf.silu_mul_quant}
+    for producer in PRODUCERS:
+        x, extra, eps, q_want, s_want = tie_grid(producer, device)
+        args = (x, *extra, eps) if producer in ("layernorm", "rmsnorm") else (x, *extra)
+        q, s = wrappers[producer](*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, q_want) and torch.equal(s, s_want)):
+            raise RuntimeError(f"{producer} quantize on the tie grid: "
+                               f"{int((q != q_want).sum())} int8 values differ from rint(y / s)")
+    phase("kernel", f"quantize feeds on the tie grid ({', '.join(PRODUCERS)}): q and s "
+          "bit-equal to rint(y / s)")
 
 
 def check_attention_separate(fa, device) -> dict:
@@ -1363,13 +1396,39 @@ def check_decode_attention(dec, two_part, device) -> dict:
             raise RuntimeError(f"decode attention {name}: an empty window did not give "
                                "out = 0, l = 0, m = -1e30")
         kv_mask = rows[None] >= starts[:, None]
+        before = dec.cached_decode_attention.launches
+        fused = dec.cached_decode_attention(q[:, None], k_new, v_new, ck_nan, cv_nan, end,
+                                            starts=starts)
+        torch.cuda.synchronize()
+        if dec.cached_decode_attention.launches != before + 1 or not torch.isfinite(fused).all():
+            raise RuntimeError(f"decode attention {name}: the fused entry did not launch once, "
+                               "or read a row outside the window")
+        w_fused = dec.plain_cached_decode_attention(q[:, None], k_new, v_new, ck, cv, end,
+                                                    starts=starts)
+        fused_err = (fused.float() - w_fused.float()).abs().max().item()
+        torch.testing.assert_close(fused.float(), w_fused.float(), atol=DECODE_TOL,
+                                   rtol=DECODE_TOL)
         merged = dec.cached_decode_attention(q[:, None], k_new, v_new, ck, cv, end, kv_mask)
         want = two_part(q[:, None], k_new, v_new, ck, cv, end_i, kv_mask)
         merged_err = (merged.float() - want.float()).abs().max().item()
         torch.testing.assert_close(merged.float(), want.float(), atol=DECODE_TOL, rtol=DECODE_TOL)
+        if name == "path":  # no state kept between launches: a graph replays it as it is
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = dec.cached_decode_attention(q[:, None], k_new, v_new, ck, cv, end,
+                                                       starts=starts)
+            for _ in range(3):
+                replayed.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                if not torch.equal(replayed, merged):
+                    raise RuntimeError("decode attention: a replayed fused launch differs from "
+                                       "the eager one")
+            del graph
         n_rows = int(inside.sum())
         r = dict(shape=f"B={b} hq={hq} hkv={hkv} D={d} max_len={max_len} end={end_i} "
-                 f"starts={list(starts_t)}", rows=n_rows, max_abs_err=err,
+                 f"starts={list(starts_t)}", rows=n_rows, max_abs_err=max(err, fused_err),
+                 window_max_abs_err=err, fused_max_abs_err=fused_err,
                  merged_max_abs_err=merged_err,
                  m_max_rel_err=((m - w_m).abs() / w_m.abs().clamp_min(1e-6)).max().item(),
                  l_max_rel_err=((l - w_l).abs() / w_l.abs().clamp_min(1e-6)).max().item())
@@ -1387,9 +1446,18 @@ def check_decode_attention(dec, two_part, device) -> dict:
                         call()
                 return graph_ms(calls, iters), time_ms(run, iters, warmup=2) / len(layers)
             r["ms"], r["eager_ms"] = cycle(
-                lambda lk, lv: dec.decode_attention(q, lk, lv, starts, end), 20)
+                lambda lk, lv: dec.cached_decode_attention(q[:, None], k_new, v_new, lk, lv, end,
+                                                           starts=starts), 20)
             r["plain_ms"], _ = cycle(
+                lambda lk, lv: dec.plain_cached_decode_attention(q[:, None], k_new, v_new, lk, lv,
+                                                                 end, starts=starts))
+            r["window_ms"], r["window_eager_ms"] = cycle(
+                lambda lk, lv: dec.decode_attention(q, lk, lv, starts, end), 20)
+            r["window_plain_ms"], _ = cycle(
                 lambda lk, lv: dec.plain_decode_attention(q, lk, lv, starts, end))
+            r["window_merge_ms"], r["window_merge_eager_ms"] = cycle(
+                lambda lk, lv: dec.merge_new_token(*dec.decode_attention(q, lk, lv, starts, end),
+                                                   q, k_new, v_new), 20)
             r["two_part_ms"], r["two_part_eager_ms"] = cycle(
                 lambda lk, lv: two_part(q[:, None], k_new, v_new, lk, lv, end_i, kv_mask))
             r["merge_ms"], r["merge_eager_ms"] = cycle(
@@ -1406,37 +1474,49 @@ def check_decode_attention(dec, two_part, device) -> dict:
             lib = sdpa_call(ck, cv)[:, :, 0]
             r["library_max_abs_err"] = (lib.float() - w_out.float()).abs().max().item()
             r["library_ms"], r["library_eager_ms"] = cycle(sdpa_call, 20)
-            # each K and V row of the windows read once, q read and out, m, l
-            # written once; 2 products of D terms per row and query head, in
-            # fp32 outside the tensor cores (67 TFLOP/s)
-            nbytes = n_rows * hkv * d * 2 * 2 + 2 * b * hq * d * 2 + 2 * b * hq * 4
-            t_bytes = nbytes / PEAK_BYTES * 1e3
+            # the fused entry: each K and V row of the windows read once, q
+            # and the current token's k and v read and out written once; 2
+            # products of D terms per row and query head, in fp32 outside the
+            # tensor cores (67 TFLOP/s). The window alone writes m and l
+            # instead of reading k and v.
+            nbytes = n_rows * hkv * d * 2 * 2 + 2 * b * hq * d * 2 + 2 * b * hkv * d * 2
+            window_bytes = n_rows * hkv * d * 2 * 2 + 2 * b * hq * d * 2 + 2 * b * hq * 4
             t_ops = 4.0 * n_rows * hq * d / 67e12 * 1e3
-            r.update(bound_ms=max(t_bytes, t_ops), bytes=nbytes,
-                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+            for key, nb in (("", nbytes), ("window_", window_bytes)):
+                t_bytes = nb / PEAK_BYTES * 1e3
+                r.update({f"{key}bound_ms": max(t_bytes, t_ops), f"{key}bytes": nb,
+                          f"{key}bound_by": "bytes" if t_bytes >= t_ops else "operations"})
         if name == "path":
             short = (end - DECODE_SHORT).expand(b).contiguous()
             r["short_ms"], _ = cycle(
-                lambda lk, lv: dec.decode_attention(q, lk, lv, short, end), 20)
+                lambda lk, lv: dec.cached_decode_attention(q[:, None], k_new, v_new, lk, lv, end,
+                                                           starts=short), 20)
             if not r["short_ms"] <= r["ms"]:
                 raise RuntimeError(f"decode attention: windows of {DECODE_SHORT} rows took "
                                    f"{r['short_ms']:.4f} ms, full windows {r['ms']:.4f} ms")
         results[name] = r
         timed = ("" if "ms" not in r else
-                 f"; device time by graph replay (and call by call, host included): kernel "
-                 f"{r['ms'] * 1e3:.1f} ({r['eager_ms'] * 1e3:.1f}) us, plain "
-                 f"{r['plain_ms'] * 1e3:.1f} us, eager two_part_cached_attention "
+                 f"; device time by graph replay (and call by call, host included): fused "
+                 f"entry {r['ms'] * 1e3:.1f} ({r['eager_ms'] * 1e3:.1f}) us (bound "
+                 f"{r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}, {r['bytes']} bytes: "
+                 f"{r['bound_ms'] / r['ms'] * 100:.1f}%), plain {r['plain_ms'] * 1e3:.1f} us; "
+                 f"window alone {r['window_ms'] * 1e3:.1f} ({r['window_eager_ms'] * 1e3:.1f}) us "
+                 f"(bound {r['window_bound_ms'] * 1e3:.2f} us: "
+                 f"{r['window_bound_ms'] / r['window_ms'] * 100:.1f}%), plain "
+                 f"{r['window_plain_ms'] * 1e3:.1f} us; window + eager merge_new_token "
+                 f"{r['window_merge_ms'] * 1e3:.1f} ({r['window_merge_eager_ms'] * 1e3:.1f}) us, "
+                 f"merge_new_token alone {r['merge_ms'] * 1e3:.1f} "
+                 f"({r['merge_eager_ms'] * 1e3:.1f}) us; eager two_part_cached_attention "
                  f"{r['two_part_ms'] * 1e3:.1f} ({r['two_part_eager_ms'] * 1e3:.1f}) us, SDPA "
                  f"{r['library_ms'] * 1e3:.1f} ({r['library_eager_ms'] * 1e3:.1f}) us "
-                 f"(max_abs_err to plain {r['library_max_abs_err']:.3e}), bound "
-                 f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, {r['bytes']} bytes), "
-                 f"merge_new_token {r['merge_ms'] * 1e3:.1f} ({r['merge_eager_ms'] * 1e3:.1f}) us" +
+                 f"(max_abs_err to plain {r['library_max_abs_err']:.3e})" +
                  (f", windows of {DECODE_SHORT} rows {r['short_ms'] * 1e3:.1f} us"
                   if "short_ms" in r else ""))
-        phase("kernel", f"decode attention {name}: {r['shape']} ({n_rows} rows): out max_abs_err "
-              f"{err:.3e} (atol=rtol={DECODE_TOL}), m / l max rel err {r['m_max_rel_err']:.2e} / "
-              f"{r['l_max_rel_err']:.2e} (tol {DECODE_ML_RTOL}), rows outside the windows NaN "
-              f"and not read, merged with the current token vs two_part_cached_attention "
+        phase("kernel", f"decode attention {name}: {r['shape']} ({n_rows} rows): window out "
+              f"max_abs_err {err:.3e}, fused entry vs plain_cached_decode_attention "
+              f"{fused_err:.3e} (atol=rtol={DECODE_TOL}), m / l max rel err "
+              f"{r['m_max_rel_err']:.2e} / {r['l_max_rel_err']:.2e} (tol {DECODE_ML_RTOL}), rows "
+              f"outside the windows NaN and not read, fused entry vs two_part_cached_attention "
               f"{merged_err:.3e}{timed}")
     return results
 
@@ -1447,6 +1527,7 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
     and the kernel path's teacher-forced logits."""
     from aigv_assessor_torch.cli.score import build_serving_model
     from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models import internlm2
     from aigv_assessor_torch.models.generation import GenerationConfig, decode_loop, generate
     from aigv_assessor_torch.models.internlm2 import KVCache
     from aigv_assessor_torch.ops import decode_attention as dec
@@ -1462,8 +1543,10 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
     batch, seq = ids.shape
     max_len = seq + GEN_TOKENS
     gcfg = GenerationConfig(max_new_tokens=GEN_TOKENS, eos_token_id=-1)  # never stops
-    counters = (dec.decode_attention, wo.int8_matmul, wo.int4_matmul, fa.flash_attention_qkv,
-                fa.flash_attention)
+    counters = (dec.cached_decode_attention, dec.decode_attention, wo.int8_matmul,
+                wo.int4_matmul, fa.flash_attention_qkv, fa.flash_attention)
+    merges = []  # calls of the eager merge, which the card's path no longer makes
+    real_merge = dec.merge_new_token
     with torch.inference_mode():
         pv = resize_normalize(px_u8, size=IMAGE, dtype=dtype)
         generate(model, None, ids, pv, gcfg=GenerationConfig(max_new_tokens=2, eos_token_id=-1),
@@ -1474,19 +1557,22 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
         for c in counters:
             c.launches = 0
         wo.int8_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
-        t0 = time.perf_counter()
-        tokens = generate(model, None, ids, pv, gcfg=gcfg, with_motion=True)
-        total_ms = (time.perf_counter() - t0) * 1e3
+        with mock.patch.object(dec, "merge_new_token",
+                               lambda *a: merges.append(1) or real_merge(*a)):
+            t0 = time.perf_counter()
+            tokens = generate(model, None, ids, pv, gcfg=gcfg, with_motion=True)
+            total_ms = (time.perf_counter() - t0) * 1e3
         counts = {c.__name__: c.launches for c in counters}
         forms = dict(wo.int8_matmul.form_launches)
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     steps = GEN_TOKENS - 1
     per_pass = 5 * n_llm + 1  # the projections and the LM head
-    want = {"decode_attention": 0 if kv_int8 else n_llm * steps,
+    want = {"cached_decode_attention": 0 if kv_int8 else n_llm * steps, "decode_attention": 0,
             "int8_matmul": per_pass * (1 + steps) if int8 else 0, "int4_matmul": 0,
             "flash_attention_qkv": n_vit, "flash_attention": 0}
-    if counts != want:
-        raise RuntimeError(f"generation {label}: launches {counts}, expected {want}")
+    if counts != want or merges:
+        raise RuntimeError(f"generation {label}: launches {counts}, expected {want}; "
+                           f"merge_new_token called {len(merges)} times, expected 0")
     # int8: the prefill's 4 x 2113 rows take the GEMM form, every decode
     # step's 4 rows the GEMV form
     want_forms = dict.fromkeys(wo.FORMS, 0)
@@ -1533,13 +1619,14 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
         step_ms = (time.perf_counter() - t0) * 1e3 / steps
         del cache
 
-        before = dec.decode_attention.launches
+        before = dec.cached_decode_attention.launches
         k_logits, k_cache = forced_logits(model, embeds)
-        if dec.decode_attention.launches - before != (0 if kv_int8 else n_llm * FORCED):
+        if dec.cached_decode_attention.launches - before != (0 if kv_int8 else n_llm * FORCED):
             raise RuntimeError(f"generation {label}: the forced steps did not go through the "
                                "decode-attention kernel once per layer")
-        kernel, launched = dec.decode_attention, dec.decode_attention.launches
-        with mock.patch.object(dec, "decode_attention", dec.plain_decode_attention):
+        kernel, launched = dec.cached_decode_attention, dec.cached_decode_attention.launches
+        with mock.patch.object(internlm2, "cached_decode_attention",
+                               dec.plain_cached_decode_attention):
             p_logits, _ = forced_logits(model, embeds)
             if kernel.launches != launched:
                 raise RuntimeError("the plain decode path launched the kernel")
@@ -1606,8 +1693,9 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
     kv_bytes = 2 * n_llm * batch * max_len * cfg.llm.num_key_value_heads * cfg.llm.head_dim
     cache_bytes = kv_bytes * 2 if not kv_int8 else kv_bytes + kv_bytes // cfg.llm.head_dim * 4
     phase("slice", f"generation {label} InternVL2-2B, {batch} x {seq}-token prompt with motion, "
-          f"{GEN_TOKENS} new tokens greedy: launches {counts} ({n_llm} decode attention per "
-          f"step), int8 matmul forms {forms}; generate {total_ms:.1f} ms; prefill "
+          f"{GEN_TOKENS} new tokens greedy: launches {counts} ({n_llm} fused decode attention "
+          f"per step, merge_new_token called {len(merges)} times), int8 matmul forms {forms}; "
+          f"generate {total_ms:.1f} ms; prefill "
           f"{prefill_ms:.1f} ms, decode step {step_ms:.3f} ms, {batch * 1e3 / step_ms:.1f} "
           f"tokens/s; cache {cache_bytes} bytes "
           f"for {max_len} rows; peak {peak_gib:.2f} GiB allocated; forced logits rel L2 kernel "
@@ -1654,7 +1742,8 @@ def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int) 
     hook = model.mlpscore.register_forward_hook(
         lambda _m, args, _out: readouts.append(args[0].detach().float().reshape(
             -1, PERSPECTIVES, args[0].shape[-1])))
-    counters = (fa.flash_attention_qkv, fa.flash_attention, dec.decode_attention)
+    counters = (fa.flash_attention_qkv, fa.flash_attention, dec.decode_attention,
+                dec.cached_decode_attention)
     out = {}
     for shared in (True, False):
         score_chunks(model, chunks[:1], ids_pn, mask_pn, batch_size=BATCH,
@@ -1671,7 +1760,7 @@ def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int) 
         ms = (time.perf_counter() - t0) * 1e3 / len(chunks)
         counts = {c.__name__: c.launches for c in counters}
         want = {"flash_attention_qkv": (n_vit + n_llm) * len(chunks), "flash_attention": 0,
-                "decode_attention": 0}
+                "decode_attention": 0, "cached_decode_attention": 0}
         if counts != want:
             raise RuntimeError(f"shared_prefix={shared}: launches {counts}, expected {want}")
         arr = np.asarray(rows)
@@ -1871,8 +1960,8 @@ def run_eval_clis(device, smi, *, n_vit: int, n_llm: int) -> None:
         return model
 
     counters = (fa.flash_attention_qkv, fa.flash_attention, fa.flash_attention_qkv_lse,
-                dec.decode_attention, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows,
-                qf.rmsnorm_quant, qf.silu_mul_quant)
+                dec.decode_attention, dec.cached_decode_attention, qf.layernorm_quant,
+                qf.gelu_quant, qf.quant_rows, qf.rmsnorm_quant, qf.silu_mul_quant)
     # the W8A8 feeds at JAX's default (`AIGV_FUSE_QUANT` unset: the ViT's)
     env = {k: v for k, v in os.environ.items() if not k.startswith("AIGV_")}
     n_videos = CLI_VIDEOS + 1
@@ -2648,6 +2737,7 @@ def main() -> int:
     shapes = check_attention(fa, device)
     train_shapes = check_attention_training(fa, device)
     feeds = check_feeds(qf, device)
+    check_feed_ties(qf, device)
     separate = check_attention_separate(fa, device)
     separate_train = check_attention_separate_training(fa, device, SEPARATE_TRAIN)
     matmuls = check_weight_only(wo, device)
@@ -2692,7 +2782,8 @@ def main() -> int:
                     qf.rmsnorm_quant, qf.silu_mul_quant,
                     fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
                     fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
-                    fa.flash_attention_qkv_bwd_dkv, dec.decode_attention)
+                    fa.flash_attention_qkv_bwd_dkv, dec.decode_attention,
+                    dec.cached_decode_attention)
         for c in counters:
             c.launches = 0
         wo.int8_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
@@ -2715,7 +2806,7 @@ def main() -> int:
                  "rmsnorm_quant", "silu_mul_quant",
                  "flash_attention", "int8_matmul", "int4_matmul", "flash_attention_qkv_lse",
                  "flash_attention_qkv_bwd_dq", "flash_attention_qkv_bwd_dkv",
-                 "decode_attention")
+                 "decode_attention", "cached_decode_attention")
         return {n: per_forward_launches.get(n, 0) * CHUNKS for n in names}
 
     counts, ms_bf16, peak_bf16, weights_bf16, arr = run_slice(model, "bf16")
@@ -3142,19 +3233,27 @@ def main() -> int:
         name="decode_attention", route="cuda",
         source="aigv_assessor_torch/csrc/decode_attention.cu",
         replaces="aigv_assessor_tpu/ops/decode_attention.py:64",
-        launches=gen_bf16["counts"]["decode_attention"],
+        launches=gen_bf16["counts"]["cached_decode_attention"],
         max_abs_err=max(r["max_abs_err"] for r in decode.values()),
         ms=n_llm * path["ms"], plain_ms=n_llm * path["plain_ms"],
         bound_ms=n_llm * path["bound_ms"], bound_by=path["bound_by"],
         library_ms=n_llm * path["library_ms"], eager_ms=n_llm * path["eager_ms"],
         library="F.scaled_dot_product_attention with a one-token query on head-major views "
-        "of the cache rows below end, enable_gqa",
+        "of the cache rows below end, enable_gqa: the window without the current token",
+        window_ms=n_llm * path["window_ms"], window_eager_ms=n_llm * path["window_eager_ms"],
+        window_plain_ms=n_llm * path["window_plain_ms"],
+        window_bound_ms=n_llm * path["window_bound_ms"],
+        window_merge_ms=n_llm * path["window_merge_ms"],
+        window_merge_eager_ms=n_llm * path["window_merge_eager_ms"],
         eager_two_part_ms=n_llm * path["two_part_ms"],
-        unit=f"one decode step of the bf16 generate: {n_llm} launches at B = {BATCH}, end = "
+        unit=f"one decode step of the bf16 generate: {n_llm} launches of the fused entry "
+        f"(cached_decode_attention: the window and the current token) at B = {BATCH}, end = "
         f"{DECODE_SHAPES['path'][5]}, cache layers read from device memory; ms, plain_ms, "
         "library_ms and eager_two_part_ms are device times by CUDA graph replay, eager_ms is "
-        "the wrapper called launch by launch with the host's cost; launches are those "
-        f"of one {GEN_TOKENS}-token generate ({gen_int8['counts']['decode_attention']} with int8 "
+        "the wrapper called launch by launch with the host's cost; window_* are the same "
+        "kernel without the merge (decode_attention) and with the eager merge_new_token after "
+        "it; launches are those of one "
+        f"{GEN_TOKENS}-token generate ({gen_int8['counts']['cached_decode_attention']} with int8 "
         "weights, 0 under kv_int8)", shapes=decode))
     # K2's training forms: one 26B training micro-batch, n_vit launches of each
     # at the vit_6b_train shape (the logsumexp form twice: pass and recompute)

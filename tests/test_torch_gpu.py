@@ -25,7 +25,10 @@ jax-free, so that it runs where jax is not installed:
   small widths. The kernel sums a row in another order than the plain
   version, and tanh, exp and rsqrt come from other library code, so y / s can
   land on the other side of a half: the scales agree to rtol 1e-5, and at
-  most 1e-3 of the int8 values differ, each by one.
+  most 1e-3 of the int8 values differ, each by one. On `tie_grid`'s rows,
+  where every producer computes y exactly and y / s is a half-integer or an
+  integer, q and s equal rint(y / s) and s bit for bit: the quotient's
+  shortcut takes the division on every tie.
 - The int8 product's checks on the card.
 - The three-tensor forward (K2): against `plain_flash_attention` at the same
   2e-2, in both layouts, on views of one projection output, with GQA, causal,
@@ -59,7 +62,11 @@ jax-free, so that it runs where jax is not installed:
   1e-4 relative; ragged windows, empty and one-row windows, rows outside the
   window holding NaN (never loaded), the cache read through its strides as a
   layer of a stacked cache, every group size; merged with the current token
-  against `two_part_cached_attention`.
+  against `two_part_cached_attention`. The fused entry (one launch, the
+  current token merged in fp32) within the same 2e-2 of
+  `plain_cached_decode_attention` at every shape with NaN outside the
+  windows; captured in a CUDA graph and replayed three times, bit-equal to
+  the eager call (the launch keeps no state between calls).
 - The fp8 decode matmul (K9): relative L2 at most 1e-3 from the plain
   version rounded to bf16 (both sum exact products in fp32; what is left is
   the summation order), at the probe's shapes and decode rows, over two row
@@ -84,6 +91,7 @@ from aigv_assessor_torch.ops.attention import (
     multi_head_attention,
     two_part_cached_attention,
 )
+from aigv_assessor_torch.tools.quant_fuse_ab import PRODUCERS, tie_grid
 from aigv_assessor_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -397,6 +405,19 @@ def test_feed_kernel_matches_plain(cuda, name, ragged):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert_quantized_close(got, plain(x, *args))
+
+
+@pytest.mark.parametrize("producer", PRODUCERS)
+def test_feed_kernels_are_exact_on_a_tie_grid(cuda, producer):
+    x, extra, eps, q_want, s_want = tie_grid(producer, cuda)
+    wrapper = {"identity": qf.quant_rows, "layernorm": qf.layernorm_quant,
+               "gelu": qf.gelu_quant, "rmsnorm": qf.rmsnorm_quant,
+               "silu_mul": qf.silu_mul_quant}[producer]
+    args = (x, *extra, eps) if producer in ("layernorm", "rmsnorm") else (x, *extra)
+    q, s = wrapper(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s_want)
+    assert torch.equal(q, q_want), int((q != q_want).sum())
 
 
 @pytest.mark.parametrize("cols", [64, 1000, 2048])
@@ -1000,6 +1021,75 @@ def test_cached_decode_attention_matches_two_part(cuda, name):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
 
 
+def nan_outside(ck, cv, starts, end):
+    """Copies of the cache layers with NaN in every row outside the windows."""
+    rows = torch.arange(ck.shape[1], device=ck.device)
+    outside = ~((rows[None] >= starts[:, None]) & (rows[None] < end))
+    ck_nan, cv_nan = ck.clone(), cv.clone()
+    ck_nan[outside] = float("nan")
+    cv_nan[outside] = float("nan")
+    return ck_nan, cv_nan
+
+
+def make_new_token(q, ck, seed=23):
+    """The current token's k and v [B, 1, Hkv, D] as the decoder hands them
+    over: views of one projection row."""
+    b, _, d = q.shape
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    row = torch.randn((b, 1, 3 * ck.shape[2], d), generator=gen, device=q.device)
+    row = row.to(torch.bfloat16)
+    return row[:, :, : ck.shape[2]], row[:, :, 2 * ck.shape[2] :]
+
+
+@pytest.mark.parametrize("name", list(DECODE))
+def test_cached_decode_attention_kernel_matches_plain(cuda, name):
+    q, ck, cv, starts, end = make_decode(name, cuda)
+    k, v = make_new_token(q, ck)
+    ck_nan, cv_nan = nan_outside(ck, cv, starts, end)
+    before = dec.cached_decode_attention.launches, dec.decode_attention.launches
+    got = dec.cached_decode_attention(q[:, None], k, v, ck_nan, cv_nan, end, starts=starts)
+    torch.cuda.synchronize()
+    assert (dec.cached_decode_attention.launches, dec.decode_attention.launches) == (
+        before[0] + 1, before[1])
+    want = dec.plain_cached_decode_attention(q[:, None], k, v, ck, cv, end, starts=starts)
+    assert got.shape == q[:, None].shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    empty = (end - starts.clamp(max=int(end))) <= 0
+    g = q.shape[1] // ck.shape[2]
+    assert torch.equal(got[empty, 0], v[empty, 0].repeat_interleave(g, dim=1))
+
+
+def test_cached_decode_attention_replays_in_a_graph(cuda):
+    q, ck, cv, starts, end = make_decode("ragged", cuda)
+    k, v = make_new_token(q, ck)
+    eager = dec.cached_decode_attention(q[:, None], k, v, ck, cv, end, starts=starts)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = dec.cached_decode_attention(q[:, None], k, v, ck, cv, end, starts=starts)
+    for _ in range(3):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+
+
+def test_cached_decode_attention_rejects_what_it_does_not_take(cuda):
+    q, ck, cv, starts, end = make_decode("mha_d64", cuda)
+    k, v = make_new_token(q, ck)
+    with pytest.raises(TypeError, match="bf16"):
+        dec.cached_decode_attention(q[:, None].float(), k, v, ck, cv, end, starts=starts)
+    with pytest.raises(TypeError, match="bf16"):
+        dec.cached_decode_attention(q[:, None], k.float(), v, ck, cv, end, starts=starts)
+    with pytest.raises(TypeError, match="device memory"):
+        dec.cached_decode_attention(q[:, None], k, v, ck, cv, 301, starts=starts)
+    with pytest.raises(ValueError, match="starts"):
+        dec.cached_decode_attention(q[:, None], k, v, ck, cv, end, starts=starts.long())
+    with pytest.raises(ValueError, match="current token"):
+        dec.cached_decode_attention(q[:, None], k[:1], v[:1], ck, cv, end, starts=starts)
+
+
 def test_decode_attention_rejects_what_it_does_not_take(cuda):
     q, ck, cv, starts, end = make_decode("mha_d64", cuda)
     with pytest.raises(TypeError, match="bf16"):
@@ -1041,9 +1131,9 @@ def test_prefill_and_decode_steps_on_the_card(cuda, mode):
     and agree with the same steps on the plain decode attention."""
     from unittest import mock
 
-    from aigv_assessor_torch.models.internlm2 import KVCache
-
     from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models import internlm2
+    from aigv_assessor_torch.models.internlm2 import KVCache
 
     flags = {"bf16": {}, "w8a8_fused": {"w8a8": True, "precision": Precision(
         fuse_quant={"vit", "llm"}, quant_rows={"vit", "llm"})}}.get(mode, {mode: True})
@@ -1067,15 +1157,19 @@ def test_prefill_and_decode_steps_on_the_card(cuda, mode):
         assert cache.index == 40 == int(cache.index_dev)
         return torch.stack(outs).float()
 
-    before = dec.decode_attention.launches
+    before = dec.cached_decode_attention.launches, dec.decode_attention.launches
     got = run()
     layers = cfg.llm.num_hidden_layers
-    assert dec.decode_attention.launches - before == (0 if mode == "kv_int8" else 4 * layers)
+    # one fused launch per layer and step, the window-only entry never
+    assert (dec.cached_decode_attention.launches - before[0],
+            dec.decode_attention.launches - before[1]) == (
+        0 if mode == "kv_int8" else 4 * layers, 0)
     # a prefill and 4 steps: K5a twice and K5b once per layer each
     per_pass = (2 * layers, layers) if mode == "w8a8_fused" else (0, 0)
     assert (qf.rmsnorm_quant.launches - fused[0], qf.silu_mul_quant.launches - fused[1]) == (
         5 * per_pass[0], 5 * per_pass[1])
-    with mock.patch.object(dec, "decode_attention", dec.plain_decode_attention):
+    with mock.patch.object(internlm2, "cached_decode_attention",
+                           dec.plain_cached_decode_attention):
         want = run()
     assert torch.isfinite(got).all()
     assert relative_l2(got, want) <= 2e-2
