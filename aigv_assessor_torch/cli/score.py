@@ -309,8 +309,9 @@ def main(argv=None):
         frames = load_video(path, num_segments=args.num_segments, out_size=image_size)
         if args.device_preprocess:
             return frames_to_uint8(frames, input_size=image_size)
-        return transform_frames(frames, input_size=image_size,
-                                normalize_type=args.normalize_type)
+        # the ImageNet statistics whatever --normalize_type says, as JAX's CLI
+        # normalizes on the host (aigv_assessor_tpu/cli/score.py:219)
+        return transform_frames(frames, input_size=image_size)
 
     bs = args.batch_size
     paths = [videos[i : i + bs] for i in range(0, len(videos), bs)]

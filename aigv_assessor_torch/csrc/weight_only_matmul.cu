@@ -637,13 +637,15 @@ int aigv_weight_only_int4_gemm(const void* x, const void* w, const void* scale, 
 int aigv_weight_only_int8_gemv(const void* x, const void* w, const void* scale, const void* bias,
                                void* y, int M, int N, int K, long long ldx, long long ldw,
                                long long ldy, void* stream) {
-  return decode_matvec::launch<Int8Weights>(x, w, scale, bias, y, M, N, K, ldx, ldw, ldy, stream);
+  return decode_matvec::launch_tiles<Int8Weights>(x, w, scale, bias, y, M, N, K, ldx, ldw, ldy,
+                                                  stream);
 }
 
 int aigv_weight_only_int4_gemv(const void* x, const void* w, const void* scale, const void* bias,
                                void* y, int M, int N, int K, long long ldx, long long ldw,
                                long long ldy, void* stream) {
-  return decode_matvec::launch<Int4Weights>(x, w, scale, bias, y, M, N, K, ldx, ldw, ldy, stream);
+  return decode_matvec::launch_tiles<Int4Weights>(x, w, scale, bias, y, M, N, K, ldx, ldw, ldy,
+                                                  stream);
 }
 
 const char* aigv_cuda_error_string(int err) {

@@ -2,7 +2,8 @@
 of this checkout against other versions of their sources, on one CUDA card,
 in one process.
 
-    python -m aigv_assessor_torch.tools.weight_only_ab [NAME=DIR ...]
+    python -m aigv_assessor_torch.tools.weight_only_ab [--fp8-only] \\
+        [--allow-unequal NAME] [NAME=DIR ...]
 
 Each DIR holds another `weight_only_matmul.cu` and `fp8_matmul.cu` (and the
 headers they include), e.g. the parent commit's `aigv_assessor_torch/csrc`
@@ -10,12 +11,23 @@ unpacked with `git archive`. Every version, the checkout's own ("tree")
 first, is built with nvcc (`-Xptxas -v`: registers and spills are printed).
 A version whose library has the GEMM and GEMV entries is run in each of its
 forms (`ops/int8_matmul._launch_form`); an older one through its single
-entry, the name the unaligned form keeps.
+entry, the name the unaligned form keeps; an older `fp8_matmul.cu` through
+its single entry, whichever form the wrapper picks. `--fp8-only` skips K6 /
+K7.
+`--allow-unequal NAME` marks a diagnostic version (e.g. one whose products
+are skipped): its checks are printed and do not fail the run.
 
 Checks: every form of every version against `plain_int8_matmul` /
 `plain_int4_matmul` in fp64 at small shapes that cross its borders
-(relative L2 at most WO_TOL, an all-zero channel exactly 0); K9 against
-`plain_fp8_matmul` (FP8_TOL).
+(relative L2 at most WO_TOL, an all-zero channel exactly 0). K9 against
+`plain_fp8_matmul` (FP8_TOL) at FP8_CHECKS (M = 1..17, N below and across
+the 16-channel tiles, K below one 64-byte step, off 16 bytes, tile counts on
+both sides of each border where the plan changes), on a weight that holds
+every finite e4m3 code, with an all-zero channel exactly 0; a second launch
+and a CUDA graph replay bit-equal to the first launch (the tree: the wrapper
+and both forms by name); and the in-kernel convert bit for bit: with x the
+identity's rows and scale 1, y is the weight's columns as
+`w8.to(bfloat16)` gives them, over every finite code.
 
 Times, by CUDA graph replay, the versions in turns (tree, others, others
 reversed, tree), with `F.linear` in bf16 on the dequantized weight in the
@@ -28,7 +40,17 @@ same process:
   decoder walking its layers finds them;
 - the decode threshold: M = 4, 8, 16, 32, 64 at wqkv and w2, the tree's GEMV
   and GEMM forms over the same copies;
-- K9 at the probe's three shapes and M = 1, 4, 8, over copies beyond L2.
+- K9 at the probe's three shapes and M = 1, 4, 8 and at FP8_RAGGED over
+  copies beyond L2, and at FP8_FIXED (no weight to stream: the fixed cost of
+  a launch): each version's wrapper, and the tree's two forms by name
+  (`stream` where the rows start on 16 bytes), with the form the wrapper
+  takes and the stream body's plan.
+
+SASS per version (`cuobjdump -sass`): K9's E4M3 instantiations (the stream
+and the tile body), each one's main loop (the backward branch that spans
+the most HMMA) and the instructions a lane issues there per weight byte
+(each HMMA takes 8 weight bytes of every lane), counted in the code, not as
+executed.
 
 Prints the card's name and power limit, then one JSON line per shape: ms per
 call of each run, the bound (max of FLOPs / 989 TFLOP/s and bytes / 3.35
@@ -40,8 +62,11 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -62,6 +87,8 @@ DECODE_ROWS = (1, 4, 8)
 LM_HEAD = (2048, 92553)
 THRESHOLD_ROWS = (4, 8, 16, 32, 64)
 FP8_SHAPES = {"wqkv": (2048, 4096), "w13": (2048, 16384), "w2": (8192, 2048)}
+FP8_RAGGED = (3, 2050, 4100)  # (M, K, N): K off the 16-byte spans, N off the 16 channels
+FP8_FIXED = (8, 64, 16)  # (M, K, N): one tile, one 64-byte step
 # (M, K, N): one K step, ragged K steps (K = 160; K = 100 only unaligned), M
 # across the GEMV blocks of 8 rows, the GEMV / GEMM threshold and the GEMM's
 # 256-row tiles, N across the 16-channel blocks, the 64-channel consumer
@@ -69,6 +96,16 @@ FP8_SHAPES = {"wqkv": (2048, 4096), "w13": (2048, 16384), "w2": (8192, 2048)}
 CHECKS = [(1, 64, 16), (8, 2048, 256), (9, 2048, 257), (16, 160, 255), (17, 64, 130),
           (64, 2048, 256), (65, 2048, 256), (127, 2048, 256), (128, 160, 512),
           (129, 2048, 384), (257, 2048, 129), (300, 2048, 511), (33, 100, 96)]
+# K9's borders (M, K, N): N below, at and across one 16-channel tile; K below
+# one 64-byte step, off 16 bytes, and K = 8192 + 64 (129 steps: neither split
+# divides them); M = 1..9, 16, 17 (the 8-row blocks); tile counts around 66,
+# 132 and 264, where the plan's split and streams change on 132 SMs
+FP8_CHECKS = ([(m, 2048, 4096) for m in range(1, 10)]
+              + [(1, 64, 16), (8, 64, 1), (3, 64, 15), (2, 64, 17), (1, 1, 16), (5, 17, 40),
+                 (8, 63, 100), (4, 100, 257), (8, 2050, 4100), (16, 8256, 2048),
+                 (17, 8256, 2064), (1, 8192, 2048)]
+              + [(m, 8192, 16 * t) for m in (1, 8) for t in (33, 34, 65, 66, 67, 131, 132, 133,
+                                                            263, 264, 265)])
 
 
 def graph_ms(fns, iters: int) -> float:
@@ -102,6 +139,74 @@ def relative_l2(x, y) -> float:
     return ((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
 
 
+def sass_counts(lib_path: Path) -> dict:
+    """K9's E4M3 instantiations in `cuobjdump -sass`, by body (`stream`,
+    `tiles`; an older library's one kernel as `tiles`): all instructions,
+    those of the main loop (the backward branch spanning the most HMMA), the
+    loop's opcodes, and its instructions per weight byte of a lane."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as err:
+        return {"error": str(err)}
+    found = re.findall(r"Function : (\S*E4M3\S*)\n(.*?)(?=\n\s*Function : |\Z)", text, re.S)
+    return {("stream" if "stream_kernel" in name else "tiles"): loop_counts(name, body)
+            for name, body in found}
+
+
+def loop_counts(name: str, body: str) -> dict:
+    """One function's SASS listing -> its instruction count, and its main
+    loop's: instructions, HMMA, opcodes, and instructions per weight byte."""
+    instr, labels, pending = [], {}, []
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        op = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if not op:
+            continue
+        addr = int(op.group(1), 16)
+        for label_name in pending:
+            labels[label_name] = addr
+        pending = []
+        instr.append((addr, op.group(2), op.group(3)))
+    loops = []
+    for addr, op_name, rest in instr:
+        if not op_name.startswith("BRA"):
+            continue
+        target = re.search(r"`\((\.L_x_\d+)\)|(0x[0-9a-f]+)", rest)
+        if not target:
+            continue
+        to = labels.get(target.group(1)) if target.group(1) else int(target.group(2), 16)
+        if to is not None and to < addr:
+            loops.append([n for a, n, _ in instr if to <= a <= addr])
+    out = {"function": name, "instructions": len(instr)}
+    if loops:
+        loop = max(loops, key=lambda b: (sum(n.startswith("HMMA") for n in b), len(b)))
+        hmma = sum(n.startswith("HMMA") for n in loop)
+        ops = Counter(n.split(".")[0] for n in loop)
+        out.update(loop_instructions=len(loop), loop_hmma=hmma, loop_ops=dict(ops),
+                   per_weight_byte=len(loop) / (8 * hmma) if hmma else None)
+    return out
+
+
+def exact_convert(f8, device, form=None):
+    """(y, want): K9 with x the first 8 rows of the identity and scale 1 on a
+    [256, 2048] weight whose first 8 columns hold every finite e4m3 code, so
+    that y[m, n] = w8[n, m] as bf16 exactly (one nonzero product, summed and
+    scaled exactly), and `w8.to(bfloat16)`'s columns."""
+    codes = torch.tensor([c for c in range(256) if c not in (0x7F, 0xFF)], dtype=torch.uint8)
+    n, k = 256, 2048
+    idx = torch.arange(n)[:, None] + 7 * torch.arange(k)[None, :]
+    w8 = codes[idx % codes.numel()].to(device).view(torch.float8_e4m3fn)
+    x = torch.eye(8, k, device=device).to(torch.bfloat16)
+    scale = torch.ones(n, device=device)
+    y = f8.fp8_matmul(x, w8, scale) if form is None else f8._launch_form(form, x, w8, scale)
+    return y, w8[:, :8].to(torch.bfloat16).t()
+
+
 def main(argv=None) -> int:
     from aigv_assessor_torch.ops import cuda_build
     from aigv_assessor_torch.ops import fp8_matmul as f8
@@ -110,14 +215,24 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("weight_only_ab needs a CUDA card", file=sys.stderr)
         return 1
+    args = list(argv if argv is not None else sys.argv[1:])
+    fp8_only = "--fp8-only" in args
+    unequal_ok = {args[i + 1] for i, a in enumerate(args) if a == "--allow-unequal"}
+    args = [a for i, a in enumerate(args) if a not in ("--fp8-only", "--allow-unequal")
+            and (i == 0 or args[i - 1] != "--allow-unequal")]
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
 
+    def declare_single(lib):
+        f8._declare(lib, ("aigv_fp8_matmul",))
+        for entry in f8._ENTRIES.values():
+            setattr(lib, entry, lib.aigv_fp8_matmul)
+
     versions = {"tree": (wo.LIB, f8.LIB)}
-    for arg in argv if argv is not None else sys.argv[1:]:
+    for arg in args:
         name, _, folder = arg.partition("=")
         libs = []
         for source, declare in (("weight_only_matmul.cu", wo._declare),
@@ -127,17 +242,21 @@ def main(argv=None) -> int:
             lib.path = cuda_build.BUILD_DIR / f"lib{Path(source).stem}_{name}.so"
             libs.append(lib)
         versions[name] = tuple(libs)
-    every = [lib for pair in versions.values() for lib in pair]
+    every = [lib for pair in versions.values() for lib in pair[1 if fp8_only else 0:]]
     for lib in every:
         lib.path.unlink(missing_ok=True)
     cuda_build.build(every, verbose=True)
     # the forms each version's library has; an older library has only the
     # entries the unaligned form keeps
     forms = {}
-    for name, (wlib, _) in versions.items():
-        handle = ctypes.CDLL(str(wlib.path))
-        forms[name] = [f for f in wo.FORMS if hasattr(handle, wo._ENTRIES[f].format(8))]
-        wlib._declare = lambda lib, fs=tuple(forms[name]): wo._declare(lib, fs)
+    for name, (wlib, flib) in versions.items():
+        if not fp8_only:
+            handle = ctypes.CDLL(str(wlib.path))
+            forms[name] = [f for f in wo.FORMS if hasattr(handle, wo._ENTRIES[f].format(8))]
+            wlib._declare = lambda lib, fs=tuple(forms[name]): wo._declare(lib, fs)
+        if not hasattr(ctypes.CDLL(str(flib.path)), f8._ENTRIES["stream"]):
+            flib._declare = declare_single  # an older version: one entry takes both forms
+        print(f"{name} K9 SASS: {json.dumps(sass_counts(flib.path))}", flush=True)
 
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -156,11 +275,21 @@ def main(argv=None) -> int:
     def run(form, bits, x, q, s):
         return wo._launch_form(form, bits, x, q, s)
 
+    def fp8_plan(m, k, n):
+        """The form the wrapper takes and the stream body's plan, or None for
+        an older version."""
+        if not hasattr(f8.LIB.load(), "aigv_fp8_matmul_plan"):
+            return None
+        x = torch.empty((m, k), dtype=torch.bfloat16, device=device)
+        w8 = torch.empty((n, k), dtype=torch.uint8, device=device).view(torch.float8_e4m3fn)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return f8.fp8_form(m, k, n, x, w8, sms), f8.launch_plan(m, n, k)._asdict()
+
     # checks
     ok = True
     for name in versions:
         use(name)
-        for bits in (8, 4):
+        for bits in () if fp8_only else (8, 4):
             plain = wo.plain_int8_matmul if bits == 8 else wo.plain_int4_matmul
             for m, k, n in CHECKS:
                 x, q, s, _ = operands(bits, m, k, n)
@@ -172,18 +301,62 @@ def main(argv=None) -> int:
                     rel = relative_l2(got, want)
                     good = (bool(torch.isfinite(got).all()) and rel <= WO_TOL
                             and not got[:, n // 2].any())
-                    ok &= good
+                    ok &= good or name in unequal_ok
                     print(f"{name} int{bits} {form} M={m} K={k} N={n}: rel L2 "
                           f"{rel:.3e} {'ok' if good else 'FAILED'}", flush=True)
-        for m in (1, 3, 8):
-            k, n = 2050, 4100
+        k9_ok = True
+        for m, k, n in FP8_CHECKS:
             w = torch.randn((n, k), generator=gen, device=device) * 0.02
+            w[n // 2] = 0.0
             w8, s8 = f8.quantize_weight_fp8(w)
             x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-            rel = relative_l2(f8.fp8_matmul(x, w8, s8), f8.plain_fp8_matmul(x, w8, s8))
-            ok &= rel <= FP8_TOL
-            print(f"{name} fp8 M={m} K={k} N={n}: rel L2 {rel:.3e} "
-                  f"{'ok' if rel <= FP8_TOL else 'FAILED'}", flush=True)
+            want = f8.plain_fp8_matmul(x, w8, s8)
+            aligned = k % 16 == 0
+            for form in ("wrapper",) + (f8.FORMS if name == "tree" and aligned else ()):
+                def call():
+                    if form == "wrapper":
+                        return f8.fp8_matmul(x, w8, s8)
+                    return f8._launch_form(form, x, w8, s8)
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                rel = relative_l2(got, want)
+                good = (bool(torch.isfinite(got).all()) and rel <= FP8_TOL
+                        and not got[:, n // 2].any() and torch.equal(got, again))
+                k9_ok &= good
+                print(f"{name} fp8 {form} M={m} K={k} N={n} {fp8_plan(m, k, n)}: rel L2 "
+                      f"{rel:.3e}{'' if good else ' FAILED'}", flush=True)
+        # every finite e4m3 code in every channel, at random scales
+        codes = torch.arange(256, dtype=torch.int32)
+        codes = codes[(codes != 0x7F) & (codes != 0xFF)].to(torch.uint8)
+        n, k = 272, 2048
+        w8 = codes.to(device)[(torch.arange(n * k, device=device) * 7
+                               + torch.arange(n * k, device=device) // k) % codes.numel()]
+        w8 = w8.view(n, k).view(torch.float8_e4m3fn)
+        s8 = torch.rand(n, generator=gen, device=device) * 1e-3 + 1e-4
+        for m in (1, 8):
+            x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+            got = f8.fp8_matmul(x, w8, s8)
+            rel = relative_l2(got, f8.plain_fp8_matmul(x, w8, s8))
+            # a CUDA graph replay is bit-equal to the eager launch
+            static = torch.empty_like(got)
+            graph = torch.cuda.CUDAGraph()
+            f8.fp8_matmul(x, w8, s8)
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph):
+                static.copy_(f8.fp8_matmul(x, w8, s8))
+            graph.replay()
+            torch.cuda.synchronize()
+            good = rel <= FP8_TOL and torch.equal(static, got)
+            k9_ok &= good
+            print(f"{name} fp8 every finite code M={m} K={k} N={n}: rel L2 {rel:.3e}, graph "
+                  f"replay {'bit-equal' if torch.equal(static, got) else 'DIFFERS'}"
+                  f"{'' if good else ' FAILED'}", flush=True)
+        for form in (None,) + (f8.FORMS if name == "tree" else ()):
+            good = bool(torch.equal(*exact_convert(f8, device, form)))
+            k9_ok &= good
+            print(f"{name} fp8 {form or 'wrapper'} convert of every finite code bit for bit: "
+                  f"{'equal' if good else 'DIFFERS'}", flush=True)
+        ok &= k9_ok or name in unequal_ok
 
     order = list(versions) + list(versions)[::-1]
 
@@ -199,7 +372,7 @@ def main(argv=None) -> int:
             "card": card}), flush=True)
 
     # prefill: the GEMM form (or an older version's single kernel)
-    for bits in (8, 4):
+    for bits in () if fp8_only else (8, 4):
         for label, (k, n) in PROJECTIONS.items():
             x, q, s, deq = operands(bits, PREFILL_ROWS, k, n)
             runs = {}
@@ -220,7 +393,7 @@ def main(argv=None) -> int:
     decode_cases.append(("lm_head", 4, *LM_HEAD))
     threshold = [(label, m, *PROJECTIONS[label])
                  for label in ("wqkv", "w2") for m in THRESHOLD_ROWS]
-    for bits in (8, 4):
+    for bits in () if fp8_only else (8, 4):
         for kind, cases in (("decode", decode_cases), ("threshold", threshold)):
             for label, m, k, n in cases:
                 x, q, s, deq = operands(bits, m, k, n)
@@ -243,30 +416,36 @@ def main(argv=None) -> int:
                 report(f"{kind}_{label}", bits, m, k, n, runs, linear, weight_copies=copies)
                 del x, q, s, deq
 
-    # K9
-    for label, (k, n) in FP8_SHAPES.items():
+    # K9: the probe's shapes, the ragged one and the fixed cost
+    fp8_cases = [(label, m, k, n) for label, (k, n) in FP8_SHAPES.items() for m in DECODE_ROWS]
+    fp8_cases += [("ragged", *FP8_RAGGED), ("fixed", *FP8_FIXED)]
+    for label, m, k, n in fp8_cases:
         w = torch.randn((n, k), generator=gen, device=device) * 0.02
         w8, s8 = f8.quantize_weight_fp8(w)
         deq = f8.dequantize_weight_fp8(w8, s8, torch.bfloat16)
-        copies = int(2 * L2_BYTES // w8.numel()) + 1
+        copies = 1 if label == "fixed" else int(2 * L2_BYTES // w8.numel()) + 1
         ws = [w8] + [w8.clone() for _ in range(copies - 1)]
-        for m in DECODE_ROWS:
-            x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-            runs = {}
-            for name in order:
-                use(name)
-                runs.setdefault(f"{name}/fp8", []).append(
-                    cycled(lambda w_, x=x: f8.fp8_matmul(x, w_, s8), ws))
-            deqs = [deq] + [deq.clone() for _ in range(copies // 2)]
-            linear = cycled(lambda w_, x=x: F.linear(x, w_), deqs)
-            del deqs
-            b = max(2.0 * m * n * k / PEAK_FLOPS,
-                    (2 * m * k + n * k + 4 * n + 2 * m * n) / PEAK_BYTES) * 1e3
-            print(json.dumps({"shape": f"fp8_{label}", "M": m, "K": k, "N": n, "ms": runs,
-                              "linear_ms": linear, "bound_ms": b,
-                              "bound_share": {key: b / min(v) for key, v in runs.items()},
-                              "weight_copies": copies, "card": card}), flush=True)
-        del ws
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        runs, plan = {}, {}
+        calls = ws if copies > 1 else ws * 20
+        for name in order:
+            use(name)
+            plan[name] = fp8_plan(m, k, n)
+            runs.setdefault(f"{name}/fp8", []).append(
+                cycled(lambda w_: f8.fp8_matmul(x, w_, s8), calls))
+            if name == "tree":  # each body by name, where it takes the shape
+                for form in f8.FORMS if k % 16 == 0 else ("tiles",):
+                    runs.setdefault(f"tree/{form}", []).append(
+                        cycled(lambda w_, f=form: f8._launch_form(f, x, w_, s8), calls))
+        deqs = [deq] + [deq.clone() for _ in range(copies // 2)]
+        linear = cycled(lambda w_: F.linear(x, w_), deqs if copies > 1 else deqs * 20)
+        del deqs, ws
+        b = max(2.0 * m * n * k / PEAK_FLOPS,
+                (2 * m * k + n * k + 4 * n + 2 * m * n) / PEAK_BYTES) * 1e3
+        print(json.dumps({"shape": f"fp8_{label}", "M": m, "K": k, "N": n, "ms": runs,
+                          "linear_ms": linear, "bound_ms": b, "plan": plan,
+                          "bound_share": {key: b / min(v) for key, v in runs.items()},
+                          "weight_copies": copies, "card": card}), flush=True)
     use("tree")
     return 0 if ok else 1
 

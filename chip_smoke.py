@@ -112,10 +112,18 @@ Phases, each printing one line or more (and failing the run by raising):
    - The fp8 (e4m3) decode matmul (K9) at the fp8 probe's three decode
      matvecs of InternLM2-1.8B (wqkv 2048 -> 4096, w1 / w3 fused 2048 ->
      16384, w2 8192 -> 2048) at M = 1, 4, 8 and at a ragged M = 3, K = 2050,
-     N = 4100: the quantized weight holds no NaN byte, and the kernel is
-     within FP8_TOL relative L2 of the plain version rounded to bf16. Timed by
-     CUDA graph replay over weight copies that exceed the L2 cache, beside its
-     byte bound, the plain version and `F.linear` on the bf16 weight.
+     N = 4100, at every split border (`fp8_split_borders`: splits of 8 and 16
+     warps on this card, K = 8256, K below one step, N below one tile), and
+     on a weight that holds every finite e4m3 code: the quantized weight holds
+     no NaN byte, the kernel is within FP8_TOL relative L2 of the plain version
+     rounded to bf16, an all-zero channel gives exactly 0, a second launch and
+     a CUDA graph replay are bit-equal to the first launch, the launch's plan
+     is `ops/fp8_matmul.matvec_plan`'s, and with x the identity's rows and
+     scale 1 the output is the weight's columns as `w8.to(bfloat16)` gives
+     them, bit for bit, over every finite code. Timed by CUDA
+     graph replay over weight copies that exceed the L2 cache, beside its
+     byte bound, the plain version and `F.linear` on the bf16 weight, and at
+     FP8_FIXED (no weight to stream: the fixed cost of a launch).
 3b. fp8 probe: `tools/fp8_decode_probe.run`, K9's path, with every count set
    to 0 just before it: the four candidates (F.linear on bf16, the upcast
    fp8 weight, K9, K7's int4) on the same three shapes; K9 and K7 must
@@ -476,6 +484,7 @@ FP8_ROWS = (1, 4, 8)  # decode rows; 8 is the probe's
 # 2.6e-2 to 2.7e-2 at these shapes
 FP8_PROBE_ERR = 5e-2
 FP8_RAGGED = (3, 2050, 4100)  # (M, K, N): K off the 16-byte spans, N off the 16 channels
+FP8_FIXED = (8, 64, 16)  # (M, K, N): one tile, one 64-byte step: a launch's fixed cost
 EVAL_PERSPECTIVES = ("How would you rate the static quality of this video?",
                      "How would you rate the temporal smoothness of this video?")
 # The fused eval (shared prefix, uint8 frames normalized on the card) against
@@ -1138,50 +1147,151 @@ def check_weight_only(wo, device) -> dict:
     return results
 
 
+def fp8_split_borders(sms: int) -> list:
+    """K9's split borders on a card of `sms` SMs, (M, K, N): tile counts on
+    either side of the SM count and of twice it, where the plan's split (8
+    or 16 warps an item) and its streams change, at K = 8192; K = 8256 (129
+    steps, which neither split divides), K below one step, N below one tile,
+    M across the 8-row blocks."""
+    tiles = (sms // 2, sms - 1, sms, sms + 1, 2 * sms - 1, 2 * sms, 2 * sms + 1)
+    return ([(m, 8192, 16 * t) for m in (1, 8) for t in tiles]
+            + [(8, 8256, 2048), (17, 8256, 2064), (1, 63, 15), (9, 100, 3), (5, 17, 40)])
+
+
 def check_fp8(f8, device) -> dict:
     """The fp8 decode matmul against its plain version at the probe's shapes
-    and decode rows and at a ragged shape; timed by CUDA graph replay over
-    weight copies that together exceed the L2 cache, beside its byte bound,
-    the plain version and `F.linear` on the bf16 weight dequantized
-    beforehand."""
+    and decode rows, at a ragged shape and at every split border, through the
+    wrapper and each of its two forms by name (`stream` where the rows start
+    on 16 bytes), on a weight that holds every finite e4m3 code, with an
+    all-zero channel exactly 0, a second launch and a CUDA graph replay
+    bit-equal to the first; timed by CUDA graph replay over weight copies
+    that together exceed the L2 cache (the wrapper and each form), beside its
+    byte bound, the plain version and `F.linear` on the bf16 weight
+    dequantized beforehand, and at FP8_FIXED (no weight to stream: the fixed
+    cost of a launch)."""
     results = {}
     gen = torch.Generator(device=device).manual_seed(8)
     nan_bytes = torch.tensor([0x7F, 0xFF], dtype=torch.uint8, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def forms_of(k):  # the forms that take rows of K bytes (and 2K of x)
+        return f8.FORMS if k % 16 == 0 else ("tiles",)
+
+    def held(label, m, k, n, x, w8, scale, zero_channel=None):
+        """The wrapper and every form that takes the shape against the plain
+        version -> (the wrapper's y, plain y, worst rel L2, plan, form)."""
+        want = f8.plain_fp8_matmul(x, w8, scale)
+        plan = f8.launch_plan(m, n, k)
+        if plan != f8.matvec_plan(m, n, k, sms=sms):
+            raise RuntimeError(f"fp8 {label}: the launch's plan {plan} is not the mirror's "
+                               f"{f8.matvec_plan(m, n, k, sms=sms)}")
+        form = f8.fp8_form(m, k, n, x, w8, sms)
+        worst, got = 0.0, None
+        for how in ("wrapper",) + forms_of(k):
+            def run():
+                if how == "wrapper":
+                    return f8.fp8_matmul(x, w8, scale)
+                return f8._launch_form(how, x, w8, scale)
+            y, again = run(), run()
+            torch.cuda.synchronize()
+            rel = relative_l2(y.float(), want.float())
+            if not (torch.isfinite(y).all() and rel <= FP8_TOL):
+                raise RuntimeError(f"fp8 {label} M={m} K={k} N={n} {how} ({plan}): relative L2 "
+                                   f"to the plain version {rel} above {FP8_TOL}")
+            if zero_channel is not None and y[:, zero_channel].any():
+                raise RuntimeError(f"fp8 {label} {how}: an all-zero channel is not exactly 0")
+            if not torch.equal(y, again):
+                raise RuntimeError(f"fp8 {label} {how}: a second launch differs from the first")
+            worst = max(worst, rel)
+            got = y if how == "wrapper" else got
+        return got, want, worst, plan, form
+
     cases = [(name, m, k, n) for name, (k, n) in FP8_SHAPES.items() for m in FP8_ROWS]
-    cases.append(("ragged", *FP8_RAGGED))
+    cases += [("ragged", *FP8_RAGGED), ("fixed", *FP8_FIXED)]
     for name, m, k, n in cases:
         w = torch.randn((n, k), generator=gen, device=device) * 0.02
+        w[n // 2] = 0.0
         w8, scale = f8.quantize_weight_fp8(w)
         if torch.isin(w8.view(torch.uint8), nan_bytes).any():
             raise RuntimeError(f"fp8 {name}: the quantized weight holds a NaN byte")
         deq = f8.dequantize_weight_fp8(w8, scale, torch.bfloat16)
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-        got = f8.fp8_matmul(x, w8, scale)
-        torch.cuda.synchronize()
-        want = f8.plain_fp8_matmul(x, w8, scale)
-        rel = relative_l2(got.float(), want.float())
-        if not (torch.isfinite(got).all() and rel <= FP8_TOL):
-            raise RuntimeError(f"fp8 {name} M={m}: relative L2 to the plain version {rel} "
-                               f"above {FP8_TOL}")
+        got, want, rel, plan, form = held(name, m, k, n, x, w8, scale, n // 2)
         flops = 2.0 * m * n * k
         nbytes = n * k + 2 * m * k + 2 * m * n + 4 * n
         bound, bound_by = bound_ms(flops, nbytes)
-        copies = int(2 * L2_BYTES // (n * k)) + 1
+        copies = int(2 * L2_BYTES // (n * k)) + 1 if name != "fixed" else 1
         ws = [(w8, scale, deq)] + [(w8.clone(), scale, deq.clone()) for _ in range(copies - 1)]
+        ws = ws if copies > 1 else ws * 20  # the fixed cost: one weight, 20 launches
         err = (got.float() - want.float()).abs().max().item()
-        r = dict(M=m, K=k, N=n, rel_l2=rel, max_abs_err=err, weight_copies=copies, bound_ms=bound, bound_by=bound_by,
+        r = dict(M=m, K=k, N=n, rel_l2=rel, max_abs_err=err, weight_copies=copies, form=form,
+                 split=plan.split, streams=plan.streams, bound_ms=bound, bound_by=bound_by,
                  ms=graph_ms([lambda c=c: f8.fp8_matmul(x, c[0], c[1]) for c in ws], 20),
+                 form_ms={how: graph_ms([lambda c=c, h=how: f8._launch_form(h, x, c[0], c[1])
+                                         for c in ws], 20) for how in forms_of(k)},
                  plain_ms=graph_ms([lambda c=c: f8.plain_fp8_matmul(x, c[0], c[1])
                                     for c in ws[:2]], 5),
                  library_ms=graph_ms([lambda c=c: torch.nn.functional.linear(x, c[2])
                                       for c in ws], 20))
-        results[f"{name}_m{m}" if name != "ragged" else name] = r
+        results[f"{name}_m{m}" if name in FP8_SHAPES else name] = r
         del ws
-        phase("kernel", f"fp8 matmul (K9) {name} M={m} K={k} N={n}: rel L2 to plain {rel:.3e} "
-              f"(tol {FP8_TOL}), no NaN byte; {r['ms'] * 1e3:.2f} us per launch (graph replay, "
-              f"{copies} weight copies), bound {bound * 1e3:.2f} us ({bound_by}, "
-              f"{bound / r['ms'] * 100:.0f}%), F.linear bf16 {r['library_ms'] * 1e3:.2f} us, "
-              f"plain {r['plain_ms'] * 1e3:.2f} us")
+        phase("kernel", f"fp8 matmul (K9) {name} M={m} K={k} N={n}: the {form} form (stream "
+              f"plan {plan.streams} streams of {plan.split} warps), worst rel L2 to plain "
+              f"{rel:.3e} (tol {FP8_TOL}), no NaN byte, the zero channel 0, second launches "
+              f"bit-equal; {r['ms'] * 1e3:.2f} us per launch (graph replay, {copies} weight "
+              f"copies; by form " + ", ".join(f"{h} {t * 1e3:.2f}" for h, t in r['form_ms'].items())
+              + f"), bound {bound * 1e3:.2f} us ({bound_by}, {bound / r['ms'] * 100:.0f}%), "
+              f"F.linear bf16 {r['library_ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us")
+    borders = {}
+    for m, k, n in fp8_split_borders(sms):
+        w = torch.randn((n, k), generator=gen, device=device) * 0.02
+        w[n // 2] = 0.0
+        w8, scale = f8.quantize_weight_fp8(w)
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        _, _, rel, plan, form = held("border", m, k, n, x, w8, scale, n // 2)
+        borders[f"{m}x{k}x{n}"] = dict(form=form, split=plan.split, streams=plan.streams,
+                                       rel_l2=rel)
+    if {b["split"] for b in borders.values()} != {8, 16} or \
+            {b["form"] for b in borders.values()} != set(f8.FORMS):
+        raise RuntimeError(f"fp8 split borders: splits and forms {borders}")
+    results["borders"] = borders
+    # every finite e4m3 code in every channel, at random scales; a graph replay
+    codes = torch.tensor([c for c in range(256) if c not in (0x7F, 0xFF)], dtype=torch.uint8)
+    n, k = 272, 2048
+    i = torch.arange(n * k)
+    w8 = codes[(7 * i + i // k) % codes.numel()].view(n, k).to(device).view(torch.float8_e4m3fn)
+    scale = torch.rand(n, generator=gen, device=device) * 1e-3 + 1e-4
+    for m in (1, 8):
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        _, _, rel, _, _ = held("every code", m, k, n, x, w8, scale)
+        for how in f8.FORMS:
+            y = f8._launch_form(how, x, w8, scale)
+            static = torch.empty_like(y)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static.copy_(f8._launch_form(how, x, w8, scale))
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(static, y):
+                raise RuntimeError(f"fp8 every code M={m} {how}: a graph replay differs from the "
+                                   f"eager launch")
+        results[f"every_code_m{m}"] = dict(rel_l2=rel, graph_replay_bit_equal=True)
+    # the in-kernel convert bit for bit: x the identity's first 8 rows and
+    # scale 1 give y[m, n] = w8[n, m] as bf16; the first 8 columns hold every
+    # finite code
+    n, k = 256, 2048
+    idx = torch.arange(n)[:, None] + 7 * torch.arange(k)[None, :]
+    w8 = codes[idx % codes.numel()].to(device).view(torch.float8_e4m3fn)
+    x = torch.eye(8, k, device=device).to(torch.bfloat16)
+    for how in f8.FORMS:
+        y = f8._launch_form(how, x, w8, torch.ones(n, device=device))
+        if not torch.equal(y, w8[:, :8].to(torch.bfloat16).t()):
+            raise RuntimeError(f"fp8: the {how} form's convert differs from w8.to(bfloat16)")
+    phase("kernel", f"fp8 matmul (K9) at {len(borders)} split borders (splits 8 and 16, both "
+          f"forms; worst rel L2 {max(b['rel_l2'] for b in borders.values()):.3e}) and on every "
+          f"finite e4m3 code (rel L2 {results['every_code_m8']['rel_l2']:.3e}): within "
+          f"{FP8_TOL}, the launches' plans the mirror's, second launches and graph replays "
+          f"bit-equal; both forms' convert of every finite code bit-equal to w8.to(bfloat16)")
     return results
 
 
@@ -3297,10 +3407,13 @@ def main() -> int:
         name="fp8_matmul", route="cuda", source="aigv_assessor_torch/csrc/fp8_matmul.cu",
         replaces="benchmarks/fp8_decode_probe.py:40",
         launches=probe["counts"]["fp8_matmul"],
-        max_abs_err=max(r["max_abs_err"] for r in fp8.values()),
+        max_abs_err=max(r["max_abs_err"] for r in fp8.values() if "max_abs_err" in r),
         ms=sum(r["ms"] for r in m8), plain_ms=sum(r["plain_ms"] for r in m8),
         bound_ms=sum(r["bound_ms"] for r in m8), bound_by=m8[0]["bound_by"],
         library_ms=sum(r["library_ms"] for r in m8),
+        fixed_ms=fp8["fixed"]["ms"],
+        form={name: fp8[f"{name}_m8"]["form"] for name in FP8_SHAPES},
+        split={name: fp8[f"{name}_m8"]["split"] for name in FP8_SHAPES},
         library="F.linear in bf16 on the weight dequantized beforehand: the same product with "
         "twice the weight bytes (torch._scaled_mm takes x in fp8 too: another function)",
         unit="the probe's three decode matvecs of InternLM2-1.8B at M = 8 (wqkv 2048 -> 4096, "

@@ -19,7 +19,10 @@ config.json, tokenizer.json) at the tiny stage-2 scale.
   tolerance of tests/test_torch_models.py);
 - `cli/score.main` on the fixtures: the CSV header as JAX writes it, one row
   per video, finite scores equal to `score_chunks` called directly on the
-  same decoded frames, and the JSON summary line's keys.
+  same decoded frames, and the JSON summary line's keys; with
+  `--device_preprocess False --normalize_type clip` the frames the CLI
+  normalizes on the host equal JAX's `transform_frames` at its defaults (the
+  ImageNet statistics, as JAX's CLI normalizes there) to 1e-6.
 """
 
 import contextlib
@@ -328,8 +331,19 @@ def test_score_cli(media, ckpt, tmp_path, capsys, name):
     if with_ckpt:
         argv += ["--model_name_or_path", ckpt[0]]
     env = {**os.environ, "AIGV_FUSE_QUANT": "vit,llm", "AIGV_QUANT_ROWS": "vit,llm"}
+    fed = []  # the decoded videos the CLI hands to score_chunks, in order
+    real_score_chunks = t_score.score_chunks
+
+    def spy(model, chunks, *a, **kw):
+        def tee():
+            for chunk in chunks:
+                fed.extend(chunk)
+                yield chunk
+        return real_score_chunks(model, tee(), *a, **kw)
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(os, "environ", env)
+        mp.setattr(t_score, "score_chunks", spy)
         rows = t_score.main(argv)
         config, model, tok = t_common.build_serving_stack(
             ckpt[0] if with_ckpt else "", model_scale="tiny", bf16=False, device="cpu",
@@ -359,8 +373,16 @@ def test_score_cli(media, ckpt, tmp_path, capsys, name):
     for i, p in enumerate(prompts):
         ids_pn[i, : len(p)], mask_pn[i, : len(p)] = p, True
     frames = [t_video.load_video(v, num_segments=T, out_size=56) for v in videos]
-    decoded = [t_video.transform_frames(f, 56, normalize_type="clip") if host
+    # on the host path the frames are normalized with the ImageNet statistics
+    # whatever --normalize_type says, as JAX's CLI does
+    # (aigv_assessor_tpu/cli/score.py:219)
+    decoded = [t_video.transform_frames(f, 56) if host
                else t_video.frames_to_uint8(f, 56) for f in frames]
+    assert len(fed) == len(videos)
+    for got, f, want in zip(fed, frames, decoded):
+        if host:
+            np.testing.assert_allclose(got, j_video.transform_frames(f, 56), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got, want)
     want = t_score.score_chunks(model, [decoded[:3], decoded[3:]], ids_pn, mask_pn,
                                 batch_size=3)
     np.testing.assert_allclose(scores, np.asarray(want), rtol=1e-6, atol=1e-6)

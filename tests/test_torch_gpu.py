@@ -71,7 +71,13 @@ jax-free, so that it runs where jax is not installed:
   version rounded to bf16 (both sum exact products in fp32; what is left is
   the summation order), at the probe's shapes and decode rows, over two row
   blocks, and at K and N off every span; the quantized weight holds no NaN
-  byte; an all-zero channel gives exactly 0.
+  byte; an all-zero channel gives exactly 0. Both forms (`stream`, `tiles`)
+  by name at every split border (the library's plan equal to
+  `matvec_plan`'s, splits of 8 and 16 warps, both forms picked by the
+  wrapper and counted), a second launch bit-equal, a CUDA graph replay
+  bit-equal on a weight that holds every finite e4m3 code, and the convert
+  bit for bit (x the identity's rows, scale 1); the stream form refuses
+  rows off 16 bytes.
 - The two cached paths of the decoder on the card at a small width: a
   prefill and decode steps in bf16, W8A8 (unfused, and with the fused
   decoder feeds, which launch K5a and K5b in every pass) and int8 against the
@@ -1251,3 +1257,99 @@ def test_fp8_kernel_rejects_what_it_does_not_take(cuda):
         f8.fp8_matmul(x, w8.t().contiguous().t(), scale)
     with pytest.raises(ValueError, match="contiguous"):
         f8.fp8_matmul(x, w8, scale.cpu())
+
+
+# K9's split borders (M, K, N): tile counts on either side of this card's
+# SM count and of twice it, where the plan's split (8 or 16 warps an item)
+# and its streams change; K = 8256 (129 steps, which neither split divides),
+# K below one step, N below one tile, M across the row blocks
+def fp8_split_borders(sms):
+    tiles = (sms // 2, sms - 1, sms, sms + 1, 2 * sms - 1, 2 * sms, 2 * sms + 1)
+    return ([(m, 8192, 16 * t) for m in (1, 8) for t in tiles]
+            + [(8, 8256, 2048), (17, 8256, 2064), (1, 63, 15), (9, 100, 3), (5, 17, 40)])
+
+
+def test_fp8_kernel_at_every_split_border(cuda):
+    from aigv_assessor_torch.ops import fp8_matmul as f8
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    splits, forms = set(), set()
+    for m, k, n in fp8_split_borders(sms):
+        plan = f8.launch_plan(m, n, k)
+        assert plan == f8.matvec_plan(m, n, k, sms=sms), (m, k, n)
+        splits.add(plan.split)
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device=cuda) * 0.02
+        w[n // 2] = 0.0
+        w8, scale = f8.quantize_weight_fp8(w)
+        form = f8.fp8_form(m, k, n, x, w8, sms)
+        forms.add(form)
+        before = dict(f8.fp8_matmul.form_launches)
+        got = f8.fp8_matmul(x, w8, scale)
+        assert f8.fp8_matmul.form_launches[form] == before[form] + 1
+        want = f8.plain_fp8_matmul(x, w8, scale)
+        for body in f8.FORMS if k % 16 == 0 else ("tiles",):
+            y = f8._launch_form(body, x, w8, scale)
+            torch.cuda.synchronize()
+            assert relative_l2(y, want) <= FP8_TOL, (m, k, n, plan, body)
+            assert not y[:, n // 2].any()
+            # no atomics: a second launch gives the same bits
+            torch.testing.assert_close(f8._launch_form(body, x, w8, scale), y, atol=0, rtol=0)
+            if body == form:
+                torch.testing.assert_close(got, y, atol=0, rtol=0)
+    assert splits == {8, 16} and forms == set(f8.FORMS)
+
+
+def test_fp8_kernel_takes_every_finite_code_and_replays_in_a_graph(cuda):
+    from aigv_assessor_torch.ops import fp8_matmul as f8
+
+    codes = torch.tensor([c for c in range(256) if c not in (0x7F, 0xFF)], dtype=torch.uint8)
+    n, k = 272, 2048
+    i = torch.arange(n * k)
+    w8 = codes[(7 * i + i // k) % codes.numel()].view(n, k).to(cuda).view(torch.float8_e4m3fn)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    scale = torch.rand(n, generator=gen, device=cuda) * 1e-3 + 1e-4
+    for m in (1, 8, 12):
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        want = f8.plain_fp8_matmul(x, w8, scale)
+        for form in f8.FORMS:
+            got = f8._launch_form(form, x, w8, scale)
+            assert relative_l2(got, want) <= FP8_TOL
+            static = torch.empty_like(got)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static.copy_(f8._launch_form(form, x, w8, scale))
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                torch.testing.assert_close(static, got, atol=0, rtol=0)
+
+
+def test_fp8_kernel_converts_every_finite_code_exactly(cuda):
+    """x the identity's first 8 rows and scale 1: y[m, n] is w8[n, m] as bf16,
+    one nonzero product summed and scaled exactly; the first 8 columns hold
+    every finite e4m3 code. Both forms."""
+    from aigv_assessor_torch.ops import fp8_matmul as f8
+
+    codes = torch.tensor([c for c in range(256) if c not in (0x7F, 0xFF)], dtype=torch.uint8)
+    n, k = 256, 2048
+    idx = torch.arange(n)[:, None] + 7 * torch.arange(k)[None, :]
+    w8 = codes[idx % codes.numel()].to(cuda).view(torch.float8_e4m3fn)
+    assert set(w8[:, :8].view(torch.uint8).unique().tolist()) == set(codes.tolist())
+    x = torch.eye(8, k, device=cuda).to(torch.bfloat16)
+    for form in f8.FORMS:
+        y = f8._launch_form(form, x, w8, torch.ones(n, device=cuda))
+        torch.testing.assert_close(y, w8[:, :8].to(torch.bfloat16).t(), atol=0, rtol=0)
+
+
+def test_fp8_stream_form_refuses_rows_off_16_bytes(cuda):
+    from aigv_assessor_torch.ops import fp8_matmul as f8
+
+    x = torch.randn((4, 2050), device=cuda).to(torch.bfloat16)
+    w8, scale = f8.quantize_weight_fp8(torch.randn((512, 2050), device=cuda))
+    assert f8.fp8_form(4, 2050, 512, x, w8, 132) == "tiles"
+    with pytest.raises(RuntimeError, match="stream"):
+        f8._launch_form("stream", x, w8, scale)
+    torch.testing.assert_close(f8._launch_form("tiles", x, w8, scale), f8.fp8_matmul(x, w8, scale),
+                               atol=0, rtol=0)
