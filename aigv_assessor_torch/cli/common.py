@@ -1,5 +1,5 @@
 """Shared CLI assembly (`aigv_assessor_tpu/cli/common.py`): config ->
-tokenizer -> model, for the serving CLIs.
+tokenizer -> model, for the CLIs.
 
 - `config_from_args`: the checkpoint's `config.json` when there is one, else
   the model scale (`tiny`, `2b`, or the 8B default), then the pipeline flags.
@@ -12,6 +12,9 @@ tokenizer -> model, for the serving CLIs.
 - `build_serving_model`: the model on a device in a float or quantized
   precision, from a state_dict or a seed, LoRA adapters merged.
 - `model_weights`: the weights of `--model_name_or_path`, or None (`--seed`).
+- `config_and_tokenizer`: the config (with the tokenizer's `<IMG_CONTEXT>`
+  id) and the tokenizer from the CLI flags; the training CLIs build their
+  model from these (`cli/stage2_train.build_training_model`).
 - `build_model_and_tokenizer`: all of the above from the CLI flags,
   `(config, model, tokenizer)`: the eval CLIs' assembly (stage 1 or 2, on
   `--device`, bf16 or fp32 with `--bf16 False`); `build_serving_stack`, the
@@ -40,15 +43,16 @@ from aigv_assessor_torch.models.assessor import AIGVAssessor
 from aigv_assessor_torch.models.loading import (
     init_lora_,
     init_random_,
-    init_score_head_,
     load_reference_checkpoint,
+    load_weights_,
     quantize_for_serving,
     serving_precision,
 )
-from aigv_assessor_torch.models.lora import is_lora_param, lora_free_state_dict, merge_lora_
+from aigv_assessor_torch.models.lora import lora_free_state_dict, merge_lora_
 
 __all__ = ["LLM_2B", "build_model_and_tokenizer", "build_serving_model", "build_serving_stack",
-           "config_from_args", "load_tokenizer", "model_weights", "quant_components"]
+           "config_and_tokenizer", "config_from_args", "load_tokenizer", "model_weights",
+           "quant_components"]
 
 logger = logging.getLogger(__name__)
 
@@ -161,18 +165,9 @@ def build_serving_model(
         model = AIGVAssessor(config, float_precision)
     model = model.to(dtype).to_empty(device=device)
     if weights is None:
-        init_random_(model, seed)
-        missing = [k for k in model.state_dict() if is_lora_param(k)]
+        init_lora_(init_random_(model, seed), seed + 2)
     else:
-        missing, unexpected = model.load_state_dict(weights, strict=False)
-        drawn = [k for k in missing if not (is_lora_param(k) or k.startswith("mlpscore."))]
-        if unexpected or drawn:
-            raise KeyError(f"weights do not match the model: missing {drawn}, "
-                           f"unexpected {unexpected}")
-        if any(k.startswith("mlpscore.") for k in missing):
-            init_score_head_(model, seed + 1)
-    if any(is_lora_param(k) for k in missing):
-        init_lora_(model, seed + 2)
+        load_weights_(model, weights, seed)
     if config.use_backbone_lora or config.use_llm_lora:
         config = config.replace(use_backbone_lora=0, use_llm_lora=0)
         state = lora_free_state_dict(merge_lora_(model))
@@ -215,6 +210,14 @@ def model_weights(args, config: AssessorConfig) -> Optional[Dict[str, torch.Tens
     return weights
 
 
+def config_and_tokenizer(args, stage: int) -> Tuple[AssessorConfig, AIGVTokenizer]:
+    """The config from the flags and the checkpoint (`config_from_args`),
+    with the tokenizer's `<IMG_CONTEXT>` id, and the tokenizer."""
+    config = config_from_args(args, stage)
+    tokenizer = load_tokenizer(args, config)
+    return config.replace(img_context_token_id=int(tokenizer.img_context_token_id)), tokenizer
+
+
 def build_model_and_tokenizer(
     args, stage: int, *, w8a8: bool = False, int8: bool = False, int4: bool = False,
     kv_int8: bool = False,
@@ -226,9 +229,7 @@ def build_model_and_tokenizer(
     `args.device` in bf16 (fp32 with `--bf16 False`), adapters merged, in
     the quantized mode asked for; the W8A8 feeds picked by `AIGV_FUSE_QUANT`
     / `AIGV_QUANT_ROWS`."""
-    config = config_from_args(args, stage)
-    tokenizer = load_tokenizer(args, config)
-    config = config.replace(img_context_token_id=int(tokenizer.img_context_token_id))
+    config, tokenizer = config_and_tokenizer(args, stage)
     precision = dataclasses.replace(
         Precision() if args.bf16 else Precision.fp32(),
         fuse_quant=quant_components("AIGV_FUSE_QUANT"),

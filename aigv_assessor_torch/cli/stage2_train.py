@@ -1,35 +1,46 @@
-"""Stage-2 training (`aigv_assessor_tpu/cli/stage2_train.py`), the device
-side: LoRA adapters on both towers and the `mlpscore` head trained on
-L1(score, mos / 100), with a LoRA-only artifact written at the end.
+"""Stage-2 training (`aigv_assessor_tpu/cli/stage2_train.py`): LoRA
+adapters on both towers and the `mlpscore` head trained on L1(score,
+mos / 100), the best checkpoint by the SRCC of the predicted score, and a
+LoRA-only artifact.
 
+    python -m aigv_assessor_torch.cli.stage2_train --meta_path META.json \
+        --model_scale 2b --use_backbone_lora 8 --use_llm_lora 8 --do_train True \
+        --per_device_train_batch_size 2 --evaluation_strategy steps --eval_steps 60 \
+        --output_dir out
+
+- `main`: `cli/stage1_train.main` at stage 2 (datasets from the meta file,
+  periodic eval, checkpoints, `--resume_from_checkpoint`), with
+  `lora_weights.safetensors` written on every new best SRCC_score and
+  again at the end.
 - `build_training_model`: the stage-2 (or, shared with
   `cli/stage1_train.py`, stage-1) model on a device with its adapters,
-  weights made from a seed, ready for `train/trainer.Trainer`.
+  weights from a reference-format checkpoint or a seed, ready for
+  `train/trainer.Trainer`.
 - `prepare_batch`: uint8 frames -> normalized pixels, MOS scaled by
   `mos_scale` (0.01: the model scores in mos / 100).
-- `train_steps`: a `Trainer` over a list of batches, one optimizer step per
-  batch (split into `gradient_accumulation_steps` micro-batches; the loop is
-  `run_steps`, which stage 1 shares), then the LoRA artifact
-  `lora_weights.safetensors` in the output directory.
-
-The pieces of the JAX CLI's host side are ported (the flags in
-`cli/args.py`, datasets, sampler and loader under `data/`, evaluation to CSV
-in `train/evaluate.py`), but its `main`, which trains from a meta file, is
-not yet (ROADMAP.md, Queue 1 item 5): callers hand in token ids, uint8
-frames and MOS values. Weights come from a seed.
+- `train_steps`: a `Trainer` over a list of batches the caller made, one
+  optimizer step per batch (split into `gradient_accumulation_steps`
+  micro-batches; the loop is `run_steps`, which stage 1 shares), then the
+  LoRA artifact in the output directory.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Optional, Sequence
+import sys
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 
 import torch
 
 from aigv_assessor_torch.core.config import AssessorConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.assessor import AIGVAssessor
-from aigv_assessor_torch.models.loading import init_lora_, init_random_, init_score_head_
+from aigv_assessor_torch.models.loading import (
+    init_lora_,
+    init_random_,
+    init_score_head_,
+    load_weights_,
+)
 from aigv_assessor_torch.ops.preprocess import resize_normalize
 from aigv_assessor_torch.train.checkpoint import save_lora_weights
 from aigv_assessor_torch.train.freeze import apply_freeze_, cast_frozen_
@@ -47,12 +58,21 @@ def build_training_model(
     seed: int = 0,
     grad_checkpoint: bool = True,
     train_config: TrainConfig = TrainConfig(),
+    weights: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> AIGVAssessor:
-    """The stage-1 or stage-2 model on `device`: the frozen weights from
-    `init_random_(seed)` (the values `build_serving_model` draws from the same
-    seed), the score head (stage 2) and the adapters as the JAX modules
-    initialise them. `config` carries the stage and the LoRA ranks
-    (`use_backbone_lora`, `use_llm_lora`).
+    """The stage-1 or stage-2 model on `device`, its adapters unmerged.
+    `config` carries the stage and the LoRA ranks (`use_backbone_lora`,
+    `use_llm_lora`).
+
+    `weights`, a float state_dict of `AIGVAssessor(config)` (the CLIs pass
+    `cli/common.model_weights`, a reference-format checkpoint), fills what
+    it holds; what it lacks may only be the score head, then drawn by
+    `init_score_head_(seed + 1)`, and the adapters, then drawn by
+    `init_lora_(seed + 2)` (`models/loading.load_weights_`, the rules of
+    `build_serving_model`). Without `weights` the frozen weights come from
+    `init_random_(seed)` (the values `build_serving_model` draws from the
+    same seed), the score head (stage 2) and the adapters as the JAX
+    modules initialise them.
 
     What `train_config`'s freeze flags leave trainable is fp32. When it holds
     the frozen part in bf16 (`frozen_bf16` under a bf16 compute dtype, what
@@ -70,7 +90,10 @@ def build_training_model(
                       freeze_llm=train_config.freeze_llm, freeze_mlp=train_config.freeze_mlp,
                       unfreeze_lm_head=train_config.unfreeze_lm_head)
         cast_frozen_(model, torch.bfloat16)
-    model = init_random_(model.to_empty(device=device), seed)
+    model = model.to_empty(device=device)
+    if weights is not None:
+        return load_weights_(model, weights, seed)
+    init_random_(model, seed)
     if config.stage >= 2:
         init_score_head_(model, seed + 1)
     return init_lora_(model, seed + 2)
@@ -149,3 +172,27 @@ def train_steps(
     trainer = run_steps(model, batches, train_config, mos_scale=mos_scale, trainer=trainer)
     save_lora_weights(os.path.join(train_config.output_dir, LORA_FILE), model)
     return trainer
+
+
+def main(argv=None):
+    """`cli/stage1_train.main` at stage 2: best by SRCC_score, MOS / 100,
+    the LoRA artifact on every new best and at the end. -> the `Trainer`."""
+    from aigv_assessor_torch.cli import stage1_train
+
+    def make_on_best(args):
+        def on_best(model, step):
+            # the reference dumps the bare LoRA tensors on every new best
+            # (stage2_train.py:223-235, 300-307)
+            save_lora_weights(os.path.join(args.output_dir, LORA_FILE), model)
+        return on_best
+
+    trainer = stage1_train.main(argv, stage=2, best_metric="SRCC_score", mos_scale=MOS_SCALE,
+                                on_best=make_on_best)
+    # the final artifact whatever the eval cadence
+    save_lora_weights(os.path.join(trainer.cfg.output_dir, LORA_FILE), trainer.model)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

@@ -36,7 +36,8 @@ and `serving_precision` the precision that call returns beside them,
 `init_random_` fills a model from a seed, each tensor drawn in fp32 and
 stored in its own dtype, so a model can be built straight in bf16;
 `init_lora_` and `init_score_head_` draw the adapters and the score head as
-the JAX modules initialise them.
+the JAX modules initialise them. `load_weights_` fills a model from a float
+state_dict that may lack only those two, and draws what it lacks.
 
 `load_reference_checkpoint` reads a reference-format checkpoint from disk
 (sharded safetensors with their index, or torch `.bin` / `.pth` shards)
@@ -349,4 +350,25 @@ def init_score_head_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 fc = getattr(m, f"fc{i + 1}")
                 fc.weight.uniform_(-0.1, 0.1, generator=gen)
                 fc.bias.zero_()
+    return model
+
+
+@torch.no_grad()
+def load_weights_(model: torch.nn.Module, weights: Mapping[str, torch.Tensor],
+                  seed: int) -> torch.nn.Module:
+    """Copy `weights` (a float state_dict, e.g. `load_reference_checkpoint`'s)
+    into `model` in place, each tensor cast to the parameter's own dtype.
+    What it lacks may only be the score head, then drawn by
+    `init_score_head_(seed + 1)`, and the LoRA adapters, then drawn by
+    `init_lora_(seed + 2)` with `lora_b` zero; any other missing or
+    unexpected key raises KeyError."""
+    missing, unexpected = model.load_state_dict(weights, strict=False)
+    drawn = [k for k in missing if not (is_lora_param(k) or k.startswith("mlpscore."))]
+    if unexpected or drawn:
+        raise KeyError(f"weights do not match the model: missing {drawn}, "
+                       f"unexpected {unexpected}")
+    if any(k.startswith("mlpscore.") for k in missing):
+        init_score_head_(model, seed + 1)
+    if any(is_lora_param(k) for k in missing):
+        init_lora_(model, seed + 2)
     return model

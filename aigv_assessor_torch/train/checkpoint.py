@@ -4,14 +4,15 @@
   one safetensors file keyed by the JAX path names
   (`vision_model/layers/attn/qkv/lora_a`, ...), each holding the layers
   stacked on a leading axis as the JAX tree holds them. The JAX package
-  writes the same flat dictionary as msgpack, which needs flax; the keys and
-  arrays are the same.
+  writes the same arrays as msgpack, which needs flax, each key under
+  `params/`.
 - `save_trainable_weights`: any set of parameters (stage 1: `mlp1` and
   `motion_mlp`) the same way, in the JAX tree's layout (a dense kernel
   [in, out]).
 - `CheckpointManager`: the trainer's state (trainable parameters, optimizer
   moments, step, generator state) under `step_<n>/`, the newest
-  `save_total_limit` kept, and a single `best/` slot. The frozen weights are
+  `save_total_limit` kept, and a single `best/` slot; `restore` takes the
+  newest step of a manager's directory, or the one state of a slot. The frozen weights are
   not part of it: a resumed run builds them as the first run did. Restoring
   the JAX package's orbax checkpoints is not ported yet (ROADMAP.md,
   Queue 1).
@@ -134,7 +135,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, trainer, step: Optional[int] = None) -> None:
-        """Load the state of `step` (default: the newest) into `trainer`."""
+        """Load the state of `step` (default: the newest) into `trainer`. A
+        directory that is itself one slot of a manager (`step_<n>/` or
+        `best/`, as `--resume_from_checkpoint` may name) holds one state:
+        that one."""
+        if step is None and os.path.exists(os.path.join(self.directory, "state.pt")):
+            return self._load(trainer, ".")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")

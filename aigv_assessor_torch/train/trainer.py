@@ -21,6 +21,11 @@ One optimizer step, as the JAX `Trainer._train_step` takes it:
 Dropout and drop path draw from one `torch.Generator` on the model's device,
 seeded from `TrainConfig.seed`, which the trainer hands to the model.
 
+Every record of `<output_dir>/train_log.jsonl` (the losses, the eval
+metrics) also goes to `utils/metrics_writer.MetricsWriter` under
+`<output_dir>/logs`, opened when training starts or at the first record; a
+writer that fails is logged and dropped, and training goes on, as in JAX.
+
 The mesh, the sharding and the jitted step of the JAX trainer have no
 counterpart: the port runs eagerly on one card.
 """
@@ -45,6 +50,7 @@ from aigv_assessor_torch.train.layer_decay import (
     layer_decay_multipliers,
     layer_decay_requested,
 )
+from aigv_assessor_torch.utils.metrics_writer import MetricsWriter
 
 logger = logging.getLogger(__name__)
 
@@ -207,6 +213,9 @@ class Trainer:
             betas=(cfg.adam_beta1, cfg.adam_beta2), eps=cfg.adam_epsilon,
         )
         self._metrics_log: List[Dict[str, Any]] = []
+        # opened by `train` or the first record: building a trainer writes nothing
+        self.metrics_writer: Optional[MetricsWriter] = None
+        self._metrics_failed = False
 
     # ------------------------------------------------------------- step ----
 
@@ -258,6 +267,7 @@ class Trainer:
         device)."""
         cfg = self.cfg
         os.makedirs(cfg.output_dir, exist_ok=True)
+        self._open_metrics()  # before the clock: TensorBoard's import is slow
         t_start = time.time()
         for epoch in range(int(math.ceil(cfg.num_train_epochs))):
             for micro_batches in data_iter_fn(epoch):
@@ -297,6 +307,26 @@ class Trainer:
     def _write_log(self, record: Dict[str, Any]) -> None:
         with open(os.path.join(self.cfg.output_dir, "train_log.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
+        writer = self._open_metrics()
+        if writer is None:
+            return
+        scalars = {k: v for k, v in record.items()
+                   if isinstance(v, (int, float)) and k != "step"}
+        try:
+            writer.write(int(record.get("step", 0)), scalars)
+        except Exception:  # metrics writing must never kill training
+            logger.exception("metrics writer failed; training goes on without it")
+            self._metrics_failed = True
+
+    def _open_metrics(self) -> Optional[MetricsWriter]:
+        """The metrics writer, opened at its first use; None once it failed."""
+        if self.metrics_writer is None and not self._metrics_failed:
+            try:
+                self.metrics_writer = MetricsWriter(os.path.join(self.cfg.output_dir, "logs"))
+            except Exception:  # metrics writing must never kill training
+                logger.exception("metrics writer failed; training goes on without it")
+                self._metrics_failed = True
+        return None if self._metrics_failed else self.metrics_writer
 
     # ------------------------------------------------------------- state ---
 

@@ -191,6 +191,19 @@ Phases, each printing one line or more (and failing the run by raising):
    SlowFast tensor bit-equal and `mlp1` / `motion_mlp` moved; the losses
    finite and the dropout-off loss lower after the steps.
 
+7c. the training CLIs: `cli/stage2_train.main` at `--model_scale 2b` (full
+   width and depth, bf16, the CLI's seed, the score head's last layer made
+   non-negative) on phase 10b's meta file and videos, LoRA r = 8 in both
+   towers, batch 2, 1 epoch (4 steps), an eval (batch 4) and a checkpoint
+   every 2 steps; then `cli/stage1_train.main`, batch 4 (2 steps), one eval.
+   Checks one finite loss per step in `train_log.jsonl`; the eval CSV
+   (`pred_score` at stage 2) and the metrics lines of each eval; the best
+   and last checkpoints and the artifact (`lora_weights.safetensors`,
+   `trainable_weights.safetensors`); per micro-batch phase 7's and 7b's
+   launches of K1 lse, K3a and K3b, and the forward-only K1 of the evals
+   (48 per forward) and of stage 1's frozen ViT. Prints ms per step (two
+   steps with no eval between them) beside phase 7's, and peak memory.
+
 8. generation: `models/generation.generate` on the same model, B = 4, the
    2113-token prompt with the motion embedding, GEN_TOKENS new tokens,
    greedy, in bf16, with int8 weights, and in bf16 with the int8 KV cache.
@@ -254,7 +267,23 @@ Phases, each printing one line or more (and failing the run by raising):
     K3a, 48 K3b launches; the frozen tensors bit-equal to a host copy taken
     before the steps; ms per step, peak memory.
 
-Then one JSON line describing the kernels, and last
+12. serve: `cli/serve.ScoringService` behind `cli/serve._Server` on
+    127.0.0.1 (port 0) at 2B, seed 0, the two CLI questions on their shared
+    prefix, batch 4, 8 frames, the score head's last layer made
+    non-negative; bf16, then `w8a8=True` (JAX's default feeds). The 9 CLI
+    videos (phase 10's 8 mp4 + 1 GIF) are POSTed as raw bytes one at a
+    time, then 32 requests come from 8 client threads. Checks every reply
+    against `model.score_perspectives` on the same uint8 frames (the
+    service's own decode, in batches of four videos) and every grouped
+    reply against the solo one, within SCORE_TOL of the largest score
+    (the batch shape is fixed: 0 expected); per batch 48 K1 launches (the
+    ViT and the shared prefix; W8A8: the dense `bsd` form and the ViT's
+    K4a-c) and no K8; W8A8's scores within W8A8_EVAL_DRIFT of bf16;
+    `/healthz`. Prints online videos/s, p50 / p99 latency, `/statz` and,
+    for bf16, `cli.score`'s videos/s on the same files.
+
+Then one JSON line describing the kernels (the K1, K3 and K4a-c entries
+also with their launches on the paths of phases 7c and 12), and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -272,6 +301,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -1322,9 +1352,10 @@ def relative_l2(x: torch.Tensor, y: torch.Tensor) -> float:
     return ((x - y).norm() / y.norm()).item()
 
 
-def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: str) -> dict:
-    """Phase 7 -> launches of each attention kernel form over the
-    TRAIN_STEPS steps. per_forward: attention layers of one forward."""
+def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: str) -> tuple:
+    """Phase 7 -> (launches of each attention kernel form over the
+    TRAIN_STEPS steps, ms of the last step). per_forward: attention layers
+    of one forward."""
     from aigv_assessor_torch.cli.stage2_train import (
         LORA_FILE, build_training_model, prepare_batch, train_steps)
     from aigv_assessor_torch.core.precision import Precision
@@ -1468,7 +1499,7 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
           f"gradients of (readout . u) ({g_kernel.numel()} values) rel L2 kernel vs plain "
           f"{gk:.3e} (tol {TRAIN_GRAD_TOL}), vs fp32 reference: kernel "
           f"{gr:.3e}, plain {gp:.3e} (tol {REF_RATIO}x) [{smi}]")
-    return train_counts
+    return train_counts, steady_ms
 
 
 def check_decode_attention(dec, two_part, device) -> dict:
@@ -2222,6 +2253,344 @@ def run_eval_clis(device, smi, *, n_vit: int, n_llm: int) -> None:
           f"allocated (GiB): "
           + ", ".join(f"{k} {v['s']:.1f} / {v['peak_gib']:.2f}" for k, v in runs.items())
           + f" [{smi}]")
+
+
+# ------------------------------------------------- the training CLIs (7c) --
+
+
+def opened_score_head(model):
+    """The score head ends in a ReLU: its last layer's weights made
+    non-negative and its bias 0, so that random weights give scores that are
+    not all 0 and follow the readout."""
+    if hasattr(model, "mlpscore"):
+        last = getattr(model.mlpscore, f"fc{model.mlpscore.num_layers}")
+        with torch.no_grad():
+            last.weight.abs_()
+            last.bias.zero_()
+    return model
+
+
+def run_train_clis(device, smi, train_ms: float, *, n_vit: int, n_llm: int) -> dict:
+    """Phase 7c: `cli/stage2_train.main` and `cli/stage1_train.main` at 2B on
+    phase 10b's meta file -> launches of each attention kernel by run."""
+    from aigv_assessor_torch.cli import stage1_train, stage2_train
+    from aigv_assessor_torch.ops import flash_attention as fa
+
+    build = stage2_train.build_training_model
+    counters = training_counters(fa)
+    n_videos = CLI_VIDEOS + 1
+    eval_forwards = -(-n_videos // BATCH)
+    layers = n_vit + n_llm
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        metas = write_eval_metas(d)
+
+        def run(label, main, batch, stage):
+            out = os.path.join(d, label)
+            argv = ["--meta_path", metas[0], "--model_scale", "2b", "--num_segments", str(FRAMES),
+                    "--do_train", "True", "--num_train_epochs", "1",
+                    "--per_device_train_batch_size", str(batch), "--evaluation_strategy",
+                    "steps", "--eval_steps", "2", "--save_steps", "2",
+                    "--eval_batch_size", str(BATCH), "--output_dir", out,
+                    "--device", str(device)]
+            if stage == 2:
+                argv += ["--use_backbone_lora", str(LORA_RANK), "--use_llm_lora", str(LORA_RANK)]
+            for c in counters:
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            with mock.patch.object(stage2_train, "build_training_model",
+                                   lambda *a, **kw: opened_score_head(build(*a, **kw))):
+                trainer = main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = {c.__name__: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            steps = n_videos // batch
+            evals = steps // 2
+            with open(os.path.join(out, "train_log.jsonl")) as f:
+                log = [json.loads(line) for line in f]
+            losses = [r["loss"] for r in log if "loss" in r]
+            times = {r["step"]: r["time"] for r in log if "loss" in r}
+            if (len(losses) != steps or not np.isfinite(losses).all() or trainer.step != steps
+                    or sorted(times) != list(range(1, steps + 1))):
+                raise RuntimeError(f"{label}: losses {losses} after {trainer.step} steps, "
+                                   f"expected {steps}")
+            # steps 1 -> 2 and 3 -> 4 hold no eval or checkpoint between them
+            step_ms = [(times[s + 1] - times[s]) * 1e3 for s in range(1, steps, 2)]
+            per_mb = {"flash_attention_qkv_lse": 2 * layers if stage == 2 else 2 * n_llm,
+                      "flash_attention_qkv_bwd_dq": layers if stage == 2 else n_llm,
+                      "flash_attention_qkv_bwd_dkv": layers if stage == 2 else n_llm}
+            want = {c.__name__: 0 for c in counters}
+            want.update({k: steps * v for k, v in per_mb.items()})
+            # the frozen ViT of stage 1 runs forward only; each eval forward
+            # runs both towers without logsumexp
+            want["flash_attention_qkv"] = (evals * eval_forwards * layers
+                                           + (steps * n_vit if stage == 1 else 0))
+            if counts != want:
+                raise RuntimeError(f"{label}: launches {counts}, expected {want} ({steps} "
+                                   f"micro-batches, {evals * eval_forwards} eval forwards)")
+            with open(os.path.join(out, "results.csv")) as f:
+                table = list(csv.reader(f))
+            header = ["video_name", "answer", "output", "mos", "level"]
+            keys = ["Accuracy", "SRCC", "PLCC", "KRCC"]
+            if stage == 2:
+                header.append("pred_score")
+                keys += ["SRCC_score", "PLCC_score", "KRCC_score"]
+            with open(os.path.join(out, "metrics.txt")) as f:
+                metrics = [line.rstrip("\n").split(": ") for line in f]
+            if (table[0] != header or len(table) != n_videos + 1
+                    or [k for k, _ in metrics] != keys * evals):
+                raise RuntimeError(f"{label}: CSV header {table[0]}, {len(table) - 1} rows, "
+                                   f"metrics {[k for k, _ in metrics]}")
+            if stage == 2:
+                scores = np.asarray([float(r[5]) for r in table[1:]])
+                if not np.isfinite(scores).all() or not np.abs(scores).max() > 0:
+                    raise RuntimeError(f"{label}: pred_score {scores}")
+            artifact = (stage2_train.LORA_FILE if stage == 2 else stage1_train.TRAINABLE_FILE)
+            for path in ("checkpoints/best/state.pt", f"checkpoints/step_{steps}/state.pt",
+                         artifact):
+                if not os.path.exists(os.path.join(out, path)):
+                    raise RuntimeError(f"{label}: no {path}")
+            runs[label] = dict(counts=counts, steps=steps, batch=batch, wall_s=wall_s,
+                               peak_gib=peak, step_ms=step_ms, losses=losses,
+                               metrics=metrics[-len(keys):],
+                               best_step=torch.load(os.path.join(out, "checkpoints/best/state.pt"),
+                                                    map_location="cpu")["step"])
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        run("stage2", stage2_train.main, 2, 2)
+        run("stage1", stage1_train.main, 4, 1)
+    for label, r in runs.items():
+        per_mb = {k: v // r["steps"] for k, v in r["counts"].items()
+                  if v and k != "flash_attention_qkv"}
+        lora = f" LoRA r={LORA_RANK} both towers" if label == "stage2" else ""
+        mean_ms = float(np.mean(r["step_ms"]))
+        phase("train-cli", f"cli.{label}_train.main --model_scale 2b{lora} on phase 10b's "
+              f"meta ({CLI_VIDEOS} mp4 + 1 GIF, {FRAMES} frames, bf16), batch {r['batch']}, "
+              f"1 epoch = {r['steps']} steps, an eval (batch {BATCH}) and a checkpoint every 2: "
+              f"losses {np.round(r['losses'], 5).tolist()}; {mean_ms:.1f} ms/step "
+              f"({np.round(r['step_ms'], 1).tolist()}), {mean_ms / r['batch']:.1f} ms per "
+              f"video (train_steps, phase 7: {train_ms:.1f} ms/step of {BATCH} videos, "
+              f"{train_ms / BATCH:.1f} per video); peak {r['peak_gib']:.2f} GiB allocated; "
+              f"whole call {r['wall_s']:.1f} s with the model's build; launches per "
+              f"micro-batch {per_mb}, {r['counts']['flash_attention_qkv']} forward-only K1 in "
+              f"all (the evals{' and the frozen ViT' if label == 'stage1' else ''}); best "
+              f"checkpoint at step {r['best_step']}; last eval "
+              f"{ {k: round(float(v), 4) for k, v in r['metrics']} } [{smi}]")
+    return runs
+
+
+# ------------------------------------------------------ HTTP serving (12) --
+
+
+def http_call(address, method, path, body=None, ctype=None):
+    import http.client
+
+    conn = http.client.HTTPConnection(*address, timeout=600)
+    try:
+        conn.request(method, path, body=body, headers={"Content-Type": ctype} if ctype else {})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def run_serve(device, smi, *, n_vit: int, n_llm: int) -> dict:
+    """Phase 12: `cli/serve.ScoringService` behind `_Server` on 127.0.0.1 at
+    2B, bf16 then W8A8 -> launches of each kernel by precision."""
+    import threading
+
+    from aigv_assessor_torch.cli import common, score, serve
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import quant_fuse as qf
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    build = common.build_serving_model
+    counters = (fa.flash_attention_qkv, fa.flash_attention, fa.flash_attention_qkv_lse,
+                dec.decode_attention, dec.cached_decode_attention, qf.layernorm_quant,
+                qf.gelu_quant, qf.quant_rows, qf.rmsnorm_quant, qf.silu_mul_quant)
+    # the W8A8 feeds at JAX's default (`AIGV_FUSE_QUANT` unset: the ViT's)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AIGV_")}
+    questions = list(EVAL_PERSPECTIVES)
+    layers = n_vit + n_llm
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_cli_videos(d)
+        paths = score.list_videos(d)
+        bodies = {p: open(p, "rb").read() for p in paths}
+
+        def post(address, p):
+            status, body = http_call(address, "POST", "/score", bodies[p],
+                                     "image/gif" if p.endswith(".gif") else "video/mp4")
+            if status != 200:
+                raise RuntimeError(f"serve: POST {os.path.basename(p)} -> {status} {body}")
+            return np.asarray([body["scores"][q] for q in questions], np.float64)
+
+        for label, w8a8 in (("bf16", False), ("w8a8", True)):
+            t0 = time.perf_counter()
+            with mock.patch.object(common, "build_serving_model",
+                                   lambda *a, **kw: opened_score_head(build(*a, **kw))), \
+                    mock.patch.object(os, "environ", env):
+                svc = serve.ScoringService(questions, model_scale="2b", batch_size=BATCH,
+                                           num_segments=FRAMES, w8a8=w8a8, device=device)
+            svc.warmup()  # the kernels are built by now; the batch shape is fixed
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            server = serve._Server(("127.0.0.1", 0), serve.make_handler(svc))
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            address = server.server_address
+            try:
+                status, health = http_call(address, "GET", "/healthz")
+                if status != 200 or health.get("status") != "ok":
+                    raise RuntimeError(f"serve: /healthz {status} {health}")
+                for c in counters:
+                    c.launches = 0
+                batches0 = svc.stats.batches
+                torch.cuda.reset_peak_memory_stats(device)
+                solo = {p: post(address, p) for p in paths}  # one at a time
+                n_requests, n_clients = 32, 8
+                order = [paths[i % len(paths)] for i in range(n_requests)]
+                grouped, latency = [None] * n_requests, [None] * n_requests
+
+                def client(k):
+                    for i in range(k, n_requests, n_clients):
+                        t = time.perf_counter()
+                        grouped[i] = post(address, order[i])
+                        latency[i] = time.perf_counter() - t
+
+                clients = [threading.Thread(target=client, args=(k,)) for k in range(n_clients)]
+                t0 = time.perf_counter()
+                for t in clients:
+                    t.start()
+                for t in clients:
+                    t.join(timeout=600)
+                wall_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                counts = {c.__name__: c.launches for c in counters}
+                batches = svc.stats.batches - batches0
+                peak = torch.cuda.max_memory_allocated(device) / 2**30
+                status, statz = http_call(address, "GET", "/statz")
+            finally:
+                server.shutdown()
+                server.server_close()
+            if any(t.is_alive() for t in clients) or any(g is None for g in grouped):
+                raise RuntimeError("serve: a client never got its reply")
+            # the reference: the same uint8 frames, in batches of four videos,
+            # through model.score_perspectives on the service's prompts
+            # (the main thread alone: each batch's host time to return and its
+            # device time by CUDA events, beside the worker's assemble time)
+            frames = [svc.decode(p) for p in paths]
+            ref, host_ms, device_ms = {}, [], []
+            with torch.inference_mode():
+                for i in range(0, len(paths), BATCH):
+                    chunk = frames[i : i + BATCH]
+                    chunk += [chunk[-1]] * (BATCH - len(chunk))
+                    px = torch.as_tensor(np.stack(chunk), device=device)
+                    torch.cuda.synchronize()
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    t = time.perf_counter()
+                    start.record()
+                    pv = resize_normalize(px, size=px.shape[-2],
+                                          dtype=svc.model.precision.compute_dtype)
+                    s = svc.model.score_perspectives(
+                        svc._ids, pv, svc._mask, shared_prefix_len=svc.prefix_len or None)
+                    end.record()
+                    host_ms.append((time.perf_counter() - t) * 1e3)
+                    end.synchronize()
+                    device_ms.append(start.elapsed_time(end))
+                    for p, row in zip(paths[i : i + BATCH], s.float().cpu().numpy()):
+                        ref[p] = row.astype(np.float64) * svc.mos_scale
+                # the host syncs of one batch, counted by PyTorch's sync
+                # debug mode (outside the timed calls): host time = device
+                # time means either these or launches as slow as the card
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        svc.model.score_perspectives(svc._ids, pv, svc._mask,
+                                                     shared_prefix_len=svc.prefix_len or None)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                syncs = [str(w.message).splitlines()[0] for w in caught
+                         if "synchroniz" in str(w.message)]
+            prefix_len, decoder = svc.prefix_len, svc.decoder
+            svc.close()
+            del svc
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            def rel_diff(a, b):
+                """Largest difference over b's largest score."""
+                top = max(float(np.abs(v).max()) for v in b)
+                if not top > 0:
+                    raise RuntimeError(f"serve {label}: every score is 0")
+                return max(float(np.abs(x - y).max()) for x, y in zip(a, b)) / top
+
+            if not all(np.isfinite(v).all() for v in solo.values()):
+                raise RuntimeError(f"serve {label}: scores {solo}")
+            vs_ref = rel_diff([solo[p] for p in paths], [ref[p] for p in paths])
+            vs_solo = rel_diff(grouped, [solo[p] for p in order])
+            if not (vs_ref <= SCORE_TOL and vs_solo <= SCORE_TOL):
+                raise RuntimeError(f"serve {label}: replies against score_perspectives "
+                                   f"{vs_ref}, grouped against solo {vs_solo} (tol {SCORE_TOL})")
+            want = {c.__name__: 0 for c in counters}
+            want["flash_attention_qkv"] = batches * layers  # the ViT and the shared prefix
+            if w8a8:
+                want.update(layernorm_quant=batches * 2 * n_vit, gelu_quant=batches * n_vit,
+                            quant_rows=batches * n_vit)
+            if counts != want or prefix_len <= 0:
+                raise RuntimeError(f"serve {label}: launches {counts} over {batches} batches, "
+                                   f"expected {want}; shared prefix {prefix_len}")
+            lat = np.asarray(latency) * 1e3
+            runs[label] = dict(counts=counts, batches=batches, solo=solo, init_s=init_s,
+                               videos_per_s=n_requests / wall_s,
+                               p50_ms=float(np.percentile(lat, 50)),
+                               p99_ms=float(np.percentile(lat, 99)), statz=statz, peak_gib=peak,
+                               vs_ref=vs_ref, vs_solo=vs_solo, prefix_len=prefix_len,
+                               host_ms=host_ms, device_ms=device_ms, syncs=syncs)
+            if label == "bf16":
+                # the offline CLI on the same files, questions, batch and frames
+                stdout = io.StringIO()
+                with mock.patch.object(os, "environ", env), contextlib.redirect_stdout(stdout):
+                    score.main(["--videos", d, "--model_scale", "2b", "--batch_size", str(BATCH),
+                                "--num_segments", str(FRAMES), "--device", str(device),
+                                "--out", os.path.join(d, "scores.csv"),
+                                *[a for q in questions for a in ("--question", q)]])
+                torch.cuda.synchronize()
+                runs[label]["offline"] = json.loads(stdout.getvalue().strip().splitlines()[-1])
+                gc.collect()
+                torch.cuda.empty_cache()
+    drift = max(float(np.abs(runs["w8a8"]["solo"][p] - runs["bf16"]["solo"][p]).max())
+                for p in paths) / max(float(np.abs(v).max()) for v in runs["bf16"]["solo"].values())
+    if not drift <= W8A8_EVAL_DRIFT:
+        raise RuntimeError(f"serve: W8A8 against bf16 scores {drift} (tol {W8A8_EVAL_DRIFT})")
+    offline = runs["bf16"]["offline"]
+    for label, r in runs.items():
+        per_batch = {k: v // r["batches"] for k, v in r["counts"].items() if v}
+        phase("serve", f"cli.serve ScoringService + _Server on 127.0.0.1, --model_scale 2b "
+              f"{label}, seed 0, {len(questions)} questions on a shared prefix of "
+              f"{r['prefix_len']} tokens, batch {BATCH}, {FRAMES} frames, decoder {decoder}: "
+              f"{len(paths)} videos ({CLI_VIDEOS} mp4 + 1 GIF) POSTed one at a time, then 32 "
+              f"requests from 8 client threads: {r['videos_per_s']:.2f} videos/s online, "
+              f"latency p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms (offline cli.score "
+              f"bf16 on the same {len(paths)} files: {offline['value']} videos/s, decode "
+              f"included); replies vs model.score_perspectives on the same uint8 frames "
+              f"{r['vs_ref']:.3e}, grouped vs solo {r['vs_solo']:.3e} of the largest score (tol "
+              f"{SCORE_TOL}); launches per batch {per_batch} over {r['batches']} batches, K8 0; "
+              f"/statz {json.dumps(r['statz'])}; a batch from the main thread alone: host "
+              f"{np.round(r['host_ms'], 1).tolist()} ms to return, device "
+              f"{np.round(r['device_ms'], 1).tolist()} ms, {len(r['syncs'])} host syncs "
+              f"{sorted(set(r['syncs']))[:3]}; peak {r['peak_gib']:.2f} GiB "
+              f"allocated, build "
+              f"and warm-up {r['init_s']:.1f} s"
+              + (f"; W8A8 vs bf16 scores {drift:.3e} (tol {W8A8_EVAL_DRIFT})"
+                 if label == "w8a8" else "") + f" [{smi}]")
+    return runs
 
 
 # ------------------------------------------- K2's training forms (three tensors) --
@@ -3165,12 +3534,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. the stage-2 training slice
-    train_counts = run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward, smi)
+    train_counts, train_ms = run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward,
+                                             smi)
     torch.cuda.empty_cache()
 
     # 7b. stage-1 training at 2B
     run_stage1_slice(device, px_u8, n_vit, n_llm, smi)
     torch.cuda.empty_cache()
+
+    # 7c. the training CLIs from a meta file
+    train_clis = run_train_clis(device, smi, train_ms, n_vit=n_vit, n_llm=n_llm)
 
     # 8. generation: bf16, int8 weights, bf16 with the int8 KV cache
     gen_kw = dict(n_llm=n_llm, n_vit=n_vit)
@@ -3195,6 +3568,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     big = run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12. the HTTP scoring service at 2B, bf16 and W8A8
+    served = run_serve(device, smi, n_vit=n_vit, n_llm=n_llm)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -3428,8 +3806,26 @@ def main() -> int:
         "gelu_quant": "K4b", "ident_quant": "K4c", "rmsnorm_quant": "K5a",
         "silu_mul_quant": "K5b", "decode_attention": "K8", "flash_attn_fwd_lse": "K2 lse",
         "flash_attn_bwd_dq": "K2 dq", "flash_attn_bwd_dkv": "K2 dk/dv", "fp8_matmul": "K9"}
+    # the entry points' paths (phases 7c and 12), each run with the counts at 0
+    s2, s1 = train_clis["stage2"]["counts"], train_clis["stage1"]["counts"]
+    bf16_serve, w8a8_serve = served["bf16"]["counts"], served["w8a8"]["counts"]
+    by_path = {
+        "flash_attn_qkv_fwd": {"train_cli_stage2 (evals)": s2["flash_attention_qkv"],
+                               "train_cli_stage1 (evals, frozen ViT)": s1["flash_attention_qkv"],
+                               "serve_bf16": bf16_serve["flash_attention_qkv"]},
+        "flash_attn_qkv_fwd_bsd": {"serve_w8a8": w8a8_serve["flash_attention_qkv"]},
+        "ln_quant": {"serve_w8a8": w8a8_serve["layernorm_quant"]},
+        "gelu_quant": {"serve_w8a8": w8a8_serve["gelu_quant"]},
+        "ident_quant": {"serve_w8a8": w8a8_serve["quant_rows"]},
+    }
+    for kernel, counter in (("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
+                            ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
+                            ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+        by_path[kernel] = {"train_cli_stage2": s2[counter], "train_cli_stage1": s1[counter]}
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]
+        if k["name"] in by_path:
+            k["launches_by_path"] = by_path[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
