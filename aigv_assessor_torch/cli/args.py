@@ -40,8 +40,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--unfreeze_lm_head", type=_bool, default=False)
     p.add_argument("--grad_checkpoint", type=_bool, default=True)
     p.add_argument("--vit_remat_policy", type=str, default="",
-                   help="the JAX ViT's remat policy; the port recomputes whole layers "
-                        "under --grad_checkpoint whatever it says")
+                   help="with --grad_checkpoint, what each ViT layer saves for its "
+                        "backward, by a jax.checkpoint_policies name (e.g. "
+                        "dots_with_no_batch_dims_saveable: the projections' and the "
+                        "adapters' products; ops/remat.py); empty recomputes whole layers")
     # ---- data ----
     p.add_argument("--meta_path", type=str, required=True)
     p.add_argument(

@@ -10,20 +10,21 @@ tokenizer -> model, for the CLIs.
   'vit' / 'llm'; unset means 'vit'). This is the only place in the port that
   reads them: the models read `Precision.fuse_quant` / `quant_rows`.
 - `build_serving_model`: the model on a device in a float or quantized
-  precision, from a state_dict or a seed, LoRA adapters merged.
+  precision, from a state_dict or a seed, built tensor by tensor; the
+  config's LoRA adapters live over the base, as JAX's eval runs them.
 - `model_weights`: the weights of `--model_name_or_path`, or None (`--seed`).
 - `config_and_tokenizer`: the config (with the tokenizer's `<IMG_CONTEXT>`
   id) and the tokenizer from the CLI flags; the training CLIs build their
   model from these (`cli/stage2_train.build_training_model`).
 - `build_model_and_tokenizer`: all of the above from the CLI flags,
   `(config, model, tokenizer)`: the eval CLIs' assembly (stage 1 or 2, on
-  `--device`, bf16 or fp32 with `--bf16 False`); `build_serving_stack`, the
-  score CLI's, fills the flags it does not take with the training CLIs'
-  defaults.
+  `--device`, bf16 or fp32 with `--bf16 False`, adapters live as JAX's eval
+  runs them); `build_serving_stack`, the score and serve CLIs', fills the
+  flags it does not take with the training CLIs' defaults and no adapters.
 
-The `--vision_path` / `--llm_path` / `--mlp_path` grafts and
-position-embedding resizing are not ported (ROADMAP.md, Queue 1 item 4):
-the grafts raise.
+The `--vision_path` / `--llm_path` / `--mlp_path` grafts are not ported
+(ROADMAP.md, Queue 1 item 4): they raise. Another `--force_image_size` is
+taken by the ViT's position-embedding interpolation, as in JAX.
 """
 
 from __future__ import annotations
@@ -45,10 +46,8 @@ from aigv_assessor_torch.models.loading import (
     init_random_,
     load_reference_checkpoint,
     load_weights_,
-    quantize_for_serving,
     serving_precision,
 )
-from aigv_assessor_torch.models.lora import lora_free_state_dict, merge_lora_
 
 __all__ = ["LLM_2B", "build_model_and_tokenizer", "build_serving_model", "build_serving_stack",
            "config_and_tokenizer", "config_from_args", "load_tokenizer", "model_weights",
@@ -128,7 +127,17 @@ def build_serving_model(
     kv_int8: bool = False,
 ) -> AIGVAssessor:
     """The model on `device` in `precision.compute_dtype`, in eval mode, as
-    the JAX CLIs' `build_serving_stack` and `fused_main` make it.
+    the JAX CLIs' `build_serving_stack` and `build_model_and_tokenizer` +
+    `quantize_for_serving` make it.
+
+    The modes: W8A8 (`w8a8=True` or `precision.w8a8`: both towers'
+    projections) or weight-only (`int8=True` / `int4=True` or the
+    precision's `int8_weights` / `int4_weights`: the decoder's projections
+    and the LM head; int4 first when both are set), everything else in the
+    compute dtype, the scales fp32. `w8a8` with `int8` or `int4` raises
+    ValueError. `kv_int8` (or `precision.kv_int8`) changes no weight:
+    generation then keeps its KV cache in int8, under any of the modes
+    above. The precision's `fuse_quant` / `quant_rows` pick the W8A8 feeds.
 
     `weights`, a float state_dict of `AIGVAssessor(config)` (e.g.
     `load_reference_checkpoint`'s), fills what it holds; what it lacks may
@@ -136,55 +145,27 @@ def build_serving_model(
     the LoRA adapters, then drawn by `init_lora_(seed + 2)` with `lora_b`
     zero. Without `weights` all but the adapters come from
     `init_random_(seed)`: one seed gives the same base weights in every
-    precision. In a float precision the model is built straight in the
-    compute dtype, each tensor drawn or loaded in fp32 and stored rounded, so
-    that InternVL2-26B's 25.5 G values fit the card in bf16; a quantized
-    precision holds the fp32 weights while the model is built (~8.8 GB at
-    2B).
+    precision. Either way the model is built in its own precision, each base
+    tensor drawn or loaded in fp32 and stored rounded or quantized, one at a
+    time (`models/loading._base_leaves`), so no fp32 copy of the model is
+    held: InternVL2-26B's 25.5 G values fit the card in bf16 and in the
+    quantized modes.
 
     Adapters (the config's `use_backbone_lora` / `use_llm_lora`, which a
-    stage-2 checkpoint carries) are merged into their base weights
-    (`merge_lora_`), and the model is the config's without adapters: serving
-    and eval train nothing, and the KV cache, the shared prefix and the
-    quantized layers run adapter-free.
-
-    Then the quantized modes, from the fp32 values: W8A8 (`w8a8=True` or
-    `precision.w8a8`: both towers' projections) or weight-only (`int8=True` /
-    `int4=True` or the precision's `int8_weights` / `int4_weights`: the
-    decoder's projections and the LM head; int4 first when both are set),
-    everything else cast to the compute dtype, the scales kept fp32. `w8a8`
-    with `int8` or `int4` raises ValueError. `kv_int8` (or
-    `precision.kv_int8`) changes no weight: generation then keeps its KV
-    cache in int8, under any of the modes above. The precision's
-    `fuse_quant` / `quant_rows` pick the W8A8 feeds."""
+    stage-2 checkpoint carries) stay live over the base in every mode, as
+    JAX's eval runs `LoRADense` over the quantized base: quantize(W) +
+    delta, not quantize(W + delta). A model to serve without them, as the
+    JAX serving stack builds with `use_*_lora=0`, takes weights whose
+    adapters `models/lora.merge_lora_` folded into the float bases."""
     target = serving_precision(precision, w8a8=w8a8, int8=int8, int4=int4, kv_int8=kv_int8)
-    float_precision = dataclasses.replace(
-        target, w8a8=False, int8_weights=False, int4_weights=False)
-    dtype = precision.compute_dtype if target == float_precision else torch.float32
     with torch.device("meta"):
-        model = AIGVAssessor(config, float_precision)
-    model = model.to(dtype).to_empty(device=device)
+        model = AIGVAssessor(config, target)
+    model = model.to(precision.compute_dtype).to_empty(device=device)
     if weights is None:
         init_lora_(init_random_(model, seed), seed + 2)
     else:
         load_weights_(model, weights, seed)
-    if config.use_backbone_lora or config.use_llm_lora:
-        config = config.replace(use_backbone_lora=0, use_llm_lora=0)
-        state = lora_free_state_dict(merge_lora_(model))
-        del model
-        with torch.device("meta"):
-            model = AIGVAssessor(config, float_precision)
-        model.load_state_dict(state, strict=True, assign=True)
-        del state
-    if target != float_precision:
-        state = quantize_for_serving(model.state_dict(), config, int8=target.int8_weights,
-                                     int4=target.int4_weights)
-        del model
-        with torch.device("meta"):
-            model = AIGVAssessor(config, target)
-        model.load_state_dict(state, strict=True, assign=True)
-        del state
-    return model.to(precision.compute_dtype).eval()
+    return model.eval()
 
 
 def model_weights(args, config: AssessorConfig) -> Optional[Dict[str, torch.Tensor]]:
@@ -226,9 +207,10 @@ def build_model_and_tokenizer(
     `build_model_and_tokenizer` assembles them: the config from the flags and
     the checkpoint, the img_context token id from the tokenizer, the weights
     from `model_weights`, the model from `build_serving_model` on
-    `args.device` in bf16 (fp32 with `--bf16 False`), adapters merged, in
-    the quantized mode asked for; the W8A8 feeds picked by `AIGV_FUSE_QUANT`
-    / `AIGV_QUANT_ROWS`."""
+    `args.device` in bf16 (fp32 with `--bf16 False`) in the quantized mode
+    asked for, its adapters (a stage-2 checkpoint's, or the seed's) live,
+    as JAX's eval keeps them; the W8A8 feeds picked by `AIGV_FUSE_QUANT` /
+    `AIGV_QUANT_ROWS`, off where an adapter reads the float activation."""
     config, tokenizer = config_and_tokenizer(args, stage)
     precision = dataclasses.replace(
         Precision() if args.bf16 else Precision.fp32(),

@@ -59,10 +59,13 @@ def build_training_model(
     grad_checkpoint: bool = True,
     train_config: TrainConfig = TrainConfig(),
     weights: Optional[Mapping[str, torch.Tensor]] = None,
+    vit_remat_policy: Optional[str] = None,
 ) -> AIGVAssessor:
     """The stage-1 or stage-2 model on `device`, its adapters unmerged.
     `config` carries the stage and the LoRA ranks (`use_backbone_lora`,
-    `use_llm_lora`).
+    `use_llm_lora`). With `grad_checkpoint`, `vit_remat_policy` (a JAX
+    checkpoint policy's name, `ops/remat.py`) picks what each ViT layer
+    saves for its backward; without it the policy is unused, as in JAX.
 
     `weights`, a float state_dict of `AIGVAssessor(config)` (the CLIs pass
     `cli/common.model_weights`, a reference-format checkpoint), fills what
@@ -84,7 +87,8 @@ def build_training_model(
             "training over a W8A8 base is not ported yet (ROADMAP.md, Queue 1)"
         )
     with torch.device("meta"):
-        model = AIGVAssessor(config, precision, grad_checkpoint=grad_checkpoint)
+        model = AIGVAssessor(config, precision, grad_checkpoint=grad_checkpoint,
+                             vit_remat_policy=vit_remat_policy)
     if train_config.frozen_bf16 and precision.compute_dtype == torch.bfloat16:
         apply_freeze_(model, config.stage, freeze_backbone=train_config.freeze_backbone,
                       freeze_llm=train_config.freeze_llm, freeze_mlp=train_config.freeze_mlp,

@@ -21,7 +21,8 @@ Under `Precision.w8a8` both towers run their projections in int8 (see
 `models/vit.py`, `models/internlm2.py`).
 
 Training (stage 2): `use_backbone_lora` / `use_llm_lora` put LoRA adapters
-of that rank (alpha = 2r, `lora_dropout`) on both towers' projections;
+of that rank (alpha = 2r, `lora_dropout`) on both towers' projections (over
+any base, so an eval model runs them live in a quantized precision too);
 `forward(..., mos=...)` also returns `loss = mean |score - mos|`. The module's
 mode is the JAX `deterministic` switch: `train()` turns on adapter dropout
 and drop path (drawn from the generator that `models/lora.set_generator`
@@ -102,9 +103,12 @@ class ProjectorMLP(nn.Module):
 
 class AIGVAssessor(nn.Module):
     def __init__(self, config: AssessorConfig, precision: Precision = Precision(),
-                 grad_checkpoint: bool = False):
+                 grad_checkpoint: bool = False, vit_remat_policy: Optional[str] = None):
         """grad_checkpoint: recompute each tower layer's activations in the
-        backward (the JAX model's `remat`)."""
+        backward (the JAX model's `remat`). vit_remat_policy: under it, the
+        vision tower's checkpoint policy (`ops/remat.py`, the JAX model's
+        `vit_remat_policy`); the decoder recomputes whole layers either
+        way."""
         super().__init__()
         if config.llm.architecture != "InternLM2ForCausalLM":
             raise NotImplementedError(
@@ -121,7 +125,8 @@ class AIGVAssessor(nn.Module):
             for r in (config.use_backbone_lora, config.use_llm_lora)
         )
         self.vision_model = InternVisionModel(
-            config.vision, precision, lora=vit_lora, grad_checkpoint=grad_checkpoint
+            config.vision, precision, lora=vit_lora, grad_checkpoint=grad_checkpoint,
+            remat_policy=vit_remat_policy,
         )
         self.language_model = InternLM2ForCausalLM(
             config.llm, precision, lora=llm_lora, grad_checkpoint=grad_checkpoint

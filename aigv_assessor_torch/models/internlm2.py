@@ -42,16 +42,21 @@ and v are [B, S, H, D] views of the one projection output; RoPE runs in that
 layout and attention is `multi_head_attention` on the three tensors, whose
 [B, S, Hq, D] output reshapes into `wo`'s input without a copy.
 
-Training (`lora` set): the five projections are `LoRALinear`s, `wqkv`
+Adapters (`lora` set): the five projections carry them over any base
+(`models/lora.make_linear`): float `LoRALinear`s in training, `wqkv`
 head-major out and `wo` head-major in, so attention stays on the fused-qkv
-kernel and its backward kernels; with `grad_checkpoint` each layer's
-activations are recomputed in the backward (`ops/remat.py`).
+kernel and its backward kernels, with `grad_checkpoint` each layer's
+activations recomputed in the backward (`ops/remat.py`); in evaluation also
+over W8A8, int8 or int4 bases, as the JAX decoder runs `LoRADense(w8a8 |
+int8 | int4, lora=...)`. The delta reads the float activation, so under
+adapters every fused quantize feed (K5a, K5b, K4c) is off and w1 and w3
+each quantize their input, as in JAX (`:197`, `:313`, `:358`).
 
 With a cache (`KVCache`) every precision takes the row-major branch, as in
-JAX: `wqkv` and `wo` are applied in their row-major form (the same weights;
-bf16 and W8A8 hold them for head-major use), the block of new tokens attends
-(old cache rows) + (itself) in one softmax, and the layer loop writes the
-block's roped k/v rows into the cache in place. A single new token on a
+JAX: `wqkv` and `wo` are applied in their row-major form (the same weights
+and adapters; bf16 and W8A8 hold them for head-major use), the block of new
+tokens attends (old cache rows) + (itself) in one softmax, and the layer
+loop writes the block's roped k/v rows into the cache in place. A single new token on a
 float cache goes through the decode-attention kernel
 (`ops/decode_attention.py`: the window and the token itself in one launch)
 whenever the head shape passes `decode_kernel_supported`, with each
@@ -61,8 +66,7 @@ goes through `ops/attention.two_part_cached_attention`. Without a cache,
 `capture_kv` hands back every layer's roped k/v in cache layout, which the
 shared-prefix scorer turns into a cache.
 
-Not ported yet (ROADMAP.md, Queue 1): LoRA over a quantized base, tied
-embeddings.
+Not ported yet (ROADMAP.md, Queue 1): tied embeddings.
 """
 
 from __future__ import annotations
@@ -77,10 +81,9 @@ from torch import nn
 from aigv_assessor_torch.core.config import LLMConfig, LoRAConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.lora import (
+    AdaptedLinear,
     LoRALinear,
-    W8A8Linear,
     make_linear,
-    reject_quantized_lora,
     weight_only_linear,
 )
 from aigv_assessor_torch.ops.attention import (
@@ -97,7 +100,7 @@ from aigv_assessor_torch.ops.kv_quant import is_quantized, make_cache_rows
 from aigv_assessor_torch.ops.norms import RMSNorm
 from aigv_assessor_torch.ops.remat import checkpoint_layer
 from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
-from aigv_assessor_torch.ops import quant_fuse, w8a8
+from aigv_assessor_torch.ops import quant_fuse
 from aigv_assessor_torch.ops.w8a8 import quantize_rows
 
 
@@ -175,40 +178,28 @@ class InternLM2Attention(nn.Module):
     def __init__(self, config: LLMConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        reject_quantized_lora(precision, lora)
         self.hq = hq = config.num_attention_heads
         self.hkv = hkv = config.num_key_value_heads
         self.head_dim = d = config.head_dim
         self.w8a8 = precision.w8a8
-        self.quant_rows = precision.w8a8 and "llm" in precision.quant_rows
+        adapted = lora is not None and lora.r > 0
+        self.quant_rows = precision.w8a8 and "llm" in precision.quant_rows and not adapted
         self.weight_only = precision.weight_only
         c = config.hidden_size
-        dt = precision.compute_dtype
-        if self.weight_only:
-            linear = weight_only_linear(precision)
-            self.wqkv = linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
-                               out_dtype=dt)
-            self.wo = linear(hq * d, c, bias=config.effective_o_bias, out_dtype=dt)
-        elif self.w8a8:
-            self.wqkv = W8A8Linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
-                                   out_dtype=dt, heads=hq + 2 * hkv)
-            self.wo = W8A8Linear(hq * d, c, bias=config.effective_o_bias, out_dtype=dt)
-        else:
-            self.wqkv = make_linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
-                                    lora=lora, heads=hq + 2 * hkv)
-            self.wo = make_linear(hq * d, c, bias=config.effective_o_bias, lora=lora,
-                                  head_major_in=True)
+        # weight-only: the row-major branch; else wqkv head-major out, and wo
+        # dense under W8A8 (the kernel writes its `bsd` rows), else head-major in
+        self.wqkv = make_linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
+                                lora=lora, heads=None if self.weight_only else hq + 2 * hkv,
+                                precision=precision)
+        self.wo = make_linear(hq * d, c, bias=config.effective_o_bias, lora=lora,
+                              head_major_in=not (self.weight_only or self.w8a8),
+                              precision=precision)
 
     def _project_rows(self, linear: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """`wqkv` or `wo` in its row-major form, [B, S, in] -> [B, S, out]:
-        the same weight as the head-major form the cache-free paths use."""
-        if isinstance(linear, W8A8Linear):
-            return w8a8.w8a8_matmul(x, linear.weight, linear.weight_scale, linear.bias,
-                                    linear.out_dtype)
-        if isinstance(linear, LoRALinear):
-            raise NotImplementedError("a KV cache under LoRA adapters is not ported: merge "
-                                      "the adapters and serve without them")
-        return linear(x)
+        the same weight and adapter as the head-major form the cache-free
+        paths use."""
+        return linear.rows(x) if isinstance(linear, AdaptedLinear) else linear(x)
 
     def forward(self, x, cos, sin, position_ids, cache_k=None, cache_v=None,
                 cache_index: Optional[int] = None,
@@ -246,7 +237,7 @@ class InternLM2Attention(nn.Module):
                                                 kv_mask, block_causal=block_causal)
             out = out.to(qkv.dtype).reshape(b, s, hq * d)  # the projection's dtype
             return self._project_rows(self.wo, out), new_rows
-        if self.w8a8 or isinstance(self.wqkv, LoRALinear):
+        if isinstance(self.wqkv, AdaptedLinear):
             qkv = self.wqkv(x)  # [B, H, S, D], a view of the dense product
         else:
             qkv = self.wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
@@ -270,29 +261,19 @@ class InternLM2MLP(nn.Module):
     def __init__(self, config: LLMConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        reject_quantized_lora(precision, lora)
         c, f = config.hidden_size, config.intermediate_size
-        self.w8a8 = precision.w8a8
-        self.fuse = precision.w8a8 and "llm" in precision.fuse_quant
-        dt = precision.compute_dtype
-        if precision.weight_only:
-            linear = weight_only_linear(precision)
-            self.w1 = linear(c, f, bias=False, out_dtype=dt)
-            self.w3 = linear(c, f, bias=False, out_dtype=dt)
-            self.w2 = linear(f, c, bias=False, out_dtype=dt)
-        elif self.w8a8:
-            self.w1 = W8A8Linear(c, f, bias=False, out_dtype=dt)
-            self.w3 = W8A8Linear(c, f, bias=False, out_dtype=dt)
-            self.w2 = W8A8Linear(f, c, bias=False, out_dtype=dt)
-        else:
-            self.w1 = make_linear(c, f, bias=False, lora=lora)
-            self.w3 = make_linear(c, f, bias=False, lora=lora)
-            self.w2 = make_linear(f, c, bias=False, lora=lora)
+        adapted = lora is not None and lora.r > 0
+        # one quantization of x feeds both w1 and w3, unless adapters read it
+        self.share_quant = precision.w8a8 and not adapted
+        self.fuse = precision.w8a8 and "llm" in precision.fuse_quant and not adapted
+        self.w1 = make_linear(c, f, bias=False, lora=lora, precision=precision)
+        self.w3 = make_linear(c, f, bias=False, lora=lora, precision=precision)
+        self.w2 = make_linear(f, c, bias=False, lora=lora, precision=precision)
 
     def forward(self, x):
         """x: [B, S, C], or under fused W8A8 feeds its (int8, scale) rows."""
-        if self.w8a8 and not isinstance(x, tuple):
-            x = quantize_rows(x)  # one quantization feeds both w1 and w3
+        if self.share_quant and not isinstance(x, tuple):
+            x = quantize_rows(x)
         if self.fuse:
             return self.w2(quant_fuse.silu_mul_quant(self.w1(x), self.w3(x)))
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -306,7 +287,7 @@ class InternLM2DecoderLayer(nn.Module):
         self.attention = InternLM2Attention(config, precision, lora)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.feed_forward = InternLM2MLP(config, precision, lora)
-        self.fuse = precision.w8a8 and "llm" in precision.fuse_quant
+        self.fuse = self.feed_forward.fuse  # the norms' K5a feeds, off under adapters
 
     def _feed(self, norm: RMSNorm, x: torch.Tensor):
         """The norm's output; with fused W8A8 feeds its int8 rows and scales

@@ -33,11 +33,15 @@ as the JAX `quantize_for_serving(w8a8=True | int8=True | int4=True)` does,
 and `serving_precision` the precision that call returns beside them,
 `kv_int8` included.
 
-`init_random_` fills a model from a seed, each tensor drawn in fp32 and
-stored in its own dtype, so a model can be built straight in bf16;
-`init_lora_` and `init_score_head_` draw the adapters and the score head as
-the JAX modules initialise them. `load_weights_` fills a model from a float
-state_dict that may lack only those two, and draws what it lacks.
+`init_random_` fills a model from a seed and `load_weights_` from a float
+state_dict (which may lack the score head and the adapters, then drawn by
+`init_score_head_` and `init_lora_` as the JAX modules initialise them). Both
+take each base tensor in fp32, one at a time, in the order of the float
+model's `named_parameters`, and store it in the model's own form: rounded to
+a parameter's dtype, or quantized straight into a quantized layer's int8
+weight and fp32 scale. So a model is built in bf16 or in a quantized
+precision without an fp32 copy of it, and one seed gives the same values in
+every precision.
 
 `load_reference_checkpoint` reads a reference-format checkpoint from disk
 (sharded safetensors with their index, or torch `.bin` / `.pth` shards)
@@ -60,17 +64,18 @@ from aigv_assessor_torch.core.config import AssessorConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.assessor import AIGVAssessor, ScoreMLP
 from aigv_assessor_torch.models.lora import (
+    LORA_LEAVES,
+    AdaptedLinear,
     Int4Linear,
     Int8Linear,
     LoRALinear,
+    QuantizedLinear,
     W8A8Linear,
     is_lora_param,
 )
 from aigv_assessor_torch.models.motion import FrozenBatchNorm
 from aigv_assessor_torch.models.vit import InternVisionEncoderLayer
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
-from aigv_assessor_torch.ops.int8_matmul import quantize_kernel_int4
-from aigv_assessor_torch.ops.w8a8 import quantize_kernel
 
 INIT_STD = 0.02  # the configs' initializer_range
 
@@ -227,7 +232,8 @@ def quantize_for_serving(
     W8A8 quantizes the weights the W8A8 model holds as `W8A8Linear`s, the
     set JAX's `quantize_tree(only_base=True)` picks over both towers: the
     ViT's qkv, proj, fc1, fc2 and InternLM2's wqkv, wo, w1, w2, w3 in every
-    layer. The LM head and everything outside the towers stay float.
+    layer. The LM head and everything outside the towers stay float, and so
+    do the adapters of a config with LoRA: only their bases are quantized.
 
     int8 / int4 quantize what `quantize_tree` / `quantize_tree_int4` pick
     with `scope="language_model"` and their default `min_size` of 4096 on
@@ -240,10 +246,9 @@ def quantize_for_serving(
     JAX quantizes before it casts."""
     if not (int8 or int4):
         want = expected_shapes(config, Precision(w8a8=True))
-        quantize = quantize_kernel
     else:
         want = expected_shapes(config, Precision(int4_weights=int4, int8_weights=not int4))
-        quantize = quantize_kernel_int4 if int4 else quantize_kernel
+    quantize = (Int4Linear if int4 else W8A8Linear).quantize
     prefixes = [key[: -len("_scale")] for key in want if key.endswith(".weight_scale")]
     out = dict(state_dict)
     for prefix in prefixes:  # "<module>.weight"
@@ -280,6 +285,29 @@ def load_reference_checkpoint(path: str, config: AssessorConfig) -> Dict[str, to
     return {k: v.float() for k, v in state_dict_from_jax(tree, config).items()}
 
 
+def _base_leaves(model: torch.nn.Module):
+    """(name, module, leaf, fp32 shape) of every base tensor of `model`, in
+    the order of `named_parameters` of the same model built float: module by
+    module, a quantized layer's float weight [out, in] first, then each
+    module's own parameters; adapter leaves left out."""
+    for prefix, m in model.named_modules():
+        prefix = f"{prefix}." if prefix else ""
+        if isinstance(m, QuantizedLinear):
+            yield prefix + "weight", m, "weight", (m.weight.shape[0], m.in_features)
+        for leaf, p in m.named_parameters(recurse=False):
+            if leaf not in LORA_LEAVES:
+                yield prefix + leaf, m, leaf, tuple(p.shape)
+
+
+def _store_(module: torch.nn.Module, leaf: str, value: torch.Tensor) -> None:
+    """Store one fp32 base tensor: quantized into a quantized layer's weight
+    and scale, else rounded to the parameter's own dtype."""
+    if leaf == "weight" and isinstance(module, QuantizedLinear):
+        module.load_float_weight_(value)
+    else:
+        getattr(module, leaf).copy_(value)
+
+
 @torch.no_grad()
 def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Fill every weight in place from a seeded generator on the model's
@@ -291,20 +319,16 @@ def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     weights with and without adapters.
 
     Each tensor is drawn in fp32 from the same generator sequence whatever
-    its dtype, and stored rounded to the parameter's own dtype: a model held
-    in bf16 gets, bit for bit, the fp32 draw cast to bf16, and never holds
-    more than one fp32 tensor at a time."""
+    its dtype or precision (`_base_leaves`' order), and stored in the
+    model's own form (`_store_`): a model held in bf16 gets, bit for bit,
+    the fp32 draw cast to bf16, a quantized one the quantized fp32 draw, and
+    neither holds more than one fp32 tensor at a time."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    for name, p in model.named_parameters():
-        if is_lora_param(name):
-            continue
-        if p.dtype == torch.float32:
-            p.normal_(0.0, INIT_STD, generator=gen)
-        else:
-            p.copy_(torch.empty(p.shape, dtype=torch.float32, device=device).normal_(
-                0.0, INIT_STD, generator=gen))
+    for _, module, leaf, shape in _base_leaves(model):
+        _store_(module, leaf, torch.empty(shape, dtype=torch.float32, device=device).normal_(
+            0.0, INIT_STD, generator=gen))
     for m in model.modules():
         if isinstance(m, (LayerNorm, RMSNorm, torch.nn.LayerNorm)):
             m.weight.fill_(1.0)
@@ -321,20 +345,27 @@ def init_random_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
+def _uniform(like: torch.Tensor, bound: float, gen: torch.Generator) -> torch.Tensor:
+    """uniform(-bound, bound) in fp32 of `like`'s shape and device."""
+    return torch.empty(like.shape, dtype=torch.float32, device=like.device).uniform_(
+        -bound, bound, generator=gen)
+
+
 @torch.no_grad()
 def init_lora_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Draw every adapter as the JAX `LoRADense` initialises it: `lora_a`
-    uniform with variance (1 / r) / fan_in, `lora_b` zeros, so the model
-    computes the base function until `lora_b` moves."""
+    uniform with variance (1 / r) / fan_in, drawn in fp32 and stored in its
+    own dtype, `lora_b` zeros, so the model computes the base function until
+    `lora_b` moves."""
     gen: Optional[torch.Generator] = None
     for m in model.modules():
-        if not isinstance(m, LoRALinear):
+        if not (isinstance(m, AdaptedLinear) and m.lora is not None):
             continue
         if gen is None:
             gen = torch.Generator(device=m.lora_a.device).manual_seed(seed)
         fan_in, r = m.lora_a.shape
         bound = math.sqrt(3.0 * (1.0 / r) / fan_in)
-        m.lora_a.uniform_(-bound, bound, generator=gen)
+        m.lora_a.copy_(_uniform(m.lora_a, bound, gen))
         m.lora_b.zero_()
     return model
 
@@ -342,13 +373,14 @@ def init_lora_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 @torch.no_grad()
 def init_score_head_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Draw the score head as the JAX `ScoreMLP` initialises it: weights
-    uniform in (-0.1, 0.1), biases zero."""
+    uniform in (-0.1, 0.1), drawn in fp32 and stored in their own dtype,
+    biases zero."""
     for m in model.modules():
         if isinstance(m, ScoreMLP):
             gen = torch.Generator(device=m.fc1.weight.device).manual_seed(seed)
             for i in range(m.num_layers):
                 fc = getattr(m, f"fc{i + 1}")
-                fc.weight.uniform_(-0.1, 0.1, generator=gen)
+                fc.weight.copy_(_uniform(fc.weight, 0.1, gen))
                 fc.bias.zero_()
     return model
 
@@ -356,13 +388,26 @@ def init_score_head_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 @torch.no_grad()
 def load_weights_(model: torch.nn.Module, weights: Mapping[str, torch.Tensor],
                   seed: int) -> torch.nn.Module:
-    """Copy `weights` (a float state_dict, e.g. `load_reference_checkpoint`'s)
-    into `model` in place, each tensor cast to the parameter's own dtype.
-    What it lacks may only be the score head, then drawn by
-    `init_score_head_(seed + 1)`, and the LoRA adapters, then drawn by
-    `init_lora_(seed + 2)` with `lora_b` zero; any other missing or
+    """Copy `weights` (a float state_dict of `AIGVAssessor(config)`, e.g.
+    `load_reference_checkpoint`'s) into `model` in place: each base tensor
+    in `_base_leaves`' order, rounded to its parameter's dtype or quantized
+    into its layer's int8 weight (`_store_`), the rest as
+    `load_state_dict` copies it. What it lacks may only be the score head,
+    then drawn by `init_score_head_(seed + 1)`, and the LoRA adapters, then
+    drawn by `init_lora_(seed + 2)` with `lora_b` zero; any other missing or
     unexpected key raises KeyError."""
-    missing, unexpected = model.load_state_dict(weights, strict=False)
+    device = next(model.parameters()).device
+    stored = set()
+    for name, module, leaf, _ in _base_leaves(model):
+        if name not in weights:
+            continue
+        _store_(module, leaf, weights[name].to(device))
+        stored.add(name)
+        if isinstance(module, QuantizedLinear) and leaf == "weight":
+            stored.add(name + "_scale")
+    rest = {k: v for k, v in weights.items() if k not in stored}
+    missing, unexpected = model.load_state_dict(rest, strict=False)
+    missing = [k for k in missing if k not in stored]
     drawn = [k for k in missing if not (is_lora_param(k) or k.startswith("mlpscore."))]
     if unexpected or drawn:
         raise KeyError(f"weights do not match the model: missing {drawn}, "

@@ -1,20 +1,21 @@
 """LoRA and quantized dense layers (`aigv_assessor_tpu/models/lora.py`).
 
-`LoRALinear` is the counterpart of `LoRADense` (`:206`) over a float base:
-y = base(x) + (alpha / r) * (dropout(x) . A) . B, in its three forms (plain,
-head-major out, head-major in). `merge_lora_` folds the adapters into the
-base weights, as `aigv_assessor_tpu/tools/merge_lora.py` does.
+Every tower projection that is not a plain `nn.Linear` is an
+`AdaptedLinear`: a base product with the forms and the optional adapter of
+the JAX `LoRADense` (`:206`), y = base(x) + (alpha / r) * (dropout(x) . A) . B.
+The bases:
 
-`W8A8Linear` is the counterpart of `W8A8Dense` (`:98`): int8 weights with
-per-output-channel fp32 scales, activations quantized per row on the fly
-or handed in pre-quantized by a fused producer (`ops/quant_fuse.py`).
+- `LoRALinear`: a float weight (`LoRADense` over `nn.Dense`);
+- `W8A8Linear`: int8 weights with per-output-channel fp32 scales,
+  activations quantized per row on the fly or handed in pre-quantized by a
+  fused producer (`ops/quant_fuse.py`) (`W8A8Dense`, `:98`);
+- `Int8Linear` / `Int4Linear`: weight-only int8 / nibble-packed int4 under
+  float activations, decoded inside the matmul kernel
+  (`ops/int8_matmul.py`) (`Int8Dense` `:28`, `Int4Dense` `:62`).
 
-`Int8Linear` and `Int4Linear` are the counterparts of `Int8Dense` (`:28`)
-and `Int4Dense` (`:62`): weight-only int8 / nibble-packed int4 under float
-activations, decoded inside the matmul kernel (`ops/int8_matmul.py`).
-
-LoRA over a quantized base (W8A8, int8 or int4) is not ported yet
-(ROADMAP.md, Queue 1).
+`make_linear` picks one from a precision. `merge_lora_` folds float
+adapters into their base weights, as `aigv_assessor_tpu/tools/merge_lora.py`
+does; it refuses a quantized base, as that tool merges float kernels only.
 
 Randomness. Dropout draws from an explicit `torch.Generator` that the owner
 of the model hands to every stochastic module (`set_generator`), never from
@@ -34,6 +35,7 @@ from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.ops import int8_matmul, w8a8
 
 LORA_LEAVES = ("lora_a", "lora_b")
+QUANT_BLOCK = 1 << 24  # values `QuantizedLinear.load_float_weight_` quantizes at once
 
 
 def is_lora_param(name: str) -> bool:
@@ -59,19 +61,86 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> Non
             m.generator = generator
 
 
-class LoRALinear(nn.Module):
-    """A frozen dense layer with a trainable low-rank adapter.
+def merged_weight(weight: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
+                  scaling: float) -> torch.Tensor:
+    """W + (alpha / r) * (A B)^T in fp32, for a weight [out, in]."""
+    delta = (lora_a.float() @ lora_b.float()) * scaling  # [in, out]
+    return weight.float() + delta.t()
 
-    - `weight` [out, in], `bias`: the base, `nn.Linear`'s layout and names,
-      held in the compute dtype.
-    - `lora_a` [in, r], `lora_b` [r, out]: the adapter in the JAX layout.
-      They may be fp32 masters beside a bf16 base: the forward casts them to
-      the input's dtype, as the JAX layer casts its fp32 parameters.
-    - dropout acts on the adapter's input only, in training only.
 
-    `heads` set: the output is head-major [B, heads, S, D], a view of the
-    dense result (`LoRADense(head_major=...)`). `head_major_in`: the input is
-    [B, H, S, D] and is flattened to [B, S, H*D] (`head_major_in=True`)."""
+class AdaptedLinear(nn.Module):
+    """What the projections share: their forms and their adapter.
+
+    - `rows(x)`: [B, S, in] -> [B, S, out], the base plus the adapter's
+      delta, whatever form the layer was built for (the cache path calls
+      it).
+    - `heads` set: `forward` returns head-major [B, heads, S, D], a view of
+      the dense result (`LoRADense(head_major=...)`), the delta added before
+      the view. `head_major_in`: the input is [B, H, S, D], flattened to
+      [B, S, H*D] first (`head_major_in=True`).
+    - The adapter (`lora` with r > 0): `lora_a` [in, r], `lora_b` [r, out]
+      in the JAX layout. They may be fp32 masters beside a bf16 or int8
+      base: the forward casts them to the base's compute dtype, as the JAX
+      layer casts its fp32 parameters. The delta reads the float input in
+      that dtype, with dropout in training only; a pre-quantized (int8,
+      scale) input to an adapted layer raises, as JAX asserts.
+
+    A subclass registers its base leaves, then calls `_init_adapter`, so the
+    state_dict keeps the names `weight`, (`weight_scale`), `bias`, `lora_a`,
+    `lora_b`, and defines `base(x)` -> [..., out]."""
+
+    def _init_adapter(self, in_features: int, out_features: int, lora: Optional[LoRAConfig],
+                      heads: Optional[int], head_major_in: bool) -> None:
+        if heads and head_major_in:
+            raise ValueError("heads and head_major_in exclude each other")
+        self.in_features = in_features
+        self.lora = lora if lora is not None and lora.r > 0 else None
+        self.heads = heads
+        self.head_major_in = head_major_in
+        self.generator: Optional[torch.Generator] = None
+        if self.lora is not None:
+            self.lora_a = nn.Parameter(torch.zeros(in_features, self.lora.r))
+            self.lora_b = nn.Parameter(torch.zeros(self.lora.r, out_features))
+
+    def base(self, x):
+        raise NotImplementedError
+
+    def rows(self, x):
+        if self.lora is None:
+            return self.base(x)
+        if isinstance(x, tuple):
+            raise ValueError("an adapted layer needs the float input: its adapter reads the "
+                             "activation before quantization, so no fused quantize feed may "
+                             "serve it")
+        y = self.base(x)
+        h = x.to(y.dtype)
+        if self.training and self.lora.dropout > 0.0:
+            h = dropout(h, self.lora.dropout, self.generator)
+        delta = (h @ self.lora_a.to(h.dtype)) @ self.lora_b.to(h.dtype)
+        return y + delta * self.lora.scaling
+
+    def forward(self, x):
+        if self.head_major_in:
+            b, h, s, d = x.shape
+            x = x.transpose(1, 2).reshape(b, s, h * d)
+        y = self.rows(x)
+        if self.heads:
+            b, s, _ = y.shape
+            y = y.view(b, s, self.heads, -1).transpose(1, 2)
+        return y
+
+    def extra_repr(self) -> str:
+        lora = (f", r={self.lora.r}, alpha={self.lora.alpha}, dropout={self.lora.dropout}"
+                if self.lora is not None else "")
+        return (f"in_features={self.in_features}, out_features={self.weight.shape[0]}, "
+                f"bias={self.bias is not None}{lora}, heads={self.heads}, "
+                f"head_major_in={self.head_major_in}")
+
+
+class LoRALinear(AdaptedLinear):
+    """A frozen float dense layer with a trainable low-rank adapter:
+    `weight` [out, in] and `bias` in `nn.Linear`'s layout and names, held in
+    the compute dtype."""
 
     def __init__(
         self,
@@ -86,104 +155,53 @@ class LoRALinear(nn.Module):
         super().__init__()
         if lora.r <= 0:
             raise ValueError("LoRALinear needs r > 0; use nn.Linear without an adapter")
-        if heads and head_major_in:
-            raise ValueError("heads and head_major_in exclude each other")
-        self.lora = lora
-        self.heads = heads
-        self.head_major_in = head_major_in
-        self.generator: Optional[torch.Generator] = None
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
-        self.lora_a = nn.Parameter(torch.zeros(in_features, lora.r))
-        self.lora_b = nn.Parameter(torch.zeros(lora.r, out_features))
+        self._init_adapter(in_features, out_features, lora, heads, head_major_in)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.head_major_in:
-            b, h, s, d = x.shape
-            x = x.transpose(1, 2).reshape(b, s, h * d)
-        y = F.linear(x, self.weight, self.bias)
-        h_in = x
-        if self.training and self.lora.dropout > 0.0:
-            h_in = dropout(x, self.lora.dropout, self.generator)
-        delta = (h_in @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
-        y = y + delta * self.lora.scaling
-        if self.heads:
-            b, s, _ = y.shape
-            y = y.view(b, s, self.heads, -1).transpose(1, 2)
-        return y
-
-    def extra_repr(self) -> str:
-        out_f, in_f = self.weight.shape
-        return (f"in_features={in_f}, out_features={out_f}, bias={self.bias is not None}, "
-                f"r={self.lora.r}, alpha={self.lora.alpha}, dropout={self.lora.dropout}, "
-                f"heads={self.heads}, head_major_in={self.head_major_in}")
+    def base(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
 
 
-def reject_quantized_lora(precision: Precision, lora: Optional[LoRAConfig]) -> None:
-    if lora is None or lora.r <= 0:
-        return
-    if precision.w8a8:
-        raise NotImplementedError(
-            "LoRA over a W8A8 base is not ported yet (ROADMAP.md, Queue 1)"
-        )
-    if precision.weight_only:
-        raise NotImplementedError(
-            "LoRA over an int8/int4 weight-only base is not ported yet (ROADMAP.md, "
-            "Queue 1, item 7)"
-        )
+class QuantizedLinear(AdaptedLinear):
+    """Common part of the quantized bases: an int8 `weight` buffer with one
+    row per output channel, an fp32 `weight_scale` [out] that stays fp32
+    whatever the model is cast to, and an optional float `bias`. `quantize`
+    makes (weight, weight_scale) from a float weight [out, in];
+    `load_float_weight_` stores its result in place."""
 
+    quantize = staticmethod(w8a8.quantize_kernel)
 
-def make_linear(
-    in_features: int,
-    out_features: int,
-    bias: bool = True,
-    *,
-    lora: Optional[LoRAConfig] = None,
-    heads: Optional[int] = None,
-    head_major_in: bool = False,
-) -> nn.Module:
-    """`LoRALinear` when an adapter is configured. Without one, a plain
-    `nn.Linear`: the callers make the head-major views themselves then, as
-    the serving path does."""
-    if lora is not None and lora.r > 0:
-        return LoRALinear(in_features, out_features, bias, lora=lora, heads=heads,
-                          head_major_in=head_major_in)
-    return nn.Linear(in_features, out_features, bias=bias)
+    @staticmethod
+    def weight_cols(in_features: int) -> int:
+        """Bytes of one output channel's row of `weight`."""
+        return in_features
 
-
-@torch.no_grad()
-def merge_lora_(model: nn.Module) -> nn.Module:
-    """Fold every adapter into its base in place, W += (alpha / r) * (A B)^T
-    summed in fp32 and rounded once to W's dtype, and zero `lora_b`, so the
-    model computes the same function with inert adapters. The merged
-    `weight`s load into a model built without LoRA (`lora_free_state_dict`),
-    which the serving paths run."""
-    for m in model.modules():
-        if isinstance(m, LoRALinear):
-            delta = (m.lora_a.float() @ m.lora_b.float()) * m.lora.scaling  # [in, out]
-            m.weight.copy_(m.weight.float() + delta.t())
-            m.lora_b.zero_()
-    return model
-
-
-def lora_free_state_dict(model: nn.Module) -> dict:
-    """The state_dict without adapter leaves: what the same config with
-    `use_backbone_lora = use_llm_lora = 0` loads. Merge first."""
-    return {k: v for k, v in model.state_dict().items() if not is_lora_param(k)}
-
-
-class QuantizedLinear(nn.Module):
-    """Common part of the quantized dense layers: an int8 `weight` buffer
-    with one row per output channel, an fp32 `weight_scale` [out] that stays
-    fp32 whatever the model is cast to, and an optional float `bias`."""
-
-    def __init__(self, out_features: int, weight_cols: int, bias: bool,
-                 out_dtype: torch.dtype):
+    def __init__(self, in_features: int, out_features: int, bias: bool, *,
+                 out_dtype: torch.dtype = torch.bfloat16, lora: Optional[LoRAConfig] = None,
+                 heads: Optional[int] = None, head_major_in: bool = False):
         super().__init__()
         self.out_dtype = out_dtype
-        self.register_buffer("weight", torch.zeros(out_features, weight_cols, dtype=torch.int8))
+        self.register_buffer("weight", torch.zeros(out_features, self.weight_cols(in_features),
+                                                   dtype=torch.int8))
         self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self._init_adapter(in_features, out_features, lora, heads, head_major_in)
+
+    @torch.no_grad()
+    def load_float_weight_(self, w: torch.Tensor) -> None:
+        """Quantize a float weight [out, in] into `weight` / `weight_scale`,
+        QUANT_BLOCK values of whole rows at a time: the scales are per row,
+        so the bits are one call's, and the quantizer's temporaries stay a
+        block's size however large the weight (an LM head's are ~3x it)."""
+        if tuple(w.shape) != (self.weight.shape[0], self.in_features):
+            raise ValueError(f"expected a weight [{self.weight.shape[0]}, {self.in_features}], "
+                             f"got {tuple(w.shape)}")
+        rows = max(1, QUANT_BLOCK // self.in_features)
+        for i in range(0, w.shape[0], rows):
+            q, s = self.quantize(w[i:i + rows].to(self.weight.device, torch.float32))
+            self.weight[i:i + rows].copy_(q)
+            self.weight_scale[i:i + rows].copy_(s)
 
     def _apply(self, fn, recurse=True):
         # `.to(torch.bfloat16)` casts every floating tensor; the dequant scale
@@ -202,6 +220,9 @@ class QuantizedLinear(nn.Module):
             self._buffers["weight_scale"] = scale
         return self
 
+    def extra_repr(self) -> str:
+        return f"{super().extra_repr()}, out_dtype={self.out_dtype}"
+
 
 class W8A8Linear(QuantizedLinear):
     """y = dequant(quantize_rows(x) @ weight^T) + bias in `out_dtype`.
@@ -210,33 +231,14 @@ class W8A8Linear(QuantizedLinear):
     - `weight_scale`: fp32 [out] (`kernel_scale`);
     - `bias`: optional [out], cast with the model like any float weight.
 
-    `heads` set: the output is head-major [B, heads, S, D], a view of the
-    dense product (`ops/w8a8.w8a8_head_major`). The input may be a float
-    tensor or a pre-quantized (int8, fp32 scale) pair."""
+    Without an adapter the input may be a float tensor or a pre-quantized
+    (int8, fp32 scale) pair."""
 
-    def __init__(
-        self,
-        in_features: int,
-        out_features: int,
-        bias: bool = True,
-        *,
-        out_dtype: torch.dtype = torch.bfloat16,
-        heads: Optional[int] = None,
-    ):
-        super().__init__(out_features, in_features, bias, out_dtype)
-        self.heads = heads
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, **kw):
+        super().__init__(in_features, out_features, bias, **kw)
 
-    def forward(self, x):
-        if self.heads:
-            return w8a8.w8a8_head_major(
-                x, self.weight, self.weight_scale, self.heads, self.bias, self.out_dtype
-            )
+    def base(self, x):
         return w8a8.w8a8_matmul(x, self.weight, self.weight_scale, self.bias, self.out_dtype)
-
-    def extra_repr(self) -> str:
-        out_f, in_f = self.weight.shape
-        return (f"in_features={in_f}, out_features={out_f}, bias={self.bias is not None}, "
-                f"heads={self.heads}, out_dtype={self.out_dtype}")
 
 
 class Int8Linear(QuantizedLinear):
@@ -249,24 +251,13 @@ class Int8Linear(QuantizedLinear):
     - `weight_scale`: fp32 [out] (`kernel_scale`);
     - `bias`: optional [out], cast with the model."""
 
-    @staticmethod
-    def weight_cols(in_features: int) -> int:
-        """Bytes of one output channel's row of `weight`."""
-        return in_features
+    def __init__(self, in_features: int, out_features: int, bias: bool = False, **kw):
+        super().__init__(in_features, out_features, bias, **kw)
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = False, *,
-                 out_dtype: torch.dtype = torch.bfloat16):
-        super().__init__(out_features, self.weight_cols(in_features), bias, out_dtype)
-        self.in_features = in_features
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def base(self, x: torch.Tensor) -> torch.Tensor:
         return int8_matmul.int8_dense_apply(
             x.to(self.out_dtype), self.weight, self.weight_scale, self.bias, self.out_dtype
         )
-
-    def extra_repr(self) -> str:
-        return (f"in_features={self.in_features}, out_features={self.weight.shape[0]}, "
-                f"bias={self.bias is not None}, out_dtype={self.out_dtype}")
 
 
 class Int4Linear(Int8Linear):
@@ -277,11 +268,13 @@ class Int4Linear(Int8Linear):
       weights 2j (low nibble) and 2j + 1 (high nibble);
     - `weight_scale`: fp32 [out] (`kernel_scale4`)."""
 
+    quantize = staticmethod(int8_matmul.quantize_kernel_int4)
+
     @staticmethod
     def weight_cols(in_features: int) -> int:
         return (in_features + 1) // 2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def base(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.in_features:  # an odd K shares its byte count with K + 1
             raise ValueError(f"expected {self.in_features} input features, got {x.shape[-1]}")
         return int8_matmul.int4_dense_apply(
@@ -293,3 +286,57 @@ def weight_only_linear(precision: Precision):
     """`Int4Linear` or `Int8Linear`, as `LoRADense` picks its base: int4
     first."""
     return Int4Linear if precision.int4_weights else Int8Linear
+
+
+def make_linear(
+    in_features: int,
+    out_features: int,
+    bias: bool = True,
+    *,
+    lora: Optional[LoRAConfig] = None,
+    heads: Optional[int] = None,
+    head_major_in: bool = False,
+    precision: Precision = Precision(),
+) -> nn.Module:
+    """The projection a tower layer holds under `precision`, as `LoRADense`
+    picks its base: `W8A8Linear` under W8A8, `Int4Linear` / `Int8Linear`
+    under a weight-only mode (both computing in `precision.compute_dtype`),
+    each with the adapter when one is configured; else `LoRALinear` with an
+    adapter, and without one a plain `nn.Linear`, for which the callers
+    make the head-major views themselves, as the serving path does."""
+    if lora is not None and lora.r <= 0:
+        lora = None
+    kw = dict(lora=lora, heads=heads, head_major_in=head_major_in)
+    if precision.w8a8:
+        return W8A8Linear(in_features, out_features, bias,
+                          out_dtype=precision.compute_dtype, **kw)
+    if precision.weight_only:
+        return weight_only_linear(precision)(in_features, out_features, bias,
+                                             out_dtype=precision.compute_dtype, **kw)
+    if lora is not None:
+        return LoRALinear(in_features, out_features, bias, **kw)
+    return nn.Linear(in_features, out_features, bias=bias)
+
+
+@torch.no_grad()
+def merge_lora_(model: nn.Module) -> nn.Module:
+    """Fold every adapter into its base in place, W += (alpha / r) * (A B)^T
+    summed in fp32 and rounded once to W's dtype (`merged_weight`), and zero
+    `lora_b`, so the model computes the same function with inert adapters.
+    The merged `weight`s load into a model built without LoRA
+    (`lora_free_state_dict`). A quantized base raises ValueError: the JAX
+    merge tool merges float kernels only."""
+    for m in model.modules():
+        if isinstance(m, QuantizedLinear) and m.lora is not None:
+            raise ValueError(f"{type(m).__name__}: an adapter over a quantized base does not "
+                             "merge; merge the float weights, then quantize")
+        if isinstance(m, LoRALinear):
+            m.weight.copy_(merged_weight(m.weight, m.lora_a, m.lora_b, m.lora.scaling))
+            m.lora_b.zero_()
+    return model
+
+
+def lora_free_state_dict(model: nn.Module) -> dict:
+    """The state_dict without adapter leaves: what the same config with
+    `use_backbone_lora = use_llm_lora = 0` loads. Merge first."""
+    return {k: v for k, v in model.state_dict().items() if not is_lora_param(k)}

@@ -7,10 +7,21 @@ projection through the flash-attention kernel, and a tanh-GELU MLP.
 
 With `qk_normalization` (InternViT-6B: RMSNorm layers, no qkv bias) the
 layer follows the JAX layer's other branch (`models/vit.py:199-226`): `qkv`
-is a plain [B, N, 3C] projection; q and k go through `q_norm` / `k_norm`, an
+is a dense [B, N, 3C] projection; q and k go through `q_norm` / `k_norm`, an
 RMSNorm over the flattened C; the three [B, N, H, D] tensors go to
 `multi_head_attention` (the three-tensor kernel K2 in `bshd`, and in
-training its logsumexp form and backward); `proj` is a plain projection.
+training its logsumexp form and backward); `proj` is a dense projection.
+Under W8A8 both are dense `W8A8Linear`s with no head-major view, the
+RMSNorm feeds unfused, as in JAX.
+
+The input may be at another size than the position embedding's grid: its
+grid part is then resized to the input's patch grid by torch's bicubic in
+fp32 (`ops/resize.bicubic_resize_grid`, JAX `:120-134`). `select_layer`
+runs `select_layer % (L + 1)` layers, the reference's
+`hidden_states[select_layer]` (JAX `:363-368`).
+
+The weight-only modes (int8, int4) quantize the decoder alone, as JAX's
+`quantize_tree(scope="language_model")`: the tower stays float under them.
 
 The public layout is the JAX package's: pixels [B, H, W, 3]. The encoder
 pads the token axis once, 1025 -> 1032 at 448 px, as the JAX encoder does;
@@ -28,22 +39,22 @@ the norm, the GELU or the attention writes its compute-dtype output and the
 projection quantizes it, as JAX does with its gates off. The pad rows go
 through the feeds like any row.
 
-Training (`lora` set, `module.train()`): the four projections are
-`LoRALinear`s, `qkv` head-major out and `proj` head-major in, so attention
-stays on the fused-qkv kernel and its backward kernels (with
-`qk_normalization`, plain projections around the three-tensor kernel and
-its backward kernels); each residual branch
-is dropped per sample with rates linspace(0, drop_path_rate, L) (stochastic
-depth); with `grad_checkpoint` each layer's activations are recomputed in
-the backward (`ops/remat.py`). In `eval()` the layers are deterministic.
-
-Not ported yet (ROADMAP.md, Queue 1): position-embedding interpolation for
-another input size, `select_layer` other than -1, LoRA over a W8A8 base, a
-QK-normalized tower under W8A8, int8 or int4.
+Adapters (`lora` set): the four projections carry them, over a float or
+(in evaluation) a W8A8 base. Under W8A8 the delta reads the float
+activation, so the K4a-c feeds are off, as in JAX (`:182`, `:249`, `:304`).
+Training (`module.train()`): the projections are `LoRALinear`s, `qkv`
+head-major out and `proj` head-major in, so attention stays on the
+fused-qkv kernel and its backward kernels (with `qk_normalization`, dense
+projections around the three-tensor kernel and its backward kernels); each
+residual branch is dropped per sample with rates linspace(0, drop_path_rate,
+L) (stochastic depth); with `grad_checkpoint` each layer's activations are
+recomputed in the backward (`ops/remat.py`), or, under `remat_policy`, what
+the policy does not save. In `eval()` the layers are deterministic.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -52,20 +63,22 @@ from torch import nn
 
 from aigv_assessor_torch.core.config import LoRAConfig, VisionConfig
 from aigv_assessor_torch.core.precision import Precision
-from aigv_assessor_torch.models.lora import (
-    LoRALinear,
-    W8A8Linear,
-    make_linear,
-    reject_quantized_lora,
-)
+from aigv_assessor_torch.models.lora import AdaptedLinear, LoRALinear, make_linear
 from aigv_assessor_torch.ops import quant_fuse
 from aigv_assessor_torch.ops.attention import fused_qkv_attention, multi_head_attention
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
-from aigv_assessor_torch.ops.remat import checkpoint_layer
+from aigv_assessor_torch.ops.remat import checkpoint_layer, policy_fn
+from aigv_assessor_torch.ops.resize import bicubic_resize_grid
 
 
 def make_norm(norm_type: str, dim: int, eps: float) -> nn.Module:
     return RMSNorm(dim, eps) if norm_type == "rms_norm" else LayerNorm(dim, eps)
+
+
+def tower_precision(precision: Precision) -> Precision:
+    """The precision of the tower's projections: W8A8 or float, never
+    weight-only (those modes quantize the decoder alone)."""
+    return dataclasses.replace(precision, int8_weights=False, int4_weights=False)
 
 
 class InternVisionEmbeddings(nn.Module):
@@ -85,46 +98,42 @@ class InternVisionEmbeddings(nn.Module):
         dtype = self.patch_embedding.weight.dtype
         x = self.patch_embedding(pixel_values.to(dtype).permute(0, 3, 1, 2))
         b, c, h, w = x.shape
-        if (h, w) != (cfg.num_patches_per_side,) * 2:
-            raise NotImplementedError(
-                f"{h}x{w} patch grid, position embeddings are "
-                f"{cfg.num_patches_per_side}x{cfg.num_patches_per_side}: "
-                "position-embedding interpolation is not ported yet "
-                "(ROADMAP.md, Queue 1)"
-            )
         x = x.flatten(2).transpose(1, 2)  # [B, h*w, C], row-major over (h, w)
         cls = self.class_embedding.to(x.dtype).expand(b, 1, c)
         x = torch.cat([cls, x], dim=1)
-        return x + self.position_embedding.to(x.dtype)
+        pos = self.position_embedding
+        side = cfg.num_patches_per_side
+        if (h, w) != (side, side):
+            # the grid part, resized to the input's patch grid
+            grid = bicubic_resize_grid(pos[:, 1:].reshape(1, side, side, c), h, w)
+            pos = torch.cat([pos[:, :1], grid.reshape(1, h * w, c)], dim=1)
+        return x + pos.to(x.dtype)
 
 
 class InternAttention(nn.Module):
     def __init__(self, config: VisionConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        reject_quantized_lora(precision, lora)
+        precision = tower_precision(precision)
         self.num_heads = h = config.num_attention_heads
         self.qk_normalization = config.qk_normalization
         self.w8a8 = precision.w8a8
-        self.quant_rows = precision.w8a8 and "vit" in precision.quant_rows
+        adapted = lora is not None and lora.r > 0
+        self.quant_rows = precision.w8a8 and "vit" in precision.quant_rows and not adapted
         c = config.hidden_size
         if self.qk_normalization:
-            if precision.w8a8 or precision.weight_only:
-                raise NotImplementedError(
-                    "a QK-normalized ViT under W8A8, int8 or int4 is not ported yet "
-                    "(ROADMAP.md, Queue 1 item 2)"
-                )
-            self.qkv = make_linear(c, 3 * c, bias=config.qkv_bias, lora=lora)
+            self.qkv = make_linear(c, 3 * c, bias=config.qkv_bias, lora=lora,
+                                   precision=precision)
             self.q_norm = RMSNorm(c, config.layer_norm_eps)
             self.k_norm = RMSNorm(c, config.layer_norm_eps)
-            self.proj = make_linear(c, c, lora=lora)
-        elif self.w8a8:
-            dt = precision.compute_dtype
-            self.qkv = W8A8Linear(c, 3 * c, bias=config.qkv_bias, out_dtype=dt, heads=3 * h)
-            self.proj = W8A8Linear(c, c, out_dtype=dt)
+            self.proj = make_linear(c, c, lora=lora, precision=precision)
         else:
-            self.qkv = make_linear(c, 3 * c, bias=config.qkv_bias, lora=lora, heads=3 * h)
-            self.proj = make_linear(c, c, lora=lora, head_major_in=True)
+            # qkv head-major out; proj dense under W8A8 (the kernel writes its
+            # `bsd` rows), else head-major in
+            self.qkv = make_linear(c, 3 * c, bias=config.qkv_bias, lora=lora, heads=3 * h,
+                                   precision=precision)
+            self.proj = make_linear(c, c, lora=lora, head_major_in=not self.w8a8,
+                                    precision=precision)
 
     def forward(self, x, kv_valid: int | None = None) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
@@ -142,7 +151,7 @@ class InternAttention(nn.Module):
             # [B, H, N, D] -> [B, N, C]
             out = fused_qkv_attention(self.qkv(x), h, h, causal=False, kv_valid=kv_valid)
             return self.proj(out)
-        if self.w8a8:
+        if isinstance(self.qkv, AdaptedLinear):  # W8A8
             # head-major int8 product -> attention writing the dense [B, N, C]
             # rows -> one-pass quantize (K4c) -> int8 proj
             qkv = self.qkv(x)  # [B, 3H, N, D], a view
@@ -161,17 +170,15 @@ class InternMLP(nn.Module):
     def __init__(self, config: VisionConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        reject_quantized_lora(precision, lora)
+        precision = tower_precision(precision)
         self.approximate = "tanh" if config.approximate_gelu else "none"
-        self.w8a8 = precision.w8a8
-        self.fuse = precision.w8a8 and "vit" in precision.fuse_quant
+        adapted = lora is not None and lora.r > 0
+        # the fused feeds (K4a into the projections' norms, K4b into fc2),
+        # off where an adapter reads the float activation
+        self.fuse = precision.w8a8 and "vit" in precision.fuse_quant and not adapted
         c, f = config.hidden_size, config.intermediate_size
-        if self.w8a8:
-            self.fc1 = W8A8Linear(c, f, out_dtype=precision.compute_dtype)
-            self.fc2 = W8A8Linear(f, c, out_dtype=precision.compute_dtype)
-        else:
-            self.fc1 = make_linear(c, f, lora=lora)
-            self.fc2 = make_linear(f, c, lora=lora)
+        self.fc1 = make_linear(c, f, lora=lora, precision=precision)
+        self.fc2 = make_linear(f, c, lora=lora, precision=precision)
 
     def forward(self, x) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
@@ -187,7 +194,6 @@ class InternVisionEncoderLayer(nn.Module):
         super().__init__()
         c = config.hidden_size
         self.initializer_factor = config.initializer_factor
-        self.fuse = precision.w8a8 and "vit" in precision.fuse_quant
         self.drop_path_rate = drop_path_rate
         self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
         self.ls1 = nn.Parameter(torch.full((c,), config.initializer_factor))
@@ -196,6 +202,7 @@ class InternVisionEncoderLayer(nn.Module):
         self.attn = InternAttention(config, precision, lora)
         self.norm2 = make_norm(config.norm_type, c, config.layer_norm_eps)
         self.mlp = InternMLP(config, precision, lora)
+        self.fuse = self.mlp.fuse
 
     def _feed(self, norm: nn.Module, x: torch.Tensor):
         """The norm's output; under W8A8 with "vit" in `fuse_quant` and a
@@ -229,13 +236,23 @@ class InternVisionEncoderLayer(nn.Module):
 
 
 class InternVisionModel(nn.Module):
-    """Full encoder: [B, H, W, 3] -> last hidden state [B, 1 + P, C]."""
+    """Full encoder: [B, H, W, 3] -> the hidden state at `select_layer`
+    [B, 1 + P, C] (the last by default).
+
+    `remat_policy` (with `grad_checkpoint`): a JAX checkpoint policy's name,
+    e.g. 'dots_with_no_batch_dims_saveable', that picks what each layer
+    saves for its backward (`ops/remat.policy_fn`); None recomputes whole
+    layers. The JAX model applies it to this tower alone, as here."""
 
     def __init__(self, config: VisionConfig, precision: Precision = Precision(),
-                 lora: Optional[LoRAConfig] = None, grad_checkpoint: bool = False):
+                 lora: Optional[LoRAConfig] = None, grad_checkpoint: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.config = config
         self.grad_checkpoint = grad_checkpoint
+        self.remat_policy = remat_policy if grad_checkpoint and remat_policy else None
+        if self.remat_policy:
+            policy_fn(self.remat_policy)  # an unknown name raises at the build
         self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
         self.embeddings = InternVisionEmbeddings(config)
         n = config.num_hidden_layers
@@ -247,11 +264,9 @@ class InternVisionModel(nn.Module):
         )
 
     def forward(self, pixel_values: torch.Tensor, select_layer: int = -1) -> torch.Tensor:
-        if select_layer != -1:
-            raise NotImplementedError(
-                "partial-depth ViT features (select_layer != -1) are not "
-                "ported yet (ROADMAP.md, Queue 1)"
-            )
+        n_layers = len(self.layers)
+        # hidden_states[select_layer] is the input of layer select_layer % (L + 1)
+        n_run = n_layers if select_layer == -1 else select_layer % (n_layers + 1)
         x = self.embeddings(pixel_values)
         # pad the token axis once for the whole encoder (1025 -> 1032), as
         # the JAX encoder does for its kernel's 8-row tiles; the pad rows are
@@ -262,9 +277,10 @@ class InternVisionModel(nn.Module):
         if n_pad:
             x = F.pad(x, (0, 0, 0, n_pad))
         remat = self.grad_checkpoint and torch.is_grad_enabled()
-        for layer in self.layers:
+        for layer in self.layers[:n_run]:
             if remat:
-                x = checkpoint_layer(layer, self.generator, x, kv_valid)
+                x = checkpoint_layer(layer, self.generator, x, kv_valid,
+                                     policy=self.remat_policy)
             else:
                 x = layer(x, kv_valid)
         return x[:, :n_tok]

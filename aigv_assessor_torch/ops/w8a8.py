@@ -104,18 +104,3 @@ def w8a8_matmul(
     y = _epilogue(acc, sx.reshape(-1, 1), scale, bias, out_dtype)
     return y.view(*lead, weight.shape[0])
 
-
-def w8a8_head_major(
-    x: Union[torch.Tensor, Quantized],  # [B, S, C] float, or a (q, s) pair
-    weight: torch.Tensor,  # [heads*D, C] int8
-    scale: torch.Tensor,  # [heads*D] fp32
-    heads: int,
-    bias: Optional[torch.Tensor] = None,
-    out_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """Head-major projection [B, S, C] -> [B, heads, S, D]: a strided view of
-    the dense [B*S, heads*D] result, with no copy, which the attention kernel
-    reads through its strides."""
-    y = w8a8_matmul(x, weight, scale, bias, out_dtype)  # [B, S, heads*D]
-    b, s, n = y.shape
-    return y.view(b, s, heads, n // heads).transpose(1, 2)

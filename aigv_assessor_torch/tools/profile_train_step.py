@@ -1,14 +1,16 @@
 """Where one training step spends its time on the card.
 
     python -m aigv_assessor_torch.tools.profile_train_step [--steps 3] [--stage 1|2]
-        [--config CONFIG.json] [--batch 4]
+        [--config CONFIG.json] [--batch 4] [--vit_remat_policy NAME]
 
 Builds the InternVL2-2B training model from a seed, or the model of a
 reference-format `config.json` (`--config`, e.g. InternVL2-26B's), and
 steps it on one synthetic batch of `--batch` videos x 8 frames x 448 px with
 a 2113-token prompt, the shapes `chip_smoke.py` trains at. Stage 2: LoRA rank
-8 in both towers, bf16 with fp32 adapters, per-layer checkpointing, dropout
-on, the L1 loss on MOS. Stage 1: `mlp1` and `motion_mlp` in fp32 on the text
+8 in both towers, bf16 with fp32 adapters, per-layer checkpointing (in the
+ViT under `--vit_remat_policy`, a JAX checkpoint policy's name, e.g.
+`dots_with_no_batch_dims_saveable`; whole layers without it), dropout on,
+the L1 loss on MOS. Stage 1: `mlp1` and `motion_mlp` in fp32 on the text
 loss of the last 10 tokens, both towers frozen in bf16. After one warm-up
 step it prints, as JSON lines:
 
@@ -59,6 +61,8 @@ def main() -> int:
     parser.add_argument("--stage", type=int, choices=(1, 2), default=2)
     parser.add_argument("--config", help="a reference-format config.json (default: 2B)")
     parser.add_argument("--batch", type=int, default=BATCH, help="videos per step")
+    parser.add_argument("--vit_remat_policy", default="",
+                        help="what each ViT layer saves for its backward (ops/remat.py)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_train_step: needs a CUDA card", file=sys.stderr)
@@ -80,7 +84,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         tc = TrainConfig(output_dir=out_dir, learning_rate=1e-4, warmup_ratio=0.0,
                          lr_scheduler_type="constant")
-        model = build_training_model(cfg, device=device, seed=0, train_config=tc)
+        model = build_training_model(cfg, device=device, seed=0, train_config=tc,
+                                     vit_remat_policy=args.vit_remat_policy or None)
         trainer = Trainer(model, tc, 100)
     b = args.batch
     rng = np.random.default_rng(0)
@@ -121,7 +126,9 @@ def main() -> int:
 
     step(timed=False)  # warm-up: cuDNN plans, the allocator, the kernels' first load
     for i in range(args.steps):
-        print(json.dumps({"step": i, **step(timed=True), "card": card}), flush=True)
+        print(json.dumps({"step": i, **step(timed=True),
+                          "vit_remat_policy": args.vit_remat_policy or None, "card": card}),
+              flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 

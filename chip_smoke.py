@@ -282,9 +282,53 @@ Phases, each printing one line or more (and failing the run by raising):
     `/healthz`. Prints online videos/s, p50 / p99 latency, `/statz` and,
     for bf16, `cli.score`'s videos/s on the same files.
 
+13. Adapters over quantized bases, InternVL2-26B quantized, the ViT's
+    remat policy and grids (each phase where its inputs are made):
+    (a) after 10b: a LoRA checkpoint (`lora_reference`: the 2B model, seed
+    0, rank LORA_RANK in both towers, lora_b drawn from N(0, LORA_B_STD))
+    served with its adapters live over a W8A8, int8 and int4 base
+    (`build_serving_model`), one chunk through
+    `score_chunks` each: launches per forward (W8A8: 48 K1 `bsd` and no
+    quantize feed; int8 / int4: 120 K6 / K7 in the GEMM form, 24 K1, 24 K2),
+    the readout of the kernel path against the plain versions
+    (W8A8_READOUT_TOL, WEIGHT_ONLY_READOUT_TOL) and no more than REF_RATIO as
+    far from the fp32 forward with the adapters live as the plain path; the
+    control (`merged_checkpoint`: the adapters folded into the fp32 bases by
+    `merge_lora_`, then quantized), its distance to that forward printed
+    beside; ms per chunk against the mode without adapters, peak memory.
+    (b) `cli.stage2_eval.main --eval_w8a8 True` with that checkpoint (through
+    `cli/common.model_weights`) on phase 10b's meta files: solo (no W8A8,
+    as in JAX) and fused (W8A8 over live adapters, every feed off), fused
+    again on the control; the launches of each; the fused runs' batches
+    recorded and replayed on the live model built outside the CLI: the CLI's
+    scores within LIVE_EVAL_TOL of the replay's, the control's further, the
+    replay with the plain attention within W8A8_EVAL_DRIFT; the fused scores
+    within W8A8_EVAL_DRIFT of the solo ones; wall times beside phase 10b's.
+    (c) `generate` in bf16 with the adapters live, LORA_GEN_TOKENS greedy
+    tokens for 4 videos: 24 K8 launches a step; the ids against the
+    control's, and where they part.
+    (d) after 11: InternVL2-26B built tensor by tensor in W8A8 and int4 at
+    full depth and in int8 at DEPTH_CUT: every build's peak memory above the
+    weights it leaves within BUILD_OVER_LARGEST x the largest fp32 tensor
+    (no fp32 copy of the model, at any depth), weights, init s, ms per
+    chunk, peak; launches
+    per forward (K2 45 in the QK-normalized tower; W8A8: K1 `bsd` 48 in the
+    decoder, K4b; int8 / int4: K2 48 and K6 / K7 240 in the decoder); at
+    DEPTH_CUT the readout against the plain versions and against phase 11's
+    bf16 readout.
+    (e) after 7: phase 7's training with the ViT under REMAT_POLICY: the
+    adapters' gradients of one training-mode step against whole-layer
+    recompute (TRAIN_GRAD_TOL; bit-equality printed), K1 lse still 96 per
+    micro-batch (the attention recomputed), TRAIN_STEPS steps' ms and peak
+    against phase 7's.
+    (f) the 2B ViT at VIT_SIZE px (a 24 x 24 grid, the position embedding
+    resized, 577 tokens padded to 584) and at select_layer -2: launches and
+    the output against the plain attention (READOUT_TOL).
+
 Then one JSON line describing the kernels (the K1, K3 and K4a-c entries
-also with their launches on the paths of phases 7c and 12), and last
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+also with their launches on the paths of phases 7c, 12 and 13), and last
+{"ok": true, "device": {...}}. The line before them gives the whole run's
+seconds. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -531,6 +575,17 @@ EVAL_SCORE_TOL = 3e-2
 # largest bf16 score: the relative part of tests/test_fused_eval.py's bound
 # (0.15 x the largest score + 0.05; the 0.05 would swamp scores of ~2e-3)
 W8A8_EVAL_DRIFT = 0.15
+# phase 13b: the eval CLI's fused --eval_w8a8 scores against the same live
+# model built outside the CLI and replayed on the batches the CLI scored, the
+# largest difference over the largest score: the same build, kernels and
+# inputs, so only run-to-run noise; the adapters merged before quantizing
+# (the control) must land further away
+LIVE_EVAL_TOL = 1e-3
+# phase 13d: a quantized build's peak above the weights it leaves, in units of
+# the model's largest fp32 tensor: that one tensor's fp32 draw, and the
+# quantizer's temporaries of one block of rows (models/lora.QUANT_BLOCK
+# values); never the model in fp32, at any depth
+BUILD_OVER_LARGEST = 1.25
 
 
 def phase(name: str, msg: str) -> None:
@@ -1499,7 +1554,7 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
           f"gradients of (readout . u) ({g_kernel.numel()} values) rel L2 kernel vs plain "
           f"{gk:.3e} (tol {TRAIN_GRAD_TOL}), vs fp32 reference: kernel "
           f"{gr:.3e}, plain {gp:.3e} (tol {REF_RATIO}x) [{smi}]")
-    return train_counts, steady_ms
+    return train_counts, steady_ms, peak_train
 
 
 def check_decode_attention(dec, two_part, device) -> dict:
@@ -2075,12 +2130,12 @@ def write_eval_metas(folder: str) -> tuple:
     return tuple(metas)
 
 
-def run_eval_clis(device, smi, *, n_vit: int, n_llm: int) -> None:
+def run_eval_clis(device, smi, *, n_vit: int, n_llm: int) -> dict:
     """Phase 10b: the stage-1 and stage-2 eval CLIs (`cli/stage1_eval.main`,
     `cli/stage2_eval.main`) on a meta file at 2B, weights from the CLIs' seed,
     the test tokenizer; the stage-2 runs with the score head's last layer made
     non-negative and its bias 0, so that the scores are not all 0 and follow
-    the readout, which is recorded."""
+    the readout, which is recorded. -> each run's wall time (s)."""
     from aigv_assessor_torch.cli import common, stage1_eval, stage2_eval
     from aigv_assessor_torch.ops import decode_attention as dec
     from aigv_assessor_torch.ops import flash_attention as fa
@@ -2253,6 +2308,7 @@ def run_eval_clis(device, smi, *, n_vit: int, n_llm: int) -> None:
           f"allocated (GiB): "
           + ", ".join(f"{k} {v['s']:.1f} / {v['peak_gib']:.2f}" for k, v in runs.items())
           + f" [{smi}]")
+    return {k: v["s"] for k, v in runs.items()}
 
 
 # ------------------------------------------------- the training CLIs (7c) --
@@ -3050,7 +3106,8 @@ def run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi) -> dict:
           f"{gk:.3e} (tol {TRAIN_GRAD_TOL}), vs fp32: kernel {gr:.3e}, plain {gp:.3e} (tol "
           f"{REF_RATIO}x) [{smi}]")
     out.update(cut_readout=dict(kernel_plain=rel_kp, kernel_fp32=rel_kr, plain_fp32=rel_pr),
-               cut_grads=dict(kernel_plain=gk, kernel_fp32=gr, plain_fp32=gp))
+               cut_grads=dict(kernel_plain=gk, kernel_fp32=gr, plain_fp32=gp),
+               cut_readout_bf16=k_)
     del g_kernel, g_plain, g_ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3173,7 +3230,573 @@ def run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi) -> dict:
     return out
 
 
+# ---------------------- LoRA over quantized bases, 26B quantized, the ViT (13) --
+
+# lora_b of phase 13a-c's adapters, drawn from N(0, LORA_B_STD) instead of
+# zero, so that live and merged adapters compute other functions
+LORA_B_STD = 0.02
+LORA_GEN_TOKENS = 8  # phase 13c
+REMAT_POLICY = "dots_with_no_batch_dims_saveable"  # phase 13e
+VIT_SIZE = 336  # phase 13f: 24 x 24 patches against the 32 x 32 position embedding
+
+
+def state_gib(model) -> float:
+    """GiB of a model's parameters and buffers."""
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values()) / 2**30
+
+
+def lora_reference(cfg, device):
+    """The 2B model in fp32, seed 0, with rank-LORA_RANK adapters live in
+    both towers, lora_b drawn non-zero and the score head opened -> (model,
+    its config). Its state_dict is phase 13a-c's LoRA checkpoint."""
+    from aigv_assessor_torch.cli.score import build_serving_model
+    from aigv_assessor_torch.core.precision import Precision
+
+    lcfg = cfg.replace(use_backbone_lora=LORA_RANK, use_llm_lora=LORA_RANK)
+    model = build_serving_model(lcfg, device=device, precision=Precision.fp32(), seed=0)
+    gen = torch.Generator(device=device).manual_seed(9)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, LORA_B_STD, generator=gen)
+    return opened_score_head(model), lcfg
+
+
+def merged_checkpoint(ref, lcfg, device):
+    """The LoRA checkpoint with its adapters folded into the fp32 bases by
+    `models/lora.merge_lora_` -> (the config without adapters, its
+    weights): the control that quantizes W + delta, as the port's builds
+    did before adapters ran live over a quantized base."""
+    from aigv_assessor_torch.cli.score import build_serving_model
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models.lora import lora_free_state_dict, merge_lora_
+
+    model = build_serving_model(lcfg, device=device, precision=Precision.fp32(), seed=0,
+                                weights=ref.state_dict())
+    return (lcfg.replace(use_backbone_lora=0, use_llm_lora=0),
+            lora_free_state_dict(merge_lora_(model)))
+
+
+def run_lora_quantized(ref, lcfg, merged, device, ids, mask, px_u8, chunk, ids_pn, mask_pn,
+                       smi, *, n_vit: int, n_llm: int, base_ms: dict) -> dict:
+    """Phase 13a: the LoRA checkpoint served with its adapters live over a
+    W8A8, int8 and int4 base -> per mode its launches, ms per chunk and peak
+    GiB. merged: `merged_checkpoint`. base_ms: each mode's ms per chunk
+    without adapters (phases 5, 6)."""
+    from aigv_assessor_torch.cli.score import build_serving_model, score_batch, score_chunks
+    from aigv_assessor_torch.models.lora import AdaptedLinear, QuantizedLinear
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import int8_matmul as wo
+    from aigv_assessor_torch.ops import quant_fuse as qf
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    weights = ref.state_dict()
+    counters = (fa.flash_attention_qkv, fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
+                qf.layernorm_quant, qf.gelu_quant, qf.quant_rows, qf.rmsnorm_quant,
+                qf.silu_mul_quant)
+    swaps = ((fa, "flash_attention_qkv", fa.plain_attention_qkv),
+             (fa, "flash_attention", fa.plain_flash_attention),
+             (wo, "int8_matmul", wo.plain_int8_matmul), (wo, "int4_matmul", wo.plain_int4_matmul))
+    with torch.inference_mode():
+        pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.float32)
+        with plain_attention_patches(fa):  # the kernels take bf16
+            r = ref(ids[:, 0], pv, mask[:, 0])["readout"].float()
+    out = {}
+    for mode in ("w8a8", "int8", "int4"):
+        t0 = time.perf_counter()
+        model = build_serving_model(lcfg, device=device, seed=0, weights=weights,
+                                    **{mode: True})
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gib = state_gib(model)
+        adapted = [m for m in model.modules() if isinstance(m, AdaptedLinear) and m.lora]
+        quantized = [m for m in adapted if isinstance(m, QuantizedLinear)]
+        n_quantized = (4 * n_vit if mode == "w8a8" else 0) + 5 * n_llm
+        if len(adapted) != 4 * n_vit + 5 * n_llm or len(quantized) != n_quantized:
+            raise RuntimeError(f"LoRA {mode}: {len(adapted)} adapted projections, "
+                               f"{len(quantized)} of them quantized")
+        score_batch(model, ids, px_u8, mask)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        for c in counters:
+            c.launches = 0
+        for c in (wo.int8_matmul, wo.int4_matmul):
+            c.form_launches = dict.fromkeys(wo.FORMS, 0)
+        t0 = time.perf_counter()
+        rows = score_chunks(model, [chunk], ids_pn, mask_pn, batch_size=BATCH)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        # the model and what the chunk allocated on top of all that was held
+        peak = weights_gib + (torch.cuda.max_memory_allocated(device) - held) / 2**30
+        counts = {c.__name__: c.launches for c in counters}
+        want = dict.fromkeys(counts, 0)
+        matmul = f"{mode}_matmul"
+        if mode == "w8a8":  # K1 `bsd` in both towers; every feed off under adapters
+            want["flash_attention_qkv"] = n_vit + n_llm
+        else:
+            want.update(flash_attention_qkv=n_vit, flash_attention=n_llm, **{matmul: 5 * n_llm})
+            forms = dict(getattr(wo, matmul).form_launches)
+            if forms != dict(dict.fromkeys(wo.FORMS, 0), gemm=5 * n_llm):
+                raise RuntimeError(f"LoRA {mode}: matmul forms {forms}")
+        if counts != want or not np.isfinite(np.asarray(rows)).all():
+            raise RuntimeError(f"LoRA {mode}: launches {counts}, expected {want}; rows {rows}")
+        with torch.inference_mode():
+            x = pv.to(torch.bfloat16)
+            k = model(ids[:, 0], x, mask[:, 0])["readout"].float()
+            with contextlib.ExitStack() as stack:
+                for module, name, plain in swaps:
+                    stack.enter_context(mock.patch.object(module, name, plain))
+                p_ = model(ids[:, 0], x, mask[:, 0])["readout"].float()
+            del model
+            control = build_serving_model(merged[0], device=device, seed=0, weights=merged[1],
+                                          **{mode: True})
+            m_ = control(ids[:, 0], x, mask[:, 0])["readout"].float()
+            del control
+        tol = W8A8_READOUT_TOL if mode == "w8a8" else WEIGHT_ONLY_READOUT_TOL
+        rel_kp, rel_kr, rel_pr, rel_mr, rel_km = (
+            relative_l2(k, p_), relative_l2(k, r), relative_l2(p_, r), relative_l2(m_, r),
+            relative_l2(k, m_))
+        if not torch.isfinite(k).all() or not rel_kp <= tol or not rel_kr <= REF_RATIO * rel_pr:
+            raise RuntimeError(f"LoRA {mode}: readout kernel vs plain {rel_kp} (tol {tol}); vs "
+                               f"the fp32 live forward kernel {rel_kr}, plain {rel_pr} (tol "
+                               f"{REF_RATIO}x)")
+        phase("lora", f"13a {mode} base, r={LORA_RANK} adapters live in both towers (lora_b "
+              f"~N(0, {LORA_B_STD})), InternVL2-2B: launches per forward "
+              f"{ {k_: v for k_, v in counts.items() if v} }, {chunk_ms:.1f} ms/chunk "
+              f"(without adapters {base_ms[mode]:.1f}), peak {peak:.2f} GiB allocated "
+              f"(weights {weights_gib:.2f} GiB), init {init_s:.1f} s; readout rel L2 kernel vs "
+              f"plain {rel_kp:.3e} (tol {tol}); to the fp32 live-adapter forward: live kernel "
+              f"{rel_kr:.3e}, plain {rel_pr:.3e} (tol {REF_RATIO}x), merged-then-quantized "
+              f"{rel_mr:.3e}; live vs merged {rel_km:.3e} [{smi}]")
+        out[mode] = dict(counts=counts, ms=chunk_ms, peak_gib=peak, weights_gib=weights_gib,
+                         live_fp32=rel_kr, merged_fp32=rel_mr)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_lora_eval(ref, merged, device, smi, *, n_vit: int, n_llm: int, eval_s: dict) -> dict:
+    """Phase 13b: `cli.stage2_eval.main --eval_w8a8 True` on phase 10b's
+    meta files with the LoRA checkpoint (through `cli/common.model_weights`),
+    solo (which, as JAX's, takes no W8A8) and fused (W8A8 over live
+    adapters); and fused on the control (`merged_checkpoint`, without
+    adapters). The fused runs' `score_batch` calls are recorded and replayed
+    on the live model built outside the CLI from the config the CLI built
+    (its kernels, then the plain attention). eval_s: phase 10b's wall
+    times."""
+    from aigv_assessor_torch.cli import common, score, stage2_eval
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import quant_fuse as qf
+
+    weights = ref.state_dict()
+    build, score_batch = common.build_serving_model, score.score_batch
+    counters = (fa.flash_attention_qkv, fa.flash_attention, dec.cached_decode_attention,
+                qf.layernorm_quant, qf.gelu_quant, qf.quant_rows, qf.rmsnorm_quant,
+                qf.silu_mul_quant)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AIGV_")}
+    n_videos = CLI_VIDEOS + 1
+    batches = -(-n_videos // BATCH)
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        metas = write_eval_metas(d)
+        base = ["--meta_path", metas[0], "--model_scale", "2b", "--eval_batch_size", str(BATCH),
+                "--num_segments", str(FRAMES), "--device", str(device), "--eval_w8a8", "True"]
+        lora = ["--use_backbone_lora", str(LORA_RANK), "--use_llm_lora", str(LORA_RANK)]
+        fused = ["--fused_meta_paths", *metas[1:]]
+        for label, extra, ckpt in (("solo", lora, weights), ("fused", lora + fused, weights),
+                                   ("fused_merged", fused, merged[1])):
+            calls, configs = [], []
+
+            def recorded_build(config, **kw):
+                configs.append(config)
+                return build(config, **kw)
+
+            def recorded_score(model, *args):
+                out = score_batch(model, *args)
+                calls.append((args, out.float()))
+                return out
+
+            for c in counters:
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats(device)
+            stdout = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(mock.patch.object(common, "model_weights",
+                                                      lambda args, config, w=ckpt: w))
+                stack.enter_context(mock.patch.object(common, "build_serving_model",
+                                                      recorded_build))
+                stack.enter_context(mock.patch.object(score, "score_batch", recorded_score))
+                stack.enter_context(mock.patch.object(os, "environ", env))
+                stack.enter_context(contextlib.redirect_stdout(stdout))
+                stage2_eval.main(base + ["--output_dir", os.path.join(d, label)] + extra)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = {c.__name__: c.launches for c in counters}
+            want = dict.fromkeys(counts, 0)
+            want["flash_attention_qkv"] = batches * (n_vit + n_llm)
+            if label == "fused_merged":  # no adapter: the ViT's feeds fused, as in phase 10b
+                want.update(layernorm_quant=batches * 2 * n_vit, gelu_quant=batches * n_vit,
+                            quant_rows=batches * n_vit)
+            if counts != want:
+                raise RuntimeError(f"LoRA eval {label}: launches {counts}, expected {want}")
+            name = "results_p1.csv" if fused[0] in extra else "results.csv"
+            with open(os.path.join(d, label, name)) as f:
+                table = list(csv.reader(f))
+            col = 3 if fused[0] in extra else 5
+            scores = {r[0]: float(r[col]) for r in table[1:]}
+            if len(scores) != n_videos or not np.isfinite(list(scores.values())).all():
+                raise RuntimeError(f"LoRA eval {label}: scores {scores}")
+            runs[label] = dict(s=wall_s, scores=scores, printed=stdout.getvalue(),
+                               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                               calls=calls, config=configs[0])
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def score_diff(a, b):
+        return max(abs(a[v] - b[v]) for v in b) / max(abs(v) for v in b.values())
+
+    # the live model outside the CLI, on the fused runs' recorded batches
+    live_cfg, control = runs["fused"]["config"], runs["fused_merged"]
+    if (live_cfg.use_backbone_lora, live_cfg.use_llm_lora) != (LORA_RANK, LORA_RANK):
+        raise RuntimeError(f"LoRA eval: the CLI built {live_cfg}")
+    calls = runs["fused"]["calls"]
+    if len(calls) != batches or len(control["calls"]) != batches or not all(
+            torch.equal(a, b) if torch.is_tensor(a) else a == b
+            for (x, _), (y, _) in zip(calls, control["calls"]) for a, b in zip(x, y)):
+        raise RuntimeError("LoRA eval: the fused runs scored other batches")
+    model = build(live_cfg, device=device, seed=0, weights=weights, w8a8=True)
+    with torch.inference_mode():
+        replay = torch.cat([score_batch(model, *args).float() for args, _ in calls])
+        with mock.patch.object(fa, "flash_attention_qkv", fa.plain_attention_qkv):
+            plain = torch.cat([score_batch(model, *args).float() for args, _ in calls])
+        cli = torch.cat([out for _, out in calls])
+        merged_out = torch.cat([out for _, out in control["calls"]])
+        largest = float(replay.abs().max())
+        d_live, d_merged, d_plain = (float((x - replay).abs().max()) / largest
+                                     for x in (cli, merged_out, plain))
+        bit_equal = torch.equal(cli, replay)
+    del model
+    drift = score_diff(runs["fused"]["scores"], runs["solo"]["scores"])
+    if not (d_live <= LIVE_EVAL_TOL < d_merged and d_plain <= W8A8_EVAL_DRIFT
+            and drift <= W8A8_EVAL_DRIFT):
+        raise RuntimeError(
+            f"LoRA eval: against the live model's replay, the CLI's fused scores {d_live} (tol "
+            f"{LIVE_EVAL_TOL}), the merged control's {d_merged} (must exceed it), the plain "
+            f"attention's {d_plain} (tol {W8A8_EVAL_DRIFT}); fused against the solo eval "
+            f"{drift} (tol {W8A8_EVAL_DRIFT})")
+    line = [ln for ln in runs["fused"]["printed"].splitlines() if ln.startswith("fused eval:")]
+    phase("lora", f"13b cli.stage2_eval.main --eval_w8a8 True, --use_*_lora {LORA_RANK}, "
+          f"the LoRA checkpoint, phase 10b's meta files ({n_videos} videos, batch {BATCH}): "
+          f"{n_vit + n_llm} K1 launches per forward, no quantize feed under the live adapters; "
+          f"against the live W8A8 model built outside the CLI, replayed on the CLI's {batches} "
+          f"recorded batches: the CLI's fused scores {d_live:.3e} of the largest (tol "
+          f"{LIVE_EVAL_TOL}; bit-equal {bit_equal}), the merged control's "
+          f"{d_merged:.3e} (must exceed the tol), the replay with the plain attention "
+          f"{d_plain:.3e} (tol {W8A8_EVAL_DRIFT}); W8A8 fused (live adapters) against the solo "
+          f"eval (no W8A8, as in JAX): {drift:.3e} (tol {W8A8_EVAL_DRIFT}); whole calls (s) solo "
+          f"{runs['solo']['s']:.1f}, fused live {runs['fused']['s']:.1f}, fused merged "
+          f"{control['s']:.1f}, phase 10b's W8A8 fused without adapters "
+          f"{eval_s.get('fused_w8a8', float('nan')):.1f}; peak GiB "
+          + ", ".join(f"{k} {v['peak_gib']:.2f}" for k, v in runs.items())
+          + f"; {line[0] if line else 'no fused eval line'} [{smi}]")
+    return {k: dict(s=v["s"], peak_gib=v["peak_gib"]) for k, v in runs.items()}
+
+
+def run_lora_generation(ref, lcfg, merged, device, ids, px_u8, smi, *, n_vit: int,
+                        n_llm: int) -> dict:
+    """Phase 13c: greedy generation in bf16 with the LoRA checkpoint's
+    adapters live (the cache path through their row-major calls), against
+    the same checkpoint merged (`merged_checkpoint`)."""
+    from aigv_assessor_torch.cli.score import build_serving_model
+    from aigv_assessor_torch.models.generation import GenerationConfig, generate
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    weights = ref.state_dict()
+    gcfg = GenerationConfig(max_new_tokens=LORA_GEN_TOKENS, eos_token_id=-1)
+    counters = (dec.cached_decode_attention, dec.decode_attention, fa.flash_attention_qkv,
+                fa.flash_attention)
+    steps = LORA_GEN_TOKENS - 1
+    out = {}
+    with torch.inference_mode():
+        pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.bfloat16)
+        for label, (config, state) in (("live", (lcfg, weights)), ("merged", merged)):
+            model = build_serving_model(config, device=device, seed=0, weights=state)
+            generate(model, None, ids, pv, gcfg=GenerationConfig(max_new_tokens=2,
+                                                                 eos_token_id=-1),
+                     with_motion=True)  # warm-up
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            tokens = generate(model, None, ids, pv, gcfg=gcfg, with_motion=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {c.__name__: c.launches for c in counters}
+            want = dict(cached_decode_attention=n_llm * steps, decode_attention=0,
+                        flash_attention_qkv=n_vit, flash_attention=0)
+            if counts != want or tuple(tokens.shape) != (ids.shape[0], LORA_GEN_TOKENS):
+                raise RuntimeError(f"LoRA generation {label}: launches {counts}, expected "
+                                   f"{want}; tokens {tuple(tokens.shape)}")
+            out[label] = dict(tokens=torch.as_tensor(tokens).cpu(), ms=ms, counts=counts)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    live, merged = out["live"]["tokens"], out["merged"]["tokens"]
+    parted = [int(np.argmax((live[b] != merged[b]).numpy())) if not torch.equal(live[b], merged[b])
+              else None for b in range(live.shape[0])]
+    phase("lora", f"13c generation bf16 InternVL2-2B, r={LORA_RANK} adapters live, "
+          f"{ids.shape[0]} x {ids.shape[1]}-token prompts, {LORA_GEN_TOKENS} greedy tokens: "
+          f"launches {out['live']['counts']} ({n_llm} K8 a step), {out['live']['ms']:.1f} ms "
+          f"(merged {out['merged']['ms']:.1f} ms); ids equal to the merged model's: "
+          f"{[p is None for p in parted]}, first differing step per video {parted}; live "
+          f"{live.tolist()}, merged {merged.tolist()} [{smi}]")
+    out["parted"] = parted
+    return out
+
+
+def run_26b_quantized(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi,
+                      bf16_cut_readout: torch.Tensor) -> dict:
+    """Phase 13d: InternVL2-26B in W8A8 and int4 at full depth and int8 at
+    DEPTH_CUT layers per tower, built tensor by tensor from seed 0 -> per
+    mode its memory, times and launches."""
+    from aigv_assessor_torch.cli.score import build_serving_model, score_batch, score_chunks
+    from aigv_assessor_torch.models.assessor import AIGVAssessor
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import int8_matmul as wo
+    from aigv_assessor_torch.ops import quant_fuse as qf
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    counters = (fa.flash_attention_qkv, fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
+                qf.layernorm_quant, qf.gelu_quant, qf.quant_rows, qf.rmsnorm_quant,
+                qf.silu_mul_quant)
+    swaps = ((fa, "flash_attention_qkv", fa.plain_attention_qkv),
+             (fa, "flash_attention", fa.plain_flash_attention),
+             (wo, "int8_matmul", wo.plain_int8_matmul), (wo, "int4_matmul", wo.plain_int4_matmul),
+             (qf, "gelu_quant", qf.plain_gelu_quant), (qf, "layernorm_quant",
+                                                       qf.plain_layernorm_quant),
+             (qf, "quant_rows", qf.plain_quant_rows))
+    # phase 11's input, made the same way
+    pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.float32).to(torch.bfloat16)
+    out = {}
+    for mode, depth in (("w8a8", None), ("int8", DEPTH_CUT), ("int4", None)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = {}
+        for layers in sorted({DEPTH_CUT, depth}, key=lambda x: x or 10**6):
+            cfg = internvl2_26b(layers)
+            n_vit, n_llm = cfg.vision.num_hidden_layers, cfg.llm.num_hidden_layers
+            held = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            model = build_serving_model(cfg, device=device, seed=0, **{mode: True})
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            build_gib = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+            weights_gib = (torch.cuda.memory_allocated(device) - held) / 2**30
+            with torch.device("meta"):
+                sizes = [t.numel() for t in AIGVAssessor(cfg).state_dict().values()]
+            fp32_gib, largest_gib = (4 * n / 2**30 for n in (sum(sizes), max(sizes)))
+            if not build_gib - weights_gib <= BUILD_OVER_LARGEST * largest_gib:
+                raise RuntimeError(f"26B {mode} x{n_vit}: the build peaked at {build_gib} GiB, "
+                                   f"{build_gib - weights_gib} above its weights; the largest "
+                                   f"fp32 tensor is {largest_gib} GiB (tol {BUILD_OVER_LARGEST}x)"
+                                   f", an fp32 copy of the model {fp32_gib} GiB")
+            row.setdefault("builds", []).append(
+                f"{n_vit} + {n_llm} layers: peak {build_gib:.2f}, weights {weights_gib:.2f}, "
+                f"{build_gib - weights_gib:.2f} above them (tol {BUILD_OVER_LARGEST} x the "
+                f"largest fp32 tensor, {largest_gib:.2f}; an fp32 copy {fp32_gib:.2f})")
+            if layers == DEPTH_CUT:
+                with torch.inference_mode():
+                    k = model(ids[:, 0], pv, mask[:, 0])["readout"].float()
+                    with contextlib.ExitStack() as stack:
+                        for module, name, plain in swaps:
+                            stack.enter_context(mock.patch.object(module, name, plain))
+                        p_ = model(ids[:, 0], pv, mask[:, 0])["readout"].float()
+                tol = W8A8_READOUT_TOL if mode == "w8a8" else WEIGHT_ONLY_READOUT_TOL
+                rel_kp, rel_kb = relative_l2(k, p_), relative_l2(k, bf16_cut_readout)
+                if not torch.isfinite(k).all() or not rel_kp <= tol:
+                    raise RuntimeError(f"26B {mode} x{DEPTH_CUT}: readout kernel vs plain "
+                                       f"{rel_kp} (tol {tol})")
+                row.update(cut_kernel_plain=rel_kp, cut_kernel_bf16=rel_kb)
+            if layers == depth:
+                score_batch(model, ids, px_u8, mask)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                for c in counters:
+                    c.launches = 0
+                t0 = time.perf_counter()
+                rows = score_chunks(model, [list(videos[:BATCH])], ids_pn, mask_pn,
+                                    batch_size=BATCH)
+                torch.cuda.synchronize()
+                chunk_ms = (time.perf_counter() - t0) * 1e3
+                peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+                counts = {c.__name__: c.launches for c in counters}
+                want = dict.fromkeys(counts, 0)
+                gelu = n_vit if cfg.vision.approximate_gelu else 0
+                if mode == "w8a8":  # the QK-normalized tower's RMSNorm feeds stay unfused
+                    want.update(flash_attention=n_vit, flash_attention_qkv=n_llm,
+                                gelu_quant=gelu)
+                else:
+                    want.update(flash_attention=n_vit + n_llm, **{f"{mode}_matmul": 5 * n_llm})
+                if counts != want or not np.isfinite(np.asarray(rows)).all():
+                    raise RuntimeError(f"26B {mode} x{n_vit}: launches {counts}, expected {want}")
+                row.update(depth=(n_vit, n_llm), counts=counts, ms=chunk_ms, peak_gib=peak,
+                           weights_gib=weights_gib, build_gib=build_gib, fp32_gib=fp32_gib,
+                           init_s=init_s)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[mode] = row
+        phase("26b", f"13d InternVL2-26B {mode}, {row['depth'][0]} + {row['depth'][1]} layers, "
+              f"built tensor by tensor from seed 0: weights {row['weights_gib']:.2f} GiB, the "
+              f"build's peak {row['build_gib']:.2f} GiB allocated (an fp32 copy: "
+              f"{row['fp32_gib']:.2f} GiB); each build, GiB: {'; '.join(row['builds'])}; init "
+              f"{row['init_s']:.1f} s; one chunk of {BATCH} "
+              f"videos x {FRAMES} frames {IMAGE}px: {row['ms']:.1f} ms/chunk, peak "
+              f"{row['peak_gib']:.2f} GiB; launches per forward "
+              f"{ {k_: v for k_, v in row['counts'].items() if v} }; at {DEPTH_CUT} layers per "
+              f"tower readout rel L2 kernel vs plain {row['cut_kernel_plain']:.3e}, vs the bf16 "
+              f"26B readout {row['cut_kernel_bf16']:.3e} [{smi}]")
+    return out
+
+
+def run_remat_policy(cfg, device, ids, mask, px_u8, smi, *, full_ms: float,
+                     full_peak: float) -> dict:
+    """Phase 13e: stage-2 LoRA training of the 2B model with the ViT under
+    REMAT_POLICY, against phase 7's whole-layer recompute (full_ms,
+    full_peak): the adapters' gradients of one training step's loss under
+    both, then TRAIN_STEPS steps under the policy."""
+    from aigv_assessor_torch.cli.stage2_train import (
+        build_training_model, prepare_batch, train_steps)
+    from aigv_assessor_torch.models.lora import set_generator
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.train.trainer import TrainConfig, Trainer
+
+    lora_cfg = cfg.replace(use_backbone_lora=LORA_RANK, use_llm_lora=LORA_RANK)
+    mos = torch.as_tensor(np.random.default_rng(5).uniform(20.0, 90.0, ids.shape[0]),
+                          dtype=torch.float32)
+    batch = {"input_ids": ids[:, 0], "pixels_u8": px_u8, "attention_mask": mask[:, 0],
+             "mos": mos}
+    kernels = (fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
+               fa.flash_attention_qkv_bwd_dkv)
+    grads, out = {}, {}
+    for label, policy in (("full", None), ("policy", REMAT_POLICY)):
+        with tempfile.TemporaryDirectory() as out_dir:
+            tc = TrainConfig(output_dir=out_dir, learning_rate=TRAIN_LR, warmup_ratio=0.0,
+                             lr_scheduler_type="constant", num_train_epochs=1, save_steps=0,
+                             seed=0)
+            model = build_training_model(lora_cfg, device=device, seed=0, train_config=tc,
+                                         vit_remat_policy=policy)
+            opened_score_head(model)
+            trainer = Trainer(model, tc, TRAIN_STEPS)
+            trainable = trainer.trainable_parameters()
+            prepared = prepare_batch(model, **batch)
+            # one training-mode pass: dropout and drop path from one seed
+            model.train()
+            set_generator(model, torch.Generator(device=device).manual_seed(5))
+            for c in kernels:
+                c.launches = 0
+            loss = model(prepared["input_ids"], prepared["pixel_values"],
+                         prepared["attention_mask"], mos=prepared["mos"])["loss"]
+            loss.backward()
+            grads[label] = torch.cat([p.grad.float().flatten() for p in trainable.values()])
+            out[label] = dict(counts={c.__name__: c.launches for c in kernels})
+            for p in trainable.values():
+                p.grad = None
+            if policy:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                train_steps(model, [batch] * TRAIN_STEPS, tc, trainer=trainer)
+                torch.cuda.synchronize()
+                with open(f"{out_dir}/train_log.jsonl") as f:
+                    log = [json.loads(line) for line in f]
+                out[label].update(
+                    ms=(log[-1]["time"] - log[-2]["time"]) * 1e3,
+                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                    losses=[r["loss"] for r in log])
+            del model, trainer, trainable, prepared, loss
+            gc.collect()
+            torch.cuda.empty_cache()
+    n = cfg.vision.num_hidden_layers + cfg.llm.num_hidden_layers
+    want = {"flash_attention_qkv_lse": 2 * n, "flash_attention_qkv_bwd_dq": n,
+            "flash_attention_qkv_bwd_dkv": n}
+    if out["full"]["counts"] != want or out["policy"]["counts"] != want:
+        raise RuntimeError(f"remat policy: launches {out}, expected {want} (the attention "
+                           "recomputed under both)")
+    g_full, g_pol = grads["full"], grads["policy"]
+    bit_equal = torch.equal(g_full, g_pol)
+    rel = relative_l2(g_pol, g_full)
+    losses = out["policy"]["losses"]
+    if not torch.isfinite(g_pol).all() or not rel <= TRAIN_GRAD_TOL or not np.isfinite(losses).all():
+        raise RuntimeError(f"remat policy: gradients {rel} from whole-layer recompute (tol "
+                           f"{TRAIN_GRAD_TOL}); losses {losses}")
+    phase("train", f"13e stage-2 LoRA training InternVL2-2B, r={LORA_RANK}, the ViT under "
+          f"vit_remat_policy={REMAT_POLICY}: launches per micro-batch {out['policy']['counts']} "
+          f"(the attention recomputed, as under whole-layer recompute); {TRAIN_STEPS} steps "
+          f"{out['policy']['ms']:.1f} ms/step (the last; phase 7's whole-layer recompute "
+          f"{full_ms:.1f}), peak {out['policy']['peak_gib']:.2f} GiB allocated (phase 7 "
+          f"{full_peak:.2f}); losses {np.round(losses, 5).tolist()}; the adapters' and score "
+          f"head's gradients of one training-mode step ({g_pol.numel()} values, dropout and "
+          f"drop path from one seed) against whole-layer recompute: bit-equal {bit_equal}, rel "
+          f"L2 {rel:.3e} (tol {TRAIN_GRAD_TOL}) [{smi}]")
+    out.update(bit_equal=bit_equal, rel_l2=rel)
+    return out
+
+
+def run_vit_grids(cfg, device, smi, *, n_vit: int) -> dict:
+    """Phase 13f: the 2B ViT (bf16, seed 0) at VIT_SIZE px, its position
+    embedding resized to the 24 x 24 grid (577 tokens padded to 584), and at
+    select_layer -2, each against the same forward on the plain attention."""
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models.loading import init_random_
+    from aigv_assessor_torch.models.vit import InternVisionModel
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    with torch.device("meta"):
+        vit = InternVisionModel(cfg.vision, Precision())
+    vit = init_random_(vit.to(torch.bfloat16).to_empty(device=device), 0).eval()
+    out = {}
+    for label, size, select in (("336px", VIT_SIZE, -1), ("select_layer_-2", IMAGE, -2)):
+        u8 = torch.randint(0, 256, (1, FRAMES, size, size, 3), dtype=torch.uint8, device=device,
+                           generator=torch.Generator(device=device).manual_seed(size))
+        pv = resize_normalize(u8, size=size, dtype=torch.bfloat16)[0]
+        with torch.inference_mode():
+            vit(pv, select_layer=select)  # warm-up
+            fa.flash_attention_qkv.launches = 0
+            ms = time_ms(lambda: vit(pv, select_layer=select), 3, warmup=0)
+            launches = fa.flash_attention_qkv.launches // 3
+            k = vit(pv, select_layer=select).float()
+            with mock.patch.object(fa, "flash_attention_qkv", fa.plain_attention_qkv):
+                p_ = vit(pv, select_layer=select).float()
+        tokens = 1 + (size // cfg.vision.patch_size) ** 2
+        want = n_vit if select == -1 else select % (n_vit + 1)
+        rel = relative_l2(k, p_)
+        if (launches != want or tuple(k.shape) != (FRAMES, tokens, cfg.vision.hidden_size)
+                or not torch.isfinite(k).all() or not rel <= READOUT_TOL):
+            raise RuntimeError(f"ViT {label}: {launches} launches (expected {want}), shape "
+                               f"{tuple(k.shape)}, kernel vs plain {rel} (tol {READOUT_TOL})")
+        out[label] = dict(launches=launches, ms=ms, rel=rel, tokens=tokens)
+    phase("vit", f"13f the InternVL2-2B ViT, {FRAMES} frames: at {VIT_SIZE}px "
+          f"({out['336px']['tokens']} tokens padded to {-(-out['336px']['tokens'] // 8) * 8}, "
+          f"the position embedding resized to a {VIT_SIZE // 14} x {VIT_SIZE // 14} grid) "
+          f"{out['336px']['launches']} K1 launches, {out['336px']['ms']:.2f} ms a forward, "
+          f"output rel L2 kernel vs plain {out['336px']['rel']:.3e}; at select_layer -2 "
+          f"({IMAGE}px) {out['select_layer_-2']['launches']} launches, "
+          f"{out['select_layer_-2']['ms']:.2f} ms, {out['select_layer_-2']['rel']:.3e} (tol "
+          f"{READOUT_TOL}) [{smi}]")
+    del vit
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
               file=sys.stderr)
@@ -3526,17 +4149,23 @@ def main() -> int:
               f"dequantized weights {rel_deq:.3e} (tol {WEIGHT_ONLY_READOUT_TOL}), cosine to "
               f"bf16 {cosine:.5f}{f' (tol {INT8_COSINE})' if bits == 8 else ''}; scores "
               f"{np.round(arr_q[:, 0], 4).tolist()} [{smi}]")
-        return counts_q, forms
+        return counts_q, forms, ms_q
 
-    counts_int8, forms_int8 = run_weight_only_slice(8)
+    counts_int8, forms_int8, ms_int8 = run_weight_only_slice(8)
     torch.cuda.empty_cache()
-    counts_int4, forms_int4 = run_weight_only_slice(4)
+    counts_int4, forms_int4, ms_int4 = run_weight_only_slice(4)
     torch.cuda.empty_cache()
 
     # 7. the stage-2 training slice
-    train_counts, train_ms = run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward,
-                                             smi)
+    train_counts, train_ms, train_peak = run_train_slice(cfg, device, ids, mask, px_u8, rng,
+                                                         per_forward, smi)
     torch.cuda.empty_cache()
+
+    # 13e. the same training with the ViT under a remat policy; 13f. the ViT
+    # at another grid and depth
+    remat = run_remat_policy(cfg, device, ids, mask, px_u8, smi, full_ms=train_ms,
+                             full_peak=train_peak)
+    vit_grids = run_vit_grids(cfg, device, smi, n_vit=n_vit)
 
     # 7b. stage-1 training at 2B
     run_stage1_slice(device, px_u8, n_vit, n_llm, smi)
@@ -3561,7 +4190,22 @@ def main() -> int:
     run_score_cli(device, smi, n_llm=n_llm)
 
     # 10b. the stage-1 and stage-2 eval CLIs on a meta file
-    run_eval_clis(device, smi, n_vit=n_vit, n_llm=n_llm)
+    eval_s = run_eval_clis(device, smi, n_vit=n_vit, n_llm=n_llm)
+
+    # 13a-c. a LoRA checkpoint's adapters live over quantized bases, in the
+    # eval CLI and in generation
+    ref, lcfg = lora_reference(cfg, device)
+    merged = merged_checkpoint(ref, lcfg, device)
+    lora_served = run_lora_quantized(
+        ref, lcfg, merged, device, ids, mask, px_u8, chunks[0], ids_pn, mask_pn, smi,
+        n_vit=n_vit, n_llm=n_llm, base_ms=dict(w8a8=ms_w8a8, int8=ms_int8, int4=ms_int4))
+    lora_eval = run_lora_eval(ref, merged, device, smi, n_vit=n_vit, n_llm=n_llm,
+                              eval_s=eval_s)
+    lora_gen = run_lora_generation(ref, lcfg, merged, device, ids[:, 0], px_u8, smi,
+                                   n_vit=n_vit, n_llm=n_llm)
+    del ref, merged
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 11. InternVL2-26B: every earlier model is gone; the 26B model takes
     # 47.5 GiB in bf16
@@ -3570,6 +4214,10 @@ def main() -> int:
     big = run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 13d. InternVL2-26B quantized, built tensor by tensor
+    big_q = run_26b_quantized(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi,
+                              big.pop("cut_readout_bf16"))
 
     # 12. the HTTP scoring service at 2B, bf16 and W8A8
     served = run_serve(device, smi, n_vit=n_vit, n_llm=n_llm)
@@ -3821,11 +4469,45 @@ def main() -> int:
     for kernel, counter in (("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
                             ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
                             ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
-        by_path[kernel] = {"train_cli_stage2": s2[counter], "train_cli_stage1": s1[counter]}
+        by_path[kernel] = {"train_cli_stage2": s2[counter], "train_cli_stage1": s1[counter],
+                           "train_vit_remat_policy (13e, one micro-batch)":
+                           remat["policy"]["counts"][counter]}
+    # phase 13's paths: adapters live over quantized bases (13a, one forward),
+    # their generation (13c), InternVL2-26B quantized (13d, one forward), the
+    # ViT at another grid and depth (13f)
+    lq = {mode: lora_served[mode]["counts"] for mode in lora_served}
+    bq = {mode: big_q[mode]["counts"] for mode in big_q}
+    by_path["flash_attn_qkv_fwd"].update({
+        "lora_int8 (13a, ViT)": lq["int8"]["flash_attention_qkv"],
+        "lora_int4 (13a, ViT)": lq["int4"]["flash_attention_qkv"],
+        "lora_generate (13c, ViT)": lora_gen["live"]["counts"]["flash_attention_qkv"],
+        f"vit_{VIT_SIZE}px (13f)": vit_grids["336px"]["launches"],
+        "vit_select_layer_-2 (13f)": vit_grids["select_layer_-2"]["launches"]})
+    by_path["flash_attn_qkv_fwd_bsd"].update({
+        "lora_w8a8 (13a)": lq["w8a8"]["flash_attention_qkv"],
+        "internvl2_26b_w8a8 (13d, decoder)": bq["w8a8"]["flash_attention_qkv"]})
+    by_path["flash_attn_fwd"] = {
+        "lora_int8 (13a, decoder)": lq["int8"]["flash_attention"],
+        "lora_int4 (13a, decoder)": lq["int4"]["flash_attention"],
+        **{f"internvl2_26b_{m} (13d)": bq[m]["flash_attention"] for m in bq}}
+    for bits in (8, 4):
+        counter = f"int{bits}_matmul"
+        by_path[f"weight_only_int{bits}_matmul"] = {
+            f"lora_int{bits} (13a)": lq[f"int{bits}"][counter],
+            f"internvl2_26b_int{bits} (13d)": bq[f"int{bits}"][counter]}
+    for kernel, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
+                            ("ident_quant", "quant_rows"), ("rmsnorm_quant", "rmsnorm_quant"),
+                            ("silu_mul_quant", "silu_mul_quant")):
+        by_path.setdefault(kernel, {}).update({
+            "lora_w8a8 (13a, adapters: feeds off)": lq["w8a8"][counter],
+            "internvl2_26b_w8a8 (13d)": bq["w8a8"][counter]})
+    by_path["decode_attention"] = {
+        "lora_generate (13c)": lora_gen["live"]["counts"]["cached_decode_attention"]}
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]
         if k["name"] in by_path:
             k["launches_by_path"] = by_path[k["name"]]
+    phase("total", f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -1206,6 +1206,101 @@ def test_shared_prefix_scores_on_the_card(cuda):
     torch.testing.assert_close(shared, full, atol=2e-2, rtol=5e-2)
 
 
+
+@pytest.mark.parametrize("base", ["w8a8", "int8", "int4"])
+def test_adapted_quantized_layer_on_the_card(cuda, base):
+    """An adapter over a W8A8, int8 or int4 base in bf16, head-major out
+    where W8A8 has that form: the card's call (the int8 product, K6 / K7)
+    against the same layer on the CPU, where each wrapper runs its plain
+    version; the adapter moves the output."""
+    from aigv_assessor_torch.core.config import LoRAConfig
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.models.lora import make_linear
+
+    precision = Precision(w8a8=base == "w8a8", int8_weights=base == "int8",
+                          int4_weights=base == "int4")
+    heads = 24 if base == "w8a8" else None
+    layer = make_linear(2048, 3072, bias=True, lora=LoRAConfig(r=8, alpha=16), heads=heads,
+                        precision=precision).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        layer.load_float_weight_(torch.randn(3072, 2048, generator=gen) * 0.02)
+        layer.bias.copy_(torch.randn(3072, generator=gen) * 0.1)
+        layer.lora_a.copy_(torch.randn(2048, 8, generator=gen) * 0.02)
+        layer.lora_b.copy_(torch.randn(8, 3072, generator=gen) * 0.02)
+    x = (torch.randn(2, 300, 2048, generator=gen)).to(torch.bfloat16)
+    launches = (wo.int8_matmul.launches, wo.int4_matmul.launches)
+    with torch.no_grad():
+        want = layer.eval()(x).float()
+        got = layer.to(cuda)(x.to(cuda))
+        rows = layer.rows(x.to(cuda))
+    torch.cuda.synchronize()
+    assert (wo.int8_matmul.launches - launches[0], wo.int4_matmul.launches - launches[1]) == (
+        2 * (base == "int8"), 2 * (base == "int4"))
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert relative_l2(got.float().cpu(), want) <= 2e-2
+    flat = got.transpose(1, 2).reshape(2, 300, -1) if heads else got
+    assert torch.equal(flat, rows)  # the delta added before the view
+    with torch.no_grad():
+        layer.lora_b.zero_()
+        assert relative_l2(layer.rows(x.to(cuda)).float(), rows.float()) > 1e-2
+
+
+def test_decode_step_with_live_adapters_replays_in_a_graph(cuda):
+    """A decode step under live rank-4 adapters (bf16): `wqkv` and `wo` in
+    their row-major adapted form beside the decode-attention kernel,
+    captured in a CUDA graph and replayed, bit-equal to the eager step; and
+    within bf16 rounding of the step with the adapters merged."""
+    import dataclasses
+
+    from aigv_assessor_torch.cli.score import build_serving_model
+    from aigv_assessor_torch.core.config import AssessorConfig, LLMConfig, VisionConfig
+    from aigv_assessor_torch.models.internlm2 import KVCache
+
+    llm = dataclasses.replace(LLMConfig.tiny(), hidden_size=2048, intermediate_size=512,
+                              num_attention_heads=16, num_key_value_heads=8)
+    vision = dataclasses.replace(VisionConfig.tiny(), hidden_size=256)
+    cfg = AssessorConfig.tiny(stage=2, use_backbone_lora=4, use_llm_lora=4).replace(
+        llm=llm, vision=vision, img_context_token_id=7)
+    model = build_serving_model(cfg, device=cuda, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=cuda) * 0.05)
+    ids = torch.randint(10, cfg.llm.vocab_size, (4, 37), generator=gen, device=cuda)
+    kv_mask = torch.ones((4, 48), dtype=torch.bool, device=cuda)
+    with torch.inference_mode():
+        cache = KVCache.init(cfg.llm, 4, 48, device=cuda)
+        _, _, cache = model.prefill(model.embed_tokens(ids[:, :36]), cache, kv_mask=kv_mask)
+        saved = cache.k.clone(), cache.v.clone()
+        token = ids[:, 36:37].clone()
+        launches = dec.cached_decode_attention.launches
+        eager, _, _ = model.decode_step(token, cache, kv_mask)
+        assert dec.cached_decode_attention.launches - launches == cfg.llm.num_hidden_layers
+        eager = eager.clone()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # warm-up off the capture
+            model.decode_step(token, cache, kv_mask)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured, _, _ = model.decode_step(token, cache, kv_mask)
+        for _ in range(2):
+            cache.k.copy_(saved[0])
+            cache.v.copy_(saved[1])
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, eager)
+    merged = build_serving_model(cfg, device=cuda, seed=0,
+                                 weights={k: v.float() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        cache = KVCache.init(cfg.llm, 4, 48, device=cuda)
+        _, _, cache = merged.prefill(merged.embed_tokens(ids[:, :36]), cache, kv_mask=kv_mask)
+        step, _, _ = merged.decode_step(token, cache, kv_mask)
+    assert relative_l2(step.float(), eager.float()) <= 3e-2  # bf16 forwards of two layers
+
 # ------------------------------------------------- fp8 decode matmul (K9) --
 
 FP8_TOL = 1e-3  # relative L2 to the plain version rounded to bf16

@@ -20,7 +20,6 @@ from aigv_assessor_torch.models.lora import (
     lora_free_state_dict,
     make_linear,
     merge_lora_,
-    reject_quantized_lora,
     set_generator,
 )
 from aigv_assessor_tpu.core.config import LoRAConfig
@@ -179,10 +178,12 @@ def test_make_linear_without_an_adapter_is_a_plain_linear():
         LoRALinear(8, 4, lora=TorchLoRAConfig(), heads=2, head_major_in=True)
 
 
-def test_lora_over_a_w8a8_base_is_not_ported():
+def test_merge_lora_refuses_a_quantized_base():
+    """The JAX merge tool merges float kernels only: an adapter over an int8
+    base raises, a float one merges."""
     from aigv_assessor_torch.core.precision import Precision
 
-    reject_quantized_lora(Precision(w8a8=True), None)
-    reject_quantized_lora(Precision(), TorchLoRAConfig())
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        reject_quantized_lora(Precision(w8a8=True), TorchLoRAConfig())
+    quantized = make_linear(8, 4, lora=TorchLoRAConfig(r=2), precision=Precision(w8a8=True))
+    with pytest.raises(ValueError, match="quantized base"):
+        merge_lora_(quantized)
+    merge_lora_(make_linear(8, 4, lora=TorchLoRAConfig(r=2)))

@@ -12,8 +12,8 @@ the model: the ViT's output, the stage-2 loss and every adapter's and the
 score head's gradient (relative to the leaf's largest magnitude).
 
 Also: `load_reference_checkpoint` on a reference-format checkpoint of this
-tower against the JAX converter, bit for bit, and the refusal of the
-quantized precisions.
+tower against the JAX converter, bit for bit. The tower under W8A8, int8
+and int4: tests/test_torch_lora_quant.py.
 """
 
 import dataclasses
@@ -26,7 +26,6 @@ import pytest
 import torch
 from flax import traverse_util
 
-from aigv_assessor_torch.cli.score import build_serving_model
 from aigv_assessor_torch.core.config import AssessorConfig as TorchConfig
 from aigv_assessor_torch.core.precision import Precision as TorchPrecision
 from aigv_assessor_torch.models.assessor import AIGVAssessor as TorchAssessor
@@ -198,9 +197,3 @@ def test_load_reference_checkpoint_reads_the_qk_norm_leaves(tmp_path):
         assert torch.equal(got[k], v.float()), k
     TorchAssessor(port_cfg, TorchPrecision.fp32()).load_state_dict(got, strict=True)
 
-
-@pytest.mark.parametrize("flag", ["w8a8", "int8", "int4"])
-def test_qk_norm_tower_refuses_the_quantized_precisions(flag):
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="QK-normalized ViT under W8A8, int8 or int4"):
-        build_serving_model(tcfg, device="cpu", **{flag: True})

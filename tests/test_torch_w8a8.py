@@ -153,8 +153,11 @@ def test_w8a8_head_major_matches_jax_and_is_a_view():
     heads = 4
     want = jw8.w8a8_head_major(_j(x), _j(wq), _j(sw), heads, bias=_j(bias),
                                out_dtype=jnp.float32)
-    got = tw8.w8a8_head_major(_t(x), _t(wq.T).contiguous(), _t(sw), heads, _t(bias),
-                              torch.float32)
+    layer = W8A8Linear(32, 24, out_dtype=torch.float32, heads=heads)
+    layer.load_state_dict({"weight": _t(wq.T).contiguous(), "weight_scale": _t(sw),
+                           "bias": _t(bias)})
+    with torch.no_grad():
+        got = layer(_t(x))
     assert tuple(got.shape) == want.shape == (2, heads, 6, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=OP_TOL, atol=OP_TOL)
     # a strided view of the dense [B*S, N] product: heads step by D, rows by N

@@ -37,10 +37,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from aigv_assessor_torch.cli.score import build_serving_model, score_batch
 from aigv_assessor_torch.core.config import AssessorConfig as TorchConfig
-from aigv_assessor_torch.core.config import LoRAConfig as TorchLoRAConfig
 from aigv_assessor_torch.core.precision import Precision as TorchPrecision
 from aigv_assessor_torch.models.assessor import AIGVAssessor as TorchAssessor
-from aigv_assessor_torch.models.internlm2 import InternLM2ForCausalLM as TorchLM
 from aigv_assessor_torch.models.loading import jax_paths, quantize_for_serving, state_dict_from_jax
 from aigv_assessor_torch.models.lora import Int4Linear, Int8Linear
 from aigv_assessor_torch.ops import int8_matmul as two
@@ -284,13 +282,6 @@ def test_precision_modes_exclude_each_other():
     tcfg = TorchConfig.tiny(stage=2)
     with pytest.raises(ValueError, match="w8a8 excludes"):
         build_serving_model(tcfg, device="cpu", w8a8=True, int8=True)
-
-
-def test_lora_over_a_weight_only_base_is_not_ported():
-    tcfg = TorchConfig.tiny(stage=2)
-    for flag in ("int8_weights", "int4_weights"):
-        with pytest.raises(NotImplementedError, match="weight-only base"):
-            TorchLM(tcfg.llm, TorchPrecision(**{flag: True}), lora=TorchLoRAConfig(r=4))
 
 
 # ------------------------------------------------------------------ slice ---
