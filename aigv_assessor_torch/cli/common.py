@@ -12,7 +12,9 @@ tokenizer -> model, for the CLIs.
 - `build_serving_model`: the model on a device in a float or quantized
   precision, from a state_dict or a seed, built tensor by tensor; the
   config's LoRA adapters live over the base, as JAX's eval runs them.
-- `model_weights`: the weights of `--model_name_or_path`, or None (`--seed`).
+- `model_weights`: the weights of `--model_name_or_path`, or None (`--seed`);
+  `graft_weights`: the `--vision_path` / `--llm_path` / `--mlp_path` parts
+  (JAX's `_graft_subcheckpoints`), which the builders load over either.
 - `config_and_tokenizer`: the config (with the tokenizer's `<IMG_CONTEXT>`
   id) and the tokenizer from the CLI flags; the training CLIs build their
   model from these (`cli/stage2_train.build_training_model`).
@@ -20,11 +22,11 @@ tokenizer -> model, for the CLIs.
   `(config, model, tokenizer)`: the eval CLIs' assembly (stage 1 or 2, on
   `--device`, bf16 or fp32 with `--bf16 False`, adapters live as JAX's eval
   runs them); `build_serving_stack`, the score and serve CLIs', fills the
-  flags it does not take with the training CLIs' defaults and no adapters.
+  flags it does not take with the training CLIs' defaults and no adapters
+  (`serving_args`).
 
-The `--vision_path` / `--llm_path` / `--mlp_path` grafts are not ported
-(ROADMAP.md, Queue 1 item 4): they raise. Another `--force_image_size` is
-taken by the ViT's position-embedding interpolation, as in JAX.
+Another `--force_image_size` is taken by the ViT's position-embedding
+interpolation, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,14 +46,17 @@ from aigv_assessor_torch.models.assessor import AIGVAssessor
 from aigv_assessor_torch.models.loading import (
     init_lora_,
     init_random_,
+    jax_params_file,
+    load_jax_params,
     load_reference_checkpoint,
     load_weights_,
     serving_precision,
+    weights_from_jax,
 )
 
 __all__ = ["LLM_2B", "build_model_and_tokenizer", "build_serving_model", "build_serving_stack",
-           "config_and_tokenizer", "config_from_args", "load_tokenizer", "model_weights",
-           "quant_components"]
+           "config_and_tokenizer", "config_from_args", "graft_weights", "load_tokenizer",
+           "model_weights", "quant_components", "serving_args"]
 
 logger = logging.getLogger(__name__)
 
@@ -125,6 +130,7 @@ def build_serving_model(
     int4: bool = False,
     w8a8: bool = False,
     kv_int8: bool = False,
+    grafts: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> AIGVAssessor:
     """The model on `device` in `precision.compute_dtype`, in eval mode, as
     the JAX CLIs' `build_serving_stack` and `build_model_and_tokenizer` +
@@ -140,7 +146,9 @@ def build_serving_model(
     above. The precision's `fuse_quant` / `quant_rows` pick the W8A8 feeds.
 
     `weights`, a float state_dict of `AIGVAssessor(config)` (e.g.
-    `load_reference_checkpoint`'s), fills what it holds; what it lacks may
+    `load_reference_checkpoint`'s, or `weights_from_jax`'s, whose stored
+    int8 / int4 kernels follow JAX's rules for a quantized tree: see
+    `models/loading.load_weights_`), fills what it holds; what it lacks may
     only be the score head, then drawn by `init_score_head_(seed + 1)`, and
     the LoRA adapters, then drawn by `init_lora_(seed + 2)` with `lora_b`
     zero. Without `weights` all but the adapters come from
@@ -156,7 +164,11 @@ def build_serving_model(
     JAX's eval runs `LoRADense` over the quantized base: quantize(W) +
     delta, not quantize(W + delta). A model to serve without them, as the
     JAX serving stack builds with `use_*_lora=0`, takes weights whose
-    adapters `models/lora.merge_lora_` folded into the float bases."""
+    adapters `models/lora.merge_lora_` folded into the float bases.
+
+    `grafts` (`graft_weights`) then replace whole subtrees of what
+    `weights` or the seed gave, as JAX grafts its parts over its loaded or
+    initialised tree."""
     target = serving_precision(precision, w8a8=w8a8, int8=int8, int4=int4, kv_int8=kv_int8)
     with torch.device("meta"):
         model = AIGVAssessor(config, target)
@@ -165,30 +177,61 @@ def build_serving_model(
         init_lora_(init_random_(model, seed), seed + 2)
     else:
         load_weights_(model, weights, seed)
+    if grafts:
+        load_weights_(model, grafts, seed, partial=True)
     return model.eval()
 
 
 def model_weights(args, config: AssessorConfig) -> Optional[Dict[str, torch.Tensor]]:
-    """fp32 weights of `AIGVAssessor(config)` from `--model_name_or_path`
-    (`load_reference_checkpoint`), or None when it names no checkpoint or
-    one without weights: the model is then drawn from `--seed`. The
-    `--vision_path` / `--llm_path` / `--mlp_path` grafts raise."""
-    for flag in ("vision_path", "llm_path", "mlp_path"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: grafting a separate checkpoint is not ported yet "
-                "(ROADMAP.md Queue 1 item 4)")
+    """The weights of `AIGVAssessor(config)` from `--model_name_or_path`, in
+    this order: a directory holding a JAX tree (`params.msgpack` or
+    `params.safetensors`, `weights_from_jax`, as JAX's `init_or_load_params`
+    loads it); else the reference checkpoint's files
+    (`load_reference_checkpoint`, fp32); else None, when it names no
+    checkpoint or one without weights: the model is then drawn from
+    `--seed`."""
     path = args.model_name_or_path
     if not path:
         logger.info("initializing weights from seed %d", args.seed)
         return None
-    try:
-        weights = load_reference_checkpoint(path, config)
-    except FileNotFoundError:
-        logger.info("no weights under %s: initializing from seed %d", path, args.seed)
-        return None
-    logger.info("loaded weights from %s", path)
+    tree = jax_params_file(path) if os.path.isdir(path) else None
+    if tree is not None:
+        weights = weights_from_jax(load_jax_params(tree), config)
+    else:
+        try:
+            weights = load_reference_checkpoint(path, config)
+        except FileNotFoundError:
+            logger.info("no weights under %s: initializing from seed %d", path, args.seed)
+            return None
+    logger.info("loaded weights from %s", tree or path)
     return weights
+
+
+# each graft's flag and the subtree it replaces
+_GRAFTS = (("vision_path", "vision_model"), ("llm_path", "language_model"), ("mlp_path", "mlp1"))
+
+
+def graft_weights(args, config: AssessorConfig) -> Optional[Dict[str, torch.Tensor]]:
+    """The weights of the `--vision_path` / `--llm_path` / `--mlp_path`
+    parts (JAX's `_graft_subcheckpoints`), or None without them. Each part
+    is a JAX tree file (`load_jax_params`: `.msgpack` or `.safetensors`),
+    with or without the `params` level; its subtree (`vision_model`,
+    `language_model`, `mlp1`) sits under that name or is the whole part, as
+    `part.get(name, part)` takes it; the mlp part also replaces `motion_mlp`
+    where it holds one."""
+    out: Dict[str, torch.Tensor] = {}
+    for flag, name in _GRAFTS:
+        path = getattr(args, flag, None)
+        if not path:
+            continue
+        part = load_jax_params(path)
+        part = part.get("params", part)
+        tree = {name: part.get(name, part)}
+        if name == "mlp1" and part.get("motion_mlp") is not None:
+            tree["motion_mlp"] = part["motion_mlp"]
+        out.update(weights_from_jax(tree, config, parts=tuple(tree)))
+        logger.info("grafted %s from %s", "/".join(tree), path)
+    return out or None
 
 
 def config_and_tokenizer(args, stage: int) -> Tuple[AssessorConfig, AIGVTokenizer]:
@@ -206,7 +249,8 @@ def build_model_and_tokenizer(
     """(config, model, tokenizer) from the CLI flags, as the JAX
     `build_model_and_tokenizer` assembles them: the config from the flags and
     the checkpoint, the img_context token id from the tokenizer, the weights
-    from `model_weights`, the model from `build_serving_model` on
+    from `model_weights` with the `graft_weights` parts over them, the model
+    from `build_serving_model` on
     `args.device` in bf16 (fp32 with `--bf16 False`) in the quantized mode
     asked for, its adapters (a stage-2 checkpoint's, or the seed's) live,
     as JAX's eval keeps them; the W8A8 feeds picked by `AIGV_FUSE_QUANT` /
@@ -219,27 +263,17 @@ def build_model_and_tokenizer(
     )
     model = build_serving_model(config, device=args.device, precision=precision,
                                 seed=args.seed, weights=model_weights(args, config),
-                                w8a8=w8a8, int8=int8, int4=int4, kv_int8=kv_int8)
+                                w8a8=w8a8, int8=int8, int4=int4, kv_int8=kv_int8,
+                                grafts=graft_weights(args, config))
     return config, model, tokenizer
 
 
-def build_serving_stack(
-    model_name_or_path: str = "",
-    model_scale: str = "auto",
-    max_seq_length: int = 4096,
-    bf16: bool = True,
-    int8: bool = False,
-    int4: bool = False,
-    kv_int8: bool = False,
-    w8a8: bool = False,
-    stage: int = 2,
-    device: torch.device | str = "cuda",
-) -> Tuple[AssessorConfig, AIGVAssessor, AIGVTokenizer]:
-    """(config, model, tokenizer) for the serving CLIs:
-    `build_model_and_tokenizer` with the training CLIs' defaults for the
-    other flags, no adapters, and seed 0, as the JAX CLI initialises a
-    checkpoint without weights."""
-    args = SimpleNamespace(
+def serving_args(model_name_or_path: str = "", model_scale: str = "auto",
+                 max_seq_length: int = 4096, bf16: bool = True,
+                 device: torch.device | str = "cuda") -> SimpleNamespace:
+    """The flags the serving CLIs assemble a model from: these, and the
+    training CLIs' defaults for the others, no adapters, seed 0."""
+    return SimpleNamespace(
         model_name_or_path=model_name_or_path,
         model_scale=model_scale,
         max_seq_length=max_seq_length,
@@ -260,5 +294,23 @@ def build_serving_stack(
         bf16=bf16,
         device=device,
     )
+
+
+def build_serving_stack(
+    model_name_or_path: str = "",
+    model_scale: str = "auto",
+    max_seq_length: int = 4096,
+    bf16: bool = True,
+    int8: bool = False,
+    int4: bool = False,
+    kv_int8: bool = False,
+    w8a8: bool = False,
+    stage: int = 2,
+    device: torch.device | str = "cuda",
+) -> Tuple[AssessorConfig, AIGVAssessor, AIGVTokenizer]:
+    """(config, model, tokenizer) for the serving CLIs:
+    `build_model_and_tokenizer` on `serving_args`, as the JAX CLI
+    initialises a checkpoint without weights."""
+    args = serving_args(model_name_or_path, model_scale, max_seq_length, bf16, device)
     return build_model_and_tokenizer(args, stage, w8a8=w8a8, int8=int8, int4=int4,
                                      kv_int8=kv_int8)

@@ -8,9 +8,10 @@ one column per question ("perspective"), and a JSON summary line.
         --model_scale 2b --w8a8 True --batch_size 4 --out scores.csv
 
 It runs on `--device` (default `cuda`; the tests pass `cpu`). Weights come
-from `--model_name_or_path` (a reference-format checkpoint: config.json,
-tokenizer.json or tokenizer.model, sharded safetensors) or from seed 0 at
-`--model_scale`. Under `--w8a8` the fused quantize feeds follow JAX's
+from `--model_name_or_path` (a directory with the JAX package's parameter
+tree, `params.msgpack` or `params.safetensors`, float or stored int8 /
+int4; else a reference-format checkpoint: config.json, tokenizer.json or
+tokenizer.model, sharded safetensors) or from seed 0 at `--model_scale`. Under `--w8a8` the fused quantize feeds follow JAX's
 `AIGV_FUSE_QUANT` / `AIGV_QUANT_ROWS` switches (`cli/common.py`).
 
 - `list_videos`, `build_prompt_ids`: the video list and the scoring prompt,

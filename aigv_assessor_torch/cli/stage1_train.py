@@ -125,7 +125,8 @@ def main(argv=None, stage=STAGE, best_metric=BEST_METRIC, mos_scale=MOS_SCALE, o
         config, device=args.device, precision=precision, seed=args.seed,
         grad_checkpoint=args.grad_checkpoint, train_config=tcfg,
         weights=common.model_weights(args, config),
-        vit_remat_policy=args.vit_remat_policy or None)
+        vit_remat_policy=args.vit_remat_policy or None,
+        grafts=common.graft_weights(args, config))
     device = next(model.parameters()).device
     os.makedirs(args.output_dir, exist_ok=True)
 

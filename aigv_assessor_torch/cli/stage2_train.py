@@ -60,6 +60,7 @@ def build_training_model(
     train_config: TrainConfig = TrainConfig(),
     weights: Optional[Mapping[str, torch.Tensor]] = None,
     vit_remat_policy: Optional[str] = None,
+    grafts: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> AIGVAssessor:
     """The stage-1 or stage-2 model on `device`, its adapters unmerged.
     `config` carries the stage and the LoRA ranks (`use_backbone_lora`,
@@ -75,7 +76,8 @@ def build_training_model(
     `build_serving_model`). Without `weights` the frozen weights come from
     `init_random_(seed)` (the values `build_serving_model` draws from the
     same seed), the score head (stage 2) and the adapters as the JAX
-    modules initialise them.
+    modules initialise them. `grafts` (`cli/common.graft_weights`) then
+    replace whole subtrees, as JAX grafts its parts over its tree.
 
     What `train_config`'s freeze flags leave trainable is fp32. When it holds
     the frozen part in bf16 (`frozen_bf16` under a bf16 compute dtype, what
@@ -84,8 +86,9 @@ def build_training_model(
     is ever held (InternVL2-26B: 47.5 GiB in bf16, 95 GiB in fp32)."""
     if precision.w8a8:
         raise NotImplementedError(
-            "training over a W8A8 base is not ported yet (ROADMAP.md, Queue 1)"
-        )
+            "training over a W8A8 base: the JAX training CLIs never build one "
+            "(aigv_assessor_tpu/cli/common.py:158-174 builds float weights), so the port has "
+            "no such build to hold against them")
     with torch.device("meta"):
         model = AIGVAssessor(config, precision, grad_checkpoint=grad_checkpoint,
                              vit_remat_policy=vit_remat_policy)
@@ -96,11 +99,15 @@ def build_training_model(
         cast_frozen_(model, torch.bfloat16)
     model = model.to_empty(device=device)
     if weights is not None:
-        return load_weights_(model, weights, seed)
-    init_random_(model, seed)
-    if config.stage >= 2:
-        init_score_head_(model, seed + 1)
-    return init_lora_(model, seed + 2)
+        load_weights_(model, weights, seed)
+    else:
+        init_random_(model, seed)
+        if config.stage >= 2:
+            init_score_head_(model, seed + 1)
+        init_lora_(model, seed + 2)
+    if grafts:
+        load_weights_(model, grafts, seed, partial=True)
+    return model
 
 
 def prepare_batch(

@@ -46,8 +46,28 @@ every precision.
 `load_reference_checkpoint` reads a reference-format checkpoint from disk
 (sharded safetensors with their index, or torch `.bin` / `.pth` shards)
 through `tools/convert_weights.convert` and `state_dict_from_jax`: fp32
-weights for `AIGVAssessor(config)`. The JAX package's own `params.msgpack`
-needs flax, which the port does not use.
+weights for `AIGVAssessor(config)`.
+
+The JAX package's own parameter tree goes to and from disk in two
+containers, chosen by the file's suffix (`load_jax_params`,
+`save_jax_params`): flax's msgpack (`params.msgpack`, read and written
+without flax by `utils/flax_msgpack.py`), or safetensors holding the same
+tree flat, keyed by the '/'-joined JAX paths (`params.safetensors`, the
+layout of `train/checkpoint.save_trainable_weights`). `jax_tree` is the
+inverse of `state_dict_from_jax`: a model's tree in the JAX layout.
+
+`weights_from_jax` takes a tree as JAX's `quantize_for_serving` finds it,
+float or holding stored `kernel_int8` / `kernel_int4` leaves
+(`tools/convert_to_int8.py`), and keeps each stored kernel quantized as a
+`StoredKernel` under its float weight's name. `load_weights_` then applies
+JAX's rules (`aigv_assessor_tpu/models/loading.py:120-180`) one tensor at
+a time: a stored kernel of the kind the layer holds (int8 in an
+`Int8Linear`, int4 in an `Int4Linear`) is copied bit for bit; any other
+layer takes it dequantized to fp32, then quantized or rounded as a float
+weight. So `--int8` serves an int8 file as it is, `--int4` an int8 file
+through dequantize then int4, `--w8a8` any stored kernel through
+dequantize then JAX's W8A8 pick, and a float mode dequantizes to the
+compute dtype; no build holds an fp32 copy of the model.
 """
 
 from __future__ import annotations
@@ -75,6 +95,7 @@ from aigv_assessor_torch.models.lora import (
 )
 from aigv_assessor_torch.models.motion import FrozenBatchNorm
 from aigv_assessor_torch.models.vit import InternVisionEncoderLayer
+from aigv_assessor_torch.ops import int8_matmul
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
 
 INIT_STD = 0.02  # the configs' initializer_range
@@ -88,15 +109,180 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (str(k),), v
 
 
-def _to_torch(x: np.ndarray) -> torch.Tensor:
+def flatten_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """{'/'-joined path: leaf} of a nested tree, in its order (flax's
+    `flatten_dict`; empty subtrees dropped)."""
+    return {"/".join(path): x for path, x in _flatten(tree)}
+
+
+def unflatten_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """The nested tree of `flatten_tree`'s output."""
+    tree: Dict[str, Any] = {}
+    for key, x in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = x
+    return tree
+
+
+def jax_params_file(directory: str) -> Optional[str]:
+    """The JAX tree a checkpoint directory holds: `params.msgpack`, else
+    `params.safetensors`, else None."""
+    for name in ("params.msgpack", "params.safetensors"):
+        if os.path.isfile(os.path.join(directory, name)):
+            return os.path.join(directory, name)
+    return None
+
+
+def load_jax_params(path: str) -> Dict[str, Any]:
+    """A JAX parameter tree (tensor leaves) from `path`: a `.msgpack` file
+    (flax's format), a `.safetensors` file (the tree flat, '/'-joined keys),
+    or a directory's `jax_params_file`. FileNotFoundError where there is
+    none."""
+    if os.path.isdir(path):
+        found = jax_params_file(path)
+        if found is None:
+            raise FileNotFoundError(f"no params.msgpack or params.safetensors under {path}")
+        path = found
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return unflatten_tree(load_file(path))
+    if path.endswith(".msgpack"):
+        from aigv_assessor_torch.utils import flax_msgpack
+
+        return flax_msgpack.load(path)
+    raise ValueError(f"{path}: a JAX parameter tree is a .msgpack or a .safetensors file")
+
+
+def save_jax_params(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a tree as `load_jax_params` reads it, the container by the
+    suffix: `.msgpack` (flax's bytes) or `.safetensors` (flat; a `None`
+    leaf, which flax writes as nil, is left out)."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import save_file
+
+        flat = {k: _to_torch(x).contiguous() for k, x in flatten_tree(tree).items()
+                if x is not None}
+        save_file(flat, path)
+    elif path.endswith(".msgpack"):
+        from aigv_assessor_torch.utils import flax_msgpack
+
+        flax_msgpack.save(path, tree)
+    else:
+        raise ValueError(f"{path}: a JAX parameter tree is a .msgpack or a .safetensors file")
+
+
+@dataclasses.dataclass
+class StoredKernel:
+    """A dense kernel a tree stores quantized, in the JAX layout:
+    `kernel_int8` + `kernel_scale` (bits 8) or `kernel_int4` + `kernel_scale4`
+    (+ `kernel_in_dim`) (bits 4). `q` is int8 [..., in or ceil(in / 2),
+    out], `scale` fp32 [..., out]; a leading axis is the stacked layers."""
+
+    bits: int
+    q: torch.Tensor
+    scale: torch.Tensor
+    in_dim: int
+
+    def __len__(self) -> int:
+        return self.q.shape[0]
+
+    def __getitem__(self, layer: int) -> "StoredKernel":
+        return StoredKernel(self.bits, self.q[layer], self.scale[layer], self.in_dim)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """The float weight's [out, in]."""
+        return (self.q.shape[-1], self.in_dim)
+
+    def weight(self) -> torch.Tensor:
+        """The int8 weight of an `Int8Linear` / `Int4Linear`: `q`
+        transposed, [out, in] or [out, ceil(in / 2)]."""
+        return self.q.t().contiguous()
+
+    def dequantize(self, device) -> torch.Tensor:
+        """fp32 [out, in] on `device`, as JAX's `dequantize_kernel` /
+        `dequantize_kernel_int4` compute it."""
+        q, scale = self.weight().to(device), self.scale.to(device)
+        if self.bits == 4:
+            return int8_matmul.dequantize_kernel_int4(q, scale, self.in_dim)
+        return int8_matmul.dequantize_kernel(q, scale)
+
+
+def stored_kernels(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The tree (under `params` if it has that level) with each stored
+    quantized kernel's leaves replaced by one `kernel` leaf holding a
+    `StoredKernel`; a float tree comes back as it is."""
+    flat = flatten_tree(params.get("params", params))
+    out: Dict[str, Any] = {}
+    for key, x in flat.items():
+        prefix, _, leaf = key.rpartition("/")
+        at = f"{prefix}/" if prefix else ""
+        if leaf == "kernel_int8":
+            out[at + "kernel"] = StoredKernel(8, _to_torch(x), _to_torch(flat[at + "kernel_scale"]),
+                                              x.shape[-2])
+        elif leaf == "kernel_int4":
+            dim = flat.get(at + "kernel_in_dim")
+            out[at + "kernel"] = StoredKernel(4, _to_torch(x), _to_torch(flat[at + "kernel_scale4"]),
+                                              2 * x.shape[-2] if dim is None else int(dim))
+        elif leaf not in ("kernel_scale", "kernel_scale4", "kernel_in_dim"):
+            out[key] = x
+    return unflatten_tree(out)
+
+
+def weights_from_jax(params: Mapping[str, Any], config: AssessorConfig,
+                     parts: Optional[Tuple[str, ...]] = None) -> Dict[str, Any]:
+    """The weights of the float `AIGVAssessor(config)` from a JAX tree, for
+    `load_weights_`: `state_dict_from_jax` of `stored_kernels(params)`, each
+    stored quantized kernel left a `StoredKernel` under its weight's name,
+    every other leaf in its stored dtype. `parts`: as `state_dict_from_jax`'s."""
+    return state_dict_from_jax(stored_kernels(params), config, parts=parts)
+
+
+def jax_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """`{"params": tree}` of `model` in the JAX layout, tensors on the CPU:
+    the inverse of `state_dict_from_jax` (a dense weight [out, in] back to a
+    kernel [in, out], convolutions to HWIO / DHWIO, layers stacked on a
+    leading axis, a quantized weight to `kernel_int8` / `kernel_int4`)."""
+    state = model.state_dict()
+    layers: Dict[str, Dict[int, torch.Tensor]] = {}
+    flat: Dict[str, Any] = {}
+    for name, (path, layer) in jax_paths(model).items():
+        t = state[name].detach().cpu()
+        leaf = path.rpartition("/")[2]
+        if leaf in ("kernel", "kernel_int8", "kernel_int4"):
+            if t.ndim == 2:
+                t = t.t()
+            elif t.ndim == 4:  # OIHW -> HWIO
+                t = t.permute(2, 3, 1, 0)
+            elif t.ndim == 5:  # OIDHW -> DHWIO
+                t = t.permute(2, 3, 4, 1, 0)
+        if layer is None:
+            flat[path] = t.contiguous()
+        else:
+            layers.setdefault(path, {})[layer] = t
+            flat.setdefault(path, None)  # keep the tree's order
+    for path, by_layer in layers.items():
+        flat[path] = torch.stack([by_layer[i] for i in range(len(by_layer))]).contiguous()
+    return {"params": unflatten_tree(flat)}
+
+
+def _to_torch(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a tree read from disk (`load_jax_params`)
+        return x
     x = np.array(x)  # a writable copy: device_get hands out read-only arrays
     if x.dtype.name == "bfloat16":  # ml_dtypes, which torch.from_numpy rejects
         return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(x)
 
 
-def _convert_leaf(path: Tuple[str, ...], x: np.ndarray) -> Tuple[str, torch.Tensor]:
+def _convert_leaf(path: Tuple[str, ...], x) -> Tuple[str, torch.Tensor]:
     path = tuple(p for p in path if p != "base")
+    if isinstance(x, StoredKernel):
+        return ".".join(path[:-1] + ("weight",)), x
     name = path[-1]
     t = _to_torch(x)
     if name in ("kernel_scale", "kernel_scale4"):
@@ -126,11 +312,13 @@ def expected_shapes(
 
 
 def state_dict_from_jax(
-    params: Mapping[str, Any], config: AssessorConfig, precision: Precision = Precision()
+    params: Mapping[str, Any], config: AssessorConfig, precision: Precision = Precision(),
+    parts: Optional[Tuple[str, ...]] = None,
 ) -> Dict[str, torch.Tensor]:
     """The port's state_dict for `AIGVAssessor(config, precision)`; a
     quantized tree (JAX `quantize_for_serving(w8a8=True | int8=True |
-    int4=True)`) needs the precision that call returns."""
+    int4=True)`) needs the precision that call returns. `parts`: the tree
+    holds only these top-level subtrees (`vision_model`, ...), each whole."""
     tree = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     for path, x in _flatten(tree):
@@ -138,13 +326,15 @@ def state_dict_from_jax(
             continue
         if "layers" in path:  # scan-stacked: leading [L] axis
             i = path.index("layers")
-            for layer in range(np.shape(x)[0]):
+            for layer in range(len(x)):
                 key, t = _convert_leaf(path[: i + 1] + (str(layer),) + path[i + 1 :], x[layer])
                 out[key] = t
         else:
             key, t = _convert_leaf(path, x)
             out[key] = t
     want = expected_shapes(config, precision)
+    if parts is not None:
+        want = {k: v for k, v in want.items() if k.split(".", 1)[0] in parts}
     missing = sorted(set(want) - set(out))
     unused = sorted(set(out) - set(want))
     if missing or unused:
@@ -207,6 +397,10 @@ def serving_precision(
     flags: each flag adds to what `precision` already says; int4 goes before
     int8 when both are set; `kv_int8` composes with every weight mode; W8A8
     with a weight-only mode raises ValueError."""
+    if w8a8 and (int8 or int4):  # JAX's `quantize_for_serving` refuses the pair
+        raise ValueError(
+            "--w8a8 excludes --int8/--int4 weight streaming: w8a8 quantizes dense layers "
+            "for int8 MXU compute, the others stream int8/int4 weights into bf16 compute")
     w8a8 = w8a8 or precision.w8a8
     int4 = int4 or precision.int4_weights
     int8 = (int8 or precision.int8_weights) and not int4
@@ -263,25 +457,11 @@ def load_reference_checkpoint(path: str, config: AssessorConfig) -> Dict[str, to
     """fp32 state_dict of `AIGVAssessor(config)` from a reference-format
     checkpoint (a directory or weight files): the JAX converter's name map
     (`tools/convert_weights.convert`), then `state_dict_from_jax`. Raises
-    ValueError for a flax `params.msgpack`, FileNotFoundError where there are
-    no weights."""
+    FileNotFoundError where there are no weights."""
     from aigv_assessor_torch.tools.convert_weights import (
         convert, load_torch_state_dict, resolve_checkpoint_files)
 
-    flax_note = (f"{path}: a flax params.msgpack needs flax, which the port does not use; "
-                 "load the reference checkpoint (safetensors or .bin) it was converted from")
-    if os.path.isdir(path):
-        try:
-            files = resolve_checkpoint_files(path)
-        except FileNotFoundError:
-            if os.path.exists(os.path.join(path, "params.msgpack")):
-                raise ValueError(flax_note) from None
-            raise
-    else:
-        files = [path]
-    if any(f.endswith(".msgpack") for f in files):
-        raise ValueError(flax_note)
-    tree = convert(load_torch_state_dict(files), config)
+    tree = convert(load_torch_state_dict(resolve_checkpoint_files(path)), config)
     return {k: v.float() for k, v in state_dict_from_jax(tree, config).items()}
 
 
@@ -385,29 +565,50 @@ def init_score_head_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
+def _holds(module: torch.nn.Module, kernel: StoredKernel) -> bool:
+    """True where `module` keeps `kernel`'s bits as they are stored: int8
+    in an `Int8Linear`, int4 in an `Int4Linear` (JAX's `--int8` / `--int4`
+    over a tree that already holds them)."""
+    if kernel.bits == 4:
+        return isinstance(module, Int4Linear)
+    return type(module) is Int8Linear
+
+
 @torch.no_grad()
 def load_weights_(model: torch.nn.Module, weights: Mapping[str, torch.Tensor],
-                  seed: int) -> torch.nn.Module:
+                  seed: int, *, partial: bool = False) -> torch.nn.Module:
     """Copy `weights` (a float state_dict of `AIGVAssessor(config)`, e.g.
-    `load_reference_checkpoint`'s) into `model` in place: each base tensor
-    in `_base_leaves`' order, rounded to its parameter's dtype or quantized
-    into its layer's int8 weight (`_store_`), the rest as
-    `load_state_dict` copies it. What it lacks may only be the score head,
-    then drawn by `init_score_head_(seed + 1)`, and the LoRA adapters, then
-    drawn by `init_lora_(seed + 2)` with `lora_b` zero; any other missing or
-    unexpected key raises KeyError."""
+    `load_reference_checkpoint`'s or `weights_from_jax`'s) into `model` in
+    place: each base tensor in `_base_leaves`' order, rounded to its
+    parameter's dtype or quantized into its layer's int8 weight (`_store_`),
+    the rest as `load_state_dict` copies it. A `StoredKernel` goes into a
+    layer that holds its kind bit for bit, and into any other layer
+    dequantized to fp32 first (JAX's `quantize_for_serving` rules). What
+    `weights` lacks may only be the score head, then drawn by
+    `init_score_head_(seed + 1)`, and the LoRA adapters, then drawn by
+    `init_lora_(seed + 2)` with `lora_b` zero; any other missing or
+    unexpected key raises KeyError. `partial`: `weights` replaces only what
+    it holds (a graft over a built model) and nothing is drawn."""
     device = next(model.parameters()).device
     stored = set()
     for name, module, leaf, _ in _base_leaves(model):
         if name not in weights:
             continue
-        _store_(module, leaf, weights[name].to(device))
+        value = weights[name]
+        if isinstance(value, StoredKernel):
+            if _holds(module, value):
+                module.weight.copy_(value.weight())
+                module.weight_scale.copy_(value.scale)
+            else:
+                _store_(module, leaf, value.dequantize(device))
+        else:
+            _store_(module, leaf, value.to(device))
         stored.add(name)
         if isinstance(module, QuantizedLinear) and leaf == "weight":
             stored.add(name + "_scale")
     rest = {k: v for k, v in weights.items() if k not in stored}
     missing, unexpected = model.load_state_dict(rest, strict=False)
-    missing = [k for k in missing if k not in stored]
+    missing = [] if partial else [k for k in missing if k not in stored]
     drawn = [k for k in missing if not (is_lora_param(k) or k.startswith("mlpscore."))]
     if unexpected or drawn:
         raise KeyError(f"weights do not match the model: missing {drawn}, "

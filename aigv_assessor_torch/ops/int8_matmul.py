@@ -47,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from aigv_assessor_torch.ops.cuda_build import CudaLibrary
-from aigv_assessor_torch.ops.w8a8 import quantize_kernel
+from aigv_assessor_torch.ops.w8a8 import channel_scale, quantize_kernel
 
 Quantized = Tuple[torch.Tensor, torch.Tensor]  # (int8 weight, fp32 scale [N])
 
@@ -92,7 +92,7 @@ def quantize_kernel_int4(w: torch.Tensor) -> Quantized:
     absmax / 7 where absmax > 0, else 1.0."""
     wf = w.float()
     absmax = wf.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / 7.0, 1.0)
+    scale = channel_scale(absmax, 7.0)
     q = torch.round(wf / scale).clamp(-7, 7).to(torch.int16)
     if q.shape[1] % 2:
         q = torch.nn.functional.pad(q, (0, 1))

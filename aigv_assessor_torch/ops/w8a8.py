@@ -36,13 +36,22 @@ def quantize_rows(x: torch.Tensor) -> Quantized:
     return xq, sx
 
 
+def channel_scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """absmax / qmax where absmax > 0, else 1.0, by IEEE division on every
+    device: a Python-number divisor makes a CUDA tensor's division a product
+    with its reciprocal, one ulp off the quotient in some channels, so a
+    weight quantized on the card would not be the one JAX (or the CPU)
+    stores."""
+    return torch.where(absmax > 0, absmax / torch.full_like(absmax, qmax), 1.0)
+
+
 def quantize_kernel(w: torch.Tensor) -> Quantized:
     """Per-output-channel symmetric int8 of a float weight [out, in]: the
     scale is absmax / 127 where absmax > 0, else 1.0 (not the activations'
     1e-8 floor). Returns (int8 [out, in], fp32 [out])."""
     wf = w.float()
     absmax = wf.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    scale = channel_scale(absmax, 127.0)
     q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale[:, 0]
 

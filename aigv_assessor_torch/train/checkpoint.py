@@ -4,8 +4,8 @@
   one safetensors file keyed by the JAX path names
   (`vision_model/layers/attn/qkv/lora_a`, ...), each holding the layers
   stacked on a leading axis as the JAX tree holds them. The JAX package
-  writes the same arrays as msgpack, which needs flax, each key under
-  `params/`.
+  writes the same arrays as flax msgpack, each key under `params/`
+  (`utils/flax_msgpack.py` reads and writes that format).
 - `save_trainable_weights`: any set of parameters (stage 1: `mlp1` and
   `motion_mlp`) the same way, in the JAX tree's layout (a dense kernel
   [in, out]).

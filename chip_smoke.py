@@ -325,8 +325,38 @@ Phases, each printing one line or more (and failing the run by raising):
     resized, 577 tokens padded to 584) and at select_layer -2: launches and
     the output against the plain attention (READOUT_TOL).
 
+14. Checkpoints and frames from disk, at 2B, bf16, every artifact under one
+    temporary directory (free space printed first), each deleted after its
+    check; the phase's wall time printed against PHASE14_BUDGET_S.
+    (a) phase 10's 640x360 mp4 frames decoded at their own size,
+    and a RESIZE_HD batch, through `resize_normalize(size=448)` on the card
+    against the same call on the CPU (fp32 within RESIZE_FP32_TOL; bf16
+    equal or one ulp in at most RESIZE_BF16_ULP_SHARE of the elements); one
+    chunk scored from the mp4 frames (48 K1 launches); ms a chunk.
+    (b) the model drawn from seed 0 in fp32, its JAX tree written as
+    `params.safetensors` with config.json and tokenizer.json:
+    `cli.score.main --model_name_or_path` on phase 10's videos bit-equal to
+    the same call drawing from the seed (score head opened in both);
+    start-up from the file (read; build with the weights on the card); a
+    reference-format sharded bf16 checkpoint through `reference_state_dict`
+    and `write_sharded_safetensors`: `load_reference_checkpoint` and build.
+    (c) `tools.convert_to_int8` at 8 and 4 bits on (b)'s file, served under
+    `--int8` / `--int4`: readouts bit-equal to the in-memory build from the
+    fp32 file, 120 K6 / K7 launches; the int8 file under `--w8a8`: bit-equal
+    to JAX's dequantize-then-quantize computed on the host, K1 `bsd` 48 and
+    K4a-c as phase 5.
+    (d) at PHASE14_CUT layers per tower: phase 13a's LoRA checkpoint
+    (`lora_reference`) as a JAX tree through `tools.merge_lora` (on the
+    card), served without adapters: readout bit-equal to 13a's in-memory
+    merged control (`merged_checkpoint`).
+    (e) at PHASE14_CUT layers per tower: `tools.extract_vit`, `extract_mlp`
+    and `replace_llm` on an fp32 tree's file, grafted by `--vision_path` /
+    `--llm_path` / `--mlp_path` over the seed-1 model: readout bit-equal to
+    seed 1's weights with the tree's three subtrees (the score head and
+    SlowFast stay seed 1's).
+
 Then one JSON line describing the kernels (the K1, K3 and K4a-c entries
-also with their launches on the paths of phases 7c, 12 and 13), and last
+also with their launches on the paths of phases 7c, 12, 13 and 14), and last
 {"ok": true, "device": {...}}. The line before them gives the whole run's
 seconds. Imports nothing of JAX.
 """
@@ -3795,6 +3825,452 @@ def run_vit_grids(cfg, device, smi, *, n_vit: int) -> dict:
     return out
 
 
+# phase 14: checkpoints and frames from disk
+PHASE14_BUDGET_S = 180  # the phase's wall-time target
+PHASE14_SCALE = "2b"  # the --model_scale of phase 14's model
+# 14d-e run at this depth per tower (phase 13's DEPTH_CUT): their files at
+# full depth would hold the phase far over PHASE14_BUDGET_S
+PHASE14_CUT = 2
+RESIZE_FP32_TOL = 1e-6  # card against CPU, the normalized fp32 frames
+RESIZE_BF16_ULP_SHARE = 1e-4  # bf16 elements one ulp from the CPU's at most
+RESIZE_HD = (720, 1280)  # the second batch's frame size (H, W)
+
+
+def readout(model, ids, pv, mask) -> torch.Tensor:
+    """The score head's input of one forward (the first perspective)."""
+    with torch.inference_mode():
+        return model(ids[:, 0], pv.to(model.precision.compute_dtype), mask[:, 0])["readout"].float()
+
+
+def remove(*paths) -> None:
+    """Delete artifacts (files or directories) after their check."""
+    import shutil
+
+    for p in paths:
+        if os.path.isdir(p):
+            shutil.rmtree(p)
+        elif os.path.exists(p):
+            os.remove(p)
+
+
+def run_resize(device, smi, ids, mask, *, n_vit: int, n_llm: int) -> dict:
+    """Phase 14a: phase 10's mp4 frames decoded at their own 640x360 and a
+    720x1280 batch through `resize_normalize(size=448)` on the card against
+    the same call on the CPU (fp32 within RESIZE_FP32_TOL; bf16 equal or one
+    ulp in at most RESIZE_BF16_ULP_SHARE of the elements); one chunk scored
+    from the resized frames (48 K1 launches); ms per chunk of the resize."""
+    from aigv_assessor_torch.cli.common import build_serving_model
+    from aigv_assessor_torch.data.video import load_video
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    with tempfile.TemporaryDirectory() as d:
+        write_cli_videos(d)
+        clips = [np.stack([np.asarray(f.convert("RGB")) for f in
+                           load_video(os.path.join(d, f"video{i}.mp4"), num_segments=FRAMES)])
+                 for i in range(BATCH)]
+    rng = np.random.default_rng(14)
+    batches = {f"{CLI_SIZE[1]}x{CLI_SIZE[0]}": np.stack(clips),
+               f"{RESIZE_HD[0]}x{RESIZE_HD[1]}": rng.integers(
+                   0, 256, (BATCH, FRAMES, *RESIZE_HD, 3), dtype=np.uint8)}
+    out, cards = {}, {}
+    for label, frames in batches.items():
+        cpu = torch.from_numpy(frames)
+        card = cards[label] = cpu.to(device)
+        f32 = resize_normalize(card, size=IMAGE, dtype=torch.float32)
+        ref32 = resize_normalize(cpu, size=IMAGE, dtype=torch.float32)
+        err = (f32.cpu() - ref32).abs().max().item()
+        b16 = resize_normalize(card, size=IMAGE, dtype=torch.bfloat16).cpu()
+        ref16 = resize_normalize(cpu, size=IMAGE, dtype=torch.bfloat16)
+        diff = (b16.view(torch.int16).int() - ref16.view(torch.int16).int()).abs()
+        share = (diff > 0).float().mean().item()
+        if (tuple(f32.shape) != (BATCH, FRAMES, IMAGE, IMAGE, 3) or not err <= RESIZE_FP32_TOL
+                or diff.max().item() > 1 or not share <= RESIZE_BF16_ULP_SHARE):
+            raise RuntimeError(f"resize {label}: shape {tuple(f32.shape)}, fp32 card vs CPU "
+                               f"{err} (tol {RESIZE_FP32_TOL}), bf16 {diff.max().item()} ulp "
+                               f"in {share} of the elements")
+        ms = time_ms(lambda: resize_normalize(card, size=IMAGE, dtype=torch.bfloat16), 10)
+        out[label] = dict(err=err, share=share, ms=ms)
+    cfg = phase14_config()
+    model = build_serving_model(cfg, device=device, seed=0)
+    ids = phase14_prompt(ids, cfg.img_context_token_id)
+    label = next(iter(batches))
+    pv = resize_normalize(cards[label], size=IMAGE, dtype=torch.bfloat16)
+    del cards
+    readout(model, ids, pv, mask)  # warm-up
+    fa.flash_attention_qkv.launches = 0
+    r = readout(model, ids, pv, mask)
+    launches = fa.flash_attention_qkv.launches
+    if launches != n_vit + n_llm or not torch.isfinite(r).all():
+        raise RuntimeError(f"resize: the chunk launched K1 {launches} times (expected "
+                           f"{n_vit + n_llm}); readout finite {bool(torch.isfinite(r).all())}")
+    out["chunk_launches"] = launches
+    del model
+    torch.cuda.empty_cache()
+    phase("ckpt", "14a resize_normalize(size=448) on the card, " + "; ".join(
+        f"{BATCH} x {FRAMES} frames at {k}: {v['ms']:.3f} ms a chunk (bf16 out), fp32 card vs "
+        f"CPU {v['err']:.2e} (tol {RESIZE_FP32_TOL}), bf16 one ulp in {v['share']:.2e} of the "
+        f"elements (tol {RESIZE_BF16_ULP_SHARE})" for k, v in out.items() if k in batches)
+        + f"; one chunk scored from the {label} mp4 frames: {launches} K1 launches [{smi}]")
+    return out
+
+
+def phase14_config(layers=None):
+    """The config the score CLI builds with `--model_scale PHASE14_SCALE`
+    (its `<IMG_CONTEXT>` id the test tokenizer's), with `layers` per tower
+    where given."""
+    from aigv_assessor_torch.cli import common
+
+    cfg = common.config_and_tokenizer(common.serving_args(model_scale=PHASE14_SCALE), 2)[0]
+    if layers is None:
+        return cfg
+    return cfg.replace(vision=dataclasses.replace(cfg.vision, num_hidden_layers=layers),
+                       llm=dataclasses.replace(cfg.llm, num_hidden_layers=layers))
+
+
+def phase14_prompt(ids: torch.Tensor, ctx: int) -> torch.Tensor:
+    """The synthetic prompts with the `<IMG_CONTEXT>` slots (CTX) holding
+    `ctx`, and no other token equal to it."""
+    out = torch.where(ids == ctx, torch.full_like(ids, 10), ids)
+    return torch.where(ids == CTX, torch.full_like(ids, ctx), out)
+
+
+def run_checkpoint_files(device, smi, work: str, ids, mask, px_u8, *, n_vit: int,
+                         n_llm: int) -> dict:
+    """Phase 14b-c in `work` (each artifact deleted after its check): the
+    2B model's fp32 JAX tree as `params.safetensors` served by
+    `cli.score.main` against the seed, and its start-up; `tools.convert_to_int8`
+    files served under --int8 / --int4 / --w8a8; a reference-format bf16
+    checkpoint's start-up (its numpy draw on a host thread meanwhile)."""
+    from aigv_assessor_torch.cli import common
+    from aigv_assessor_torch.cli import score
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.data.tokenizer import build_test_tokenizer
+    from aigv_assessor_torch.models.assessor import AIGVAssessor
+    from aigv_assessor_torch.models.loading import (
+        jax_tree, load_jax_params, load_reference_checkpoint, save_jax_params,
+        state_dict_from_jax)
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import int8_matmul as wo
+    from aigv_assessor_torch.ops import quant_fuse as qf
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+    from aigv_assessor_torch.tools import convert_to_int8, make_synthetic_ckpt
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = {}
+    cfg = phase14_config()
+    tok = build_test_tokenizer()
+    ids = phase14_prompt(ids, cfg.img_context_token_id)
+    pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.bfloat16)
+
+    def draw_reference():
+        """The reference-format tensors from seed 0 (numpy, one host core),
+        drawn beside 14b-c's card work -> (state dict, seconds)."""
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        sd = make_synthetic_ckpt.reference_state_dict(cfg, rng)
+        sd.update(make_synthetic_ckpt.slowfast_state_dict(cfg, rng))
+        return sd, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    drawn = pool.submit(draw_reference)
+
+    # 14b: the fp32 tree to disk, then the CLI from it and from the seed
+    t_b = time.perf_counter()
+    ckpt = os.path.join(work, "fp32")
+    os.makedirs(ckpt)
+    t0 = time.perf_counter()
+    model = common.build_serving_model(cfg, device=device, precision=Precision.fp32(), seed=0)
+    tree = jax_tree(model)
+    del model
+    torch.cuda.empty_cache()
+    tree_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_jax_params(os.path.join(ckpt, "params.safetensors"), tree)
+    del tree
+    make_synthetic_ckpt.write_config_and_tokenizer(cfg, tok, ckpt)
+    write_s = time.perf_counter() - t0
+    file_gb = os.path.getsize(os.path.join(ckpt, "params.safetensors")) / 1e9
+    with tempfile.TemporaryDirectory(dir=work) as videos:
+        write_cli_videos(videos)
+        rows = {}
+        build = common.build_serving_model
+        with mock.patch.object(common, "build_serving_model",
+                               lambda *a, **kw: opened_score_head(build(*a, **kw))):
+            for label, flags in (("seed", []), ("params", ["--model_name_or_path", ckpt])):
+                argv = ["--videos", videos, "--batch_size", str(BATCH), "--num_segments",
+                        str(FRAMES), "--out", os.path.join(videos, f"{label}.csv"),
+                        "--device", str(device), "--model_scale", PHASE14_SCALE, *flags]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rows[label] = [r[1:] for r in score.main(argv)]
+    if rows["params"] != rows["seed"] or not np.any(np.asarray(rows["seed"])):
+        raise RuntimeError(f"14b: scores from params.safetensors {rows['params']} are not the "
+                           f"seed's {rows['seed']}")
+    # start-up alone: read, build, weights on the card
+    args = common.serving_args(ckpt, PHASE14_SCALE)
+    t0 = time.perf_counter()
+    weights = common.model_weights(args, cfg)
+    read_s = time.perf_counter() - t0
+    model = common.build_serving_model(cfg, device=device, seed=0, weights=weights)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0 - read_s
+    del model  # `weights`, the file's, stay for 14c's in-memory builds
+    torch.cuda.empty_cache()
+    out["startup"] = dict(read_s=read_s, build_s=build_s)
+    phase("ckpt", f"14b the 2B model's fp32 JAX tree ({file_gb:.2f} GB params.safetensors, "
+          f"drawn on the card and copied to the host in {tree_s:.1f} s, written with config.json "
+          f"and tokenizer.json in {write_s:.1f} s): cli.score.main --model_name_or_path gives the "
+          f"seed's scores bit for bit on {len(rows['seed'])} videos; start-up from it: read "
+          f"{read_s:.2f} s, build and weights on the card {build_s:.2f} s; "
+          f"{time.perf_counter() - t_b:.1f} s in all [{smi}]")
+
+    # 14c: stored int8 / int4 trees
+    counters = (fa.flash_attention_qkv, fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
+                qf.layernorm_quant, qf.gelu_quant, qf.quant_rows, qf.rmsnorm_quant,
+                qf.silu_mul_quant)
+
+    def served(path, **mode):
+        """(readout, launches of one forward) of the serving stack on `path`."""
+        _, m, _ = common.build_serving_stack(path, model_scale=PHASE14_SCALE, device=device,
+                                             **mode)
+        readout(m, ids, pv, mask)  # warm-up
+        for c in counters:
+            c.launches = 0
+        r = readout(m, ids, pv, mask)
+        counts = {c.__name__: c.launches for c in counters if c.launches}
+        del m
+        torch.cuda.empty_cache()
+        return r, counts
+
+    t_c = time.perf_counter()
+    for bits in (8, 4):
+        qdir = os.path.join(work, f"int{bits}")
+        os.makedirs(qdir)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_to_int8.main(["--params", os.path.join(ckpt, "params.safetensors"),
+                                  "--out", os.path.join(qdir, "params.safetensors"),
+                                  "--bits", str(bits)])
+        make_synthetic_ckpt.write_config_and_tokenizer(cfg, tok, qdir)
+        convert_s = time.perf_counter() - t0
+        mode = {f"int{bits}": True}
+        r_file, counts = served(qdir, **mode)
+        in_memory = common.build_serving_model(cfg, device=device, seed=0, weights=weights,
+                                               **mode)
+        r_mem = readout(in_memory, ids, pv, mask)
+        del in_memory
+        torch.cuda.empty_cache()
+        want = {"flash_attention_qkv": n_vit, "flash_attention": n_llm,
+                f"int{bits}_matmul": 5 * n_llm}
+        if not torch.equal(r_file, r_mem) or counts != want:
+            raise RuntimeError(f"14c int{bits}: the stored file's readout differs from the "
+                               f"in-memory build's by {(r_file - r_mem).abs().max().item()}; "
+                               f"launches {counts}, expected {want}")
+        out[f"int{bits}"] = dict(convert_s=convert_s, counts=counts,
+                                 file_gb=os.path.getsize(os.path.join(qdir, "params.safetensors"))
+                                 / 1e9)
+        if bits == 8:  # --w8a8 over the int8 file, against the host's dequantize-then-quantize
+            r_w8, counts8 = served(qdir, w8a8=True)
+            host = convert_to_int8.dequantize_tree(load_jax_params(qdir))
+            with contextlib.redirect_stdout(io.StringIO()):
+                host = convert_to_int8.quantize_tree(
+                    host, scope=("language_model", "vision_model"), exclude=("output", "o_proj"),
+                    only_base=True)
+            w8a8 = Precision(w8a8=True)
+            with torch.device("meta"):
+                control = AIGVAssessor(cfg, w8a8)
+            control = control.to(torch.bfloat16).to_empty(device=device)
+            control.load_state_dict(state_dict_from_jax(host, cfg, w8a8), strict=True)
+            del host
+            r_host = readout(control.eval(), ids, pv, mask)
+            del control
+            torch.cuda.empty_cache()
+            want8 = {"flash_attention_qkv": n_vit + n_llm, "layernorm_quant": 2 * n_vit,
+                     "gelu_quant": n_vit, "quant_rows": n_vit}
+            if not torch.equal(r_w8, r_host) or counts8 != want8:
+                raise RuntimeError(f"14c --w8a8 over the int8 file: readout "
+                                   f"{(r_w8 - r_host).abs().max().item()} from the host's "
+                                   f"dequantize-then-quantize; launches {counts8}, expected "
+                                   f"{want8}")
+            out["w8a8"] = dict(counts=counts8)
+        remove(qdir)
+    phase("ckpt", f"14c tools.convert_to_int8 on 14b's file: --bits 8 "
+          f"({out['int8']['file_gb']:.2f} GB, {out['int8']['convert_s']:.1f} s) served under "
+          f"--int8 bit-equal to the in-memory int8 build, launches {out['int8']['counts']}; "
+          f"--bits 4 ({out['int4']['file_gb']:.2f} GB, {out['int4']['convert_s']:.1f} s) under "
+          f"--int4 bit-equal, launches {out['int4']['counts']}; the int8 file under --w8a8 "
+          f"bit-equal to JAX's dequantize-then-quantize on the host, launches "
+          f"{out['w8a8']['counts']}; {time.perf_counter() - t_c:.1f} s in all [{smi}]")
+    del weights
+    remove(ckpt)
+
+    # 14b, the reference format: sharded bf16 safetensors under the
+    # reference's names, drawn beside the steps above
+    t_r = time.perf_counter()
+    sd, draw_s = drawn.result()
+    pool.shutdown()
+    wait_s = time.perf_counter() - t_r
+    ref_dir = os.path.join(work, "reference")
+    os.makedirs(ref_dir)
+    t0 = time.perf_counter()
+    make_synthetic_ckpt.write_sharded_safetensors(sd, ref_dir, n_shards=4)
+    make_synthetic_ckpt.write_config_and_tokenizer(cfg, tok, ref_dir)
+    del sd
+    ref_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    weights = load_reference_checkpoint(ref_dir, cfg)
+    ref_read_s = time.perf_counter() - t0
+    model = common.build_serving_model(cfg, device=device, seed=0, weights=weights)
+    torch.cuda.synchronize()
+    ref_build_s = time.perf_counter() - t0 - ref_read_s
+    if not torch.isfinite(readout(model, ids, pv, mask)).all():
+        raise RuntimeError("14b: the reference-format checkpoint's readout is not finite")
+    del model, weights
+    remove(ref_dir)
+    torch.cuda.empty_cache()
+    out["startup"].update(ref_read_s=ref_read_s, ref_build_s=ref_build_s)
+    phase("ckpt", f"14b a reference-format bf16 checkpoint of the 2B model (4 shards; numpy drew "
+          f"it in {draw_s:.1f} s on a host thread beside 14b-c, {wait_s:.1f} s waited for; "
+          f"written in {ref_write_s:.1f} s): start-up load_reference_checkpoint "
+          f"{ref_read_s:.2f} s, build and weights on the card {ref_build_s:.2f} s; "
+          f"{time.perf_counter() - t_r:.1f} s in all [{smi}]")
+    return out
+
+
+def run_grafts(device, smi, work: str, ids, mask, px_u8, *, layers: int) -> None:
+    """Phase 14e at `layers` per tower: a model's fp32 tree on disk through
+    `tools.extract_vit`, `extract_mlp` and `replace_llm`, the parts grafted
+    by `--vision_path` / `--llm_path` / `--mlp_path` over the seed-1 model
+    (a directory with the config alone): readout bit-equal to seed 1's
+    weights with the tree's three subtrees."""
+    from aigv_assessor_torch.cli import common
+    from aigv_assessor_torch.cli.args import parse_args
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.data.tokenizer import build_test_tokenizer
+    from aigv_assessor_torch.models.loading import jax_tree, save_jax_params, state_dict_from_jax
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+    from aigv_assessor_torch.tools import (
+        extract_mlp, extract_vit, make_synthetic_ckpt, replace_llm)
+
+    cfg = phase14_config(layers)
+    tok = build_test_tokenizer()
+    ids = phase14_prompt(ids, cfg.img_context_token_id)
+    pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.bfloat16)
+    src, base = os.path.join(work, "graft_src.safetensors"), os.path.join(work, "graft_base")
+    os.makedirs(base)
+    make_synthetic_ckpt.write_config_and_tokenizer(cfg, tok, base)  # no weights: the seed
+    model = common.build_serving_model(cfg, device=device, precision=Precision.fp32(), seed=0)
+    tree = jax_tree(model)
+    del model
+    save_jax_params(src, tree)
+    t0 = time.perf_counter()
+    parts = {name: os.path.join(work, f"{name}.safetensors") for name in ("vit", "mlp", "llm")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        extract_vit.main(["--params", src, "--out", parts["vit"]])
+        extract_mlp.main(["--params", src, "--out", parts["mlp"]])
+        replace_llm.main(["--params", parts["mlp"], "--llm_params", src, "--out", parts["llm"]])
+    tools_s = time.perf_counter() - t0
+    argv = ["--meta_path", "unused", "--model_name_or_path", base, "--seed", "1", "--device",
+            str(device), "--vision_path", parts["vit"], "--llm_path", parts["llm"],
+            "--mlp_path", parts["mlp"]]
+    _, grafted, _ = common.build_model_and_tokenizer(parse_args("graft", argv), 2)
+    r_graft = readout(grafted, ids, pv, mask)
+    del grafted
+    # the control: seed 1's fp32 weights with the three subtrees of the tree
+    seed1 = common.build_serving_model(cfg, device=device, precision=Precision.fp32(), seed=1)
+    weights = dict(seed1.state_dict())
+    del seed1
+    names = ("vision_model.", "language_model.", "mlp1.", "motion_mlp.")
+    weights.update({k: v for k, v in state_dict_from_jax(tree, cfg).items()
+                    if k.startswith(names)})
+    control = common.build_serving_model(cfg, device=device, seed=1, weights=weights)
+    del weights
+    r_ctrl = readout(control, ids, pv, mask)
+    del control
+    torch.cuda.empty_cache()
+    remove(src, base, *parts.values())
+    if not torch.equal(r_graft, r_ctrl) or not torch.isfinite(r_graft).all():
+        raise RuntimeError(f"14e: the grafted model's readout is "
+                           f"{(r_graft - r_ctrl).abs().max().item()} from the control's")
+    phase("ckpt", f"14e at {layers} layers per tower: tools.extract_vit, extract_mlp, "
+          f"replace_llm on the fp32 tree's file in {tools_s:.1f} s; --vision_path / --llm_path "
+          f"/ --mlp_path over the seed-1 model: readout bit-equal to seed 1's weights with the "
+          f"tree's three subtrees (the score head and SlowFast stay seed 1's) [{smi}]")
+
+
+def run_merge_tool(device, smi, work: str, ids, mask, px_u8, *, layers: int) -> dict:
+    """Phase 14d at `layers` per tower: phase 13a's LoRA checkpoint
+    (`lora_reference`) as a JAX tree on disk, `tools.merge_lora` on it, the
+    result served without adapters (bf16): its readout bit-equal to 13a's
+    in-memory merged control's (`merged_checkpoint`)."""
+    from aigv_assessor_torch.cli.common import build_serving_model
+    from aigv_assessor_torch.models.loading import (
+        jax_tree, load_jax_params, save_jax_params, weights_from_jax)
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+    from aigv_assessor_torch.tools import merge_lora
+
+    cfg = phase14_config(layers)
+    ids = phase14_prompt(ids, cfg.img_context_token_id)
+    ref, lcfg = lora_reference(cfg, device)
+    merged = merged_checkpoint(ref, lcfg, device)
+    pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.bfloat16)
+    src, dst = os.path.join(work, "lora.safetensors"), os.path.join(work, "merged.safetensors")
+    t0 = time.perf_counter()
+    save_jax_params(src, jax_tree(ref))
+    del ref
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        merge_lora.main(["--params", src, "--out", dst])
+    merge_s = time.perf_counter() - t0
+    model = build_serving_model(merged[0], device=device, seed=0,
+                                weights=weights_from_jax(load_jax_params(dst), merged[0]))
+    r_tool = readout(model, ids, pv, mask)
+    del model
+    control = build_serving_model(merged[0], device=device, seed=0, weights=merged[1])
+    del merged
+    r_ctrl = readout(control, ids, pv, mask)
+    del control
+    torch.cuda.empty_cache()
+    remove(src, dst)
+    if not torch.equal(r_tool, r_ctrl) or not torch.isfinite(r_tool).all():
+        raise RuntimeError(f"14d: the merge tool's checkpoint gives a readout "
+                           f"{(r_tool - r_ctrl).abs().max().item()} from merge_lora_'s")
+    phase("ckpt", f"14d at {layers} layers per tower: phase 13a's LoRA checkpoint (r = "
+          f"{LORA_RANK}, lora_b ~N(0, {LORA_B_STD})) written as a JAX tree in {write_s:.1f} s, "
+          f"tools.merge_lora on the card in {merge_s:.1f} s (read, merge, write); served "
+          f"without adapters in bf16: readout bit-equal to merge_lora_'s in-memory control "
+          f"[{smi}]")
+    return dict(write_s=write_s, merge_s=merge_s)
+
+
+def run_phase14(device, smi, ids, mask, px_u8, *, n_vit: int, n_llm: int) -> dict:
+    """Phase 14: 14a-c at full depth, 14d-e at PHASE14_CUT layers per tower,
+    every artifact under one temporary directory (its free space printed
+    first) that is removed at the end."""
+    import shutil
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="aigv_phase14_")
+    free = shutil.disk_usage(work)
+    phase("ckpt", f"14 artifacts under {work}: {free.free / 1e9:.1f} GB free of "
+          f"{free.total / 1e9:.1f} GB")
+    try:
+        out = dict(resize=run_resize(device, smi, ids, mask, n_vit=n_vit, n_llm=n_llm),
+                   files=run_checkpoint_files(device, smi, work, ids, mask, px_u8,
+                                              n_vit=n_vit, n_llm=n_llm),
+                   merge=run_merge_tool(device, smi, work, ids, mask, px_u8,
+                                        layers=PHASE14_CUT))
+        run_grafts(device, smi, work, ids, mask, px_u8, layers=PHASE14_CUT)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    phase("ckpt", f"14 the phase's wall time {out['wall_s']:.1f} s (target {PHASE14_BUDGET_S} "
+          f"s; 14d-e at {PHASE14_CUT} layers per tower), every artifact deleted [{smi}]")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4222,6 +4698,11 @@ def main() -> int:
     # 12. the HTTP scoring service at 2B, bf16 and W8A8
     served = run_serve(device, smi, n_vit=n_vit, n_llm=n_llm)
 
+    # 14. frames resized on the card; checkpoints and stored quantized trees
+    # from disk, the merge tool, the grafts: every artifact under one
+    # temporary directory
+    phase14 = run_phase14(device, smi, ids, mask, px_u8, n_vit=n_vit, n_llm=n_llm)
+
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
     # forward, or one training micro-batch) at the path's shapes; the
@@ -4503,6 +4984,23 @@ def main() -> int:
             "internvl2_26b_w8a8 (13d)": bq["w8a8"][counter]})
     by_path["decode_attention"] = {
         "lora_generate (13c)": lora_gen["live"]["counts"]["cached_decode_attention"]}
+    # phase 14's paths (one forward each): frames resized on the card, the
+    # stored int8 / int4 files, the int8 file under --w8a8
+    fq = {mode: phase14["files"][mode]["counts"] for mode in ("int8", "int4", "w8a8")}
+    by_path["flash_attn_qkv_fwd"].update({
+        "resized_frames (14a)": phase14["resize"]["chunk_launches"],
+        "int8_file (14c, ViT)": fq["int8"]["flash_attention_qkv"],
+        "int4_file (14c, ViT)": fq["int4"]["flash_attention_qkv"]})
+    by_path["flash_attn_qkv_fwd_bsd"]["int8_file_w8a8 (14c)"] = fq["w8a8"]["flash_attention_qkv"]
+    by_path["flash_attn_fwd"].update({
+        "int8_file (14c, decoder)": fq["int8"]["flash_attention"],
+        "int4_file (14c, decoder)": fq["int4"]["flash_attention"]})
+    for bits in (8, 4):
+        by_path[f"weight_only_int{bits}_matmul"][f"int{bits}_file (14c)"] = (
+            fq[f"int{bits}"][f"int{bits}_matmul"])
+    for kernel, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
+                            ("ident_quant", "quant_rows")):
+        by_path[kernel]["int8_file_w8a8 (14c)"] = fq["w8a8"][counter]
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]
         if k["name"] in by_path:

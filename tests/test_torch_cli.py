@@ -13,7 +13,9 @@ config.json, tokenizer.json) at the tiny stage-2 scale.
   switch parsing equal;
 - `AssessorConfig.from_dict` field for field against JAX's;
 - `load_reference_checkpoint` bit-equal, key for key, to
-  `state_dict_from_jax` of the JAX converter's tree; the port loaded from the
+  `state_dict_from_jax` of the JAX converter's tree, and so is that tree
+  written as flax's `params.msgpack` and read through `model_weights`; the
+  port loaded from the
   checkpoint against JAX's `score_perspectives` on the converted params and
   the same uint8 frames under each `normalize_type` (fp32, 2e-4, the slice
   tolerance of tests/test_torch_models.py);
@@ -30,6 +32,7 @@ import csv
 import dataclasses
 import json
 import os
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -261,8 +264,18 @@ def test_load_reference_checkpoint_equals_jax_converter(ckpt, tmp_path):
     for k, v in want.items():
         assert got[k].dtype == torch.float32, k
         assert torch.equal(got[k], v.float()), k
-    (tmp_path / "params.msgpack").write_bytes(b"")
-    with pytest.raises(ValueError, match="flax"):
+    # the JAX tree of the same weights as flax's params.msgpack: read without
+    # flax through `model_weights` (a directory holding a JAX tree loads it)
+    from flax import serialization
+
+    tree = convert(load_torch_state_dict([d]), cfg)
+    (tmp_path / "params.msgpack").write_bytes(serialization.msgpack_serialize(tree))
+    args = SimpleNamespace(model_name_or_path=str(tmp_path), seed=0)
+    from_tree = t_common.model_weights(args, port_cfg)
+    assert set(from_tree) == set(want)
+    for k, v in want.items():
+        assert torch.equal(from_tree[k], v), k
+    with pytest.raises(FileNotFoundError):  # no reference weights beside the tree
         load_reference_checkpoint(str(tmp_path), port_cfg)
     with pytest.raises(FileNotFoundError):
         load_reference_checkpoint(str(tmp_path / "empty_dir_that_is_missing"), port_cfg)

@@ -23,7 +23,8 @@ seed), the meta JSONs that point at them, and a meta with two entries.
   SCORE_TOL of JAX, fused within SCORE_TOL of solo; a prefix one token too
   long fails that bound. `--eval_w8a8` with the adapters: the fused eval
   within W8A8_SCORE_TOL of JAX's, which the build that merges the adapters
-  before quantizing misses.
+  before quantizing misses. `--vision_path` grafts a tower: the run's own
+  seeded tower gives its scores exactly, another seed's tower others.
 
 One JAX run per CLI mode, shared through module-scoped fixtures.
 """
@@ -52,7 +53,7 @@ from aigv_assessor_torch.data import sampler as t_smp
 from aigv_assessor_torch.data import storage as t_sto
 from aigv_assessor_torch.data import tokenizer as t_tok
 from aigv_assessor_torch.models.assessor import AIGVAssessor as TorchAssessor
-from aigv_assessor_torch.models.loading import state_dict_from_jax
+from aigv_assessor_torch.models.loading import jax_tree, save_jax_params, state_dict_from_jax
 from aigv_assessor_torch.models.lora import lora_free_state_dict, merge_lora_
 from aigv_assessor_torch.train import evaluate as t_ev
 from aigv_assessor_tpu.cli import args as j_args
@@ -529,8 +530,20 @@ def test_fused_eval_rejects_mismatched_videos_and_runs_w8a8(metas, tokenizers, c
     assert b.shape == q.shape == (2, N_VIDEOS) and np.isfinite(q).all()
     spread = np.abs(b).max() or 1.0
     assert np.abs(b - q).max() <= 0.15 * spread + 0.05
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_stage2.main(base + ["--output_dir", str(tmp_path / "x"), "--vision_path", "v.msgpack"])
+    # `--vision_path` grafts a tower: the run's own seeded tower gives the same
+    # scores, another seed's tower other scores
+    seed = t_args.parse_args("eval", base + ["--output_dir", "unused"]).seed
+    for tower_seed in (seed, seed + 7):
+        tower = t_common.build_serving_model(cfg, device="cpu", precision=Precision.fp32(),
+                                             seed=tower_seed)
+        part = tmp_path / f"vit{tower_seed}.msgpack"
+        save_jax_params(str(part), {"params": {"vision_model":
+                                               jax_tree(tower)["params"]["vision_model"]}})
+        out = tmp_path / f"graft{tower_seed}"
+        t_stage2.main(base + ["--output_dir", str(out), "--vision_path", str(part)])
+        grafted = [[float(r[3]) for r in read_csv(out / f"results_p{p}.csv")[1:]]
+                   for p in (1, 2)]
+        assert (grafted == scores["fp32"]) == (tower_seed == seed), tower_seed
 
 
 

@@ -102,7 +102,12 @@ def test_port_imports_without_jax():
         "               'ops.fp8_matmul', 'tools.fp8_decode_probe', 'cli.args',\n"
         "               'cli.common', 'cli.stage1_eval', 'cli.stage2_eval',\n"
         "               'train.evaluate', 'data.dataset', 'data.collator',\n"
-        "               'data.sampler', 'data.loader', 'data.storage'):\n"
+        "               'data.sampler', 'data.loader', 'data.storage',\n"
+        "               'utils.flax_msgpack', 'tools.merge_lora', 'tools.extract_vit',\n"
+        "               'tools.extract_mlp', 'tools.replace_llm', 'tools.resize_pos_embed',\n"
+        "               'tools.convert_to_int8', 'tools.json2jsonl', 'tools.jsonl2jsonl',\n"
+        "               'tools.convert_parquet', 'tools.extract_video_frames',\n"
+        "               'tools.make_synthetic_ckpt'):\n"
         "    assert 'aigv_assessor_torch.' + needed in names, needed\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -327,11 +332,21 @@ def test_normalize_matches_identity_resize(normalize_type):
 @pytest.mark.parametrize(
     "shape,dtype,exc",
     [
-        ((2, 28, 30, 3), torch.uint8, NotImplementedError),  # not square
-        ((2, 32, 32, 3), torch.uint8, NotImplementedError),  # needs a resize
+        ((2, 28, 30, 3), torch.uint8, None),  # not square: resized, as JAX
+        ((2, 32, 32, 3), torch.uint8, None),  # another size: resized, as JAX
         ((2, 28, 28, 3), torch.float32, ValueError),  # not uint8
     ],
 )
 def test_normalize_rejects(shape, dtype, exc):
-    with pytest.raises(exc):
-        tpre.resize_normalize(torch.zeros(shape, dtype=dtype), size=28)
+    """Frames that are not uint8 raise; frames of another size than the
+    model's are resized (tests/test_torch_resize.py holds the resize to JAX
+    at the scoring sizes)."""
+    if exc is not None:
+        with pytest.raises(exc):
+            tpre.resize_normalize(torch.zeros(shape, dtype=dtype), size=28)
+        return
+    px = np.random.default_rng(5).integers(0, 256, shape, dtype=np.uint8)
+    got = tpre.resize_normalize(torch.from_numpy(px), size=28, dtype=torch.float32)
+    want = jpre.resize_normalize(jnp.asarray(px), size=28, dtype=jnp.float32)
+    assert tuple(got.shape) == want.shape == (2, 28, 28, 3)
+    _close(got, want, 1e-6 / min(jpre.NORMALIZE_STATS["imagenet"][1]))
