@@ -1,8 +1,9 @@
 """Shared CLI assembly (`aigv_assessor_tpu/cli/common.py`): config ->
 tokenizer -> model, for the CLIs.
 
-- `config_from_args`: the checkpoint's `config.json` when there is one, else
-  the model scale (`tiny`, `2b`, or the 8B default), then the pipeline flags.
+- `config_from_args`: the checkpoint's `config.json` when there is one (its
+  decoder any of JAX's four: InternLM2, Llama, Qwen2 or Phi-3), else the
+  model scale (`tiny`, `2b`, or the 8B default), then the pipeline flags.
 - `load_tokenizer`: the checkpoint's `tokenizer.json` / `tokenizer.model`,
   else the built-in test tokenizer.
 - `quant_components`: JAX's `AIGV_FUSE_QUANT` / `AIGV_QUANT_ROWS` switches,

@@ -9,9 +9,11 @@ in jax. These copies keep the same fields, defaults and derived properties;
 in the reference's composite format (`vision_config`, `llm_config`, the
 repo's `motion_config` extension and the top-level pipeline fields), as the
 JAX `from_dict`s do (`aigv_assessor_tpu/core/config.py:76-78`, `:146-176`,
-`:298-339`). Only the InternLM2 decoder is ported: a config whose
-`architectures` names Phi-3, Llama or Qwen2 raises NotImplementedError
-(ROADMAP.md, Queue 1 item 7).
+`:298-339`), with the same four-way dispatch on the decoder's
+`architectures`: InternLM2, Llama and Qwen2 share `LLMConfig` (Llama and
+Qwen2 with their attention-bias defaults and no rope scaling unless the
+file gives one), Phi-3 has `Phi3Config` (`aigv_assessor_tpu/models/phi3.py`),
+and any other name raises ValueError.
 """
 
 from __future__ import annotations
@@ -19,22 +21,15 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
-PORTED_ARCHITECTURES = ("", "InternLM2ForCausalLM")
+# the decoders `LLMConfig` describes; Phi-3 has `Phi3Config`
+LLM_ARCHITECTURES = ("", "InternLM2ForCausalLM", "LlamaForCausalLM", "Qwen2ForCausalLM")
 
 
 def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in d.items() if k in names}
-
-
-def _check_architecture(arch: str) -> None:
-    if arch not in PORTED_ARCHITECTURES:
-        raise NotImplementedError(
-            f"decoder architecture {arch!r}: only InternLM2ForCausalLM is ported; Phi-3 and "
-            "the Llama / Qwen2 dispatch wait for ROADMAP.md, Queue 1 item 7"
-        )
 
 
 @dataclass(frozen=True)
@@ -140,12 +135,22 @@ class LLMConfig:
         d = dict(d)
         if d.get("architectures"):
             d["architecture"] = d["architectures"][0]
-        _check_architecture(d.get("architecture", ""))
+        arch = d.get("architecture", "")
+        # HF Llama / Qwen2 configs map onto the same GQA + SwiGLU decoder:
+        # Qwen2 has biased q/k/v and a bias-free o, Llama `attention_bias`
+        if arch == "LlamaForCausalLM":
+            d.setdefault("qkv_bias", bool(d.pop("attention_bias", False)))
+            d.setdefault("o_bias", d["qkv_bias"])
+        elif arch == "Qwen2ForCausalLM":
+            d.setdefault("qkv_bias", True)
+            d.setdefault("o_bias", False)
         rs = d.get("rope_scaling")
         if isinstance(rs, dict):
             d["rope_scaling"] = RopeScaling(
                 type=rs.get("type", "dynamic"), factor=float(rs.get("factor", 1.0))
             )
+        elif rs is None and arch in ("LlamaForCausalLM", "Qwen2ForCausalLM"):
+            d["rope_scaling"] = None
         return cls(**_filter_kwargs(cls, d))
 
     @property
@@ -166,6 +171,65 @@ class LLMConfig:
             num_attention_heads=4,
             num_key_value_heads=2,
             max_position_embeddings=4096,
+        )
+
+
+@dataclass(frozen=True)
+class Phi3Config:
+    """Phi-3 decoder config (`aigv_assessor_tpu/models/phi3.py`): the
+    Phi-3-mini-128k-instruct defaults; `rope_scaling_type` 'su' / 'longrope'
+    with its short and long factor tables, else plain RoPE."""
+
+    architecture: str = "Phi3ForCausalLM"
+    vocab_size: int = 32064
+    hidden_size: int = 3072
+    intermediate_size: int = 8192
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    hidden_act: str = "silu"
+    max_position_embeddings: int = 131072
+    original_max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    rope_scaling_type: Optional[str] = None  # 'su' | 'longrope' | None
+    rope_short_factor: Optional[Tuple[float, ...]] = None
+    rope_long_factor: Optional[Tuple[float, ...]] = None
+    tie_word_embeddings: bool = False
+    bos_token_id: int = 1
+    eos_token_id: int = 32000
+    pad_token_id: int = 32000
+    scan_layers: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Phi3Config":
+        d = dict(d)
+        if d.get("architectures"):
+            d["architecture"] = d["architectures"][0]
+        rs = d.get("rope_scaling")
+        if isinstance(rs, dict):
+            d["rope_scaling_type"] = rs.get("type")
+            if rs.get("short_factor"):
+                d["rope_short_factor"] = tuple(rs["short_factor"])
+            if rs.get("long_factor"):
+                d["rope_long_factor"] = tuple(rs["long_factor"])
+        return cls(**_filter_kwargs(cls, d))
+
+    @classmethod
+    def tiny(cls) -> "Phi3Config":
+        return cls(
+            vocab_size=512,
+            hidden_size=64,
+            intermediate_size=128,
+            num_hidden_layers=2,
+            num_attention_heads=4,
+            num_key_value_heads=4,
+            max_position_embeddings=4096,
+            original_max_position_embeddings=2048,
         )
 
 
@@ -222,7 +286,7 @@ class AssessorConfig:
     """Composite model config (vision + LLM + motion + projection heads)."""
 
     vision: VisionConfig = field(default_factory=VisionConfig)
-    llm: LLMConfig = field(default_factory=LLMConfig)
+    llm: Union[LLMConfig, Phi3Config] = field(default_factory=LLMConfig)
     motion: MotionConfig = field(default_factory=MotionConfig)
 
     downsample_ratio: float = 0.5
@@ -281,8 +345,13 @@ class AssessorConfig:
         if "llm_config" in d:
             llm_d = d.pop("llm_config")
             archs = llm_d.get("architectures") or [llm_d.get("architecture", "")]
-            _check_architecture(archs[0] if archs else "")
-            d["llm"] = LLMConfig.from_dict(llm_d)
+            arch = archs[0] if archs else ""
+            if arch == "Phi3ForCausalLM":
+                d["llm"] = Phi3Config.from_dict(llm_d)
+            elif arch in LLM_ARCHITECTURES:
+                d["llm"] = LLMConfig.from_dict(llm_d)
+            else:
+                raise ValueError(f"Unsupported architecture: {arch}")
         return cls(**_filter_kwargs(cls, d))
 
     @classmethod

@@ -17,7 +17,9 @@
 //   out     bf16 [B, Hq, D], contiguous
 //   m, l    fp32 [B, Hq], only without the current token
 //   Query heads h*G .. (h+1)*G-1 share kv head h (G = Hq / Hkv <= 16). D is
-//   64 or 128.
+//   64, 96 (Phi-3-mini) or 128: the body is written in D / 8 and D / 16, and
+//   a padded row of D + 8 values stays a whole number of 16-byte vectors
+//   (208 bytes at D = 96) for cp.async and ldmatrix.
 //
 // Without k_new: out = softmax(q k^T * scale) v over the window, or 0 for an
 // empty window, with m the window's largest scaled score (-1e30 for an empty
@@ -121,6 +123,7 @@ struct Params {
 template <int D>
 struct Smem {
   static constexpr int LD = D + PAD;        // padded rows: ldmatrix without bank conflicts
+  static_assert(D % 16 == 0 && (LD * 2) % 16 == 0, "rows of whole 16-byte vectors");
   static constexpr int SLOT = 2 * 16 * LD;  // bf16: a warp's 16 K rows, then its 16 V rows
   static constexpr int RING = NWARPS * STAGES * SLOT * 2;  // bytes
   // after the loop the rings hold the warps' states
@@ -501,6 +504,7 @@ int aigv_cached_decode_attention(const void* q, const void* k, const void* v,
                  scale};
   const auto st = static_cast<cudaStream_t>(stream);
   if (D == 128) return launch_d<128>(p, B, st);
+  if (D == 96) return launch_d<96>(p, B, st);
   if (D == 64) return launch_d<64>(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

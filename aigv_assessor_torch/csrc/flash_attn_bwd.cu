@@ -91,6 +91,13 @@
 //       lse and delta with cp.async, which arrives on the same mbarrier).
 //       At D = 64 a producer warpgroup fits beside them and runs ahead, which
 //       measured 1.11-1.12x faster at the 2B ViT's shape.
+// Head dims: 64 and 128 have their own instantiations; D = 96 (Phi-3-mini)
+// runs the D = 128 one over tensor maps whose innermost extent is 96, so
+// TMA zero-fills columns 96-127 on every load (the mbarriers count whole
+// boxes) and clips them from every store. Those zeros add nothing to S, dP
+// or delta; the dq, dk and dv columns they give are never written. lse and
+// delta are per row. The scale comes from the caller (96^-0.5).
+//
 // Keys at or beyond kv_valid have p masked to exactly 0, so their dk and dv
 // rows are exactly 0; a warpgroup or block that holds only such keys runs no
 // product and stores zeros.
@@ -779,18 +786,20 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, int threads, cudaStream_t
   return cudaGetLastError();
 }
 
+// `md` is the tensors' head dim, the maps' innermost extent: D, or 96 under
+// the D = 128 instantiation (see `dispatch`)
 template <int D>
-cudaError_t launch_dq(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int kv_valid,
-                      int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_dq(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int md,
+                      int kv_valid, int causal, float scale, cudaStream_t stream) {
   using S = DqSmem<D>;
   CUtensorMap mq, mdo, mo, mk, mv, mdq;
   // a view TMA cannot describe (strides off 16 bytes, a base off 16 bytes)
-  if (!make_map(&mq, t.q, D, Sq, hq, B, t.qs, S::BM) ||
-      !make_map(&mdo, t.dout, D, Sq, hq, B, t.dos, S::BM) ||
-      !make_map(&mo, t.out, D, Sq, hq, B, t.os, S::BM) ||
-      !make_map(&mk, t.k, D, kv_valid, hkv, B, t.ks, BN) ||
-      !make_map(&mv, t.v, D, kv_valid, hkv, B, t.vs, BN) ||
-      !make_map(&mdq, t.dq, D, Sq, hq, B, t.dqs, WG_ROWS))
+  if (!make_map(&mq, t.q, md, Sq, hq, B, t.qs, S::BM) ||
+      !make_map(&mdo, t.dout, md, Sq, hq, B, t.dos, S::BM) ||
+      !make_map(&mo, t.out, md, Sq, hq, B, t.os, S::BM) ||
+      !make_map(&mk, t.k, md, kv_valid, hkv, B, t.ks, BN) ||
+      !make_map(&mv, t.v, md, kv_valid, hkv, B, t.vs, BN) ||
+      !make_map(&mdq, t.dq, md, Sq, hq, B, t.dqs, WG_ROWS))
     return cudaErrorInvalidPitchValue;
   const DqArgs a{t.lse, t.delta, hq, Sq, kv_valid, hq / hkv, scale, scale * LOG2E};
   const dim3 grid = make_grid(causal, (Sq + S::BM - 1) / S::BM, hq, B);
@@ -802,16 +811,16 @@ cudaError_t launch_dq(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv,
 }
 
 template <int D>
-cudaError_t launch_dkv(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int kv_valid,
-                       int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_dkv(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int md,
+                       int kv_valid, int causal, float scale, cudaStream_t stream) {
   using S = DkvSmem<D>;
   CUtensorMap mq, mdo, mk, mv, mdk, mdv;
-  if (!make_map(&mq, t.q, D, Sq, hq, B, t.qs, BQ) ||
-      !make_map(&mdo, t.dout, D, Sq, hq, B, t.dos, BQ) ||
-      !make_map(&mk, t.k, D, kv_valid, hkv, B, t.ks, BKV) ||
-      !make_map(&mv, t.v, D, kv_valid, hkv, B, t.vs, BKV) ||
-      !make_map(&mdk, t.dk, D, Skv, hkv, B, t.dks, WG_ROWS) ||
-      !make_map(&mdv, t.dv, D, Skv, hkv, B, t.dvs, WG_ROWS))
+  if (!make_map(&mq, t.q, md, Sq, hq, B, t.qs, BQ) ||
+      !make_map(&mdo, t.dout, md, Sq, hq, B, t.dos, BQ) ||
+      !make_map(&mk, t.k, md, kv_valid, hkv, B, t.ks, BKV) ||
+      !make_map(&mv, t.v, md, kv_valid, hkv, B, t.vs, BKV) ||
+      !make_map(&mdk, t.dk, md, Skv, hkv, B, t.dks, WG_ROWS) ||
+      !make_map(&mdv, t.dv, md, Skv, hkv, B, t.dvs, WG_ROWS))
     return cudaErrorInvalidPitchValue;
   const DkvArgs a{t.lse, t.delta, hq, Sq, kv_valid, hq / hkv, scale, scale * LOG2E};
   const dim3 grid = make_grid(causal, (Skv + BKV - 1) / BKV, hkv, B);
@@ -827,19 +836,23 @@ template <bool DKV>
 int dispatch(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int D, int kv_valid,
              int causal, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || hkv <= 0 || hq % hkv != 0 || kv_valid <= 0 ||
-      kv_valid > Skv || (causal && Sq != Skv) || (D != 64 && D != 128))
+      kv_valid > Skv || (causal && Sq != Skv) || (D != 64 && D != 96 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   // grids are (tiles of at least 64 rows, heads, batch) or (heads, batch, tiles)
   if (B > 65535 || hq > 65535 || (max(Sq, Skv) + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto st = static_cast<cudaStream_t>(stream);
+  // D = 96 runs the D = 128 instantiation over maps of innermost extent 96:
+  // TMA zero-fills columns 96-127 of every load and clips them from every
+  // store, so S, dP and delta see zeros there and dq, dk, dv are computed
+  // for columns never written
   cudaError_t err;
   if (DKV)
-    err = D == 64 ? launch_dkv<64>(t, B, hq, hkv, Sq, Skv, kv_valid, causal, scale, st)
-                  : launch_dkv<128>(t, B, hq, hkv, Sq, Skv, kv_valid, causal, scale, st);
+    err = D == 64 ? launch_dkv<64>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st)
+                  : launch_dkv<128>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st);
   else
-    err = D == 64 ? launch_dq<64>(t, B, hq, hkv, Sq, Skv, kv_valid, causal, scale, st)
-                  : launch_dq<128>(t, B, hq, hkv, Sq, Skv, kv_valid, causal, scale, st);
+    err = D == 64 ? launch_dq<64>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st)
+                  : launch_dq<128>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st);
   return static_cast<int>(err);
 }
 

@@ -74,6 +74,15 @@
 //   swizzled layout and stores it with one TMA box per 64 columns; rows at
 //   or beyond Sq are clipped by the map.
 //
+// Head dims: 64 and 128 have their own instantiations. D = 96 (Phi-3-mini's
+// 3072 / 32) runs the D = 128 one: the tensor maps declare the true D = 96 as
+// their innermost extent, so TMA zero-fills columns 96-127 of each row's
+// second 64-column box on every load (the mbarrier still counts whole boxes)
+// and leaves them out of every store; the zero columns of Q and K add nothing
+// to S, and V's give output columns that are never written. The softmax
+// scale comes from the caller (96^-0.5), never from the template's D. A
+// quarter of the tensor-core work is spent on the zeros.
+//
 // Budget (nvcc -Xptxas -v, CUDA 12.8): 168 registers a thread at launch for
 // D = 128 (384 threads), 128 for D = 64 (512 threads), no spills; the
 // consumers then run at 240 and 160. Shared memory: 88 KB at D = 64, 160 KB
@@ -519,14 +528,15 @@ int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16
   const auto st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * 1.4426950408889634f;
   if (B <= 0 || Sq <= 0 || Skv <= 0 || hkv <= 0 || hq % hkv != 0 || kv_valid <= 0 ||
-      kv_valid > Skv || (causal && Sq != Skv) || (D != 64 && D != 128))
+      kv_valid > Skv || (causal && Sq != Skv) || (D != 64 && D != 96 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B > 65535 || hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // keys per tile: at D = 128, 176 where it pads kv_valid no more than 128
-  // does (1025 keys: 6 tiles of 176 cover 1056, 9 of 128 cover 1152), else
-  // 128; at D = 64 always 128 (176 would not fit three warpgroups' registers)
+  // keys per tile: at D = 96 and 128, 176 where it pads kv_valid no more
+  // than 128 does (1025 keys: 6 tiles of 176 cover 1056, 9 of 128 cover
+  // 1152), else 128; at D = 64 always 128 (176 would not fit three
+  // warpgroups' registers)
   const auto padded = [kv_valid](int bn) { return (kv_valid + bn - 1) / bn * bn; };
-  const int bn = D == 128 && padded(176) <= padded(128) ? 176 : 128;
+  const int bn = D != 64 && padded(176) <= padded(128) ? 176 : 128;
   Maps maps;
   // a view TMA cannot describe (strides off 16 bytes, a base off 16 bytes)
   if (!make_map(&maps.q, q, D, Sq, hq, B, qs, block_rows(D)) ||
@@ -534,6 +544,10 @@ int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16
       !make_map(&maps.v, v, D, kv_valid, hkv, B, vs, bn) ||
       !make_map(&maps.out, out, D, Sq, hq, B, os, WG_ROWS))
     return static_cast<int>(cudaErrorInvalidPitchValue);
+  // D = 96 runs the D = 128 instantiation over maps whose innermost extent
+  // is 96: TMA zero-fills columns 96-127 of every second box it loads (they
+  // add nothing to q.k, and V's give output columns that are never stored)
+  // and clips them from every store
   cudaError_t err;
   if (D == 64)
     err = launch_bn<64, 128>(maps, lse, B, hq, hkv, Sq, kv_valid, causal, scale_log2, st);

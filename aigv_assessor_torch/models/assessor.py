@@ -6,7 +6,9 @@ the stage-1 and stage-2 scoring and training forward.
 - `slowfast_model` (SlowFast-R50) -> `motion_mlp` projector, per video;
 - the embeddings go into the `<IMG_CONTEXT>` slots of the prompt, the motion
   embedding into the last one;
-- `language_model` (InternLM2) runs the prompt;
+- `language_model` runs the prompt: `InternLM2ForCausalLM` (InternLM2, and
+  the Llama / Qwen2 configs mapped onto it) or `Phi3ForCausalLM`, chosen by
+  `config.llm.architecture` as in JAX (`aigv_assessor_tpu/models/assessor.py:145-150`);
 - `mlpscore` (stage 2 only) reads the final hidden state at (real length -
   4), with ReLU after every layer including the last, so scores are
   non-negative;
@@ -37,8 +39,6 @@ Generation (`models/generation.py`) enters through `embed_multimodal`,
 `prefill` and `decode_step`, which run the decoder against a `KVCache`.
 `score_perspectives(shared_prefix_len=)` prefills the prompts' common token
 prefix once per video and runs the P suffixes against that cache.
-
-Not ported yet (ROADMAP.md, Queue 1): Phi-3.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ from aigv_assessor_torch.models.internlm2 import (
     cross_entropy_loss,
 )
 from aigv_assessor_torch.models.motion import SlowFastR50
+from aigv_assessor_torch.models.phi3 import Phi3ForCausalLM
 from aigv_assessor_torch.models.vit import InternVisionModel
 from aigv_assessor_torch.ops.pixel_shuffle import pixel_shuffle
 from aigv_assessor_torch.ops.splice import splice_image_embeds
@@ -110,10 +111,6 @@ class AIGVAssessor(nn.Module):
         `vit_remat_policy`); the decoder recomputes whole layers either
         way."""
         super().__init__()
-        if config.llm.architecture != "InternLM2ForCausalLM":
-            raise NotImplementedError(
-                f"{config.llm.architecture} is not ported yet (ROADMAP.md, Queue 1)"
-            )
         self.config = config
         self.precision = precision
         c_llm = config.llm.hidden_size
@@ -128,7 +125,9 @@ class AIGVAssessor(nn.Module):
             config.vision, precision, lora=vit_lora, grad_checkpoint=grad_checkpoint,
             remat_policy=vit_remat_policy,
         )
-        self.language_model = InternLM2ForCausalLM(
+        decoder = (Phi3ForCausalLM if config.llm.architecture == "Phi3ForCausalLM"
+                   else InternLM2ForCausalLM)
+        self.language_model = decoder(
             config.llm, precision, lora=llm_lora, grad_checkpoint=grad_checkpoint
         )
         self.mlp1 = ProjectorMLP(
@@ -323,7 +322,8 @@ class AIGVAssessor(nn.Module):
         )
         # Both passes build their rope tables from one length. The suffix
         # pass takes it from its cache's capacity, and dynamic-NTK scaling
-        # changes the frequencies with the table's length: a prefix roped for
+        # (and Phi-3's su / longrope tables) change the frequencies with the
+        # table's length: a prefix roped for
         # its own length would not match the suffix queries once the
         # capacity crosses the scaling threshold.
         rope_len = prefix_len + p * s_suf

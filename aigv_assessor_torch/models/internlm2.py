@@ -66,7 +66,19 @@ goes through `ops/attention.two_part_cached_attention`. Without a cache,
 `capture_kv` hands back every layer's roped k/v in cache layout, which the
 shared-prefix scorer turns into a cache.
 
-Not ported yet (ROADMAP.md, Queue 1): tied embeddings.
+Tied embeddings (`tie_word_embeddings`, Qwen2-0.5B's config): there is no
+`output`; the logits are the final hidden state times the embedding matrix,
+both in the compute dtype (JAX's `Embed.attend`), cast to `logits_dtype`. The
+embedding is never quantized, so this holds in every precision.
+
+Llama and Qwen2 checkpoints run this decoder (`LLMConfig.from_dict` gives
+their biases). `InternLM2ForSequenceClassification` pools the last
+non-padding token's hidden state into a bias-free `score` layer.
+
+The layer loop, the rope-table cache, the KV cache's writes and the
+single-token steps' `starts` live in `CausalDecoder`, which the Phi-3
+decoder (`models/phi3.py`) shares; its attention, MLP and layer subclass the
+ones here under its own parameter names.
 """
 
 from __future__ import annotations
@@ -175,25 +187,43 @@ def _write_rows(part, new, i: int, at: int) -> None:
 
 
 class InternLM2Attention(nn.Module):
+    """GQA attention off one fused qkv projection (`QKV`) into the output
+    projection (`OUT`); the Phi-3 attention is this one under its own names
+    with a float output projection under W8A8."""
+
+    QKV, OUT = "wqkv", "wo"
+
+    def _biases(self, config) -> Tuple[bool, bool]:
+        """(qkv bias, out bias)."""
+        return config.effective_qkv_bias, config.effective_o_bias
+
+    def _out_precision(self, precision: Precision) -> Precision:
+        """The output projection's precision: W8A8 like the rest here."""
+        return precision
+
     def __init__(self, config: LLMConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
         self.hq = hq = config.num_attention_heads
         self.hkv = hkv = config.num_key_value_heads
         self.head_dim = d = config.head_dim
-        self.w8a8 = precision.w8a8
-        adapted = lora is not None and lora.r > 0
-        self.quant_rows = precision.w8a8 and "llm" in precision.quant_rows and not adapted
+        out_precision = self._out_precision(precision)
         self.weight_only = precision.weight_only
+        # the output projection reads the kernel's dense `bsd` rows
+        self.o_dense = out_precision.w8a8
+        adapted = lora is not None and lora.r > 0
+        self.quant_rows = self.o_dense and "llm" in precision.quant_rows and not adapted
         c = config.hidden_size
-        # weight-only: the row-major branch; else wqkv head-major out, and wo
-        # dense under W8A8 (the kernel writes its `bsd` rows), else head-major in
-        self.wqkv = make_linear(c, (hq + 2 * hkv) * d, bias=config.effective_qkv_bias,
-                                lora=lora, heads=None if self.weight_only else hq + 2 * hkv,
-                                precision=precision)
-        self.wo = make_linear(hq * d, c, bias=config.effective_o_bias, lora=lora,
-                              head_major_in=not (self.weight_only or self.w8a8),
-                              precision=precision)
+        qkv_bias, o_bias = self._biases(config)
+        # weight-only: the row-major branch; else the qkv projection
+        # head-major out, and the output projection dense under W8A8 (the
+        # kernel writes its `bsd` rows), else head-major in
+        setattr(self, self.QKV, make_linear(
+            c, (hq + 2 * hkv) * d, bias=qkv_bias, lora=lora,
+            heads=None if self.weight_only else hq + 2 * hkv, precision=precision))
+        setattr(self, self.OUT, make_linear(
+            hq * d, c, bias=o_bias, lora=lora,
+            head_major_in=not (self.weight_only or self.o_dense), precision=out_precision))
 
     def _project_rows(self, linear: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """`wqkv` or `wo` in its row-major form, [B, S, in] -> [B, S, out]:
@@ -216,9 +246,10 @@ class InternLM2Attention(nn.Module):
         None."""
         b, s, _ = (x[0] if isinstance(x, tuple) else x).shape
         hq, hkv, d = self.hq, self.hkv, self.head_dim
+        wqkv, wo = getattr(self, self.QKV), getattr(self, self.OUT)
         if self.weight_only or cache_k is not None:
             # row-major: q, k, v are [B, S, H, D] views of one projection output
-            qkv = self._project_rows(self.wqkv, x) if cache_k is not None else self.wqkv(x)
+            qkv = self._project_rows(wqkv, x) if cache_k is not None else wqkv(x)
             q = qkv[..., : hq * d].view(b, s, hq, d)
             k = qkv[..., hq * d : (hq + hkv) * d].view(b, s, hkv, d)
             v = qkv[..., (hq + hkv) * d :].view(b, s, hkv, d)
@@ -226,7 +257,7 @@ class InternLM2Attention(nn.Module):
             if cache_k is None:
                 new_rows = (k, v) if capture_kv else None
                 out = multi_head_attention(q, k, v, causal=True)  # [B, S, Hq, D]
-                return self.wo(out.reshape(b, s, hq * d)), new_rows
+                return wo(out.reshape(b, s, hq * d)), new_rows
             new_rows = make_cache_rows(k, v, cache_k, cache_v)
             if (s == 1 and block_causal is None and not is_quantized(cache_k)
                     and decode_kernel_supported(hq, hkv, d)):
@@ -236,25 +267,25 @@ class InternLM2Attention(nn.Module):
                 out = two_part_cached_attention(q, k, v, cache_k, cache_v, cache_index,
                                                 kv_mask, block_causal=block_causal)
             out = out.to(qkv.dtype).reshape(b, s, hq * d)  # the projection's dtype
-            return self._project_rows(self.wo, out), new_rows
-        if isinstance(self.wqkv, AdaptedLinear):
-            qkv = self.wqkv(x)  # [B, H, S, D], a view of the dense product
+            return self._project_rows(wo, out), new_rows
+        if isinstance(wqkv, AdaptedLinear):
+            qkv = wqkv(x)  # [B, H, S, D], a view of the dense product
         else:
-            qkv = self.wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
+            qkv = wqkv(x).view(b, s, hq + 2 * hkv, d).transpose(1, 2)
         q, k = apply_rope(qkv[:, :hq], qkv[:, hq : hq + hkv], cos, sin, position_ids)
         v = qkv[:, hq + hkv :]
         # the roped k/v in cache layout, for a caller that builds a cache of them
         new_rows = (k.transpose(1, 2), v.transpose(1, 2)) if capture_kv else None
         # re-fuse after rope so the kernel reads q/k/v from one array
         qkv = torch.cat([q, k, v], dim=1)
-        if self.w8a8:
+        if self.o_dense:
             # the kernel writes wo's dense [B, S, Hq*D] input rows
             out = fused_qkv_attention(qkv, hq, hkv, causal=True, out_layout="bsd")
-            return self.wo(quant_fuse.quant_rows(out) if self.quant_rows else out), new_rows
+            return wo(quant_fuse.quant_rows(out) if self.quant_rows else out), new_rows
         out = fused_qkv_attention(qkv, hq, hkv, causal=True)  # [B, Hq, S, D]
-        if isinstance(self.wo, LoRALinear):
-            return self.wo(out), new_rows  # head-major in
-        return self.wo(out.transpose(1, 2).reshape(b, s, hq * d)), new_rows
+        if isinstance(wo, LoRALinear):
+            return wo(out), new_rows  # head-major in
+        return wo(out.transpose(1, 2).reshape(b, s, hq * d)), new_rows
 
 
 class InternLM2MLP(nn.Module):
@@ -280,14 +311,21 @@ class InternLM2MLP(nn.Module):
 
 
 class InternLM2DecoderLayer(nn.Module):
+    """Pre-norm residual layer: (attention norm, attention, MLP norm, MLP),
+    named by `NAMES`."""
+
+    NAMES = ("attention_norm", "attention", "ffn_norm", "feed_forward")
+    ATTENTION, MLP = InternLM2Attention, InternLM2MLP
+
     def __init__(self, config: LLMConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
-        self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.attention = InternLM2Attention(config, precision, lora)
-        self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        self.feed_forward = InternLM2MLP(config, precision, lora)
-        self.fuse = self.feed_forward.fuse  # the norms' K5a feeds, off under adapters
+        attn_norm, attn, mlp_norm, mlp = self.NAMES
+        setattr(self, attn_norm, RMSNorm(config.hidden_size, config.rms_norm_eps))
+        setattr(self, attn, self.ATTENTION(config, precision, lora))
+        setattr(self, mlp_norm, RMSNorm(config.hidden_size, config.rms_norm_eps))
+        setattr(self, mlp, self.MLP(config, precision, lora))
+        self.fuse = getattr(self, mlp).fuse  # the norms' K5a feeds, off under adapters
 
     def _feed(self, norm: RMSNorm, x: torch.Tensor):
         """The norm's output; with fused W8A8 feeds its int8 rows and scales
@@ -300,41 +338,29 @@ class InternLM2DecoderLayer(nn.Module):
                 cache_index=None, cache_index_dev=None, kv_mask=None, capture_kv=False,
                 block_causal=None, starts=None):
         """-> (x, the attention's new rows)."""
-        attn, new_rows = self.attention(
-            self._feed(self.attention_norm, x), cos, sin, position_ids, cache_k, cache_v,
+        attn_norm, attention, mlp_norm, mlp = (getattr(self, n) for n in self.NAMES)
+        attn, new_rows = attention(
+            self._feed(attn_norm, x), cos, sin, position_ids, cache_k, cache_v,
             cache_index, cache_index_dev, kv_mask, capture_kv, block_causal, starts)
         x = x + attn
-        return x + self.feed_forward(self._feed(self.ffn_norm, x)), new_rows
+        return x + mlp(self._feed(mlp_norm, x)), new_rows
 
 
-class InternLM2ForCausalLM(nn.Module):
-    def __init__(self, config: LLMConfig, precision: Precision = Precision(),
-                 lora: Optional[LoRAConfig] = None, grad_checkpoint: bool = False):
+class CausalDecoder(nn.Module):
+    """What the decoders share: the layer loop over `self.layers` with the KV
+    cache's writes, per-layer recompute in training and `capture_kv`, the
+    final norm `self.norm`, the rope tables built once per (length, device),
+    and each single-token step's `starts`. A subclass builds its modules and
+    defines `embed(input_ids)`, `_build_rope(rope_len, device)` -> (cos,
+    sin) and `logits(hidden)`."""
+
+    def __init__(self, config, precision: Precision, grad_checkpoint: bool):
         super().__init__()
-        if config.tie_word_embeddings:
-            raise NotImplementedError(
-                "tied embeddings are not ported yet (ROADMAP.md, Queue 1)"
-            )
         self.config = config
         self.precision = precision
         self.grad_checkpoint = grad_checkpoint
         self._rope = {}  # (rope_len, device) -> (cos, sin)
         self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
-        self.tok_embeddings = nn.Embedding(config.vocab_size, config.hidden_size)
-        self.layers = nn.ModuleList(
-            InternLM2DecoderLayer(config, precision, lora)
-            for _ in range(config.num_hidden_layers)
-        )
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
-        if precision.weight_only:
-            self.output = weight_only_linear(precision)(
-                config.hidden_size, config.vocab_size, bias=False,
-                out_dtype=precision.compute_dtype)
-        else:
-            self.output = nn.Linear(config.hidden_size, config.vocab_size, bias=False)
-
-    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.tok_embeddings(input_ids)
 
     def _rope_tables(self, rope_len: int, device: torch.device):
         """The cos/sin tables of one length on one device, built once: a decode
@@ -342,20 +368,10 @@ class InternLM2ForCausalLM(nn.Module):
         copy it from the host each time."""
         key = (rope_len, device)
         if key not in self._rope:
-            cfg = self.config
-            rs = cfg.rope_scaling
             # ordinary tensors even when first asked for under inference_mode:
             # a later training forward may save them for its backward
             with torch.inference_mode(False):
-                self._rope[key] = rope_cos_sin(
-                    rope_len,
-                    cfg.head_dim,
-                    base=cfg.rope_theta,
-                    scaling_type=rs.type if rs else None,
-                    scaling_factor=rs.factor if rs else 1.0,
-                    max_position_embeddings=cfg.max_position_embeddings,
-                    device=device,
-                )
+                self._rope[key] = self._build_rope(rope_len, device)
         return self._rope[key]
 
     def forward(
@@ -380,7 +396,7 @@ class InternLM2ForCausalLM(nn.Module):
         Without one, `capture_kv` returns the layers' roped k/v
         [L, B, S, Hkv, D] as a cache with index S."""
         if inputs_embeds is None:
-            inputs_embeds = self.tok_embeddings(input_ids)
+            inputs_embeds = self.embed(input_ids)
         b, s, _ = inputs_embeds.shape
         device = inputs_embeds.device
         if position_ids is None:
@@ -410,7 +426,7 @@ class InternLM2ForCausalLM(nn.Module):
                 x, rows = layer(x, cos, sin, position_ids, capture_kv=capture_kv)
                 captured.append(rows)
         hidden = self.norm(x)
-        logits = self.output(hidden).to(self.precision.logits_dtype) if with_logits else None
+        logits = self.logits(hidden) if with_logits else None
 
         new_cache = None
         if cache is not None:
@@ -420,6 +436,85 @@ class InternLM2ForCausalLM(nn.Module):
             new_cache = KVCache.from_prefix(torch.stack([kv[0] for kv in captured]),
                                             torch.stack([kv[1] for kv in captured]), 0)
         return logits, hidden, new_cache
+
+
+class InternLM2ForCausalLM(CausalDecoder):
+    def __init__(self, config: LLMConfig, precision: Precision = Precision(),
+                 lora: Optional[LoRAConfig] = None, grad_checkpoint: bool = False):
+        super().__init__(config, precision, grad_checkpoint)
+        self.tok_embeddings = nn.Embedding(config.vocab_size, config.hidden_size)
+        self.layers = nn.ModuleList(
+            InternLM2DecoderLayer(config, precision, lora)
+            for _ in range(config.num_hidden_layers)
+        )
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        if config.tie_word_embeddings:
+            self.output = None  # the logits read the embedding matrix
+        elif precision.weight_only:
+            self.output = weight_only_linear(precision)(
+                config.hidden_size, config.vocab_size, bias=False,
+                out_dtype=precision.compute_dtype)
+        else:
+            self.output = nn.Linear(config.hidden_size, config.vocab_size, bias=False)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.tok_embeddings(input_ids)
+
+    def _build_rope(self, rope_len: int, device: torch.device):
+        cfg = self.config
+        rs = cfg.rope_scaling
+        return rope_cos_sin(
+            rope_len,
+            cfg.head_dim,
+            base=cfg.rope_theta,
+            scaling_type=rs.type if rs else None,
+            scaling_factor=rs.factor if rs else 1.0,
+            max_position_embeddings=cfg.max_position_embeddings,
+            device=device,
+        )
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """[B, S, V] in `precision.logits_dtype`: the LM head, or with tied
+        embeddings hidden @ embedding^T, both in the compute dtype."""
+        if self.output is None:
+            cd = self.precision.compute_dtype
+            out = F.linear(hidden.to(cd), self.tok_embeddings.weight.to(cd))
+        else:
+            out = self.output(hidden)
+        return out.to(self.precision.logits_dtype)
+
+
+class InternLM2ForSequenceClassification(nn.Module):
+    """The decoder (`model`) with a classification head
+    (`aigv_assessor_tpu/models/internlm2.py:669-713`): the final hidden
+    state of each sample's last non-padding token into a bias-free `score`
+    Linear -> [B, num_labels] fp32."""
+
+    def __init__(self, config: LLMConfig, num_labels: int = 2,
+                 precision: Precision = Precision(), lora: Optional[LoRAConfig] = None):
+        super().__init__()
+        self.precision = precision
+        self.model = InternLM2ForCausalLM(config, precision, lora)
+        self.score = nn.Linear(config.hidden_size, num_labels, bias=False)
+
+    def forward(
+        self,
+        input_ids: Optional[torch.Tensor] = None,  # [B, S]
+        inputs_embeds: Optional[torch.Tensor] = None,  # [B, S, C]
+        attention_mask: Optional[torch.Tensor] = None,  # [B, S], 1 = real
+        position_ids: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        # right padding needs no key mask (see the module docstring)
+        _, hidden, _ = self.model(input_ids=input_ids, inputs_embeds=inputs_embeds,
+                                  position_ids=position_ids, with_logits=False)
+        b, s, _ = hidden.shape
+        if attention_mask is not None:
+            last = attention_mask.to(torch.int64).sum(dim=1) - 1
+        else:
+            last = torch.full((b,), s - 1, dtype=torch.int64, device=hidden.device)
+        pooled = hidden[torch.arange(b, device=hidden.device), last]
+        cd = self.precision.compute_dtype
+        return F.linear(pooled.to(cd), self.score.weight.to(cd)).to(torch.float32)
 
 
 def cross_entropy_loss(

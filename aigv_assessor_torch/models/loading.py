@@ -311,16 +311,12 @@ def expected_shapes(
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
-def state_dict_from_jax(
-    params: Mapping[str, Any], config: AssessorConfig, precision: Precision = Precision(),
-    parts: Optional[Tuple[str, ...]] = None,
-) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for `AIGVAssessor(config, precision)`; a
-    quantized tree (JAX `quantize_for_serving(w8a8=True | int8=True |
-    int4=True)`) needs the precision that call returns. `parts`: the tree
-    holds only these top-level subtrees (`vision_model`, ...), each whole."""
+def renamed_state(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX tree's leaves under the port's names and layouts (the renaming
+    of `state_dict_from_jax`, for any module that follows the JAX names),
+    unchecked."""
     tree = params.get("params", params)
-    out: Dict[str, torch.Tensor] = {}
+    out: Dict[str, Any] = {}
     for path, x in _flatten(tree):
         if path[-1] == "kernel_in_dim":  # int4 bookkeeping, no model parameter
             continue
@@ -332,6 +328,18 @@ def state_dict_from_jax(
         else:
             key, t = _convert_leaf(path, x)
             out[key] = t
+    return out
+
+
+def state_dict_from_jax(
+    params: Mapping[str, Any], config: AssessorConfig, precision: Precision = Precision(),
+    parts: Optional[Tuple[str, ...]] = None,
+) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for `AIGVAssessor(config, precision)`; a
+    quantized tree (JAX `quantize_for_serving(w8a8=True | int8=True |
+    int4=True)`) needs the precision that call returns. `parts`: the tree
+    holds only these top-level subtrees (`vision_model`, ...), each whole."""
+    out = renamed_state(params)
     want = expected_shapes(config, precision)
     if parts is not None:
         want = {k: v for k, v in want.items() if k.split(".", 1)[0] in parts}
@@ -348,7 +356,8 @@ def state_dict_from_jax(
 # tower projections: a JAX `LoRADense`, whose dense layer sits under `base`
 _TOWER_PROJECTIONS = {
     "vision_model": ("qkv", "proj", "fc1", "fc2"),
-    "language_model": ("wqkv", "wo", "w1", "w2", "w3"),
+    "language_model": ("wqkv", "wo", "w1", "w2", "w3",  # InternLM2, Llama, Qwen2
+                       "qkv_proj", "o_proj", "gate_up_proj", "down_proj"),  # Phi-3
 }
 
 
@@ -424,17 +433,22 @@ def quantize_for_serving(
     both are set, as in the JAX package).
 
     W8A8 quantizes the weights the W8A8 model holds as `W8A8Linear`s, the
-    set JAX's `quantize_tree(only_base=True)` picks over both towers: the
-    ViT's qkv, proj, fc1, fc2 and InternLM2's wqkv, wo, w1, w2, w3 in every
-    layer. The LM head and everything outside the towers stay float, and so
-    do the adapters of a config with LoRA: only their bases are quantized.
+    set JAX's `quantize_tree(only_base=True, exclude=("output", "o_proj"))`
+    picks over both towers: the ViT's qkv, proj, fc1, fc2 and InternLM2's
+    wqkv, wo, w1, w2, w3 (Phi-3's qkv_proj, gate_up_proj, down_proj) in
+    every layer. The LM head, Phi-3's o_proj and everything outside the
+    towers stay float, and so do the adapters of a config with LoRA: only
+    their bases are quantized.
 
     int8 / int4 quantize what `quantize_tree` / `quantize_tree_int4` pick
     with `scope="language_model"` and their default `min_size` of 4096 on
     any config at least as wide as `LLMConfig.tiny()`: every dense weight
     under `language_model`, the LM head included, the embedding excluded.
     These are the weights the weight-only model holds as `Int8Linear` /
-    `Int4Linear`; it has no float form of a decoder projection.
+    `Int4Linear`; it has no float form of a decoder projection. Phi-3's
+    `lm_head` is one of them, but its model holds it float (as JAX's does):
+    it gets the quantized weight dequantized, as `load_weights_` stores a
+    quantized kernel in a float layer.
 
     The weights must be fp32: quantizing bf16-rounded copies adds error, and
     JAX quantizes before it casts."""
@@ -450,18 +464,29 @@ def quantize_for_serving(
         if w.dtype != torch.float32:
             raise TypeError(f"{prefix} is {w.dtype}: quantize from the fp32 weights")
         out[prefix], out[prefix + "_scale"] = quantize(w)
+    head = "language_model.lm_head.weight"  # Phi-3's float head, which JAX quantizes
+    if (int8 or int4) and head in out:
+        q, scale = quantize(out[head])
+        out[head] = (int8_matmul.dequantize_kernel_int4(q, scale, out[head].shape[1]) if int4
+                     else int8_matmul.dequantize_kernel(q, scale))
     return out
 
 
 def load_reference_checkpoint(path: str, config: AssessorConfig) -> Dict[str, torch.Tensor]:
     """fp32 state_dict of `AIGVAssessor(config)` from a reference-format
     checkpoint (a directory or weight files): the JAX converter's name map
-    (`tools/convert_weights.convert`), then `state_dict_from_jax`. Raises
-    FileNotFoundError where there are no weights."""
+    (`tools/convert_weights.convert`: InternLM2's names, HF Phi-3's fused
+    `qkv_proj` / `gate_up_proj`, HF Llama / Qwen2's q/k/v fused into `wqkv`),
+    then `state_dict_from_jax`. A tied config takes no LM head: an
+    `lm_head.weight` that the checkpoint stores beside the embedding it is
+    tied to is dropped. Raises FileNotFoundError where there are no
+    weights."""
     from aigv_assessor_torch.tools.convert_weights import (
         convert, load_torch_state_dict, resolve_checkpoint_files)
 
     tree = convert(load_torch_state_dict(resolve_checkpoint_files(path)), config)
+    if config.llm.tie_word_embeddings:
+        tree["params"].get("language_model", {}).pop("output", None)
     return {k: v.float() for k, v in state_dict_from_jax(tree, config).items()}
 
 

@@ -29,7 +29,7 @@ never written before attention.
 
 `starts` and `end` stay on the device: nothing here reads them on the host.
 Layouts: q [B, Hq, D]; cache k/v [B, max_len, Hkv, D], the model's cache
-layout, read in place; D in {64, 128}.
+layout, read in place; D in {64, 96, 128}.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import torch
 from aigv_assessor_torch.ops.cuda_build import CudaLibrary
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 MAX_GROUP = 16  # query heads per kv head: the rows of the kernel's tensor-core tiles
 MIN_ROWS_PER_SPLIT = 64  # one tile of the kernel's ring
 MAX_SPLITS = 16  # the kernel's largest cluster
@@ -65,7 +65,7 @@ LIB = CudaLibrary("decode_attention.cu", _declare)
 
 
 def decode_kernel_supported(hq: int, hkv: int, d: int) -> bool:
-    """The shapes the kernel takes: a head dim of 64 or 128, grouped query
+    """The shapes the kernel takes: a head dim of 64, 96 or 128, grouped query
     heads, at least 8 of them (the JAX package's shape test), at most 16 to a
     kv head."""
     return (d in HEAD_DIMS and hkv > 0 and hq % hkv == 0 and hq >= 8

@@ -78,7 +78,7 @@ import torch
 from aigv_assessor_torch.ops.attention import plain_attention
 from aigv_assessor_torch.ops.cuda_build import CudaLibrary
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 OUT_LAYOUTS = ("bhsd", "bsd")
 
 _STRIDES = [ctypes.c_longlong] * 3  # (batch, head, row), in elements
@@ -728,7 +728,7 @@ def flash_attention(
     through its strides: slices of one projection output and permuted views
     need no copy. `causal` needs Sq == Skv; without it Sq and Skv may differ.
     Keys at or beyond `kv_valid` (default Skv) are masked. On the card: bf16,
-    D in (64, 128). A CPU tensor goes to the plain versions.
+    D in (64, 96, 128). A CPU tensor goes to the plain versions.
 
     When any of q, k, v requires a gradient the call is differentiable
     through `FlashAttention`, as the JAX `custom_vjp` splits its primal and

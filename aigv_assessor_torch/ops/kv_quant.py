@@ -33,10 +33,12 @@ def quantize_kv_rows(x: torch.Tensor) -> QuantizedRows:
 
     Symmetric absmax over the trailing head_dim: scale = amax / 127, values
     rounded half to even and clipped to +-127. A zero row gets scale 1, so
-    the stored zeros decode to exact zeros."""
+    the stored zeros decode to exact zeros. The scale divides by a tensor:
+    a Python-number divisor makes a CUDA division a product with the
+    reciprocal, one ulp off the CPU's (and JAX's) scale in some rows."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), 1.0)
     q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 

@@ -29,9 +29,11 @@ _MIN_ROWS = 16  # cuBLASLt's int8 product takes more rows than this
 def quantize_rows(x: torch.Tensor) -> Quantized:
     """Per-row symmetric int8 over the last dim: s = max(absmax, 1e-8) / 127,
     q = clip(round(x / s), -127, 127), rounding half to even. Returns
-    (q int8, s fp32 [..., 1])."""
+    (q int8, s fp32 [..., 1]). The division by 127 is by a tensor, so the
+    card gives the CPU's bits (see `channel_scale`)."""
     xf = x.float()
-    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    ax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    sx = ax / torch.full_like(ax, 127.0)
     xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
     return xq, sx
 

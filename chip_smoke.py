@@ -109,6 +109,10 @@ Phases, each printing one line or more (and failing the run by raising):
      eager `two_part_cached_attention` with one token and SDPA with a
      one-token query; and with every window DECODE_SHORT rows long, which
      must not take longer than full windows.
+   - The activation and cache quantizers (`ops/w8a8.quantize_rows`,
+     `ops/kv_quant.quantize_kv_rows`, plain PyTorch on both devices) on the
+     card against the CPU on the same bf16 inputs, the 2B decoder's rows and
+     a cache slice: int8 values and fp32 scales bit-equal.
    - The fp8 (e4m3) decode matmul (K9) at the fp8 probe's three decode
      matvecs of InternLM2-1.8B (wqkv 2048 -> 4096, w1 / w3 fused 2048 ->
      16384, w2 8192 -> 2048) at M = 1, 4, 8 and at a ragged M = 3, K = 2050,
@@ -338,8 +342,9 @@ Phases, each printing one line or more (and failing the run by raising):
     `cli.score.main --model_name_or_path` on phase 10's videos bit-equal to
     the same call drawing from the seed (score head opened in both);
     start-up from the file (read; build with the weights on the card); a
-    reference-format sharded bf16 checkpoint through `reference_state_dict`
-    and `write_sharded_safetensors`: `load_reference_checkpoint` and build.
+    reference-format sharded bf16 checkpoint at PHASE14_CUT layers per tower
+    through `reference_state_dict` and `write_sharded_safetensors`:
+    `load_reference_checkpoint` and build.
     (c) `tools.convert_to_int8` at 8 and 4 bits on (b)'s file, served under
     `--int8` / `--int4`: readouts bit-equal to the in-memory build from the
     fp32 file, 120 K6 / K7 launches; the int8 file under `--w8a8`: bit-equal
@@ -355,8 +360,48 @@ Phases, each printing one line or more (and failing the run by raising):
     seed 1's weights with the tree's three subtrees (the score head and
     SlowFast stay seed 1's).
 
+15. The other decoders: InternVL2-4B (InternViT-300M-448px + Phi-3-mini-
+    128k-instruct, `PHI3_MINI_128K`: hidden 3072, 32 layers, 32 / 32 heads of
+    96) and InternVL2-1B (the same ViT + Qwen2-0.5B-Instruct, `QWEN2_05B`:
+    hidden 896, 24 layers, 14 / 2 heads of 64, tied embeddings), through
+    `AssessorConfig.from_dict`, weights from seed 0. Phi-3's su factor
+    tables are not in the repository: a stated stand-in (short a ramp from
+    1.0 to 1.1, long from 1.0 to 3.0, 48 entries each); every width is the
+    published one. The prompts are phase 4's shape with ids below Phi-3's
+    vocabulary.
+    (a) The kernels alone at the new head shapes (`P15_SHAPES`,
+    `P15_ROWS`, `P15_DECODE`): K1 at D = 96 (the D = 128 body over tensor
+    maps of extent 96) causal at [4, 32 / 32, 2113] and at B = 2 with its
+    logsumexp, dq and dk/dv; K2 on [B, S, H, D] views of one projection at
+    the same rows (bit-equal to K1); K1 at Qwen2's 14 / 2 heads; K8 at 32 /
+    32 heads of 96 and 14 / 2 heads of 64 over 2145-row windows: each
+    against its plain version at TOL / LSE_TOL / BWD_TOL / DELTA_TOL /
+    DECODE_TOL, timed by CUDA graph replay beside its bound (FLOPs of the
+    true D) and SDPA.
+    (b) InternVL2-4B scoring, 2 chunks at full depth (24 + 32 layers) in
+    bf16, W8A8, W8A8 with every feed fused, int8 and int4: launches per
+    forward exactly (bf16: K1 56; W8A8: K1 56, K4a 48, K4b 24, K4c 24, with
+    the fused feeds also K5a 64 and K5b 32; int8 / int4: K1 24, K2 32, K6 /
+    K7 128 in the GEMM form), the fused-qkv launches by head shape
+    (`tally_heads`), ms per chunk, peak; the readout against every kernel's
+    plain version and a reference (fp32 forward; fp32-activation W8A8; the
+    bf16 model of the dequantized weights) at phases 4-6's tolerances, and
+    the quantized readouts' cosine to bf16.
+    (c) `generate` in bf16, B = 4, P15_GEN_TOKENS greedy tokens: K8 32 a
+    step, phase 8's checks. (d) phase 9's shared prefix (P = 4) on the 4B
+    model. (e) phase 7's TRAIN_STEPS stage-2 LoRA steps of the 4B model at
+    P15_TRAIN_VIDEOS videos, gradients against the plain path and fp32.
+    (f) InternVL2-1B scoring in bf16 and W8A8 as (b), and its generation
+    through the tied LM head as (c), K8 24 a step.
+    (g) `cli.score.main` from a directory holding the 4B composite
+    config.json (Phi-3 at P15_CLI_CUT layers per tower), the test tokenizer
+    and the fp32 JAX tree of seed 0 as `params.safetensors`, two questions:
+    scores bit-equal to the same call on a directory without weights (the
+    model drawn from seed 0).
+
 Then one JSON line describing the kernels (the K1, K3 and K4a-c entries
-also with their launches on the paths of phases 7c, 12, 13 and 14), and last
+also with their launches on the paths of phases 7c, 12, 13, 14 and 15; the
+D = 96 and 14 / 2 forms of phase 15 as entries of their own), and last
 {"ok": true, "device": {...}}. The line before them gives the whole run's
 seconds. Imports nothing of JAX.
 """
@@ -695,9 +740,9 @@ def sdpa(q, k, v, shape):
         q, k, v, is_causal=shape[5], enable_gqa=shape[1] != shape[2])
 
 
-def check_attention(fa, device) -> dict:
+def check_attention(fa, device, shapes=SHAPES) -> dict:
     results = {}
-    for name, shape in SHAPES.items():
+    for name, shape in shapes.items():
         b, hq, hkv, s, d, causal, kv_valid = shape
         qkv = make_qkv(shape, device)
         kw = dict(causal=causal, kv_valid=kv_valid)
@@ -750,10 +795,10 @@ def check_attention(fa, device) -> dict:
     return results
 
 
-def check_attention_training(fa, device) -> dict:
+def check_attention_training(fa, device, shapes=SHAPES) -> dict:
     """The forward with logsumexp and the dq and dk/dv kernels."""
     results = {}
-    for name, shape in SHAPES.items():
+    for name, shape in shapes.items():
         b, hq, hkv, s, d, causal, kv_valid = shape
         qkv = make_qkv(shape, device)
         kw = dict(causal=causal, kv_valid=kv_valid)
@@ -973,6 +1018,42 @@ def check_feed_ties(qf, device) -> None:
                                f"{int((q != q_want).sum())} int8 values differ from rint(y / s)")
     phase("kernel", f"quantize feeds on the tie grid ({', '.join(PRODUCERS)}): q and s "
           "bit-equal to rint(y / s)")
+
+
+def check_quantizers_bit_equal(device) -> dict:
+    """`ops/w8a8.quantize_rows` and `ops/kv_quant.quantize_kv_rows` on the
+    card against the same calls on the CPU, on the same bf16 inputs: the 2B
+    decoder's rows (4 x 2113 x 2048, one all-zero row) and a cache slice (4
+    sequences x 2177 rows x 8 kv heads x 128): int8 values and fp32 scales
+    bit-equal. Beside it, how many scales a division by the Python number
+    127 (a product with the reciprocal on the card) would give otherwise."""
+    from aigv_assessor_torch.ops import kv_quant, w8a8
+
+    gen = torch.Generator().manual_seed(9)
+    rows = (3.0 * torch.randn((4, 2113, 2048), generator=gen)).to(torch.bfloat16)
+    rows[0, 0] = 0.0  # the 1e-8 floor
+    cache = (3.0 * torch.randn((4, 2177, 8, 128), generator=gen)).to(torch.bfloat16)
+    out = {}
+    for name, fn, x in (("quantize_rows", w8a8.quantize_rows, rows),
+                        ("quantize_kv_rows", kv_quant.quantize_kv_rows, cache)):
+        q_card, s_card = (t.cpu() for t in fn(x.to(device)))
+        q_cpu, s_cpu = fn(x)
+        q_diff = int((q_card != q_cpu).sum())
+        s_diff = int((s_card != s_cpu).sum())
+        if q_diff or s_diff or q_card.dtype != torch.int8 or s_card.dtype != torch.float32:
+            raise RuntimeError(f"{name}: the card's int8 values differ from the CPU's in {q_diff} "
+                               f"places, its scales in {s_diff}")
+        amax = x.to(device).float().abs().amax(dim=-1)
+        by_number = int(((amax / 127.0).cpu() != amax.cpu() / torch.full_like(amax.cpu(), 127.0))
+                        .sum())
+        out[name] = dict(values=q_cpu.numel(), scales=s_cpu.numel(), scales_off_by_number=by_number)
+    phase("kernel", f"quantizers on the card against the CPU, same bf16 inputs: quantize_rows "
+          f"{tuple(rows.shape)} and quantize_kv_rows {tuple(cache.shape)}: int8 values and fp32 "
+          f"scales bit-equal ({out['quantize_rows']['scales']} + "
+          f"{out['quantize_kv_rows']['scales']} scales); dividing by the number 127 instead "
+          f"would change {out['quantize_rows']['scales_off_by_number']} + "
+          f"{out['quantize_kv_rows']['scales_off_by_number']} of them on this card")
+    return out
 
 
 def check_attention_separate(fa, device) -> dict:
@@ -1437,10 +1518,12 @@ def relative_l2(x: torch.Tensor, y: torch.Tensor) -> float:
     return ((x - y).norm() / y.norm()).item()
 
 
-def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: str) -> tuple:
-    """Phase 7 -> (launches of each attention kernel form over the
-    TRAIN_STEPS steps, ms of the last step). per_forward: attention layers
-    of one forward."""
+def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: str, *,
+                    name: str = "InternVL2-2B", tally: dict | None = None) -> tuple:
+    """Phase 7 (and 15e) -> (launches of each attention kernel form over the
+    TRAIN_STEPS steps, ms of the last step, peak GiB). per_forward: attention
+    layers of one forward. `tally`, where given, receives the fused-qkv
+    kernels' launches of the steps by form and head shape (`tally_heads`)."""
     from aigv_assessor_torch.cli.stage2_train import (
         LORA_FILE, build_training_model, prepare_batch, train_steps)
     from aigv_assessor_torch.core.precision import Precision
@@ -1486,19 +1569,25 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
         torch.cuda.reset_peak_memory_stats(device)
         for c in train_kernels:
             c.launches = 0
-        t0 = time.perf_counter()
-        train_steps(model, [batch], tc, trainer=trainer)  # step 1
-        torch.cuda.synchronize()
-        step1_ms = (time.perf_counter() - t0) * 1e3
-        towers = (model.vision_model.layers, model.language_model.layers)
-        ends = [m for layers in towers for layer in (layers[0], layers[-1])
-                for m in layer.modules() if hasattr(m, "lora_b")]
-        if len(ends) != 2 * 4 + 2 * 5 or not all(m.lora_b.any() for m in ends):
-            raise RuntimeError("a lora_b of a first or last layer is still zero after step 1")
-        t0 = time.perf_counter()
-        train_steps(model, [batch] * (TRAIN_STEPS - 1), tc, trainer=trainer)
-        torch.cuda.synchronize()
-        later_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+        with tally_heads(fa) as by_heads:
+            t0 = time.perf_counter()
+            train_steps(model, [batch], tc, trainer=trainer)  # step 1
+            torch.cuda.synchronize()
+            step1_ms = (time.perf_counter() - t0) * 1e3
+            towers = (model.vision_model.layers, model.language_model.layers)
+            ends = [m for layers in towers for layer in (layers[0], layers[-1])
+                    for m in layer.modules() if hasattr(m, "lora_b")]
+            # four adapted projections in a ViT layer, five in InternLM2's, four in Phi-3's
+            llm_projections = 4 if cfg.llm.architecture == "Phi3ForCausalLM" else 5
+            if (len(ends) != 2 * 4 + 2 * llm_projections
+                    or not all(m.lora_b.any() for m in ends)):
+                raise RuntimeError("a lora_b of a first or last layer is still zero after step 1")
+            t0 = time.perf_counter()
+            train_steps(model, [batch] * (TRAIN_STEPS - 1), tc, trainer=trainer)
+            torch.cuda.synchronize()
+            later_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+        if tally is not None:
+            tally.update(by_heads)
         train_counts = {c.__name__: c.launches for c in train_kernels}
         peak_train = torch.cuda.max_memory_allocated(device) / 2**30
         with open(f"{out_dir}/train_log.jsonl") as f:
@@ -1571,7 +1660,7 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
         raise RuntimeError(f"train: kernel-path gradient {gr} from the fp32 reference, plain "
                            f"bf16 path {gp}: more than {REF_RATIO}x farther")
     per_step = {k: v // TRAIN_STEPS for k, v in train_counts.items()}
-    phase("slice", f"train InternVL2-2B stage 2, LoRA r={LORA_RANK} both towers, bf16 with "
+    phase("slice", f"train {name} stage 2, LoRA r={LORA_RANK} both towers, bf16 with "
           f"fp32 masters ({n_trainable} trainable values), checkpointing on, dropout "
           f"{lora_cfg.lora_dropout}, drop path {cfg.vision.drop_path_rate}, {batch_size} videos x "
           f"{px_u8.shape[1]} frames {px_u8.shape[2]}px, seq {seq}, {TRAIN_STEPS} steps at constant lr {TRAIN_LR}: "
@@ -1587,11 +1676,13 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
     return train_counts, steady_ms, peak_train
 
 
-def check_decode_attention(dec, two_part, device) -> dict:
-    """The decode-attention kernel against its plain version at DECODE_SHAPES,
-    merged against `two_part_cached_attention`, and timed at the path shape."""
+def check_decode_attention(dec, two_part, device, shapes=DECODE_SHAPES,
+                           timed_shapes=("path", "ragged")) -> dict:
+    """The decode-attention kernel against its plain version at `shapes`,
+    merged against `two_part_cached_attention`, and timed at the
+    `timed_shapes` (with short windows too at the path shape)."""
     results = {}
-    for name, (b, hq, hkv, d, max_len, end_i, starts_t) in DECODE_SHAPES.items():
+    for name, (b, hq, hkv, d, max_len, end_i, starts_t) in shapes.items():
         gen = torch.Generator(device=device).manual_seed(5)
         q = torch.randn((b, hq, d), generator=gen, device=device).to(torch.bfloat16)
         # layers of a stacked cache, read through their strides
@@ -1658,7 +1749,7 @@ def check_decode_attention(dec, two_part, device) -> dict:
                  merged_max_abs_err=merged_err,
                  m_max_rel_err=((m - w_m).abs() / w_m.abs().clamp_min(1e-6)).max().item(),
                  l_max_rel_err=((l - w_l).abs() / w_l.abs().clamp_min(1e-6)).max().item())
-        if name in ("path", "ragged"):
+        if name in timed_shapes:
             layers = [(stack[0, i], stack[1, i]) for i in range(DECODE_LAYERS)]
 
             def cycle(fn, iters=5):
@@ -1748,9 +1839,10 @@ def check_decode_attention(dec, two_part, device) -> dict:
 
 
 def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vit: int,
-                   bf16_logits=None, **flags) -> dict:
-    """Phase 8 for one precision -> launches of the main path's run, times,
-    and the kernel path's teacher-forced logits."""
+                   bf16_logits=None, name: str = "InternVL2-2B", gen_tokens: int = GEN_TOKENS,
+                   **flags) -> dict:
+    """Phase 8 (and 15c, 15f) for one precision -> launches of the main
+    path's run, times, and the kernel path's teacher-forced logits."""
     from aigv_assessor_torch.cli.score import build_serving_model
     from aigv_assessor_torch.core.precision import Precision
     from aigv_assessor_torch.models import internlm2
@@ -1767,8 +1859,8 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
     kv_int8, int8 = model.precision.kv_int8, model.precision.int8_weights
     dtype = model.precision.compute_dtype
     batch, seq = ids.shape
-    max_len = seq + GEN_TOKENS
-    gcfg = GenerationConfig(max_new_tokens=GEN_TOKENS, eos_token_id=-1)  # never stops
+    max_len = seq + gen_tokens
+    gcfg = GenerationConfig(max_new_tokens=gen_tokens, eos_token_id=-1)  # never stops
     counters = (dec.cached_decode_attention, dec.decode_attention, wo.int8_matmul,
                 wo.int4_matmul, fa.flash_attention_qkv, fa.flash_attention)
     merges = []  # calls of the eager merge, which the card's path no longer makes
@@ -1791,7 +1883,7 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
         counts = {c.__name__: c.launches for c in counters}
         forms = dict(wo.int8_matmul.form_launches)
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    steps = GEN_TOKENS - 1
+    steps = gen_tokens - 1
     per_pass = 5 * n_llm + 1  # the projections and the LM head
     want = {"cached_decode_attention": 0 if kv_int8 else n_llm * steps, "decode_attention": 0,
             "int8_matmul": per_pass * (1 + steps) if int8 else 0, "int4_matmul": 0,
@@ -1807,7 +1899,7 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
     if forms != want_forms:
         raise RuntimeError(f"generation {label}: int8 matmul forms {forms}, expected "
                            f"{want_forms}")
-    if tokens.shape != (batch, GEN_TOKENS) or tokens.min() < 0 or tokens.max() >= cfg.llm.vocab_size:
+    if tokens.shape != (batch, gen_tokens) or tokens.min() < 0 or tokens.max() >= cfg.llm.vocab_size:
         raise RuntimeError(f"generation {label}: token ids {tokens.shape} out of range")
 
     def new_cache(m):
@@ -1866,7 +1958,7 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
         all_embeds = torch.cat([embeds, model.embed_tokens(forced)], dim=1)
         _, hidden, captured = lm(inputs_embeds=all_embeds, with_logits=False, capture_kv=True,
                                  rope_len=max_len)
-        f_logits = lm.output(hidden[:, seq - 1 :]).float()
+        f_logits = lm.logits(hidden[:, seq - 1 :]).float()
         del hidden, all_embeds
         n = seq + FORCED
         got_k, got_v = k_cache.k, k_cache.v
@@ -1918,8 +2010,8 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
                            f"{rows_rel} over all layers, {rows0_rel} in layer 0")
     kv_bytes = 2 * n_llm * batch * max_len * cfg.llm.num_key_value_heads * cfg.llm.head_dim
     cache_bytes = kv_bytes * 2 if not kv_int8 else kv_bytes + kv_bytes // cfg.llm.head_dim * 4
-    phase("slice", f"generation {label} InternVL2-2B, {batch} x {seq}-token prompt with motion, "
-          f"{GEN_TOKENS} new tokens greedy: launches {counts} ({n_llm} fused decode attention "
+    phase("slice", f"generation {label} {name}, {batch} x {seq}-token prompt with motion, "
+          f"{gen_tokens} new tokens greedy: launches {counts} ({n_llm} fused decode attention "
           f"per step, merge_new_token called {len(merges)} times), int8 matmul forms {forms}; "
           f"generate {total_ms:.1f} ms; prefill "
           f"{prefill_ms:.1f} ms, decode step {step_ms:.3f} ms, {batch * 1e3 / step_ms:.1f} "
@@ -1936,9 +2028,10 @@ def run_generation(cfg, device, ids, px_u8, smi, *, label: str, n_llm: int, n_vi
                 total_ms=total_ms, peak_gib=peak_gib, cache_bytes=cache_bytes, logits=k_logits)
 
 
-def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int) -> dict:
-    """Phase 9: P prompts per video through `score_chunks`, with and without
-    the shared prefix."""
+def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int,
+                      name: str = "InternVL2-2B") -> dict:
+    """Phase 9 (and 15d): P prompts per video through `score_chunks`, with
+    and without the shared prefix."""
     from aigv_assessor_torch.cli.score import (
         build_serving_model, compute_shared_prefix_len, score_chunks)
     from aigv_assessor_torch.core.precision import Precision
@@ -2023,7 +2116,7 @@ def run_shared_prefix(cfg, device, videos, rng, smi, *, n_vit: int, n_llm: int) 
         raise RuntimeError(f"shared prefix: shared path {rel_sr} from the fp32 reference, "
                            f"unshared {rel_ur}: more than {REF_RATIO}x farther")
     s, u = out[True], out[False]
-    phase("slice", f"shared prefix bf16 InternVL2-2B, {PERSPECTIVES} prompts of {seq} tokens "
+    phase("slice", f"shared prefix bf16 {name}, {PERSPECTIVES} prompts of {seq} tokens "
           f"sharing {prefix}, {len(chunks)} chunks x {BATCH} videos: shared {s['ms']:.1f} "
           f"ms/chunk, peak {s['peak_gib']:.2f} GiB; unshared ({BATCH * PERSPECTIVES} full "
           f"sequences) {u['ms']:.1f} ms/chunk, peak {u['peak_gib']:.2f} GiB; launches per chunk "
@@ -3964,13 +4057,17 @@ def run_checkpoint_files(device, smi, work: str, ids, mask, px_u8, *, n_vit: int
     ids = phase14_prompt(ids, cfg.img_context_token_id)
     pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.bfloat16)
 
+    # the reference format at PHASE14_CUT layers per tower: the format's path
+    # is depth-free, and full depth cost the smoke ~40 s of numpy and disk
+    ref_cfg = phase14_config(PHASE14_CUT)
+
     def draw_reference():
         """The reference-format tensors from seed 0 (numpy, one host core),
         drawn beside 14b-c's card work -> (state dict, seconds)."""
         t0 = time.perf_counter()
         rng = np.random.default_rng(0)
-        sd = make_synthetic_ckpt.reference_state_dict(cfg, rng)
-        sd.update(make_synthetic_ckpt.slowfast_state_dict(cfg, rng))
+        sd = make_synthetic_ckpt.reference_state_dict(ref_cfg, rng)
+        sd.update(make_synthetic_ckpt.slowfast_state_dict(ref_cfg, rng))
         return sd, time.perf_counter() - t0
 
     pool = ThreadPoolExecutor(1)
@@ -4115,13 +4212,13 @@ def run_checkpoint_files(device, smi, work: str, ids, mask, px_u8, *, n_vit: int
     os.makedirs(ref_dir)
     t0 = time.perf_counter()
     make_synthetic_ckpt.write_sharded_safetensors(sd, ref_dir, n_shards=4)
-    make_synthetic_ckpt.write_config_and_tokenizer(cfg, tok, ref_dir)
+    make_synthetic_ckpt.write_config_and_tokenizer(ref_cfg, tok, ref_dir)
     del sd
     ref_write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    weights = load_reference_checkpoint(ref_dir, cfg)
+    weights = load_reference_checkpoint(ref_dir, ref_cfg)
     ref_read_s = time.perf_counter() - t0
-    model = common.build_serving_model(cfg, device=device, seed=0, weights=weights)
+    model = common.build_serving_model(ref_cfg, device=device, seed=0, weights=weights)
     torch.cuda.synchronize()
     ref_build_s = time.perf_counter() - t0 - ref_read_s
     if not torch.isfinite(readout(model, ids, pv, mask)).all():
@@ -4130,7 +4227,8 @@ def run_checkpoint_files(device, smi, work: str, ids, mask, px_u8, *, n_vit: int
     remove(ref_dir)
     torch.cuda.empty_cache()
     out["startup"].update(ref_read_s=ref_read_s, ref_build_s=ref_build_s)
-    phase("ckpt", f"14b a reference-format bf16 checkpoint of the 2B model (4 shards; numpy drew "
+    phase("ckpt", f"14b a reference-format bf16 checkpoint of the 2B model at {PHASE14_CUT} layers "
+          f"per tower (4 shards; numpy drew "
           f"it in {draw_s:.1f} s on a host thread beside 14b-c, {wait_s:.1f} s waited for; "
           f"written in {ref_write_s:.1f} s): start-up load_reference_checkpoint "
           f"{ref_read_s:.2f} s, build and weights on the card {ref_build_s:.2f} s; "
@@ -4271,6 +4369,445 @@ def run_phase14(device, smi, ids, mask, px_u8, *, n_vit: int, n_llm: int) -> dic
     return out
 
 
+# --------------------------------------------- 15: the other decoders --
+
+
+# InternVL2-4B and InternVL2-1B: InternViT-300M-448px (the VisionConfig
+# default, as phase 4's) beside the decoders of their published config.json
+# files (microsoft/Phi-3-mini-128k-instruct, Qwen/Qwen2-0.5B-Instruct). The
+# repository does not hold Phi-3's two 48-entry su factor tables: they stand
+# in as ramps, short from 1.0 to 1.1 and long from 1.0 to 3.0. Every width is
+# the published one.
+PHI3_MINI_128K = {
+    "architectures": ["Phi3ForCausalLM"], "vocab_size": 32064, "hidden_size": 3072,
+    "intermediate_size": 8192, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "hidden_act": "silu", "max_position_embeddings": 131072,
+    "original_max_position_embeddings": 4096, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+    "rope_scaling": {"type": "su", "short_factor": np.linspace(1.0, 1.1, 48).tolist(),
+                     "long_factor": np.linspace(1.0, 3.0, 48).tolist()},
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 32000,
+    "pad_token_id": 32000}
+QWEN2_05B = {
+    "architectures": ["Qwen2ForCausalLM"], "vocab_size": 151936, "hidden_size": 896,
+    "intermediate_size": 4864, "num_hidden_layers": 24, "num_attention_heads": 14,
+    "num_key_value_heads": 2, "hidden_act": "silu", "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-6, "rope_theta": 1000000.0, "tie_word_embeddings": True,
+    "bos_token_id": 151643, "eos_token_id": 151645, "use_sliding_window": False}
+# 15a, (B, hq, hkv, S, D, causal, kv_valid): Phi-3-mini's decoder at D = 96 on
+# the D = 128 body (scoring: 4 videos; training: 2), Qwen2-0.5B's 14 / 2 heads
+P15_SHAPES = {"phi3": (4, 32, 32, 2113, 96, True, None),
+              "phi3_train": (2, 32, 32, 2113, 96, True, None),
+              "qwen2": (4, 14, 2, 2113, 64, True, None)}
+# K2 on three tensors: Phi-3's row-major branch under int8 / int4 weights,
+# (B, Sq, Skv, hq, hkv, D, causal, kv_valid, layout)
+P15_ROWS = (4, 2113, 2113, 32, 32, 96, True, None, "bshd")
+# K8, (B, hq, hkv, D, max_len, end, starts)
+P15_DECODE = {"phi3": (4, 32, 32, 96, 2177, 2145, (0, 0, 0, 0)),
+              "qwen2": (4, 14, 2, 64, 2177, 2145, (0, 3, 0, 40))}
+P15_GEN_TOKENS = 16
+P15_TRAIN_VIDEOS = 2
+P15_CLI_CUT = 2  # layers per tower of 15g's checkpoint
+
+
+@contextlib.contextmanager
+def tally_heads(fa):
+    """The fused-qkv kernels' launches inside the block by form and head
+    shape, {"<bhsd | bsd | lse | dq | dkv> <hq>/<hkv>/<D>": n}: each wrapper
+    counts its kernel's launches, and one model runs it at two head shapes
+    (its ViT's and its decoder's). A launch is tallied where it returned."""
+    tally: dict = {}
+    real_fwd, real_bwd = fa._launch_fwd, fa._launch_bwd
+
+    def add(form, qkv, hq, hkv):
+        key = f"{form} {hq}/{hkv}/{qkv.shape[-1]}"
+        tally[key] = tally.get(key, 0) + 1
+
+    def fwd(*args):  # (qkv, hq, hkv, causal, kv_valid, out_layout, with_lse)
+        out = real_fwd(*args)
+        add("lse" if args[6] else args[5], *args[:3])
+        return out
+
+    def bwd(*args):  # (name, qkv, out, dout, lse, delta, dqkv, hq, hkv, causal, kv_valid)
+        real_bwd(*args)
+        add("dkv" if args[0].endswith("dkv") else "dq", args[1], args[7], args[8])
+
+    with mock.patch.object(fa, "_launch_fwd", fwd), mock.patch.object(fa, "_launch_bwd", bwd):
+        yield tally
+
+
+def check_separate_rows(fa, device, shape) -> dict:
+    """K2's forward at a decoder's row-major shape ([B, S, H, D] views of one
+    projection output): against its plain version, bit-equal to K1 on the
+    same data, timed by CUDA graph replay beside its bound, the plain version
+    and SDPA on head-major views of the same tensors."""
+    b, s, _, hq, hkv, d, causal, kv_valid, _ = shape
+    gen = torch.Generator(device=device).manual_seed(2)
+    proj = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen, device=device).to(torch.bfloat16)
+    q = proj[..., : hq * d].view(b, s, hq, d)
+    k = proj[..., hq * d : (hq + hkv) * d].view(b, s, hkv, d)
+    v = proj[..., (hq + hkv) * d :].view(b, s, hkv, d)
+    kw = dict(causal=causal)
+    got = fa.flash_attention(q, k, v, **kw)
+    fused = fa.flash_attention_qkv(proj.view(b, s, hq + 2 * hkv, d).transpose(1, 2), hq, hkv,
+                                   causal=causal, out_layout="bsd")
+    torch.cuda.synchronize()
+    want = fa.plain_flash_attention(q, k, v, **kw)
+    if got.shape != q.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"K2 at {shape}: output not finite or of shape {tuple(got.shape)}")
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got.reshape(fused.shape), fused):
+        raise RuntimeError(f"K2 at {shape}: not bit-equal to K1 on the same data")
+    ms = graph_ms([lambda: fa.flash_attention(q, k, v, **kw)] * 3, 10)
+    plain_ms = time_ms(lambda: fa.plain_flash_attention(q, k, v, **kw), 3, warmup=1)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_shape = (b, hq, hkv, s, d, causal, kv_valid)
+    with torch.no_grad():
+        lib_err = (sdpa(qh, kh, vh, lib_shape).transpose(1, 2).float()
+                   - want.float()).abs().max().item()
+        library_ms = graph_ms([lambda: sdpa(qh, kh, vh, lib_shape)] * 3, 10)
+    flops, nbytes = separate_work(shape)["fwd"]
+    bound, bound_by = bound_ms(flops, nbytes)
+    text = f"bshd views of one projection, B={b} hq={hq} hkv={hkv} S={s} D={d} causal={causal}"
+    phase("kernel", f"15a three-tensor attention (K2) {text}: max_abs_err {err:.3e} "
+          f"(atol=rtol={TOL}), bit-equal to K1; by graph replay {ms:.4f} ms "
+          f"({rate_text(flops, bound, ms)}, FLOPs of D = {d}), SDPA {library_ms:.4f} ms "
+          f"({rate_text(flops, bound, library_ms)}; max_abs_err to plain {lib_err:.3e}); plain "
+          f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by})")
+    return dict(shape=text, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
+                **rate(flops, bound, ms))
+
+
+def p15_config(llm: dict, layers=None):
+    """InternVL2-4B / -1B as `AssessorConfig.from_dict` reads its composite
+    config.json: InternViT-300M-448px and the decoder `llm`, stage 2, the
+    synthetic prompts' <IMG_CONTEXT> id; `layers` per tower where given."""
+    from aigv_assessor_torch.core.config import AssessorConfig
+
+    vision = {} if layers is None else {"num_hidden_layers": layers}
+    llm = llm if layers is None else dict(llm, num_hidden_layers=layers)
+    return AssessorConfig.from_dict({"vision_config": vision, "llm_config": llm}).replace(
+        stage=2, img_context_token_id=CTX)
+
+
+def p15_counters():
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import int8_matmul as wo
+    from aigv_assessor_torch.ops import quant_fuse as qf
+
+    return (fa.flash_attention_qkv, fa.flash_attention, qf.layernorm_quant, qf.gelu_quant,
+            qf.quant_rows, qf.rmsnorm_quant, qf.silu_mul_quant, wo.int8_matmul, wo.int4_matmul,
+            fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
+            fa.flash_attention_qkv_bwd_dkv, dec.decode_attention, dec.cached_decode_attention)
+
+
+def run_p15_slice(cfg, name: str, mode: str, device, chunks, ids_pn, mask_pn, ids, mask, px_u8,
+                  smi, want: dict, readout_bf16=None) -> dict:
+    """15b / 15f: one precision's stage-2 scoring through `score_chunks`,
+    every count at 0 just before it: launches per forward against `want`
+    (the other kernels 0), ms per chunk, peak; the readout of the kernel path
+    against the same forward on every kernel's plain version and against a
+    reference: an fp32 forward (bf16), the same int8 weights with fp32
+    activations (W8A8), the bf16 model of the dequantized weights
+    (int8 / int4), at phases 4-6's tolerances."""
+    from aigv_assessor_torch.cli.score import build_serving_model, score_batch, score_chunks
+    from aigv_assessor_torch.core.precision import COMPONENTS, Precision
+    from aigv_assessor_torch.models.assessor import AIGVAssessor
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import int8_matmul as wo
+    from aigv_assessor_torch.ops import quant_fuse as qf
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    flags = {"bf16": {}, "w8a8": dict(w8a8=True),
+             "w8a8_fused": dict(w8a8=True, precision=Precision(fuse_quant=COMPONENTS,
+                                                               quant_rows=COMPONENTS)),
+             "int8": dict(int8=True), "int4": dict(int4=True)}[mode]
+    t0 = time.perf_counter()
+    model = build_serving_model(cfg, device=device, seed=0, **flags)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated(device) / 2**30
+    scores = score_batch(model, ids, px_u8, mask)  # warm-up
+    torch.cuda.synchronize()
+    if tuple(scores.shape) != (BATCH, 1) or not torch.isfinite(scores).all():
+        raise RuntimeError(f"{name} {mode}: scores {tuple(scores.shape)} not finite [{BATCH}, 1]")
+    torch.cuda.reset_peak_memory_stats(device)
+    counters = p15_counters()
+    for c in counters:
+        c.launches = 0
+    wo.int8_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
+    wo.int4_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
+    with tally_heads(fa) as tally:
+        t0 = time.perf_counter()
+        rows = score_chunks(model, chunks, ids_pn, mask_pn, batch_size=BATCH)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(chunks)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    counts = {c.__name__: c.launches for c in counters}
+    per_fwd = {k: v // len(chunks) for k, v in counts.items() if v}
+    if per_fwd != want or any(v % len(chunks) for v in counts.values()):
+        raise RuntimeError(f"{name} {mode}: launches per forward {per_fwd}, expected {want}")
+    forms = {f"int{bits}": dict(getattr(wo, f"int{bits}_matmul").form_launches)
+             for bits in (8, 4) if mode == f"int{bits}"}
+    for label, f in forms.items():
+        if f != dict(dict.fromkeys(wo.FORMS, 0), gemm=want[f"{label}_matmul"] * len(chunks)):
+            raise RuntimeError(f"{name} {mode}: matmul forms {f}, expected the GEMM form only")
+    arr = np.asarray(rows)
+    if arr.shape != (len(chunks) * BATCH, 1) or not np.isfinite(arr).all():
+        raise RuntimeError(f"{name} {mode}: score rows {arr.shape} not finite")
+
+    swaps = ((fa, "flash_attention_qkv", fa.plain_attention_qkv),
+             (fa, "flash_attention", fa.plain_flash_attention),
+             (qf, "layernorm_quant", qf.plain_layernorm_quant),
+             (qf, "gelu_quant", qf.plain_gelu_quant),
+             (qf, "quant_rows", qf.plain_quant_rows),
+             (qf, "rmsnorm_quant", qf.plain_rmsnorm_quant),
+             (qf, "silu_mul_quant", qf.plain_silu_mul_quant),
+             (wo, "int8_matmul", wo.plain_int8_matmul),
+             (wo, "int4_matmul", wo.plain_int4_matmul))
+
+    def plain_calls():
+        stack = contextlib.ExitStack()
+        for module, attr, plain in swaps:
+            stack.enter_context(mock.patch.object(module, attr, plain))
+        return stack
+
+    cd = model.precision.compute_dtype
+    if mode == "bf16":
+        ref = copy.deepcopy(model).float()
+        ref.precision = ref.language_model.precision = Precision.fp32()
+        ref_dtype, ref_plain, ref_name = torch.float32, True, "fp32 forward"
+    elif mode.startswith("w8a8"):
+        with torch.device("meta"):
+            ref = AIGVAssessor(cfg, dataclasses.replace(model.precision,
+                                                        compute_dtype=torch.float32))
+        ref.load_state_dict({k: v.float() if v.is_floating_point() else v
+                             for k, v in model.state_dict().items()}, strict=True, assign=True)
+        ref_dtype, ref_plain, ref_name = torch.float32, True, "fp32-activation W8A8 forward"
+    else:
+        bits = int(mode[3:])
+        state = {}
+        for key, t in model.state_dict().items():
+            if key.endswith(".weight_scale"):
+                continue
+            if t.dtype == torch.int8:
+                m = model.get_submodule(key[: -len(".weight")])
+                t = (wo.dequantize_kernel(t, m.weight_scale) if bits == 8 else
+                     wo.dequantize_kernel_int4(t, m.weight_scale, m.in_features))
+                t = t.to(torch.bfloat16)
+            state[key] = t
+        with torch.device("meta"):
+            ref = AIGVAssessor(cfg, Precision())
+        ref.load_state_dict(state, strict=True, assign=True)
+        del state
+        ref_dtype, ref_plain, ref_name = torch.bfloat16, False, "bf16 model of the dequantized weights"
+    ref.eval()
+    with torch.inference_mode():
+        pv = resize_normalize(px_u8, size=IMAGE, dtype=torch.float32)
+        kernel_out = model(ids[:, 0], pv.to(cd), mask[:, 0])["readout"].float()
+        launched = [c.launches for c in counters]
+        with plain_calls():
+            plain_out = model(ids[:, 0], pv.to(cd), mask[:, 0])["readout"].float()
+        if [c.launches for c in counters] != launched:
+            raise RuntimeError(f"{name} {mode}: the plain forward launched a kernel")
+        with plain_calls() if ref_plain else contextlib.nullcontext():
+            ref_out = ref(ids[:, 0], pv.to(ref_dtype), mask[:, 0])["readout"].float()
+    del ref
+    kp, kr, pr = (relative_l2(kernel_out, plain_out), relative_l2(kernel_out, ref_out),
+                  relative_l2(plain_out, ref_out))
+    if not torch.isfinite(kernel_out).all():
+        raise RuntimeError(f"{name} {mode}: readout not finite")
+    if mode in ("int8", "int4"):
+        ok, tol_text = (kp <= WEIGHT_ONLY_READOUT_TOL and kr <= WEIGHT_ONLY_READOUT_TOL,
+                        f"tol {WEIGHT_ONLY_READOUT_TOL} both")
+    else:
+        tol = READOUT_TOL if mode == "bf16" else W8A8_READOUT_TOL
+        ok, tol_text = kp <= tol and kr <= REF_RATIO * pr, f"tol {tol}, {REF_RATIO}x"
+    if not ok:
+        raise RuntimeError(f"{name} {mode}: readout rel L2 kernel vs plain {kp}, kernel vs "
+                           f"{ref_name} {kr}, plain vs it {pr} ({tol_text})")
+    cos_text = ""
+    if readout_bf16 is not None:
+        a, bf = kernel_out.flatten(), readout_bf16.flatten()
+        cosine = (a @ bf / (a.norm() * bf.norm())).item()
+        floor = {"w8a8": W8A8_COSINE, "w8a8_fused": W8A8_COSINE, "int8": INT8_COSINE}.get(mode)
+        if floor is not None and not cosine >= floor:
+            raise RuntimeError(f"{name} {mode}: readout cosine to bf16 {cosine} below {floor}")
+        cos_text = f", cosine to bf16 {cosine:.5f}" + (f" (tol {floor})" if floor else "")
+    phase("slice", f"15 {name} {mode} stage-2 scoring, {len(chunks)} chunks x {BATCH} videos x "
+          f"{FRAMES} frames {IMAGE}px, seq {ids.shape[-1]}: launches per forward {per_fwd} "
+          f"(fused-qkv by form and heads hq/hkv/D over the run: {tally}"
+          f"{f', matmul forms {forms}' if forms else ''}), {ms:.1f} ms/chunk, peak "
+          f"{peak_gib:.2f} GiB allocated (weights {weights_gib:.2f} GiB), init {init_s:.1f} s; "
+          f"readout rel L2 kernel vs plain {kp:.3e}, vs the {ref_name}: kernel {kr:.3e}, plain "
+          f"{pr:.3e} ({tol_text}){cos_text}; scores {np.round(arr[:, 0], 4).tolist()} [{smi}]")
+    del model, pv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, per_forward=per_fwd, tally=tally, forms=forms, ms=ms,
+                peak_gib=peak_gib, weights_gib=weights_gib, readout=kernel_out)
+
+
+def run_p15_cli(device, smi) -> dict:
+    """15g: `cli.score.main` on phase 10's videos from a directory holding
+    InternVL2-4B's composite config.json (the Phi-3 decoder, P15_CLI_CUT
+    layers per tower), the test tokenizer and the fp32 JAX tree of the model
+    drawn from seed 0 (`save_jax_params`), against the same call on a
+    directory without weights, which draws that model in bf16: the scores
+    bit-equal (one fp32 draw, rounded once either way)."""
+    from aigv_assessor_torch.cli import common, score
+    from aigv_assessor_torch.core.config import Phi3Config
+    from aigv_assessor_torch.core.precision import Precision
+    from aigv_assessor_torch.data.tokenizer import build_test_tokenizer
+    from aigv_assessor_torch.models.loading import jax_tree, save_jax_params
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.tools.make_synthetic_ckpt import reference_config_dict
+
+    tok = build_test_tokenizer()
+    cfg = p15_config(PHI3_MINI_128K, P15_CLI_CUT).replace(
+        img_context_token_id=int(tok.img_context_token_id))
+    config = reference_config_dict(cfg)
+    config["llm_config"] = dict(PHI3_MINI_128K, num_hidden_layers=P15_CLI_CUT)
+    questions = ["How would you rate the static quality of this video?",
+                 "How would you rate the temporal smoothness of this video?"]
+    rows, tallies = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        dirs = {label: os.path.join(work, label) for label in ("params", "seed")}
+        for d in dirs.values():
+            os.makedirs(d)
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump(config, f)
+            tok._tk.save(os.path.join(d, "tokenizer.json"))
+        read = common.config_from_args(common.serving_args(dirs["seed"]), 2)
+        if not isinstance(read.llm, Phi3Config) or read.llm.head_dim != 96:
+            raise RuntimeError(f"15g: config.json read as {type(read.llm).__name__}")
+        model = common.build_serving_model(cfg, device=device, precision=Precision.fp32(), seed=0)
+        t0 = time.perf_counter()
+        save_jax_params(os.path.join(dirs["params"], "params.safetensors"), jax_tree(model))
+        write_s = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        videos = os.path.join(work, "videos")
+        os.makedirs(videos)
+        write_cli_videos(videos)
+        build = common.build_serving_model
+        with mock.patch.object(common, "build_serving_model",
+                               lambda *a, **kw: opened_score_head(build(*a, **kw))):
+            for label, d in dirs.items():
+                argv = ["--videos", videos, "--model_name_or_path", d, "--batch_size",
+                        str(BATCH), "--num_segments", str(FRAMES), "--device", str(device),
+                        "--out", os.path.join(work, f"{label}.csv"),
+                        *[a for q in questions for a in ("--question", q)]]
+                with tally_heads(fa) as tally, contextlib.redirect_stdout(io.StringIO()):
+                    rows[label] = [r[1:] for r in score.main(argv)]
+                tallies[label] = tally
+    if rows["params"] != rows["seed"] or not np.any(np.asarray(rows["seed"], dtype=float)):
+        raise RuntimeError(f"15g: scores from params.safetensors {rows['params']} are not the "
+                           f"seed's {rows['seed']}")
+    if not tallies["params"].get("bhsd 32/32/96"):
+        raise RuntimeError(f"15g: the CLI's run launched no Phi-3 attention: {tallies['params']}")
+    phase("cli", f"15g cli.score.main --model_name_or_path: InternVL2-4B's config.json (Phi-3, "
+          f"{P15_CLI_CUT} layers per tower) and its fp32 JAX tree as params.safetensors (written "
+          f"in {write_s:.1f} s): {len(rows['seed'])} videos x {len(questions)} questions on the "
+          f"shared prefix, scores bit-equal to the same call drawing the model from seed 0; "
+          f"fused-qkv launches by form and heads {tallies['params']}; scores of the first "
+          f"video {rows['seed'][0]} [{smi}]")
+    return dict(tally=tallies["params"], rows=len(rows["seed"]))
+
+
+def run_phase15(device, smi, videos) -> dict:
+    """Phase 15: InternVL2-4B (Phi-3-mini) and InternVL2-1B (Qwen2-0.5B)."""
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops.attention import two_part_cached_attention
+
+    t_start = time.perf_counter()
+    out = {}
+    # 15a: the kernels alone at the new head shapes
+    out["fwd"] = check_attention(fa, device, P15_SHAPES)
+    out["train"] = check_attention_training(fa, device, {"phi3_train": P15_SHAPES["phi3_train"]})
+    out["rows"] = check_separate_rows(fa, device, P15_ROWS)
+    out["decode"] = check_decode_attention(dec, two_part_cached_attention, device, P15_DECODE,
+                                           timed_shapes=tuple(P15_DECODE))
+    t_a = time.perf_counter() - t_start
+
+    cfg4, cfg1 = p15_config(PHI3_MINI_128K), p15_config(QWEN2_05B)
+    rng = np.random.default_rng(15)
+    n_ctx = FRAMES * cfg4.num_image_token + 1
+    seq = n_ctx + TEXT
+    ids_pn = rng.integers(10, cfg4.llm.vocab_size, (1, seq))  # within both vocabularies
+    ids_pn[:, 1 : 1 + n_ctx] = CTX
+    mask_pn = np.ones((1, seq), bool)
+    chunks = [list(videos[i : i + BATCH]) for i in range(0, len(videos), BATCH)]
+    ids = torch.as_tensor(np.tile(ids_pn[None], (BATCH, 1, 1)), device=device)
+    mask = torch.as_tensor(np.tile(mask_pn[None], (BATCH, 1, 1)), device=device)
+    px_u8 = torch.as_tensor(videos[:BATCH], device=device)
+    n_vit = cfg4.vision.num_hidden_layers
+    slice_args = (device, chunks, ids_pn, mask_pn, ids, mask, px_u8, smi)
+
+    def want(n_llm, mode, llm_projections):
+        vit_w8a8 = dict(layernorm_quant=2 * n_vit, gelu_quant=n_vit, quant_rows=n_vit)
+        return {"bf16": dict(flash_attention_qkv=n_vit + n_llm),
+                "w8a8": dict(flash_attention_qkv=n_vit + n_llm, **vit_w8a8),
+                "w8a8_fused": dict(flash_attention_qkv=n_vit + n_llm, **vit_w8a8,
+                                   rmsnorm_quant=2 * n_llm, silu_mul_quant=n_llm),
+                "int8": dict(flash_attention_qkv=n_vit, flash_attention=n_llm,
+                             int8_matmul=llm_projections * n_llm),
+                "int4": dict(flash_attention_qkv=n_vit, flash_attention=n_llm,
+                             int4_matmul=llm_projections * n_llm)}[mode]
+
+    # 15b: InternVL2-4B scoring in every precision
+    t0 = time.perf_counter()
+    n4 = cfg4.llm.num_hidden_layers
+    out["4b"] = {}
+    for mode in ("bf16", "w8a8", "w8a8_fused", "int8", "int4"):
+        bf16 = out["4b"].get("bf16", {}).get("readout")
+        out["4b"][mode] = run_p15_slice(cfg4, "InternVL2-4B", mode, *slice_args,
+                                        want=want(n4, mode, 4), readout_bf16=bf16)
+    t_b = time.perf_counter() - t0
+    # 15c: greedy generation, bf16; 15d: the shared prefix
+    t0 = time.perf_counter()
+    out["gen4"] = run_generation(cfg4, device, ids[:, 0], px_u8, smi, label="bf16", n_llm=n4,
+                                 n_vit=n_vit, name="InternVL2-4B", gen_tokens=P15_GEN_TOKENS)
+    out["gen4"].pop("logits")
+    run_shared_prefix(cfg4, device, videos, rng, smi, n_vit=n_vit, n_llm=n4,
+                      name="InternVL2-4B")
+    t_cd = time.perf_counter() - t0
+    # 15e: stage-2 LoRA training
+    t0 = time.perf_counter()
+    out["train_tally"] = {}
+    tv = P15_TRAIN_VIDEOS
+    out["train4"] = run_train_slice(cfg4, device, ids[:tv], mask[:tv], px_u8[:tv], rng,
+                                    n_vit + n4, smi, name="InternVL2-4B",
+                                    tally=out["train_tally"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_e = time.perf_counter() - t0
+    # 15f: InternVL2-1B, bf16 and W8A8 scoring, generation through the tied head
+    t0 = time.perf_counter()
+    n1 = cfg1.llm.num_hidden_layers
+    out["1b"] = {}
+    for mode in ("bf16", "w8a8"):
+        bf16 = out["1b"].get("bf16", {}).get("readout")
+        out["1b"][mode] = run_p15_slice(cfg1, "InternVL2-1B", mode, *slice_args,
+                                        want=want(n1, mode, 5), readout_bf16=bf16)
+    out["gen1"] = run_generation(cfg1, device, ids[:, 0], px_u8, smi, label="bf16", n_llm=n1,
+                                 n_vit=n_vit, name="InternVL2-1B", gen_tokens=P15_GEN_TOKENS)
+    out["gen1"].pop("logits")
+    t_f = time.perf_counter() - t0
+    # 15g: the score CLI from a Phi-3 checkpoint directory
+    t0 = time.perf_counter()
+    out["cli"] = run_p15_cli(device, smi)
+    t_g = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_start
+    phase("p15", f"15 wall time {out['wall_s']:.1f} s: 15a kernels {t_a:.1f} s, 15b 4B scoring "
+          f"{t_b:.1f} s, 15c-d generation and shared prefix {t_cd:.1f} s, 15e training "
+          f"{t_e:.1f} s, 15f 1B {t_f:.1f} s, 15g CLI {t_g:.1f} s [{smi}]")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4316,6 +4853,7 @@ def main() -> int:
     train_shapes = check_attention_training(fa, device)
     feeds = check_feeds(qf, device)
     check_feed_ties(qf, device)
+    check_quantizers_bit_equal(device)
     separate = check_attention_separate(fa, device)
     separate_train = check_attention_separate_training(fa, device, SEPARATE_TRAIN)
     matmuls = check_weight_only(wo, device)
@@ -4702,6 +5240,11 @@ def main() -> int:
     # from disk, the merge tool, the grafts: every artifact under one
     # temporary directory
     phase14 = run_phase14(device, smi, ids, mask, px_u8, n_vit=n_vit, n_llm=n_llm)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. InternVL2-4B (Phi-3-mini, D = 96) and InternVL2-1B (Qwen2-0.5B, tied)
+    p15 = run_phase15(device, smi, videos)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -4927,6 +5470,85 @@ def main() -> int:
         "w1 / w3 fused 2048 -> 16384, w2 8192 -> 2048), one launch each, weights from device "
         "memory; launches are those of the probe's run (tools/fp8_decode_probe.run), its only "
         "caller: no model serves fp8 weights", shapes=fp8))
+    # phase 15's forms: Phi-3-mini's D = 96 (on the D = 128 body) and
+    # Qwen2-0.5B's 14 / 2 heads, each per unit of its path at its shapes;
+    # launches are the phase's runs' at that head shape (`tally_heads`)
+    n4, n1 = 32, 24
+    f15, t15, d15, r15 = (p15["fwd"], p15["train"]["phi3_train"], p15["decode"],
+                          p15["rows"])
+    tally4, tally1 = p15["4b"]["bf16"]["tally"], p15["1b"]["bf16"]["tally"]
+    train_tally = p15["train_tally"]
+
+    def p15_fwd(name, key, n, launches, unit):
+        r = f15[key]
+        return dict(name=name, **fwd_src, launches=launches, max_abs_err=r["max_abs_err"],
+                    ms=n * r["ms"], plain_ms=n * r["plain_ms"], bound_ms=n * r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=n * r["library_ms"], library=sdpa_note,
+                    unit=unit, shapes={key: r})
+
+    kernels += [
+        p15_fwd("flash_attn_qkv_fwd_d96", "phi3", n4, tally4.get("bhsd 32/32/96", 0),
+                f"one InternVL2-4B scoring forward: {n4} decoder launches at the phi3 shape "
+                "(D = 96 on the D = 128 body); launches: the bf16 scoring run's (15b) at 32/32/96"),
+        p15_fwd("flash_attn_qkv_fwd_qwen2", "qwen2", n1, tally1.get("bhsd 14/2/64", 0),
+                f"one InternVL2-1B scoring forward: {n1} decoder launches at 14 / 2 heads of 64; "
+                "launches: the bf16 scoring run's (15f) at 14/2/64"),
+        dict(name="flash_attn_qkv_fwd_lse_d96", **fwd_src,
+             launches=train_tally.get("lse 32/32/96", 0), max_abs_err=t15["lse_max_abs_err"],
+             ms=2 * n4 * t15["lse_ms"], plain_ms=2 * n4 * t15["plain_lse_ms"],
+             bound_ms=2 * n4 * t15["bounds"]["fwd_lse"]["bound_ms"],
+             bound_by=t15["bounds"]["fwd_lse"]["bound_by"],
+             library_ms=2 * n4 * f15["phi3_train"]["library_ms"],
+             library=sdpa_note + " (forward; it keeps its own logsumexp)",
+             unit=f"one InternVL2-4B training micro-batch of {P15_TRAIN_VIDEOS} videos: first "
+             f"pass and recompute, 2 x {n4} decoder launches; launches: 15e's at 32/32/96",
+             shapes=p15["train"]),
+        dict(name="flash_attn_qkv_bwd_dq_d96", **bwd_src,
+             replaces="aigv_assessor_tpu/ops/pallas_attention.py:384",
+             launches=train_tally.get("dq 32/32/96", 0), max_abs_err=t15["max_abs_err"]["dq"],
+             ms=n4 * t15["dq_ms"], plain_ms=n4 * t15["plain_bwd_ms"],
+             bound_ms=n4 * t15["bounds"]["dq"]["bound_ms"],
+             bound_by=t15["bounds"]["dq"]["bound_by"], library_ms=n4 * t15["library_bwd_ms"],
+             library="as for flash_attn_qkv_bwd_dq",
+             unit=f"one InternVL2-4B training micro-batch: {n4} decoder launches; launches: "
+             "15e's at 32/32/96"),
+        dict(name="flash_attn_qkv_bwd_dkv_d96", **bwd_src,
+             replaces="aigv_assessor_tpu/ops/pallas_attention.py:455",
+             launches=train_tally.get("dkv 32/32/96", 0),
+             max_abs_err=max(t15["max_abs_err"]["dk"], t15["max_abs_err"]["dv"]),
+             ms=n4 * t15["dkv_ms"], plain_ms=n4 * t15["plain_bwd_ms"],
+             bound_ms=n4 * t15["bounds"]["dkv"]["bound_ms"],
+             bound_by=t15["bounds"]["dkv"]["bound_by"], library_ms=n4 * t15["library_bwd_ms"],
+             library="as for flash_attn_qkv_bwd_dq",
+             unit=f"one InternVL2-4B training micro-batch: {n4} decoder launches; launches: "
+             "15e's at 32/32/96"),
+        dict(name="flash_attn_fwd_d96", route="cuda",
+             source="aigv_assessor_torch/csrc/flash_attn_fwd.cu",
+             replaces="aigv_assessor_tpu/ops/pallas_attention.py:352",
+             launches=p15["4b"]["int8"]["counts"]["flash_attention"],
+             max_abs_err=r15["max_abs_err"], ms=n4 * r15["ms"], plain_ms=n4 * r15["plain_ms"],
+             bound_ms=n4 * r15["bound_ms"], bound_by=r15["bound_by"],
+             library_ms=n4 * r15["library_ms"],
+             library="F.scaled_dot_product_attention on head-major views of the same q, k, v",
+             unit=f"one InternVL2-4B int8 / int4 scoring forward: {n4} launches at the phi3 "
+             "shape, bshd views of one row-major projection; launches: the int8 run's (15b)",
+             shapes={"phi3_rows": r15}),
+    ]
+    for key, n, gen, label in (("phi3", n4, p15["gen4"], "d96"), ("qwen2", n1, p15["gen1"],
+                                                                 "qwen2")):
+        r = d15[key]
+        kernels.append(dict(
+            name=f"decode_attention_{label}", route="cuda",
+            source="aigv_assessor_torch/csrc/decode_attention.cu",
+            replaces="aigv_assessor_tpu/ops/decode_attention.py:64",
+            launches=gen["counts"]["cached_decode_attention"], max_abs_err=r["max_abs_err"],
+            ms=n * r["ms"], plain_ms=n * r["plain_ms"], bound_ms=n * r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=n * r["library_ms"],
+            library="as for decode_attention", eager_ms=n * r["eager_ms"],
+            unit=f"one decode step at {r['shape']}: {n} launches of the fused entry; launches: "
+            f"the bf16 {P15_GEN_TOKENS}-token generate of "
+            f"{'InternVL2-4B (15c)' if key == 'phi3' else 'InternVL2-1B (15f)'}",
+            shapes={key: r}))
     ids_by_name = {
         "flash_attn_qkv_fwd": "K1 bhsd", "flash_attn_qkv_fwd_bsd": "K1 bsd",
         "flash_attn_qkv_fwd_lse": "K1 lse", "flash_attn_qkv_bwd_dq": "K3a",
@@ -4934,7 +5556,11 @@ def main() -> int:
         "weight_only_int8_matmul": "K6", "weight_only_int4_matmul": "K7", "ln_quant": "K4a",
         "gelu_quant": "K4b", "ident_quant": "K4c", "rmsnorm_quant": "K5a",
         "silu_mul_quant": "K5b", "decode_attention": "K8", "flash_attn_fwd_lse": "K2 lse",
-        "flash_attn_bwd_dq": "K2 dq", "flash_attn_bwd_dkv": "K2 dk/dv", "fp8_matmul": "K9"}
+        "flash_attn_bwd_dq": "K2 dq", "flash_attn_bwd_dkv": "K2 dk/dv", "fp8_matmul": "K9",
+        "flash_attn_qkv_fwd_d96": "K1 bhsd D=96", "flash_attn_qkv_fwd_qwen2": "K1 bhsd 14/2",
+        "flash_attn_qkv_fwd_lse_d96": "K1 lse D=96", "flash_attn_qkv_bwd_dq_d96": "K3a D=96",
+        "flash_attn_qkv_bwd_dkv_d96": "K3b D=96", "flash_attn_fwd_d96": "K2 fwd D=96",
+        "decode_attention_d96": "K8 D=96", "decode_attention_qwen2": "K8 14/2"}
     # the entry points' paths (phases 7c and 12), each run with the counts at 0
     s2, s1 = train_clis["stage2"]["counts"], train_clis["stage1"]["counts"]
     bf16_serve, w8a8_serve = served["bf16"]["counts"], served["w8a8"]["counts"]
@@ -5001,6 +5627,32 @@ def main() -> int:
     for kernel, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
                             ("ident_quant", "quant_rows")):
         by_path[kernel]["int8_file_w8a8 (14c)"] = fq["w8a8"][counter]
+    # phase 15's paths for the forms of earlier slices: the ViT's attention in
+    # both models, the quantize feeds and matmuls of the 4B / 1B decoders
+    s4, s1b = p15["4b"], p15["1b"]
+    by_path["flash_attn_qkv_fwd"].update({
+        "internvl2_4b_bf16 (15b, ViT)": tally4.get("bhsd 16/16/64", 0),
+        "internvl2_1b_bf16 (15f, ViT)": tally1.get("bhsd 16/16/64", 0),
+        "internvl2_4b_int8 (15b, ViT)": s4["int8"]["counts"]["flash_attention_qkv"]})
+    by_path["flash_attn_qkv_fwd_bsd"].update({
+        f"internvl2_{m} (15, ViT)": t[key]["tally"].get("bsd 16/16/64", 0)
+        for m, t, key in (("4b_w8a8", s4, "w8a8"), ("4b_w8a8_fused", s4, "w8a8_fused"),
+                          ("1b_w8a8", s1b, "w8a8"))})
+    for kernel, form in (("flash_attn_qkv_fwd_lse", "lse"), ("flash_attn_qkv_bwd_dq", "dq"),
+                         ("flash_attn_qkv_bwd_dkv", "dkv")):
+        by_path[kernel]["internvl2_4b_train (15e, ViT)"] = train_tally.get(f"{form} 16/16/64", 0)
+    for kernel, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
+                            ("ident_quant", "quant_rows"), ("rmsnorm_quant", "rmsnorm_quant"),
+                            ("silu_mul_quant", "silu_mul_quant")):
+        by_path[kernel].update({
+            "internvl2_4b_w8a8 (15b)": s4["w8a8"]["counts"][counter],
+            "internvl2_4b_w8a8_fused (15b)": s4["w8a8_fused"]["counts"][counter],
+            "internvl2_1b_w8a8 (15f)": s1b["w8a8"]["counts"][counter]})
+    for bits in (8, 4):
+        by_path[f"weight_only_int{bits}_matmul"][f"internvl2_4b_int{bits} (15b)"] = (
+            s4[f"int{bits}"]["counts"][f"int{bits}_matmul"])
+    by_path["flash_attn_fwd"]["internvl2_4b_int4 (15b, decoder)"] = (
+        s4["int4"]["counts"]["flash_attention"])
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]
         if k["name"] in by_path:

@@ -245,10 +245,17 @@ def test_config_from_dict_equals_jax(ckpt, scale):
         loaded = tcfg.AssessorConfig.from_json(os.path.join(d, "config.json"))
         assert dataclasses.asdict(loaded) == dataclasses.asdict(
             jcfg.AssessorConfig.from_json(os.path.join(d, "config.json")))
+    # the other decoders dispatch as in JAX: Phi-3 to its own config, Llama
+    # and Qwen2 to LLMConfig with their defaults; any other name raises
     for arch in ("Phi3ForCausalLM", "LlamaForCausalLM", "Qwen2ForCausalLM"):
         other = dict(raw, llm_config=dict(raw["llm_config"], architectures=[arch]))
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tcfg.AssessorConfig.from_dict(other)
+        got, want = tcfg.AssessorConfig.from_dict(other), jcfg.AssessorConfig.from_dict(other)
+        assert type(got.llm).__name__ == type(want.llm).__name__
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    other = dict(raw, llm_config=dict(raw["llm_config"], architectures=["GPT2LMHeadModel"]))
+    for module in (tcfg, jcfg):
+        with pytest.raises(ValueError, match="Unsupported architecture"):
+            module.AssessorConfig.from_dict(other)
 
 
 # ------------------------------------------------------- weights from disk --

@@ -83,6 +83,10 @@ jax-free, so that it runs where jax is not installed:
   decoder feeds, which launch K5a and K5b in every pass) and int8 against the
   same model on the plain decode attention, and shared-prefix scores against
   the unshared path.
+- Head dim 96 (Phi-3-mini, InternVL2-4B's decoder), which the attention
+  kernels run on their D = 128 body with tensor maps of innermost extent 96,
+  and Qwen2-0.5B's 14 / 2 heads (InternVL2-1B): K1, K2, the backward and K8
+  at those shapes within the tolerances above.
 """
 
 import pytest
@@ -129,6 +133,11 @@ SHAPES = {
     "vit": (32, 16, 16, 1032, 64, False, 1025),
     "llm": (4, 16, 8, 2113, 128, True, None),
     "ragged": (2, 4, 4, 200, 64, False, 150),
+    # Phi-3-mini's decoder (InternVL2-4B), D = 96 on the D = 128 body, and a
+    # ragged D = 96 shape; Qwen2-0.5B's (InternVL2-1B), 14 / 2 heads of 64
+    "phi3_d96": (4, 32, 32, 2113, 96, True, None),
+    "ragged_d96": (2, 4, 4, 200, 96, False, 150),
+    "qwen2_g7": (4, 14, 2, 2113, 64, True, None),
 }
 # shapes for the backward: both head dims, GQA with groups of 2, 4 and 6,
 # causal and not, a garbage tail, and the borders of the kernels' tiles (the
@@ -151,6 +160,10 @@ BWD_SHAPES = {
     "kv1_d64": (2, 4, 4, 257, 64, False, 1),
     "s300_kv65_d128": (2, 5, 5, 300, 128, False, 65),
     "llm_20b": (2, 48, 8, 2113, 128, True, None),
+    "phi3_d96": (2, 32, 32, 2113, 96, True, None),
+    "gqa2_tail_d96": (1, 4, 2, 136, 96, False, 129),
+    "s65_causal_d96": (2, 4, 2, 65, 96, True, None),
+    "qwen2_g7": (2, 14, 2, 2113, 64, True, None),
 }
 DELTA_TOL = 1e-5  # delta from the dq kernel against the fp32 expression, relative L2
 ZERO_GRAD_ATOL = 1e-3  # dq and dk where every row has one valid key: 0 in exact arithmetic
@@ -505,6 +518,8 @@ SEPARATE = {
     "mha_tail_d64": (2, 200, 200, 4, 4, 64, False, 150),
     "cross_d64": (2, 257, 1025, 4, 4, 64, False, None),
     "cross_gqa_tail_d128": (1, 70, 333, 8, 2, 128, False, 300),
+    "gqa_causal_d96": (2, 200, 200, 4, 2, 96, True, None),
+    "cross_tail_d96": (1, 70, 333, 8, 8, 96, False, 300),
 }
 
 
@@ -977,6 +992,10 @@ DECODE = {
     "group4_d128": (1, 8, 2, 128, 70, 70, (0,)),
     "group3_d64": (2, 9, 3, 64, 200, 150, (0, 20)),
     "batch1_many_splits": (1, 16, 8, 128, 4096, 4000, (5,)),
+    # Phi-3-mini (32 / 32 heads of 96) and Qwen2-0.5B (14 / 2 heads of 64)
+    "phi3_d96": (4, 32, 32, 96, 2145, 2129, (0, 0, 0, 0)),
+    "ragged_d96": (3, 8, 2, 96, 300, 250, (0, 100, 249)),
+    "qwen2_g7": (4, 14, 2, 64, 2145, 2129, (0, 3, 0, 40)),
 }
 
 

@@ -179,11 +179,26 @@ def test_unported_serving_options_raise(pair):
     # the score head, as in JAX
     stage1 = TorchAssessor(TorchConfig.tiny(stage=1))
     assert stage1.config.stage == 1 and not hasattr(stage1, "mlpscore")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TorchAssessor(tcfg.replace(llm=dataclasses.replace(tcfg.llm,
-                                                           architecture="Phi3ForCausalLM")))
-    with pytest.raises(NotImplementedError, match="tied embeddings"):
-        TorchAssessor(tcfg.replace(llm=dataclasses.replace(tcfg.llm, tie_word_embeddings=True)))
+    # the decoder dispatch matches JAX's: a Phi-3 config builds Phi-3 and a
+    # tied one no LM head, with JAX's parameter tree in both cases
+    from aigv_assessor_torch.core.config import Phi3Config as TorchPhi3Config
+    from aigv_assessor_torch.models.loading import jax_paths
+    from aigv_assessor_tpu.models.phi3 import Phi3Config
+
+    n = T * cfg.num_image_token + 1 + TEXT
+    for jllm, tllm in ((Phi3Config.tiny(), TorchPhi3Config.tiny()),
+                       (dataclasses.replace(cfg.llm, tie_word_embeddings=True),
+                        dataclasses.replace(tcfg.llm, tie_word_embeddings=True))):
+        shapes = jax.eval_shape(AIGVAssessor(cfg.replace(llm=jllm), Precision.fp32()).init,
+                                jax.random.key(0), jnp.zeros((1, n), jnp.int32),
+                                jnp.zeros((1, T, 56, 56, 3), jnp.float32))
+        want = {"/".join(str(getattr(k, "key", k)) for k in path)
+                for path, _ in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+        port = TorchAssessor(tcfg.replace(llm=tllm))
+        got = {"params/" + path for path, _ in jax_paths(port).values()}
+        assert got == want
+        assert type(port.language_model).__name__ == (
+            "Phi3ForCausalLM" if isinstance(tllm, TorchPhi3Config) else "InternLM2ForCausalLM")
 
 
 def test_state_dict_from_jax_rejects_mismatch(pair):
