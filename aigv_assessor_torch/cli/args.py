@@ -3,10 +3,10 @@ without jax: every flag of the JAX parser with its default, so that a JAX
 command line means the same here, plus `--device` (default `cuda`, as
 `cli/score.py` has it; the tests pass `cpu`).
 
-`parse_args` checks what only JAX's device mesh gives a meaning: the port
-runs on one card, so `--mesh_data` / `--mesh_fsdp` / `--mesh_tensor` are
-taken at their defaults or 1 and anything else raises (more than one card is
-ROADMAP.md Queue 1 item 8).
+`--mesh_data` / `--mesh_fsdp` lay the ranks of a `torch.distributed` run
+(one process per card) out as JAX's mesh (`cli/common.mesh_from_args`,
+`core/mesh.py`); `parse_args` refuses `--mesh_tensor` above 1: the tensor
+axis is not ported (ROADMAP.md Queue 1 [11]).
 """
 
 from __future__ import annotations
@@ -90,9 +90,11 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--report_to", type=str, default="none")
     # ---- the JAX package's additions ----
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="JAX's data-parallel mesh axis: 0 (auto) or 1 on one card")
-    p.add_argument("--mesh_fsdp", type=int, default=1, help="JAX's mesh axis: 1 on one card")
-    p.add_argument("--mesh_tensor", type=int, default=1, help="JAX's mesh axis: 1 on one card")
+                   help="data-parallel ranks; 0 = world // (fsdp * tensor)")
+    p.add_argument("--mesh_fsdp", type=int, default=1,
+                   help="ranks that shard parameters and optimizer state (FSDP2)")
+    p.add_argument("--mesh_tensor", type=int, default=1,
+                   help="tensor-parallel ranks: 1 (not ported, ROADMAP.md Queue 1 [11])")
     p.add_argument("--model_scale", type=str, default="auto",
                    choices=["auto", "tiny", "2b", "8b"],
                    help="init scale when no checkpoint is given")
@@ -108,10 +110,12 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 
 
 def parse_args(description: str, argv: Optional[List[str]] = None):
+    from aigv_assessor_torch.core.mesh import TENSOR_AXIS_TODO
+
     args = build_parser(description).parse_args(argv)
-    for flag, allowed in (("mesh_data", (0, 1)), ("mesh_fsdp", (1,)), ("mesh_tensor", (1,))):
-        if getattr(args, flag) not in allowed:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: the port runs on one card; more than one "
-                "card (torch.distributed) is ROADMAP.md Queue 1 item 8")
+    if args.mesh_tensor != 1:
+        raise NotImplementedError(f"--mesh_tensor {args.mesh_tensor}: " + TENSOR_AXIS_TODO)
+    for flag in ("mesh_data", "mesh_fsdp"):
+        if getattr(args, flag) < (0 if flag == "mesh_data" else 1):
+            raise ValueError(f"--{flag} {getattr(args, flag)}: out of range")
     return args

@@ -19,6 +19,9 @@ tokenizer -> model, for the CLIs.
 - `config_and_tokenizer`: the config (with the tokenizer's `<IMG_CONTEXT>`
   id) and the tokenizer from the CLI flags; the training CLIs build their
   model from these (`cli/stage2_train.build_training_model`).
+- `mesh_from_args`: the `--mesh_data` / `--mesh_fsdp` / `--mesh_tensor`
+  layout of the process group's ranks (`core/mesh.py`), `data` defaulting
+  to world // (fsdp * tensor) as in JAX; None in a single-process run.
 - `build_model_and_tokenizer`: all of the above from the CLI flags,
   `(config, model, tokenizer)`: the eval CLIs' assembly (stage 1 or 2, on
   `--device`, bf16 or fp32 with `--bf16 False`, adapters live as JAX's eval
@@ -41,6 +44,8 @@ from typing import Dict, FrozenSet, Mapping, Optional, Tuple
 import torch
 
 from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig
+from aigv_assessor_torch.core.dist import process_count
+from aigv_assessor_torch.core.mesh import MeshConfig, check_mesh, make_mesh
 from aigv_assessor_torch.core.precision import COMPONENTS, Precision
 from aigv_assessor_torch.data.tokenizer import AIGVTokenizer, build_test_tokenizer
 from aigv_assessor_torch.models.assessor import AIGVAssessor
@@ -57,7 +62,7 @@ from aigv_assessor_torch.models.loading import (
 
 __all__ = ["LLM_2B", "build_model_and_tokenizer", "build_serving_model", "build_serving_stack",
            "config_and_tokenizer", "config_from_args", "graft_weights", "load_tokenizer",
-           "model_weights", "quant_components", "serving_args"]
+           "mesh_from_args", "model_weights", "quant_components", "serving_args"]
 
 logger = logging.getLogger(__name__)
 
@@ -241,6 +246,21 @@ def config_and_tokenizer(args, stage: int) -> Tuple[AssessorConfig, AIGVTokenize
     config = config_from_args(args, stage)
     tokenizer = load_tokenizer(args, config)
     return config.replace(img_context_token_id=int(tokenizer.img_context_token_id)), tokenizer
+
+
+def mesh_config_from_args(args, world: Optional[int] = None) -> MeshConfig:
+    """The mesh the flags ask for over `world` ranks (the process group's by
+    default); ValueError where it does not cover them."""
+    world = process_count() if world is None else world
+    data = args.mesh_data or max(1, world // (args.mesh_fsdp * args.mesh_tensor))
+    return check_mesh(MeshConfig(data=data, fsdp=args.mesh_fsdp, tensor=args.mesh_tensor), world)
+
+
+def mesh_from_args(args):
+    """The flags' `DeviceMesh` over the process group, or None for a
+    single-process run (whose flags must then describe one device)."""
+    config = mesh_config_from_args(args)
+    return make_mesh(config) if torch.distributed.is_initialized() else None
 
 
 def build_model_and_tokenizer(

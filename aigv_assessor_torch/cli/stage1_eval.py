@@ -9,22 +9,28 @@ level, and the CSV and Accuracy / SRCC / PLCC / KRCC metrics TXT.
 Flags as the JAX CLI's (`cli/args.py`), plus `--device` (default `cuda`;
 `--device cpu --bf16 False` on a machine without a card). Batched
 (`--eval_batch_size`, default 8) where the reference loops one sample at a
-time; GIFs are read at 10 fps, mos as the annotation gives it. One process
-on one card: the JAX CLI's `init_dist` has no counterpart yet.
+time; GIFs are read at 10 fps, mos as the annotation gives it.
+
+Launched on several cards (`python -m torch.distributed.run
+--nproc_per_node N -m aigv_assessor_torch.cli.stage1_eval ...`), every rank
+evaluates the whole set with the whole model, as JAX's processes do after
+its `init_dist`, and the primary alone writes the files (JAX writes them
+from every process).
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import sys
 
 from aigv_assessor_torch.cli.args import parse_args
 from aigv_assessor_torch.cli.common import build_model_and_tokenizer
+from aigv_assessor_torch.core.dist import init_dist, is_primary
 from aigv_assessor_torch.data.dataset import build_datasets
 from aigv_assessor_torch.data.loader import DataLoader
 from aigv_assessor_torch.data.sampler import ShardedBatchSampler
 from aigv_assessor_torch.train.evaluate import evaluate_batches, save_and_evaluate
+from aigv_assessor_torch.utils.logging_utils import setup_logging
 
 STAGE = 1
 MOS_SCALE = 1.0
@@ -33,8 +39,9 @@ MOS_SCALE = 1.0
 def main(argv=None, stage=STAGE, mos_scale=MOS_SCALE):
     """-> the metrics dict; writes `<output_dir>/<output_file>` and appends
     to `<output_dir>/<metrics_file>`."""
-    logging.basicConfig(level=logging.INFO)
     args = parse_args(f"AIGV-Assessor stage-{stage} evaluation", argv)
+    init_dist(device=args.device)
+    setup_logging()
     config, model, tokenizer = build_model_and_tokenizer(args, stage)
     eval_ds = build_datasets(
         args.meta_path,
@@ -57,6 +64,7 @@ def main(argv=None, stage=STAGE, mos_scale=MOS_SCALE):
         output_file=os.path.join(args.output_dir, args.output_file),
         metrics_file=os.path.join(args.output_dir, args.metrics_file),
         stage=stage,
+        write=is_primary(),
     )
 
 

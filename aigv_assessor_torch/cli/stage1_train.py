@@ -11,7 +11,7 @@ quality-level accuracy, the best checkpoint kept.
 Flags as the JAX CLI's (`cli/args.py`), plus `--device` (default `cuda`;
 `--device cpu --bf16 False` on a machine without a card).
 
-- `main`: the JAX CLI's `main` step for step, on one card: the model
+- `main`: the JAX CLI's `main` step for step: the model
   (`build_training_model`, weights from `--model_name_or_path` or
   `--seed`), the train and test datasets of the meta file, the
   length-grouped sampler and the threaded loader, each collated batch on
@@ -21,6 +21,12 @@ Flags as the JAX CLI's (`cli/args.py`), plus `--device` (default `cuda`;
   `<output_dir>/checkpoints` (the best by `best_metric`),
   `--resume_from_checkpoint`, and at stage 1 the trained projectors as
   `TRAINABLE_FILE`. `cli/stage2_train.main` is this at stage 2.
+  Launched on N cards (`python -m torch.distributed.run --nproc_per_node N
+  -m aigv_assessor_torch.cli.stage1_train ... --mesh_fsdp N`), each rank
+  loads its shard of every global batch of `--per_device_train_batch_size`
+  x data x fsdp rows, the trainer runs FSDP2 over the `--mesh_*` layout
+  (`train/trainer.py`), every rank evaluates, and the primary alone writes
+  the log, the eval files, the artifacts and the checkpoints.
 - `build_training_model`: the stage-1 model on a device, through
   `cli/stage2_train.build_training_model`; no score head, as in JAX.
 - `prepare_batch`: uint8 frames -> normalized pixels, with the labels.
@@ -49,6 +55,7 @@ import torch
 from aigv_assessor_torch.cli import common, stage2_train
 from aigv_assessor_torch.cli.args import parse_args
 from aigv_assessor_torch.core.config import AssessorConfig
+from aigv_assessor_torch.core.dist import init_dist, is_primary, process_count, process_index
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.data.dataset import build_datasets
 from aigv_assessor_torch.data.loader import DataLoader
@@ -57,6 +64,7 @@ from aigv_assessor_torch.models.assessor import AIGVAssessor
 from aigv_assessor_torch.train.checkpoint import CheckpointManager, save_trainable_weights
 from aigv_assessor_torch.train.evaluate import evaluate_batches, save_and_evaluate
 from aigv_assessor_torch.train.trainer import TrainConfig, Trainer, microbatch
+from aigv_assessor_torch.utils.logging_utils import setup_logging
 
 logger = logging.getLogger(__name__)
 
@@ -73,8 +81,12 @@ def main(argv=None, stage=STAGE, best_metric=BEST_METRIC, mos_scale=MOS_SCALE, o
     """Train from `--meta_path` -> the `Trainer`. `on_best(args)`, if given,
     makes the callback the trainer calls with (model, step) on every new
     best `best_metric`."""
-    logging.basicConfig(level=logging.INFO)
     args = parse_args(f"AIGV-Assessor stage-{stage} training", argv)
+    init_dist(device=args.device)
+    setup_logging()
+    mesh = common.mesh_from_args(args)
+    mesh_config = common.mesh_config_from_args(args)
+    n_dp = mesh_config.data * mesh_config.fsdp
     config, tokenizer = common.config_and_tokenizer(args, stage)
 
     data_kw = dict(num_segments=args.num_segments, group_by_length=args.group_by_length,
@@ -86,13 +98,14 @@ def main(argv=None, stage=STAGE, best_metric=BEST_METRIC, mos_scale=MOS_SCALE, o
     except ValueError:
         eval_ds = None
 
-    batch_size = args.per_device_train_batch_size  # one card: JAX's n_dp = 1
+    batch_size = args.per_device_train_batch_size
+    global_bs = batch_size * n_dp
     accum = args.gradient_accumulation_steps
-    if len(train_ds) < batch_size * accum:
-        logger.warning("dataset (%d samples) smaller than one batch (%d x %d accum): no "
-                       "training steps will run; shrink the batch", len(train_ds), batch_size,
-                       accum)
-    steps_per_epoch = max(len(train_ds) // (batch_size * accum), 1)
+    if len(train_ds) < global_bs * accum:
+        logger.warning("dataset (%d samples) smaller than one global batch (%d x %d accum): "
+                       "no training steps will run; shrink the mesh or batch", len(train_ds),
+                       global_bs, accum)
+    steps_per_epoch = max(len(train_ds) // (global_bs * accum), 1)
     total_steps = int(steps_per_epoch * args.num_train_epochs)
 
     tcfg = TrainConfig(
@@ -137,6 +150,7 @@ def main(argv=None, stage=STAGE, best_metric=BEST_METRIC, mos_scale=MOS_SCALE, o
             output_file=os.path.join(args.output_dir, args.output_file),
             metrics_file=os.path.join(args.output_dir, args.metrics_file),
             stage=stage,
+            write=is_primary(),
         )
 
     trainer = Trainer(
@@ -148,6 +162,7 @@ def main(argv=None, stage=STAGE, best_metric=BEST_METRIC, mos_scale=MOS_SCALE, o
         checkpoint_manager=CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
                                              save_total_limit=args.save_total_limit),
         on_best=on_best(args) if callable(on_best) else None,
+        mesh=mesh,
     )
     if args.resume_from_checkpoint:
         CheckpointManager(args.resume_from_checkpoint).restore(trainer)
@@ -168,11 +183,13 @@ def main(argv=None, stage=STAGE, best_metric=BEST_METRIC, mos_scale=MOS_SCALE, o
     def data_iter(epoch):
         sampler = None
         if args.group_by_length and hasattr(train_ds, "raw_data"):
-            sampler = LengthGroupedSampler([EST_SAMPLE_LEN] * len(train_ds), batch_size, 1,
+            sampler = LengthGroupedSampler([EST_SAMPLE_LEN] * len(train_ds), batch_size, n_dp,
                                            seed=args.seed)
+        # each rank loads its contiguous shard of every global batch
         batches = ShardedBatchSampler(sampler if sampler is not None else len(train_ds),
-                                      global_batch_size=batch_size * accum, num_processes=1,
-                                      process_index=0, seed=args.seed)
+                                      global_batch_size=global_bs * accum,
+                                      num_processes=process_count(),
+                                      process_index=process_index(), seed=args.seed)
         batches.set_epoch(epoch)
         loader = DataLoader(train_ds, batches,
                             pad_to=args.max_seq_length if not args.group_by_length else None,

@@ -36,9 +36,14 @@ def main(argv=None):
 
 
 def fused_main(args):
-    """The fused multi-perspective eval -> {'p1': metrics, 'p2': ...}."""
-    logging.basicConfig(level=logging.INFO)
+    """The fused multi-perspective eval -> {'p1': metrics, 'p2': ...}; every
+    rank of a multi-process run evaluates, the primary writes."""
     from aigv_assessor_torch.cli.common import build_model_and_tokenizer
+    from aigv_assessor_torch.core.dist import init_dist, is_primary
+    from aigv_assessor_torch.utils.logging_utils import setup_logging
+
+    init_dist(device=args.device)
+    setup_logging()
     from aigv_assessor_torch.data.dataset import build_datasets
     from aigv_assessor_torch.train.evaluate import evaluate_perspectives, save_perspective_results
 
@@ -74,6 +79,7 @@ def fused_main(args):
             r,
             output_file=os.path.join(args.output_dir, f"results_p{i + 1}.csv"),
             metrics_file=os.path.join(args.output_dir, f"metrics_p{i + 1}.txt"),
+            write=is_primary(),
         )
         logger.info("perspective %d (%s): %s", i + 1, metas[i], m)
         all_metrics[f"p{i + 1}"] = m

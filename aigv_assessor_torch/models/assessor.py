@@ -142,8 +142,16 @@ class AIGVAssessor(nn.Module):
 
     # ------------------------------------------------------------ features --
 
+    # The public methods below are entry points, registered as forward
+    # methods when the model is sharded (`parallel/sharding.shard_params`);
+    # the model's own code calls the private forms, so no registered method
+    # runs inside another.
+
     def extract_feature(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """[N_frames, H, W, 3] -> [N_frames, num_image_token, C_llm]."""
+        return self._extract_feature(pixel_values)
+
+    def _extract_feature(self, pixel_values: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         vit_embeds = self.vision_model(pixel_values, select_layer=cfg.select_layer)
         vit_embeds = vit_embeds[:, 1:, :]  # drop cls
@@ -160,6 +168,10 @@ class AIGVAssessor(nn.Module):
                        features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, T, H, W, 3] -> [B, C_llm]. SlowFast runs without gradient;
         `features` ([B, feature_dim], precomputed) takes its place."""
+        return self._extract_motion(frames, features)
+
+    def _extract_motion(self, frames: torch.Tensor,
+                        features: Optional[torch.Tensor] = None) -> torch.Tensor:
         if features is None:
             with torch.no_grad():
                 features = self.slowfast_model(frames)
@@ -169,8 +181,8 @@ class AIGVAssessor(nn.Module):
         """Per-video ViT tokens [B, T*tok, C] and motion embedding [B, C]."""
         b, t = pixel_values.shape[:2]
         frames = pixel_values.reshape((b * t,) + pixel_values.shape[2:])
-        vit_embeds = self.extract_feature(frames)
-        return vit_embeds.reshape(b, -1, vit_embeds.shape[-1]), self.extract_motion(
+        vit_embeds = self._extract_feature(frames)
+        return vit_embeds.reshape(b, -1, vit_embeds.shape[-1]), self._extract_motion(
             pixel_values
         )
 
@@ -189,11 +201,15 @@ class AIGVAssessor(nn.Module):
         embedding (from `motion_features` when given, else from SlowFast);
         without it every slot takes a ViT embedding (what the reference's
         `generate()` does)."""
+        return self._embed_multimodal(input_ids, pixel_values, with_motion, motion_features)
+
+    def _embed_multimodal(self, input_ids, pixel_values, with_motion=True,
+                          motion_features=None) -> torch.Tensor:
         b, t = pixel_values.shape[:2]
         frames = pixel_values.reshape((b * t,) + pixel_values.shape[2:])
-        vit_embeds = self.extract_feature(frames)
+        vit_embeds = self._extract_feature(frames)
         vit_embeds = vit_embeds.reshape(b, -1, vit_embeds.shape[-1])
-        motion_embeds = (self.extract_motion(pixel_values, motion_features) if with_motion
+        motion_embeds = (self._extract_motion(pixel_values, motion_features) if with_motion
                          else None)
         return splice_image_embeds(
             self.language_model.embed(input_ids), input_ids, vit_embeds,
@@ -215,6 +231,9 @@ class AIGVAssessor(nn.Module):
         return torch.nan_to_num(row, nan=0.0, posinf=1e9, neginf=-1e9)
 
     def score(self, readout: torch.Tensor) -> torch.Tensor:
+        return self._score(readout)
+
+    def _score(self, readout: torch.Tensor) -> torch.Tensor:
         return self.mlpscore(readout)[..., 0].to(self.precision.logits_dtype)
 
     # ------------------------------------------------------------- forward --
@@ -240,8 +259,8 @@ class AIGVAssessor(nn.Module):
           given;
         - stage 1: 'loss' = the cross-entropy when `labels` are given.
         `motion_features` replaces SlowFast's output."""
-        embeds = self.embed_multimodal(input_ids, pixel_values,
-                                       motion_features=motion_features)
+        embeds = self._embed_multimodal(input_ids, pixel_values,
+                                        motion_features=motion_features)
         with_logits = with_logits or labels is not None
         logits, hidden, _ = self.language_model(
             inputs_embeds=embeds, position_ids=position_ids, with_logits=with_logits)
@@ -254,7 +273,7 @@ class AIGVAssessor(nn.Module):
         if self.config.stage >= 2:
             readout = self.readout(hidden, attention_mask)
             out["readout"] = readout
-            out["score"] = self.score(readout)
+            out["score"] = self._score(readout)
             if mos is not None:
                 out["loss"] = (out["score"] - mos.to(torch.float32)).abs().mean()
             elif ce is not None:
@@ -298,7 +317,7 @@ class AIGVAssessor(nn.Module):
         )
         _, hidden, _ = self.language_model(inputs_embeds=embeds, with_logits=False)
         mask_flat = attention_mask.reshape(b * p, n) if attention_mask is not None else None
-        return self.score(self.readout(hidden, mask_flat)).reshape(b, p)
+        return self._score(self.readout(hidden, mask_flat)).reshape(b, p)
 
     def _score_suffixes_on_shared_prefix(
         self,
@@ -353,7 +372,7 @@ class AIGVAssessor(nn.Module):
             real + cfg.score_readout_pos).clamp(0, s_suf - 1)
         row = hidden[torch.arange(b, device=hidden.device)[:, None], idx]  # [B, P, C]
         row = torch.nan_to_num(row, nan=0.0, posinf=1e9, neginf=-1e9)
-        return self.score(row)
+        return self._score(row)
 
     # ------------------------------------------------------------ decoding --
 

@@ -13,7 +13,10 @@ chat-level prompt functions.
   device when every row has reached eos. Here the host asks the device for
   that only every few tokens, so the steps in between are enqueued
   without waiting for the card. Finished rows are forced to eos, so steps run
-  after all rows have finished change nothing in the result.
+  after all rows have finished change nothing in the result. On a sharded
+  model (`models/loading.shard_for_inference`) each rank decodes its rows
+  under `torch.no_grad` (FSDP2 cannot run under `inference_mode`) and the
+  look is all-reduced, so the ranks stop together.
 - `build_query`, `chat`, `batch_chat`, `stream_chat`: template rendering,
   `<image>` expansion, left-padded batching, the response cut at the
   template's separator. They take any tokenizer object with `encode`,
@@ -27,6 +30,7 @@ what the two packages have in common token for token.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -88,7 +92,36 @@ def _pixels(model, pixel_values) -> Optional[torch.Tensor]:
     return torch.as_tensor(pixel_values).to(_device_of(model), model.precision.compute_dtype)
 
 
-@torch.inference_mode()
+def _all_finished(model, finished: torch.Tensor) -> bool:
+    """Whether every row has reached eos; for a sharded model, every row of
+    every rank, so that no rank leaves the loop (and its layers'
+    all-gathers) while another still decodes, as JAX's one program over
+    the global batch stops all rows together."""
+    from aigv_assessor_torch.parallel.sharding import is_sharded
+
+    if is_sharded(model):
+        from aigv_assessor_torch.core.dist import all_ranks_true
+
+        return all_ranks_true(finished.all())
+    return bool(finished.all())
+
+
+def _without_autograd(fn):
+    """`fn(model, ...)` under `torch.inference_mode`, or under
+    `torch.no_grad` for a sharded model: FSDP2's all-gather keeps the
+    version counters of its buffers, which inference tensors lack."""
+
+    @functools.wraps(fn)
+    def wrapped(model, *args, **kwargs):
+        from aigv_assessor_torch.parallel.sharding import is_sharded
+
+        with torch.no_grad() if is_sharded(model) else torch.inference_mode():
+            return fn(model, *args, **kwargs)
+
+    return wrapped
+
+
+@_without_autograd
 def decode_loop(
     model,
     first_token: torch.Tensor,  # [B]
@@ -108,7 +141,7 @@ def decode_loop(
     tokens[:, 0] = first_token
     finished = first_token == eos
     for i in range(gcfg.max_new_tokens - 1):
-        if i % STOP_CHECK_EVERY == 0 and bool(finished.all()):
+        if i % STOP_CHECK_EVERY == 0 and _all_finished(model, finished):
             break
         logits, _, cache = model.decode_step(
             tokens[:, i : i + 1], cache, kv_mask, position_ids=(start_pos + i)[:, None])
@@ -119,7 +152,7 @@ def decode_loop(
     return tokens
 
 
-@torch.inference_mode()
+@_without_autograd
 def generate(
     model,
     tokenizer,

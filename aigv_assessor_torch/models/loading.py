@@ -68,6 +68,14 @@ weight. So `--int8` serves an int8 file as it is, `--int4` an int8 file
 through dequantize then int4, `--w8a8` any stored kernel through
 dequantize then JAX's W8A8 pick, and a float mode dequantizes to the
 compute dtype; no build holds an fp32 copy of the model.
+
+`shard_for_inference` lays a built serving model out over the ranks of a
+process group with the training sharding rules
+(`parallel/sharding.shard_params`; by default every rank on `fsdp`, as
+JAX's `MeshConfig.auto(fsdp=True)`), where JAX lays its parameters over a
+mesh. Each rank then runs `score_perspectives` or `generate` on its rows of
+the batch, under `torch.no_grad`: FSDP2's all-gather cannot run under
+`torch.inference_mode` (`generate` picks the right one itself).
 """
 
 from __future__ import annotations
@@ -643,3 +651,14 @@ def load_weights_(model: torch.nn.Module, weights: Mapping[str, torch.Tensor],
     if any(is_lora_param(k) for k in missing):
         init_lora_(model, seed + 2)
     return model
+
+
+def shard_for_inference(model: torch.nn.Module, mesh=None, mesh_config=None):
+    """`model` wrapped by `parallel/sharding.shard_params` over `mesh`, or
+    one `core/mesh.make_mesh` builds from `mesh_config` (default
+    `MeshConfig.auto(fsdp=True)`) -> (mesh, model). Needs a process group."""
+    from aigv_assessor_torch.core.mesh import MeshConfig, make_mesh
+    from aigv_assessor_torch.parallel.sharding import shard_params
+
+    mesh = mesh or make_mesh(mesh_config or MeshConfig.auto(fsdp=True))
+    return mesh, shard_params(model.eval(), mesh)

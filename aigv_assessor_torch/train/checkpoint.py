@@ -16,6 +16,12 @@
   not part of it: a resumed run builds them as the first run did. Restoring
   the JAX package's orbax checkpoints is not ported yet (ROADMAP.md,
   Queue 1).
+
+A model sharded over several ranks (`parallel/sharding.shard_params`)
+saves what a one-card run saves: every rank calls `save_*` and
+`CheckpointManager.save` (they gather the whole tensors, a collective), and
+the primary alone writes. `restore` reads the same `state.pt` into a
+trainer of any world size, sharded or not.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from aigv_assessor_torch.core.dist import barrier, is_primary
 from aigv_assessor_torch.models import loading
 from aigv_assessor_torch.models.lora import is_lora_param
+from aigv_assessor_torch.parallel.sharding import full_tensor
 
 logger = logging.getLogger(__name__)
 
@@ -51,9 +59,10 @@ def _lora_leaves(model: nn.Module) -> Dict[str, List[torch.nn.Parameter]]:
 
 
 def extract_lora(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Flat {JAX path: [L, ...] tensor on the CPU} of the adapter leaves."""
+    """Flat {JAX path: [L, ...] tensor on the CPU} of the adapter leaves
+    (whole, gathered from every rank where they are sharded)."""
     return {
-        path: torch.stack([p.detach().cpu() for p in leaves])
+        path: torch.stack([full_tensor(p.detach()).cpu() for p in leaves])
         for path, leaves in _lora_leaves(model).items()
     }
 
@@ -66,7 +75,7 @@ def extract_params(model: nn.Module, names) -> Dict[str, torch.Tensor]:
     paths = dict(loading.jax_paths(model).values())
     out = {}
     for path, leaves in _leaves(model, lambda n: n in wanted).items():
-        ts = [p.detach().cpu() for p in leaves]
+        ts = [full_tensor(p.detach()).cpu() for p in leaves]
         if path.endswith("kernel"):
             ts = [t.t() if t.ndim == 2 else t for t in ts]
         out[path] = torch.stack(ts).contiguous() if paths[path] is not None else ts[0].contiguous()
@@ -78,18 +87,22 @@ def save_trainable_weights(path: str, model: nn.Module, names) -> None:
     from safetensors.torch import save_file
 
     tensors = extract_params(model, names)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    save_file(tensors, path)
-    logger.info("saved %d trainable tensors to %s", len(tensors), path)
+    if is_primary():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        save_file(tensors, path)
+        logger.info("saved %d trainable tensors to %s", len(tensors), path)
+    barrier()
 
 
 def save_lora_weights(path: str, model: nn.Module) -> None:
     from safetensors.torch import save_file
 
     lora = extract_lora(model)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    save_file(lora, path)
-    logger.info("saved %d LoRA tensors to %s", len(lora), path)
+    if is_primary():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        save_file(lora, path)
+        logger.info("saved %d LoRA tensors to %s", len(lora), path)
+    barrier()
 
 
 @torch.no_grad()
@@ -123,12 +136,14 @@ class CheckpointManager:
 
     def save(self, step: int, trainer, best: bool = False) -> None:
         state = trainer.state_dict()
-        for slot in [f"step_{step}"] + (["best"] if best else []):
-            os.makedirs(os.path.dirname(self._path(slot)), exist_ok=True)
-            torch.save(state, self._path(slot))
-        for old in self._steps()[: -self.keep]:
-            shutil.rmtree(os.path.join(self.directory, f"step_{old}"))
-        logger.info("saved checkpoint step %d%s", step, " (best)" if best else "")
+        if is_primary():
+            for slot in [f"step_{step}"] + (["best"] if best else []):
+                os.makedirs(os.path.dirname(self._path(slot)), exist_ok=True)
+                torch.save(state, self._path(slot))
+            for old in self._steps()[: -self.keep]:
+                shutil.rmtree(os.path.join(self.directory, f"step_{old}"))
+            logger.info("saved checkpoint step %d%s", step, " (best)" if best else "")
+        barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self._steps()

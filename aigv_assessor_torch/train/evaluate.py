@@ -231,15 +231,19 @@ def save_perspective_results(
     rows,  # [video_name, answer, mos, pred_score]
     output_file: str,
     metrics_file: str,
+    write: bool = True,
 ):
     """One perspective of the fused eval: the pred_score CSV and the stage-2
-    score-correlation block of the metrics TXT (appended)."""
+    score-correlation block of the metrics TXT (appended); with `write`
+    False only the metrics are computed (a rank other than the primary)."""
+    corr = correlation_metrics([r[2] for r in rows], [r[3] for r in rows])
+    if not write:
+        return {f"{k}_score": v for k, v in corr.items()}
     os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
     with open(output_file, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["video_name", "answer", "mos", "pred_score"])
         w.writerows(rows)
-    corr = correlation_metrics([r[2] for r in rows], [r[3] for r in rows])
     with open(metrics_file, "a") as f:
         f.writelines([
             f"SRCC_score: {corr['SRCC']}\n",
@@ -261,20 +265,23 @@ def save_and_evaluate(
     output_file: str = "results.csv",
     metrics_file: str = "metrics.txt",
     stage: int = 1,
+    write: bool = True,
 ) -> Dict[str, float]:
     """The CSV (columns video_name, answer, output, mos, level, and at stage
     2 pred_score) and the append-mode metrics TXT: Accuracy (the output a
     substring of the answer), SRCC / PLCC / KRCC of the levels against mos,
-    and at stage 2 the same of pred_score."""
+    and at stage 2 the same of pred_score. With `write` False the metrics
+    are computed and no file is written (a rank other than the primary)."""
     columns = ["video_name", "answer", "output", "mos", "level"]
     if stage >= 2:
         columns.append("pred_score")
-    os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
-    with open(output_file, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(columns)
-        w.writerows(rows)
-    logger.info("results saved to %s", output_file)
+    if write:
+        os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
+        with open(output_file, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(columns)
+            w.writerows(rows)
+        logger.info("results saved to %s", output_file)
 
     total = len(rows)
     right = sum(1 for r in rows if r[2] in r[1])
@@ -295,8 +302,9 @@ def save_and_evaluate(
             f"PLCC_score: {score_corr['PLCC']}\n",
             f"KRCC_score: {score_corr['KRCC']}\n",
         ]
-    with open(metrics_file, "a") as f:
-        f.writelines(lines)
+    if write:
+        with open(metrics_file, "a") as f:
+            f.writelines(lines)
     for k, v in metrics.items():
         logger.info("%s: %s", k, v)
     return metrics

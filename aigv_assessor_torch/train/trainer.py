@@ -26,8 +26,31 @@ metrics) also goes to `utils/metrics_writer.MetricsWriter` under
 `<output_dir>/logs`, opened when training starts or at the first record; a
 writer that fails is logged and dropped, and training goes on, as in JAX.
 
-The mesh, the sharding and the jitted step of the JAX trainer have no
-counterpart: the port runs eagerly on one card.
+Under a process group (`core/dist.init_dist`; torchrun, or JAX's launch
+variables) the trainer lays the model out over `mesh` (default: every rank
+on `data`) with FSDP2 (`parallel/sharding.shard_params`), even at one rank,
+and builds AdamW over the wrapped parameters. Each rank runs its rows of
+the global batch, and a step gives what the one-process step over the
+global batch gives, as JAX's one program over global arrays does:
+
+- FSDP2 averages the gradients over the ranks, so each rank's loss is
+  scaled by `local_weight * world / global_weight` before its backward,
+  where the weight is what the loss averages over: the label tokens of the
+  shifted cross-entropy (stage 1), the rows of the L1 (stage 2, where equal
+  local batches make the scale 1). The logged loss is the global one.
+- The clip takes the norm of the whole gradients: the squared norms of the
+  local shards summed over the `fsdp` ranks, the same factor on every
+  shard.
+- Dropout and drop path draw from a generator seeded from (seed, rank):
+  `seed + (rank << 32)`, the seed itself on rank 0.
+- Eval runs on every rank (FSDP2's all-gathers keep the ranks in step);
+  the primary's metrics decide the best checkpoint on all of them. Only the
+  primary writes `train_log.jsonl`, the metrics and the checkpoints; every
+  rank takes part in the gathers that checkpoints and artifacts need.
+
+Without a process group nothing is wrapped and no collective runs: a
+single-process run is the one-card trainer, bit for bit. The JAX trainer's
+jitted step has no counterpart: the port runs eagerly.
 """
 
 from __future__ import annotations
@@ -43,8 +66,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import torch
 from torch import nn
 
+from aigv_assessor_torch.core import dist as pdist
+from aigv_assessor_torch.core.mesh import MeshConfig, make_mesh
 from aigv_assessor_torch.models import loading
 from aigv_assessor_torch.models.lora import set_generator
+from aigv_assessor_torch.parallel.sharding import fsdp_group, local_tensor, shard_params
 from aigv_assessor_torch.train.freeze import apply_freeze_, cast_frozen_, count_params
 from aigv_assessor_torch.train.layer_decay import (
     layer_decay_multipliers,
@@ -140,14 +166,31 @@ def decays(jax_path: str) -> bool:
     return True
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         group=None) -> torch.Tensor:
     """Scale `grads` in place by `max_norm / norm` if their global L2 norm is
-    at least `max_norm`; returns the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    at least `max_norm`; returns the norm before clipping. Sharded grads
+    (DTensors) count their local shards, whose squared norms are summed
+    over `group` (the ranks that hold one tensor's shards)."""
+    grads = [local_tensor(g) for g in grads]
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    if group is not None and torch.distributed.get_world_size(group) > 1:
+        norm = pdist.all_reduce_sum_(norms.square().sum(), group).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     if norm >= max_norm:
         for g in grads:
             g.div_(norm).mul_(max_norm)
     return norm
+
+
+def loss_weight(mb: Dict[str, torch.Tensor], stage: int) -> torch.Tensor:
+    """What the micro-batch's loss is a mean over: its rows for the stage-2
+    L1 (with `mos`), else its label tokens after the shift."""
+    if stage >= 2 and mb.get("mos") is not None:
+        return torch.tensor(mb["mos"].shape[0], dtype=torch.float64, device=mb["mos"].device)
+    return (mb["labels"][:, 1:] != -100).sum().to(torch.float64)
 
 
 class Trainer:
@@ -166,6 +209,7 @@ class Trainer:
         best_metric_key: str = "accuracy",
         checkpoint_manager=None,
         on_best: Optional[Callable[[nn.Module, int], None]] = None,
+        mesh=None,
     ):
         self.model = model
         self.cfg = cfg = train_config
@@ -187,9 +231,14 @@ class Trainer:
         logger.info("parameters: %.1fM total, %.1fM trainable",
                     counts["total"] / 1e6, counts["trainable"] / 1e6)
 
+        self.mesh = None
+        if torch.distributed.is_initialized():
+            self.mesh = mesh if mesh is not None else make_mesh(MeshConfig.auto())
+            shard_params(model, self.mesh)
         params = dict(model.named_parameters())
         self.device = next(iter(params.values())).device
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + (pdist.process_index() << 32))
         set_generator(model, self.generator)
 
         rates = (cfg.vit_layer_decay_rate, cfg.llm_layer_decay_rate, cfg.llm_lr_scale)
@@ -228,29 +277,53 @@ class Trainer:
         the mean gradient in `.grad` and returns the mean loss."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss_sum, count = None, 0
-        for mb in micro_batches:
+        micro_batches = list(micro_batches)
+        if not micro_batches:
+            raise ValueError("a step needs at least one micro-batch")
+        scales = self._loss_scales(micro_batches)
+        loss_sum = None
+        for mb, (grad_scale, log_scale) in zip(micro_batches, scales):
             out = self.model(mb["input_ids"], mb["pixel_values"], mb.get("attention_mask"),
                              labels=mb.get("labels"), mos=mb.get("mos"),
                              position_ids=mb.get("position_ids"))
-            out["loss"].backward()
-            loss = out["loss"].detach()
+            loss = out["loss"]
+            (loss if grad_scale == 1.0 else loss * grad_scale).backward()
+            loss = loss.detach() if log_scale == 1.0 else loss.detach() * log_scale
             loss_sum = loss if loss_sum is None else loss_sum + loss
-            count += 1
-        if count == 0:
-            raise ValueError("a step needs at least one micro-batch")
+        count = len(micro_batches)
         for p in self.trainable_parameters().values():
             if p.grad is None:  # a parameter the loss does not reach
                 p.grad = torch.zeros_like(p)
             p.grad.div_(count)
+        if self.mesh is not None:
+            pdist.all_reduce_sum_(loss_sum)
         return loss_sum / count
+
+    def _loss_scales(self, micro_batches) -> List[Any]:
+        """(gradient scale, logged-loss scale) of each micro-batch: (1, 1)
+        without a process group; else local_weight * world / global_weight
+        and local_weight / global_weight (`loss_weight`), so that FSDP2's
+        mean over ranks gives the global batch's gradient and the summed
+        logs its loss."""
+        if self.mesh is None:
+            return [(1.0, 1.0)] * len(micro_batches)
+        stage = self.model.config.stage
+        local = torch.stack([loss_weight(mb, stage) for mb in micro_batches])
+        total = pdist.all_reduce_sum_(local.clone())
+        world = pdist.process_count()
+        out = []
+        for w, g in zip(local.tolist(), total.tolist()):
+            share = w / max(g, 1.0)
+            out.append((w * world / max(g, 1.0), share))
+        return out
 
     def train_step(self, micro_batches: Iterable[Dict[str, torch.Tensor]]) -> torch.Tensor:
         """One optimizer step over the micro-batches -> their mean loss (a
         scalar tensor on the device; reading it synchronizes)."""
         loss = self.accumulate_gradients(micro_batches)
         clip_by_global_norm_([p.grad for p in self.trainable_parameters().values()],
-                             self.cfg.max_grad_norm)
+                             self.cfg.max_grad_norm,
+                             fsdp_group(self.mesh) if self.mesh is not None else None)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
@@ -290,7 +363,8 @@ class Trainer:
         if self.eval_fn is None:
             return
         self.model.eval()
-        metrics = self.eval_fn(self.model, step)
+        # every rank evaluates; the primary's numbers decide for all of them
+        metrics = pdist.broadcast_object(self.eval_fn(self.model, step))
         self._write_log({"step": step, **{f"eval_{k}": v for k, v in metrics.items()}})
         m = metrics.get(self.best_metric_key)
         if m is not None and m > self.best_metric:
@@ -305,6 +379,8 @@ class Trainer:
             self.ckpt.save(step, self, best=best)
 
     def _write_log(self, record: Dict[str, Any]) -> None:
+        if not pdist.is_primary():
+            return
         with open(os.path.join(self.cfg.output_dir, "train_log.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
         writer = self._open_metrics()
@@ -319,8 +395,9 @@ class Trainer:
             self._metrics_failed = True
 
     def _open_metrics(self) -> Optional[MetricsWriter]:
-        """The metrics writer, opened at its first use; None once it failed."""
-        if self.metrics_writer is None and not self._metrics_failed:
+        """The metrics writer, opened at its first use (on the primary);
+        None once it failed."""
+        if self.metrics_writer is None and not self._metrics_failed and pdist.is_primary():
             try:
                 self.metrics_writer = MetricsWriter(os.path.join(self.cfg.output_dir, "logs"))
             except Exception:  # metrics writing must never kill training
@@ -332,10 +409,34 @@ class Trainer:
 
     def state_dict(self) -> Dict[str, Any]:
         """What a resumed run needs beside the frozen weights: the trainable
-        parameters, the optimizer's moments, the step and the generator."""
+        parameters, the optimizer's moments, the step and the generator.
+        A sharded trainer gathers the whole tensors to the CPU through
+        `torch.distributed.checkpoint.state_dict` (a collective on every
+        rank); they land on the primary, in the one-card form."""
+        if self.mesh is None:
+            return {
+                "params": {n: p.detach().clone()
+                           for n, p in self.trainable_parameters().items()},
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step,
+                "generator": self.generator.get_state(),
+                "best_metric": self.best_metric,
+            }
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            get_model_state_dict,
+            get_optimizer_state_dict,
+        )
+
+        opts = StateDictOptions(full_state_dict=True, cpu_offload=True,
+                                ignore_frozen_params=True)
+        model_sd = get_model_state_dict(self.model, options=opts)
+        optim_sd = get_optimizer_state_dict(self.model, self.optimizer, options=opts)
+        if not pdist.is_primary():
+            return {}
         return {
-            "params": {n: p.detach().clone() for n, p in self.trainable_parameters().items()},
-            "optimizer": self.optimizer.state_dict(),
+            "params": {n: model_sd[n] for n in self.trainable},
+            "optimizer": _optimizer_by_index(optim_sd),
             "step": self.step,
             "generator": self.generator.get_state(),
             "best_metric": self.best_metric,
@@ -343,16 +444,64 @@ class Trainer:
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """A state from `state_dict`, written at any world size, into this
+        trainer (sharded or not); the generator keeps its rank's draws
+        where the state comes from another rank count."""
         params = self.trainable_parameters()
         if set(state["params"]) != set(params):
             raise KeyError("trainer state holds other trainable parameters than the model: "
                            f"{sorted(set(state['params']) ^ set(params))}")
-        for n, p in params.items():
-            p.copy_(state["params"][n])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if self.mesh is None:
+            for n, p in params.items():
+                p.copy_(state["params"][n])
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions,
+                set_model_state_dict,
+                set_optimizer_state_dict,
+            )
+
+            opts = StateDictOptions(full_state_dict=True, strict=False)
+            set_model_state_dict(self.model, dict(state["params"]), options=opts)
+            set_optimizer_state_dict(self.model, self.optimizer,
+                                     _optimizer_by_name(state["optimizer"], self.optimizer,
+                                                        params),
+                                     options=StateDictOptions(full_state_dict=True))
         self.step = int(state["step"])
-        self.generator.set_state(state["generator"].cpu())
+        if pdist.process_index() == 0:
+            self.generator.set_state(state["generator"].cpu())
         self.best_metric = float(state["best_metric"])
+
+
+def _optimizer_by_index(optim_sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A full optimizer state dict keyed by parameter names (what
+    `get_optimizer_state_dict` gives) in `torch.optim`'s own form, keyed by
+    each parameter's position over the groups: what a one-card trainer
+    saves."""
+    index: Dict[str, int] = {}
+    groups = []
+    for group in optim_sd["param_groups"]:
+        ids = []
+        for name in group["params"]:
+            index[name] = len(index)
+            ids.append(index[name])
+        groups.append({**group, "params": ids})
+    return {"state": {index[n]: v for n, v in optim_sd["state"].items()},
+            "param_groups": groups}
+
+
+def _optimizer_by_name(state: Dict[str, Any], optimizer, params: Dict[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+    """The inverse of `_optimizer_by_index` for this trainer's optimizer."""
+    names = {id(p): n for n, p in params.items()}
+    order = [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+    groups, i = [], 0
+    for group in state["param_groups"]:
+        groups.append({**group, "params": order[i: i + len(group["params"])]})
+        i += len(group["params"])
+    return {"state": {order[k]: v for k, v in state["state"].items()},
+            "param_groups": groups}
 
 
 def microbatch(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:

@@ -399,8 +399,25 @@ Phases, each printing one line or more (and failing the run by raising):
     scores bit-equal to the same call on a directory without weights (the
     model drawn from seed 0).
 
+16. More than one card, on the one card there is (world 1, NCCL, a free
+    port). (a) `cli/stage2_train.main` at `--model_scale 2b` (LoRA r = 8 in
+    both towers, bf16, P16_VIDEOS of phase 10b's videos, batch P16_BATCH: 3
+    steps, no eval) unwrapped in this process, then through `python -m
+    torch.distributed.run --nproc_per_node 1` with `--mesh_fsdp 1` (this
+    script as the rank, P16_CHILD: the trainer wraps the model in FSDP2):
+    the losses of the two within 1e-5 relative (bit-equal expected, any
+    difference printed); per run 288 K1 lse, 144 K3a, 144 K3b launches and
+    no other attention kernel; the artifact and the last checkpoint; ms per
+    step (steps 2-3), peak memory, the wrapped parameters' placements. (b)
+    `models/loading.shard_for_inference` of the 2B model, bf16 and W8A8,
+    in a process group of one built here: one `score_perspectives` chunk of
+    phase 4's videos against the unwrapped model's within 1e-5 of the
+    largest score (bit-equal printed); per chunk 48 K1 launches (W8A8: the
+    `bsd` form, and 48 K4a, 24 K4b, 24 K4c, whose LayerNorm weights are
+    views into FSDP2's all-gather buffer); ms and peak memory of both.
+
 Then one JSON line describing the kernels (the K1, K3 and K4a-c entries
-also with their launches on the paths of phases 7c, 12, 13, 14 and 15; the
+also with their launches on the paths of phases 7c, 12, 13, 14, 15 and 16; the
 D = 96 and 14 / 2 forms of phase 15 as entries of their own), and last
 {"ok": true, "device": {...}}. The line before them gives the whole run's
 seconds. Imports nothing of JAX.
@@ -4808,6 +4825,235 @@ def run_phase15(device, smi, videos) -> dict:
     return out
 
 
+# --------------------------------------------- more than one card (16) --
+
+P16_VIDEOS, P16_BATCH = 6, 2  # 3 optimizer steps
+P16_CHILD = "--p16-child"  # the argument of phase 16a's rank under torchrun
+P16_CHILD_TIMEOUT_S = 400
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p16_meta(folder: str, meta: str, n: int) -> str:
+    """A copy of `meta` whose annotation keeps its first n videos."""
+    with open(meta) as f:
+        spec = json.load(f)
+    (key, entry), = spec.items()
+    with open(entry["annotation"]) as f:
+        rows = f.readlines()[:n]
+    ann = os.path.join(folder, "p16.jsonl")
+    with open(ann, "w") as f:
+        f.writelines(rows)
+    out = os.path.join(folder, "meta_p16.json")
+    with open(out, "w") as f:
+        json.dump({key: dict(entry, annotation=ann)}, f)
+    return out
+
+
+def p16_train(argv, device) -> dict:
+    """`cli/stage2_train.main(argv)` with the score head opened -> its
+    launches, peak GiB, whether the trainer wrapped the model, the group."""
+    import torch.distributed as dist
+
+    from aigv_assessor_torch.cli import stage2_train
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.parallel.sharding import is_sharded
+
+    build = stage2_train.build_training_model
+    counters = training_counters(fa)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with mock.patch.object(stage2_train, "build_training_model",
+                           lambda *a, **kw: opened_score_head(build(*a, **kw))):
+        trainer = stage2_train.main(argv)
+    torch.cuda.synchronize()
+    out = dict(counts={c.__name__: c.launches for c in counters},
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               wall_s=time.perf_counter() - t0, sharded=is_sharded(trainer.model),
+               world=dist.get_world_size() if dist.is_initialized() else 1,
+               backend=dist.get_backend() if dist.is_initialized() else None)
+    if out["sharded"]:
+        p = next(p for n, p in trainer.model.named_parameters() if n in trainer.trainable)
+        out["placements"] = str(p.placements)
+        out["kinds"] = sorted({str(p.dtype) for p in trainer.model.parameters()})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p16_child(out_json: str, argv) -> int:
+    """Phase 16a's rank, started by `torch.distributed.run`: the stage-2
+    training CLI under the process group the launcher describes."""
+    import torch.distributed as dist
+
+    device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = p16_train(argv, device)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        with open(out_json, "w") as f:
+            json.dump(out, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def run_phase16(device, smi, ids, mask, px_u8, *, n_vit: int, n_llm: int) -> dict:
+    """Phase 16: the multi-card layer on one card at world 1 over NCCL.
+    (a) `cli/stage2_train.main` at 2B unwrapped in this process and through
+    `torch.distributed.run --nproc_per_node 1 --mesh_fsdp 1` (FSDP2): the
+    losses bit-equal, launches, ms per step, peak GiB. (b)
+    `models/loading.shard_for_inference` of the 2B bf16 model in a group of
+    one built here: one `score_perspectives` chunk against the unwrapped
+    model's."""
+    import torch.distributed as dist
+
+    from aigv_assessor_torch.cli.score import build_serving_model
+    from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig
+    from aigv_assessor_torch.models.loading import shard_for_inference
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.ops import quant_fuse as qf
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+    from aigv_assessor_torch.utils.profiling import StepTimer
+
+    t_start = time.perf_counter()
+    layers = n_vit + n_llm
+    steps = P16_VIDEOS // P16_BATCH
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        meta = p16_meta(d, write_eval_metas(d)[0], P16_VIDEOS)
+
+        def argv(label):
+            return ["--meta_path", meta, "--model_scale", "2b", "--num_segments", str(FRAMES),
+                    "--do_train", "True", "--num_train_epochs", "1",
+                    "--per_device_train_batch_size", str(P16_BATCH),
+                    "--evaluation_strategy", "no", "--use_backbone_lora", str(LORA_RANK),
+                    "--use_llm_lora", str(LORA_RANK), "--output_dir", os.path.join(d, label),
+                    "--device", "cuda"]
+
+        if dist.is_initialized():
+            raise RuntimeError("16a: a process group exists before the unwrapped run")
+        runs["unwrapped"] = p16_train(argv("unwrapped"), device)
+        child_json = os.path.join(d, "child.json")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(key, None)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+               "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+               os.path.abspath(__file__), P16_CHILD, child_json,
+               *argv("fsdp"), "--mesh_fsdp", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=P16_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(child_json):
+            raise RuntimeError(f"16a: torch.distributed.run rc {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        with open(child_json) as f:
+            runs["fsdp"] = json.load(f)
+        runs["fsdp"]["launcher_s"] = child_s
+        for label, r in runs.items():
+            with open(os.path.join(d, label, "train_log.jsonl")) as f:
+                log = [json.loads(line) for line in f if "loss" in line]
+            r["losses"] = [rec["loss"] for rec in log]
+            times = [rec["time"] for rec in log]
+            r["step_ms"] = [(b - a) * 1e3 for a, b in zip(times[1:], times[2:])]
+            if len(r["losses"]) != steps or not np.isfinite(r["losses"]).all():
+                raise RuntimeError(f"16a {label}: losses {r['losses']}, expected {steps}")
+            per_mb = {"flash_attention_qkv_lse": 2 * layers, "flash_attention_qkv_bwd_dq": layers,
+                      "flash_attention_qkv_bwd_dkv": layers}
+            want = {k: 0 for k in r["counts"]}
+            want.update({k: steps * v for k, v in per_mb.items()})
+            if r["counts"] != want:
+                raise RuntimeError(f"16a {label}: launches {r['counts']}, expected {want}")
+            for path in ("lora_weights.safetensors", f"checkpoints/step_{steps}/state.pt"):
+                if not os.path.exists(os.path.join(d, label, path)):
+                    raise RuntimeError(f"16a {label}: no {path}")
+        un, fs = runs["unwrapped"], runs["fsdp"]
+        if un["sharded"] or not fs["sharded"] or fs["world"] != 1 or fs["backend"] != "nccl":
+            raise RuntimeError(f"16a: unwrapped sharded={un['sharded']}; torchrun sharded="
+                               f"{fs['sharded']} world {fs['world']} backend {fs['backend']}")
+        diffs = [abs(a - b) / max(abs(a), 1e-30) for a, b in zip(un["losses"], fs["losses"])]
+        if max(diffs) > 1e-5:
+            raise RuntimeError(f"16a: losses unwrapped {un['losses']} and FSDP2 "
+                               f"{fs['losses']} differ by {max(diffs):.3e} relative (max 1e-5)")
+    bit_equal = un["losses"] == fs["losses"]
+    phase("dist", f"16a cli.stage2_train.main --model_scale 2b LoRA r={LORA_RANK}, {FRAMES} "
+          f"frames, batch {P16_BATCH}, {steps} steps: unwrapped losses {un['losses']}; "
+          f"torch.distributed.run --nproc_per_node 1 --mesh_fsdp 1 (NCCL, world 1, FSDP2, "
+          f"placements {fs.get('placements')}, parameter dtypes {fs.get('kinds')}) losses "
+          f"{fs['losses']}: {'bit-equal' if bit_equal else f'max rel diff {max(diffs):.3e}'}; "
+          f"ms/step (steps 2-3) unwrapped {np.round(un['step_ms'], 1).tolist()}, FSDP2 "
+          f"{np.round(fs['step_ms'], 1).tolist()}; peak {un['peak_gib']:.2f} / "
+          f"{fs['peak_gib']:.2f} GiB; launches under FSDP2 {fs['counts']}; the launcher's "
+          f"call {fs['launcher_s']:.1f} s [{smi}]")
+
+    # 16b: sharded scoring in a group of one, no launcher, in bf16 and W8A8
+    cfg = AssessorConfig(llm=LLM_2B, stage=2).replace(img_context_token_id=CTX)
+    counters = (fa.flash_attention_qkv, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows)
+    per_forward = {"bf16": {"flash_attention_qkv": layers},
+                   "w8a8": {"flash_attention_qkv": layers, "layernorm_quant": 2 * n_vit,
+                            "gelu_quant": n_vit, "quant_rows": n_vit}}
+
+    def chunk(m, pv):
+        timer = StepTimer()  # synchronizes the card before each reading
+        with torch.no_grad():  # FSDP2 cannot run under inference_mode
+            m.score_perspectives(ids, pv, mask)  # warm-up
+            for c in counters:
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats(device)
+            with timer.step():
+                out = m.score_perspectives(ids, pv, mask).float()
+        return dict(scores=out, ms=timer.times[0] * 1e3,
+                    counts={c.__name__: c.launches for c in counters},
+                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+
+    scored = {}
+    for mode in ("bf16", "w8a8"):
+        model = opened_score_head(build_serving_model(cfg, device=device, seed=0,
+                                                      w8a8=mode == "w8a8"))
+        pv = resize_normalize(px_u8, size=IMAGE, dtype=model.precision.compute_dtype)
+        plain = chunk(model, pv)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        try:
+            _, model = shard_for_inference(model)
+            sharded = chunk(model, pv)
+        finally:
+            dist.destroy_process_group()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        err = float((sharded["scores"] - plain["scores"]).abs().max())
+        scale = float(plain["scores"].abs().max())
+        want = {c.__name__: per_forward[mode].get(c.__name__, 0) for c in counters}
+        if (sharded["counts"] != want or plain["counts"] != want or not scale > 0
+                or not torch.isfinite(sharded["scores"]).all() or err > 1e-5 * scale):
+            raise RuntimeError(f"16b {mode}: scores {sharded['scores'].tolist()} against "
+                               f"{plain['scores'].tolist()} (max abs diff {err:.3e}), launches "
+                               f"{sharded['counts']} / {plain['counts']}, expected {want}")
+        phase("dist", f"16b shard_for_inference (FSDP2, NCCL, world 1) of the {mode} "
+              f"InternVL2-2B, one score_perspectives chunk of {BATCH} videos: scores "
+              f"{np.round(sharded['scores'][:, 0].tolist(), 4).tolist()}, max abs diff to the "
+              f"unwrapped model {err:.3e}{' (bit-equal)' if err == 0 else ''}; launches "
+              f"{sharded['counts']}; {sharded['ms']:.1f} ms against {plain['ms']:.1f} "
+              f"unwrapped; peak {sharded['peak_gib']:.2f} / {plain['peak_gib']:.2f} GiB [{smi}]")
+        scored[mode] = dict(counts=sharded["counts"], ms=sharded["ms"], plain_ms=plain["ms"],
+                            max_abs_err=err)
+    phase("dist", f"16 phase 16 {time.perf_counter() - t_start:.1f} s [{smi}]")
+    return dict(train=runs, score=scored)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5245,6 +5491,12 @@ def main() -> int:
 
     # 15. InternVL2-4B (Phi-3-mini, D = 96) and InternVL2-1B (Qwen2-0.5B, tied)
     p15 = run_phase15(device, smi, videos)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. more than one card, at world 1: the training CLI under FSDP2
+    # through torch.distributed.run, and sharded scoring
+    p16 = run_phase16(device, smi, ids, mask, px_u8, n_vit=n_vit, n_llm=n_llm)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -5653,6 +5905,21 @@ def main() -> int:
             s4[f"int{bits}"]["counts"][f"int{bits}_matmul"])
     by_path["flash_attn_fwd"]["internvl2_4b_int4 (15b, decoder)"] = (
         s4["int4"]["counts"]["flash_attention"])
+    # phase 16's paths: the stage-2 training CLI under FSDP2 (torchrun, world
+    # 1), sharded scoring (one chunk)
+    fsdp_counts = p16["train"]["fsdp"]["counts"]
+    for kernel, counter in (("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
+                            ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
+                            ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+        by_path[kernel]["stage2_train_fsdp2 (16a, 3 steps)"] = fsdp_counts[counter]
+    p16_bf16, p16_w8a8 = p16["score"]["bf16"]["counts"], p16["score"]["w8a8"]["counts"]
+    by_path["flash_attn_qkv_fwd"]["sharded_scoring (16b, one chunk)"] = (
+        p16_bf16["flash_attention_qkv"])
+    by_path["flash_attn_qkv_fwd_bsd"]["sharded_scoring_w8a8 (16b, one chunk)"] = (
+        p16_w8a8["flash_attention_qkv"])
+    for kernel, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
+                            ("ident_quant", "quant_rows")):
+        by_path[kernel]["sharded_scoring_w8a8 (16b, one chunk)"] = p16_w8a8[counter]
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]
         if k["name"] in by_path:
@@ -5665,4 +5932,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == P16_CHILD:
+        sys.exit(p16_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -70,6 +70,7 @@ from aigv_assessor_tpu.data import sampler as j_smp
 from aigv_assessor_tpu.data import storage as j_sto
 from aigv_assessor_tpu.data import tokenizer as j_tok
 from aigv_assessor_tpu.train import evaluate as j_ev
+from tests._torch_cli_fixtures import jit_init
 
 # fp32, the port's CLIs against JAX's on one tree: measured 1.3e-7 to 2.0e-7
 # with live rank-2 adapters (merged, as the port built them before, they cost
@@ -170,9 +171,15 @@ def test_constants_parser_and_storage_equal_jax(tmp_path):
     assert vars(t_args.parse_args("x", argv + ["--device", "cpu"])) == {
         **vars(j_args.parse_args("x", argv)), "device": "cpu"}
     t_args.parse_args("x", argv + ["--mesh_data", "1"])
-    for flag in ("--mesh_data", "--mesh_fsdp", "--mesh_tensor"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            t_args.parse_args("x", argv + [flag, "2"])
+    # the data / fsdp axes lay out a process group's ranks (cli/common.mesh_from_args:
+    # more than one process needs a group); the tensor axis is refused
+    for flag in ("--mesh_data", "--mesh_fsdp"):
+        args = t_args.parse_args("x", argv + [flag, "2"])
+        assert getattr(args, flag[2:]) == 2
+        with pytest.raises(ValueError, match="only 1 available"):
+            t_common.mesh_from_args(args)
+    with pytest.raises(NotImplementedError, match=r"Queue 1 \[11\]"):
+        t_args.parse_args("x", argv + ["--mesh_tensor", "2"])
     # storage: a registered scheme, a file, an unregistered remote path
     img = tmp_path / "x.png"
     Image.fromarray(np.full((4, 5, 3), 7, np.uint8)).save(img)
@@ -324,14 +331,17 @@ def cli_argv(meta, out_dir, stage, lora=0):
 @pytest.fixture(scope="module")
 def jax_trees(metas):
     """One JAX parameter tree per (stage, LoRA rank), as JAX's CLI would
-    draw it from the seed; at stage 2 a non-negative score head, and with
-    adapters a `lora_b` drawn non-zero."""
+    draw it from the seed (through one jitted init, `jit_init`); at stage 2
+    a non-negative score head, and with adapters a `lora_b` drawn
+    non-zero."""
     import jax
 
     trees = {}
     for stage, lora in ((1, 0), (2, 2), (2, 0)):
         args = j_args.parse_args("x", cli_argv(metas[0], "unused", stage, lora))
-        _, _, params, _ = j_common.build_model_and_tokenizer(args, stage)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(j_common, "init_or_load_params", jit_init)
+            _, _, params, _ = j_common.build_model_and_tokenizer(args, stage)
         params = jax.tree_util.tree_map(np.asarray, params)
         if stage == 2:
             rng = np.random.default_rng(7)

@@ -25,7 +25,10 @@ quantized: the port against the JAX package on the CPU, in fp32.
   output and the forward's score.
 
 The scores are read from a score head made non-negative, so that the
-readout reaches them.
+readout reaches them. Each JAX reference is made once per module and
+shared: the fp32 tree of each config (one jitted init), each mode's pair,
+and the teacher-forced JAX forward that the forward and distance tests both
+read.
 """
 
 import dataclasses
@@ -190,35 +193,71 @@ def _edit_tree(params, seed=7):
     return jax.tree_util.tree_map_with_path(edit, params)
 
 
-def _pair(mode, qk=False):
-    """(JAX model in the mode, its params, the port model, JAX config): one
-    fp32 tree with live adapters, quantized by JAX and mapped into the
-    port."""
+def _configs(qk=False):
     lora = dict(use_backbone_lora=R, use_llm_lora=R, lora_dropout=0.0)
     cfg = AssessorConfig.tiny(stage=2, **lora).replace(img_context_token_id=CTX)
     tcfg = TorchConfig.tiny(stage=2, **lora).replace(img_context_token_id=CTX)
     if qk:
         cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, **QK_VISION))
         tcfg = tcfg.replace(vision=dataclasses.replace(tcfg.vision, **QK_VISION))
-    model = AIGVAssessor(cfg, Precision.fp32())
-    rng = np.random.default_rng(0)
-    n = T * cfg.num_image_token + 1 + TEXT
-    ids = jnp.asarray(rng.integers(10, 500, (1, n)), jnp.int32)
-    px = jnp.zeros((1, T, 56, 56, 3), jnp.float32)
-    host = _edit_tree(jax.device_get(jax.jit(model.init)(jax.random.key(0), ids, px)))
-    prec = Precision.fp32()
-    if mode != "fp32":
-        host, prec = jax_quantize_for_serving(host, prec, **{mode: True})
-    tprec = TorchPrecision(compute_dtype=torch.float32, w8a8=mode == "w8a8",
-                           int8_weights=mode == "int8", int4_weights=mode == "int4")
-    port = TorchAssessor(tcfg, tprec)
-    port.load_state_dict(state_dict_from_jax(host, tcfg, tprec), strict=True)
-    return AIGVAssessor(cfg, prec), host, port.eval(), cfg
+    return cfg, tcfg
+
+
+class _References:
+    """The module's JAX references, each made once: the edited fp32 tree of
+    each config (one jitted init), each mode's pair, and JAX's
+    teacher-forced forward that the forward and distance tests both read."""
+
+    def __init__(self):
+        self.trees, self.pairs, self.forwards = {}, {}, {}
+
+    def tree(self, qk):
+        if qk not in self.trees:
+            cfg, _ = _configs(qk)
+            model = AIGVAssessor(cfg, Precision.fp32())
+            rng = np.random.default_rng(0)
+            n = T * cfg.num_image_token + 1 + TEXT
+            ids = jnp.asarray(rng.integers(10, 500, (1, n)), jnp.int32)
+            px = jnp.zeros((1, T, 56, 56, 3), jnp.float32)
+            self.trees[qk] = _edit_tree(
+                jax.device_get(jax.jit(model.init)(jax.random.key(0), ids, px)))
+        return self.trees[qk]
+
+    def pair(self, mode, qk=False):
+        """(JAX model in the mode, its params, the port model, JAX config):
+        one fp32 tree with live adapters, quantized by JAX and mapped into
+        the port."""
+        if (mode, qk) not in self.pairs:
+            cfg, tcfg = _configs(qk)
+            host = jax.tree_util.tree_map(lambda x: x, self.tree(qk))  # fresh containers
+            prec = Precision.fp32()
+            if mode != "fp32":
+                host, prec = jax_quantize_for_serving(host, prec, **{mode: True})
+            tprec = TorchPrecision(compute_dtype=torch.float32, w8a8=mode == "w8a8",
+                                   int8_weights=mode == "int8", int4_weights=mode == "int4")
+            port = TorchAssessor(tcfg, tprec)
+            port.load_state_dict(state_dict_from_jax(host, tcfg, tprec), strict=True)
+            self.pairs[mode, qk] = (AIGVAssessor(cfg, prec), host, port.eval(), cfg)
+        return self.pairs[mode, qk]
+
+    def forward(self, mode):
+        """JAX's forward of the mode's pair on `_forward_inputs`."""
+        if mode not in self.forwards:
+            model, params, _, cfg = self.pair(mode)
+            ids, mask, px = _forward_inputs(cfg)
+            self.forwards[mode] = model.apply(params, jnp.asarray(ids), jnp.asarray(px),
+                                              jnp.asarray(mask), with_logits=False)
+        return self.forwards[mode]
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return _References()
 
 
 @pytest.fixture(scope="module", params=MODES)
-def adapted_pair(request):
-    return (request.param,) + _pair(request.param)
+def adapted_pair(request, refs):
+    return (request.param,) + refs.pair(request.param)
 
 
 def _prompt(cfg, b, seed):
@@ -233,17 +272,21 @@ def _prompt(cfg, b, seed):
     return ids, mask
 
 
-def test_live_adapters_forward_matches(adapted_pair):
+def _forward_inputs(cfg):
+    ids, mask = _prompt(cfg, 2, 4)
+    px = np.random.default_rng(5).normal(size=(2, T, 56, 56, 3)).astype(np.float32)
+    return ids, mask, px
+
+
+def test_live_adapters_forward_matches(adapted_pair, refs):
     """The teacher-forced forward: every projection of both towers adapted
     over the mode's base (under W8A8 with every fused feed off)."""
     mode, model, params, port, cfg = adapted_pair
     quantized = [m for m in port.modules() if isinstance(m, (W8A8Linear, Int8Linear))]
     adapted = [m for m in quantized if m.lora is not None]
     assert len(adapted) == {"fp32": 0, "w8a8": 18, "int8": 10, "int4": 10}[mode]
-    ids, mask = _prompt(cfg, 2, 4)
-    px = np.random.default_rng(5).normal(size=(2, T, 56, 56, 3)).astype(np.float32)
-    want = model.apply(params, jnp.asarray(ids), jnp.asarray(px), jnp.asarray(mask),
-                       with_logits=False)
+    ids, mask, px = _forward_inputs(cfg)
+    want = refs.forward(mode)
     with torch.no_grad():
         got = port(_t(ids).long(), _t(px), _t(mask))
     _close(got["hidden"], want["hidden"])
@@ -314,11 +357,11 @@ def test_live_adapters_prefill_and_decode_steps_match(adapted_pair):
 
 
 @pytest.mark.parametrize("mode", ["w8a8", "int8", "int4"])
-def test_qk_normalized_tower_quantized_matches(mode):
+def test_qk_normalized_tower_quantized_matches(mode, refs):
     """InternViT-6B's layer under each quantized mode, adapters live: W8A8
     quantizes its dense qkv and proj and the MLP (RMSNorm feeds unfused);
     int8 / int4 leave the tower float."""
-    model, params, port, cfg = _pair(mode, qk=True)
+    model, params, port, cfg = refs.pair(mode, qk=True)
     w8a8_vit = [m for m in port.vision_model.modules() if isinstance(m, W8A8Linear)]
     assert len(w8a8_vit) == (8 if mode == "w8a8" else 0)
     assert all(m.heads is None and not m.head_major_in for m in w8a8_vit)
@@ -338,22 +381,20 @@ def test_qk_normalized_tower_quantized_matches(mode):
 
 
 @pytest.fixture(scope="module")
-def fp32_pair():
-    return _pair("fp32")
+def fp32_pair(refs):
+    return refs.pair("fp32")
 
 
-def test_live_adapters_distance_to_fp32_is_jax(adapted_pair, fp32_pair):
+def test_live_adapters_distance_to_fp32_is_jax(adapted_pair, fp32_pair, refs):
     """Each mode's hidden state sits as far from the fp32 forward (same tree,
     adapters live) in the port as in JAX, within DIST_TOL of JAX's distance:
     the distance is the quantization's, shared by both packages (under int4
     the largest; see test_quantizer_error_on_gaussian_weights)."""
     mode, model, params, port, cfg = adapted_pair
     fmodel, fparams, fport, _ = fp32_pair
-    ids, mask = _prompt(cfg, 2, 4)
-    px = np.random.default_rng(5).normal(size=(2, T, 56, 56, 3)).astype(np.float32)
-    args = (jnp.asarray(ids), jnp.asarray(px), jnp.asarray(mask))
-    jax_mode = model.apply(params, *args, with_logits=False)["hidden"]
-    jax_fp32 = fmodel.apply(fparams, *args, with_logits=False)["hidden"]
+    ids, mask, px = _forward_inputs(cfg)
+    jax_mode = refs.forward(mode)["hidden"]
+    jax_fp32 = refs.forward("fp32")["hidden"]
     with torch.no_grad():
         port_mode = port(_t(ids).long(), _t(px), _t(mask))["hidden"]
         port_fp32 = fport(_t(ids).long(), _t(px), _t(mask))["hidden"]

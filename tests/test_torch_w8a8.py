@@ -179,7 +179,7 @@ ROWS, COLS, BLOCK = 40, 256, 16  # 40 rows: not a multiple of the 16-row blocks
 # relative measured): XLA and PyTorch compute tanh, rsqrt and the row mean
 # with other library code, and XLA under jit (the Pallas interpret run)
 # rewrites the division by 127 as a product with 1/127. The int8 values
-# stay identical on these inputs.
+# are held as `_assert_feed_equal` says.
 FEED_SCALE_RTOL = 1e-6
 
 
@@ -191,6 +191,52 @@ def _feed_inputs(dtype, seed=7):
     if dtype == "bfloat16":  # values both sides hold exactly in bf16
         x, g, b = (np.asarray(_j(a, jnp.bfloat16).astype(jnp.float32)) for a in (x, g, b))
     return x, g, b
+
+
+# Where JAX's own quotient y / s (y the feed's fp32 value before the
+# quantizer) lies within TIE_BAND of a half-integer, an ulp of tanh or rsqrt
+# decides the rounding, and those ulps differ between XLA's and PyTorch's
+# code with the host's vector ISA: on one host 1 of the 10240 gelu_quant
+# values came out one off JAX's. There the int8 values may differ by one;
+# everywhere else they are equal. The number of such places is a property of
+# the inputs, not of the host, and is held per (kernel, dtype).
+TIE_BAND = 1e-4
+NEAR_TIES = {("ln_quant", "float32"): 2, ("ln_quant", "bfloat16"): 0,
+             ("gelu_quant", "float32"): 2, ("gelu_quant", "bfloat16"): 2}
+
+
+def _jax_feed_values(kernel, dtype, eps=1e-6):
+    """JAX's fp32 value before the quantizer (`_layernorm_quant_xla`'s and
+    `_gelu_quant_xla`'s y) on the test's inputs."""
+    x, g, b = (_jax_input(a, dtype).astype(jnp.float32) for a in _feed_inputs(dtype))
+    if kernel == "gelu_quant":
+        return np.asarray(jqf._gelu_tanh(x), np.float64)
+    mu = jnp.mean(x, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(x - mu), axis=-1, keepdims=True)
+    return np.asarray((x - mu) * jax.lax.rsqrt(var + eps) * g + b, np.float64)
+
+
+def _assert_feed_equal(got, want, kernel, dtype):
+    """`_assert_quantized_equal`, but where JAX's quotient is a near tie
+    (NEAR_TIES of them) the int8 values may differ by one."""
+    q, s = got
+    q2, s2 = (np.asarray(a) for a in want)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert tuple(q.shape) == q2.shape and tuple(s.shape) == s2.shape
+    np.testing.assert_allclose(s.numpy(), s2, rtol=FEED_SCALE_RTOL, atol=0)
+    quot = _jax_feed_values(kernel, dtype) / s2.astype(np.float64)
+    near = np.abs(np.abs(quot) % 1.0 - 0.5) < TIE_BAND
+    assert int(near.sum()) == NEAR_TIES[kernel, dtype]
+    diff = q.numpy().astype(np.int32) - q2.astype(np.int32)
+    np.testing.assert_array_equal(diff[~near], 0)
+    assert np.abs(diff[near]).max(initial=0) <= 1
+
+
+def _assert_feed(got, want, kernel, dtype):
+    if kernel == "ident_quant":  # no library function before the quantizer
+        _assert_quantized_equal(got, want, FEED_SCALE_RTOL)
+    else:
+        _assert_feed_equal(got, want, kernel, dtype)
 
 
 def _cases(dtype, eps=1e-6):
@@ -222,7 +268,7 @@ def _cases(dtype, eps=1e-6):
 @pytest.mark.parametrize("kernel", ["ln_quant", "gelu_quant", "ident_quant"])
 def test_plain_feed_matches_xla_fallback(kernel, dtype):
     plain, xla, _ = _cases(dtype)[kernel]
-    _assert_quantized_equal(plain(), xla(), FEED_SCALE_RTOL)
+    _assert_feed(plain(), xla(), kernel, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -233,7 +279,7 @@ def test_plain_feed_matches_pallas_interpret(kernel, dtype):
     plain, _, pallas = _cases(dtype)[kernel]
     with pltpu.force_tpu_interpret_mode():
         want = pallas()
-    _assert_quantized_equal(plain(), want, FEED_SCALE_RTOL)
+    _assert_feed(plain(), want, kernel, dtype)
 
 
 def test_feed_wrappers_run_plain_on_cpu_without_counting():
