@@ -3,10 +3,11 @@ without jax: every flag of the JAX parser with its default, so that a JAX
 command line means the same here, plus `--device` (default `cuda`, as
 `cli/score.py` has it; the tests pass `cpu`).
 
-`--mesh_data` / `--mesh_fsdp` lay the ranks of a `torch.distributed` run
-(one process per card) out as JAX's mesh (`cli/common.mesh_from_args`,
-`core/mesh.py`); `parse_args` refuses `--mesh_tensor` above 1: the tensor
-axis is not ported (ROADMAP.md Queue 1 [11]).
+`--mesh_data` / `--mesh_fsdp` / `--mesh_tensor` lay the ranks of a
+`torch.distributed` run (one process per card) out as JAX's mesh
+(`cli/common.mesh_from_args`, `core/mesh.py`); `parse_args` refuses a size
+out of range (below 0 for `--mesh_data`, whose 0 means world // (fsdp x
+tensor), below 1 for the others).
 """
 
 from __future__ import annotations
@@ -94,7 +95,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--mesh_fsdp", type=int, default=1,
                    help="ranks that shard parameters and optimizer state (FSDP2)")
     p.add_argument("--mesh_tensor", type=int, default=1,
-                   help="tensor-parallel ranks: 1 (not ported, ROADMAP.md Queue 1 [11])")
+                   help="tensor-parallel ranks: the float towers split by heads "
+                        "(parallel/tensor.py)")
     p.add_argument("--model_scale", type=str, default="auto",
                    choices=["auto", "tiny", "2b", "8b"],
                    help="init scale when no checkpoint is given")
@@ -110,12 +112,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 
 
 def parse_args(description: str, argv: Optional[List[str]] = None):
-    from aigv_assessor_torch.core.mesh import TENSOR_AXIS_TODO
-
     args = build_parser(description).parse_args(argv)
-    if args.mesh_tensor != 1:
-        raise NotImplementedError(f"--mesh_tensor {args.mesh_tensor}: " + TENSOR_AXIS_TODO)
-    for flag in ("mesh_data", "mesh_fsdp"):
+    for flag in ("mesh_data", "mesh_fsdp", "mesh_tensor"):
         if getattr(args, flag) < (0 if flag == "mesh_data" else 1):
             raise ValueError(f"--{flag} {getattr(args, flag)}: out of range")
     return args

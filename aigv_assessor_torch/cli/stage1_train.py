@@ -24,9 +24,11 @@ Flags as the JAX CLI's (`cli/args.py`), plus `--device` (default `cuda`;
   Launched on N cards (`python -m torch.distributed.run --nproc_per_node N
   -m aigv_assessor_torch.cli.stage1_train ... --mesh_fsdp N`), each rank
   loads its shard of every global batch of `--per_device_train_batch_size`
-  x data x fsdp rows, the trainer runs FSDP2 over the `--mesh_*` layout
-  (`train/trainer.py`), every rank evaluates, and the primary alone writes
-  the log, the eval files, the artifacts and the checkpoints.
+  x data x fsdp rows, keyed by its data rank (the ranks of one tensor group
+  read the same rows), the trainer splits the towers over `--mesh_tensor`
+  and runs FSDP2 over the `--mesh_*` layout (`train/trainer.py`), every
+  rank evaluates, and the primary alone writes the log, the eval files, the
+  artifacts and the checkpoints.
 - `build_training_model`: the stage-1 model on a device, through
   `cli/stage2_train.build_training_model`; no score head, as in JAX.
 - `prepare_batch`: uint8 frames -> normalized pixels, with the labels.
@@ -55,7 +57,8 @@ import torch
 from aigv_assessor_torch.cli import common, stage2_train
 from aigv_assessor_torch.cli.args import parse_args
 from aigv_assessor_torch.core.config import AssessorConfig
-from aigv_assessor_torch.core.dist import init_dist, is_primary, process_count, process_index
+from aigv_assessor_torch.core.dist import init_dist, is_primary
+from aigv_assessor_torch.core.mesh import data_coords
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.data.dataset import build_datasets
 from aigv_assessor_torch.data.loader import DataLoader
@@ -185,11 +188,12 @@ def main(argv=None, stage=STAGE, best_metric=BEST_METRIC, mos_scale=MOS_SCALE, o
         if args.group_by_length and hasattr(train_ds, "raw_data"):
             sampler = LengthGroupedSampler([EST_SAMPLE_LEN] * len(train_ds), batch_size, n_dp,
                                            seed=args.seed)
-        # each rank loads its contiguous shard of every global batch
+        # each data rank loads its contiguous shard of every global batch
+        data_rank, data_size = data_coords(mesh)
         batches = ShardedBatchSampler(sampler if sampler is not None else len(train_ds),
                                       global_batch_size=global_bs * accum,
-                                      num_processes=process_count(),
-                                      process_index=process_index(), seed=args.seed)
+                                      num_processes=data_size,
+                                      process_index=data_rank, seed=args.seed)
         batches.set_epoch(epoch)
         loader = DataLoader(train_ds, batches,
                             pad_to=args.max_seq_length if not args.group_by_length else None,

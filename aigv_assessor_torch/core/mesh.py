@@ -6,12 +6,18 @@ JAX's three axes:
 - ``fsdp``: parameters, gradients and optimizer state sharded (FSDP2,
   `parallel/sharding.shard_params`); on a (data, fsdp) mesh that is HSDP:
   replicate over ``data``, shard over ``fsdp``;
-- ``tensor``: JAX's intra-layer sharding; the port keeps the axis in the
-  mesh but refuses a size above 1 (ROADMAP.md Queue 1 [11]).
+- ``tensor``: JAX's intra-layer sharding, Megatron-style: the float
+  towers' projections split by heads (`parallel/tensor.py`,
+  `parallel/sharding.tensor_plan`), everything else replicated over it.
 
-Batches are split over (data, fsdp): each rank holds its rows
-(`batch_spec`). JAX may lay a mesh over fewer devices than it has; here
-every rank of the group is in the mesh, so the mesh must cover the world.
+The order is (data, fsdp, tensor), so ``tensor`` is innermost: rank =
+(data index x fsdp + fsdp index) x tensor + tensor index. Batches are split
+over (data, fsdp): the ranks of one tensor group hold the same rows, and
+`data_coords` gives the (data, fsdp) coordinate and its size, the "data
+rank" that loaders, generators and writers key on; `tensor_coords` gives
+the tensor index and size. JAX may lay a mesh over fewer devices than it
+has; here every rank of the group is in the mesh, so the mesh must cover
+the world.
 """
 
 from __future__ import annotations
@@ -22,17 +28,12 @@ from typing import Optional, Tuple
 import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
-from aigv_assessor_torch.core.dist import process_count
+from aigv_assessor_torch.core.dist import process_count, process_index
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 TENSOR_AXIS = "tensor"
 MESH_AXES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS)
-
-TENSOR_AXIS_TODO = ("the tensor mesh axis is not ported: each rank's attention would see "
-                    "H / tensor heads, and the towers reshape by the config's head counts "
-                    "(ROADMAP.md Queue 1 [11])")
-
 
 @dataclass(frozen=True)
 class MeshConfig:
@@ -87,6 +88,33 @@ def make_mesh(config: Optional[MeshConfig] = None, device_type: Optional[str] = 
 def mesh_config_of(mesh) -> MeshConfig:
     """The axis sizes of a mesh `make_mesh` built."""
     return MeshConfig(*(mesh.size(mesh.mesh_dim_names.index(a)) for a in MESH_AXES))
+
+
+def data_coords(mesh=None) -> Tuple[int, int]:
+    """(this rank's index over (data, fsdp), their number): the data rank
+    and size, which pick a rank's rows of a global batch and seed its
+    generator; the ranks of one tensor group share them. Without a mesh,
+    the process index and count."""
+    if mesh is None:
+        return process_index(), process_count()
+    names = mesh.mesh_dim_names
+    fsdp = mesh.size(names.index(FSDP_AXIS))
+    rank = mesh.get_local_rank(DATA_AXIS) * fsdp + mesh.get_local_rank(FSDP_AXIS)
+    return rank, mesh.size(names.index(DATA_AXIS)) * fsdp
+
+
+def tensor_coords(mesh=None) -> Tuple[int, int]:
+    """(this rank's index on `tensor`, the axis size); (0, 1) without a
+    mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank(TENSOR_AXIS), mesh.size(mesh.mesh_dim_names.index(TENSOR_AXIS))
+
+
+def tensor_group(mesh):
+    """The process group of the `tensor` axis: the ranks that hold one
+    layer's heads between them."""
+    return mesh.get_group(TENSOR_AXIS)
 
 
 def batch_spec(batch_dim: int = 0) -> Tuple:

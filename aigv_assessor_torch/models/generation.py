@@ -95,8 +95,10 @@ def _pixels(model, pixel_values) -> Optional[torch.Tensor]:
 def _all_finished(model, finished: torch.Tensor) -> bool:
     """Whether every row has reached eos; for a sharded model, every row of
     every rank, so that no rank leaves the loop (and its layers'
-    all-gathers) while another still decodes, as JAX's one program over
-    the global batch stops all rows together."""
+    all-gathers, or a split decoder's all-reduces) while another still
+    decodes, as JAX's one program over the global batch stops all rows
+    together. The ranks of a tensor group hold the same rows and, after
+    each row-parallel all-reduce, the same hidden state: they agree."""
     from aigv_assessor_torch.parallel.sharding import is_sharded
 
     if is_sharded(model):
@@ -176,7 +178,7 @@ def generate(
     max_len = max_cache_len or (s + gcfg.max_new_tokens)
 
     cache = KVCache.init(model.config.llm, b, max_len, quantized=model.precision.kv_int8,
-                         device=device)
+                         device=device, kv_heads=model.language_model.kv_heads)
     kv_mask = torch.ones((b, max_len), dtype=torch.bool, device=device)
     if attention_mask is None:
         position_ids = None
@@ -321,7 +323,8 @@ def stream_chat(
     ids = torch.as_tensor([tokenizer.encode(query)], dtype=torch.int64, device=device)
     s = ids.shape[1]
     cache = KVCache.init(model.config.llm, 1, s + gcfg.max_new_tokens,
-                         quantized=model.precision.kv_int8, device=device)
+                         quantized=model.precision.kv_int8, device=device,
+                         kv_heads=model.language_model.kv_heads)
     px = pixel_values[None] if pixel_values is not None else None
     logits, _, cache = _embed_and_prefill(
         model, ids, _pixels(model, px), with_motion, cache, None, None)

@@ -75,6 +75,13 @@ Llama and Qwen2 checkpoints run this decoder (`LLMConfig.from_dict` gives
 their biases). `InternLM2ForSequenceClassification` pools the last
 non-padding token's hidden state into a bias-free `score` layer.
 
+Over the `tensor` mesh axis (`parallel/tensor.py`, `split_`) a float
+decoder holds this rank's kv groups: `wqkv` keeps their q, k and v heads,
+`wo` the matching input features, `w1` / `w3` a share of their output
+features, `w2` the matching input features; `hq` / `hkv` are local, so are the KV cache's heads
+(`CausalDecoder.kv_heads`), and the embeddings, norms and LM head stay
+whole. Llama and Qwen2 split the same way; Phi-3 never does.
+
 The layer loop, the rope-table cache, the KV cache's writes and the
 single-token steps' `starts` live in `CausalDecoder`, which the Phi-3
 decoder (`models/phi3.py`) shares; its attention, MLP and layer subclass the
@@ -114,6 +121,7 @@ from aigv_assessor_torch.ops.remat import checkpoint_layer
 from aigv_assessor_torch.ops.rope import apply_rope, rope_cos_sin
 from aigv_assessor_torch.ops import quant_fuse
 from aigv_assessor_torch.ops.w8a8 import quantize_rows
+from aigv_assessor_torch.parallel.tensor import COLUMN, ROW, split_linear
 
 
 @dataclass
@@ -141,9 +149,13 @@ class KVCache:
     @classmethod
     def init(cls, config: LLMConfig, batch: int, max_len: int,
              dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
-             device: Optional[torch.device | str] = None) -> "KVCache":
-        shape = (config.num_hidden_layers, batch, max_len, config.num_key_value_heads,
-                 config.head_dim)
+             device: Optional[torch.device | str] = None,
+             kv_heads: Optional[int] = None) -> "KVCache":
+        """An empty cache; `kv_heads`: the kv heads a layer holds, the
+        config's unless the decoder is split over `tensor`
+        (`CausalDecoder.kv_heads`)."""
+        shape = (config.num_hidden_layers, batch, max_len,
+                 kv_heads or config.num_key_value_heads, config.head_dim)
 
         def kv():
             if quantized:
@@ -189,9 +201,15 @@ def _write_rows(part, new, i: int, at: int) -> None:
 class InternLM2Attention(nn.Module):
     """GQA attention off one fused qkv projection (`QKV`) into the output
     projection (`OUT`); the Phi-3 attention is this one under its own names
-    with a float output projection under W8A8."""
+    with a float output projection under W8A8.
+
+    Split over `tensor` (`split_`), `hq` / `hkv` are this rank's: `wqkv`
+    keeps its kv groups' q, k and v heads, `wo` the matching input columns,
+    and a single-token step takes the decode kernel where the local head
+    shape passes `decode_kernel_supported`."""
 
     QKV, OUT = "wqkv", "wo"
+    TENSOR_ROLES = {"wqkv": COLUMN, "wo": ROW}
 
     def _biases(self, config) -> Tuple[bool, bool]:
         """(qkv bias, out bias)."""
@@ -224,6 +242,17 @@ class InternLM2Attention(nn.Module):
         setattr(self, self.OUT, make_linear(
             hq * d, c, bias=o_bias, lora=lora,
             head_major_in=not (self.weight_only or self.o_dense), precision=out_precision))
+
+    def tensor_divides(self, size: int) -> bool:
+        return self.hkv % size == 0
+
+    def split_(self, split) -> None:
+        """Keep this rank's kv groups (`parallel/tensor.py`), in place."""
+        hq, hkv, d = self.hq, self.hkv, self.head_dim
+        setattr(self, self.QKV, split_linear(getattr(self, self.QKV), COLUMN, split,
+                                             (hq * d, hkv * d, hkv * d)))
+        setattr(self, self.OUT, split_linear(getattr(self, self.OUT), ROW, split))
+        self.hq, self.hkv = hq // split.size, hkv // split.size
 
     def _project_rows(self, linear: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """`wqkv` or `wo` in its row-major form, [B, S, in] -> [B, S, out]:
@@ -289,6 +318,10 @@ class InternLM2Attention(nn.Module):
 
 
 class InternLM2MLP(nn.Module):
+    """Split over `tensor`: `w1` / `w3` by columns, `w2` by rows."""
+
+    TENSOR_ROLES = {"w1": COLUMN, "w3": COLUMN, "w2": ROW}
+
     def __init__(self, config: LLMConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
@@ -300,6 +333,13 @@ class InternLM2MLP(nn.Module):
         self.w1 = make_linear(c, f, bias=False, lora=lora, precision=precision)
         self.w3 = make_linear(c, f, bias=False, lora=lora, precision=precision)
         self.w2 = make_linear(f, c, bias=False, lora=lora, precision=precision)
+
+    def tensor_divides(self, size: int) -> bool:
+        return True  # JAX's guard decides on the intermediate width
+
+    def split_(self, split) -> None:
+        for name, role in self.TENSOR_ROLES.items():
+            setattr(self, name, split_linear(getattr(self, name), role, split))
 
     def forward(self, x):
         """x: [B, S, C], or under fused W8A8 feeds its (int8, scale) rows."""
@@ -361,6 +401,13 @@ class CausalDecoder(nn.Module):
         self.grad_checkpoint = grad_checkpoint
         self._rope = {}  # (rope_len, device) -> (cos, sin)
         self.generator: Optional[torch.Generator] = None  # models/lora.set_generator
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads each layer holds: the config's, or this rank's share
+        over `tensor`."""
+        layer = self.layers[0]
+        return getattr(layer, layer.NAMES[1]).hkv
 
     def _rope_tables(self, rope_len: int, device: torch.device):
         """The cos/sin tables of one length on one device, built once: a decode

@@ -73,7 +73,9 @@ compute dtype; no build holds an fp32 copy of the model.
 process group with the training sharding rules
 (`parallel/sharding.shard_params`; by default every rank on `fsdp`, as
 JAX's `MeshConfig.auto(fsdp=True)`), where JAX lays its parameters over a
-mesh. Each rank then runs `score_perspectives` or `generate` on its rows of
+mesh; with `mesh_config=MeshConfig(tensor=...)` the float towers split by
+heads over `tensor` as JAX splits them, quantized builds stay whole on
+every rank of the axis. Each rank then runs `score_perspectives` or `generate` on its rows of
 the batch, under `torch.no_grad`: FSDP2's all-gather cannot run under
 `torch.inference_mode` (`generate` picks the right one itself).
 """

@@ -20,6 +20,15 @@ does; it refuses a quantized base, as that tool merges float kernels only.
 Randomness. Dropout draws from an explicit `torch.Generator` that the owner
 of the model hands to every stochastic module (`set_generator`), never from
 the global generator, so a run is a function of its seed.
+
+Over the `tensor` mesh axis (`parallel/tensor.py`) a `LoRALinear` holds this
+rank's share: `split` and `split_role` set, `in_features` and `heads` local.
+Column-parallel: the base's and `lora_b`'s output rows, `lora_a` whole;
+row-parallel: the base's and `lora_a`'s input columns, `lora_b` whole, the
+base's and the adapter's partial products summed in one all-reduce before
+the bias. Dropout on a split input draws the mask of the whole activation
+from the generator and keeps this rank's columns, so the ranks of a tensor
+group, and a run without the axis, draw the same masks.
 """
 
 from __future__ import annotations
@@ -33,6 +42,12 @@ from torch import nn
 from aigv_assessor_torch.core.config import LoRAConfig
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.ops import int8_matmul, w8a8
+from aigv_assessor_torch.parallel.tensor import (
+    ROW,
+    copy_to_split,
+    full_state_dict,
+    split_forward,
+)
 
 LORA_LEAVES = ("lora_a", "lora_b")
 QUANT_BLOCK = 1 << 24  # values `QuantizedLinear.load_float_weight_` quantizes at once
@@ -44,12 +59,21 @@ def is_lora_param(name: str) -> bool:
     return name.replace("/", ".").rsplit(".", 1)[-1] in LORA_LEAVES
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with the mask drawn from `generator` (on x's device)."""
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            split=None) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from `generator` (on x's device).
+    `split` (a `parallel/tensor.TensorSplit`): x holds that rank's columns of
+    a wider activation; the whole activation's mask is drawn and this rank's
+    columns kept."""
     if generator is None:
         raise RuntimeError("dropout in training needs a generator: call set_generator first")
     keep = 1.0 - p
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    if split is None:
+        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    else:
+        n = x.shape[-1]
+        mask = torch.empty(x.shape[:-1] + (n * split.size,), dtype=x.dtype, device=x.device)
+        mask = mask.bernoulli_(keep, generator=generator).narrow(-1, split.rank * n, n)
     return (x / keep) * mask
 
 
@@ -98,6 +122,8 @@ class AdaptedLinear(nn.Module):
         self.heads = heads
         self.head_major_in = head_major_in
         self.generator: Optional[torch.Generator] = None
+        self.split = None  # parallel/tensor.split_linear
+        self.split_role: Optional[str] = None
         if self.lora is not None:
             self.lora_a = nn.Parameter(torch.zeros(in_features, self.lora.r))
             self.lora_b = nn.Parameter(torch.zeros(self.lora.r, out_features))
@@ -106,6 +132,8 @@ class AdaptedLinear(nn.Module):
         raise NotImplementedError
 
     def rows(self, x):
+        if self.split is not None:
+            return self._split_rows(x)
         if self.lora is None:
             return self.base(x)
         if isinstance(x, tuple):
@@ -118,6 +146,28 @@ class AdaptedLinear(nn.Module):
             h = dropout(h, self.lora.dropout, self.generator)
         delta = (h @ self.lora_a.to(h.dtype)) @ self.lora_b.to(h.dtype)
         return y + delta * self.lora.scaling
+
+    def _split_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """`rows` of a float layer split over `tensor`
+        (`parallel/tensor.split_forward`), the adapter's product joining the
+        base's before the row-parallel all-reduce."""
+        delta = None if self.lora is None else self._split_delta
+        return split_forward(x, self.weight, self.bias, self.split, self.split_role, delta)
+
+    def _split_delta(self, x: torch.Tensor) -> torch.Tensor:
+        """The adapter's product on a split layer's input: the parameter that
+        stays whole meets a split activation, so its gradient is summed over
+        the ranks (`copy_to_split`)."""
+        split, row = self.split, self.split_role == ROW
+        h = x.to(self.weight.dtype)
+        if self.training and self.lora.dropout > 0.0:
+            h = dropout(h, self.lora.dropout, self.generator, split if row else None)
+        a, b = self.lora_a.to(h.dtype), self.lora_b.to(h.dtype)
+        if row:
+            b = copy_to_split(b, split)
+        else:
+            a = copy_to_split(a, split)
+        return ((h @ a) @ b) * self.lora.scaling
 
     def forward(self, x):
         if self.head_major_in:
@@ -338,5 +388,7 @@ def merge_lora_(model: nn.Module) -> nn.Module:
 
 def lora_free_state_dict(model: nn.Module) -> dict:
     """The state_dict without adapter leaves: what the same config with
-    `use_backbone_lora = use_llm_lora = 0` loads. Merge first."""
-    return {k: v for k, v in model.state_dict().items() if not is_lora_param(k)}
+    `use_backbone_lora = use_llm_lora = 0` loads. Merge first. A model split
+    over `tensor` gathers its shards into the unsplit layout (a collective
+    on every rank of the group)."""
+    return {k: v for k, v in full_state_dict(model).items() if not is_lora_param(k)}

@@ -87,9 +87,12 @@ def phi3_rope_tables(cfg: Phi3Config, seq_len: int,
 
 
 class Phi3Attention(InternLM2Attention):
-    """`qkv_proj` / `o_proj`, no biases; `o_proj` float under W8A8."""
+    """`qkv_proj` / `o_proj`, no biases; `o_proj` float under W8A8. Never
+    split over `tensor`: JAX's rule table names none of Phi-3's projections,
+    so GSPMD replicates them over the axis."""
 
     QKV, OUT = "qkv_proj", "o_proj"
+    TENSOR_ROLES: dict = {}
 
     def _biases(self, config) -> Tuple[bool, bool]:
         return False, False

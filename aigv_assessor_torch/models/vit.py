@@ -50,6 +50,12 @@ residual branch is dropped per sample with rates linspace(0, drop_path_rate,
 L) (stochastic depth); with `grad_checkpoint` each layer's activations are
 recomputed in the backward (`ops/remat.py`), or, under `remat_policy`, what
 the policy does not save. In `eval()` the layers are deterministic.
+
+Over the `tensor` mesh axis (`parallel/tensor.py`, `split_`) a float tower
+holds this rank's heads: `qkv` cut by heads ([q | k | v], each rank its
+heads of each), `proj` by input features, `fc1` by output features, `fc2`
+by input features; `num_heads` is local, and the layer's norms, LayerScale and
+residual stay whole, the row-parallel outputs summed over the ranks.
 """
 
 from __future__ import annotations
@@ -69,6 +75,13 @@ from aigv_assessor_torch.ops.attention import fused_qkv_attention, multi_head_at
 from aigv_assessor_torch.ops.norms import LayerNorm, RMSNorm
 from aigv_assessor_torch.ops.remat import checkpoint_layer, policy_fn
 from aigv_assessor_torch.ops.resize import bicubic_resize_grid
+from aigv_assessor_torch.parallel.tensor import (
+    COLUMN,
+    ROW,
+    split_linear,
+    split_norm_,
+    split_rms_norm,
+)
 
 
 def make_norm(norm_type: str, dim: int, eps: float) -> nn.Module:
@@ -111,11 +124,20 @@ class InternVisionEmbeddings(nn.Module):
 
 
 class InternAttention(nn.Module):
+    """Split over `tensor` (`split_`), the layer holds this rank's
+    `num_heads` of the config's: `qkv` cut by heads, `proj` by rows, and
+    with `qk_normalization` this rank's columns of `q_norm` / `k_norm`, whose
+    mean square over all heads sums the ranks' partial sums of squares."""
+
+    TENSOR_ROLES = {"qkv": COLUMN, "proj": ROW}
+
     def __init__(self, config: VisionConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
         precision = tower_precision(precision)
         self.num_heads = h = config.num_attention_heads
+        self.head_dim = config.hidden_size // h
+        self.split = None
         self.qk_normalization = config.qk_normalization
         self.w8a8 = precision.w8a8
         adapted = lora is not None and lora.r > 0
@@ -135,15 +157,35 @@ class InternAttention(nn.Module):
             self.proj = make_linear(c, c, lora=lora, head_major_in=not self.w8a8,
                                     precision=precision)
 
+    def tensor_divides(self, size: int) -> bool:
+        return self.num_heads % size == 0
+
+    def split_(self, split) -> None:
+        """Keep this rank's heads (`parallel/tensor.py`), in place."""
+        c = self.num_heads * self.head_dim
+        self.qkv = split_linear(self.qkv, COLUMN, split, (c, c, c))
+        self.proj = split_linear(self.proj, ROW, split)
+        if self.qk_normalization:
+            split_norm_(self.q_norm, split)
+            split_norm_(self.k_norm, split)
+        self.num_heads //= split.size
+        self.split = split
+
+    def _qk_norm(self, norm: RMSNorm, x: torch.Tensor) -> torch.Tensor:
+        if self.split is None:
+            return norm(x)
+        return split_rms_norm(x, norm.weight, norm.eps, self.split)
+
     def forward(self, x, kv_valid: int | None = None) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""
-        h = self.num_heads
+        h, d = self.num_heads, self.head_dim
         if self.qk_normalization:
-            b, n, c = x.shape
-            q, k, v = self.qkv(x).split(c, dim=-1)  # each [B, N, C]; v a strided view
-            q = self.q_norm(q).view(b, n, h, c // h)
-            k = self.k_norm(k).view(b, n, h, c // h)
-            out = multi_head_attention(q, k, v.view(b, n, h, c // h), causal=False,
+            b, n, _ = x.shape
+            c = h * d  # this rank's heads' width
+            q, k, v = self.qkv(x).split(c, dim=-1)  # each [B, N, c]; v a strided view
+            q = self._qk_norm(self.q_norm, q).view(b, n, h, d)
+            k = self._qk_norm(self.k_norm, k).view(b, n, h, d)
+            out = multi_head_attention(q, k, v.view(b, n, h, d), causal=False,
                                        kv_valid=kv_valid)  # [B, N, H, D]
             return self.proj(out.reshape(b, n, c))
         if isinstance(self.qkv, LoRALinear):
@@ -158,15 +200,19 @@ class InternAttention(nn.Module):
             out = fused_qkv_attention(qkv, h, h, causal=False, kv_valid=kv_valid,
                                       out_layout="bsd")
             return self.proj(quant_fuse.quant_rows(out) if self.quant_rows else out)
-        b, n, c = x.shape
+        b, n, _ = x.shape
         # [B, N, 3H, D] viewed head-major as [B, 3H, N, D]: the kernel reads
         # q/k/v through the strides, no copy
-        qkv = self.qkv(x).view(b, n, 3 * h, c // h).transpose(1, 2)
+        qkv = self.qkv(x).view(b, n, 3 * h, d).transpose(1, 2)
         out = fused_qkv_attention(qkv, h, h, causal=False, kv_valid=kv_valid)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return self.proj(out.transpose(1, 2).reshape(b, n, h * d))
 
 
 class InternMLP(nn.Module):
+    """Split over `tensor`: `fc1` by columns, `fc2` by rows."""
+
+    TENSOR_ROLES = {"fc1": COLUMN, "fc2": ROW}
+
     def __init__(self, config: VisionConfig, precision: Precision = Precision(),
                  lora: Optional[LoRAConfig] = None):
         super().__init__()
@@ -179,6 +225,13 @@ class InternMLP(nn.Module):
         c, f = config.hidden_size, config.intermediate_size
         self.fc1 = make_linear(c, f, lora=lora, precision=precision)
         self.fc2 = make_linear(f, c, lora=lora, precision=precision)
+
+    def tensor_divides(self, size: int) -> bool:
+        return True  # JAX's guard decides on the intermediate width
+
+    def split_(self, split) -> None:
+        self.fc1 = split_linear(self.fc1, COLUMN, split)
+        self.fc2 = split_linear(self.fc2, ROW, split)
 
     def forward(self, x) -> torch.Tensor:
         """x: [B, N, C], or under W8A8 its (int8, scale) rows."""

@@ -1,5 +1,3 @@
-from aigv_assessor_torch.parallel.sharding import (  # noqa: F401
-    param_spec,
-    shard_batch,
-    shard_params,
-)
+"""Sharding over the mesh (`sharding.py`) and the tensor axis' split
+projections (`tensor.py`). Import the submodules: the model modules import
+`parallel.tensor`, and `parallel.sharding` imports the model modules."""

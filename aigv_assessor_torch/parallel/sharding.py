@@ -14,9 +14,14 @@ projection (`qkv_proj`, `o_proj`, `gate_up_proj`, `down_proj`, `lm_head`,
 `embed_tokens`), so those take its default rule, the largest divisible dim,
 as they do in JAX. It takes the axis sizes, not a live mesh.
 
-`shard_params` wraps each ViT layer and each decoder layer, then the root,
-in `fully_shard` over the (data, fsdp) mesh: HSDP, replicated over `data`
-and sharded over `fsdp`. Each parameter is sharded on the dim `param_spec`
+`tensor_plan` carries JAX's `tensor` axis onto the port: a tower projection
+is split where JAX's spec puts `tensor` on its kernel and the tower's heads
+divide, everything else is replicated over the axis (see its docstring).
+`shard_params` first cuts those towers to this rank's heads
+(`split_towers_`, `parallel/tensor.py`), then wraps each ViT layer and each
+decoder layer, then the root, in `fully_shard` over the (data, fsdp)
+sub-mesh of the ranks that share this rank's `tensor` coordinate: HSDP,
+replicated over `data` and sharded over `fsdp`. Each parameter is sharded on the dim `param_spec`
 gives `fsdp`; where JAX replicates it, FSDP2 shards dim 0 (same result,
 less memory). The root unit holds the embeddings, the final norm, the LM
 head (tied embeddings too), the projectors, SlowFast and the score head, so
@@ -28,9 +33,10 @@ int4 weights, SlowFast's statistics) are not parameters: FSDP2 leaves them
 whole on every rank, where JAX shards them.
 
 `shard_batch` keeps per-process semantics: each rank's loader holds its own
-rows (JAX's `process_local`), so it moves them to the device and checks that
-the global rows divide over data x fsdp. Where they do not, JAX replicates
-the batch: every rank then holds and runs the whole batch.
+rows (JAX's `process_local`; the ranks of a tensor group the same rows), so
+it moves them to the device and checks that the global rows divide over
+data x fsdp. Where they do not, JAX replicates the batch: every rank then
+holds and runs the whole batch.
 """
 
 from __future__ import annotations
@@ -48,10 +54,12 @@ from aigv_assessor_torch.core.mesh import (
     DATA_AXIS,
     FSDP_AXIS,
     TENSOR_AXIS,
-    TENSOR_AXIS_TODO,
     MeshConfig,
     mesh_config_of,
+    tensor_coords,
+    tensor_group,
 )
+from aigv_assessor_torch.parallel.tensor import COLUMN, TensorSplit, split_leaves
 from aigv_assessor_torch.models.loading import _TOWER_PROJECTIONS
 
 logger = logging.getLogger(__name__)
@@ -204,11 +212,79 @@ def is_sharded(model: nn.Module) -> bool:
 
 
 def dp_mesh(mesh):
-    """The (data, fsdp) sub-mesh FSDP2 runs over; the tensor axis must be 1."""
-    if mesh_config_of(mesh).tensor != 1:
-        raise NotImplementedError(f"--mesh_tensor {mesh_config_of(mesh).tensor}: "
-                                  + TENSOR_AXIS_TODO)
+    """The (data, fsdp) sub-mesh FSDP2 runs over: the ranks that share this
+    rank's `tensor` coordinate."""
     return mesh[DATA_AXIS, FSDP_AXIS]
+
+
+# ----------------------------------------------------------------- tensor --
+
+REPLICATED = "replicated"
+
+
+def _tensor_units(model: nn.Module):
+    """(module name, module, {projection: role}) of every module that may
+    split over `tensor` (the ones whose class lists `TENSOR_ROLES`)."""
+    for name, m in model.named_modules():
+        roles = getattr(type(m), "TENSOR_ROLES", None)
+        if roles:
+            yield name, m, roles
+
+
+def tensor_plan(model: nn.Module, mesh_shape) -> Dict[str, str]:
+    """{projection module name: 'column' | 'row' | 'replicated'} over the
+    `tensor` axis, for every projection of the towers' attention and MLP
+    modules. A projection is split exactly where JAX's `param_spec` puts
+    `tensor` on its kernel (the output dim of a column-parallel one, the
+    input dim of a row-parallel one), and only where its whole tower can:
+    every projection of the tower float (a quantized base's `kernel_int8` /
+    `kernel_int4` matches no `kernel$` rule), split by JAX, and the heads
+    dividing by the axis size (the kernels need whole heads per rank: the
+    ViT's heads, the decoder's kv heads). Phi-3's modules list no roles
+    (JAX's table names none of its projections). Everything else is
+    replicated over `tensor`, also where JAX puts the axis on it: the LM
+    head where the vocabulary divides, and `motion_mlp`'s fc1 / fc2, which
+    the ViT's `mlp/fc1`, `mlp/fc2` patterns match (the result is the same;
+    the port's scores, logits and tokens are then the same bits on every
+    rank of a tensor group)."""
+    from aigv_assessor_torch.models.lora import LoRALinear
+
+    sizes = _sizes(mesh_shape)
+    size = sizes[TENSOR_AXIS]
+    units = list(_tensor_units(model))
+    splits: Dict[str, bool] = {}
+    for name, m, roles in units:
+        tower = name.split(".")[0]
+        ok = size > 1 and m.tensor_divides(size)
+        for child, role in roles.items():
+            lin = getattr(m, child)
+            ok = ok and type(lin) in (nn.Linear, LoRALinear)
+            if ok:
+                spec = param_spec(f"{name}.{child}.weight", tuple(lin.weight.shape), sizes)
+                axis = spec[0 if role == COLUMN else 1]
+                ok = axis == TENSOR_AXIS or (isinstance(axis, tuple) and TENSOR_AXIS in axis)
+        splits[tower] = splits.get(tower, True) and ok
+    return {f"{name}.{child}": role if splits[name.split(".")[0]] else REPLICATED
+            for name, m, roles in units for child, role in roles.items()}
+
+
+def split_towers_(model: nn.Module, split: TensorSplit) -> Dict[str, str]:
+    """Cut the towers `tensor_plan` splits over `split.size` ranks to rank
+    `split.rank`'s heads, in place (`parallel/tensor.py`; `split.group`
+    None builds the group-less form) -> the plan. A tower that stays whole
+    is logged."""
+    plan = tensor_plan(model, {TENSOR_AXIS: split.size})
+    towers: Dict[str, bool] = {}
+    for name, m, roles in list(_tensor_units(model)):
+        cut = plan[f"{name}.{next(iter(roles))}"] != REPLICATED
+        if cut:
+            m.split_(split)
+        towers[name.split(".")[0]] = cut
+    for tower, cut in towers.items():
+        logger.log(logging.INFO if cut else logging.WARNING, "%s: %s over tensor %d", tower,
+                   "split by heads" if cut else "replicated (its heads do not divide, JAX's "
+                   "rules do not split it, or its projections are quantized)", split.size)
+    return plan
 
 
 def fsdp_group(mesh):
@@ -225,18 +301,29 @@ def _layer_units(model: nn.Module):
 
 
 def shard_params(model: nn.Module, mesh) -> nn.Module:
-    """Wrap `model` in FSDP2 over `mesh`'s (data, fsdp) axes, in place: each
-    layer, then the root. Parameters keep their names; they become DTensors
-    sharded on `param_spec`'s fsdp dim. -> the model."""
+    """Cut the towers over `mesh`'s `tensor` axis (`split_towers_`), then
+    wrap `model` in FSDP2 over its (data, fsdp) axes, in place: each layer,
+    then the root. Parameters keep their names; they become DTensors
+    sharded on `param_spec`'s fsdp dim, which is taken from the unsplit
+    shape, as JAX's guard takes it, and applied to this rank's shard.
+    -> the model."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
     from torch.distributed.tensor import Shard
 
+    rank, size = tensor_coords(mesh)
+    if size > 1:
+        split_towers_(model, TensorSplit(size, rank, tensor_group(mesh)))
     sub = dp_mesh(mesh)
     sizes = mesh_config_of(mesh).shape
     names = {id(p): n for n, p in model.named_parameters()}
+    leaves = split_leaves(model)
 
     def placement(p: nn.Parameter):
-        d = fsdp_dim(names[id(p)], tuple(p.shape), sizes)
+        name = names[id(p)]
+        shape = list(p.shape)
+        if name in leaves:
+            shape[leaves[name].dim] *= sizes[TENSOR_AXIS]
+        d = fsdp_dim(name, tuple(shape), sizes)
         return Shard(d) if d is not None else None  # None: FSDP2's Shard(0)
 
     kw: Dict[str, Any] = {"mesh": sub}
@@ -272,13 +359,14 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
 def shard_batch(batch: Mapping[str, Any], mesh, *, batch_dim: int = 0,
                 device: Optional[torch.device] = None) -> Dict[str, Any]:
     """This rank's rows of every tensor leaf on `device` (the mesh's by
-    default). Each rank holds its own rows of the global batch. A leaf whose
-    global rows (local x ranks) do not divide over data x fsdp is replicated,
-    as JAX replicates it: every rank must then hold, and runs, the whole
-    batch (logged)."""
+    default). Each rank holds its own rows of the global batch, the same as
+    the other ranks of its tensor group. A leaf whose global rows (local x
+    world / tensor) do not divide over data x fsdp is replicated, as JAX
+    replicates it: every rank must then hold, and runs, the whole batch
+    (logged)."""
     sizes = _sizes(mesh)
     n = sizes[DATA_AXIS] * sizes[FSDP_AXIS]
-    procs = process_count()
+    procs = process_count() // sizes[TENSOR_AXIS]
     if device is None:
         device = torch.device(mesh.device_type) if hasattr(mesh, "device_type") else None
         if device is not None and device.type == "cuda":

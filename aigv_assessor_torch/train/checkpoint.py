@@ -19,9 +19,11 @@
 
 A model sharded over several ranks (`parallel/sharding.shard_params`)
 saves what a one-card run saves: every rank calls `save_*` and
-`CheckpointManager.save` (they gather the whole tensors, a collective), and
-the primary alone writes. `restore` reads the same `state.pt` into a
-trainer of any world size, sharded or not.
+`CheckpointManager.save` (they gather the whole tensors, a collective: over
+(data, fsdp), then the shards of a tower split over `tensor` into the
+unsplit layout, `parallel/tensor.unsplit`), and the primary alone writes.
+`restore` reads the same `state.pt` into a trainer of any layout, sharded
+or not, split or not; `load_lora_weights` cuts each rank's share again.
 """
 
 from __future__ import annotations
@@ -39,32 +41,43 @@ from aigv_assessor_torch.core.dist import barrier, is_primary
 from aigv_assessor_torch.models import loading
 from aigv_assessor_torch.models.lora import is_lora_param
 from aigv_assessor_torch.parallel.sharding import full_tensor
+from aigv_assessor_torch.parallel.tensor import model_split, split_leaves, unsplit
 
 logger = logging.getLogger(__name__)
 
 
-def _leaves(model: nn.Module, keep) -> Dict[str, List[torch.nn.Parameter]]:
-    """{JAX path: the port's parameters named by `keep`, of layers 0..L-1 in
-    order, or the one parameter outside the layers}."""
+def _leaves(model: nn.Module, keep) -> Dict[str, List[tuple]]:
+    """{JAX path: (name, parameter) of the port's parameters named by `keep`,
+    of layers 0..L-1 in order, or the one parameter outside the layers}."""
     params = dict(model.named_parameters())
-    by_path: Dict[str, Dict[int, torch.nn.Parameter]] = {}
+    by_path: Dict[str, Dict[int, tuple]] = {}
     for name, (path, layer) in loading.jax_paths(model).items():
         if name in params and keep(name):
-            by_path.setdefault(path, {})[0 if layer is None else layer] = params[name]
+            by_path.setdefault(path, {})[0 if layer is None else layer] = (name, params[name])
     return {path: [layers[i] for i in range(len(layers))] for path, layers in by_path.items()}
 
 
-def _lora_leaves(model: nn.Module) -> Dict[str, List[torch.nn.Parameter]]:
+def _lora_leaves(model: nn.Module) -> Dict[str, List[tuple]]:
     return _leaves(model, is_lora_param)
+
+
+def _whole(model: nn.Module, leaves: List[tuple]) -> List[torch.Tensor]:
+    """The whole tensors of `leaves` on the CPU: gathered where sharded over
+    (data, fsdp), and into the unsplit layout where split over `tensor`."""
+    split = model_split(model)
+    cut = split_leaves(model) if split is not None else {}
+    out = []
+    for name, p in leaves:
+        t = full_tensor(p.detach())
+        out.append((unsplit(t, cut[name], split) if name in cut else t).cpu())
+    return out
 
 
 def extract_lora(model: nn.Module) -> Dict[str, torch.Tensor]:
     """Flat {JAX path: [L, ...] tensor on the CPU} of the adapter leaves
-    (whole, gathered from every rank where they are sharded)."""
-    return {
-        path: torch.stack([full_tensor(p.detach()).cpu() for p in leaves])
-        for path, leaves in _lora_leaves(model).items()
-    }
+    (whole, gathered from every rank where they are sharded or split)."""
+    return {path: torch.stack(_whole(model, leaves))
+            for path, leaves in _lora_leaves(model).items()}
 
 
 def extract_params(model: nn.Module, names) -> Dict[str, torch.Tensor]:
@@ -75,7 +88,7 @@ def extract_params(model: nn.Module, names) -> Dict[str, torch.Tensor]:
     paths = dict(loading.jax_paths(model).values())
     out = {}
     for path, leaves in _leaves(model, lambda n: n in wanted).items():
-        ts = [full_tensor(p.detach()).cpu() for p in leaves]
+        ts = _whole(model, leaves)
         if path.endswith("kernel"):
             ts = [t.t() if t.ndim == 2 else t for t in ts]
         out[path] = torch.stack(ts).contiguous() if paths[path] is not None else ts[0].contiguous()
@@ -107,17 +120,20 @@ def save_lora_weights(path: str, model: nn.Module) -> None:
 
 @torch.no_grad()
 def load_lora_weights(path: str, model: nn.Module) -> nn.Module:
-    """Copy a LoRA-only artifact into the model's adapters, in place."""
+    """Copy a LoRA-only artifact into the model's adapters, in place; a
+    tower split over `tensor` takes this rank's share of each."""
     from safetensors.torch import load_file
 
     leaves = _lora_leaves(model)
+    split = model_split(model)
+    cut = split_leaves(model) if split is not None else {}
     for key, value in load_file(path).items():
         if key not in leaves:
             raise KeyError(f"LoRA tensor {key} not present in the model")
         if value.shape[0] != len(leaves[key]):
             raise ValueError(f"{key}: {value.shape[0]} layers, the model has {len(leaves[key])}")
-        for p, v in zip(leaves[key], value):
-            p.copy_(v)
+        for (name, p), v in zip(leaves[key], value):
+            p.copy_(cut[name].shard(v, split.rank, split.size) if name in cut else v)
     return model
 
 

@@ -28,25 +28,35 @@ writer that fails is logged and dropped, and training goes on, as in JAX.
 
 Under a process group (`core/dist.init_dist`; torchrun, or JAX's launch
 variables) the trainer lays the model out over `mesh` (default: every rank
-on `data`) with FSDP2 (`parallel/sharding.shard_params`), even at one rank,
-and builds AdamW over the wrapped parameters. Each rank runs its rows of
-the global batch, and a step gives what the one-process step over the
-global batch gives, as JAX's one program over global arrays does:
+on `data`): the towers split over `tensor` where JAX splits them, then FSDP2
+over (data, fsdp) (`parallel/sharding.shard_params`), even at one rank, and
+builds AdamW over the wrapped parameters. Each rank runs its rows of the
+global batch (the ranks of a tensor group the same rows), and a step gives
+what the one-process step over the global batch gives, as JAX's one program
+over global arrays does:
 
-- FSDP2 averages the gradients over the ranks, so each rank's loss is
-  scaled by `local_weight * world / global_weight` before its backward,
-  where the weight is what the loss averages over: the label tokens of the
-  shifted cross-entropy (stage 1), the rows of the L1 (stage 2, where equal
-  local batches make the scale 1). The logged loss is the global one.
+- FSDP2 averages the gradients over the (data, fsdp) ranks, so each rank's
+  loss is scaled by `local_weight * world / global_weight` before its
+  backward, where the weight is what the loss averages over: the label
+  tokens of the shifted cross-entropy (stage 1), the rows of the L1 (stage
+  2, where equal local batches make the scale 1). Both sums run over the
+  whole world, which counts each row once per tensor rank: the ratio is
+  the one over (data, fsdp). The logged loss is the global one, the same on
+  every rank, written once.
 - The clip takes the norm of the whole gradients: the squared norms of the
-  local shards summed over the `fsdp` ranks, the same factor on every
-  shard.
-- Dropout and drop path draw from a generator seeded from (seed, rank):
-  `seed + (rank << 32)`, the seed itself on rank 0.
-- Eval runs on every rank (FSDP2's all-gathers keep the ranks in step);
-  the primary's metrics decide the best checkpoint on all of them. Only the
-  primary writes `train_log.jsonl`, the metrics and the checkpoints; every
-  rank takes part in the gathers that checkpoints and artifacts need.
+  local shards summed over the `fsdp` ranks, those of the parameters split
+  over `tensor` also over the tensor ranks, the others counted once.
+- Dropout and drop path draw from a generator seeded from (seed, data
+  rank): `seed + (rank << 32)`, the seed itself on data rank 0, so the
+  ranks of a tensor group draw the same masks (a split input's dropout
+  keeps its columns of the whole activation's mask, `models/lora.dropout`).
+- Eval runs on every rank (FSDP2's all-gathers and the split layers'
+  all-reduces keep the ranks in step); the primary's metrics decide the
+  best checkpoint on all of them. Only the primary writes
+  `train_log.jsonl`, the metrics and the checkpoints; every rank takes part
+  in the gathers that checkpoints and artifacts need, which give the
+  unsplit tensors (`parallel/tensor.unsplit`), so a checkpoint moves
+  between any two layouts.
 
 Without a process group nothing is wrapped and no collective runs: a
 single-process run is the one-card trainer, bit for bit. The JAX trainer's
@@ -67,10 +77,11 @@ import torch
 from torch import nn
 
 from aigv_assessor_torch.core import dist as pdist
-from aigv_assessor_torch.core.mesh import MeshConfig, make_mesh
+from aigv_assessor_torch.core.mesh import MeshConfig, data_coords, make_mesh
 from aigv_assessor_torch.models import loading
 from aigv_assessor_torch.models.lora import set_generator
 from aigv_assessor_torch.parallel.sharding import fsdp_group, local_tensor, shard_params
+from aigv_assessor_torch.parallel.tensor import model_split, split_leaves, unsplit
 from aigv_assessor_torch.train.freeze import apply_freeze_, cast_frozen_, count_params
 from aigv_assessor_torch.train.layer_decay import (
     layer_decay_multipliers,
@@ -168,14 +179,25 @@ def decays(jax_path: str) -> bool:
 
 @torch.no_grad()
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
-                         group=None) -> torch.Tensor:
+                         group=None, split: Optional[List[bool]] = None,
+                         tensor_group=None) -> torch.Tensor:
     """Scale `grads` in place by `max_norm / norm` if their global L2 norm is
     at least `max_norm`; returns the norm before clipping. Sharded grads
     (DTensors) count their local shards, whose squared norms are summed
-    over `group` (the ranks that hold one tensor's shards)."""
+    over `group` (the ranks that hold one tensor's shards). `split`: per
+    gradient, True where its parameter is split over `tensor`; those squared
+    norms are summed over `tensor_group` too, the others counted once."""
     grads = [local_tensor(g) for g in grads]
     norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
-    if group is not None and torch.distributed.get_world_size(group) > 1:
+    if tensor_group is not None and split is not None and any(split):
+        cut = torch.tensor(split, device=norms.device)
+        sq = norms.square()
+        whole, parts = sq[~cut].sum(), sq[cut].sum()
+        if group is not None and torch.distributed.get_world_size(group) > 1:
+            pdist.all_reduce_sum_(whole, group)
+            pdist.all_reduce_sum_(parts, group)
+        norm = (whole + pdist.all_reduce_sum_(parts, tensor_group)).sqrt()
+    elif group is not None and torch.distributed.get_world_size(group) > 1:
         norm = pdist.all_reduce_sum_(norms.square().sum(), group).sqrt()
     else:
         norm = torch.linalg.vector_norm(norms)
@@ -235,10 +257,14 @@ class Trainer:
         if torch.distributed.is_initialized():
             self.mesh = mesh if mesh is not None else make_mesh(MeshConfig.auto())
             shard_params(model, self.mesh)
+        # the parameters split over `tensor` (none without the axis)
+        self.split = model_split(model)
+        self.split_leaves = split_leaves(model) if self.split is not None else {}
         params = dict(model.named_parameters())
         self.device = next(iter(params.values())).device
+        self.data_rank = data_coords(self.mesh)[0]
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed + (pdist.process_index() << 32))
+            cfg.seed + (self.data_rank << 32))
         set_generator(model, self.generator)
 
         rates = (cfg.vit_layer_decay_rate, cfg.llm_layer_decay_rate, cfg.llm_lr_scale)
@@ -321,9 +347,11 @@ class Trainer:
         """One optimizer step over the micro-batches -> their mean loss (a
         scalar tensor on the device; reading it synchronizes)."""
         loss = self.accumulate_gradients(micro_batches)
-        clip_by_global_norm_([p.grad for p in self.trainable_parameters().values()],
-                             self.cfg.max_grad_norm,
-                             fsdp_group(self.mesh) if self.mesh is not None else None)
+        params = self.trainable_parameters()
+        clip_by_global_norm_([p.grad for p in params.values()], self.cfg.max_grad_norm,
+                             fsdp_group(self.mesh) if self.mesh is not None else None,
+                             split=[n in self.split_leaves for n in params],
+                             tensor_group=self.split.group if self.split else None)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
@@ -412,7 +440,9 @@ class Trainer:
         parameters, the optimizer's moments, the step and the generator.
         A sharded trainer gathers the whole tensors to the CPU through
         `torch.distributed.checkpoint.state_dict` (a collective on every
-        rank); they land on the primary, in the one-card form."""
+        rank); they land on the primary, in the one-card form, the
+        parameters split over `tensor` and their moments gathered into the
+        unsplit layout."""
         if self.mesh is None:
             return {
                 "params": {n: p.detach().clone()
@@ -428,10 +458,15 @@ class Trainer:
             get_optimizer_state_dict,
         )
 
-        opts = StateDictOptions(full_state_dict=True, cpu_offload=True,
+        # gathering over `tensor` needs the (data, fsdp)-whole tensors on every rank
+        opts = StateDictOptions(full_state_dict=True, cpu_offload=self.split is None,
                                 ignore_frozen_params=True)
         model_sd = get_model_state_dict(self.model, options=opts)
         optim_sd = get_optimizer_state_dict(self.model, self.optimizer, options=opts)
+        if self.split is not None:
+            model_sd = {n: self._whole(n, t) for n, t in model_sd.items()}
+            optim_sd["state"] = {n: {k: self._whole(n, v) for k, v in st.items()}
+                                 for n, st in optim_sd["state"].items()}
         if not pdist.is_primary():
             return {}
         return {
@@ -463,15 +498,33 @@ class Trainer:
             )
 
             opts = StateDictOptions(full_state_dict=True, strict=False)
-            set_model_state_dict(self.model, dict(state["params"]), options=opts)
-            set_optimizer_state_dict(self.model, self.optimizer,
-                                     _optimizer_by_name(state["optimizer"], self.optimizer,
-                                                        params),
+            optim = _optimizer_by_name(state["optimizer"], self.optimizer, params)
+            model_sd = {n: self._shard(n, t) for n, t in state["params"].items()}
+            optim["state"] = {n: {k: self._shard(n, v) for k, v in st.items()}
+                              for n, st in optim["state"].items()}
+            set_model_state_dict(self.model, model_sd, options=opts)
+            set_optimizer_state_dict(self.model, self.optimizer, optim,
                                      options=StateDictOptions(full_state_dict=True))
         self.step = int(state["step"])
-        if pdist.process_index() == 0:
+        if self.data_rank == 0:
             self.generator.set_state(state["generator"].cpu())
         self.best_metric = float(state["best_metric"])
+
+
+    def _whole(self, name: str, t: Any) -> Any:
+        """`t` (a parameter or one of its moments) in the unsplit layout, on
+        the CPU: gathered over `tensor` where `name` is split (a collective
+        on every rank of the group)."""
+        if name in self.split_leaves and isinstance(t, torch.Tensor) and t.ndim:
+            t = unsplit(t, self.split_leaves[name], self.split)
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+
+    def _shard(self, name: str, t: Any) -> Any:
+        """This rank's shard of an unsplit `t` where `name` is split over
+        `tensor`."""
+        if name in self.split_leaves and isinstance(t, torch.Tensor) and t.ndim:
+            return self.split_leaves[name].shard(t, self.split.rank, self.split.size)
+        return t
 
 
 def _optimizer_by_index(optim_sd: Dict[str, Any]) -> Dict[str, Any]:

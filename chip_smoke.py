@@ -416,8 +416,37 @@ Phases, each printing one line or more (and failing the run by raising):
     `bsd` form, and 48 K4a, 24 K4b, 24 K4c, whose LayerNorm weights are
     views into FSDP2's all-gather buffer); ms and peak memory of both.
 
-Then one JSON line describing the kernels (the K1, K3 and K4a-c entries
-also with their launches on the paths of phases 7c, 12, 13, 14, 15 and 16; the
+17. The `tensor` mesh axis (`parallel/tensor.py`) on the one card: NCCL
+    refuses two ranks on one device, so the card holds the shards and the
+    CPU tests the collectives. One InternViT-300M layer and one
+    InternLM2-1.8B decoder layer at the 2B's full widths, bf16, weights from
+    seed 0 (`p17_layers`), each rank's shard built group-less for tensor 2
+    and 4 and run here, the partial outputs summed on the card and each
+    row-parallel bias added once (`p17_sum`). (a) Forward, module by
+    module (the ViT's attention and MLP on P17_VIT_FRAMES frames, the
+    decoder's on P17_ROWS rows): each module's shard sum, before the
+    residual, against the whole module within P17_MODULE_TOL relative L2,
+    and the sum without shard 0's partial beyond it (the control); each
+    shard's K1 launch against the plain attention at its local heads on the
+    kernel's own input within P17_KERNEL_TOL, and the plain output with its
+    heads rolled by one beyond it; K1 launches by head shape exactly one per
+    shard at the local heads (`tally_heads`: ViT 8 / 8 or 4 / 4 of 64,
+    decoder 8 / 4 or 4 / 2 of 128); ms of each shard's module against the
+    whole module's. (b) The same layers with rank-LORA_RANK
+    adapters (dropout 0.05, each rank's masks cut from the whole
+    activation's) in a stage-2 step, forward and backward of (y . u): the
+    shards' adapter gradients, gathered into the unsplit layout or summed,
+    and both inputs' gradients against the whole layers' within
+    TRAIN_GRAD_TOL; K1 lse, K3a, K3b one a shard at the local heads. (c) One
+    decode step of the decoder's attention (B = 4) after a full-width
+    prefill of P17_ROWS, on per-rank caches cut from the prefilled cache:
+    against the whole step within DECODE_TOL; K8 one a shard at tensor 2
+    (8 / 4 heads), none at tensor 4 (4 / 2 heads fail
+    `decode_kernel_supported`: the two-part path, printed); ms per shard
+    against the whole step.
+
+Then one JSON line describing the kernels (the K1, K3, K4a-c and K8 entries
+also with their launches on the paths of phases 7c, 12, 13, 14, 15, 16 and 17; the
 D = 96 and 14 / 2 forms of phase 15 as entries of their own), and last
 {"ok": true, "device": {...}}. The line before them gives the whole run's
 seconds. Imports nothing of JAX.
@@ -5054,6 +5083,398 @@ def run_phase16(device, smi, ids, mask, px_u8, *, n_vit: int, n_llm: int) -> dic
     return dict(train=runs, score=scored)
 
 
+# --------------------------------------------------------------- phase 17 --
+
+P17_TENSOR = (2, 4)  # tensor-axis sizes whose shards phase 17 builds
+P17_VIT_FRAMES = 8  # one video's frames through one ViT layer (1025 tokens, padded to 1032)
+P17_ROWS = (4, 2113)  # a scoring chunk's prompts through one decoder layer
+P17_TRAIN_ROWS = (2, 2113)  # the decoder rows of a stage-2 micro-batch of 2 videos
+P17_ITERS = 10
+P17_WEIGHT_STD = 0.02
+# 17a's limits, relative L2, set between the bf16 readings and the
+# controls (PERF.md, phase 17): a module's shards summed against the whole
+# module (read 2.8e-3-3.9e-3 at tensor 2 and 4; the sum without shard 0
+# 0.34-0.71), and one shard's K1 against the plain attention at its local
+# heads (read 2.5e-3-2.9e-3; the plain output with its heads rolled
+# 1.19-1.43)
+P17_MODULE_TOL = 1.5e-2
+P17_KERNEL_TOL = 1e-2
+
+
+def p17_layers(device, lora: bool):
+    """One InternViT-300M layer and one InternLM2-1.8B decoder layer (the
+    2B's full widths), bf16 on the card, weights drawn from seed 0 (every
+    projection, bias and adapter from N(0, P17_WEIGHT_STD); norms and
+    LayerScale as built); with `lora`, rank-LORA_RANK adapters with dropout
+    0.05, the only parameters that train."""
+    from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig, LoRAConfig
+    from aigv_assessor_torch.models.internlm2 import InternLM2DecoderLayer
+    from aigv_assessor_torch.models.vit import InternVisionEncoderLayer
+
+    cfg = AssessorConfig(llm=LLM_2B, stage=2)
+    lcfg = LoRAConfig(r=LORA_RANK, alpha=2 * LORA_RANK, dropout=0.05) if lora else None
+    gen = torch.Generator().manual_seed(0)
+    layers = []
+    for layer in (InternVisionEncoderLayer(cfg.vision, lora=lcfg),
+                  InternLM2DecoderLayer(cfg.llm, lora=lcfg)):
+        with torch.no_grad():
+            for name, p in layer.named_parameters():
+                if "norm" not in name and not name.startswith("ls"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * P17_WEIGHT_STD)
+                p.requires_grad_(name.endswith(("lora_a", "lora_b")))
+        layers.append(layer.to(device, torch.bfloat16))
+    return cfg, layers
+
+
+def p17_rope(llm_cfg, rope_len: int, device):
+    """The decoder's cos / sin tables of `rope_len` rows, as
+    `InternLM2ForCausalLM` builds them."""
+    from aigv_assessor_torch.ops.rope import rope_cos_sin
+
+    rs = llm_cfg.rope_scaling
+    return rope_cos_sin(rope_len, llm_cfg.head_dim, base=llm_cfg.rope_theta,
+                        scaling_type=rs.type if rs else None,
+                        scaling_factor=rs.factor if rs else 1.0,
+                        max_position_embeddings=llm_cfg.max_position_embeddings, device=device)
+
+
+def p17_shards(module, t: int) -> list:
+    """Each of `t` ranks' group-less shard of `module` (`split_`)."""
+    from aigv_assessor_torch.parallel.tensor import TensorSplit
+
+    out = []
+    for r in range(t):
+        shard = copy.deepcopy(module)
+        shard.split_(TensorSplit(t, r))
+        out.append(shard)
+    return out
+
+
+def p17_sum(whole, shards, *args):
+    """The shards' partial outputs summed on the card, the row-parallel
+    bias added once (`sum_partials`): the whole module's output. `whole`
+    alone with no shards."""
+    from aigv_assessor_torch.parallel.tensor import sum_partials
+
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    if shards is None:
+        return first(whole(*args))
+    return sum_partials(whole, [first(s(*args)) for s in shards])
+
+
+def p17_partial(shard, *args):
+    """One group-less shard's output: its partial sum before the bias."""
+    out = shard(*args)
+    return out[0] if isinstance(out, tuple) else out
+
+
+@contextlib.contextmanager
+def p17_capture(fa):
+    """The fused-qkv forward's launches inside the block, each as (its
+    arguments, its output), for `p17_kernel_vs_plain`."""
+    calls: list = []
+    real = fa._launch_fwd
+
+    def fwd(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    with mock.patch.object(fa, "_launch_fwd", fwd):
+        yield calls
+
+
+def p17_kernel_vs_plain(fa, calls) -> list:
+    """Each captured K1 launch against `plain_attention_qkv` on the same
+    qkv at the same (local) heads: rel L2, and as the control the rel L2
+    of the plain output with its heads rolled by one, which a kernel that
+    swapped or lost heads would show."""
+    res = []
+    for (qkv, hq, hkv, causal, kv_valid, layout, with_lse), (o, _) in calls:
+        p = fa.plain_attention_qkv(qkv, hq, hkv, causal=causal, kv_valid=kv_valid,
+                                   out_layout=layout).float()
+        head = 1 if layout == "bhsd" else 2
+        rolled = p.unflatten(-1, (hq, -1)).roll(1, head).flatten(-2) if layout == "bsd" \
+            else p.roll(1, head)
+        res.append(dict(shape=f"{layout} {hq}/{hkv}/{qkv.shape[-1]}",
+                        rel_l2=relative_l2(o.float(), p), rolled=relative_l2(rolled, p)))
+    return res
+
+
+def p17_vit(layer, attns, mlps, x, kv_valid):
+    """`InternVisionEncoderLayer.forward` (bf16, drop path 0) with its
+    attention and MLP as the sums of shards."""
+    a = p17_sum(layer.attn, attns, layer.norm1(x), kv_valid)
+    x = x + a * layer.ls1.to(a.dtype)
+    m = p17_sum(layer.mlp, mlps, layer.norm2(x))
+    return x + m * layer.ls2.to(m.dtype)
+
+
+def p17_llm(layer, attns, mlps, x, cos, sin, pos):
+    """`InternLM2DecoderLayer.forward` (no cache) with its attention and MLP
+    as the sums of shards."""
+    x = x + p17_sum(layer.attention, attns, layer.attention_norm(x), cos, sin, pos)
+    return x + p17_sum(layer.feed_forward, mlps, layer.ffn_norm(x))
+
+
+def p17_require(counts: dict, label: str) -> None:
+    if not counts or min(counts.values()) <= 0:
+        raise RuntimeError(f"17 {label}: a kernel of the path did not launch: {counts}")
+
+
+def run_phase17(device, smi) -> dict:
+    """Phase 17: the `tensor` mesh axis at the 2B's full widths, each rank's
+    shard built group-less (`parallel/tensor.py`) and run on the one card,
+    the partial outputs summed here. (a) one ViT layer and one decoder
+    layer forward, bf16, for tensor 2 and 4, against the whole layer; (b)
+    the same layers with adapters in a stage-2 step, forward and backward,
+    the shards' adapter and input gradients (gathered into the unsplit
+    layout) against the whole layer's; (c) one decode step of the decoder's
+    attention on per-rank caches cut from a full-width prefill's."""
+    from aigv_assessor_torch.models.lora import set_generator
+    from aigv_assessor_torch.ops import decode_attention as dec
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.parallel.tensor import split_leaves
+
+    t_start = time.perf_counter()
+    out: dict = {"a": {}, "b": {}, "c": {}}
+    cfg, (vit, llm) = p17_layers(device, lora=False)
+    vit.eval()
+    llm.eval()
+    gen = torch.Generator(device=device).manual_seed(17)
+    n_tok = cfg.vision.num_patches + 1
+    x_vit = torch.randn((P17_VIT_FRAMES, n_tok + (-n_tok) % 8, cfg.vision.hidden_size),
+                        generator=gen, device=device).to(torch.bfloat16)
+    b, s = P17_ROWS
+    x_llm = torch.randn((b, s, cfg.llm.hidden_size), generator=gen,
+                        device=device).to(torch.bfloat16)
+    pos = torch.arange(s, device=device).expand(b, s)
+    cos, sin = p17_rope(cfg.llm, s, device)
+    counters = (fa.flash_attention_qkv, fa.flash_attention_qkv_lse,
+                fa.flash_attention_qkv_bwd_dq, fa.flash_attention_qkv_bwd_dkv,
+                dec.cached_decode_attention)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        return {c.__name__: c.launches for c in counters if c.launches}
+
+    # 17a: forward, module by module: the shards' sums (before the residual)
+    # against the whole modules', and each shard's K1 against the plain
+    # attention at its local heads on the kernel's own input
+    with torch.no_grad():
+        h1, h_llm = vit.norm1(x_vit), llm.attention_norm(x_llm)
+        h2 = vit.norm2(x_vit + vit.attn(h1, n_tok) * vit.ls1)
+        h2_llm = llm.ffn_norm(x_llm)
+    args = {"vit.attn": (h1, n_tok), "vit.mlp": (h2,), "llm.attention": (h_llm, cos, sin, pos),
+            "llm.feed_forward": (h2_llm,)}
+    with torch.no_grad():
+        wholes = {"vit.attn": vit.attn, "vit.mlp": vit.mlp, "llm.attention": llm.attention,
+                  "llm.feed_forward": llm.feed_forward}
+        want = {k: p17_sum(m, None, *args[k]) for k, m in wholes.items()}
+        for t in P17_TENSOR:
+            shards = {"vit.attn": p17_shards(vit.attn, t), "vit.mlp": p17_shards(vit.mlp, t),
+                      "llm.attention": p17_shards(llm.attention, t),
+                      "llm.feed_forward": p17_shards(llm.feed_forward, t)}
+            reset()
+            with tally_heads(fa) as tally, p17_capture(fa) as calls:
+                got = {k: p17_sum(wholes[k], shards[k], *args[k]) for k in wholes}
+                torch.cuda.synchronize()
+            launched = counts()
+            p17_require(launched, f"a tensor {t}")
+            hv, hl = cfg.vision.num_attention_heads // t, cfg.llm.num_attention_heads // t
+            kv = cfg.llm.num_key_value_heads // t
+            want_tally = {f"bhsd {hv}/{hv}/{cfg.vision.hidden_size // cfg.vision.num_attention_heads}": t,
+                          f"bhsd {hl}/{kv}/{cfg.llm.head_dim}": t}
+            errs = {k: relative_l2(got[k].float(), want[k].float()) for k in wholes}
+            # the control: the sum without shard 0's partial must miss
+            drop = {k: relative_l2(got[k].float() - p17_partial(shards[k][0], *args[k]).float(),
+                                   want[k].float()) for k in wholes}
+            k1 = p17_kernel_vs_plain(fa, calls)
+            bad = [k for k in wholes if not errs[k] <= P17_MODULE_TOL < drop[k]]
+            bad += [c["shape"] for c in k1 if not c["rel_l2"] <= P17_KERNEL_TOL < c["rolled"]]
+            if dict(tally) != want_tally or bad:
+                raise RuntimeError(f"17a tensor {t}: launches by head shape {dict(tally)}, "
+                                   f"expected {want_tally}; failed {bad}: module sums rel L2 "
+                                   f"{errs} (max {P17_MODULE_TOL}), without shard 0 {drop}; "
+                                   f"K1 vs plain {k1} (max {P17_KERNEL_TOL})")
+            whole_ms = {k: time_ms(lambda k=k: p17_sum(wholes[k], None, *args[k]), P17_ITERS)
+                        for k in wholes}
+            shard_ms = {k: [time_ms(lambda m=m, k=k: m(*args[k]), P17_ITERS) for m in shards[k]]
+                        for k in wholes}
+            out["a"][t] = dict(tally=dict(tally), counts=launched, rel_l2=errs, dropped=drop,
+                               k1=k1, shard_ms=shard_ms, whole_ms=whole_ms)
+            phase("tensor", f"17a tensor {t}, 2B widths, bf16, one ViT layer's modules "
+                  f"({P17_VIT_FRAMES} frames x {x_vit.shape[1]} rows) and one decoder layer's "
+                  f"({b} x {s}): the shards' sums against the whole module rel L2 "
+                  + ", ".join(f"{k} {errs[k]:.3e} (without shard 0 {drop[k]:.3e})" for k in wholes)
+                  + f" (max {P17_MODULE_TOL}); each shard's K1 against the plain attention at "
+                  f"its heads rel L2 " + ", ".join(f"{c['shape']} {c['rel_l2']:.3e} (heads rolled "
+                                                     f"{c['rolled']:.3e})" for c in k1)
+                  + f" (max {P17_KERNEL_TOL}); K1 launches by head shape {dict(tally)}; ms per "
+                  f"shard against the whole module: "
+                  + ", ".join(f"{k} {np.round(shard_ms[k], 4).tolist()} / {whole_ms[k]:.4f}"
+                              for k in wholes) + f" [{smi}]")
+            del shards, calls
+
+    # 17c: one decode step on per-rank caches cut from a full-width prefill
+    attn = llm.attention
+    hkv, d = cfg.llm.num_key_value_heads, cfg.llm.head_dim
+    max_len = s + 8
+    ck = torch.zeros((b, max_len, hkv, d), dtype=torch.bfloat16, device=device)
+    cv = torch.zeros_like(ck)
+    kv_mask = torch.zeros((b, max_len), dtype=torch.bool, device=device)
+    kv_mask[:, : s + 1] = True
+    with torch.no_grad():
+        cos_c, sin_c = p17_rope(cfg.llm, max_len, device)
+        _, (kn, vn) = attn(h_llm, cos_c, sin_c, pos, ck, cv, 0,
+                           torch.zeros((), dtype=torch.int32, device=device), kv_mask)
+        ck[:, :s], cv[:, :s] = kn, vn
+        x1 = torch.randn((b, 1, cfg.llm.hidden_size), generator=gen,
+                         device=device).to(torch.bfloat16)
+        pos1 = torch.full((b, 1), s, device=device)
+        idx = torch.full((), s, dtype=torch.int32, device=device)
+        starts = dec.window_starts(kv_mask, b, device)
+
+        def step(m, k, v):
+            return m(x1, cos_c, sin_c, pos1, k, v, s, idx, kv_mask, False, None, starts)[0]
+
+        reset()
+        want = step(attn, ck, cv)
+        whole_launches = dec.cached_decode_attention.launches
+        whole_step_ms = time_ms(lambda: step(attn, ck, cv), P17_ITERS)
+        for t in P17_TENSOR:
+            shards = p17_shards(attn, t)
+            n = hkv // t
+            caches = [(ck[:, :, r * n:(r + 1) * n].contiguous(),
+                       cv[:, :, r * n:(r + 1) * n].contiguous()) for r in range(t)]
+            reset()
+            got = sum(step(sh, k, v) for sh, (k, v) in zip(shards, caches))
+            torch.cuda.synchronize()
+            k8 = dec.cached_decode_attention.launches
+            kernel = dec.decode_kernel_supported(shards[0].hq, shards[0].hkv, d)
+            err = relative_l2(got.float(), want.float())
+            if k8 != (t if kernel else 0) or whole_launches != 1 or err > DECODE_TOL:
+                raise RuntimeError(f"17c tensor {t}: K8 launches {k8} (whole {whole_launches}; "
+                                   f"kernel at {shards[0].hq}/{shards[0].hkv}: {kernel}); rel L2 "
+                                   f"{err:.3e} (max {DECODE_TOL})")
+            ms = [time_ms(lambda sh=sh, k=k, v=v: step(sh, k, v), P17_ITERS)
+                  for sh, (k, v) in zip(shards, caches)]
+            out["c"][t] = dict(k8=k8, kernel=kernel, rel_l2=err, shard_ms=ms,
+                               whole_ms=whole_step_ms)
+            phase("tensor", f"17c tensor {t}: a decode step of the decoder's attention, B = {b} "
+                  f"after {s} prefilled rows, on per-rank caches of {n} kv heads: rel L2 "
+                  f"{err:.3e} to the whole step; "
+                  + (f"K8 {k8} launches at {shards[0].hq}/{shards[0].hkv} heads"
+                     if kernel else f"{shards[0].hq}/{shards[0].hkv} heads fail "
+                     "decode_kernel_supported: the two-part path, no K8")
+                  + f"; ms per shard {np.round(ms, 4).tolist()} against the whole step's "
+                  f"{whole_step_ms:.4f} [{smi}]")
+    del vit, llm, attn, ck, cv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17b: a stage-2 LoRA step of the same layers, forward and backward
+    _, (vit, llm) = p17_layers(device, lora=True)
+    bt, st = P17_TRAIN_ROWS
+    x_llm_t = x_llm[:bt, :st]
+    pos_t = pos[:bt, :st]
+    u_vit = torch.randn(x_vit.shape, generator=gen, device=device).to(torch.bfloat16)
+    u_llm = torch.randn(x_llm_t.shape, generator=gen, device=device).to(torch.bfloat16)
+
+    def train_run(attns_vit, mlps_vit, attns_llm, mlps_llm):
+        # each layer draws from its own generator, and each rank's shards of
+        # a layer share one seeded alike: every rank draws the whole layer's
+        # masks in the whole layer's order
+        for layer, attns, mlps in ((vit, attns_vit, mlps_vit), (llm, attns_llm, mlps_llm)):
+            layer.train()
+            set_generator(layer, torch.Generator(device=device).manual_seed(5))
+            for a, m in zip(attns or [], mlps or []):
+                g = torch.Generator(device=device).manual_seed(5)
+                for mod in (a, m):
+                    mod.train()
+                    set_generator(mod, g)
+        xv = x_vit.detach().requires_grad_()
+        xl = x_llm_t.detach().requires_grad_()
+        yv = p17_vit(vit, attns_vit, mlps_vit, xv, n_tok)
+        yl = p17_llm(llm, attns_llm, mlps_llm, xl, cos, sin, pos_t)
+        ((yv.float() * u_vit.float()).sum() + (yl.float() * u_llm.float()).sum()).backward()
+        return xv.grad, xl.grad
+
+    def adapter_grads(whole, shards):
+        """{name: gradient} of `whole`'s adapters: its own, or the shards'
+        gathered (split leaves) and summed (whole leaves)."""
+        if shards is None:
+            return {n: p.grad for n, p in whole.named_parameters() if p.grad is not None}
+        leaves = split_leaves(shards[0])
+        per = [dict(sh.named_parameters()) for sh in shards]
+        out = {}
+        for n, p in whole.named_parameters():
+            if not p.requires_grad:
+                continue
+            if n in leaves:
+                out[n] = leaves[n].unshard([q[n].grad for q in per])
+            else:
+                out[n] = sum(q[n].grad for q in per)
+        return out
+
+    for m in (vit, llm):
+        m.zero_grad(set_to_none=True)
+    reset()
+    dxv_w, dxl_w = train_run(None, None, None, None)
+    whole_counts = counts()
+    want = {**{f"vit.attn.{n}": g for n, g in adapter_grads(vit.attn, None).items()},
+            **{f"vit.mlp.{n}": g for n, g in adapter_grads(vit.mlp, None).items()},
+            **{f"llm.attention.{n}": g for n, g in adapter_grads(llm.attention, None).items()},
+            **{f"llm.feed_forward.{n}": g
+               for n, g in adapter_grads(llm.feed_forward, None).items()}}
+    for t in P17_TENSOR:
+        va, vm = p17_shards(vit.attn, t), p17_shards(vit.mlp, t)
+        la, lm = p17_shards(llm.attention, t), p17_shards(llm.feed_forward, t)
+        for m in va + vm + la + lm:
+            m.zero_grad(set_to_none=True)
+        reset()
+        with tally_heads(fa) as tally:
+            dxv, dxl = train_run(va, vm, la, lm)
+            torch.cuda.synchronize()
+        launched = counts()
+        p17_require(launched, f"b tensor {t}")
+        got = {**{f"vit.attn.{n}": g for n, g in adapter_grads(vit.attn, va).items()},
+               **{f"vit.mlp.{n}": g for n, g in adapter_grads(vit.mlp, vm).items()},
+               **{f"llm.attention.{n}": g for n, g in adapter_grads(llm.attention, la).items()},
+               **{f"llm.feed_forward.{n}": g
+                  for n, g in adapter_grads(llm.feed_forward, lm).items()}}
+        if set(got) != set(want):
+            raise RuntimeError(f"17b tensor {t}: adapters {sorted(set(got) ^ set(want))}")
+        errs = {n: relative_l2(got[n].float(), want[n].float()) for n in want}
+        errs["dx_vit"] = relative_l2(dxv.float(), dxv_w.float())
+        errs["dx_llm"] = relative_l2(dxl.float(), dxl_w.float())
+        worst = max(errs, key=errs.get)
+        hv, hl = cfg.vision.num_attention_heads // t, cfg.llm.num_attention_heads // t
+        kv = cfg.llm.num_key_value_heads // t
+        want_tally = {f"{form} {h}/{k}/{dd}": t for form in ("lse", "dq", "dkv")
+                      for h, k, dd in ((hv, hv, 64), (hl, kv, cfg.llm.head_dim))}
+        if dict(tally) != want_tally or errs[worst] > TRAIN_GRAD_TOL:
+            raise RuntimeError(f"17b tensor {t}: launches by head shape {dict(tally)}, "
+                               f"expected {want_tally}; worst gradient {worst} rel L2 "
+                               f"{errs[worst]:.3e} (max {TRAIN_GRAD_TOL})")
+        out["b"][t] = dict(tally=dict(tally), counts=launched, worst=worst,
+                           worst_rel_l2=errs[worst], whole_counts=whole_counts)
+        phase("tensor", f"17b tensor {t}: a stage-2 LoRA step (r={LORA_RANK}, dropout 0.05 "
+              f"drawn whole and sliced) of the ViT layer ({P17_VIT_FRAMES} frames) and the "
+              f"decoder layer ({bt} x {st}), forward and backward: {len(want)} adapter "
+              f"gradients and both inputs' gathered from the shards, worst {worst} rel L2 "
+              f"{errs[worst]:.3e} to the whole layers' (max {TRAIN_GRAD_TOL}); launches by "
+              f"head shape {dict(tally)} (the whole layers: {whole_counts}) [{smi}]")
+        del va, vm, la, lm
+    phase("tensor", f"17 phase 17 {time.perf_counter() - t_start:.1f} s [{smi}]")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5497,6 +5918,12 @@ def main() -> int:
     # 16. more than one card, at world 1: the training CLI under FSDP2
     # through torch.distributed.run, and sharded scoring
     p16 = run_phase16(device, smi, ids, mask, px_u8, n_vit=n_vit, n_llm=n_llm)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the tensor mesh axis: each rank's shard of a 2B ViT layer and
+    # decoder layer on the one card, the partials summed here
+    p17 = run_phase17(device, smi)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -5920,6 +6347,19 @@ def main() -> int:
     for kernel, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
                             ("ident_quant", "quant_rows")):
         by_path[kernel]["sharded_scoring_w8a8 (16b, one chunk)"] = p16_w8a8[counter]
+    # phase 17's paths: the shards of one 2B ViT layer and one decoder layer
+    # for tensor 2 and 4 (K1 at the local heads; K1 lse and K3 in the LoRA
+    # step; K8 at tensor 2, none at 4 where the step takes the two-part path)
+    for t in P17_TENSOR:
+        by_path["flash_attn_qkv_fwd"][f"tensor_{t}_shards (17a, one layer each)"] = (
+            p17["a"][t]["counts"].get("flash_attention_qkv", 0))
+        for kernel, counter in (("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
+                                ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
+                                ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+            by_path[kernel][f"tensor_{t}_shards (17b, one layer each)"] = (
+                p17["b"][t]["counts"].get(counter, 0))
+        by_path.setdefault("decode_attention", {})[f"tensor_{t}_shards (17c, one step)"] = (
+            p17["c"][t]["k8"])
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]
         if k["name"] in by_path:

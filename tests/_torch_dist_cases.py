@@ -6,7 +6,9 @@ whole global batch. Nothing here imports jax.
 Every case builds the tiny model from a seed in fp32 on the CPU (adapters
 with non-zero `lora_b`, the score head's ReLUs open, dropout and drop path
 0) and makes its global batch from numpy; a rank takes its contiguous rows
-(rank = data index x fsdp + fsdp index, as the loaders shard).
+by its data rank (data index x fsdp + fsdp index, as the loaders shard):
+under a `tensor` axis of size T (innermost), rank // T, so the ranks of one
+tensor group hold the same rows.
 """
 
 import numpy as np
@@ -18,7 +20,6 @@ from aigv_assessor_torch.core.dist import process_count, process_index
 from aigv_assessor_torch.core.mesh import MeshConfig, make_mesh
 from aigv_assessor_torch.core.precision import Precision
 from aigv_assessor_torch.models.generation import GenerationConfig, generate
-from aigv_assessor_torch.parallel.sharding import full_tensor
 from aigv_assessor_torch.train.checkpoint import CheckpointManager
 from aigv_assessor_torch.train.trainer import TrainConfig, Trainer, microbatch
 
@@ -84,9 +85,13 @@ def global_batch(cfg: AssessorConfig, step: int, stage: int):
     return out
 
 
-def rows(batch, dim: int = 0):
-    """This rank's contiguous rows of a global batch."""
-    w, r = process_count(), process_index()
+def tensor_size(layout) -> int:
+    return layout[2] if layout is not None and len(layout) > 2 else 1
+
+
+def rows(batch, dim: int = 0, tensor: int = 1):
+    """This rank's contiguous rows of a global batch (its data rank's)."""
+    w, r = process_count() // tensor, process_index() // tensor
     return {k: v.narrow(dim, v.shape[dim] // w * r, v.shape[dim] // w) for k, v in batch.items()}
 
 
@@ -101,33 +106,36 @@ def trainer_for(model, out_dir: str, stage: int, layout=None, accum: int = 1) ->
 LAYOUT_WORLD = 2  # the world the reference's micro-batches are laid out for
 
 
-def step_batches(cfg, step: int, stage: int, accum: int):
+def step_batches(cfg, step: int, stage: int, accum: int, layout=None,
+                 layout_world: int = LAYOUT_WORLD):
     """The micro-batches of one step on this rank: global micro-batch i is
-    the ranks' i-th micro-batches in rank order (JAX's per-process layout)."""
+    the data ranks' i-th micro-batches in rank order (JAX's per-process
+    layout). The one-process reference lays them out for `layout_world`
+    data ranks."""
     batch = global_batch(cfg, step, stage)
     w = process_count()
     if w == 1:  # the one-process reference assembles the same global micro-batches
-        per = GLOBAL_B // (accum * LAYOUT_WORLD)
+        per = GLOBAL_B // (accum * layout_world)
         order = [r * accum * per + i * per + j for i in range(accum)
-                 for r in range(LAYOUT_WORLD) for j in range(per)]
+                 for r in range(layout_world) for j in range(per)]
         batch = {k: v[order] for k, v in batch.items()}
         return microbatch(batch, accum)
-    return microbatch(rows(batch), accum)
+    return microbatch(rows(batch, tensor=tensor_size(layout)), accum)
 
 
-def trainable_full(trainer: Trainer):
-    return {n: full_tensor(p.detach()).clone() for n, p in trainer.trainable_parameters().items()}
-
-
-def train_case(stage: int, layout=None, accum: int = 1, out_dir: str = "/tmp"):
-    """-> {'losses': [per step], 'weights': {name: tensor}} of STEPS steps."""
+def train_case(stage: int, layout=None, accum: int = 1, out_dir: str = "/tmp",
+               layout_world: int = LAYOUT_WORLD):
+    """-> {'losses': [per step], 'weights': {name: tensor}} of STEPS steps
+    (whole: gathered over every axis)."""
     model = build(stage)
     cfg = model.config
     trainer = trainer_for(model, out_dir, stage, layout, accum)
     losses = []
     for step in range(STEPS):
-        losses.append(float(trainer.train_step(step_batches(cfg, step, stage, accum))))
-    return {"losses": losses, "weights": trainable_full(trainer)}
+        losses.append(float(trainer.train_step(
+            step_batches(cfg, step, stage, accum, layout, layout_world))))
+    # the primary's; the other ranks' results are not read
+    return {"losses": losses, "weights": trainer.state_dict().get("params", {})}
 
 
 def save_after_one_step(ckpt_dir: str, layout=None, out_dir: str = "/tmp"):
@@ -135,9 +143,9 @@ def save_after_one_step(ckpt_dir: str, layout=None, out_dir: str = "/tmp"):
     loss when the same run goes on."""
     model = build(2)
     trainer = trainer_for(model, out_dir, 2, layout)
-    trainer.train_step(step_batches(model.config, 0, 2, 1))
+    trainer.train_step(step_batches(model.config, 0, 2, 1, layout))
     CheckpointManager(ckpt_dir).save(1, trainer)
-    return float(trainer.train_step(step_batches(model.config, 1, 2, 1)))
+    return float(trainer.train_step(step_batches(model.config, 1, 2, 1, layout)))
 
 
 def resume_and_step(ckpt_dir: str, layout=None, out_dir: str = "/tmp"):
@@ -146,7 +154,7 @@ def resume_and_step(ckpt_dir: str, layout=None, out_dir: str = "/tmp"):
     trainer = trainer_for(model, out_dir, 2, layout)
     CheckpointManager(ckpt_dir).restore(trainer)
     step = trainer.step
-    return step, float(trainer.train_step(step_batches(model.config, step, 2, 1)))
+    return step, float(trainer.train_step(step_batches(model.config, step, 2, 1, layout)))
 
 
 # -------------------------------------------------------------- inference --
@@ -185,38 +193,45 @@ def gen_inputs(cfg):
 
 
 @torch.no_grad()
-def inference_case(shard: bool, eos: int = -1):
+def inference_case(shard: bool, eos: int = -1, layout=None):
     """-> {'scores': [B, P] without the shared prefix, 'scores_prefix': with
     it, 'tokens': [B, GEN_TOKENS] greedy} of this rank's rows (the whole
-    batch at world 1)."""
+    batch at world 1); `layout` the (data, fsdp, tensor) mesh, by default
+    every rank on fsdp."""
     from aigv_assessor_torch.models.loading import shard_for_inference
 
     model = build(2).eval()
     cfg = model.config
+    tensor = tensor_size(layout)
     if shard:
-        _, model = shard_for_inference(model)
+        _, model = shard_for_inference(
+            model, mesh_config=MeshConfig(*layout) if layout is not None else None)
     ids, mask, px, prefix = perspective_inputs(cfg)
-    r = rows({"ids": ids, "mask": mask, "px": px})
+    r = rows({"ids": ids, "mask": mask, "px": px}, tensor=tensor)
     out = {
         "scores": model.score_perspectives(r["ids"], r["px"], r["mask"]),
         "scores_prefix": model.score_perspectives(r["ids"], r["px"], r["mask"],
                                                   shared_prefix_len=prefix),
     }
     ids, mask, px = gen_inputs(cfg)
-    r = rows({"ids": ids, "mask": mask, "px": px})
+    r = rows({"ids": ids, "mask": mask, "px": px}, tensor=tensor)
     out["tokens"] = torch.as_tensor(generate(
         model, None, r["ids"], r["px"], r["mask"],
         gcfg=GenerationConfig(max_new_tokens=GEN_TOKENS, eos_token_id=eos), with_motion=True))
     return out
 
 
-def gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows, in rank order."""
+def gather_rows(t: torch.Tensor, tensor: int = 1):
+    """Every data rank's rows, in rank order; under a `tensor` axis of size
+    T > 1, (those rows, every rank's copy [world, ...] to hold the ranks of
+    a tensor group against each other)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
         return t
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, t.contiguous())
-    return torch.cat(parts)
+    if tensor == 1:
+        return torch.cat(parts)
+    return torch.cat(parts[::tensor]), torch.stack(parts)
 

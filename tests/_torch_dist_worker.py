@@ -1,4 +1,5 @@
-"""One rank of the gloo pool of tests/test_torch_distributed.py:
+"""One rank of the gloo pool of tests/test_torch_distributed.py (2 ranks)
+and tests/test_torch_tensor_distributed.py (4 ranks):
 
     python tests/_torch_dist_worker.py RANK WORLD PORT WORKDIR
 
@@ -23,9 +24,9 @@ from tests import _torch_dist_cases as cases  # noqa: E402
 def run(name, spec, workdir):
     kind = spec["kind"]
     out_dir = os.path.join(workdir, f"out_{name}_r{dist.get_rank()}")
+    layout = tuple(spec["layout"]) if spec.get("layout") else None
     if kind == "train":
-        res = cases.train_case(spec["stage"], tuple(spec["layout"]), spec.get("accum", 1),
-                               out_dir=out_dir)
+        res = cases.train_case(spec["stage"], layout, spec.get("accum", 1), out_dir=out_dir)
     elif kind == "save":
         res = {"next_loss": cases.save_after_one_step(spec["ckpt"], tuple(spec["layout"]),
                                                       out_dir=out_dir)}
@@ -33,8 +34,8 @@ def run(name, spec, workdir):
         step, loss = cases.resume_and_step(spec["ckpt"], tuple(spec["layout"]), out_dir=out_dir)
         res = {"step": step, "next_loss": loss}
     elif kind == "inference":
-        got = cases.inference_case(shard=True, eos=spec["eos"])
-        res = {k: cases.gather_rows(v) for k, v in got.items()}
+        got = cases.inference_case(shard=True, eos=spec["eos"], layout=layout)
+        res = {k: cases.gather_rows(v, cases.tensor_size(layout)) for k, v in got.items()}
     elif kind == "cli_stage1":
         from aigv_assessor_torch.cli import stage1_train
 

@@ -171,15 +171,15 @@ def test_constants_parser_and_storage_equal_jax(tmp_path):
     assert vars(t_args.parse_args("x", argv + ["--device", "cpu"])) == {
         **vars(j_args.parse_args("x", argv)), "device": "cpu"}
     t_args.parse_args("x", argv + ["--mesh_data", "1"])
-    # the data / fsdp axes lay out a process group's ranks (cli/common.mesh_from_args:
-    # more than one process needs a group); the tensor axis is refused
-    for flag in ("--mesh_data", "--mesh_fsdp"):
+    # the data / fsdp / tensor axes lay out a process group's ranks
+    # (cli/common.mesh_from_args: more than one process needs a group)
+    for flag in ("--mesh_data", "--mesh_fsdp", "--mesh_tensor"):
         args = t_args.parse_args("x", argv + [flag, "2"])
         assert getattr(args, flag[2:]) == 2
+        assert vars(args) == {**vars(j_args.parse_args("x", argv + [flag, "2"])),
+                              "device": args.device}
         with pytest.raises(ValueError, match="only 1 available"):
             t_common.mesh_from_args(args)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \[11\]"):
-        t_args.parse_args("x", argv + ["--mesh_tensor", "2"])
     # storage: a registered scheme, a file, an unregistered remote path
     img = tmp_path / "x.png"
     Image.fromarray(np.full((4, 5, 3), 7, np.uint8)).save(img)

@@ -163,10 +163,17 @@ def test_mesh_flags_without_a_group():
 
 
 def test_mesh_tensor_raises_naming_the_queue():
+    """`--mesh_tensor 2` parses as JAX's parser parses it; at world 1 the
+    mesh it asks for raises "only 1 available", as `--mesh_data` and
+    `--mesh_fsdp` above 1 do."""
     args = t_args.parse_args("x", _argv("--mesh_data", "2", "--mesh_fsdp", "4"))
     assert (args.mesh_data, args.mesh_fsdp, args.mesh_tensor) == (2, 4, 1)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \[11\]"):
-        t_args.parse_args("x", _argv("--mesh_tensor", "2"))
+    args = t_args.parse_args("x", _argv("--mesh_tensor", "2"))
+    assert vars(args) == {**vars(j_args.parse_args("x", _argv("--mesh_tensor", "2"))),
+                          "device": args.device}
+    assert args.mesh_tensor == 2
+    with pytest.raises(ValueError, match="only 1 available"):
+        t_common.mesh_from_args(args)
     with pytest.raises(ValueError):
         t_args.parse_args("x", _argv("--mesh_fsdp", "0"))
 
