@@ -30,7 +30,10 @@ these fields; only the CLI reads JAX's `AIGV_FUSE_QUANT` / `AIGV_QUANT_ROWS`
 `kv_int8` stores the decoder's KV cache as int8 with one fp32 scale per
 (position, kv head) (`ops/kv_quant.py`); it composes with every mode above.
 
-W8A8 of the SlowFast convs (`w8a8_motion`) is not ported yet."""
+`w8a8_motion` (default off, as in JAX) also runs the SlowFast residual
+stages' pointwise (1,1,1) convolutions as int8 x int8 products with both
+sides quantized on the fly (`ops/w8a8.w8a8_dynamic_matmul`,
+`models/motion.ConvBN`); the parameters stay the float convolutions'."""
 
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ class Precision:
     # W8A8 towers fed by the fused kernels: norms, GELU, SwiGLU / attention output
     fuse_quant: FrozenSet[str] = frozenset({"vit"})
     quant_rows: FrozenSet[str] = frozenset({"vit"})
+    w8a8_motion: bool = False  # the SlowFast pointwise convs as int8 products
 
     def __post_init__(self):
         for name in ("fuse_quant", "quant_rows"):

@@ -136,7 +136,7 @@ class AIGVAssessor(nn.Module):
         self.motion_mlp = ProjectorMLP(
             config.motion.feature_dim, c_llm, precision.norm_dtype
         )
-        self.slowfast_model = SlowFastR50(config.motion)
+        self.slowfast_model = SlowFastR50(config.motion, w8a8=precision.w8a8_motion)
         if config.stage >= 2:
             self.mlpscore = ScoreMLP(c_llm, config.score_head_dims)
 

@@ -257,27 +257,92 @@ def jax_tree(model: torch.nn.Module) -> Dict[str, Any]:
     the inverse of `state_dict_from_jax` (a dense weight [out, in] back to a
     kernel [in, out], convolutions to HWIO / DHWIO, layers stacked on a
     leading axis, a quantized weight to `kernel_int8` / `kernel_int4`)."""
-    state = model.state_dict()
-    layers: Dict[str, Dict[int, torch.Tensor]] = {}
-    flat: Dict[str, Any] = {}
+    state = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+    return {"params": unflatten_tree(jax_leaves(model, state))}
+
+
+# a port weight's dims -> the JAX kernel's: dense [out, in] -> [in, out],
+# OIHW -> HWIO, OIDHW -> DHWIO; and back
+_TO_JAX = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+_TO_PORT = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def _relayout(perms, path: str, t: torch.Tensor, stacked: bool) -> torch.Tensor:
+    if path.rpartition("/")[2] not in ("kernel", "kernel_int8", "kernel_int4"):
+        return t
+    lead = 1 if stacked else 0
+    perm = perms.get(t.ndim - lead)
+    return t if perm is None else t.permute(*range(lead), *(lead + d for d in perm))
+
+
+def jax_layout(path: str, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    """A port tensor in the layout of the JAX leaf at `path` (a view): a
+    dense weight [out, in] as a kernel [in, out], convolutions OIHW / OIDHW
+    as HWIO / DHWIO; any other leaf as it is. `stacked`: `t` holds layers
+    on a leading axis."""
+    return _relayout(_TO_JAX, path, t, stacked)
+
+
+def port_layout(path: str, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    """The inverse of `jax_layout`."""
+    return _relayout(_TO_PORT, path, t, stacked)
+
+
+def _by_path(model: torch.nn.Module, names) -> Dict[str, Dict[Optional[int], str]]:
+    """{JAX path: {layer (None outside the layers): state_dict name}} of
+    `names`, in the model's order."""
+    out: Dict[str, Dict[Optional[int], str]] = {}
     for name, (path, layer) in jax_paths(model).items():
-        t = state[name].detach().cpu()
-        leaf = path.rpartition("/")[2]
-        if leaf in ("kernel", "kernel_int8", "kernel_int4"):
-            if t.ndim == 2:
-                t = t.t()
-            elif t.ndim == 4:  # OIHW -> HWIO
-                t = t.permute(2, 3, 1, 0)
-            elif t.ndim == 5:  # OIDHW -> DHWIO
-                t = t.permute(2, 3, 4, 1, 0)
-        if layer is None:
-            flat[path] = t.contiguous()
+        if name in names:
+            out.setdefault(path, {})[layer] = name
+    return out
+
+
+def jax_leaves(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor],
+               device=None, out=None) -> Dict[str, torch.Tensor]:
+    """{JAX path: tensor} of `tensors` ({state_dict name: tensor}, e.g. the
+    model's state or one of its optimizer moments) in the JAX layout
+    (`jax_layout`), the layers of a stack stacked on a leading axis, in
+    the model's order. Each leaf is built on `device` (default: where its
+    tensors are; a card transposes far faster than the host) and moved to
+    `out` (default: left there), one leaf at a time."""
+    flat: Dict[str, torch.Tensor] = {}
+    for path, by_layer in _by_path(model, tensors).items():
+        if None in by_layer:
+            t = jax_layout(path, tensors[by_layer[None]].to(device))
         else:
-            layers.setdefault(path, {})[layer] = t
-            flat.setdefault(path, None)  # keep the tree's order
-    for path, by_layer in layers.items():
-        flat[path] = torch.stack([by_layer[i] for i in range(len(by_layer))]).contiguous()
-    return {"params": unflatten_tree(flat)}
+            t = jax_layout(path, torch.stack([tensors[by_layer[i]].to(device)
+                                              for i in range(len(by_layer))]), stacked=True)
+        flat[path] = t.contiguous().to(out)
+    return flat
+
+
+def port_leaves(model: torch.nn.Module, leaves: Mapping[str, torch.Tensor],
+                device=None, out=None) -> Dict[str, torch.Tensor]:
+    """The inverse of `jax_leaves`: {state_dict name: tensor} of the JAX
+    leaves of `model` that `leaves` ({JAX path: tensor}) holds, in the
+    port's layout, each leaf laid out on `device` and moved to `out` as
+    `jax_leaves` does. Raises KeyError where `leaves` holds a path the
+    model has not."""
+    groups = _by_path(model, set(jax_paths(model)))
+    unknown = sorted(set(leaves) - set(groups))
+    if unknown:
+        raise KeyError(f"JAX leaves the model has not: {unknown}")
+    state: Dict[str, torch.Tensor] = {}
+    for path, t in leaves.items():
+        by_layer = groups[path]
+        stacked = None not in by_layer
+        if port_layout(path, t, stacked=stacked) is not t:  # a transpose: on `device`
+            t = port_layout(path, t.to(device), stacked=stacked)
+        t = t.contiguous().to(out)
+        if not stacked:
+            state[by_layer[None]] = t
+            continue
+        if t.shape[0] != len(by_layer):
+            raise ValueError(f"{path}: {t.shape[0]} layers, the model has {len(by_layer)}")
+        for layer, part in enumerate(t.unbind(0)):
+            state[by_layer[layer]] = part
+    return state
 
 
 def _to_torch(x) -> torch.Tensor:

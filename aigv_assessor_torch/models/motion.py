@@ -1,6 +1,10 @@
 """SlowFast-R50 motion branch (`aigv_assessor_tpu/models/motion.py`),
 inference only.
 
+Under `Precision.w8a8_motion` the residual stages' (1,1,1) convolutions
+run as int8 products quantized on the fly (`ConvBN`), as JAX's do; the
+parameters are the same.
+
 Stems, four residual stages with fast-to-slow lateral fusion, and the head
 pooling, with frozen (inference-mode) batch norm. The public layout is the
 JAX package's, frames [B, T, H, W, 3]; inside, convolutions run on
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aigv_assessor_torch.core.config import MotionConfig
+from aigv_assessor_torch.ops.w8a8 import w8a8_dynamic_matmul
 
 
 class FrozenBatchNorm(nn.Module):
@@ -45,6 +50,12 @@ class FrozenBatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
+    """Convolution, frozen batch norm, ReLU. With `w8a8` a (1,1,1)
+    convolution runs as its stride's subsample and an int8 x int8 channel
+    product with both sides quantized on the fly
+    (`ops/w8a8.w8a8_dynamic_matmul`), as JAX's `_PointwiseConvW8A8`; the
+    weight stays the Conv3d's, so the state is the same either way."""
+
     def __init__(
         self,
         in_features: int,
@@ -52,6 +63,7 @@ class ConvBN(nn.Module):
         kernel: Tuple[int, int, int],
         strides: Tuple[int, int, int] = (1, 1, 1),
         use_relu: bool = True,
+        w8a8: bool = False,
     ):
         super().__init__()
         self.conv = nn.Conv3d(
@@ -60,10 +72,18 @@ class ConvBN(nn.Module):
         )
         self.bn = FrozenBatchNorm(features)
         self.use_relu = use_relu
+        self.pointwise_w8a8 = w8a8 and tuple(kernel) == (1, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        x = self.bn(self._pointwise_w8a8(x) if self.pointwise_w8a8 else self.conv(x))
         return F.relu(x) if self.use_relu else x
+
+    def _pointwise_w8a8(self, x: torch.Tensor) -> torch.Tensor:
+        st, sh, sw = self.conv.stride
+        x = x[:, :, ::st, ::sh, ::sw].permute(0, 2, 3, 4, 1)  # -> channels last
+        w = self.conv.weight
+        y = w8a8_dynamic_matmul(x, w.view(w.shape[0], w.shape[1]), out_dtype=x.dtype)
+        return y.permute(0, 4, 1, 2, 3)
 
 
 class Bottleneck(nn.Module):
@@ -71,14 +91,14 @@ class Bottleneck(nn.Module):
     conv_c; a projection shortcut where the width or the stride changes."""
 
     def __init__(self, dim_in: int, dim_inner: int, dim_out: int,
-                 temporal_kernel: int = 1, spatial_stride: int = 1):
+                 temporal_kernel: int = 1, spatial_stride: int = 1, w8a8: bool = False):
         super().__init__()
         s = spatial_stride
-        self.conv_a = ConvBN(dim_in, dim_inner, (temporal_kernel, 1, 1))
+        self.conv_a = ConvBN(dim_in, dim_inner, (temporal_kernel, 1, 1), w8a8=w8a8)
         self.conv_b = ConvBN(dim_inner, dim_inner, (1, 3, 3), strides=(1, s, s))
-        self.conv_c = ConvBN(dim_inner, dim_out, (1, 1, 1), use_relu=False)
+        self.conv_c = ConvBN(dim_inner, dim_out, (1, 1, 1), use_relu=False, w8a8=w8a8)
         self.shortcut = (
-            ConvBN(dim_in, dim_out, (1, 1, 1), strides=(1, s, s), use_relu=False)
+            ConvBN(dim_in, dim_out, (1, 1, 1), strides=(1, s, s), use_relu=False, w8a8=w8a8)
             if dim_in != dim_out or s != 1
             else None
         )
@@ -91,11 +111,11 @@ class Bottleneck(nn.Module):
 
 
 def res_stage(depth: int, dim_in: int, dim_inner: int, dim_out: int,
-              temporal_kernel: int, spatial_stride: int) -> nn.Sequential:
+              temporal_kernel: int, spatial_stride: int, w8a8: bool = False) -> nn.Sequential:
     return nn.Sequential(OrderedDict(
         (f"block_{i}", Bottleneck(
             dim_in if i == 0 else dim_out, dim_inner, dim_out, temporal_kernel,
-            spatial_stride if i == 0 else 1,
+            spatial_stride if i == 0 else 1, w8a8=w8a8,
         ))
         for i in range(depth)
     ))
@@ -134,7 +154,11 @@ def pack_pathways(frames: torch.Tensor, alpha: int) -> Tuple[torch.Tensor, torch
 
 
 class SlowFastR50(nn.Module):
-    def __init__(self, config: MotionConfig = MotionConfig()):
+    """`w8a8`: the pointwise convolutions of the residual stages (not the
+    stems', not the fusions') in int8 (`ConvBN`), JAX's
+    `Precision.w8a8_motion`."""
+
+    def __init__(self, config: MotionConfig = MotionConfig(), w8a8: bool = False):
         super().__init__()
         self.config = config
         sw, fw, r = config.slow_width, config.fast_width, config.fusion_conv_ratio
@@ -153,9 +177,9 @@ class SlowFastR50(nn.Module):
         ]
         for si, (s_inner, s_out, f_inner, f_out, s_tk, stride) in enumerate(specs):
             self.add_module(f"slow_res{si + 2}", res_stage(
-                depths[si], slow_in, s_inner, s_out, s_tk, stride))
+                depths[si], slow_in, s_inner, s_out, s_tk, stride, w8a8))
             self.add_module(f"fast_res{si + 2}", res_stage(
-                depths[si], fast_in, f_inner, f_out, 3, stride))
+                depths[si], fast_in, f_inner, f_out, 3, stride, w8a8))
             slow_in, fast_in = s_out, f_out
             if si < 3:  # no fusion after the last stage
                 self.add_module(f"fuse_res{si + 2}", FuseFastToSlow(f_out, **fuse))

@@ -89,6 +89,10 @@ def _int_mm(xq: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
             padded = xq.new_zeros((_MIN_ROWS + 1, k))
             padded[:m] = xq
             return torch._int_mm(padded, weight.t())[:m]
+    elif xq.shape[1] < 8:
+        # the CPU's int8 product returns wrong sums at K = 1 (torch 2.13); the
+        # card takes no K below 8 at all. SlowFast's tiny widths reach here.
+        return xq.int() @ weight.int().t()
     return torch._int_mm(xq.contiguous(), weight.t())
 
 
@@ -99,6 +103,28 @@ def _epilogue(acc, sx, scale, bias, out_dtype) -> torch.Tensor:
     if bias is not None:
         y.add_(bias.float())
     return y.to(out_dtype)
+
+
+def w8a8_dynamic_matmul(
+    x: torch.Tensor,  # [..., K] float
+    weight: torch.Tensor,  # [N, K] float
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """y = dequant(quantize_rows(x) @ quant(weight)^T) with both sides
+    quantized on the fly, as JAX's `w8a8_dynamic_matmul` computes it for
+    frozen float weights outside the int8 checkpoint format (the SlowFast
+    pointwise convs): the weight per output channel with s = max(absmax,
+    1e-8) / 127 (the activations' floor, not `quantize_kernel`'s 1.0), the
+    rows per row, the int32 product, the fp32 epilogue acc * sx * sw."""
+    wf = weight.float()
+    aw = wf.abs().amax(dim=1, keepdim=True).clamp_min(1e-8)
+    sw = aw / torch.full_like(aw, 127.0)
+    wq = torch.round(wf / sw).clamp(-127, 127).to(torch.int8)
+    xq, sx = quantize_rows(x)
+    lead = xq.shape[:-1]
+    acc = _int_mm(xq.reshape(-1, xq.shape[-1]), wq)
+    y = _epilogue(acc, sx.reshape(-1, 1), sw[:, 0], None, out_dtype)
+    return y.view(*lead, weight.shape[0])
 
 
 def w8a8_matmul(

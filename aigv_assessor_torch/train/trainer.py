@@ -80,7 +80,12 @@ from aigv_assessor_torch.core import dist as pdist
 from aigv_assessor_torch.core.mesh import MeshConfig, data_coords, make_mesh
 from aigv_assessor_torch.models import loading
 from aigv_assessor_torch.models.lora import set_generator
-from aigv_assessor_torch.parallel.sharding import fsdp_group, local_tensor, shard_params
+from aigv_assessor_torch.parallel.sharding import (
+    fsdp_group,
+    full_tensor,
+    local_tensor,
+    shard_params,
+)
 from aigv_assessor_torch.parallel.tensor import model_split, split_leaves, unsplit
 from aigv_assessor_torch.train.freeze import apply_freeze_, cast_frozen_, count_params
 from aigv_assessor_torch.train.layer_decay import (
@@ -269,7 +274,9 @@ class Trainer:
 
         rates = (cfg.vit_layer_decay_rate, cfg.llm_layer_decay_rate, cfg.llm_lr_scale)
         scales = {n: 1.0 for n in self.trainable}
-        if layer_decay_requested(*rates):
+        # JAX's optimizer chain then gains a link whose empty state its checkpoints record
+        self.layer_decay = layer_decay_requested(*rates)
+        if self.layer_decay:
             scales = layer_decay_multipliers(
                 model, model.config.vision.num_hidden_layers,
                 model.config.llm.num_hidden_layers, *rates,
@@ -436,17 +443,21 @@ class Trainer:
     # ------------------------------------------------------------- state ---
 
     def state_dict(self) -> Dict[str, Any]:
-        """What a resumed run needs beside the frozen weights: the trainable
-        parameters, the optimizer's moments, the step and the generator.
-        A sharded trainer gathers the whole tensors to the CPU through
-        `torch.distributed.checkpoint.state_dict` (a collective on every
-        rank); they land on the primary, in the one-card form, the
-        parameters split over `tensor` and their moments gathered into the
-        unsplit layout."""
+        """The whole state of a run: every parameter and buffer (the frozen
+        ones too), the optimizer's state in `torch.optim`'s form, the step,
+        the generator and `best_metric`. A one-card trainer hands out its
+        own tensors, detached, where they live (nothing is copied: write
+        them out before the next step). A sharded trainer gathers the whole
+        tensors to the CPU (a collective on every rank); they land on the
+        primary, in the one-card form, the tensors split over `tensor` and
+        their moments gathered into the unsplit layout; the other ranks get
+        {}. The parameters are gathered one at a time, so a card holds one
+        whole parameter at once, never the whole model.
+        (`train/checkpoint.CheckpointManager` writes it as JAX's
+        `TrainState`.)"""
         if self.mesh is None:
             return {
-                "params": {n: p.detach().clone()
-                           for n, p in self.trainable_parameters().items()},
+                "params": {n: t.detach() for n, t in self.model.state_dict().items()},
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step,
                 "generator": self.generator.get_state(),
@@ -454,23 +465,25 @@ class Trainer:
             }
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions,
-            get_model_state_dict,
             get_optimizer_state_dict,
         )
 
-        # gathering over `tensor` needs the (data, fsdp)-whole tensors on every rank
-        opts = StateDictOptions(full_state_dict=True, cpu_offload=self.split is None,
-                                ignore_frozen_params=True)
-        model_sd = get_model_state_dict(self.model, options=opts)
+        primary = pdist.is_primary()
+        model_sd = {}
+        for n, t in self.model.state_dict().items():
+            t = self._whole(n, full_tensor(t.detach()))
+            if primary:
+                model_sd[n] = t
+        # gathering the moments over `tensor` needs them (data, fsdp)-whole on every rank
+        opts = StateDictOptions(full_state_dict=True, cpu_offload=self.split is None)
         optim_sd = get_optimizer_state_dict(self.model, self.optimizer, options=opts)
         if self.split is not None:
-            model_sd = {n: self._whole(n, t) for n, t in model_sd.items()}
             optim_sd["state"] = {n: {k: self._whole(n, v) for k, v in st.items()}
                                  for n, st in optim_sd["state"].items()}
-        if not pdist.is_primary():
+        if not primary:
             return {}
         return {
-            "params": {n: model_sd[n] for n in self.trainable},
+            "params": model_sd,
             "optimizer": _optimizer_by_index(optim_sd),
             "step": self.step,
             "generator": self.generator.get_state(),
@@ -480,15 +493,17 @@ class Trainer:
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """A state from `state_dict`, written at any world size, into this
-        trainer (sharded or not); the generator keeps its rank's draws
-        where the state comes from another rank count."""
+        trainer (sharded or not): every parameter and buffer, the optimizer,
+        the step. The generator keeps its rank's draws where the state
+        comes from another rank count; a state whose `generator` is None
+        restarts it from `seed + (data rank << 32) + step`."""
+        names = set(self.model.state_dict())
+        if set(state["params"]) != names:
+            raise KeyError("the state holds other parameters than the model: "
+                           f"{sorted(set(state['params']) ^ names)}")
         params = self.trainable_parameters()
-        if set(state["params"]) != set(params):
-            raise KeyError("trainer state holds other trainable parameters than the model: "
-                           f"{sorted(set(state['params']) ^ set(params))}")
         if self.mesh is None:
-            for n, p in params.items():
-                p.copy_(state["params"][n])
+            self.model.load_state_dict(state["params"], strict=True)
             self.optimizer.load_state_dict(state["optimizer"])
         else:
             from torch.distributed.checkpoint.state_dict import (
@@ -497,7 +512,7 @@ class Trainer:
                 set_optimizer_state_dict,
             )
 
-            opts = StateDictOptions(full_state_dict=True, strict=False)
+            opts = StateDictOptions(full_state_dict=True, strict=True)
             optim = _optimizer_by_name(state["optimizer"], self.optimizer, params)
             model_sd = {n: self._shard(n, t) for n, t in state["params"].items()}
             optim["state"] = {n: {k: self._shard(n, v) for k, v in st.items()}
@@ -506,10 +521,11 @@ class Trainer:
             set_optimizer_state_dict(self.model, self.optimizer, optim,
                                      options=StateDictOptions(full_state_dict=True))
         self.step = int(state["step"])
-        if self.data_rank == 0:
+        if state["generator"] is None:
+            self.generator.manual_seed(self.cfg.seed + (self.data_rank << 32) + self.step)
+        elif self.data_rank == 0:
             self.generator.set_state(state["generator"].cpu())
         self.best_metric = float(state["best_metric"])
-
 
     def _whole(self, name: str, t: Any) -> Any:
         """`t` (a parameter or one of its moments) in the unsplit layout, on

@@ -445,8 +445,26 @@ Phases, each printing one line or more (and failing the run by raising):
     `decode_kernel_supported`: the two-part path, printed); ms per shard
     against the whole step.
 
+18. Checkpoints in JAX's orbax layout and `w8a8_motion`. (a) The committed
+    JAX-written tiny stage-1 checkpoint (`tests/data/orbax_stage1/`, one
+    JAX step) read through `utils/orbax_format` and libzstd without JAX,
+    orbax or tensorstore: every leaf's dtype, shape and SHA-256 against
+    `tests/data/orbax_stage1.sha256.json`. (b) The 2B stage-1 trainer at
+    the training CLI's batch (4 videos x 8 frames x 448 px, full depth):
+    P18_STEPS steps, `CheckpointManager.save` (the whole TrainState, frozen
+    towers included, as JAX writes it), P18_STEPS more; a fresh trainer
+    whose weights are drawn from another seed restored from it and stepped
+    P18_STEPS times: losses and every tensor against the straight run
+    within P18_TOL (bit-equal expected, printed), the frozen ones
+    bit-equal; save and restore seconds, GB on disk, GB/s; K1, K1 lse,
+    K3a, K3b launched for each step after the restore (counts zeroed before
+    the restore). (c) SlowFast-R50 + motion_mlp on the 2B chunk in bf16,
+    with and without `Precision.w8a8_motion` on the same weights: the
+    readout within P18_MOTION_TOL relative L2, ms per forward both ways,
+    and one `torch._int_mm` call per switched pointwise conv.
+
 Then one JSON line describing the kernels (the K1, K3, K4a-c and K8 entries
-also with their launches on the paths of phases 7c, 12, 13, 14, 15, 16 and 17; the
+also with their launches on the paths of phases 7c, 12, 13, 14, 15, 16, 17 and 18; the
 D = 96 and 14 / 2 forms of phase 15 as entries of their own), and last
 {"ok": true, "device": {...}}. The line before them gives the whole run's
 seconds. Imports nothing of JAX.
@@ -2500,6 +2518,7 @@ def run_train_clis(device, smi, train_ms: float, *, n_vit: int, n_llm: int) -> d
     phase 10b's meta file -> launches of each attention kernel by run."""
     from aigv_assessor_torch.cli import stage1_train, stage2_train
     from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.utils import orbax_format
 
     build = stage2_train.build_training_model
     counters = training_counters(fa)
@@ -2573,15 +2592,16 @@ def run_train_clis(device, smi, train_ms: float, *, n_vit: int, n_llm: int) -> d
                 if not np.isfinite(scores).all() or not np.abs(scores).max() > 0:
                     raise RuntimeError(f"{label}: pred_score {scores}")
             artifact = (stage2_train.LORA_FILE if stage == 2 else stage1_train.TRAINABLE_FILE)
-            for path in ("checkpoints/best/state.pt", f"checkpoints/step_{steps}/state.pt",
-                         artifact):
+            for path in ("checkpoints/best/state/_METADATA",
+                         f"checkpoints/{steps}/default/_METADATA", artifact):
                 if not os.path.exists(os.path.join(out, path)):
                     raise RuntimeError(f"{label}: no {path}")
             runs[label] = dict(counts=counts, steps=steps, batch=batch, wall_s=wall_s,
                                peak_gib=peak, step_ms=step_ms, losses=losses,
                                metrics=metrics[-len(keys):],
-                               best_step=torch.load(os.path.join(out, "checkpoints/best/state.pt"),
-                                                    map_location="cpu")["step"])
+                               best_step=int(orbax_format.read_tree(
+                                   os.path.join(out, "checkpoints/best/state"),
+                                   names=["step"])[0][1]))
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
@@ -5005,7 +5025,7 @@ def run_phase16(device, smi, ids, mask, px_u8, *, n_vit: int, n_llm: int) -> dic
             want.update({k: steps * v for k, v in per_mb.items()})
             if r["counts"] != want:
                 raise RuntimeError(f"16a {label}: launches {r['counts']}, expected {want}")
-            for path in ("lora_weights.safetensors", f"checkpoints/step_{steps}/state.pt"):
+            for path in ("lora_weights.safetensors", f"checkpoints/{steps}/default/_METADATA"):
                 if not os.path.exists(os.path.join(d, label, path)):
                     raise RuntimeError(f"16a {label}: no {path}")
         un, fs = runs["unwrapped"], runs["fsdp"]
@@ -5475,6 +5495,227 @@ def run_phase17(device, smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 18 --
+
+P18_FIXTURE = os.path.join("tests", "data", "orbax_stage1")
+P18_HASHES = os.path.join("tests", "data", "orbax_stage1.sha256.json")
+P18_STEPS = 2  # steps before the checkpoint, and after it
+# 18b: resumed against straight, relative, on losses and on each trainable
+# tensor's L2 (bit-equal expected, as phase 16's runs are; any difference printed)
+P18_TOL = 1e-5
+# 18c: the readout of SlowFast + motion_mlp under w8a8_motion against bf16,
+# relative L2 (int8 rounding of every residual stage's pointwise convs)
+P18_MOTION_TOL = 0.1
+
+
+def run_fixture_read(smi: str) -> dict:
+    """18a: the committed JAX-written stage-1 checkpoint, read without JAX,
+    orbax or tensorstore: every leaf's dtype, shape and SHA-256 against the
+    recorded ones."""
+    import hashlib
+
+    from aigv_assessor_torch.utils import orbax_format, zstd
+
+    if not zstd.available():
+        raise RuntimeError(f"18a: {zstd.LIBRARY} does not load here")
+    with open(P18_HASHES) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    tree = {orbax_format.leaf_name(k): t
+            for k, t in orbax_format.read_tree(os.path.join(P18_FIXTURE, "1", "default"))
+            if t is not None}
+    read_s = time.perf_counter() - t0
+    if set(tree) != set(want):
+        raise RuntimeError(f"18a: leaves {sorted(set(tree) ^ set(want))[:5]} differ")
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int32: "int32"}
+    for name, t in tree.items():
+        got = {"dtype": names.get(t.dtype, str(t.dtype)), "shape": list(t.shape),
+               "sha256": hashlib.sha256(
+                   t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()}
+        if got != want[name]:
+            raise RuntimeError(f"18a: {name} is {got}, recorded {want[name]}")
+    nbytes = sum(t.numel() * t.element_size() for t in tree.values())
+    phase("orbax", f"18a the JAX-written tiny stage-1 checkpoint ({P18_FIXTURE}): {len(tree)} "
+          f"leaves, {nbytes} bytes, every dtype, shape and SHA-256 as recorded; read in "
+          f"{read_s:.2f} s through {zstd.LIBRARY} [{smi}]")
+    return {"leaves": len(tree)}
+
+
+def split(timings: dict) -> str:
+    return ", ".join(f"{k[:-2]} {v:.2f}" for k, v in timings.items())
+
+
+def du_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def run_stage1_resume(device, px_u8, n_vit: int, n_llm: int, smi: str) -> dict:
+    """18b: the 2B stage-1 trainer at the training CLI's shape (batch 4):
+    P18_STEPS steps, the checkpoint in JAX's layout, P18_STEPS more; then a
+    fresh trainer (other weights drawn) restored from the checkpoint and
+    its P18_STEPS steps. Losses and trainable parameters bit-equal, the
+    frozen ones equal to the first run's."""
+    from aigv_assessor_torch.cli import stage1_train
+    from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig
+    from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.train.checkpoint import CheckpointManager
+    from aigv_assessor_torch.train.trainer import TrainConfig
+
+    cfg = AssessorConfig(llm=LLM_2B, stage=1)
+    batch, ctx_id = stage1_batch(cfg, px_u8)
+    cfg = cfg.replace(img_context_token_id=ctx_id)
+    total = 2 * P18_STEPS
+    with tempfile.TemporaryDirectory() as d:
+        def trainer_for(seed):
+            tc = TrainConfig(output_dir=os.path.join(d, f"out{seed}"), learning_rate=TRAIN_LR,
+                             warmup_ratio=0.0, lr_scheduler_type="cosine", num_train_epochs=1,
+                             save_steps=0, seed=0)
+            model = stage1_train.build_training_model(cfg, device=device, seed=seed,
+                                                      train_config=tc)
+            return model, tc, stage1_train.Trainer(model, tc, total)
+
+        def steps(model, tc, trainer):
+            stage1_train.train_steps(model, [batch] * P18_STEPS, tc, trainer=trainer)
+            with open(os.path.join(tc.output_dir, "train_log.jsonl")) as f:
+                return [json.loads(line)["loss"] for line in f][-P18_STEPS:]
+
+        model, tc, trainer = trainer_for(0)
+        losses = steps(model, tc, trainer)
+        mgr = CheckpointManager(os.path.join(d, "checkpoints"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(P18_STEPS, trainer)
+        save_s = time.perf_counter() - t0
+        save_split = dict(mgr.timings)
+        on_disk = du_bytes(os.path.join(d, "checkpoints", str(P18_STEPS)))
+        losses += steps(model, tc, trainer)
+        straight = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+        trained = set(trainer.trainable)
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model, tc, trainer = trainer_for(1)  # other weights: the restore brings them all
+        for c in training_counters(fa):
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(os.path.join(d, "checkpoints"))
+        mgr.restore(trainer)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_split = dict(mgr.timings)
+        if trainer.step != P18_STEPS:
+            raise RuntimeError(f"18b: restored step {trainer.step}, saved {P18_STEPS}")
+        resumed = steps(model, tc, trainer)
+        counts = {c.__name__: c.launches for c in training_counters(fa)}
+        state = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_step = {"flash_attention_qkv": n_vit, "flash_attention_qkv_lse": 2 * n_llm,
+                "flash_attention_qkv_bwd_dq": n_llm, "flash_attention_qkv_bwd_dkv": n_llm}
+    want = {n: per_step.get(n, 0) * P18_STEPS for n in counts}
+    if counts != want:
+        raise RuntimeError(f"18b: launches {counts} after the restore, expected {want}")
+    loss_diff = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(resumed, losses[P18_STEPS:]))
+    if not np.isfinite(losses + resumed).all() or loss_diff > P18_TOL:
+        raise RuntimeError(f"18b: resumed losses {resumed}, straight {losses} differ by "
+                           f"{loss_diff:.3e} relative (max {P18_TOL})")
+    differ = {n: relative_l2(state[n].float(), straight[n].float()) for n in state
+              if not torch.equal(state[n], straight[n])}
+    frozen = sorted(n for n in differ if n not in trained)
+    if frozen or any(e > P18_TOL for e in differ.values()):
+        raise RuntimeError(f"18b: tensors differ from the straight run's: frozen {frozen[:5]}, "
+                           f"trainable {sorted(differ.items(), key=lambda kv: -kv[1])[:3]}")
+    gb = on_disk / 1e9
+    phase("orbax", f"18b stage 1 InternVL2-2B at batch {px_u8.shape[0]} x {px_u8.shape[1]} "
+          f"frames {px_u8.shape[2]}px: {P18_STEPS} steps, checkpoint in JAX's orbax layout, "
+          f"{P18_STEPS} more, against a fresh trainer restored from it: losses "
+          f"{losses} straight, {resumed} resumed ("
+          f"{'bit-equal' if loss_diff == 0 else f'{loss_diff:.3e} relative'}); "
+          f"{len(state) - len(differ)} of {len(state)} tensors bit-equal, the largest "
+          f"relative L2 of a trainable one {max(differ.values(), default=0.0):.3e} (max "
+          f"{P18_TOL}); save {save_s:.2f} s ({split(save_split)}), restore {restore_s:.2f} s "
+          f"({split(restore_split)}), {gb:.3f} GB on "
+          f"disk ({gb / save_s:.2f} GB/s written, {gb / restore_s:.2f} GB/s read); launches "
+          f"after the restore {counts} [{smi}]")
+    return dict(counts=counts, save_s=save_s, restore_s=restore_s, gb=gb, losses=losses,
+                save_split=save_split, restore_split=restore_split,
+                resumed=resumed, loss_diff=loss_diff, bit_equal=not differ and loss_diff == 0)
+
+
+def run_motion_w8a8(device, px_u8, smi: str) -> dict:
+    """18c: SlowFast-R50 + motion_mlp at the 2B chunk in bf16, with and
+    without `w8a8_motion`, on the same weights: the readout within
+    P18_MOTION_TOL relative L2, ms per forward both ways, and the int8
+    products counted (one per pointwise conv of the residual stages)."""
+    from aigv_assessor_torch.core.config import LLM_2B, AssessorConfig
+    from aigv_assessor_torch.models.assessor import ProjectorMLP
+    from aigv_assessor_torch.models.motion import ConvBN, SlowFastR50
+    from aigv_assessor_torch.ops import w8a8
+    from aigv_assessor_torch.ops.preprocess import resize_normalize
+
+    cfg = AssessorConfig(llm=LLM_2B)
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    plain = SlowFastR50(cfg.motion)
+    for m in plain.modules():  # He-normal convolutions, batch norm near the identity
+        if isinstance(m, torch.nn.Conv3d):
+            fan_in = m.weight[0].numel()
+            m.weight.data = torch.randn(m.weight.shape, generator=gen) * (2.0 / fan_in) ** 0.5
+        elif isinstance(m, ConvBN):
+            m.bn.scale.uniform_(0.8, 1.2, generator=gen)
+            m.bn.var.uniform_(0.5, 1.5, generator=gen)
+    quant = SlowFastR50(cfg.motion, w8a8=True)
+    quant.load_state_dict(plain.state_dict())
+    plain, quant = (m.to(device, torch.bfloat16).eval() for m in (plain, quant))
+    torch.manual_seed(18)
+    head = ProjectorMLP(cfg.motion.feature_dim, cfg.llm.hidden_size, torch.float32)
+    head = head.to(device, torch.bfloat16).eval()
+    pv = resize_normalize(px_u8.to(device), size=IMAGE, dtype=torch.bfloat16)
+    pointwise = sum(isinstance(m, ConvBN) and m.pointwise_w8a8 for m in quant.modules())
+
+    calls = []
+    real = w8a8._int_mm
+
+    def counted(xq, weight):
+        calls.append(tuple(xq.shape))
+        return real(xq, weight)
+
+    with torch.no_grad():
+        want = head(plain(pv)).float()
+        with mock.patch.object(w8a8, "_int_mm", counted):
+            got = head(quant(pv)).float()
+        per_forward = len(calls)
+        err = relative_l2(got, want)
+        plain_ms = time_ms(lambda: head(plain(pv)), 5)
+        with mock.patch.object(w8a8, "_int_mm", counted):
+            w8a8_ms = time_ms(lambda: head(quant(pv)), 5)
+    if per_forward != pointwise or not pointwise:
+        raise RuntimeError(f"18c: {per_forward} int8 products a forward, {pointwise} pointwise "
+                           "convs switched")
+    if not torch.isfinite(got).all() or not err <= P18_MOTION_TOL:
+        raise RuntimeError(f"18c: readout relative L2 {err:.4f} against bf16 "
+                           f"(max {P18_MOTION_TOL})")
+    phase("motion", f"18c SlowFast-R50 + motion_mlp, {tuple(px_u8.shape[:4])} frames, bf16: "
+          f"w8a8_motion readout within {err:.4f} relative L2 of the cuDNN path (max "
+          f"{P18_MOTION_TOL}); {w8a8_ms:.2f} ms a forward under w8a8_motion against "
+          f"{plain_ms:.2f} ms in bf16; {per_forward} torch._int_mm calls a forward (one per "
+          f"switched pointwise conv), rows {calls[0][0]}..{calls[per_forward - 1][0]} [{smi}]")
+    return dict(err=err, w8a8_ms=w8a8_ms, plain_ms=plain_ms, int_mm=per_forward)
+
+
+def run_phase18(device, smi, px_u8, *, n_vit: int, n_llm: int) -> dict:
+    t0 = time.perf_counter()
+    out = dict(a=run_fixture_read(smi),
+               b=run_stage1_resume(device, px_u8, n_vit, n_llm, smi),
+               c=run_motion_w8a8(device, px_u8, smi))
+    phase("orbax", f"18 phase 18 {time.perf_counter() - t0:.1f} s [{smi}]")
+    return out
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5924,6 +6165,12 @@ def main() -> int:
     # 17. the tensor mesh axis: each rank's shard of a 2B ViT layer and
     # decoder layer on the one card, the partials summed here
     p17 = run_phase17(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. checkpoints in JAX's orbax layout: the committed JAX-written one
+    # read here, the 2B stage-1 trainer saved and resumed; w8a8_motion
+    p18 = run_phase18(device, smi, px_u8, n_vit=n_vit, n_llm=n_llm)
 
     # One entry per kernel form. ms, plain_ms, bound_ms and library_ms are
     # the sums over the launches of one unit of the main path (one scoring
@@ -6360,6 +6607,13 @@ def main() -> int:
                 p17["b"][t]["counts"].get(counter, 0))
         by_path.setdefault("decode_attention", {})[f"tensor_{t}_shards (17c, one step)"] = (
             p17["c"][t]["k8"])
+    # phase 18's path: the 2B stage-1 trainer restored from its checkpoint
+    # and stepped (K1 for the frozen ViT, K1 lse, K3a, K3b for the decoder)
+    for kernel, counter in (("flash_attn_qkv_fwd", "flash_attention_qkv"),
+                            ("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
+                            ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
+                            ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+        by_path[kernel][f"stage1_resumed (18b, {P18_STEPS} steps)"] = p18["b"]["counts"][counter]
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]
         if k["name"] in by_path:

@@ -1,7 +1,7 @@
 """Shared pieces of the CLI parity tests (`tests/test_torch_train_cli_*.py`,
 `tests/test_torch_serve.py`): the JAX parameter tree both packages take,
 the 8-GIF meta file of `tests/test_cli_e2e.py`, and the CLIs' output
-files read back."""
+files (logs, CSVs, checkpoints in JAX's orbax layout) read back."""
 
 import csv
 import json
@@ -82,3 +82,40 @@ def read_log(out):
 def read_csv(path):
     with open(path) as f:
         return list(csv.reader(f))
+
+
+def read_tree_by_name(item):
+    """{leaf name: tensor} of an orbax item (a checkpoint's `default/`),
+    read by the port."""
+    from aigv_assessor_torch.utils import orbax_format
+
+    return {orbax_format.leaf_name(k): t for k, t in orbax_format.read_tree(str(item))
+            if t is not None}
+
+
+def read_best(checkpoints):
+    """{"step", "best_metric"} of a manager directory's best slot: the
+    state's step, and the port's extras beside it."""
+    from aigv_assessor_torch.train.checkpoint import EXTRAS_FILE
+
+    with open(checkpoints / "best" / EXTRAS_FILE) as f:
+        extras = json.load(f)
+    return {"step": int(read_tree_by_name(checkpoints / "best" / "state")["step"]),
+            "best_metric": extras["best_metric"]}
+
+
+def assert_holds_tree(trainer, item):
+    """The port trainer's whole state, as its checkpoints write it (every
+    parameter and buffer, Adam's moments and counts, the step), equals the
+    orbax item's leaves bit for bit."""
+    import torch
+
+    from aigv_assessor_torch.train.checkpoint import train_state_tree
+    from aigv_assessor_torch.utils import orbax_format
+
+    want = read_tree_by_name(item)
+    got = {orbax_format.leaf_name(k): t
+           for k, t in train_state_tree(trainer, trainer.state_dict()) if t is not None}
+    assert set(got) == set(want), sorted(set(got) ^ set(want))
+    for name, t in want.items():
+        assert got[name].dtype == t.dtype and torch.equal(got[name], t), name

@@ -31,15 +31,22 @@ import socket
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from aigv_assessor_torch.models.loading import save_jax_params
+from aigv_assessor_torch.models.loading import jax_leaves, save_jax_params
 from aigv_assessor_torch.parallel.sharding import is_sharded
 from tests import _torch_dist_cases as cases
-from tests._torch_cli_fixtures import jit_init, open_tree, read_log, write_gif_meta
+from tests._torch_cli_fixtures import (
+    jit_init,
+    open_tree,
+    read_log,
+    read_tree_by_name,
+    write_gif_meta,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRAD_TOL = 2e-4
@@ -195,6 +202,27 @@ def test_checkpoint_world2_resumes_at_world1(pool, reference, tmp_path):
     assert abs(loss - want) <= GRAD_TOL * abs(want)
 
 
+def test_checkpoint_world2_is_orbax_s(pool):
+    """The checkpoint the two ranks wrote (the primary alone, from the
+    gathered tensors) is JAX's orbax layout: orbax restores it, leaf for
+    leaf as the port reads it, and it holds the whole stage-2 tree."""
+    import orbax.checkpoint as ocp
+
+    item = pool["work"] / "ckpt_w2" / "1" / "default"
+    got = read_tree_by_name(item)
+    restored = ocp.StandardCheckpointer().restore(str(item))
+    flat = {".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): x
+            for path, x in jax.tree_util.tree_flatten_with_path(restored)[0]}
+    assert set(flat) == set(got)
+    for name, x in flat.items():
+        assert np.array_equal(np.asarray(x), got[name].numpy()), name
+    model = cases.build(2)
+    shapes = {"params.params." + path.replace("/", "."): tuple(t.shape)
+              for path, t in jax_leaves(model, model.state_dict()).items()}
+    assert {n: tuple(t.shape) for n, t in got.items() if n.startswith("params.")} == shapes
+    assert int(got["step"]) == 1
+
+
 def test_checkpoint_world1_resumes_at_world2(pool, reference):
     got = _result(pool, "resume_w1")
     assert got["step"] == 1
@@ -229,4 +257,4 @@ def test_stage1_cli_world2_matches_jax(pool):
     assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2, 3, 4]
     for g, w in zip(got, want):
         assert np.isfinite(g["loss"]) and abs(g["loss"] - w["loss"]) <= GRAD_TOL * abs(w["loss"])
-    assert (pool["work"] / "port_cli" / "checkpoints" / "step_4" / "state.pt").exists()
+    assert (pool["work"] / "port_cli" / "checkpoints" / "4" / "default" / "_METADATA").exists()

@@ -85,11 +85,13 @@ def test_train_config_fields_match_jax():
 
 def test_port_imports_without_jax():
     """Every module of the port (the scoring and training paths, the tools)
-    and `chip_smoke.py` import in a process where jax, flax, optax, orbax and
-    the JAX package cannot be imported."""
+    and `chip_smoke.py` import in a process where jax, flax, optax, orbax,
+    tensorstore and the JAX package cannot be imported; there the port reads
+    the committed JAX-written checkpoint."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'aigv_assessor_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore',\n"
+        "          'aigv_assessor_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import aigv_assessor_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(aigv_assessor_torch.__path__,\n"
@@ -107,11 +109,15 @@ def test_port_imports_without_jax():
         "               'tools.extract_mlp', 'tools.replace_llm', 'tools.resize_pos_embed',\n"
         "               'tools.convert_to_int8', 'tools.json2jsonl', 'tools.jsonl2jsonl',\n"
         "               'tools.convert_parquet', 'tools.extract_video_frames',\n"
-        "               'tools.make_synthetic_ckpt'):\n"
+        "               'tools.make_synthetic_ckpt', 'utils.zstd', 'utils.ocdbt',\n"
+        "               'utils.orbax_format'):\n"
         "    assert 'aigv_assessor_torch.' + needed in names, needed\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "from aigv_assessor_torch.utils import orbax_format\n"
+        "tree = orbax_format.read_tree('tests/data/orbax_stage1/1/default')\n"
+        "assert int(dict((orbax_format.leaf_name(k), t) for k, t in tree)['step']) == 1\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -37,9 +37,15 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from aigv_assessor_torch.models.loading import save_jax_params
+from aigv_assessor_torch.models.loading import jax_leaves, save_jax_params
 from tests import _torch_dist_cases as cases
-from tests._torch_cli_fixtures import jit_init, open_tree, read_log, write_gif_meta
+from tests._torch_cli_fixtures import (
+    jit_init,
+    open_tree,
+    read_log,
+    read_tree_by_name,
+    write_gif_meta,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
@@ -200,12 +206,12 @@ def test_checkpoint_tensor2_resumes_at_world1(pool, reference, tmp_path):
     want = reference(2, 1, 2)["losses"][1]
     assert abs(loss - went_on) <= GRAD_TOL * abs(went_on)
     assert abs(loss - want) <= GRAD_TOL * abs(want)
-    # the saved state is in the unsplit layout: a one-card trainer's shapes
-    state = torch.load(pool["work"] / "ckpt_t2" / "step_1" / "state.pt", weights_only=True)
+    # the saved state is in the unsplit layout: a one-card model's JAX tree
+    state = read_tree_by_name(pool["work"] / "ckpt_t2" / "1" / "default")
     model = cases.build(2)
-    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    assert {n: tuple(t.shape) for n, t in state["params"].items()} == {
-        n: shapes[n] for n in state["params"]}
+    shapes = {"params.params." + path.replace("/", "."): tuple(t.shape)
+              for path, t in jax_leaves(model, model.state_dict()).items()}
+    assert {n: tuple(t.shape) for n, t in state.items() if n.startswith("params.")} == shapes
 
 
 def test_checkpoint_world1_resumes_at_tensor2(pool, reference):
@@ -233,4 +239,4 @@ def test_stage1_cli_tensor2_matches_jax(pool):
     assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2, 3, 4]
     for g, w in zip(got, want):
         assert np.isfinite(g["loss"]) and abs(g["loss"] - w["loss"]) <= GRAD_TOL * abs(w["loss"])
-    assert (pool["work"] / "port_cli" / "checkpoints" / "step_4" / "state.pt").exists()
+    assert (pool["work"] / "port_cli" / "checkpoints" / "4" / "default" / "_METADATA").exists()

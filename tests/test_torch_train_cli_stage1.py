@@ -7,7 +7,8 @@ port) over the 8-GIF meta file of tests/test_cli_e2e.py: batch 4, one epoch
 (`init_or_load_params` / `model_weights`), drop path 0. Stage 1 trains `mlp1` and `motion_mlp` on
 the answer's cross-entropy and keeps the best checkpoint by quality-level
 accuracy. Then `--do_train False`: one eval of the untrained tree by both.
-One JAX run of each per module.
+One JAX run of each per module. The checkpoints are JAX's layout both
+ways: the port resumes from the JAX CLI's, JAX restores the port's.
 
 Tolerances (tests/test_torch_train.py): each logged loss within GRAD_TOL =
 2e-4 relative; the trained weights' file (`TRAINABLE_FILE`) within
@@ -20,6 +21,7 @@ raises.
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -32,10 +34,13 @@ from aigv_assessor_tpu.cli import args as j_args
 from aigv_assessor_tpu.cli import common as j_common
 from aigv_assessor_tpu.cli import stage1_train as j_stage1
 from tests._torch_cli_fixtures import (
+    assert_holds_tree,
     jit_init,
     open_tree,
+    read_best,
     read_csv,
     read_log,
+    read_tree_by_name,
     write_gif_meta,
 )
 
@@ -143,10 +148,38 @@ def test_eval_records_and_best_slot_as_jax(runs):
     assert [sorted(r) for r in got] == [sorted(r) for r in want]
     assert [r["step"] for r in got] == [2] and "eval_accuracy" in got[0]
     assert np.isclose(got[0]["eval_accuracy"], want[0]["eval_accuracy"])
-    best = torch.load(port_out / "checkpoints" / "best" / "state.pt", weights_only=True)
+    best = read_best(port_out / "checkpoints")
     assert best["step"] == 2 and best["best_metric"] == got[0]["eval_accuracy"]
-    assert (jax_out / "checkpoints" / "best").is_dir()
-    assert sorted(p.name for p in (port_out / "checkpoints").iterdir()) == ["best", "step_2"]
+    assert (jax_out / "checkpoints" / "best" / "state").is_dir()
+    assert sorted(p.name for p in (port_out / "checkpoints").iterdir()) == sorted(
+        p.name for p in (jax_out / "checkpoints").iterdir()) == ["2", "best"]
+
+
+def test_resume_from_either_package(runs, tmp_path):
+    """`--resume_from_checkpoint` on the JAX CLI's checkpoints (`--do_train
+    False`): the port's trainer holds JAX's saved tree bit for bit, the
+    frozen towers too; and the port's own checkpoint restores through JAX's
+    `CheckpointManager` into the JAX trainer's state."""
+    meta = runs["meta"]
+    jax_out, port_out, jax_trainer, _ = runs["train"]
+    saved = jax_out / "checkpoints"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_common, "model_weights", lambda args, config: state_dict_from_jax(
+            runs["tree"], config))
+        trainer = t_stage1.main(argv(meta, tmp_path, "--device", "cpu", "--do_train", "False",
+                                     "--resume_from_checkpoint", str(saved)))
+    assert trainer.step == STEPS
+    assert_holds_tree(trainer, saved / str(STEPS) / "default")
+    from aigv_assessor_tpu.train.checkpoint import CheckpointManager as JaxManager
+
+    jm = JaxManager(str(port_out / "checkpoints"))
+    restored = jm.restore(jax_trainer.state)
+    jm.close()
+    got = read_tree_by_name(port_out / "checkpoints" / str(STEPS) / "default")
+    for path, x in jax.tree_util.tree_flatten_with_path(jax.device_get(restored))[0]:
+        name = ".".join(str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k))))
+                        for k in path)
+        assert np.array_equal(np.asarray(x), got[name].numpy()), name
 
 
 def test_metrics_jsonl_has_jax_keys(runs):

@@ -15,16 +15,17 @@ Tolerances (tests/test_torch_train.py): each logged loss within GRAD_TOL =
 `lora_weights.msgpack`; the eval CSV's names, answers, outputs, MOS and
 levels exactly, `pred_score` within SCORE_TOL = 2e-4. The eval metrics'
 keys, `logs/metrics.jsonl`'s keys and the best slot as JAX writes them.
-`--resume_from_checkpoint <out>/checkpoints/step_2` restores the saved
-trainer state bit for bit, and the resumed run logs step 3 first.
+`--resume_from_checkpoint <out>/checkpoints/2` restores the saved trainer
+state bit for bit, and the resumed run logs step 3 first; the JAX CLI's
+checkpoints restore into the port's trainer bit for bit.
 """
 
 import contextlib
 import json
 
+import jax
 import numpy as np
 import pytest
-import torch
 from flax import serialization
 
 from aigv_assessor_torch.cli import common as t_common
@@ -34,10 +35,13 @@ from aigv_assessor_tpu.cli import args as j_args
 from aigv_assessor_tpu.cli import common as j_common
 from aigv_assessor_tpu.cli import stage2_train as j_stage2
 from tests._torch_cli_fixtures import (
+    assert_holds_tree,
     jit_init,
     open_tree,
+    read_best,
     read_csv,
     read_log,
+    read_tree_by_name,
     write_gif_meta,
 )
 
@@ -156,11 +160,10 @@ def test_eval_metrics_and_best_slot_as_jax(runs):
     best_step = got[0]["step"]
     if got[1]["eval_SRCC_score"] > got[0]["eval_SRCC_score"]:
         best_step = got[1]["step"]
-    best = torch.load(port_out / "checkpoints" / "best" / "state.pt", weights_only=True)
-    assert best["step"] == best_step
-    assert (jax_out / "checkpoints" / "best").is_dir()
-    assert sorted(p.name for p in (port_out / "checkpoints").iterdir()) == [
-        "best", "step_2", "step_4"]
+    assert read_best(port_out / "checkpoints")["step"] == best_step
+    assert (jax_out / "checkpoints" / "best" / "state").is_dir()
+    assert sorted(p.name for p in (port_out / "checkpoints").iterdir()) == sorted(
+        p.name for p in (jax_out / "checkpoints").iterdir()) == ["2", "4", "best"]
 
 
 def test_metrics_jsonl_has_jax_keys(runs):
@@ -176,21 +179,39 @@ def test_resume_restores_the_saved_state(runs, tmp_path):
     """`--do_train False` after the restore: the trainer holds step 2's
     trainable tensors, Adam's moments and step, bit for bit, and evaluates."""
     meta, _, _, port_out, _, tree = runs
-    slot = port_out / "checkpoints" / "step_2"
-    saved = torch.load(slot / "state.pt", weights_only=True)
+    slot = port_out / "checkpoints" / "2"
     with port_weights(tree):
         trainer = t_stage2.main(argv(meta, tmp_path, "--device", "cpu", "--do_train", "False",
                                      "--resume_from_checkpoint", str(slot)))
-    assert trainer.step == saved["step"] == 2
-    params = trainer.trainable_parameters()
-    assert set(params) == set(saved["params"])
-    for name, p in params.items():
-        assert torch.equal(p.detach(), saved["params"][name]), name
-    moments = trainer.optimizer.state_dict()["state"]
-    for i, s in saved["optimizer"]["state"].items():
-        for k, v in s.items():
-            assert torch.equal(moments[i][k], v), (i, k)
+    assert trainer.step == 2
+    assert_holds_tree(trainer, slot / "default")
     assert [r["step"] for r in read_log(tmp_path)] == [0]  # the one eval
+
+
+def test_resume_from_the_jax_checkpoint(runs, tmp_path):
+    """The JAX CLI's newest checkpoint (step 4) restores into the port's
+    stage-2 trainer bit for bit, adapters, score head, moments and the
+    frozen towers alike; and JAX's `CheckpointManager` restores the port
+    CLI's into the JAX trainer's state, leaf for leaf (JAX's stage-2 CLI
+    never resumes, its manager can)."""
+    from aigv_assessor_tpu.train.checkpoint import CheckpointManager as JaxManager
+
+    meta, jax_out, jax_trainer, port_out, _, tree = runs
+    with port_weights(tree):
+        trainer = t_stage2.main(argv(meta, tmp_path, "--device", "cpu", "--do_train", "False",
+                                     "--resume_from_checkpoint", str(jax_out / "checkpoints")))
+    assert trainer.step == STEPS
+    assert_holds_tree(trainer, jax_out / "checkpoints" / str(STEPS) / "default")
+    jm = JaxManager(str(port_out / "checkpoints"))
+    restored = jax.device_get(jm.restore(jax_trainer.state))
+    jm.close()
+    got = read_tree_by_name(port_out / "checkpoints" / str(STEPS) / "default")
+    flat = jax.tree_util.tree_flatten_with_path(restored)[0]
+    assert len(flat) == len(got)
+    for path, x in flat:
+        name = ".".join(str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k))))
+                        for k in path)
+        assert np.array_equal(np.asarray(x), got[name].numpy()), name
 
 
 def test_resume_continues_at_step_3(runs, tmp_path):
@@ -200,7 +221,7 @@ def test_resume_continues_at_step_3(runs, tmp_path):
     with port_weights(tree):
         trainer = t_stage2.main(argv(meta, tmp_path, "--device", "cpu", "--evaluation_strategy",
                                      "no", "--resume_from_checkpoint",
-                                     str(port_out / "checkpoints" / "step_2")))
+                                     str(port_out / "checkpoints" / "2")))
     losses = [r for r in read_log(tmp_path) if "loss" in r]
     assert [r["step"] for r in losses] == [3, 4, 5, 6]
     assert trainer.step == 6 and all(np.isfinite(r["loss"]) for r in losses)
