@@ -40,7 +40,8 @@
 //   dq = scale * ds k     dk = scale * ds^T q     dv = p^T do
 //
 // Design. One block at a time on an SM; every load is a TMA box of
-// [rows][64] bf16 in the 128-byte swizzle, completing on an mbarrier
+// [rows][64] bf16 in the 128-byte swizzle (D = 64, 128) or [rows][32] in the
+// 64-byte swizzle (D = 96, `Layout`), completing on an mbarrier
 // ("full"), ring stages refilled when every consumer warp has released them
 // ("empty"). The tensor maps are encoded on the host per call
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so nothing links
@@ -55,9 +56,10 @@
 // descriptor, as the forward's P V reads V).
 //
 //   dq: one block per (q tile, q head, batch), q tiles of 128 rows at
-//       D = 128 (two consumers) and 192 at D = 64 (three), and a producer
-//       warpgroup (setmaxnreg 24) whose first thread loads the block's Q, dO
-//       and O tiles once, then K and V tiles of 64 keys through a ring of 2.
+//       D = 128 (two consumers) and 192 at D = 64 and 96 (three), and a
+//       producer warpgroup (setmaxnreg 24) whose first thread loads the
+//       block's Q, dO and O tiles once, then K and V tiles of 64 keys through
+//       a ring of 2 (4 at D = 96).
 //       First the consumers compute delta = rowsum(dO * O) in fp32 from the
 //       shared-memory tiles (the four threads of a row each sum a quarter of
 //       it) and write it out for the dk/dv kernel; their rows' lse and delta
@@ -90,13 +92,22 @@
 //       between its own tiles (lane 0 issues the TMA loads; the warp copies
 //       lse and delta with cp.async, which arrives on the same mbarrier).
 //       At D = 64 a producer warpgroup fits beside them and runs ahead, which
-//       measured 1.11-1.12x faster at the 2B ViT's shape.
-// Head dims: 64 and 128 have their own instantiations; D = 96 (Phi-3-mini)
-// runs the D = 128 one over tensor maps whose innermost extent is 96, so
-// TMA zero-fills columns 96-127 on every load (the mbarriers count whole
-// boxes) and clips them from every store. Those zeros add nothing to S, dP
-// or delta; the dq, dk and dv columns they give are never written. lse and
-// delta are per row. The scale comes from the caller (96^-0.5).
+//       measured 1.11-1.12x faster at the 2B ViT's shape. D = 96's consumers
+//       need 193 / 204 registers (not causal / causal), so it is laid out as
+//       D = 128: with a producer warpgroup ptxas spilled 24-80 bytes and the
+//       kernel ran 1.29x slower.
+// Head dims: 64, 96 (Phi-3-mini, InternVL2-4B's decoder) and 128, each its
+// own instantiation. At D = 96 a tile row is three boxes of 32 columns in
+// the 64-byte swizzle, 192 bytes, so nothing is padded: the score products
+// S and dP run D / 16 = 6 k16 steps, the gradient products dQ += dS K,
+// dV += P^T dO and dK += dS^T Q run at N = 96 (m64n96k16, B MN-major over
+// three 32-wide column blocks), so their accumulators are 48 registers a
+// thread, not 64, and shared memory holds 96 columns. (Run on the D = 128
+// body over tensor maps of extent 96, a quarter of every product would
+// multiply TMA's zero fill.) The dq kernel spends what that frees on its
+// ring: three consumers' Q, dO and O tiles (108 KB) beside 4 K/V stages
+// (96 KB), which a 128-byte-swizzled layout of 128 columns could not hold.
+// The scale comes from the caller (96^-0.5).
 //
 // Keys at or beyond kv_valid have p masked to exactly 0, so their dk and dv
 // rows are exactly 0; a warpgroup or block that holds only such keys runs no
@@ -114,11 +125,14 @@
 // hundred MB of tiles, far above the H100's ~295 bf16 FLOP/byte. So the bound
 // is the tensor-core rate. On an H100 80GB HBM3 at 700 W these kernels
 // reached 36-45% (dq) and 37-47% (dk/dv) of it at the training paths'
-// shapes, 2.0-3.0x the mma.sync kernels they replace with delta included
-// (tools/attention_bwd_ab.py, PERF.md). Open: each q tile of dk/dv runs its
-// products and its elementwise step in turn (a second set of scores to
-// overlap them took the registers past what the products need, and ran
-// slower), the dq kernel's 64-key K/V tiles, and the padded last tiles of
+// shapes, 2.0-3.0x the mma.sync kernels they replace with delta included,
+// and at Phi-3's [2, 32 / 32, 2113, 96] causal 44% (dq) and 37% (dk/dv),
+// 0.96x SDPA's backward (tools/attention_bwd_ab.py, PERF.md). Open: each q
+// tile of dk/dv runs its products and its elementwise step in turn (a second
+// set of scores to overlap them took the registers past what the products
+// need at D = 128; at D = 96, issued into the registers the fragments were
+// packed from, it made ptxas serialize every wgmma, and both ran slower),
+// the dq kernel's 64-key K/V tiles, and the padded last tiles of
 // kv_valid = 1025 (one key in the last 64- or 128-key tile).
 
 #include <cuda.h>
@@ -127,6 +141,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -137,24 +153,55 @@ using namespace hopper;
 constexpr int WG_ROWS = 64;  // rows (dq: q rows; dk/dv: keys) of one consumer warpgroup
 constexpr int BN = 64;       // dq: keys per K/V tile
 constexpr int BQ = 64;       // dk/dv: q rows per Q/dO tile
-constexpr int BOX = 64;      // columns of one TMA box: one 128-byte swizzle row
-constexpr int STAGES = 2;      // dq: K/V ring depth
-constexpr int DKV_STAGES = 3;  // dk/dv: Q/dO ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Consumer warpgroups: the dq kernel three at D = 64 (q tiles of 192 rows)
-// and two at D = 128 (128 rows), as the forward; the dk/dv kernel two at both
-// (128 keys). setmaxnreg hands the producer's registers to the consumers; the
-// split fills the 65536 registers the launch allots: 128 * (24 + 3 * 160) =
-// 128 * (24 + 2 * 240) = 128 * (40 + 2 * 232) = 64512.
-__host__ __device__ constexpr int dq_consumers(int D) { return D == 64 ? 3 : 2; }
+// How a [rows][D] tile lies in shared memory: D / COLS TMA boxes of
+// [rows][COLS] side by side, each row of a box one swizzle span of ROW bytes.
+// D = 64 and 128 take boxes of 64 columns in the 128-byte swizzle; D = 96
+// takes three of 32 columns in the 64-byte swizzle, so that no column of
+// shared memory, no k16 step of a score product and no accumulator column
+// of a gradient product is spent on padding.
+template <int D>
+struct Layout {
+  static constexpr bool SW64 = D == 96;
+  static constexpr int COLS = SW64 ? 32 : 64;
+  static constexpr int ROW = 2 * COLS;       // bytes of one box row
+  static constexpr int BOXES = D / COLS;     // TMA boxes per tile row
+  static constexpr int GROUP = 8 * ROW;      // bytes of one 8-row group
+  // byte offset of 16-byte chunk `chunk` (of its box) in row `row`
+  __device__ static __forceinline__ int at(int row, int chunk) {
+    return row * ROW + ((chunk ^ (SW64 ? (row >> 1) & 3 : row & 7)) * 16);
+  }
+  // K-major (lbo unread) or MN-major (lbo: the stride between boxes)
+  __device__ static __forceinline__ uint64_t desc(const void* tile, uint32_t lbo) {
+    return SW64 ? make_desc_sw64(tile, lbo, GROUP) : make_desc_sw128(tile, lbo, GROUP);
+  }
+};
+
+// The dq kernel's K/V ring: 4 stages at D = 96, where the 64-byte swizzle's
+// smaller tiles leave room for them beside three consumers' Q, dO and O, else
+// 2. At Phi-3's training shape on an H100 (tools/attention_bwd_ab.py) the
+// D = 96 dq took 0.272 ms with two consumers and 2 stages, 0.198 with 3; with
+// three consumers 0.246 / 0.194 / 0.188 with 2 / 3 / 4. The dk/dv kernel's
+// Q/dO ring: 3 stages (4 measured the same at D = 96).
+__host__ __device__ constexpr int dq_stages(int D) { return D == 96 ? 4 : 2; }
+constexpr int DKV_STAGES = 3;
+
+// Consumer warpgroups: the dq kernel three at D = 64 and 96 (q tiles of 192
+// rows; at 512 threads ptxas holds each to 128 registers, which D = 96's
+// 48-register dQ fits without a spill) and two at D = 128 (128 rows), as the
+// forward; the dk/dv kernel two at every D (128 keys). setmaxnreg hands the
+// producer's registers to the consumers; the split fills the 65536 registers
+// the launch allots: 128 * (24 + 3 * 160) = 128 * (24 + 2 * 240) =
+// 128 * (40 + 2 * 232) = 64512.
+__host__ __device__ constexpr int dq_consumers(int D) { return D == 128 ? 2 : 3; }
 constexpr int DKV_CONSUMERS = 2;
 constexpr int BKV = WG_ROWS * DKV_CONSUMERS;  // keys per dk/dv block
-// The dk/dv consumers need 163 registers a thread at D = 64 and 233 at
-// D = 128. At D = 64 a producer warpgroup fits beside them (384 threads, at
-// most 168 registers each) and runs ahead of them; at D = 128 the block is
-// the two consumers alone (256 threads, at most 255) and their first warp
-// feeds the ring between its own tiles.
+// The dk/dv consumers need 163 registers a thread at D = 64, 193-204 at
+// D = 96 and 233 at D = 128. At D = 64 a producer warpgroup fits beside them
+// (384 threads, at most 168 registers each) and runs ahead of them; at D = 96
+// and 128 the block is the two consumers alone (256 threads, at most 255) and
+// their first warp feeds the ring between its own tiles.
 __host__ __device__ constexpr bool dkv_producer_wg(int D) { return D == 64; }
 __host__ __device__ constexpr int dkv_threads(int D) {
   return 128 * (DKV_CONSUMERS + (dkv_producer_wg(D) ? 1 : 0));
@@ -186,10 +233,19 @@ __device__ __forceinline__ uint64_t opaque(uint64_t d) {
 }
 
 // What k16 step kk adds to the descriptor of a K-major operand whose tile of
-// `rows` rows is stored as D / 64 swizzled boxes (in units of 16 bytes). An
-// MN-major operand steps 16 rows, 2048 bytes: 128 units.
+// `rows` rows is stored as Layout<D>'s boxes (in units of 16 bytes): 16
+// columns, 32 bytes, into box 16 kk / COLS
+template <int D>
 __host__ __device__ constexpr uint32_t kstep(int rows, int kk) {
-  return static_cast<uint32_t>(((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4);
+  using L = Layout<D>;
+  return static_cast<uint32_t>(((kk * 16 / L::COLS) * rows * L::ROW + (kk * 16 % L::COLS) * 2) >>
+                               4);
+}
+
+// ... and of an MN-major operand: 16 rows
+template <int D>
+__host__ __device__ constexpr uint32_t mnstep(int kk) {
+  return static_cast<uint32_t>((kk * 16 * Layout<D>::ROW) >> 4);
 }
 
 template <int D>
@@ -197,6 +253,8 @@ __device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2], const uint32_t (
                                            uint64_t b) {
   if constexpr (D == 128)
     wgmma_rs_n128_mn(acc, a, b);
+  else if constexpr (D == 96)
+    wgmma_rs_n96_mn(acc, a, b);
   else
     wgmma_rs_n64_mn(acc, a, b);
 }
@@ -221,20 +279,20 @@ __device__ __forceinline__ void zero(float (&x)[N]) {
 
 // `acc` (the m64nD accumulator of this warpgroup, times `mul`) in bf16 into
 // `rows` [64][D] of a swizzled tile of `tile_rows` rows, in the layout of the
-// store maps' [64][64] boxes
+// store maps' [64][COLS] boxes
 template <int D>
 __device__ __forceinline__ void stage_out(unsigned char* rows, int tile_rows,
                                           const float (&acc)[D / 2], float mul) {
+  using L = Layout<D>;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
 #pragma unroll
   for (int nb = 0; nb < D / 8; ++nb) {
     const int col = nb * 8 + (lane & 3) * 2;
-    const int box = col / BOX, chunk = (col % BOX) / 8;
+    const int box = col / L::COLS, chunk = (col % L::COLS) / 8;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = warp * 16 + lane / 4 + half * 8;
-      unsigned char* dst =
-          rows + box * tile_rows * 128 + row * 128 + ((chunk ^ (row & 7)) * 16) + (col % 8) * 2;
+      unsigned char* dst = rows + box * tile_rows * L::ROW + L::at(row, chunk) + (col % 8) * 2;
       *reinterpret_cast<uint32_t*>(dst) =
           pack_bf16(acc[nb * 4 + half * 2] * mul, acc[nb * 4 + half * 2 + 1] * mul);
     }
@@ -266,11 +324,12 @@ dim3 make_grid(bool causal, int tiles, int heads, int B) {
 // ------------------------------------------------------------------- dq ---
 
 // Shared memory of one dq block, in bytes from a 1024-byte aligned base: Q,
-// dO and O as D / 64 boxes of [BM rows][64], each K and V stage as D / 64
-// boxes of [BN rows][64], then the barriers.
+// dO and O as Layout<D>'s boxes of [BM rows][COLS], each K and V stage as
+// boxes of [BN rows][COLS], then the barriers.
 template <int D>
 struct DqSmem {
   static constexpr int BM = WG_ROWS * dq_consumers(D);
+  static constexpr int STAGES = dq_stages(D);
   static constexpr int TILE = BM * D * 2;
   static constexpr int KV = BN * D * 2;
   static constexpr int DO_OFF = TILE;
@@ -301,7 +360,8 @@ __device__ __forceinline__ void dq_consumer(unsigned char* smem, DqBars bar,
                                             const CUtensorMap* tdq, const DqArgs& a, int c,
                                             int q0, int h, int b, int n_tiles) {
   using S = DqSmem<D>;
-  constexpr int BM = S::BM;
+  using L = Layout<D>;
+  constexpr int BM = S::BM, STAGES = S::STAGES;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, tq = lane & 3;
   const int qw0 = q0 + c * WG_ROWS;           // this warpgroup's first row
@@ -323,7 +383,7 @@ __device__ __forceinline__ void dq_consumer(unsigned char* smem, DqBars bar,
     float acc = 0.f;
 #pragma unroll
     for (int ch = tq; ch < D / 8; ch += 4) {
-      const int off = (ch / 8) * BM * 128 + row * 128 + (((ch % 8) ^ (row & 7)) * 16);
+      const int off = (ch / (L::COLS / 8)) * BM * L::ROW + L::at(row, ch % (L::COLS / 8));
       const uint4 x = *reinterpret_cast<const uint4*>(sdO + off);
       const uint4 y = *reinterpret_cast<const uint4*>(sO + off);
       const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
@@ -347,30 +407,32 @@ __device__ __forceinline__ void dq_consumer(unsigned char* smem, DqBars bar,
   uint32_t dsf[BN / 16][4];
   zero(dq);
 
-  const unsigned char* qa = sQ + c * WG_ROWS * 128;
-  const unsigned char* da = sdO + c * WG_ROWS * 128;
-  // S = Q K^T and dP = dO V^T, both operands K-major
+  const unsigned char* qa = sQ + c * WG_ROWS * L::ROW;
+  const unsigned char* da = sdO + c * WG_ROWS * L::ROW;
+  // S = Q K^T and dP = dO V^T, both operands K-major: D / 16 k16 steps
   auto issue_sdp = [&](int st) {
-    const uint64_t qd = opaque(make_desc_sw128(qa, 16, 1024));
-    const uint64_t dd = opaque(make_desc_sw128(da, 16, 1024));
-    const uint64_t kd = opaque(make_desc_sw128(sK + st * S::KV, 16, 1024));
-    const uint64_t vd = opaque(make_desc_sw128(sV + st * S::KV, 16, 1024));
+    const uint64_t qd = opaque(L::desc(qa, 16));
+    const uint64_t dd = opaque(L::desc(da, 16));
+    const uint64_t kd = opaque(L::desc(sK + st * S::KV, 16));
+    const uint64_t vd = opaque(L::desc(sV + st * S::KV, 16));
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, qd + kstep(BM, kk), kd + kstep(BN, kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, qd + kstep<D>(BM, kk), kd + kstep<D>(BN, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dp, dd + kstep(BM, kk), vd + kstep(BN, kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, dd + kstep<D>(BM, kk), vd + kstep<D>(BN, kk), kk > 0);
     wgmma_commit();
   };
-  // dQ += dS K, K read MN-major (16 keys per k16 step)
+  // dQ += dS K, K read MN-major (16 keys per k16 step), N = D
   auto issue_dq = [&](int st) {
-    const uint64_t km = opaque(make_desc_sw128(sK + st * S::KV, BN * 128, 1024));
+    const uint64_t km = opaque(L::desc(sK + st * S::KV, BN * L::ROW));
     fence_regs(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_d<D>(dq, dsf[kk], km + kk * 128);
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_d<D>(dq, dsf[kk], km + mnstep<D>(kk));
     wgmma_commit();
   };
   // ds = p * (dp - delta) of tile t, in place of s
@@ -423,15 +485,15 @@ __device__ __forceinline__ void dq_consumer(unsigned char* smem, DqBars bar,
   fence_regs(dq);
 
   // scale * dQ in bf16 into this warpgroup's Q rows (read for the last time
-  // above), then one TMA store per 64 columns; rows at or beyond Sq are not
-  // written
-  unsigned char* so = sQ + c * WG_ROWS * 128;
+  // above), then one TMA store per box; rows at or beyond Sq are not written
+  unsigned char* so = sQ + c * WG_ROWS * L::ROW;
   stage_out<D>(so, BM, dq, a.scale);
   fence_proxy_async();
   named_barrier_sync(1 + c, 128);
   if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < D / BOX; ++j) tma_store_4d(tdq, so + j * BM * 128, j * BOX, qw0, h, b);
+    for (int j = 0; j < L::BOXES; ++j)
+      tma_store_4d(tdq, so + j * BM * L::ROW, j * L::COLS, qw0, h, b);
     tma_store_commit();
     tma_store_wait_read();
   }
@@ -444,7 +506,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdq,
                     const DqArgs a) {
   using S = DqSmem<D>;
-  constexpr int BM = S::BM;
+  using L = Layout<D>;
+  constexpr int BM = S::BM, STAGES = S::STAGES;
   constexpr int CONSUMERS = dq_consumers(D);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -483,20 +546,20 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       prefetch_tensormap(&tk);
       prefetch_tensormap(&tv);
       mbar_arrive_expect_tx(bar.q_full, 3 * S::TILE);
-      for (int j = 0; j < D / BOX; ++j) {
-        tma_load_4d(smem + j * BM * 128, &tq, bar.q_full, j * BOX, q0, h, b);
-        tma_load_4d(smem + S::DO_OFF + j * BM * 128, &tdo, bar.q_full, j * BOX, q0, h, b);
-        tma_load_4d(smem + S::O_OFF + j * BM * 128, &to, bar.q_full, j * BOX, q0, h, b);
+      for (int j = 0; j < L::BOXES; ++j) {
+        const int col = j * L::COLS, off = j * BM * L::ROW;
+        tma_load_4d(smem + off, &tq, bar.q_full, col, q0, h, b);
+        tma_load_4d(smem + S::DO_OFF + off, &tdo, bar.q_full, col, q0, h, b);
+        tma_load_4d(smem + S::O_OFF + off, &to, bar.q_full, col, q0, h, b);
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % STAGES;
         mbar_wait(bar.kv_empty + st, ((t / STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(bar.kv_full + st, 2 * S::KV);
-        for (int j = 0; j < D / BOX; ++j) {
-          tma_load_4d(smem + S::K_OFF + st * S::KV + j * BN * 128, &tk, bar.kv_full + st,
-                      j * BOX, t * BN, kvh, b);
-          tma_load_4d(smem + S::V_OFF + st * S::KV + j * BN * 128, &tv, bar.kv_full + st,
-                      j * BOX, t * BN, kvh, b);
+        for (int j = 0; j < L::BOXES; ++j) {
+          const int col = j * L::COLS, off = st * S::KV + j * BN * L::ROW;
+          tma_load_4d(smem + S::K_OFF + off, &tk, bar.kv_full + st, col, t * BN, kvh, b);
+          tma_load_4d(smem + S::V_OFF + off, &tv, bar.kv_full + st, col, t * BN, kvh, b);
         }
       }
     }
@@ -509,19 +572,20 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
 // ---------------------------------------------------------------- dk/dv ---
 
-// Shared memory of one dk/dv block: K and V as D / 64 boxes of [BKV rows][64],
-// each ring stage a Q and a dO tile of D / 64 boxes of [BQ rows][64], the
-// stages' lse and delta, then the barriers.
+// Shared memory of one dk/dv block: K and V as Layout<D>'s boxes of [BKV
+// rows][COLS], each ring stage a Q and a dO tile of boxes of [BQ rows][COLS],
+// the stages' lse and delta, then the barriers.
 template <int D>
 struct DkvSmem {
+  static constexpr int STAGES = DKV_STAGES;
   static constexpr int KV = BKV * D * 2;
   static constexpr int QT = BQ * D * 2;
   static constexpr int V_OFF = KV;
   static constexpr int Q_OFF = 2 * KV;
-  static constexpr int DO_OFF = Q_OFF + DKV_STAGES * QT;
-  static constexpr int STAT_OFF = DO_OFF + DKV_STAGES * QT;  // [STAGES][2][BQ] fp32
-  static constexpr int BAR_OFF = STAT_OFF + DKV_STAGES * 2 * BQ * 4;
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DKV_STAGES) + 1024;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT;
+  static constexpr int STAT_OFF = DO_OFF + STAGES * QT;  // [STAGES][2][BQ] fp32
+  static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
 struct DkvBars {
@@ -551,12 +615,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
                      const DkvArgs a) {
   using S = DkvSmem<D>;
+  using L = Layout<D>;
+  constexpr int STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   DkvBars bar;
   bar.kv_full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   bar.full = bar.kv_full + 1;
-  bar.empty = bar.full + DKV_STAGES;
+  bar.empty = bar.full + STAGES;
 
   const GridPos pos = grid_pos(CAUSAL);
   const int k0 = pos.tile * BKV;  // causal: tile 0 is the heaviest
@@ -576,7 +642,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
   if (threadIdx.x == 0) {
     mbar_init(bar.kv_full, 1);
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar.full + s, 1 + 32);  // the TMA thread's arrival and 32 cp.async ones
       mbar_init(bar.empty + s, 4 * max(active, 1));  // one arrival per active consumer warp
     }
@@ -587,15 +653,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   // item j into stage j % STAGES, which is free: the Q and dO tiles of its
   // query head and q tile, and their rows' lse and delta
   auto load_item = [&](int j) {
-    const int st = j % DKV_STAGES;
+    const int st = j % STAGES;
     const int h = kvh * a.group + j / n_q, q0 = (first_q_tile + j % n_q) * BQ;
     if (lane == 0) {
       mbar_arrive_expect_tx(bar.full + st, 2 * S::QT);
-      for (int jb = 0; jb < D / BOX; ++jb) {
-        tma_load_4d(smem + S::Q_OFF + st * S::QT + jb * BQ * 128, &tq, bar.full + st, jb * BOX,
-                    q0, h, b);
-        tma_load_4d(smem + S::DO_OFF + st * S::QT + jb * BQ * 128, &tdo, bar.full + st,
-                    jb * BOX, q0, h, b);
+      for (int jb = 0; jb < L::BOXES; ++jb) {
+        const int col = jb * L::COLS, off = st * S::QT + jb * BQ * L::ROW;
+        tma_load_4d(smem + S::Q_OFF + off, &tq, bar.full + st, col, q0, h, b);
+        tma_load_4d(smem + S::DO_OFF + off, &tdo, bar.full + st, col, q0, h, b);
       }
     }
     float* stats = reinterpret_cast<float*>(smem + S::STAT_OFF) + st * 2 * BQ;
@@ -615,15 +680,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       prefetch_tensormap(&tq);
       prefetch_tensormap(&tdo);
       mbar_arrive_expect_tx(bar.kv_full, 2 * S::KV);
-      for (int jb = 0; jb < D / BOX; ++jb) {
-        tma_load_4d(smem + jb * BKV * 128, &tk, bar.kv_full, jb * BOX, k0, kvh, b);
-        tma_load_4d(smem + S::V_OFF + jb * BKV * 128, &tv, bar.kv_full, jb * BOX, k0, kvh, b);
+      for (int jb = 0; jb < L::BOXES; ++jb) {
+        const int col = jb * L::COLS, off = jb * BKV * L::ROW;
+        tma_load_4d(smem + off, &tk, bar.kv_full, col, k0, kvh, b);
+        tma_load_4d(smem + S::V_OFF + off, &tv, bar.kv_full, col, k0, kvh, b);
       }
     }
-    for (int j = 0; j < min(DKV_STAGES, n_items); ++j) load_item(j);
+    for (int j = 0; j < min(STAGES, n_items); ++j) load_item(j);
     if (PRODUCER) {  // the producer runs ahead, each stage as soon as it is free
-      for (int j = DKV_STAGES; j < n_items; ++j) {
-        mbar_wait(bar.empty + j % DKV_STAGES, ((j / DKV_STAGES) & 1) ^ 1);
+      for (int j = STAGES; j < n_items; ++j) {
+        mbar_wait(bar.empty + j % STAGES, ((j / STAGES) & 1) ^ 1);
         load_item(j);
       }
     }
@@ -632,8 +698,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
   const int kw0 = k0 + c * WG_ROWS;             // this warpgroup's first key
   const int key0 = kw0 + warp * 16 + lane / 4;  // this thread's keys: key0 and key0 + 8
-  unsigned char* ka = smem + c * WG_ROWS * 128;
-  unsigned char* va = smem + S::V_OFF + c * WG_ROWS * 128;
+  unsigned char* ka = smem + c * WG_ROWS * L::ROW;
+  unsigned char* va = smem + S::V_OFF + c * WG_ROWS * L::ROW;
 
   float dk[D / 2], dv[D / 2];
   zero(dk);
@@ -644,33 +710,33 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
     for (int i = 0; i < n_items; ++i) {
       // refill the stage that item i - 1 used, once both warpgroups released it
-      const int j = i + DKV_STAGES - 1;
+      const int j = i + STAGES - 1;
       if (!PRODUCER && feeder && i > 0 && j < n_items) {
-        mbar_wait(bar.empty + j % DKV_STAGES, ((j / DKV_STAGES) & 1) ^ 1);
+        mbar_wait(bar.empty + j % STAGES, ((j / STAGES) & 1) ^ 1);
         load_item(j);
       }
-      const int st = i % DKV_STAGES;
+      const int st = i % STAGES;
       const unsigned char* sQ = smem + S::Q_OFF + st * S::QT;
       const unsigned char* sdO = smem + S::DO_OFF + st * S::QT;
       const float* lse = reinterpret_cast<const float*>(smem + S::STAT_OFF) + st * 2 * BQ;
       const float* dls = lse + BQ;
       const int q0 = (first_q_tile + i % n_q) * BQ;
-      mbar_wait(bar.full + st, (i / DKV_STAGES) & 1);
+      mbar_wait(bar.full + st, (i / STAGES) & 1);
 
-      // S^T = K Q^T and dP^T = V dO^T
-      const uint64_t kd = opaque(make_desc_sw128(ka, 16, 1024));
-      const uint64_t vd = opaque(make_desc_sw128(va, 16, 1024));
-      const uint64_t qd = opaque(make_desc_sw128(sQ, 16, 1024));
-      const uint64_t od = opaque(make_desc_sw128(sdO, 16, 1024));
+      // S^T = K Q^T and dP^T = V dO^T: D / 16 k16 steps
+      const uint64_t kd = opaque(L::desc(ka, 16));
+      const uint64_t vd = opaque(L::desc(va, 16));
+      const uint64_t qd = opaque(L::desc(sQ, 16));
+      const uint64_t od = opaque(L::desc(sdO, 16));
       fence_regs(st_);
       fence_regs(dpt);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(st_, kd + kstep(BKV, kk), qd + kstep(BQ, kk), kk > 0);
+        wgmma_ss_n64(st_, kd + kstep<D>(BKV, kk), qd + kstep<D>(BQ, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dpt, vd + kstep(BKV, kk), od + kstep(BQ, kk), kk > 0);
+        wgmma_ss_n64(dpt, vd + kstep<D>(BKV, kk), od + kstep<D>(BQ, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st_);
@@ -698,16 +764,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       pack_frags(st_, pf);
       pack_frags(dpt, dsf);
 
-      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
-      const uint64_t om = opaque(make_desc_sw128(sdO, BQ * 128, 1024));
-      const uint64_t qm = opaque(make_desc_sw128(sQ, BQ * 128, 1024));
+      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major, N = D
+      const uint64_t om = opaque(L::desc(sdO, BQ * L::ROW));
+      const uint64_t qm = opaque(L::desc(sQ, BQ * L::ROW));
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_d<D>(dv, pf[kk], om + kk * 128);
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_d<D>(dv, pf[kk], om + mnstep<D>(kk));
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_d<D>(dk, dsf[kk], qm + kk * 128);
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_d<D>(dk, dsf[kk], qm + mnstep<D>(kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dk);
@@ -729,9 +795,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   named_barrier_sync(1 + c, 128);
   if (tid == 0) {
 #pragma unroll
-    for (int jb = 0; jb < D / BOX; ++jb) {
-      tma_store_4d(&tdk, ka + jb * BKV * 128, jb * BOX, kw0, kvh, b);
-      tma_store_4d(&tdv, va + jb * BKV * 128, jb * BOX, kw0, kvh, b);
+    for (int jb = 0; jb < L::BOXES; ++jb) {
+      tma_store_4d(&tdk, ka + jb * BKV * L::ROW, jb * L::COLS, kw0, kvh, b);
+      tma_store_4d(&tdv, va + jb * BKV * L::ROW, jb * L::COLS, kw0, kvh, b);
     }
     tma_store_commit();
     tma_store_wait_read();
@@ -741,10 +807,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // ------------------------------------------------------------------- host --
 
 // A [batch, heads, rows, D] bf16 view through its strides as a 4-d tensor map
-// (D innermost), boxes of [box_rows][64] in the 128-byte swizzle. Rows at or
+// (D innermost), boxes of [box_rows][COLS] in Layout<D>'s swizzle. Rows at or
 // beyond `rows` read as zeros and are not written.
-bool make_map(CUtensorMap* map, const void* base, int D, long long rows, long long heads,
+template <int D>
+bool make_map(CUtensorMap* map, const void* base, long long rows, long long heads,
               long long batch, Strides st, int box_rows) {
+  using L = Layout<D>;
   const PFN_cuTensorMapEncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const long long ext[3] = {rows, heads, batch};
@@ -759,10 +827,11 @@ bool make_map(CUtensorMap* map, const void* base, int D, long long rows, long lo
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i)
     strides[i] = static_cast<cuuint64_t>(ext[i] > 1 ? el[i] * 2 : widest);
-  cuuint32_t box[4] = {BOX, static_cast<cuuint32_t>(box_rows), 1, 1};
+  cuuint32_t box[4] = {L::COLS, static_cast<cuuint32_t>(box_rows), 1, 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                L::SW64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -786,20 +855,18 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, int threads, cudaStream_t
   return cudaGetLastError();
 }
 
-// `md` is the tensors' head dim, the maps' innermost extent: D, or 96 under
-// the D = 128 instantiation (see `dispatch`)
 template <int D>
-cudaError_t launch_dq(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int md,
-                      int kv_valid, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_dq(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int kv_valid,
+                      int causal, float scale, cudaStream_t stream) {
   using S = DqSmem<D>;
   CUtensorMap mq, mdo, mo, mk, mv, mdq;
   // a view TMA cannot describe (strides off 16 bytes, a base off 16 bytes)
-  if (!make_map(&mq, t.q, md, Sq, hq, B, t.qs, S::BM) ||
-      !make_map(&mdo, t.dout, md, Sq, hq, B, t.dos, S::BM) ||
-      !make_map(&mo, t.out, md, Sq, hq, B, t.os, S::BM) ||
-      !make_map(&mk, t.k, md, kv_valid, hkv, B, t.ks, BN) ||
-      !make_map(&mv, t.v, md, kv_valid, hkv, B, t.vs, BN) ||
-      !make_map(&mdq, t.dq, md, Sq, hq, B, t.dqs, WG_ROWS))
+  if (!make_map<D>(&mq, t.q, Sq, hq, B, t.qs, S::BM) ||
+      !make_map<D>(&mdo, t.dout, Sq, hq, B, t.dos, S::BM) ||
+      !make_map<D>(&mo, t.out, Sq, hq, B, t.os, S::BM) ||
+      !make_map<D>(&mk, t.k, kv_valid, hkv, B, t.ks, BN) ||
+      !make_map<D>(&mv, t.v, kv_valid, hkv, B, t.vs, BN) ||
+      !make_map<D>(&mdq, t.dq, Sq, hq, B, t.dqs, WG_ROWS))
     return cudaErrorInvalidPitchValue;
   const DqArgs a{t.lse, t.delta, hq, Sq, kv_valid, hq / hkv, scale, scale * LOG2E};
   const dim3 grid = make_grid(causal, (Sq + S::BM - 1) / S::BM, hq, B);
@@ -811,16 +878,16 @@ cudaError_t launch_dq(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv,
 }
 
 template <int D>
-cudaError_t launch_dkv(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int md,
-                       int kv_valid, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_dkv(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int kv_valid,
+                       int causal, float scale, cudaStream_t stream) {
   using S = DkvSmem<D>;
   CUtensorMap mq, mdo, mk, mv, mdk, mdv;
-  if (!make_map(&mq, t.q, md, Sq, hq, B, t.qs, BQ) ||
-      !make_map(&mdo, t.dout, md, Sq, hq, B, t.dos, BQ) ||
-      !make_map(&mk, t.k, md, kv_valid, hkv, B, t.ks, BKV) ||
-      !make_map(&mv, t.v, md, kv_valid, hkv, B, t.vs, BKV) ||
-      !make_map(&mdk, t.dk, md, Skv, hkv, B, t.dks, WG_ROWS) ||
-      !make_map(&mdv, t.dv, md, Skv, hkv, B, t.dvs, WG_ROWS))
+  if (!make_map<D>(&mq, t.q, Sq, hq, B, t.qs, BQ) ||
+      !make_map<D>(&mdo, t.dout, Sq, hq, B, t.dos, BQ) ||
+      !make_map<D>(&mk, t.k, kv_valid, hkv, B, t.ks, BKV) ||
+      !make_map<D>(&mv, t.v, kv_valid, hkv, B, t.vs, BKV) ||
+      !make_map<D>(&mdk, t.dk, Skv, hkv, B, t.dks, WG_ROWS) ||
+      !make_map<D>(&mdv, t.dv, Skv, hkv, B, t.dvs, WG_ROWS))
     return cudaErrorInvalidPitchValue;
   const DkvArgs a{t.lse, t.delta, hq, Sq, kv_valid, hq / hkv, scale, scale * LOG2E};
   const dim3 grid = make_grid(causal, (Skv + BKV - 1) / BKV, hkv, B);
@@ -842,17 +909,14 @@ int dispatch(const Tensors& t, int B, int hq, int hkv, int Sq, int Skv, int D, i
   if (B > 65535 || hq > 65535 || (max(Sq, Skv) + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto st = static_cast<cudaStream_t>(stream);
-  // D = 96 runs the D = 128 instantiation over maps of innermost extent 96:
-  // TMA zero-fills columns 96-127 of every load and clips them from every
-  // store, so S, dP and delta see zeros there and dq, dk, dv are computed
-  // for columns never written
-  cudaError_t err;
-  if (DKV)
-    err = D == 64 ? launch_dkv<64>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st)
-                  : launch_dkv<128>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st);
-  else
-    err = D == 64 ? launch_dq<64>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st)
-                  : launch_dq<128>(t, B, hq, hkv, Sq, Skv, D, kv_valid, causal, scale, st);
+  const auto run = [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    return DKV ? launch_dkv<HD>(t, B, hq, hkv, Sq, Skv, kv_valid, causal, scale, st)
+               : launch_dq<HD>(t, B, hq, hkv, Sq, Skv, kv_valid, causal, scale, st);
+  };
+  const cudaError_t err = D == 64   ? run(std::integral_constant<int, 64>())
+                          : D == 96 ? run(std::integral_constant<int, 96>())
+                                    : run(std::integral_constant<int, 128>());
   return static_cast<int>(err);
 }
 

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks as inline PTX: shared-memory addresses,
 // mbarriers, TMA tensor loads (2-d and 4-d) and stores, cp.async into an
-// mbarrier, wgmma descriptors, products, fences and groups, setmaxnreg and
-// named barriers; and, on the host, the driver's tensor-map encoder.
+// mbarrier, wgmma descriptors (128- and 64-byte swizzle), products, fences
+// and groups, setmaxnreg and named barriers; and, on the host, the driver's
+// tensor-map encoder.
 // Header-only; a kernel that includes it is built for sm_90a (`wgmma` and
 // `setmaxnreg` exist only there).
 //
 // Layout convention of the wgmma wrappers: operands in shared memory are
 // tiles written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, rows of 64 bf16 (one
 // 128-byte swizzle atom per row), each 8-row group 1024 bytes, every tile
-// 1024-byte aligned. The accumulator of m64nNk16 gives the thread with lane l
+// 1024-byte aligned (or, through `make_desc_sw64`, SWIZZLE_64B: rows of 32
+// bf16, 8-row groups of 512 bytes). The accumulator of m64nNk16 gives the thread with lane l
 // of warp w (of the warpgroup) rows 16w + l/4 (elements 4j, 4j+1) and
 // 16w + l/4 + 8 (4j+2, 4j+3) at columns 8j + 2(l%4) + {0, 1}: the mma.sync
 // m16n8k16 C fragment, repeated over the N/8 column blocks.
@@ -200,18 +202,33 @@ __device__ __forceinline__ void named_barrier_arrive(uint32_t id, uint32_t threa
 
 // -------------------------------------------------------------------- wgmma --
 
-// Shared-memory matrix descriptor, 128-byte swizzle. `lbo` and `sbo` in
-// bytes: for a K-major operand sbo is the stride between 8-row groups (1024)
-// and lbo is not read; for an MN-major one lbo is the stride between 64-wide
-// column blocks along MN and sbo the stride between 8-row groups along K.
-__device__ __forceinline__ uint64_t make_desc_sw128(const void* tile, uint32_t lbo,
-                                                    uint32_t sbo) {
+// Shared-memory matrix descriptor in swizzle mode `mode` (1: 128-byte, 2:
+// 64-byte). `lbo` and `sbo` in bytes: for a K-major operand sbo is the stride
+// between 8-row groups and lbo is not read; for an MN-major one lbo is the
+// stride between column blocks along MN and sbo the stride between 8-row
+// groups along K.
+__device__ __forceinline__ uint64_t make_desc(const void* tile, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
   uint64_t d = 0;
   d |= static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;  // SWIZZLE_128B
+  d |= mode << 62;
   return d;
+}
+
+// 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B): 8-row groups of 1024 bytes,
+// an MN-major operand's column blocks 64 wide
+__device__ __forceinline__ uint64_t make_desc_sw128(const void* tile, uint32_t lbo,
+                                                    uint32_t sbo) {
+  return make_desc(tile, lbo, sbo, 1);
+}
+
+// 64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B): rows of 32 bf16, 8-row groups
+// of 512 bytes, an MN-major operand's column blocks 32 wide
+__device__ __forceinline__ uint64_t make_desc_sw64(const void* tile, uint32_t lbo,
+                                                   uint32_t sbo) {
+  return make_desc(tile, lbo, sbo, 2);
 }
 
 // orders register accesses by other instructions before the next wgmma
@@ -363,6 +380,27 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const uint32_t (
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 96] += A[64 x 16] B[16 x 96], A from registers (the m16n8k16 A fragment
+// of each warp's 16 rows), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n96_mn(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

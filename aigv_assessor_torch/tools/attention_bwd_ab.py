@@ -1,7 +1,8 @@
 """The flash-attention backward of this checkout against other versions of
 its source, on one CUDA card, in one process.
 
-    python -m aigv_assessor_torch.tools.attention_bwd_ab [--check-only] [NAME=DIR ...]
+    python -m aigv_assessor_torch.tools.attention_bwd_ab [--check-only] [--shapes A,B]
+        [NAME=DIR ...]
 
 Each DIR holds another `flash_attn_bwd.cu` (and the headers it includes),
 e.g. the parent commit's `aigv_assessor_torch/csrc` unpacked with `git
@@ -12,12 +13,14 @@ is then the eager fp32 expression, timed beside its kernels). Every version,
 the checkout's own ("tree") first, is built with nvcc (`-Xptxas -v`:
 registers and spills are printed) and held against the plain backward at
 small shapes that cross its tiles' borders (q tiles of 64 / 128 / 192 rows,
-K/V tiles of 64 and 128 keys): dq, dk and dv within BWD_TOL relative L2 of
+K/V tiles of 64 and 128 keys), at D = 64, 96 and 128: dq, dk and dv within
+BWD_TOL relative L2 of
 `plain_attention_qkv_bwd` / `plain_flash_attention_bwd`, dk and dv of the
 keys at or beyond kv_valid exactly 0, delta within DELTA_TOL relative L2 of
 the fp32 expression, and a second run bit-equal to the first. Then each of
-the training paths' shapes is timed by CUDA graph replay (3 launches per
-graph), the versions in turns (tree, others, others reversed, tree), beside
+the training paths' shapes (those named by `--shapes`, else all) is timed
+by CUDA graph replay (3 launches per graph), the versions in turns (tree,
+others, others reversed, tree), beside
 SDPA's backward alone on the same views (`torch.autograd.grad` of one
 forward, kept; timed call by call with CUDA events, since autograd does not
 run under graph capture). Prints the card's name and power limit, then one JSON line
@@ -63,10 +66,20 @@ CHECKS = [
     ("sep", 3, 1, 129, 4, 2, 128, False, 100, "bshd"),
     ("sep", 2, 333, 1025, 8, 2, 128, False, 1000, "bhsd"),
     ("sep", 2, 200, 200, 4, 2, 128, True, None, "bshd"),
+    # D = 96 (Phi-3-mini): causal across the q and key tiles with groups of 2
+    # and 4, a ragged kv_valid one past a key tile, three tensors across
+    ("qkv", 2, 65, 65, 4, 2, 96, True, None, "bhsd"),
+    ("qkv", 1, 191, 191, 8, 2, 96, True, None, "bhsd"),
+    ("qkv", 1, 257, 257, 8, 2, 96, True, None, "bhsd"),
+    ("qkv", 1, 257, 257, 4, 2, 96, True, None, "bhsd"),
+    ("qkv", 2, 193, 193, 4, 4, 96, False, 129, "bhsd"),
+    ("sep", 2, 127, 257, 12, 2, 96, False, None, "bshd"),
+    ("sep", 2, 200, 200, 4, 2, 96, True, None, "bshd"),
 ]
 # the training paths' shapes: the 2B ViT and LLM, internlm2-chat-20b
 # (InternVL2-26B's decoder, 2 videos), InternViT-6B over 32 frames and over a
-# 26B micro-batch's 16, the 2B decoder's row-major branch
+# 26B micro-batch's 16, the 2B decoder's row-major branch, Phi-3-mini
+# (InternVL2-4B's decoder, 2 videos)
 TIMED = {
     "vit_2b": ("qkv", 32, 1032, 1032, 16, 16, 64, False, 1025, "bhsd"),
     "llm_2b": ("qkv", 4, 2113, 2113, 16, 8, 128, True, None, "bhsd"),
@@ -74,6 +87,7 @@ TIMED = {
     "vit_6b": ("sep", 32, 1032, 1032, 25, 25, 128, False, 1025, "bshd"),
     "vit_6b_b16": ("sep", 16, 1032, 1032, 25, 25, 128, False, 1025, "bshd"),
     "llm_2b_rows": ("sep", 4, 2113, 2113, 16, 8, 128, True, None, "bshd"),
+    "llm_4b": ("qkv", 2, 2113, 2113, 32, 32, 96, True, None, "bhsd"),
 }
 
 
@@ -332,6 +346,16 @@ def main(argv=None) -> int:
     args = list(argv if argv is not None else sys.argv[1:])
     check_only = "--check-only" in args
     args = [a for a in args if a != "--check-only"]
+    timed = dict(TIMED)
+    if "--shapes" in args:
+        at = args.index("--shapes")
+        names = args[at + 1].split(",")
+        del args[at : at + 2]
+        unknown = sorted(set(names) - set(TIMED))
+        if unknown:
+            print(f"unknown shapes {unknown}; known: {sorted(TIMED)}", file=sys.stderr)
+            return 2
+        timed = {n: TIMED[n] for n in names}
     device = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -362,7 +386,7 @@ def main(argv=None) -> int:
         if check_only:
             return 0 if ok else 1
         order = list(versions) + list(versions)[::-1]
-        for label, case in TIMED.items():
+        for label, case in timed.items():
             x = make_inputs(case, device)
             runs = {}
             for name in order:

@@ -20,10 +20,18 @@ Key transforms:
 - the per-layer subtrees `layers_{i}` of each tower are stacked into one
   `layers` subtree with a leading [L] axis, the scan-over-layers form that
   `state_dict_from_jax` reads.
+
+Usage (the JAX tool's flags; the same `params.msgpack`, byte for byte,
+written by `utils/flax_msgpack` without flax; a tower whose config has
+`scan_layers` false is written unrolled, as the JAX tool writes it):
+  python -m aigv_assessor_torch.tools.convert_weights \
+      --torch_ckpt /path/to/checkpoint_dir_or_files [...more shards] \
+      --config /path/to/config.json --out params.msgpack [--strict]
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import logging
@@ -176,8 +184,11 @@ def normalize_hf_llama_keys(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 def convert(
-    sd: Dict[str, np.ndarray], config: AssessorConfig, strict: bool = False
+    sd: Dict[str, np.ndarray], config: AssessorConfig, strict: bool = False,
+    stack: Tuple[str, ...] = ("vision_model", "language_model"),
 ) -> dict:
+    """-> {"params": tree}, the towers named in `stack` with their layers
+    stacked (`stack_layer_params`), any other tower unrolled (`layers_{i}`)."""
     sd = normalize_peft_keys(sd)
     sd = normalize_hf_llama_keys(sd)
     params: dict = {}
@@ -367,7 +378,7 @@ def convert(
                 f"{len(unmapped)} unmapped checkpoint keys, e.g. {unmapped[:8]}"
             )
         logger.warning("%d unmapped keys, e.g. %s", len(unmapped), unmapped[:8])
-    for tower in ("vision_model", "language_model"):
+    for tower in stack:
         if tower in params:
             params[tower] = stack_layer_params(params[tower])
     return {"params": params}
@@ -396,10 +407,47 @@ def stack_layer_params(tree: Any) -> Any:
 
 
 def _stack(subtrees: List[Any]) -> Any:
+    """Keys sorted, as `jax.tree_util.tree_map` rebuilds JAX's stacked tree."""
     first = subtrees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in subtrees]) for k in first}
+        return {k: _stack([t[k] for t in subtrees]) for k in sorted(first)}
     return np.stack([np.asarray(t) for t in subtrees], axis=0)
+
+
+def _leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def main(argv=None) -> None:
+    """The JAX tool's command line: a reference checkpoint to a flax
+    `params.msgpack`."""
+    from aigv_assessor_torch.utils import flax_msgpack
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument(
+        "--torch_ckpt", nargs="+", required=True,
+        help="weight files (.bin/.pth/.safetensors) or a checkpoint "
+             "directory (sharded safetensors + index resolved HF-style)",
+    )
+    ap.add_argument("--config", required=True, help="reference config.json")
+    ap.add_argument("--out", default="params.msgpack")
+    ap.add_argument(
+        "--strict", action="store_true",
+        help="fail (instead of warn) on unmapped checkpoint keys",
+    )
+    args = ap.parse_args(argv)
+
+    config = AssessorConfig.from_json(args.config)
+    scanned = (("vision_model", config.vision.scan_layers),
+               ("language_model", config.llm.scan_layers))
+    tree = convert(load_torch_state_dict(args.torch_ckpt), config, strict=args.strict,
+                   stack=tuple(tower for tower, scan in scanned if scan))
+    # flax's `to_bytes`, as the JAX tool writes: maps in the tree's order
+    flax_msgpack.save(args.out, tree, sort_keys=False)
+    n = sum(np.asarray(leaf).size for leaf in _leaves(tree))
+    print(f"wrote {args.out}: {n/1e6:.1f}M params")
 
 
 # pytorchvideo slowfast_r50 module-name mapping -------------------------------
@@ -470,3 +518,7 @@ def map_slowfast_key(key: str):
     if m2:
         return bn(f"fuse_res{stage}/conv", m2.group(1))
     return None
+
+
+if __name__ == "__main__":
+    main()

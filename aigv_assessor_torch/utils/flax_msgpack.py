@@ -13,8 +13,9 @@ The format:
   {"0": flat chunk, ...}}`, each chunk `MAX_CHUNK_SIZE // itemsize` values
   of the flattened array (InternVL2-26B's fp32 embedding, 2.27 GB, arrives
   as three);
-- flax writes every map with its keys sorted, as `jax.tree_util` rebuilds a
-  dict; the chunk record keeps the order above.
+- flax's `msgpack_serialize` writes every map with its keys sorted, as
+  `jax.tree_util` rebuilds a dict (`to_bytes` serializes in place: a dict's
+  own order); the chunk record keeps the order above.
 
 Arrays come back as torch tensors, whatever their dtype, `bfloat16`
 included (numpy has no such dtype without `ml_dtypes`): one representation
@@ -147,20 +148,22 @@ def _chunk(x) -> dict:
             "chunks": {str(j): flat[i:i + size] for j, i in enumerate(range(0, n, size))}}
 
 
-def _prepare(tree: Any) -> Any:
-    """flax's copy of the tree: maps rebuilt with sorted keys, then large
-    arrays chunked."""
+def _prepare(tree: Any, sort_keys: bool = True) -> Any:
+    """flax's copy of the tree: maps rebuilt with sorted keys (or in their
+    order), then large arrays chunked."""
     if isinstance(tree, dict):
-        return {k: _prepare(tree[k]) for k in sorted(tree)}
+        return {k: _prepare(tree[k], sort_keys) for k in (sorted(tree) if sort_keys else tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_prepare(v) for v in tree)
+        return type(tree)(_prepare(v, sort_keys) for v in tree)
     if isinstance(tree, (torch.Tensor, np.ndarray)) and _nbytes(tree) > MAX_CHUNK_SIZE:
         return _chunk(tree)
     return tree
 
 
-def serialize(tree: Any) -> bytes:
-    """The bytes of flax's `msgpack_serialize(tree)`."""
+def serialize(tree: Any, sort_keys: bool = True) -> bytes:
+    """The bytes of flax's `msgpack_serialize(tree)`; with `sort_keys`
+    false, of `to_bytes(tree)`, which serializes a tree of dicts in place,
+    its maps in their insertion order."""
     msgpack = _msgpack("serializing a flax msgpack tree")
 
     def default(x):
@@ -170,12 +173,12 @@ def serialize(tree: Any) -> bytes:
             return msgpack.ExtType(EXT_NPSCALAR, _array_bytes(msgpack, np.asarray(x)))
         raise TypeError(f"{type(x).__name__} has no flax msgpack form")
 
-    return msgpack.packb(_prepare(tree), default=default, strict_types=True)
+    return msgpack.packb(_prepare(tree, sort_keys), default=default, strict_types=True)
 
 
-def save(path: str, tree: Any) -> None:
-    """`serialize(tree)` into a file."""
+def save(path: str, tree: Any, sort_keys: bool = True) -> None:
+    """`serialize(tree, sort_keys)` into a file."""
     _msgpack(path)
-    data = serialize(tree)
+    data = serialize(tree, sort_keys)
     with open(path, "wb") as f:
         f.write(data)

@@ -372,7 +372,7 @@ Phases, each printing one line or more (and failing the run by raising):
     (a) The kernels alone at the new head shapes (`P15_SHAPES`,
     `P15_ROWS`, `P15_DECODE`): K1 at D = 96 (the D = 128 body over tensor
     maps of extent 96) causal at [4, 32 / 32, 2113] and at B = 2 with its
-    logsumexp, dq and dk/dv; K2 on [B, S, H, D] views of one projection at
+    logsumexp, dq and dk/dv (the backward's own D = 96 instantiation); K2 on [B, S, H, D] views of one projection at
     the same rows (bit-equal to K1); K1 at Qwen2's 14 / 2 heads; K8 at 32 /
     32 heads of 96 and 14 / 2 heads of 64 over 2145-row windows: each
     against its plain version at TOL / LSE_TOL / BWD_TOL / DELTA_TOL /
@@ -4459,8 +4459,8 @@ QWEN2_05B = {
     "num_key_value_heads": 2, "hidden_act": "silu", "max_position_embeddings": 32768,
     "rms_norm_eps": 1e-6, "rope_theta": 1000000.0, "tie_word_embeddings": True,
     "bos_token_id": 151643, "eos_token_id": 151645, "use_sliding_window": False}
-# 15a, (B, hq, hkv, S, D, causal, kv_valid): Phi-3-mini's decoder at D = 96 on
-# the D = 128 body (scoring: 4 videos; training: 2), Qwen2-0.5B's 14 / 2 heads
+# 15a, (B, hq, hkv, S, D, causal, kv_valid): Phi-3-mini's decoder at D = 96
+# (scoring: 4 videos; training: 2), Qwen2-0.5B's 14 / 2 heads
 P15_SHAPES = {"phi3": (4, 32, 32, 2113, 96, True, None),
               "phi3_train": (2, 32, 32, 2113, 96, True, None),
               "qwen2": (4, 14, 2, 2113, 64, True, None)}
@@ -6396,7 +6396,7 @@ def main() -> int:
         "w1 / w3 fused 2048 -> 16384, w2 8192 -> 2048), one launch each, weights from device "
         "memory; launches are those of the probe's run (tools/fp8_decode_probe.run), its only "
         "caller: no model serves fp8 weights", shapes=fp8))
-    # phase 15's forms: Phi-3-mini's D = 96 (on the D = 128 body) and
+    # phase 15's forms: Phi-3-mini's D = 96 (the forward on the D = 128 body) and
     # Qwen2-0.5B's 14 / 2 heads, each per unit of its path at its shapes;
     # launches are the phase's runs' at that head shape (`tally_heads`)
     n4, n1 = 32, 24

@@ -83,10 +83,14 @@ jax-free, so that it runs where jax is not installed:
   decoder feeds, which launch K5a and K5b in every pass) and int8 against the
   same model on the plain decode attention, and shared-prefix scores against
   the unshared path.
-- Head dim 96 (Phi-3-mini, InternVL2-4B's decoder), which the attention
-  kernels run on their D = 128 body with tensor maps of innermost extent 96,
-  and Qwen2-0.5B's 14 / 2 heads (InternVL2-1B): K1, K2, the backward and K8
-  at those shapes within the tolerances above.
+- Head dim 96 (Phi-3-mini, InternVL2-4B's decoder), which the forward
+  kernels run on their D = 128 body with tensor maps of innermost extent 96
+  and the backward kernels on their own D = 96 instantiation (192-row q
+  tiles and 64-key K/V tiles in dq, 128-key tiles over 64-row q tiles in
+  dk/dv; the backward also at those borders, causal with groups of 2 and 4,
+  and three tensors across, Sq 127 over Skv 257), and Qwen2-0.5B's 14 / 2
+  heads (InternVL2-1B): K1, K2, the backward and K8 at those shapes within
+  the tolerances above.
 """
 
 import pytest
@@ -133,8 +137,9 @@ SHAPES = {
     "vit": (32, 16, 16, 1032, 64, False, 1025),
     "llm": (4, 16, 8, 2113, 128, True, None),
     "ragged": (2, 4, 4, 200, 64, False, 150),
-    # Phi-3-mini's decoder (InternVL2-4B), D = 96 on the D = 128 body, and a
-    # ragged D = 96 shape; Qwen2-0.5B's (InternVL2-1B), 14 / 2 heads of 64
+    # Phi-3-mini's decoder (InternVL2-4B), D = 96 (the forward on the D = 128
+    # body), and a ragged D = 96 shape; Qwen2-0.5B's (InternVL2-1B), 14 / 2
+    # heads of 64
     "phi3_d96": (4, 32, 32, 2113, 96, True, None),
     "ragged_d96": (2, 4, 4, 200, 96, False, 150),
     "qwen2_g7": (4, 14, 2, 2113, 64, True, None),
@@ -163,6 +168,7 @@ BWD_SHAPES = {
     "phi3_d96": (2, 32, 32, 2113, 96, True, None),
     "gqa2_tail_d96": (1, 4, 2, 136, 96, False, 129),
     "s65_causal_d96": (2, 4, 2, 65, 96, True, None),
+    "s191_causal_d96": (1, 8, 2, 191, 96, True, None),
     "qwen2_g7": (2, 14, 2, 2113, 64, True, None),
 }
 DELTA_TOL = 1e-5  # delta from the dq kernel against the fp32 expression, relative L2
@@ -520,6 +526,7 @@ SEPARATE = {
     "cross_gqa_tail_d128": (1, 70, 333, 8, 2, 128, False, 300),
     "gqa_causal_d96": (2, 200, 200, 4, 2, 96, True, None),
     "cross_tail_d96": (1, 70, 333, 8, 8, 96, False, 300),
+    "cross_gqa_d96": (2, 127, 257, 12, 2, 96, False, None),
 }
 
 

@@ -15,11 +15,20 @@ bit:
 - `extract_video_frames` on a GIF and an mp4: every JPEG;
 - `make_synthetic_ckpt`: the SlowFast leaves in the order of flax's
   `flatten_dict` over `SlowFastR50.init` (tiny and default widths), and
-  every file for seed 0 and for seed 3 without SlowFast.
+  every file for seed 0 and for seed 3 without SlowFast;
+- `convert_weights`' command line on one sharded synthetic checkpoint: the
+  port's `python -m` against JAX's `main`, the written `params.msgpack` byte
+  for byte and the printed line, with the towers stacked and (a config
+  with `scan_layers` false) unrolled; `--strict` refusing an unmapped key in
+  both, which without it both skip.
 """
 
+import contextlib
+import io
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -236,3 +245,79 @@ def test_make_synthetic_ckpt_files_equal_jax(tmp_path, seed, slowfast):
     assert names == sorted(os.listdir(tmp_path / "t")) and "tokenizer.json" in names
     for n in names:
         assert (tmp_path / "t" / n).read_bytes() == (tmp_path / "j" / n).read_bytes(), n
+
+
+@pytest.fixture(scope="module")
+def synthetic_ckpt(tmp_path_factory):
+    """One tiny sharded reference checkpoint, and a file with a key that no
+    model has."""
+    from safetensors.numpy import save_file
+
+    from aigv_assessor_tpu.tools.make_synthetic_ckpt import make_synthetic_checkpoint
+
+    d = tmp_path_factory.mktemp("convert_ckpt")
+    make_synthetic_checkpoint(str(d / "ckpt"), stage=2, n_shards=2, seed=0)
+    save_file({"not_a_module.weight": np.ones((2, 3), np.float32)}, str(d / "extra.safetensors"))
+    return d
+
+
+def _convert_both(d, config, extra=(), flags=()):
+    """The port's tool as `python -m`, JAX's through its `main`: -> (port's
+    file, JAX's file, port's stdout, JAX's stdout)."""
+    from aigv_assessor_tpu.tools import convert_weights as j_conv
+
+    ckpt = [str(d / "ckpt"), *extra]
+    argv = lambda out: ["--torch_ckpt", *ckpt, "--config", str(config), "--out", str(out),
+                        *flags]
+    t_out, j_out = d / "t.msgpack", d / "j.msgpack"
+    for f in (t_out, j_out):
+        f.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        os.environ.get("PYTHONPATH")])))
+    run = subprocess.run([sys.executable, "-m", "aigv_assessor_torch.tools.convert_weights",
+                          *argv(t_out)], capture_output=True, text=True, env=env)
+    assert run.returncode == 0, run.stderr
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        j_conv.main(argv(j_out))
+    return t_out.read_bytes(), j_out.read_bytes(), run.stdout, printed.getvalue()
+
+
+@pytest.mark.parametrize("scan_layers", [True, False], ids=["stacked", "unrolled"])
+def test_convert_weights_cli_writes_jax_bytes(synthetic_ckpt, scan_layers):
+    d = synthetic_ckpt
+    config = d / "ckpt" / "config.json"
+    if not scan_layers:
+        cfg = json.loads(config.read_text())
+        for tower in ("vision_config", "llm_config"):
+            cfg[tower]["scan_layers"] = False
+        config = d / "config_unrolled.json"
+        config.write_text(json.dumps(cfg))
+    got, want, t_said, j_said = _convert_both(d, config, flags=["--strict"])
+    assert got == want
+    said = t_said.strip().splitlines()[-1]
+    assert said == j_said.strip().splitlines()[-1].replace("j.msgpack", "t.msgpack")
+    assert said.startswith(f"wrote {d / 't.msgpack'}: ") and said.endswith("M params")
+    tree = flax_msgpack.restore(got)["params"]
+    layers = "layers" if scan_layers else "layers_0"
+    assert layers in tree["language_model"]
+
+
+def test_convert_weights_strict_refuses_an_unmapped_key(synthetic_ckpt):
+    from aigv_assessor_tpu.tools import convert_weights as j_conv
+    from aigv_assessor_torch.tools import convert_weights as t_conv
+
+    d = synthetic_ckpt
+    argv = ["--torch_ckpt", str(d / "ckpt"), str(d / "extra.safetensors"), "--config",
+            str(d / "ckpt" / "config.json"), "--out", str(d / "strict.msgpack"), "--strict"]
+    for tool in (t_conv, j_conv):
+        with pytest.raises(ValueError, match="1 unmapped checkpoint keys"):
+            tool.main(argv)
+    assert not (d / "strict.msgpack").exists()
+    # without --strict both skip the key and write what they write without it
+    got, want, _, _ = _convert_both(d, d / "ckpt" / "config.json",
+                                    extra=[str(d / "extra.safetensors")])
+    clean, _, _, _ = _convert_both(d, d / "ckpt" / "config.json")
+    assert got == want == clean
+
