@@ -41,9 +41,9 @@
 //
 // Design. One block at a time on an SM; every load is a TMA box of
 // [rows][64] bf16 in the 128-byte swizzle (D = 64, 128) or [rows][32] in the
-// 64-byte swizzle (D = 96, `Layout`), completing on an mbarrier
-// ("full"), ring stages refilled when every consumer warp has released them
-// ("empty"). The tensor maps are encoded on the host per call
+// 64-byte swizzle (D = 96; `Layout` in hopper.cuh, which the forward
+// shares), completing on an mbarrier ("full"), ring stages refilled when
+// every consumer warp has released them ("empty"). The tensor maps are encoded on the host per call
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so nothing links
 // libcuda). Their row extents are Sq for q, out and dout and kv_valid for k
 // and v, so TMA zero-fills the rows of a ragged tile and a garbage tail past
@@ -154,29 +154,6 @@ constexpr int WG_ROWS = 64;  // rows (dq: q rows; dk/dv: keys) of one consumer w
 constexpr int BN = 64;       // dq: keys per K/V tile
 constexpr int BQ = 64;       // dk/dv: q rows per Q/dO tile
 constexpr float LOG2E = 1.4426950408889634f;
-
-// How a [rows][D] tile lies in shared memory: D / COLS TMA boxes of
-// [rows][COLS] side by side, each row of a box one swizzle span of ROW bytes.
-// D = 64 and 128 take boxes of 64 columns in the 128-byte swizzle; D = 96
-// takes three of 32 columns in the 64-byte swizzle, so that no column of
-// shared memory, no k16 step of a score product and no accumulator column
-// of a gradient product is spent on padding.
-template <int D>
-struct Layout {
-  static constexpr bool SW64 = D == 96;
-  static constexpr int COLS = SW64 ? 32 : 64;
-  static constexpr int ROW = 2 * COLS;       // bytes of one box row
-  static constexpr int BOXES = D / COLS;     // TMA boxes per tile row
-  static constexpr int GROUP = 8 * ROW;      // bytes of one 8-row group
-  // byte offset of 16-byte chunk `chunk` (of its box) in row `row`
-  __device__ static __forceinline__ int at(int row, int chunk) {
-    return row * ROW + ((chunk ^ (SW64 ? (row >> 1) & 3 : row & 7)) * 16);
-  }
-  // K-major (lbo unread) or MN-major (lbo: the stride between boxes)
-  __device__ static __forceinline__ uint64_t desc(const void* tile, uint32_t lbo) {
-    return SW64 ? make_desc_sw64(tile, lbo, GROUP) : make_desc_sw128(tile, lbo, GROUP);
-  }
-};
 
 // The dq kernel's K/V ring: 4 stages at D = 96, where the 64-byte swizzle's
 // smaller tiles leave room for them beside three consumers' Q, dO and O, else

@@ -37,8 +37,10 @@
 //
 // Design (warp-specialised; one block per (q tile, q head, batch)):
 // - Warpgroup 0 is the producer. It gives registers back (setmaxnreg 24) and
-//   its first thread issues every load as a TMA box of [rows][64] bf16 in the
-//   128-byte swizzle (one box per 64 columns of D): the block's Q tile once,
+//   its first thread issues every load as a TMA box of `Layout<D>`
+//   (hopper.cuh, the backward's too): [rows][64] bf16 in the 128-byte swizzle
+//   at D = 64 and 128, [rows][32] in the 64-byte swizzle at D = 96, one box
+//   per 64 or 32 columns of D. It loads the block's Q tile once,
 //   then K and V tiles into a ring of 2 stages, each completing on its own
 //   mbarrier ("full") and refilled when every consumer warp has released it
 //   ("empty"; K after its S product, V after its PV product). The tensor maps
@@ -49,7 +51,8 @@
 //   non-finite garbage tail cannot reach the output through 0 * inf, and the
 //   ragged edges need no code.
 // - The other warpgroups are consumers of 64 q rows each: three at D = 64
-//   (q tiles of 192 rows, setmaxnreg 160), two at D = 128 (128 rows, 240).
+//   and 96 (q tiles of 192 rows, setmaxnreg 160), two at D = 128 (128 rows,
+//   240).
 //   Both products run on the tensor cores as wgmma with fp32 accumulation:
 //   S = Q K^T as m64nBNk16 with A = Q and B = K from shared memory (both
 //   K-major), and O += P V as m64nDk16 with A = P from registers (the S
@@ -60,9 +63,9 @@
 //   that PV is in flight (FA3's intra-warpgroup overlap). The consumers take
 //   turns at issuing their products (a ring of named barriers), so one
 //   warpgroup's softmax runs under the others' products.
-// - Keys per tile (BN): 128, or 176 at D = 128 where it pads kv_valid no
-//   more than 128 does (kv_valid 1025: 6 tiles of 176 cover 1056 keys, 9 of
-//   128 cover 1152).
+// - Keys per tile (BN): 128 at D = 64; 96 at D = 96; at D = 128 176 where
+//   it pads kv_valid no more than 128 does (kv_valid 1025: 6 tiles of 176
+//   cover 1056 keys, 9 of 128 cover 1152), else 128.
 // - The softmax is online, in base 2 (scale * log2(e) folded into one FMA
 //   before ex2), with fp32 running max m and sum l per row, each row's
 //   columns spread over 4 threads; P is rounded to bf16 before the PV
@@ -74,31 +77,38 @@
 //   swizzled layout and stores it with one TMA box per 64 columns; rows at
 //   or beyond Sq are clipped by the map.
 //
-// Head dims: 64 and 128 have their own instantiations. D = 96 (Phi-3-mini's
-// 3072 / 32) runs the D = 128 one: the tensor maps declare the true D = 96 as
-// their innermost extent, so TMA zero-fills columns 96-127 of each row's
-// second 64-column box on every load (the mbarrier still counts whole boxes)
-// and leaves them out of every store; the zero columns of Q and K add nothing
-// to S, and V's give output columns that are never written. The softmax
-// scale comes from the caller (96^-0.5), never from the template's D. A
-// quarter of the tensor-core work is spent on the zeros.
+// Head dims: 64, 96 (Phi-3-mini's 3072 / 32, InternVL2-4B's decoder) and
+// 128, each its own instantiation. At D = 96 a tile row is three boxes of 32
+// columns in the 64-byte swizzle, 192 bytes, so nothing is padded: S = Q K^T
+// runs D / 16 = 6 k16 steps and O += P V runs at N = 96 (m64n96k16, V
+// MN-major over three 32-wide column blocks), so O is 48 registers a thread.
+// What that frees went to a third consumer warpgroup: S, O and P of 96-key
+// tiles take 120 of the 128 registers a thread of a 512-thread block can
+// have (128-key tiles would take 144: ptxas spilled 144 bytes). The softmax
+// scale comes from the caller (96^-0.5), never from the template's D.
 //
 // Budget (nvcc -Xptxas -v, CUDA 12.8): 168 registers a thread at launch for
-// D = 128 (384 threads), 128 for D = 64 (512 threads), no spills; the
-// consumers then run at 240 and 160. Shared memory: 88 KB at D = 64, 160 KB
-// at D = 128 with 128-key tiles, 208 KB with 176-key tiles: one block per SM.
+// D = 128 (384 threads), 128 for D = 64 and 96 (512 threads), no spills; the
+// consumers then run at 240 and 160. Shared memory: 88 KB at D = 64, 108 KB
+// at D = 96, 160 KB at D = 128 with 128-key tiles, 208 KB with 176-key
+// tiles: one block per SM.
 //
 // What bounds it. Attention at the scoring shapes is compute-bound (the
 // 2B ViT, B = 32, 16 heads, S = 1032, D = 64: ~520 FLOP per byte of qkv and
 // output; the 2B LLM, causal, D = 128: ~700; the H100's balance is ~295),
 // so the bound is the tensor-core rate. On an H100 80GB HBM3 at 700 W this
 // kernel reached 37% of that bound at the 2B ViT's shape, 44% at the 2B
-// LLM's and 50-54% at InternViT-6B's (chip_smoke.py, PERF.md). Removing the
-// exponential gained 3.5% at D = 64 and removing the whole softmax about
-// 25%, so what is left is mostly in the products' pipeline: at D = 64 each
-// k16 step of the SS-form QK product reads Q and K from shared memory and
-// every block re-reads all of its head's K and V from L2 (1 / BM bytes per
-// FLOP). Open: TMA multicast of K / V across a cluster of q tiles, a
+// LLM's, 50-54% at InternViT-6B's and 41% at Phi-3-mini's [4, 32 / 32,
+// 2113, 96] causal (0.96x SDPA's forward; chip_smoke.py,
+// tools/attention_ab.py, PERF.md). At D = 96 the softmax's work per key is
+// that of D = 128 over three quarters of the products: a K/V ring of 3 or 4
+// stages, 112-key tiles, and two consumers over 128-key tiles ran within 3%
+// of this body; two over 176- or 192-key tiles 3-9% slower, 80-key tiles 8%.
+// Removing the exponential gained 3.5% at D = 64 and removing the whole
+// softmax about 25%, so what is left is mostly in the products' pipeline: at
+// D = 64 each k16 step of the SS-form QK product reads Q and K from shared
+// memory and every block re-reads all of its head's K and V from L2 (1 / BM
+// bytes per FLOP). Open: TMA multicast of K / V across a cluster of q tiles, a
 // persistent grid that overlaps one tile's epilogue with the next one's
 // loads, the 8-row last q tile of S = 1032 (its block costs a full one),
 // and a narrower S product for the diagonal tile's masked half.
@@ -110,6 +120,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -118,18 +130,18 @@ using namespace hopper;
 
 constexpr int WG_ROWS = 64;           // q rows of one consumer warpgroup
 constexpr int STAGES = 2;             // K/V ring depth
-constexpr int BOX = 64;               // columns of one TMA box: one 128-byte swizzle row
 constexpr int PRODUCER_REGS = 24;
 constexpr uint32_t SCHED_BAR = 4;     // named barriers 4-6: the consumers' turns at the tensor cores
 
-// Consumer warpgroups per block: three at D = 64 (160 registers each, S, O
-// and P in 128 of them), two at D = 128 (240 each). With the producer's 24
-// both fill the 65536 registers the launch allots: 128 * (24 + 3 * 160) =
+// Consumer warpgroups per block: three at D = 64 and 96 (160 registers each;
+// S, O and P take 128 of them at D = 64 with 128-key tiles and 120 at D = 96
+// with 96-key tiles), two at D = 128 (240 each). With the producer's 24 both
+// fill the 65536 registers the launch allots: 128 * (24 + 3 * 160) =
 // 128 * (24 + 2 * 240) = 64512.
-__host__ __device__ constexpr int consumers(int D) { return D == 64 ? 3 : 2; }
+__host__ __device__ constexpr int consumers(int D) { return D == 128 ? 2 : 3; }
 __host__ __device__ constexpr int block_rows(int D) { return WG_ROWS * consumers(D); }
 __host__ __device__ constexpr int block_threads(int D) { return 128 * (consumers(D) + 1); }
-__host__ __device__ constexpr int consumer_regs(int D) { return D == 64 ? 160 : 240; }
+__host__ __device__ constexpr int consumer_regs(int D) { return D == 128 ? 240 : 160; }
 
 // strides of one tensor in elements; D is contiguous
 struct Strides {
@@ -137,8 +149,8 @@ struct Strides {
 };
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base: Q as
-// D / 64 boxes of [block_rows rows][64], each K and V stage as D / 64 boxes
-// of [BN rows][64], then the barriers.
+// Layout<D>'s boxes of [block_rows rows][COLS], each K and V stage as boxes
+// of [BN rows][COLS], then the barriers.
 template <int D, int BN>
 struct Smem {
   static constexpr int BM = block_rows(D);
@@ -148,6 +160,7 @@ struct Smem {
   static constexpr int V_OFF = K_OFF + STAGES * KV;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;  // + alignment slack
+  static_assert(BYTES <= 227 * 1024, "more shared memory than a block may have");
 };
 
 struct Barriers {
@@ -166,7 +179,9 @@ __device__ __forceinline__ float ex2(float x) {
 
 template <int BN>
 __device__ __forceinline__ void wgmma_s(float (&s)[BN / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (BN == 128)
+  if constexpr (BN == 96)
+    wgmma_ss_n96(s, a, b, scale_d);
+  else if constexpr (BN == 128)
     wgmma_ss_n128(s, a, b, scale_d);
   else
     wgmma_ss_n176(s, a, b, scale_d);
@@ -176,8 +191,18 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&p)[4], uint64_t b) {
   if constexpr (D == 128)
     wgmma_rs_n128_mn(o, p, b);
+  else if constexpr (D == 96)
+    wgmma_rs_n96_mn(o, p, b);
   else
     wgmma_rs_n64_mn(o, p, b);
+}
+
+// Byte offset of k16 step kk's 16 columns in a [rows][D] tile of Layout<D>'s
+// boxes: box 16 kk / COLS, 32 bytes into its rows per step within it
+template <int D>
+__host__ __device__ constexpr int k_offset(int rows, int kk) {
+  using L = Layout<D>;
+  return (kk * 16 / L::COLS) * rows * L::ROW + (kk * 16 % L::COLS) * 2;
 }
 
 // One consumer warpgroup: 64 q rows against every K/V tile of the block.
@@ -192,6 +217,7 @@ __device__ __forceinline__ void consumer(const unsigned char* sQ, const unsigned
                                          float* __restrict__ lse, int c, int active, int q0,
                                          int h, int b, int hq, int Sq, int kv_valid,
                                          int n_tiles, float scale_log2) {
+  using L = Layout<D>;
   constexpr int KV = Smem<D, BN>::KV;
   constexpr int BM = Smem<D, BN>::BM;
   const int tid = threadIdx.x % 128;
@@ -199,7 +225,7 @@ __device__ __forceinline__ void consumer(const unsigned char* sQ, const unsigned
   const int tq = lane & 3;                    // thread within a row's group of 4
   const int qw0 = q0 + c * WG_ROWS;           // this warpgroup's first row
   const int r0 = qw0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
-  const unsigned char* qa = sQ + c * WG_ROWS * 128;
+  const unsigned char* qa = sQ + c * WG_ROWS * L::ROW;
   const bool turns = active > 1;
   const bool last_wg = c == active - 1;
 
@@ -226,9 +252,8 @@ __device__ __forceinline__ void consumer(const unsigned char* sQ, const unsigned
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t da = make_desc_sw128(qa + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024);
-      const uint64_t db =
-          make_desc_sw128(sK + st * KV + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t da = L::desc(qa + k_offset<D>(BM, kk), 16);
+      const uint64_t db = L::desc(sK + st * KV + k_offset<D>(BN, kk), 16);
       wgmma_s<BN>(s, da, db, kk > 0);
     }
     wgmma_commit();
@@ -238,7 +263,7 @@ __device__ __forceinline__ void consumer(const unsigned char* sQ, const unsigned
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_pv<D>(o, p[kk], make_desc_sw128(sV + st * KV + kk * 16 * 128, BN * 128, 1024));
+      wgmma_pv<D>(o, p[kk], L::desc(sV + st * KV + kk * 16 * L::ROW, BN * L::ROW));
     wgmma_commit();
   };
   // the online softmax of tile t on s, in place: s becomes p in fp32, m and
@@ -356,18 +381,17 @@ __device__ __forceinline__ void consumer(const unsigned char* sQ, const unsigned
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
   // O in bf16 into this warpgroup's Q rows (read for the last time above),
-  // in the swizzled layout of the output map's [64 rows][64] boxes, then one
-  // TMA store per box; rows at or beyond Sq are not written
-  unsigned char* so = sO + c * WG_ROWS * 128;
+  // in the swizzled layout of the output map's [64 rows][COLS] boxes, then
+  // one TMA store per box; rows at or beyond Sq are not written
+  unsigned char* so = sO + c * WG_ROWS * L::ROW;
 #pragma unroll
   for (int nb = 0; nb < D / 8; ++nb) {
     const int col = nb * 8 + tq * 2;
-    const int box = col / BOX, chunk = (col % BOX) / 8;
+    const int box = col / L::COLS, chunk = (col % L::COLS) / 8;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = warp * 16 + lane / 4 + half * 8;
-      unsigned char* dst =
-          so + box * BM * 128 + row * 128 + ((chunk ^ (row & 7)) * 16) + (col % 8) * 2;
+      unsigned char* dst = so + box * BM * L::ROW + L::at(row, chunk) + (col % 8) * 2;
       *reinterpret_cast<uint32_t*>(dst) =
           pack_bf16(o[nb * 4 + half * 2] * inv[half], o[nb * 4 + half * 2 + 1] * inv[half]);
     }
@@ -376,7 +400,8 @@ __device__ __forceinline__ void consumer(const unsigned char* sQ, const unsigned
   named_barrier_sync(1 + c, 128);
   if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < D / BOX; ++j) tma_store_4d(to, so + j * BM * 128, j * BOX, qw0, h, b);
+    for (int j = 0; j < L::BOXES; ++j)
+      tma_store_4d(to, so + j * BM * L::ROW, j * L::COLS, qw0, h, b);
     tma_store_commit();
   }
   if (lse != nullptr && tq == 0) {
@@ -397,6 +422,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  float* __restrict__ lse, int Sq, int kv_valid, int hq, int group,
                  float scale_log2) {
   using S = Smem<D, BN>;
+  using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sQ = smem;
@@ -440,21 +466,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       prefetch_tensormap(&tk);
       prefetch_tensormap(&tv);
       mbar_arrive_expect_tx(bar.q_full, S::Q);
-      for (int j = 0; j < D / BOX; ++j)
-        tma_load_4d(sQ + j * BM * 128, &tq, bar.q_full, j * BOX, q0, h, b);
+      for (int j = 0; j < L::BOXES; ++j)
+        tma_load_4d(sQ + j * BM * L::ROW, &tq, bar.q_full, j * L::COLS, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % STAGES;
         const uint32_t free_parity = ((t / STAGES) & 1) ^ 1;
         mbar_wait(bar.k_empty + st, free_parity);
         mbar_arrive_expect_tx(bar.k_full + st, S::KV);
-        for (int j = 0; j < D / BOX; ++j)
-          tma_load_4d(sK + st * S::KV + j * BN * 128, &tk, bar.k_full + st, j * BOX, t * BN,
-                      kvh, b);
+        for (int j = 0; j < L::BOXES; ++j)
+          tma_load_4d(sK + st * S::KV + j * BN * L::ROW, &tk, bar.k_full + st, j * L::COLS,
+                      t * BN, kvh, b);
         mbar_wait(bar.v_empty + st, free_parity);
         mbar_arrive_expect_tx(bar.v_full + st, S::KV);
-        for (int j = 0; j < D / BOX; ++j)
-          tma_load_4d(sV + st * S::KV + j * BN * 128, &tv, bar.v_full + st, j * BOX, t * BN,
-                      kvh, b);
+        for (int j = 0; j < L::BOXES; ++j)
+          tma_load_4d(sV + st * S::KV + j * BN * L::ROW, &tv, bar.v_full + st, j * L::COLS,
+                      t * BN, kvh, b);
       }
     }
   } else {
@@ -469,10 +495,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 // ------------------------------------------------------------------- host --
 
 // A [batch, heads, rows, D] bf16 view through its strides as a 4-d tensor map
-// (D innermost), boxes of [box_rows][64] in the 128-byte swizzle. Rows at or
+// (D innermost), boxes of [box_rows][COLS] in Layout<D>'s swizzle. Rows at or
 // beyond `rows` read as zeros and are not written.
-bool make_map(CUtensorMap* map, const void* base, int D, long long rows, long long heads,
+template <int D>
+bool make_map(CUtensorMap* map, const void* base, long long rows, long long heads,
               long long batch, Strides st, int box_rows) {
+  using L = Layout<D>;
   const PFN_cuTensorMapEncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const long long ext[3] = {rows, heads, batch};
@@ -487,10 +515,11 @@ bool make_map(CUtensorMap* map, const void* base, int D, long long rows, long lo
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i)
     strides[i] = static_cast<cuuint64_t>(ext[i] > 1 ? el[i] * 2 : widest);
-  cuuint32_t box[4] = {BOX, static_cast<cuuint32_t>(box_rows), 1, 1};
+  cuuint32_t box[4] = {L::COLS, static_cast<cuuint32_t>(box_rows), 1, 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                L::SW64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -519,8 +548,34 @@ cudaError_t launch_bn(const Maps& maps, float* lse, int B, int hq, int hkv, int 
                 : launch<D, BN, false>(maps, lse, B, hq, hkv, Sq, kv_valid, scale_log2, stream);
 }
 
-// Checks what the kernel relies on, encodes the four tensor maps and picks
-// the instantiation.
+// Encodes the four tensor maps and launches the head dim's instantiation.
+// Keys per tile: at D = 128, 176 where it pads kv_valid no more than 128 does
+// (1025 keys: 6 tiles of 176 cover 1056, 9 of 128 cover 1152), else 128; at
+// D = 64 always 128 and at D = 96 always 96 (three warpgroups' registers hold
+// neither 176 nor, at D = 96, 128).
+template <int D>
+cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                     __nv_bfloat16* out, float* lse, int B, int hq, int hkv, int Sq,
+                     int kv_valid, int causal, Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale_log2, cudaStream_t st) {
+  constexpr int NARROW = D == 96 ? 96 : 128;
+  const auto padded = [kv_valid](int bn) { return (kv_valid + bn - 1) / bn * bn; };
+  const bool wide = D == 128 && padded(176) <= padded(128);
+  const int bn = wide ? 176 : NARROW;
+  Maps maps;
+  // a view TMA cannot describe (strides off 16 bytes, a base off 16 bytes)
+  if (!make_map<D>(&maps.q, q, Sq, hq, B, qs, block_rows(D)) ||
+      !make_map<D>(&maps.k, k, kv_valid, hkv, B, ks, bn) ||
+      !make_map<D>(&maps.v, v, kv_valid, hkv, B, vs, bn) ||
+      !make_map<D>(&maps.out, out, Sq, hq, B, os, WG_ROWS))
+    return cudaErrorInvalidPitchValue;
+  if constexpr (D == 128) {
+    if (wide) return launch_bn<D, 176>(maps, lse, B, hq, hkv, Sq, kv_valid, causal, scale_log2, st);
+  }
+  return launch_bn<D, NARROW>(maps, lse, B, hq, hkv, Sq, kv_valid, causal, scale_log2, st);
+}
+
+// Checks what the kernel relies on and picks the head dim's instantiation.
 int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
              __nv_bfloat16* out, float* lse, int B, int hq, int hkv, int Sq, int Skv, int D,
              int kv_valid, int causal, Strides qs, Strides ks, Strides vs, Strides os,
@@ -531,29 +586,13 @@ int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16
       kv_valid > Skv || (causal && Sq != Skv) || (D != 64 && D != 96 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B > 65535 || hq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // keys per tile: at D = 96 and 128, 176 where it pads kv_valid no more
-  // than 128 does (1025 keys: 6 tiles of 176 cover 1056, 9 of 128 cover
-  // 1152), else 128; at D = 64 always 128 (176 would not fit three
-  // warpgroups' registers)
-  const auto padded = [kv_valid](int bn) { return (kv_valid + bn - 1) / bn * bn; };
-  const int bn = D != 64 && padded(176) <= padded(128) ? 176 : 128;
-  Maps maps;
-  // a view TMA cannot describe (strides off 16 bytes, a base off 16 bytes)
-  if (!make_map(&maps.q, q, D, Sq, hq, B, qs, block_rows(D)) ||
-      !make_map(&maps.k, k, D, kv_valid, hkv, B, ks, bn) ||
-      !make_map(&maps.v, v, D, kv_valid, hkv, B, vs, bn) ||
-      !make_map(&maps.out, out, D, Sq, hq, B, os, WG_ROWS))
-    return static_cast<int>(cudaErrorInvalidPitchValue);
-  // D = 96 runs the D = 128 instantiation over maps whose innermost extent
-  // is 96: TMA zero-fills columns 96-127 of every second box it loads (they
-  // add nothing to q.k, and V's give output columns that are never stored)
-  // and clips them from every store
-  cudaError_t err;
-  if (D == 64)
-    err = launch_bn<64, 128>(maps, lse, B, hq, hkv, Sq, kv_valid, causal, scale_log2, st);
-  else
-    err = bn == 176 ? launch_bn<128, 176>(maps, lse, B, hq, hkv, Sq, kv_valid, causal, scale_log2, st)
-                    : launch_bn<128, 128>(maps, lse, B, hq, hkv, Sq, kv_valid, causal, scale_log2, st);
+  const auto run = [&](auto d) {
+    return launch_d<decltype(d)::value>(q, k, v, out, lse, B, hq, hkv, Sq, kv_valid, causal, qs,
+                                        ks, vs, os, scale_log2, st);
+  };
+  const cudaError_t err = D == 64   ? run(std::integral_constant<int, 64>())
+                          : D == 96 ? run(std::integral_constant<int, 96>())
+                                    : run(std::integral_constant<int, 128>());
   return static_cast<int>(err);
 }
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks as inline PTX: shared-memory addresses,
 // mbarriers, TMA tensor loads (2-d and 4-d) and stores, cp.async into an
-// mbarrier, wgmma descriptors (128- and 64-byte swizzle), products, fences
-// and groups, setmaxnreg and named barriers; and, on the host, the driver's
-// tensor-map encoder.
+// mbarrier, wgmma descriptors (128- and 64-byte swizzle) and the attention
+// kernels' tile layout (`Layout<D>`), products, fences and groups,
+// setmaxnreg and named barriers; and, on the host, the driver's tensor-map
+// encoder.
 // Header-only; a kernel that includes it is built for sm_90a (`wgmma` and
 // `setmaxnreg` exist only there).
 //
@@ -231,6 +232,29 @@ __device__ __forceinline__ uint64_t make_desc_sw64(const void* tile, uint32_t lb
   return make_desc(tile, lbo, sbo, 2);
 }
 
+// How a [rows][D] bf16 tile lies in shared memory, as both attention kernels
+// load it: D / COLS TMA boxes of [rows][COLS] side by side, each row of a box
+// one swizzle span of ROW bytes. D = 64 and 128 take boxes of 64 columns in
+// the 128-byte swizzle; D = 96 takes three of 32 columns in the 64-byte
+// swizzle, so that no column of shared memory, no k16 step of a score
+// product and no accumulator column of a product over D is spent on padding.
+template <int D>
+struct Layout {
+  static constexpr bool SW64 = D == 96;
+  static constexpr int COLS = SW64 ? 32 : 64;
+  static constexpr int ROW = 2 * COLS;       // bytes of one box row
+  static constexpr int BOXES = D / COLS;     // TMA boxes per tile row
+  static constexpr int GROUP = 8 * ROW;      // bytes of one 8-row group
+  // byte offset of 16-byte chunk `chunk` (of its box) in row `row`
+  __device__ static __forceinline__ int at(int row, int chunk) {
+    return row * ROW + ((chunk ^ (SW64 ? (row >> 1) & 3 : row & 7)) * 16);
+  }
+  // K-major (lbo unread) or MN-major (lbo: the stride between boxes)
+  __device__ static __forceinline__ uint64_t desc(const void* tile, uint32_t lbo) {
+    return SW64 ? make_desc_sw64(tile, lbo, GROUP) : make_desc_sw128(tile, lbo, GROUP);
+  }
+};
+
 // orders register accesses by other instructions before the next wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -362,6 +386,26 @@ __device__ __forceinline__ void wgmma_ss_n176(float (&d)[88], uint64_t a, uint64
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 96] (+)= A[64 x 16] B[16 x 96], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

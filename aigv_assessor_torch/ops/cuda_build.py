@@ -98,7 +98,7 @@ def build(libraries: Sequence[CudaLibrary], verbose: bool = False) -> float:
                 failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
                 continue
             if verbose:
-                print(err, end="")
+                print(f"# {lib.path.name}\n{err}", end="")
             os.replace(tmp, lib.path)
         if failures:
             raise RuntimeError("\n".join(failures))

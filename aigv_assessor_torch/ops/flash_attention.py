@@ -22,8 +22,9 @@ second pair of entries of `csrc/flash_attn_bwd.cu`.
 Each source's header comment says what bounds its kernels on the card and how
 they are laid out. The forward (both entries, every form) is one Hopper
 kernel: a producer warp loads Q, K and V tiles by TMA into a ring in shared
-memory, and two (D = 128) or three (D = 64) consumer warpgroups of 64 query
-rows run both products on `wgmma` with the online softmax between them. The
+memory, and two (D = 128) or three (D = 64, 96) consumer warpgroups of 64
+query rows run both products on `wgmma` with the online softmax between them;
+each head dim (64, 96, 128) has its own instantiation, none padded. The
 backward is two Hopper kernels built the same way: a dq kernel (one block per
 q tile, K and V streamed) and a dk/dv kernel (one block per 128-key tile, the
 group's Q and dO tiles streamed), every product on `wgmma`. The tensor maps

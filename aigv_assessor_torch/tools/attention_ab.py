@@ -1,19 +1,23 @@
 """The flash-attention forward of this checkout against other versions of
 its source, on one CUDA card, in one process.
 
-    python -m aigv_assessor_torch.tools.attention_ab [NAME=DIR ...]
+    python -m aigv_assessor_torch.tools.attention_ab [--check-only] [--shapes A,B]
+        [NAME=DIR ...]
 
 Each DIR holds another `flash_attn_fwd.cu` (and the headers it includes),
 e.g. the parent commit's `aigv_assessor_torch/csrc` unpacked with `git
 archive`. Every version, the checkout's own ("tree") first, is built with
 nvcc (`-Xptxas -v`: registers and spills are printed) and held against
 `plain_attention_qkv` at small shapes that cross its tile borders (output
-to atol = rtol = 2e-2, logsumexp to 1e-4); then each of the scoring path's
-shapes is timed by CUDA graph replay (3 launches per graph), the versions in
-turns (tree, others, others reversed, tree), with SDPA on the same views in
-the same process. Prints the card's name and power limit, then one JSON line
-per shape: ms per launch of each run, share of the bound (FLOPs / 989
-TFLOP/s), SDPA's ms. Exits 1 if a version disagrees with the plain one.
+to atol = rtol = 2e-2, logsumexp to 1e-4), at D = 64, 96 and 128; then each
+of the scoring and training paths' shapes (those named by `--shapes`, else
+all; none with `--check-only`) is timed by CUDA graph replay (3 launches per
+graph), the versions in turns (tree, others, others reversed, tree), with
+SDPA's forward on the same views in the same process. `llm_4b_train` is
+timed in the logsumexp form the training path runs. Prints the card's name
+and power limit, then one JSON line per shape: ms per launch of each run,
+share of the bound (FLOPs / 989 TFLOP/s), SDPA's ms. Exits 1 if a version
+disagrees with the plain one.
 
 Needs a CUDA card; there is no CPU mode.
 """
@@ -36,14 +40,27 @@ CHECKS = [
     (1, 2, 2, 300, 64, False, 1), (2, 4, 4, 1032, 64, False, 1025),
     (1, 4, 4, 40, 128, True, None), (1, 4, 4, 65, 64, False, 65),
     (1, 4, 4, 700, 128, False, 600), (1, 4, 4, 1000, 64, True, None),
+    # D = 96 (Phi-3-mini): one row, the borders of 64-row warpgroups and of
+    # 128- and 192-row q tiles, groups of 2 and 4 over a kv_valid tail one
+    # past a key tile, one valid key, fewer key tiles than ring stages, a
+    # ragged tail, and kv_valid 1025 (the widest key tiles)
+    (1, 2, 2, 1, 96, True, None), (2, 4, 2, 65, 96, True, None),
+    (1, 8, 2, 191, 96, True, None), (1, 4, 4, 193, 96, True, None),
+    (1, 4, 2, 136, 96, False, 129), (1, 8, 2, 136, 96, False, 129),
+    (1, 2, 2, 300, 96, False, 1), (1, 4, 4, 40, 96, True, None),
+    (2, 4, 4, 200, 96, False, 150), (1, 2, 2, 1032, 96, False, 1025),
 ]
-# the 2B ViT and LLM, InternViT-6B and internlm2-chat-20b (InternVL2-26B)
+# the 2B ViT and LLM, InternViT-6B, internlm2-chat-20b (InternVL2-26B) and
+# Phi-3-mini (InternVL2-4B) scoring 4 videos and training on 2
 TIMED = {
     "vit_2b": (32, 16, 16, 1032, 64, False, 1025),
     "llm_2b": (4, 16, 8, 2113, 128, True, None),
     "vit_6b": (32, 25, 25, 1032, 128, False, 1025),
     "llm_20b": (4, 48, 8, 2113, 128, True, None),
+    "llm_4b": (4, 32, 32, 2113, 96, True, None),
+    "llm_4b_train": (2, 32, 32, 2113, 96, True, None),
 }
+WITH_LSE = {"llm_4b_train"}
 
 
 def make_qkv(shape, device) -> torch.Tensor:
@@ -87,12 +104,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("attention_ab needs a CUDA card", file=sys.stderr)
         return 1
+    args = list(argv if argv is not None else sys.argv[1:])
+    check_only = "--check-only" in args
+    args = [a for a in args if a != "--check-only"]
+    timed = {} if check_only else dict(TIMED)
+    if "--shapes" in args:
+        at = args.index("--shapes")
+        names = args[at + 1].split(",")
+        del args[at : at + 2]
+        unknown = sorted(set(names) - set(TIMED))
+        if unknown:
+            print(f"unknown shapes {unknown}; known: {sorted(TIMED)}", file=sys.stderr)
+            return 2
+        timed = {} if check_only else {n: TIMED[n] for n in names}
     device = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     versions = {"tree": fa.LIB}
-    for arg in argv if argv is not None else sys.argv[1:]:
+    for arg in args:
         name, _, folder = arg.partition("=")
         lib = cuda_build.CudaLibrary("flash_attn_fwd.cu", fa._declare)
         lib.source = (Path(folder) / "flash_attn_fwd.cu").resolve()
@@ -119,20 +149,22 @@ def main(argv=None) -> int:
             print(f"{name} {shape}: max_abs_err {err:.3e}, lse {lse_err:.3e} "
                   f"{'ok' if good else 'FAILED'}", flush=True)
     order = list(versions) + list(versions)[::-1]
-    for label, shape in TIMED.items():
+    for label, shape in timed.items():
         _, hq, hkv, _, _, causal, kv_valid = shape
         qkv = make_qkv(shape, device)
+        fwd = fa.flash_attention_qkv_lse if label in WITH_LSE else fa.flash_attention_qkv
         runs = {}
         for name in order:
             fa.LIB = versions[name]
             runs.setdefault(name, []).append(graph_ms(
-                lambda: fa.flash_attention_qkv(qkv, hq, hkv, causal=causal, kv_valid=kv_valid)))
+                lambda: fwd(qkv, hq, hkv, causal=causal, kv_valid=kv_valid)))
         q, k, v = qkv[:, :hq], qkv[:, hq : hq + hkv, :kv_valid], qkv[:, hq + hkv :, :kv_valid]
         with torch.no_grad():
             sdpa_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=hq != hkv))
         bound = flops(shape) / PEAK_FLOPS * 1e3
-        print(json.dumps({"shape": label, "dims": shape, "ms": runs, "sdpa_ms": sdpa_ms,
+        print(json.dumps({"shape": label, "dims": shape, "lse": label in WITH_LSE,
+                          "ms": runs, "sdpa_ms": sdpa_ms,
                           "bound_ms": bound,
                           "bound_share": {n: bound / min(t) for n, t in runs.items()},
                           "card": card}), flush=True)

@@ -370,8 +370,8 @@ Phases, each printing one line or more (and failing the run by raising):
     published one. The prompts are phase 4's shape with ids below Phi-3's
     vocabulary.
     (a) The kernels alone at the new head shapes (`P15_SHAPES`,
-    `P15_ROWS`, `P15_DECODE`): K1 at D = 96 (the D = 128 body over tensor
-    maps of extent 96) causal at [4, 32 / 32, 2113] and at B = 2 with its
+    `P15_ROWS`, `P15_DECODE`): K1 at D = 96 (the forward's own D = 96
+    instantiation) causal at [4, 32 / 32, 2113] and at B = 2 with its
     logsumexp, dq and dk/dv (the backward's own D = 96 instantiation); K2 on [B, S, H, D] views of one projection at
     the same rows (bit-equal to K1); K1 at Qwen2's 14 / 2 heads; K8 at 32 /
     32 heads of 96 and 14 / 2 heads of 64 over 2145-row windows: each
@@ -6396,7 +6396,7 @@ def main() -> int:
         "w1 / w3 fused 2048 -> 16384, w2 8192 -> 2048), one launch each, weights from device "
         "memory; launches are those of the probe's run (tools/fp8_decode_probe.run), its only "
         "caller: no model serves fp8 weights", shapes=fp8))
-    # phase 15's forms: Phi-3-mini's D = 96 (the forward on the D = 128 body) and
+    # phase 15's forms: Phi-3-mini's D = 96 (the forward's own D = 96 body) and
     # Qwen2-0.5B's 14 / 2 heads, each per unit of its path at its shapes;
     # launches are the phase's runs' at that head shape (`tally_heads`)
     n4, n1 = 32, 24
@@ -6415,7 +6415,7 @@ def main() -> int:
     kernels += [
         p15_fwd("flash_attn_qkv_fwd_d96", "phi3", n4, tally4.get("bhsd 32/32/96", 0),
                 f"one InternVL2-4B scoring forward: {n4} decoder launches at the phi3 shape "
-                "(D = 96 on the D = 128 body); launches: the bf16 scoring run's (15b) at 32/32/96"),
+                "(D = 96's own body); launches: the bf16 scoring run's (15b) at 32/32/96"),
         p15_fwd("flash_attn_qkv_fwd_qwen2", "qwen2", n1, tally1.get("bhsd 14/2/64", 0),
                 f"one InternVL2-1B scoring forward: {n1} decoder launches at 14 / 2 heads of 64; "
                 "launches: the bf16 scoring run's (15f) at 14/2/64"),

@@ -83,14 +83,18 @@ jax-free, so that it runs where jax is not installed:
   decoder feeds, which launch K5a and K5b in every pass) and int8 against the
   same model on the plain decode attention, and shared-prefix scores against
   the unshared path.
-- Head dim 96 (Phi-3-mini, InternVL2-4B's decoder), which the forward
-  kernels run on their D = 128 body with tensor maps of innermost extent 96
-  and the backward kernels on their own D = 96 instantiation (192-row q
-  tiles and 64-key K/V tiles in dq, 128-key tiles over 64-row q tiles in
-  dk/dv; the backward also at those borders, causal with groups of 2 and 4,
-  and three tensors across, Sq 127 over Skv 257), and Qwen2-0.5B's 14 / 2
-  heads (InternVL2-1B): K1, K2, the backward and K8 at those shapes within
-  the tolerances above.
+- Head dim 96 (Phi-3-mini, InternVL2-4B's decoder), which the forward and
+  the backward kernels run on their own D = 96 instantiations in the
+  64-byte-swizzled layout of 32-column boxes: the forward at the borders of
+  its 192-row q tiles and 96-key tiles (one row, 65, 191 and 193 rows
+  causal, groups of 2 and 4 over a kv_valid tail of 129 in 136 rows, one
+  valid key, 40 rows (fewer key tiles than ring stages), a ragged tail, and
+  three tensors with 193 q rows over a kv_valid of 97), in every output form
+  and with its logsumexp; the backward at its own borders (192-row q tiles
+  and 64-key K/V tiles in dq, 128-key tiles over 64-row q tiles in dk/dv;
+  causal with groups of 2 and 4, and three tensors across, Sq 127 over Skv
+  257); and Qwen2-0.5B's 14 / 2 heads (InternVL2-1B): K1, K2, the backward
+  and K8 at those shapes within the tolerances above.
 """
 
 import pytest
@@ -137,12 +141,23 @@ SHAPES = {
     "vit": (32, 16, 16, 1032, 64, False, 1025),
     "llm": (4, 16, 8, 2113, 128, True, None),
     "ragged": (2, 4, 4, 200, 64, False, 150),
-    # Phi-3-mini's decoder (InternVL2-4B), D = 96 (the forward on the D = 128
-    # body), and a ragged D = 96 shape; Qwen2-0.5B's (InternVL2-1B), 14 / 2
-    # heads of 64
+    # Phi-3-mini's decoder (InternVL2-4B), D = 96, and a ragged D = 96 shape;
+    # Qwen2-0.5B's (InternVL2-1B), 14 / 2 heads of 64
     "phi3_d96": (4, 32, 32, 2113, 96, True, None),
     "ragged_d96": (2, 4, 4, 200, 96, False, 150),
     "qwen2_g7": (4, 14, 2, 2113, 64, True, None),
+    # the borders of D = 96's 192-row q tiles, 64-row warpgroups and 96-key
+    # tiles: one row, 65, 191 and 193 rows causal, groups of 2 and 4 over a
+    # kv_valid one past a key tile, one valid key, fewer key tiles than ring
+    # stages
+    "s1_causal_d96": (1, 2, 2, 1, 96, True, None),
+    "s65_causal_d96": (2, 4, 2, 65, 96, True, None),
+    "s191_causal_d96": (1, 8, 2, 191, 96, True, None),
+    "s193_causal_d96": (1, 4, 4, 193, 96, True, None),
+    "gqa2_tail_d96": (1, 4, 2, 136, 96, False, 129),
+    "gqa4_tail_d96": (1, 8, 2, 136, 96, False, 129),
+    "kv1_d96": (1, 2, 2, 300, 96, False, 1),
+    "s40_causal_d96": (1, 4, 4, 40, 96, True, None),
 }
 # shapes for the backward: both head dims, GQA with groups of 2, 4 and 6,
 # causal and not, a garbage tail, and the borders of the kernels' tiles (the
@@ -527,6 +542,8 @@ SEPARATE = {
     "gqa_causal_d96": (2, 200, 200, 4, 2, 96, True, None),
     "cross_tail_d96": (1, 70, 333, 8, 8, 96, False, 300),
     "cross_gqa_d96": (2, 127, 257, 12, 2, 96, False, None),
+    # one q row past a 192-row q tile, kv_valid one past a 96-key tile
+    "s193_kv97_d96": (1, 193, 193, 8, 2, 96, False, 97),
 }
 
 

@@ -183,6 +183,28 @@ def test_forward_attention_runs_on_wgmma_and_tma():
         assert entry in fwd
 
 
+def test_attention_kernels_share_one_tile_layout_with_d96_of_its_own():
+    """Both attention sources lay tiles out through `hopper.cuh`'s one
+    `Layout<D>` (64-byte swizzle, 32-column boxes at D = 96), and the forward
+    reaches a D = 96 instantiation of its own from both entries: its products
+    run at the true width (m64n96 for P V and for S over 96-key tiles), and
+    no route maps D = 96 onto the D = 128 body."""
+    from aigv_assessor_torch.ops import cuda_build
+
+    csrc = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
+    fwd, bwd, header = ((csrc / name).read_text()
+                        for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "hopper.cuh"))
+    assert "struct Layout {" in header
+    assert "SW64 = D == 96" in header and "make_desc_sw64(tile, lbo, GROUP)" in header
+    for source in (fwd, bwd):
+        assert "struct Layout" not in source and "using L = Layout<D>;" in source
+        assert "L::SW64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B" in source
+    assert "wgmma_rs_n96_mn(o, p, b)" in fwd and "wgmma_ss_n96(s, a, b, scale_d)" in fwd
+    assert "D == 96 ? run(std::integral_constant<int, 96>())" in fwd
+    assert "launch_bn<128, 128>" not in fwd and "launch_bn<128, 176>" not in fwd
+    assert "BOX = 64" not in fwd
+
+
 def test_backward_attention_runs_on_wgmma_and_tma():
     """The flash-attention backward's source (dq and dk/dv, both pairs of
     entries) issues every product as Hopper `wgmma` on TMA-loaded tiles,
