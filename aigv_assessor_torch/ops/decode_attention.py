@@ -26,6 +26,8 @@ never written before attention.
   mask, computed once per decode step by the decoder.
 - `decode_kernel_supported`: the shapes the kernel takes. The decoder sends
   every single-token step on a float cache that passes it through the kernel.
+- `_splits`, `_wide`: the launch's pieces a window and its form (split or
+  wide), from B, Hkv, the capacity and the card's SM count.
 
 `starts` and `end` stay on the device: nothing here reads them on the host.
 Layouts: q [B, Hq, D]; cache k/v [B, max_len, Hkv, D], the model's cache
@@ -57,6 +59,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         *[ctypes.c_int] * 6,  # B, hq, hkv, max_len, D, nsplit
         *[ctypes.c_longlong] * 12,  # q (batch, head), k, v (batch, row, head), k_new, v_new
         ctypes.c_float, ctypes.c_void_p,  # scale, stream
+        ctypes.c_int,  # wide: the form of the launch
     ]
     lib.aigv_cached_decode_attention.restype = ctypes.c_int
 
@@ -162,9 +165,22 @@ def _splits(batch: int, hkv: int, max_len: int, sms: int) -> int:
     capacity, not `end`): one block per (kv head, sample, piece), two blocks
     to an SM, and at most 7/8 of those slots, so that the clusters find room
     in one wave (on an H100 at the 2B decode shape: 7 pieces, 224 blocks,
-    18.4 us; 8 pieces, 256 blocks, 26 us); no piece shorter than one tile."""
+    18.4 us; 8 pieces, 256 blocks, 26 us); no piece shorter than one tile.
+    From 116 (kv head, sample) pairs on 132 SMs on, one piece: Phi-3's decode
+    step (4 x 32 pairs), the 2B step at B = 16 (16 x 8), which take the wide
+    form (`_wide`) while the pairs are no more than the SMs."""
     return max(1, min(2 * sms * 7 // 8 // (batch * hkv), max_len // MIN_ROWS_PER_SPLIT,
                       MAX_SPLITS))
+
+
+def _wide(batch: int, hkv: int, nsplit: int, sms: int) -> bool:
+    """The launch's form. Where each window is one piece and the (kv head,
+    sample) pairs are no more than the SMs, the split form's grid would hold
+    one block of 4 warps an SM (on an H100 at Phi-3's step: 2.5 TB/s, any
+    ring depth); the wide form runs one block of 8 warps an SM over a whole
+    window, one tile ahead, two kv heads of a sample in step as a cluster.
+    Every other launch takes the split form."""
+    return nsplit == 1 and batch * hkv <= sms
 
 
 def _sm_count(index: int) -> int:
@@ -174,10 +190,11 @@ def _sm_count(index: int) -> int:
 
 
 def _launch(q, cache_k, cache_v, starts, end, k_new=None, v_new=None,
-            nsplit: Optional[int] = None):
+            nsplit: Optional[int] = None, wide: Optional[bool] = None):
     """One launch -> out [B, Hq, D] (with k_new / v_new [B, Hkv, D]: the
-    current token merged), or (out, m, l) without them. Alignment is checked
-    by the kernel's entry, without a host cost."""
+    current token merged), or (out, m, l) without them. `nsplit` and `wide`
+    default to `_splits`' and `_wide`'s. Alignment is checked by the
+    kernel's entry, without a host cost."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     if q.ndim != 3 or cache_k.ndim != 4 or cache_k.shape != cache_v.shape:
@@ -212,6 +229,8 @@ def _launch(q, cache_k, cache_v, starts, end, k_new=None, v_new=None,
     index = q.device.index
     if nsplit is None:
         nsplit = _splits(b, hkv, max_len, _sm_count(index))
+    if wide is None:
+        wide = _wide(b, hkv, nsplit, _sm_count(index))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     ml = None if merge else torch.empty((2, b, hq), dtype=torch.float32, device=q.device)
     kn, vn = (k_new.data_ptr(), v_new.data_ptr()) if merge else (None, None)
@@ -222,7 +241,7 @@ def _launch(q, cache_k, cache_v, starts, end, k_new=None, v_new=None,
     args = (q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), kn, vn, starts.data_ptr(),
             end.data_ptr(), out.data_ptr(), m_ptr, l_ptr, b, hq, hkv, max_len, d, nsplit,
             *q.stride()[:2], *cache_k.stride()[:3], *cache_v.stride()[:3], *news, d**-0.5,
-            torch.cuda.current_stream(index).cuda_stream)
+            torch.cuda.current_stream(index).cuda_stream, int(wide))
     if index == torch.cuda.current_device():
         rc = lib.aigv_cached_decode_attention(*args)
     else:

@@ -374,7 +374,8 @@ Phases, each printing one line or more (and failing the run by raising):
     instantiation) causal at [4, 32 / 32, 2113] and at B = 2 with its
     logsumexp, dq and dk/dv (the backward's own D = 96 instantiation); K2 on [B, S, H, D] views of one projection at
     the same rows (bit-equal to K1); K1 at Qwen2's 14 / 2 heads; K8 at 32 /
-    32 heads of 96 and 14 / 2 heads of 64 over 2145-row windows: each
+    32 heads of 96 (its wide form) and 14 / 2 heads of 64 (the split form)
+    over 2145-row windows, the form and pieces in each line: each
     against its plain version at TOL / LSE_TOL / BWD_TOL / DELTA_TOL /
     DECODE_TOL, timed by CUDA graph replay beside its bound (FLOPs of the
     true D) and SDPA.
@@ -1807,8 +1808,12 @@ def check_decode_attention(dec, two_part, device, shapes=DECODE_SHAPES,
                                        "the eager one")
             del graph
         n_rows = int(inside.sum())
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        nsplit = dec._splits(b, hkv, max_len, sms)
         r = dict(shape=f"B={b} hq={hq} hkv={hkv} D={d} max_len={max_len} end={end_i} "
-                 f"starts={list(starts_t)}", rows=n_rows, max_abs_err=max(err, fused_err),
+                 f"starts={list(starts_t)}", nsplit=nsplit,
+                 form="wide" if dec._wide(b, hkv, nsplit, sms) else "split",
+                 rows=n_rows, max_abs_err=max(err, fused_err),
                  window_max_abs_err=err, fused_max_abs_err=fused_err,
                  merged_max_abs_err=merged_err,
                  m_max_rel_err=((m - w_m).abs() / w_m.abs().clamp_min(1e-6)).max().item(),
@@ -1893,7 +1898,8 @@ def check_decode_attention(dec, two_part, device, shapes=DECODE_SHAPES,
                  f"(max_abs_err to plain {r['library_max_abs_err']:.3e})" +
                  (f", windows of {DECODE_SHORT} rows {r['short_ms'] * 1e3:.1f} us"
                   if "short_ms" in r else ""))
-        phase("kernel", f"decode attention {name}: {r['shape']} ({n_rows} rows): window out "
+        phase("kernel", f"decode attention {name}: {r['shape']} ({n_rows} rows; {r['form']} "
+              f"form, {nsplit} piece(s) a window): window out "
               f"max_abs_err {err:.3e}, fused entry vs plain_cached_decode_attention "
               f"{fused_err:.3e} (atol=rtol={DECODE_TOL}), m / l max rel err "
               f"{r['m_max_rel_err']:.2e} / {r['l_max_rel_err']:.2e} (tol {DECODE_ML_RTOL}), rows "
@@ -6471,6 +6477,11 @@ def main() -> int:
             ms=n * r["ms"], plain_ms=n * r["plain_ms"], bound_ms=n * r["bound_ms"],
             bound_by=r["bound_by"], library_ms=n * r["library_ms"],
             library="as for decode_attention", eager_ms=n * r["eager_ms"],
+            design=(f"{r['form']} form, {r['nsplit']} piece(s) a window: " + (
+                "one block of 8 warps an SM over each whole window, one tile ahead, two kv "
+                "heads of a sample in step as a thread-block cluster, read-once L2 policy"
+                if r["form"] == "wide" else
+                "two blocks an SM, the pieces of a window merged in a thread-block cluster")),
             unit=f"one decode step at {r['shape']}: {n} launches of the fused entry; launches: "
             f"the bf16 {P15_GEN_TOKENS}-token generate of "
             f"{'InternVL2-4B (15c)' if key == 'phi3' else 'InternVL2-1B (15f)'}",

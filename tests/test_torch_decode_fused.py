@@ -6,7 +6,10 @@ on the CPU.
   `cached_decode_attention` with its Pallas kernel in interpret mode (blocks
   of 16 rows, so windows start and end inside blocks), fp32 on both sides, at
   2e-5 (the JAX tests' own bound for the merged output): every window shape,
-  an empty window (which gives v_new exactly) and no mask.
+  an empty window (which gives v_new exactly) and no mask; head dims 64, 96
+  and 128, one to seven query heads per kv head.
+- The pieces and the form of the kernel's launch at the decode steps'
+  shapes on 132 SMs.
 - The wrapper on CPU tensors is that plain version and counts no launch.
 - The decoder computes the windows' first rows once per step, and its
   logits are those of a decoder whose attention computes them per layer.
@@ -52,6 +55,10 @@ DECODE = {
     "empty_cache": (2, 8, 4, 64, 32, 0, (0, 0)),
     "one_row_window": (2, 16, 8, 128, 32, 20, (19, 0)),
     "start_past_end": (2, 8, 4, 64, 40, 12, (12, 30)),
+    # one query head per kv head at D = 96 (Phi-3-mini), windows that start
+    # and end inside a 16-row block; seven per kv head (Qwen2-0.5B's 14 / 2)
+    "mha_d96": (2, 8, 8, 96, 56, 37, (0, 9)),
+    "gqa_14_over_2_d64": (2, 14, 2, 64, 56, 55, (3, 0)),
 }
 
 
@@ -108,6 +115,20 @@ def test_cpu_wrapper_is_the_plain_version(name):
     old = t_dec.decode_attention(_t(q[:, 0]), _t(ck), _t(cv), _t(starts), end)
     merged = t_dec.merge_new_token(*old, _t(q[:, 0]), _t(k), _t(v))
     np.testing.assert_allclose(merged.numpy(), got[:, 0].numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("batch, hkv, want", [
+    (4, 32, (1, True)),  # Phi-3-mini's decode step: 128 (kv head, sample) pairs
+    (4, 8, (7, False)),  # the 2B decode step
+    (16, 8, (1, True)),  # the 2B step at B = 16: 128 pairs again
+    (4, 2, (16, False)),  # Qwen2-0.5B's 2 kv heads
+    (5, 32, (1, False)),  # 160 pairs: more than the SMs, two blocks an SM
+])
+def test_decode_launch_form_on_132_sms(batch, hkv, want):
+    """The pieces and the form the wrapper picks for a cache of 2177 rows on
+    an H100's 132 SMs."""
+    nsplit = t_dec._splits(batch, hkv, 2177, 132)
+    assert (nsplit, t_dec._wide(batch, hkv, nsplit, 132)) == want
 
 
 def test_window_starts_are_the_first_attended_rows():

@@ -66,7 +66,10 @@ jax-free, so that it runs where jax is not installed:
   current token merged in fp32) within the same 2e-2 of
   `plain_cached_decode_attention` at every shape with NaN outside the
   windows; captured in a CUDA graph and replayed three times, bit-equal to
-  the eager call (the launch keeps no state between calls).
+  the eager call (the launch keeps no state between calls), also in the wide
+  form (Phi-3-mini's step, the 2B step at B = 16) and for the window alone.
+  The wide form's edges: G = 1 at D = 96 with ragged, one-row and empty
+  windows, 132 and 160 (kv head, sample) pairs.
 - The fp8 decode matmul (K9): relative L2 at most 1e-3 from the plain
   version rounded to bf16 (both sum exact products in fp32; what is left is
   the summation order), at the probe's shapes and decode rows, over two row
@@ -1020,6 +1023,14 @@ DECODE = {
     "phi3_d96": (4, 32, 32, 96, 2145, 2129, (0, 0, 0, 0)),
     "ragged_d96": (3, 8, 2, 96, 300, 250, (0, 100, 249)),
     "qwen2_g7": (4, 14, 2, 64, 2145, 2129, (0, 3, 0, 40)),
+    # the wide form's edges (one piece, at most one (kv head, sample) pair an
+    # SM on an H100): G = 1 at D = 96 with a ragged, a one-row and an empty
+    # window; the 2B step at B = 16; 132 pairs of one tile; and 160 pairs,
+    # more than the SMs, in the split form
+    "phi3_ragged": (4, 32, 32, 96, 2177, 2150, (0, 701, 2149, 2150)),
+    "path_2b_b16": (16, 16, 8, 128, 2177, 2113, (0,) * 16),
+    "pairs_132_d64": (33, 8, 4, 64, 100, 90, (0, 5, 89, 90) * 8 + (17,)),
+    "phi3_b5_pairs_160": (5, 32, 32, 96, 600, 577, (0, 13, 576, 577, 200)),
 }
 
 
@@ -1122,6 +1133,29 @@ def test_cached_decode_attention_replays_in_a_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(replayed, eager)
+
+
+@pytest.mark.parametrize("name", ["phi3_d96", "path_2b_b16"])
+def test_cached_decode_attention_replays_in_a_graph_in_the_wide_form(cuda, name):
+    """Phi-3-mini's decode step and the 2B step at B = 16: the fused entry and
+    the window alone, replayed three times, bit-equal to the eager calls."""
+    q, ck, cv, starts, end = make_decode(name, cuda)
+    k, v = make_new_token(q, ck)
+    eager = dec.cached_decode_attention(q[:, None], k, v, ck, cv, end, starts=starts)
+    window = dec.decode_attention(q, ck, cv, starts, end)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = dec.cached_decode_attention(q[:, None], k, v, ck, cv, end, starts=starts)
+        replayed_window = dec.decode_attention(q, ck, cv, starts, end)
+    for _ in range(3):
+        replayed.zero_()
+        for t in replayed_window:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+        assert all(torch.equal(a, b) for a, b in zip(replayed_window, window))
 
 
 def test_cached_decode_attention_rejects_what_it_does_not_take(cuda):
