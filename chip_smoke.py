@@ -6195,15 +6195,23 @@ def main() -> int:
 
     sdpa_note = ("F.scaled_dot_product_attention on the same q/k/v views, enable_gqa for "
                  "GQA, k and v cut at kv_valid")
+    # the forward's two schedules (csrc/flash_attn_fwd.cu's header)
+    fwd_design = (
+        "causal: one persistent block an SM over (q tile, q head, sample) items dealt "
+        "snake-wise in rounds of the grid, longest group of q tiles first over the whole launch "
+        "(one q tile a group while the batch's K and V fit in 32 MiB, one more a group for every "
+        "32 MiB past that), q tiles aligned to the end of the sequence (the ragged one first, "
+        "from row 0), the K/V ring, the consumers' turns and a second Q buffer carried from one "
+        "item into the next; not causal: one block per (q tile, q head, sample)")
     kernels = [
-        dict(name="flash_attn_qkv_fwd", **fwd_src, launches=launches_bhsd,
+        dict(name="flash_attn_qkv_fwd", **fwd_src, design=fwd_design, launches=launches_bhsd,
              max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
              ms=per_unit(shapes, "ms"), plain_ms=per_unit(shapes, "plain_ms"),
              bound_ms=per_unit(shapes, "bound_ms"), bound_by=shapes["vit"]["bound_by"],
              library_ms=per_unit(shapes, "library_ms"), library=sdpa_note,
              unit="one scoring forward: 24 launches at the vit shape, 24 at the llm shape",
              shapes=shapes),
-        dict(name="flash_attn_qkv_fwd_bsd", **fwd_src,
+        dict(name="flash_attn_qkv_fwd_bsd", **fwd_src, design=fwd_design,
              launches=counts8["flash_attention_qkv"],
              max_abs_err=max(r["bsd_max_abs_err"] for r in shapes.values()),
              ms=per_unit(shapes, "bsd_ms"), plain_ms=per_unit(shapes, "bsd_plain_ms"),
@@ -6211,7 +6219,7 @@ def main() -> int:
              library_ms=per_unit(shapes, "library_ms"),
              library=sdpa_note + "; its output is head-major, the dense rows would cost a copy",
              unit="one W8A8 scoring forward: 24 + 24 launches"),
-        dict(name="flash_attn_qkv_fwd_lse", **fwd_src,
+        dict(name="flash_attn_qkv_fwd_lse", **fwd_src, design=fwd_design,
              launches=train_counts["flash_attention_qkv_lse"],
              max_abs_err=max(r["lse_max_abs_err"] for r in train_shapes.values()),
              ms=per_unit(train_shapes, "lse_ms", 2),
@@ -6247,7 +6255,7 @@ def main() -> int:
     ]
     llm_sep = separate["llm"]
     kernels.append(dict(
-        name="flash_attn_fwd", route="cuda",
+        name="flash_attn_fwd", route="cuda", design=fwd_design,
         source="aigv_assessor_torch/csrc/flash_attn_fwd.cu",
         replaces="aigv_assessor_tpu/ops/pallas_attention.py:352",
         launches=counts_int8["flash_attention"],
@@ -6413,7 +6421,8 @@ def main() -> int:
 
     def p15_fwd(name, key, n, launches, unit):
         r = f15[key]
-        return dict(name=name, **fwd_src, launches=launches, max_abs_err=r["max_abs_err"],
+        return dict(name=name, **fwd_src, design=fwd_design, launches=launches,
+                    max_abs_err=r["max_abs_err"],
                     ms=n * r["ms"], plain_ms=n * r["plain_ms"], bound_ms=n * r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=n * r["library_ms"], library=sdpa_note,
                     unit=unit, shapes={key: r})
@@ -6425,7 +6434,7 @@ def main() -> int:
         p15_fwd("flash_attn_qkv_fwd_qwen2", "qwen2", n1, tally1.get("bhsd 14/2/64", 0),
                 f"one InternVL2-1B scoring forward: {n1} decoder launches at 14 / 2 heads of 64; "
                 "launches: the bf16 scoring run's (15f) at 14/2/64"),
-        dict(name="flash_attn_qkv_fwd_lse_d96", **fwd_src,
+        dict(name="flash_attn_qkv_fwd_lse_d96", **fwd_src, design=fwd_design,
              launches=train_tally.get("lse 32/32/96", 0), max_abs_err=t15["lse_max_abs_err"],
              ms=2 * n4 * t15["lse_ms"], plain_ms=2 * n4 * t15["plain_lse_ms"],
              bound_ms=2 * n4 * t15["bounds"]["fwd_lse"]["bound_ms"],
@@ -6454,7 +6463,7 @@ def main() -> int:
              library="as for flash_attn_qkv_bwd_dq",
              unit=f"one InternVL2-4B training micro-batch: {n4} decoder launches; launches: "
              "15e's at 32/32/96"),
-        dict(name="flash_attn_fwd_d96", route="cuda",
+        dict(name="flash_attn_fwd_d96", route="cuda", design=fwd_design,
              source="aigv_assessor_torch/csrc/flash_attn_fwd.cu",
              replaces="aigv_assessor_tpu/ops/pallas_attention.py:352",
              launches=p15["4b"]["int8"]["counts"]["flash_attention"],

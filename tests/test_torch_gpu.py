@@ -98,6 +98,12 @@ jax-free, so that it runs where jax is not installed:
   causal with groups of 2 and 4, and three tensors across, Sq 127 over Skv
   257); and Qwen2-0.5B's 14 / 2 heads (InternVL2-1B): K1, K2, the backward
   and K8 at those shapes within the tolerances above.
+- The causal forward's schedule (one persistent block an SM, q tiles aligned
+  to the end of the sequence): K1 at 14 / 2 heads of 64 at one row, 193 rows
+  and 2113 rows (B = 1) in every form within the tolerances above; captured
+  in a CUDA graph with and without the logsumexp, replayed three times
+  bit-equal to the eager launches, at Qwen2-0.5B's and the 2B decoder's
+  shapes.
 """
 
 import pytest
@@ -161,6 +167,13 @@ SHAPES = {
     "gqa4_tail_d96": (1, 8, 2, 136, 96, False, 129),
     "kv1_d96": (1, 2, 2, 300, 96, False, 1),
     "s40_causal_d96": (1, 4, 4, 40, 96, True, None),
+    # the causal kernel's q tiles, aligned to the end of the sequence, at
+    # Qwen2-0.5B's 14 / 2 heads: one row (the ragged tile alone), one row
+    # past a 192-row tile (a ragged tile of one row first), and 2113 rows at
+    # B = 1 (168 items over the SMs)
+    "s1_causal_g7": (1, 14, 2, 1, 64, True, None),
+    "s193_causal_g7": (1, 14, 2, 193, 64, True, None),
+    "s2113_causal_g7": (1, 14, 2, 2113, 64, True, None),
 }
 # shapes for the backward: both head dims, GQA with groups of 2, 4 and 6,
 # causal and not, a garbage tail, and the borders of the kernels' tiles (the
@@ -295,6 +308,32 @@ def test_forward_with_lse_matches_plain(cuda, name):
     _, want = plain_attention_qkv(qkv, hq, hkv, return_lse=True, **kw)
     assert lse.dtype == torch.float32 and lse.shape == want.shape and lse.is_contiguous()
     torch.testing.assert_close(lse, want, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["qwen2_g7", "llm"])
+def test_causal_forward_replays_in_a_graph(cuda, name):
+    """The causal kernel (one persistent block an SM, its items dealt
+    statically, no counter) captured in a CUDA graph with and without the
+    logsumexp and replayed three times: bit-equal to the eager launches
+    every time, at Qwen2-0.5B's and the 2B decoder's shapes."""
+    shape = SHAPES[name]
+    _, hq, hkv, _, _, causal, _ = shape
+    qkv = make_qkv(shape, cuda, seed=4)
+    want = flash_attention_qkv(qkv, hq, hkv, causal=causal)
+    want_out, want_lse = flash_attention_qkv_lse(qkv, hq, hkv, causal=causal)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_attention_qkv(qkv, hq, hkv, causal=causal)
+        got_out, got_lse = flash_attention_qkv_lse(qkv, hq, hkv, causal=causal)
+    for _ in range(3):
+        for t in (got, got_out, got_lse):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_out, want_out)
+        assert torch.equal(got_lse, want_lse)
+    assert torch.equal(want, want_out)
 
 
 @pytest.mark.parametrize("name", list(BWD_SHAPES))

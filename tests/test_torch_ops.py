@@ -205,6 +205,38 @@ def test_attention_kernels_share_one_tile_layout_with_d96_of_its_own():
     assert "BOX = 64" not in fwd
 
 
+def test_causal_forward_is_one_persistent_form():
+    """Every causal launch of the forward (K1 and K2, every head dim, with or
+    without the logsumexp) takes one kernel: one persistent block an SM,
+    dealt its items statically (no counter, no state between launches), q
+    tiles aligned to the end of the sequence with the ragged one first and
+    loaded from row 0; nothing reads the environment to pick a schedule. The
+    non-causal launches keep their kernel and its grid of one block per (q
+    tile, q head, sample), whose SASS tools/attention_ab.py holds to the
+    parent's on the card."""
+    from aigv_assessor_torch.ops import cuda_build
+    from aigv_assessor_torch.ops import flash_attention as fa
+
+    csrc = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
+    fwd = (csrc / "flash_attn_fwd.cu").read_text()
+    wrapper = cuda_build.Path(fa.__file__).read_text()
+    assert fwd.count("__global__ void") == 2
+    assert "template <int D, int BN>\n__global__ void __launch_bounds__(block_threads(D), 1)\n" \
+        "flash_fwd_kernel(" in fwd
+    assert "auto kernel = flash_fwd_causal_kernel<D, BN>;" in fwd
+    assert "auto kernel = flash_fwd_kernel<D, BN>;" in fwd
+    assert "consumer<D, BN, false>(" in fwd and "consumer<D, BN, true>(" in fwd
+    # the causal schedule: the ragged tile first, from row 0; one block an SM
+    assert "w.end = Sq - band * BM;" in fwd and "w.q0 = max(w.end - BM, 0);" in fwd
+    assert "kernel<<<min(n_items, sms)," in fwd and "cudaDevAttrMultiProcessorCount" in fwd
+    assert "atomic" not in fwd
+    # the non-causal grid and q tiles as they were
+    assert "const dim3 grid((Sq + block_rows(D) - 1) / block_rows(D), hq, B);" in fwd
+    assert "const int q0 = blockIdx.x * BM;" in fwd
+    for source in (fwd, wrapper):
+        assert "getenv" not in source and "environ" not in source
+
+
 def test_backward_attention_runs_on_wgmma_and_tma():
     """The flash-attention backward's source (dq and dk/dv, both pairs of
     entries) issues every product as Hopper `wgmma` on TMA-loaded tiles,
