@@ -9,15 +9,15 @@ qkv array:
   out-projection reads (`dense_out`, W8A8 serving), and `bhsd` output with
   the per-row logsumexp that the backward reads (`with_lse`, training).
   Source: `aigv_assessor_torch/csrc/flash_attn_fwd.cu`.
-- the backward `_bwd_dq_kernel` (`:384`) and `_bwd_dkv_kernel` (`:455`).
-  Source: `aigv_assessor_torch/csrc/flash_attn_bwd.cu`.
+- the backward `_bwd_dq_kernel` (`:384`) and `_bwd_dkv_kernel` (`:455`),
+  both by one kernel. Source: `aigv_assessor_torch/csrc/flash_attn_bwd.cu`.
 
 And those that `flash_attention` (`:689`) reaches, on three separate tensors
 in the `bshd` or `bhsd` layout, which the weight-only decoder and the
 QK-normalized ViT run: the forward (K2) and its logsumexp form, the second
 entry of `csrc/flash_attn_fwd.cu` over the same kernel body, and under
-`jax.grad` (`_flash_bwd` `:677`) the same two backward kernels, through the
-second pair of entries of `csrc/flash_attn_bwd.cu`.
+`jax.grad` (`_flash_bwd` `:677`) the same backward, through the second
+entry of `csrc/flash_attn_bwd.cu`.
 
 Each source's header comment says what bounds its kernels on the card and how
 they are laid out. The forward (both entries, every form) is one Hopper
@@ -25,17 +25,20 @@ kernel: a producer warp loads Q, K and V tiles by TMA into a ring in shared
 memory, and two (D = 128) or three (D = 64, 96) consumer warpgroups of 64
 query rows run both products on `wgmma` with the online softmax between them;
 each head dim (64, 96, 128) has its own instantiation, none padded. The
-backward is two Hopper kernels built the same way: a dq kernel (one block per
-q tile, K and V streamed) and a dk/dv kernel (one block per 128-key tile, the
-group's Q and dO tiles streamed), every product on `wgmma`. The tensor maps
+backward is one Hopper kernel built the same way, after a small pass that
+computes delta: one block per 128-key tile streams the group's Q and dO
+tiles and runs the five products (S, dP, dV, dK and its share of dQ) on
+`wgmma`; dK and dV stay in registers, dQ is summed over the key tiles in
+fp32 in a fixed order (a running sum per q tile in a workspace the wrapper
+allocates, and a counter per q tile that orders the adds). The tensor maps
 are encoded per call from each tensor's pointer and strides; rows past Sq and
 kv_valid are zero-filled by TMA and never written, so nothing is padded or
 copied.
 
 - `flash_attention` is the three-tensor entry point: the forward without
   logsumexp, or, when q, k or v requires a gradient, `FlashAttention`.
-  `flash_attention_lse`, `flash_attention_bwd_dq`, `flash_attention_bwd_dkv`
-  wrap its three training kernels and `flash_attention_bwd` is its whole
+  `flash_attention_lse` and `flash_attention_bwd_kernel` wrap its training
+  kernels and `flash_attention_bwd` is its whole
   backward; `plain_flash_attention(return_lse=)` and
   `plain_flash_attention_bwd` are their plain versions.
 
@@ -43,10 +46,9 @@ copied.
   the forward-only wrapper; when `qkv` requires a gradient it goes through
   `FlashAttentionQKV`, as the JAX `custom_vjp` splits its primal and `fwd`
   rules.
-- `flash_attention_qkv_lse`, `flash_attention_qkv_bwd_dq` and
-  `flash_attention_qkv_bwd_dkv` wrap the other three kernels, and
-  `flash_attention_qkv_bwd` is the whole backward (both kernels, into one
-  `dqkv`).
+- `flash_attention_qkv_lse` and `flash_attention_qkv_bwd_kernel` wrap the
+  other kernels, and `flash_attention_qkv_bwd` is the whole backward (into
+  one `dqkv`).
 - On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
   it runs the plain version. Each counts its kernel launches in `.launches`.
 - `plain_attention_qkv` and `plain_attention_qkv_bwd` are the plain PyTorch
@@ -61,9 +63,9 @@ p = 0. With `kv_valid >= 1`, and the causal mask keeping the diagonal, no row
 of the callers' shapes is such a row.
 
 delta = rowsum(dout * out), which the JAX `_bwd` computes outside its kernels,
-is computed in fp32 inside the dq kernel on the card: the dq entries take
-`out` and write `delta` [B, Hq, Sq], which the dk/dv entries then read. The
-plain versions compute it as a PyTorch expression.
+is computed in fp32 by the backward's first launch on the card (the backward
+entries take `out` and write `delta` [B, Hq, Sq]). The plain versions compute
+it as a PyTorch expression.
 
 The kernels are built with nvcc at first use (`ops/cuda_build.py`) and loaded
 with ctypes.
@@ -106,26 +108,26 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
-    for fn in (lib.aigv_flash_attn_qkv_bwd_dq, lib.aigv_flash_attn_qkv_bwd_dkv):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, out, dout
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lse, delta, dqkv
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, S
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
-            ctypes.POINTER(ctypes.c_longlong),  # 12 strides: qkv, out, dout, dqkv
-            ctypes.c_float, ctypes.c_void_p,  # scale, stream
-        ]
-        fn.restype = ctypes.c_int
-    for fn in (lib.aigv_flash_attn_bwd_dq, lib.aigv_flash_attn_bwd_dkv):
-        fn.argtypes = [
-            *[ctypes.c_void_p] * 5,  # q, k, v, out, dout
-            ctypes.c_void_p, ctypes.c_void_p,  # lse, delta
-            *[ctypes.c_void_p] * 3,  # dq, dk, dv (the entry's own outputs; the rest null)
-            *[ctypes.c_int] * 8,  # B, hq, hkv, Sq, Skv, D, kv_valid, causal
-            ctypes.POINTER(ctypes.c_longlong),  # 24 strides: q, k, v, out, dout, dq, dk, dv
-            ctypes.c_float, ctypes.c_void_p,  # scale, stream
-        ]
-        fn.restype = ctypes.c_int
+    lib.aigv_flash_attn_qkv_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, out, dout
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lse, delta, dqkv
+        ctypes.c_void_p, ctypes.c_void_p,  # dq_acc, counters
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, hq, hkv, S
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, kv_valid, causal
+        ctypes.POINTER(ctypes.c_longlong),  # 12 strides: qkv, out, dout, dqkv
+        ctypes.c_float, ctypes.c_void_p,  # scale, stream
+    ]
+    lib.aigv_flash_attn_qkv_bwd.restype = ctypes.c_int
+    lib.aigv_flash_attn_bwd.argtypes = [
+        *[ctypes.c_void_p] * 5,  # q, k, v, out, dout
+        ctypes.c_void_p, ctypes.c_void_p,  # lse, delta
+        *[ctypes.c_void_p] * 3,  # dq, dk, dv
+        ctypes.c_void_p, ctypes.c_void_p,  # dq_acc, counters
+        *[ctypes.c_int] * 8,  # B, hq, hkv, Sq, Skv, D, kv_valid, causal
+        ctypes.POINTER(ctypes.c_longlong),  # 24 strides: q, k, v, out, dout, dq, dk, dv
+        ctypes.c_float, ctypes.c_void_p,  # scale, stream
+    ]
+    lib.aigv_flash_attn_bwd.restype = ctypes.c_int
 
 
 LIB = CudaLibrary("flash_attn_fwd.cu", _declare)
@@ -283,18 +285,27 @@ def _check_tensor(name: str, label: str, t: torch.Tensor, shape, dtype, device) 
         )
 
 
-def _launch_bwd(
-    name: str, qkv: torch.Tensor, out: Optional[torch.Tensor], dout: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor, dqkv: torch.Tensor, hq: int, hkv: int,
-    causal: bool, kv_valid: Optional[int],
-) -> None:
+BWD_Q_TILE = 64  # q rows of the backward's items and of dQ's running sums
+
+
+def _bwd_workspace(b: int, hq: int, sq: int, d: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's workspace, owned by the call: dQ's fp32 running
+    sums (64 rows x D per q tile, 2x dq's bytes) and one counter per q tile
+    (set to 0 by the launch before the kernel)."""
+    n_qt = -(-sq // BWD_Q_TILE)
+    return (torch.empty(b * hq * n_qt * BWD_Q_TILE * d, dtype=torch.float32, device=device),
+            torch.empty(b * hq * n_qt, dtype=torch.int32, device=device))
+
+
+def _launch_qkv_bwd(qkv, out, dout, lse, delta, dqkv, hq: int, hkv: int, causal: bool,
+                    kv_valid: Optional[int]) -> None:
+    name = "flash_attention_qkv_bwd_kernel"
     if qkv.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda, not {qkv.device}")
     b, _, s, d = qkv.shape
     kv_valid = s if kv_valid is None else kv_valid
     _check(qkv, hq, hkv, kv_valid, "bhsd")
-    rows = [("dout", dout), ("dqkv", dqkv)] + ([("out", out)] if out is not None else [])
-    for label, t in rows:
+    for label, t in (("out", out), ("dout", dout), ("dqkv", dqkv)):
         shape = qkv.shape if label == "dqkv" else (b, hq, s, d)
         _check_tensor(name, label, t, shape, torch.bfloat16, qkv.device)
         _check_rows(t, label)
@@ -302,45 +313,34 @@ def _launch_bwd(
         _check_tensor(name, label, t, (b, hq, s), torch.float32, qkv.device)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError(f"{name}: lse and delta must be contiguous")
-    # the dk/dv entry reads no `out`: dout's strides stand in for its own
-    strides = [*qkv.stride()[:3], *(dout if out is None else out).stride()[:3],
-               *dout.stride()[:3], *dqkv.stride()[:3]]
+    strides = [*qkv.stride()[:3], *out.stride()[:3], *dout.stride()[:3], *dqkv.stride()[:3]]
+    dq_acc, counters = _bwd_workspace(b, hq, s, d, qkv.device)
     lib = LIB_BWD.load()
     with torch.cuda.device(qkv.device):
-        rc = getattr(lib, name)(
-            qkv.data_ptr(), None if out is None else out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, hq, hkv, s, d, kv_valid,
+        rc = lib.aigv_flash_attn_qkv_bwd(
+            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(), b, hq, hkv, s, d, kv_valid,
             int(causal), (ctypes.c_longlong * 12)(*strides), d**-0.5,
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
-    LIB_BWD.check(rc, f"{name} kernel")
+    LIB_BWD.check(rc, "flash attention backward")
 
 
-def flash_attention_qkv_bwd_dq(
+def flash_attention_qkv_bwd_kernel(
     qkv, out, dout, lse, delta, dqkv, hq: int, hkv: int, *, causal: bool = False,
     kv_valid: Optional[int] = None,
 ) -> None:
-    """dq kernel: writes delta = rowsum(dout * out) in fp32 into `delta`
-    [B, hq, S] and heads [0, hq) of `dqkv`, in place. CUDA only."""
-    _launch_bwd("aigv_flash_attn_qkv_bwd_dq", qkv, out, dout, lse, delta, dqkv, hq, hkv,
-                causal, kv_valid)
-    flash_attention_qkv_bwd_dq.launches += 1
+    """The backward's launches: delta = rowsum(dout * out) in fp32 into
+    `delta` [B, hq, S], one kernel per 128-key tile (dk and dv into heads
+    [hq, hq + hkv) and [hq + hkv, hq + 2*hkv) of `dqkv`, the query heads of a
+    group summed in fp32 registers; dQ's shares summed over the key tiles in
+    fp32 in a fixed order), then dq into heads [0, hq), all in place. CUDA
+    only; `.launches` counts the calls."""
+    _launch_qkv_bwd(qkv, out, dout, lse, delta, dqkv, hq, hkv, causal, kv_valid)
+    flash_attention_qkv_bwd_kernel.launches += 1
 
 
-def flash_attention_qkv_bwd_dkv(
-    qkv, dout, lse, delta, dqkv, hq: int, hkv: int, *, causal: bool = False,
-    kv_valid: Optional[int] = None,
-) -> None:
-    """dk/dv kernel: reads the `delta` the dq kernel wrote and writes heads
-    [hq, hq + 2*hkv) of `dqkv` in place, the query heads of a group summed in
-    fp32. CUDA only."""
-    _launch_bwd("aigv_flash_attn_qkv_bwd_dkv", qkv, None, dout, lse, delta, dqkv, hq, hkv,
-                causal, kv_valid)
-    flash_attention_qkv_bwd_dkv.launches += 1
-
-
-flash_attention_qkv_bwd_dq.launches = 0
-flash_attention_qkv_bwd_dkv.launches = 0
+flash_attention_qkv_bwd_kernel.launches = 0
 
 
 def _rows_ok(t: torch.Tensor) -> torch.Tensor:
@@ -361,9 +361,9 @@ def flash_attention_qkv_bwd(
     causal: bool = False,
     kv_valid: Optional[int] = None,
 ) -> torch.Tensor:
-    """The whole backward -> dqkv [B, hq + 2*hkv, S, D]: the dq kernel (which
-    computes delta) then the dk/dv kernel, each writing its heads of one
-    array. A CPU tensor goes to `plain_attention_qkv_bwd`."""
+    """The whole backward -> dqkv [B, hq + 2*hkv, S, D], through
+    `flash_attention_qkv_bwd_kernel`. A CPU tensor goes to
+    `plain_attention_qkv_bwd`."""
     if qkv.device.type == "cpu":
         return plain_attention_qkv_bwd(
             qkv, out, lse, dout, hq, hkv, causal=causal, kv_valid=kv_valid
@@ -372,16 +372,15 @@ def flash_attention_qkv_bwd(
     b, _, s, _ = qkv.shape
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-    kw = dict(causal=causal, kv_valid=kv_valid)
-    flash_attention_qkv_bwd_dq(qkv, out, dout, lse, delta, dqkv, hq, hkv, **kw)
-    flash_attention_qkv_bwd_dkv(qkv, dout, lse, delta, dqkv, hq, hkv, **kw)
+    flash_attention_qkv_bwd_kernel(qkv, out, dout, lse, delta, dqkv, hq, hkv, causal=causal,
+                                   kv_valid=kv_valid)
     return dqkv
 
 
 class FlashAttentionQKV(torch.autograd.Function):
     """Differentiable fused-qkv attention, `bhsd` layout: the forward with
-    logsumexp saves (qkv, out, lse); the backward is the two backward
-    kernels. On CPU tensors both directions run the plain versions."""
+    logsumexp saves (qkv, out, lse); the backward is the backward kernel.
+    On CPU tensors both directions run the plain versions."""
 
     @staticmethod
     def forward(ctx, qkv, hq, hkv, causal, kv_valid):
@@ -608,61 +607,39 @@ def flash_attention_lse(
 flash_attention_lse.launches = 0
 
 
-def _launch_separate_bwd(name: str, q, k, v, out, dout, lse, delta, dq, dk, dv, causal: bool,
-                         layout: str, kv_valid: Optional[int]) -> None:
+def flash_attention_bwd_kernel(
+    q, k, v, out, dout, lse, delta, dq, dk, dv, *, causal: bool = False, layout: str = "bshd",
+    kv_valid: Optional[int] = None,
+) -> None:
+    """The three-tensor backward's two launches: delta = rowsum(dout * out)
+    in fp32 into `delta` [B, Hq, Sq], then one kernel per 128-key tile that
+    writes `dq` (q's shape), `dk` and `dv` (k's shape) in place. CUDA only;
+    `.launches` counts the calls."""
+    name = "flash_attention_bwd_kernel"
     b, hq, hkv, sq, skv, d, kv_valid, axes = _separate_dims(q, k, v, causal, layout, kv_valid)
     rows = [("dout", dout, q), ("out", out, q), ("dq", dq, q), ("dk", dk, k), ("dv", dv, k)]
     for label, t, ref in rows:
-        if t is not None:
-            _check_tensor(name, label, t, ref.shape, torch.bfloat16, q.device)
-            _check_rows(t, label)
+        _check_tensor(name, label, t, ref.shape, torch.bfloat16, q.device)
+        _check_rows(t, label)
     for label, t in (("lse", lse), ("delta", delta)):
         _check_tensor(name, label, t, (b, hq, sq), torch.float32, q.device)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError(f"{name}: lse and delta must be contiguous")
-    # an absent tensor gets a null pointer and the strides of one the entry
-    # has (dout's for out, the entry's own output's for the other outputs);
-    # the entry reads neither
-    own = dq if dq is not None else dk
-    strides = _strides((q, k, v, dout if out is None else out, dout,
-                        *(own if t is None else t for t in (dq, dk, dv))), axes)
+    strides = _strides((q, k, v, out, dout, dq, dk, dv), axes)
+    dq_acc, counters = _bwd_workspace(b, hq, sq, d, q.device)
     lib = LIB_BWD.load()
     with torch.cuda.device(q.device):
-        rc = getattr(lib, name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if out is None else out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in (dq, dk, dv)),
+        rc = lib.aigv_flash_attn_bwd(
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq, dk, dv, dq_acc,
+                                     counters)),
             b, hq, hkv, sq, skv, d, kv_valid, int(causal), (ctypes.c_longlong * 24)(*strides),
             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )
-    LIB_BWD.check(rc, f"{name} kernel")
+    LIB_BWD.check(rc, "flash attention backward")
+    flash_attention_bwd_kernel.launches += 1
 
 
-def flash_attention_bwd_dq(
-    q, k, v, out, dout, lse, delta, dq, *, causal: bool = False, layout: str = "bshd",
-    kv_valid: Optional[int] = None,
-) -> None:
-    """dq kernel on three tensors: writes delta = rowsum(dout * out) in fp32
-    into `delta` [B, Hq, Sq] and `dq` (q's shape), in place. CUDA only."""
-    _launch_separate_bwd("aigv_flash_attn_bwd_dq", q, k, v, out, dout, lse, delta, dq, None,
-                         None, causal, layout, kv_valid)
-    flash_attention_bwd_dq.launches += 1
-
-
-def flash_attention_bwd_dkv(
-    q, k, v, dout, lse, delta, dk, dv, *, causal: bool = False, layout: str = "bshd",
-    kv_valid: Optional[int] = None,
-) -> None:
-    """dk/dv kernel on three tensors: reads the `delta` the dq kernel wrote
-    and writes `dk` and `dv` (k's shape) in place, the query heads of a group
-    summed in fp32. CUDA only."""
-    _launch_separate_bwd("aigv_flash_attn_bwd_dkv", q, k, v, None, dout, lse, delta, None, dk,
-                         dv, causal, layout, kv_valid)
-    flash_attention_bwd_dkv.launches += 1
-
-
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_kernel.launches = 0
 
 
 def flash_attention_bwd(
@@ -678,8 +655,8 @@ def flash_attention_bwd(
     kv_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole three-tensor backward -> (dq, dk, dv), contiguous in the
-    input layout: the dq kernel (which computes delta) then the dk/dv kernel.
-    A CPU tensor goes to `plain_flash_attention_bwd`."""
+    input layout, through `flash_attention_bwd_kernel`. A CPU tensor goes to
+    `plain_flash_attention_bwd`."""
     kw = dict(causal=causal, layout=layout, kv_valid=kv_valid)
     if q.device.type == "cpu":
         return plain_flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -688,15 +665,14 @@ def flash_attention_bwd(
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, dq, **kw)
-    flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, **kw)
+    flash_attention_bwd_kernel(q, k, v, out, dout, lse, delta, dq, dk, dv, **kw)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable attention on three tensors: the forward with
-    logsumexp saves (q, k, v, out, lse); the backward is the two backward
-    kernels. On CPU tensors both directions run the plain versions."""
+    logsumexp saves (q, k, v, out, lse); the backward is the backward
+    kernel. On CPU tensors both directions run the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, layout, kv_valid):

@@ -7,26 +7,32 @@ its source, on one CUDA card, in one process.
 Each DIR holds another `flash_attn_bwd.cu` (and the headers it includes),
 e.g. the parent commit's `aigv_assessor_torch/csrc` unpacked with `git
 archive`. A source is called through the entry points it declares: this
-checkout's, whose dq entries take `out` and write delta, or the earlier
-form, whose entries take a delta computed beforehand (that version's delta
-is then the eager fp32 expression, timed beside its kernels). Every version,
-the checkout's own ("tree") first, is built with nvcc (`-Xptxas -v`:
-registers and spills are printed) and held against the plain backward at
-small shapes that cross its tiles' borders (q tiles of 64 / 128 / 192 rows,
-K/V tiles of 64 and 128 keys), at D = 64, 96 and 128: dq, dk and dv within
-BWD_TOL relative L2 of
-`plain_attention_qkv_bwd` / `plain_flash_attention_bwd`, dk and dv of the
-keys at or beyond kv_valid exactly 0, delta within DELTA_TOL relative L2 of
-the fp32 expression, and a second run bit-equal to the first. Then each of
-the training paths' shapes (those named by `--shapes`, else all) is timed
-by CUDA graph replay (3 launches per graph), the versions in turns (tree,
-others, others reversed, tree), beside
-SDPA's backward alone on the same views (`torch.autograd.grad` of one
-forward, kept; timed call by call with CUDA events, since autograd does not
-run under graph capture). Prints the card's name and power limit, then one JSON line
-per shape: ms per launch of dq, dk/dv, delta (earlier form only) and their
-sum for each run, each kernel's share of its bound (FLOPs / 989 TFLOP/s),
-SDPA's ms. Exits 1 if a version disagrees with the plain one.
+checkout's one entry per caller form (`aigv_flash_attn_qkv_bwd`,
+`aigv_flash_attn_bwd`: the delta launch and the kernel that writes dq, dk and
+dv), or the earlier pair (`..._bwd_dq`, whose dq kernel takes `out` and
+writes delta, and `..._bwd_dkv`), whose two calls are timed one by one and
+summed. Every version, the checkout's own ("tree") first, is built with
+nvcc (`-Xptxas -v`: registers and spills are printed) and held against the
+plain backward at small shapes that cross its tiles' borders (q tiles of 64
+/ 128 / 192 rows, key tiles of 64 and 128 keys, Skv = 127 / 129 / 257,
+kv_valid 1025 of 1032), at D = 64, 96 and 128: dq, dk and dv within BWD_TOL
+relative L2 of `plain_attention_qkv_bwd` / `plain_flash_attention_bwd`, dk
+and dv of the keys at or beyond kv_valid exactly 0, delta within DELTA_TOL
+relative L2 of the fp32 expression, and a second run bit-equal to the first.
+Then each of the training paths' shapes (those named by `--shapes`, else
+all) is timed by CUDA graph replay (3 launches per graph), the versions in
+turns (tree, others, others reversed, tree), beside SDPA's backward alone on
+the same views (`torch.autograd.grad` of one forward, kept; timed call by
+call with CUDA events, since autograd does not run under graph capture).
+Prints the card's name and power limit, then per shape a JSON line: ms per
+call of each entry and their sum for each run, the share of the bound
+(FLOPs / 989 TFLOP/s) on the products each version runs (the pair: 3 + 4,
+the one kernel: 5) and on the 5 that any backward runs, SDPA's ms; and a
+`bit_equal` line: whether each version's gradients from the replays equal
+its eager run, and the other versions' the tree's. Last, for each DIR that
+also holds a `flash_attn_fwd.cu`, a `sass_in_tree` line: which of its
+forward kernels compile to the same SASS as the tree's. Exits 1 if a version
+disagrees with the plain one.
 
 Needs a CUDA card; there is no CPU mode.
 """
@@ -75,6 +81,15 @@ CHECKS = [
     ("qkv", 2, 193, 193, 4, 4, 96, False, 129, "bhsd"),
     ("sep", 2, 127, 257, 12, 2, 96, False, None, "bshd"),
     ("sep", 2, 200, 200, 4, 2, 96, True, None, "bshd"),
+    # the one kernel's 128-key tiles: Skv one short of, one past and one past
+    # two tiles, the ViT's kv_valid 1025 of 1032 at D = 64 and 128, causal
+    # 14 / 2 heads of 64 (Qwen2-0.5B) at S = 193
+    ("sep", 2, 100, 127, 4, 2, 64, False, None, "bshd"),
+    ("sep", 2, 100, 129, 4, 2, 128, False, None, "bhsd"),
+    ("qkv", 1, 257, 257, 4, 4, 128, False, None, "bhsd"),
+    ("qkv", 2, 1032, 1032, 2, 2, 64, False, 1025, "bhsd"),
+    ("sep", 2, 1032, 1032, 2, 2, 128, False, 1025, "bshd"),
+    ("qkv", 1, 193, 193, 14, 2, 64, True, None, "bhsd"),
 ]
 # the training paths' shapes: the 2B ViT and LLM, internlm2-chat-20b
 # (InternVL2-26B's decoder, 2 videos), InternViT-6B over 32 frames and over a
@@ -91,23 +106,22 @@ TIMED = {
 }
 
 
-def declare_old(lib: ctypes.CDLL) -> None:
-    """The earlier entry points: delta is an input, no `out`."""
-    strides = [ctypes.c_longlong] * 9
+def declare_pair(lib: ctypes.CDLL) -> None:
+    """The earlier pair of entries per caller form: dq (takes out, writes
+    delta), then dk/dv (reads delta)."""
     for fn in (lib.aigv_flash_attn_qkv_bwd_dq, lib.aigv_flash_attn_qkv_bwd_dkv):
-        fn.argtypes = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * 7, *strides, ctypes.c_float,
-                       ctypes.c_void_p]
+        fn.argtypes = [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 7,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for fn in (lib.aigv_flash_attn_bwd_dq, lib.aigv_flash_attn_bwd_dkv):
-        fn.argtypes = [*[ctypes.c_void_p] * 9, *[ctypes.c_int] * 8,
+        fn.argtypes = [*[ctypes.c_void_p] * 10, *[ctypes.c_int] * 8,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 
-def takes_out(source: Path) -> bool:
-    """Whether the source's dq entry takes `out` (this checkout's form)."""
-    m = re.search(r"int aigv_flash_attn_bwd_dq\(([^)]*)\)", source.read_text())
-    return m is not None and re.search(r"\bout\b", m.group(1)) is not None
+def one_kernel(source: Path) -> bool:
+    """Whether the source has one entry per caller form (this checkout's)."""
+    return "int aigv_flash_attn_qkv_bwd(" in source.read_text()
 
 
 def make_inputs(case, device, seed=0):
@@ -155,70 +169,60 @@ def make_inputs(case, device, seed=0):
 class Version:
     """One build of a `flash_attn_bwd.cu` and how to call it."""
 
-    def __init__(self, name: str, lib, new_abi: bool):
-        self.name, self.lib, self.new_abi = name, lib, new_abi
+    def __init__(self, name: str, lib, single: bool):
+        self.name, self.lib, self.single = name, lib, single
 
     def calls(self, case, x):
-        """-> (grads, [dq call, dk/dv call, delta call or None]); each call
-        writes into the tensors `grads` holds."""
+        """-> (grads, {entry: call}); the calls, in order, write into the
+        tensors `grads` holds."""
         from aigv_assessor_torch.ops import flash_attention as fa
 
         form, b, sq, skv, hq, hkv, d, causal, kv_valid, layout = case
         kv = kv_valid or skv
         dev = x["out"].device
         delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-
-        def stream():  # at call time, so that a graph capture records the launch
-            return torch.cuda.current_stream(dev).cuda_stream
-
-        if self.new_abi:
+        if self.single:
             fa.LIB_BWD = self.lib
             if form == "qkv":
                 qkv = x["qkv"]
                 dqkv = torch.empty_like(qkv)
-                args = (qkv, x["out"], x["dout"], x["lse"], delta, dqkv, hq, hkv)
-                kw = dict(causal=causal, kv_valid=kv_valid)
-                return dict(dqkv=dqkv, delta=delta), [
-                    lambda: fa.flash_attention_qkv_bwd_dq(*args, **kw),
-                    lambda: fa.flash_attention_qkv_bwd_dkv(*args[:1], *args[2:], **kw), None]
+                return dict(dqkv=dqkv, delta=delta), {
+                    "bwd": lambda: fa.flash_attention_qkv_bwd_kernel(
+                        qkv, x["out"], x["dout"], x["lse"], delta, dqkv, hq, hkv, causal=causal,
+                        kv_valid=kv_valid)}
             q, k, v = x["q"], x["k"], x["v"]
             dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=dev) for t in (q, k, v))
-            kw = dict(causal=causal, layout=layout, kv_valid=kv_valid)
-            return dict(dq=dq, dk=dk, dv=dv, delta=delta), [
-                lambda: fa.flash_attention_bwd_dq(q, k, v, x["out"], x["dout"], x["lse"], delta,
-                                                  dq, **kw),
-                lambda: fa.flash_attention_bwd_dkv(q, k, v, x["dout"], x["lse"], delta, dk, dv,
-                                                   **kw), None]
-        # the earlier form: delta is the eager fp32 expression
+            return dict(dq=dq, dk=dk, dv=dv, delta=delta), {
+                "bwd": lambda: fa.flash_attention_bwd_kernel(
+                    q, k, v, x["out"], x["dout"], x["lse"], delta, dq, dk, dv, causal=causal,
+                    layout=layout, kv_valid=kv_valid)}
         lib = self.lib.load()
         out, dout = x["out"], x["dout"]
-        hm = (lambda t: t) if layout == "bhsd" else (lambda t: t.transpose(1, 2))
 
-        def eager_delta():
-            delta.copy_(hm((dout.float() * out.float()).sum(-1)) if form == "sep" else
-                        (dout.float() * out.float()).sum(-1))
+        def stream():  # at call time, so that a graph capture records the launch
+            return torch.cuda.current_stream(dev).cuda_stream
 
         if form == "qkv":
             qkv = x["qkv"]
             dqkv = torch.empty_like(qkv)
-            args = [qkv.data_ptr(), dout.data_ptr(), x["lse"].data_ptr(), delta.data_ptr(),
-                    dqkv.data_ptr(), b, hq, hkv, sq, d, kv, int(causal), *qkv.stride()[:3],
-                    *dout.stride()[:3], *dqkv.stride()[:3], d**-0.5]
-            return dict(dqkv=dqkv, delta=delta), [
-                lambda: check(lib.aigv_flash_attn_qkv_bwd_dq(*args, stream())),
-                lambda: check(lib.aigv_flash_attn_qkv_bwd_dkv(*args, stream())), eager_delta]
+            strides = (ctypes.c_longlong * 12)(*qkv.stride()[:3], *out.stride()[:3],
+                                                *dout.stride()[:3], *dqkv.stride()[:3])
+            args = [qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), x["lse"].data_ptr(),
+                    delta.data_ptr(), dqkv.data_ptr(), b, hq, hkv, sq, d, kv, int(causal),
+                    strides, d**-0.5]
+            return dict(dqkv=dqkv, delta=delta), {
+                "dq": lambda: check(lib.aigv_flash_attn_qkv_bwd_dq(*args, stream())),
+                "dkv": lambda: check(lib.aigv_flash_attn_qkv_bwd_dkv(*args, stream()))}
         q, k, v = x["q"], x["k"], x["v"]
         dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=dev) for t in (q, k, v))
         seq, head = (2, 1) if layout == "bhsd" else (1, 2)
-        strides = (ctypes.c_longlong * 21)(*[t.stride(i) for t in (q, k, v, dout, dq, dk, dv)
+        strides = (ctypes.c_longlong * 24)(*[t.stride(i) for t in (q, k, v, out, dout, dq, dk, dv)
                                             for i in (0, head, seq)])
-        ptrs = [t.data_ptr() for t in (q, k, v, dout, x["lse"], delta)]
+        ptrs = [t.data_ptr() for t in (q, k, v, out, dout, x["lse"], delta, dq, dk, dv)]
         tail = [b, hq, hkv, sq, skv, d, kv, int(causal), strides, d**-0.5]
-        return dict(dq=dq, dk=dk, dv=dv, delta=delta), [
-            lambda: check(lib.aigv_flash_attn_bwd_dq(*ptrs, dq.data_ptr(), None, None, *tail,
-                                                     stream())),
-            lambda: check(lib.aigv_flash_attn_bwd_dkv(*ptrs, None, dk.data_ptr(), dv.data_ptr(),
-                                                      *tail, stream())), eager_delta]
+        return dict(dq=dq, dk=dk, dv=dv, delta=delta), {
+            "dq": lambda: check(lib.aigv_flash_attn_bwd_dq(*ptrs, *tail, stream())),
+            "dkv": lambda: check(lib.aigv_flash_attn_bwd_dkv(*ptrs, *tail, stream()))}
 
 
 def check(rc: int) -> None:
@@ -227,11 +231,9 @@ def check(rc: int) -> None:
 
 
 def run(version: Version, case, x) -> dict:
-    grads, (dq, dkv, delta) = version.calls(case, x)
-    if delta is not None:
-        delta()
-    dq()
-    dkv()
+    grads, calls = version.calls(case, x)
+    for call in calls.values():
+        call()
     torch.cuda.synchronize()
     return grads
 
@@ -301,11 +303,17 @@ def graph_ms(fn, iters: int = 10) -> float:
 
 
 def flops(case) -> dict:
-    """Products per (query, key) pair and head-dim element: dq 3, dk/dv 4."""
+    """FLOPs by products per (query, key) pair and head-dim element: the
+    pair's dq kernel 3 and dk/dv kernel 4, the one kernel 5 (what any
+    backward runs)."""
     _, b, sq, skv, hq, _, d, causal, kv_valid, _ = case
     pairs = sq * (sq + 1) // 2 if causal else sq * (kv_valid or skv)
     per = 2.0 * b * hq * pairs * d
-    return {"dq": 3 * per, "dkv": 4 * per}
+    return {"dq": 3 * per, "dkv": 4 * per, "bwd": 5 * per}
+
+
+def grads_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[n], b[n]) for n in a)
 
 
 def sdpa_bwd_ms(case, x) -> float:
@@ -339,6 +347,7 @@ def sdpa_bwd_ms(case, x) -> float:
 def main(argv=None) -> int:
     from aigv_assessor_torch.ops import cuda_build
     from aigv_assessor_torch.ops import flash_attention as fa
+    from aigv_assessor_torch.tools.decode_attention_ab import same_sass
 
     if not torch.cuda.is_available():
         print("attention_bwd_ab needs a CUDA card", file=sys.stderr)
@@ -362,16 +371,23 @@ def main(argv=None) -> int:
     print(card, flush=True)
     tree_lib = fa.LIB_BWD
     versions = {"tree": Version("tree", tree_lib, True)}
+    forwards = {}
     for arg in args:
         name, _, folder = arg.partition("=")
         source = (Path(folder) / "flash_attn_bwd.cu").resolve()
-        new_abi = takes_out(source)
+        single = one_kernel(source)
         lib = cuda_build.CudaLibrary("flash_attn_bwd.cu",
-                                     fa._declare_bwd if new_abi else declare_old)
+                                     fa._declare_bwd if single else declare_pair)
         lib.source = source
         lib.path = cuda_build.BUILD_DIR / f"libflash_attn_bwd_{name}.so"
-        versions[name] = Version(name, lib, new_abi)
-    libs = [fa.LIB, *(v.lib for v in versions.values())]
+        versions[name] = Version(name, lib, single)
+        fwd = Path(folder) / "flash_attn_fwd.cu"
+        if fwd.exists():
+            flib = cuda_build.CudaLibrary("flash_attn_fwd.cu", fa._declare)
+            flib.source = fwd.resolve()
+            flib.path = cuda_build.BUILD_DIR / f"libflash_attn_fwd_{name}.so"
+            forwards[name] = flib
+    libs = [fa.LIB, *(v.lib for v in versions.values()), *forwards.values()]
     for lib in libs[1:]:
         lib.path.unlink(missing_ok=True)
     cuda_build.build(libs, verbose=True)
@@ -388,25 +404,37 @@ def main(argv=None) -> int:
         order = list(versions) + list(versions)[::-1]
         for label, case in timed.items():
             x = make_inputs(case, device)
-            runs = {}
+            runs, eager, replayed = {}, {}, {}
             for name in order:
-                _, (dq, dkv, delta) = versions[name].calls(case, x)
-                t = {"dq": graph_ms(dq), "dkv": graph_ms(dkv)}
-                t["delta"] = graph_ms(delta) if delta is not None else 0.0
-                t["sum"] = t["dq"] + t["dkv"] + t["delta"]
+                grads, calls = versions[name].calls(case, x)
+                t = {entry: graph_ms(call) for entry, call in calls.items()}
+                t["sum"] = sum(t.values())
                 runs.setdefault(name, []).append(t)
+                replayed.setdefault(name, {n: g.clone() for n, g in grads.items()})
+            for name in versions:
+                eager[name] = run(versions[name], case, x)
             sdpa = sdpa_bwd_ms(case, x)
             bound = {n: f / PEAK_FLOPS * 1e3 for n, f in flops(case).items()}
             best = {name: {k: min(r[k] for r in rs) for k in rs[0]} for name, rs in runs.items()}
             print(json.dumps({
                 "shape": label, "dims": case, "ms": runs, "sdpa_bwd_ms": sdpa,
                 "bound_ms": bound,
-                "bound_share": {n: {k: bound[k] / b[k] for k in ("dq", "dkv")}
+                "bound_share": {n: {k: bound[k] / v for k, v in b.items() if k in bound}
                                 for n, b in best.items()},
+                "bound_share_5_products": {n: bound["bwd"] / b["sum"] for n, b in best.items()},
                 "vs_sdpa_bwd": {n: b["sum"] / sdpa for n, b in best.items()},
                 "card": card}), flush=True)
-            del x
+            print(json.dumps({
+                "bit_equal": label,
+                "replay_to_eager": {n: grads_equal(replayed[n], eager[n]) for n in versions},
+                "to_tree": {n: grads_equal({k: v for k, v in eager[n].items() if k != "delta"},
+                                           {k: eager["tree"][k] for k in eager[n] if k != "delta"})
+                            for n in versions if n != "tree"}}), flush=True)
+            del x, eager, replayed
             torch.cuda.empty_cache()
+        for name, flib in forwards.items():
+            print(json.dumps({"sass_in_tree": name, "forward": same_sass(fa.LIB.path, flib.path)}),
+                  flush=True)
     finally:
         fa.LIB_BWD = tree_lib
     return 0 if ok else 1

@@ -17,9 +17,10 @@ step it prints, as JSON lines:
 - per step, with CUDA events: the forward (first pass), the backward (which
   holds the recompute of every layer), and clipping plus AdamW;
 - over one more step under `torch.profiler`: device time by kind of kernel
-  (the hand-written attention kernels by name, dense GEMMs, cuDNN,
-  everything else), and the profiled device time against the step's wall
-  time (the rest is the device's idle share);
+  (the hand-written attention forward and backward, every launch of each,
+  dense GEMMs, cuDNN, everything else), the profiled device time against the
+  step's wall time (the rest is the device's idle share), and the peak of
+  allocated memory;
 - the card's name and power limit beside every number.
 
 Needs a CUDA card; there is no CPU mode.
@@ -39,9 +40,8 @@ import torch
 
 CTX, FRAMES, IMAGE, TEXT, BATCH = 7, 8, 448, 64, 4
 KINDS = (  # (label, substrings of the kernel's name)
-    ("attention_fwd", ("flash_fwd_kernel",)),
-    ("attention_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("attention_fwd", ("flash_fwd_",)),  # flash_fwd_kernel, flash_fwd_causal_kernel
+    ("attention_bwd", ("flash_bwd_",)),  # every launch of the attention backward
     ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
     ("cudnn", ("cudnn", "conv")),
 )

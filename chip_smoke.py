@@ -29,7 +29,7 @@ Phases, each printing one line or more (and failing the run by raising):
      head-major `bhsd` output transposed, bit for bit. Every forward form
      and SDPA are timed by CUDA graph replay in turn (device time; `bhsd`
      also call by call), with achieved TFLOP/s and the share of the bound.
-   - The forward with logsumexp and the two backward kernels (dq, dk/dv) at
+   - The forward with logsumexp and the backward (one kernel a key tile) at
      the same shapes and at the 20B decoder's (B = 2, 48 / 8 heads, S =
      2113, causal) and the backward's tile borders (63 / 65 / 191 / 193
      rows, kv_valid one past a 64-key tile): `out` bit-equal to the forward
@@ -39,10 +39,12 @@ Phases, each printing one line or more (and failing the run by raising):
      rounds p and ds to bf16 where the kernels do (where each row has one
      valid key, and dq and dk are 0 in exact arithmetic, dq and dk within
      ZERO_GRAD_ATOL of 0 instead); dk/dv rows of the keys at or beyond
-     kv_valid exactly 0; delta as the dq kernel writes it within DELTA_TOL
-     relative L2 of the fp32 expression; a second run of both kernels
-     bit-equal to the first. Timed by CUDA graph replay beside the eager
-     delta they replace, the plain backward and SDPA's backward alone.
+     kv_valid exactly 0; delta as the backward's first launch writes it
+     within DELTA_TOL relative L2 of the fp32 expression; a second run
+     bit-equal to the first (dQ summed over the key tiles in a fixed order).
+     The backward (one kernel a key tile between delta and dq's convert)
+     timed by CUDA graph replay beside the eager delta it replaces, the plain
+     backward and SDPA's backward alone.
    - The LayerNorm / tanh-GELU / identity + int8 quantize kernels (device
      time by CUDA graph replay, and call by call with the host) at the 2B
      ViT's feed shapes, and the RMSNorm / SwiGLU + int8 kernels at the 2B
@@ -57,8 +59,8 @@ Phases, each printing one line or more (and failing the run by raising):
      and at the ragged shape, to the same atol = rtol = 2e-2; and against the
      fused-qkv kernel on the same data, with which it shares its body:
      bit-equal. Yardstick: SDPA on the same views.
-   - K2's training forms on three tensors (the forward with logsumexp, the
-     dq and the dk/dv kernel) at InternViT-6B's shape (B = 32 frames of a
+   - K2's training forms on three tensors (the forward with logsumexp and
+     the backward) at InternViT-6B's shape (B = 32 frames of a
      scoring chunk, and the frames of one 26B training micro-batch; 25
      heads, S = 1032 with kv_valid 1025, D = 128, `bshd`, q and k from the
      norms, v a strided view of the projection), at the 2B decoder's
@@ -175,7 +177,7 @@ Phases, each printing one line or more (and failing the run by raising):
    one batch of four videos with MOS from the seed, constant learning rate
    TRAIN_LR. Checks finite losses; per micro-batch 96 launches of the
    forward with logsumexp (the first pass and the recompute of 48 layers), 48
-   of the dq and 48 of the dk/dv kernel, none of the forward without
+   of the backward (each call its three launches), none of the forward without
    logsumexp; every frozen tensor bit-equal before and after; `lora_b`
    non-zero after step 1 in the first and last layer of both towers; the
    dropout-off loss on the batch lower after the steps than before; and, with
@@ -191,7 +193,7 @@ Phases, each printing one line or more (and failing the run by raising):
    frozen towers, fp32 `mlp1` / `motion_mlp`, checkpointing on, drop path
    0.1, constant lr TRAIN_LR. Checks per micro-batch 24 launches of the
    forward without logsumexp (the frozen ViT runs no backward), 48 with it
-   (the LLM's pass and recompute), 24 dq, 24 dk/dv; every tower and
+   (the LLM's pass and recompute), 24 of the backward; every tower and
    SlowFast tensor bit-equal and `mlp1` / `motion_mlp` moved; the losses
    finite and the dropout-off loss lower after the steps.
 
@@ -267,8 +269,8 @@ Phases, each printing one line or more (and failing the run by raising):
     (c) TRAIN_STEPS stage-2 LoRA steps at full depth through `train_steps`
     (r = 8 both towers, bf16 frozen, checkpointing, dropout 0.05, drop path
     0.1, micro-batch TRAIN_26B_VIDEOS videos): per micro-batch 90 K2
-    logsumexp (pass and recompute), 45 K2 dq, 45 K2 dk/dv, 96 K1 lse, 48
-    K3a, 48 K3b launches; the frozen tensors bit-equal to a host copy taken
+    logsumexp (pass and recompute), 45 of K2's backward, 96 K1 lse, 48 of
+    K3's; the frozen tensors bit-equal to a host copy taken
     before the steps; ms per step, peak memory.
 
 12. serve: `cli/serve.ScoringService` behind `cli/serve._Server` on
@@ -372,7 +374,7 @@ Phases, each printing one line or more (and failing the run by raising):
     (a) The kernels alone at the new head shapes (`P15_SHAPES`,
     `P15_ROWS`, `P15_DECODE`): K1 at D = 96 (the forward's own D = 96
     instantiation) causal at [4, 32 / 32, 2113] and at B = 2 with its
-    logsumexp, dq and dk/dv (the backward's own D = 96 instantiation); K2 on [B, S, H, D] views of one projection at
+    logsumexp and the backward (its own D = 96 instantiation); K2 on [B, S, H, D] views of one projection at
     the same rows (bit-equal to K1); K1 at Qwen2's 14 / 2 heads; K8 at 32 /
     32 heads of 96 (its wide form) and 14 / 2 heads of 64 (the split form)
     over 2145-row windows, the form and pieces in each line: each
@@ -505,7 +507,7 @@ BWD_TOL = 2e-3
 # within a thousandth of dout's unit scale, far below what a fault in the
 # backward would give
 ZERO_GRAD_ATOL = 1e-3
-# delta = rowsum(dout * out) as the dq kernel writes it, against the fp32
+# delta = rowsum(dout * out) as the backward's first launch writes it, against the fp32
 # expression: both sum exact bf16 x bf16 products in fp32, in another order
 DELTA_TOL = 1e-5
 # Gradients of the adapters (dropout off), all of them as one vector, of a
@@ -622,8 +624,8 @@ SEPARATE_TRAIN = {
     "sq_lt_skv_g6": (2, 127, 257, 48, 8, 128, False, None, "bhsd"),
     "kv1_h25": (2, 129, 129, 25, 25, 128, False, 1, "bshd"),
     "sq1": (3, 1, 129, 16, 8, 128, False, 100, "bshd"),
-    # the backward's tile borders (dq: q tiles of 192 rows at D = 64, K/V
-    # tiles of 64 keys; dk/dv: 128 keys, 64 per warpgroup, q tiles of 64)
+    # the backward's tile borders (key tiles of 128, 64 per warpgroup, q
+    # tiles of 64; earlier: q tiles of 192 rows at D = 64, K/V tiles of 64)
     "s193_kv65_d64": (2, 193, 193, 8, 8, 64, False, 65, "bhsd"),
     "s65_causal": (2, 65, 65, 16, 8, 128, True, None, "bshd"),
 }
@@ -640,9 +642,9 @@ SHAPES = {
     "s257_causal_g6": (1, 48, 8, 257, 128, True, None),
     "kv1": (2, 16, 16, 257, 64, False, 1),
     "h25": (2, 25, 25, 300, 128, False, 257),
-    # the backward's tile borders: rows one short of and one past the dq
-    # kernel's 192-row q tile at D = 64 (kv_valid one past a 64-key tile),
-    # one short of and one past a 64-row tile at D = 128
+    # the backward's tile borders: rows one short of and one past a 64-row q
+    # tile at D = 128, one past three at D = 64 with kv_valid one past a
+    # 128-key tile, and (an earlier kernel's) one short of 192 rows
     "s191_causal_d64": (1, 8, 2, 191, 64, True, None),
     "s193_kv65": (2, 4, 4, 193, 64, False, 65),
     "s63": (2, 4, 4, 63, 128, False, None),
@@ -861,7 +863,8 @@ def check_attention(fa, device, shapes=SHAPES) -> dict:
 
 
 def check_attention_training(fa, device, shapes=SHAPES) -> dict:
-    """The forward with logsumexp and the dq and dk/dv kernels."""
+    """The forward with logsumexp and the backward kernel (its three launches:
+    delta, the key tiles, dq's convert)."""
     results = {}
     for name, shape in shapes.items():
         b, hq, hkv, s, d, causal, kv_valid = shape
@@ -908,13 +911,11 @@ def check_attention_training(fa, device, shapes=SHAPES) -> dict:
             raise RuntimeError(f"{name}: dk/dv rows of masked keys are not exactly 0")
         del want, plain_out, plain_lse
 
-        # the entries one by one: the dq kernel writes delta, the dk/dv kernel
-        # reads it; a second run gives the same bits (no atomics)
+        # the entry into given buffers: delta from its first launch; a second
+        # run gives the same bits (dQ summed over the key tiles in a fixed order)
         delta, again = torch.empty_like(lse), torch.empty_like(dqkv)
-        dq_args = (qkv, out, dout, lse, delta, again, hq, hkv)
-        dkv_args = (qkv, dout, lse, delta, again, hq, hkv)
-        fa.flash_attention_qkv_bwd_dq(*dq_args, **kw)
-        fa.flash_attention_qkv_bwd_dkv(*dkv_args, **kw)
+        bwd_args = (qkv, out, dout, lse, delta, again, hq, hkv)
+        fa.flash_attention_qkv_bwd_kernel(*bwd_args, **kw)
         torch.cuda.synchronize()
         delta_rel = relative_l2(delta, (dout.float() * out.float()).sum(-1))
         if delta_rel > DELTA_TOL:
@@ -922,9 +923,8 @@ def check_attention_training(fa, device, shapes=SHAPES) -> dict:
         if not torch.equal(again, dqkv):
             raise RuntimeError(f"{name}: a second run of the backward differs")
         ms_lse = graph_ms([lambda: fa.flash_attention_qkv_lse(qkv, hq, hkv, **kw)] * 3, 10)
-        ms_dq = graph_ms([lambda: fa.flash_attention_qkv_bwd_dq(*dq_args, **kw)] * 3, 10)
-        ms_dkv = graph_ms([lambda: fa.flash_attention_qkv_bwd_dkv(*dkv_args, **kw)] * 3, 10)
-        # the eager expression the dq kernel took in
+        ms_bwd = graph_ms([lambda: fa.flash_attention_qkv_bwd_kernel(*bwd_args, **kw)] * 3, 10)
+        # the eager expression the backward's first launch replaces
         ms_delta = time_ms(lambda: (dout.float() * out.float()).sum(-1), 20)
         plain_lse_ms = time_ms(
             lambda: fa.plain_attention_qkv(qkv, hq, hkv, return_lse=True, **kw), 5)
@@ -943,16 +943,15 @@ def check_attention_training(fa, device, shapes=SHAPES) -> dict:
             lambda: torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True), 20)
         del lib_out, lib_grads, q, k, v
         work = attention_work(shape)
-        bounds = {k: bound_ms(*work[k]) for k in ("fwd_lse", "dq", "dkv", "delta")}
+        bounds = {k: bound_ms(*work[k]) for k in ("fwd_lse", "bwd", "delta")}
         text = f"B={b} hq={hq} hkv={hkv} S={s} D={d} causal={causal} kv_valid={kv_valid}"
         results[name] = dict(
             shape=text, lse_max_abs_err=lse_err, rel_l2=rel, max_abs_err=err,
             delta_rel_l2=delta_rel,
             lse_ms=ms_lse, **{f"lse_{k}": v for k, v in
                               rate(work["fwd_lse"][0], bounds["fwd_lse"][0], ms_lse).items()},
-            dq_ms=ms_dq, dkv_ms=ms_dkv, delta_eager_ms=ms_delta,
-            **{f"{k}_{n}": v for k in ("dq", "dkv")
-               for n, v in rate(work[k][0], bounds[k][0], ms_dq if k == "dq" else ms_dkv).items()},
+            bwd_ms=ms_bwd, delta_eager_ms=ms_delta,
+            **{f"bwd_{n}": v for n, v in rate(work["bwd"][0], bounds["bwd"][0], ms_bwd).items()},
             plain_lse_ms=plain_lse_ms, plain_bwd_ms=plain_bwd_ms,
             library_bwd_ms=library_bwd_ms, library_rel_l2=lib_rel,
             bounds={k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bounds.items()},
@@ -962,11 +961,10 @@ def check_attention_training(fa, device, shapes=SHAPES) -> dict:
               f"exactly 0, delta rel L2 {delta_rel:.3e} (tol {DELTA_TOL}), second run bit-equal; "
               f"by graph replay fwd+lse {ms_lse:.4f} ms "
               f"({rate_text(work['fwd_lse'][0], bounds['fwd_lse'][0], ms_lse)}; plain "
-              f"{plain_lse_ms:.4f}, bound {bounds['fwd_lse'][0]:.4f}), dq with delta {ms_dq:.4f} "
-              f"ms ({rate_text(work['dq'][0], bounds['dq'][0], ms_dq)}; bound "
-              f"{bounds['dq'][0]:.4f}), dk/dv {ms_dkv:.4f} ms "
-              f"({rate_text(work['dkv'][0], bounds['dkv'][0], ms_dkv)}; bound "
-              f"{bounds['dkv'][0]:.4f}); the eager delta it replaced {ms_delta:.4f} ms (delta's "
+              f"{plain_lse_ms:.4f}, bound {bounds['fwd_lse'][0]:.4f}), backward (delta, key "
+              f"tiles, dq's convert) {ms_bwd:.4f} ms "
+              f"({rate_text(work['bwd'][0], bounds['bwd'][0], ms_bwd)}; bound "
+              f"{bounds['bwd'][0]:.4f}); the eager delta it replaced {ms_delta:.4f} ms (delta's "
               f"bound {bounds['delta'][0]:.4f}, {bounds['delta'][1]}), "
               f"plain backward {plain_bwd_ms:.4f} ms, SDPA backward {library_bwd_ms:.4f} ms "
               f"(rel L2 to the kernels dq {lib_rel['dq']:.3e} dk {lib_rel['dk']:.3e} dv "
@@ -1610,7 +1608,7 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
     batch = {"input_ids": ids[:, 0], "pixels_u8": px_u8, "attention_mask": mask[:, 0],
              "mos": mos}
     train_kernels = (fa.flash_attention_qkv, fa.flash_attention_qkv_lse,
-                     fa.flash_attention_qkv_bwd_dq, fa.flash_attention_qkv_bwd_dkv)
+                     fa.flash_attention_qkv_bwd_kernel)
     with tempfile.TemporaryDirectory() as out_dir:
         tc = TrainConfig(output_dir=out_dir, learning_rate=TRAIN_LR, warmup_ratio=0.0,
                          lr_scheduler_type="constant", num_train_epochs=1, save_steps=0, seed=0)
@@ -1664,8 +1662,7 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
         lora_bytes = os.path.getsize(f"{out_dir}/{LORA_FILE}")
     want = {"flash_attention_qkv": 0,
             "flash_attention_qkv_lse": 2 * per_forward * TRAIN_STEPS,
-            "flash_attention_qkv_bwd_dq": per_forward * TRAIN_STEPS,
-            "flash_attention_qkv_bwd_dkv": per_forward * TRAIN_STEPS}
+            "flash_attention_qkv_bwd_kernel": per_forward * TRAIN_STEPS}
     if train_counts != want:
         raise RuntimeError(f"train: launches {train_counts} for {TRAIN_STEPS} steps of one "
                            f"micro-batch, expected {want}")
@@ -1701,7 +1698,7 @@ def run_train_slice(cfg, device, ids, mask, px_u8, rng, per_forward: int, smi: s
     before = [c.launches for c in train_kernels]
     g_kernel = eval_grads(model)
     if [c.launches - b for c, b in zip(train_kernels, before)] != [0, 2 * per_forward,
-                                                                   per_forward, per_forward]:
+                                                                   per_forward]:
         raise RuntimeError("the dropout-off backward did not go through the kernels")
     launched = [c.launches for c in train_kernels]
     set_generator(model, None)  # eval mode draws nothing
@@ -2569,8 +2566,7 @@ def run_train_clis(device, smi, train_ms: float, *, n_vit: int, n_llm: int) -> d
             # steps 1 -> 2 and 3 -> 4 hold no eval or checkpoint between them
             step_ms = [(times[s + 1] - times[s]) * 1e3 for s in range(1, steps, 2)]
             per_mb = {"flash_attention_qkv_lse": 2 * layers if stage == 2 else 2 * n_llm,
-                      "flash_attention_qkv_bwd_dq": layers if stage == 2 else n_llm,
-                      "flash_attention_qkv_bwd_dkv": layers if stage == 2 else n_llm}
+                      "flash_attention_qkv_bwd_kernel": layers if stage == 2 else n_llm}
             want = {c.__name__: 0 for c in counters}
             want.update({k: steps * v for k, v in per_mb.items()})
             # the frozen ViT of stage 1 runs forward only; each eval forward
@@ -2890,10 +2886,11 @@ def separate_work(shape) -> dict:
     """FLOPs and bytes of the attention kernels at one shape, from what this
     run's masks leave: Sq * kv_valid (query, key) pairs, or the causal
     triangle. Products per pair and head dim element: forward 2 (QK^T, PV),
-    dq 3 (QK^T, dO V^T, dS K) plus delta's multiply-add per element of out,
-    dk/dv 4 (QK^T, dO V^T, P^T dO, dS^T Q). Bytes: each input read once,
-    each output written once. "delta" is rowsum(dout * out) alone, which the
-    dq kernel computes on the way."""
+    the backward 5 (QK^T, dO V^T, P^T dO, dS^T Q, dS K: what any backward
+    runs) plus delta's multiply-add per element of out. Bytes: each input
+    read once, each output written once (dQ's fp32 running sums are the
+    kernel's own workspace, not counted). "delta" is rowsum(dout * out)
+    alone, the backward's first launch."""
     b, sq, skv, hq, hkv, d, causal, kv_valid, _ = shape
     pairs = sq * (sq + 1) // 2 if causal else sq * (kv_valid or skv)
     per_product = 2 * b * hq * pairs * d
@@ -2903,17 +2900,16 @@ def separate_work(shape) -> dict:
     return {
         "fwd": (2 * per_product, qkv + q_bytes),
         "fwd_lse": (2 * per_product, qkv + q_bytes + stat),
-        # dq reads q, k, v, out, dout and lse, writes delta and dq
-        "dq": (3 * per_product + delta[0], qkv + 3 * q_bytes + 2 * stat),
-        "dkv": (4 * per_product, qkv + q_bytes + 2 * stat + 2 * kv_bytes),
+        # reads q, k, v, out, dout and lse, writes delta, dq, dk and dv
+        "bwd": (5 * per_product + delta[0], qkv + 3 * q_bytes + 2 * stat + 2 * kv_bytes),
         "delta": delta,
     }
 
 
 def check_attention_separate_training(fa, device, shapes) -> dict:
-    """K2's forward with logsumexp and its dq and dk/dv kernels against the
-    plain versions, timed by CUDA graph replay, beside the bound, the plain
-    versions and SDPA."""
+    """K2's forward with logsumexp and its backward kernel against the plain
+    versions, timed by CUDA graph replay, beside the bound, the plain versions
+    and SDPA."""
     results = {}
     for name, shape in shapes.items():
         b, sq, skv, hq, hkv, d, causal, kv_valid, layout = shape
@@ -2953,13 +2949,12 @@ def check_attention_separate_training(fa, device, shapes) -> dict:
             raise RuntimeError(f"K2 {name}: dk/dv rows of masked keys are not exactly 0")
         del want, plain_lse
 
-        # the entries one by one: delta from the dq kernel, a second run bit-equal
+        # the entry into given buffers: delta from its first launch, a second
+        # run bit-equal
         delta = torch.empty_like(lse)
         again = [torch.empty_like(t) for t in (dq, dk, dv)]
-        dq_args = (q, k, v, out, dout, lse, delta, again[0])
-        dkv_args = (q, k, v, dout, lse, delta, again[1], again[2])
-        fa.flash_attention_bwd_dq(*dq_args, **kw)
-        fa.flash_attention_bwd_dkv(*dkv_args, **kw)
+        bwd_args = (q, k, v, out, dout, lse, delta, *again)
+        fa.flash_attention_bwd_kernel(*bwd_args, **kw)
         torch.cuda.synchronize()
         want_delta = (dout.float() * out.float()).sum(-1)
         delta_rel = relative_l2(delta, want_delta if layout == "bhsd" else
@@ -2969,8 +2964,7 @@ def check_attention_separate_training(fa, device, shapes) -> dict:
         if not all(torch.equal(x, y) for x, y in zip(again, (dq, dk, dv))):
             raise RuntimeError(f"K2 {name}: a second run of the backward differs")
         ms_lse = graph_ms([lambda: fa.flash_attention_lse(q, k, v, **kw)] * 3, 5)
-        ms_dq = graph_ms([lambda: fa.flash_attention_bwd_dq(*dq_args, **kw)] * 3, 5)
-        ms_dkv = graph_ms([lambda: fa.flash_attention_bwd_dkv(*dkv_args, **kw)] * 3, 5)
+        ms_bwd = graph_ms([lambda: fa.flash_attention_bwd_kernel(*bwd_args, **kw)] * 3, 5)
         plain_lse_ms = time_ms(
             lambda: fa.plain_flash_attention(q, k, v, return_lse=True, **kw), 3, warmup=1)
         plain_bwd_ms = time_ms(
@@ -2993,7 +2987,7 @@ def check_attention_separate_training(fa, device, shapes) -> dict:
             lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dos, retain_graph=True), 10)
         del lib_out
         work = separate_work(shape)
-        bounds = {n: bound_ms(*work[n]) for n in ("fwd_lse", "dq", "dkv", "delta")}
+        bounds = {n: bound_ms(*work[n]) for n in ("fwd_lse", "bwd", "delta")}
         text = (f"{layout} B={b} Sq={sq} Skv={skv} hq={hq} hkv={hkv} D={d} causal={causal} "
                 f"kv_valid={kv_valid}")
         results[name] = dict(
@@ -3001,9 +2995,8 @@ def check_attention_separate_training(fa, device, shapes) -> dict:
             lse_ms=ms_lse, **{f"lse_{k}": v for k, v in
                               rate(work["fwd_lse"][0], bounds["fwd_lse"][0], ms_lse).items()},
             library_tflops=rate(work["fwd_lse"][0], bounds["fwd_lse"][0], library_ms)["tflops"],
-            dq_ms=ms_dq, dkv_ms=ms_dkv, plain_lse_ms=plain_lse_ms, delta_rel_l2=delta_rel,
-            **{f"{k}_{n}": v for k in ("dq", "dkv")
-               for n, v in rate(work[k][0], bounds[k][0], ms_dq if k == "dq" else ms_dkv).items()},
+            bwd_ms=ms_bwd, plain_lse_ms=plain_lse_ms, delta_rel_l2=delta_rel,
+            **{f"bwd_{n}": v for n, v in rate(work["bwd"][0], bounds["bwd"][0], ms_bwd).items()},
             plain_bwd_ms=plain_bwd_ms, library_ms=library_ms,
             library_bwd_ms=library_bwd_ms, library_fwd_bwd_ms=library_fwd_bwd_ms,
             bounds={n: dict(bound_ms=v[0], bound_by=v[1]) for n, v in bounds.items()})
@@ -3013,11 +3006,9 @@ def check_attention_separate_training(fa, device, shapes) -> dict:
               f"by graph replay fwd+lse {ms_lse:.4f} ms "
               f"({rate_text(work['fwd_lse'][0], bounds['fwd_lse'][0], ms_lse)}; bound "
               f"{bounds['fwd_lse'][0]:.4f}, plain {plain_lse_ms:.4f}, SDPA fwd {library_ms:.4f} "
-              f"({rate_text(work['fwd_lse'][0], bounds['fwd_lse'][0], library_ms)})), dq with "
-              f"delta {ms_dq:.4f} ms ({rate_text(work['dq'][0], bounds['dq'][0], ms_dq)}; bound "
-              f"{bounds['dq'][0]:.4f}), dk/dv {ms_dkv:.4f} ms "
-              f"({rate_text(work['dkv'][0], bounds['dkv'][0], ms_dkv)}; bound "
-              f"{bounds['dkv'][0]:.4f}), plain backward {plain_bwd_ms:.4f} ms, SDPA backward "
+              f"({rate_text(work['fwd_lse'][0], bounds['fwd_lse'][0], library_ms)})), backward "
+              f"{ms_bwd:.4f} ms ({rate_text(work['bwd'][0], bounds['bwd'][0], ms_bwd)}; bound "
+              f"{bounds['bwd'][0]:.4f}), plain backward {plain_bwd_ms:.4f} ms, SDPA backward "
               f"{library_bwd_ms:.4f} ms, SDPA fwd+bwd {library_fwd_bwd_ms:.4f} ms")
         del q, k, v, dout, out, lse, dq, dk, dv, delta, qg, kg, vg
         torch.cuda.empty_cache()
@@ -3112,7 +3103,7 @@ def run_stage1_slice(device, px_u8, n_vit: int, n_llm: int, smi: str) -> dict:
     losses = [r["loss"] for r in log]
     steady_ms = (log[-1]["time"] - log[-2]["time"]) * 1e3
     per_step = {"flash_attention_qkv": n_vit, "flash_attention_qkv_lse": 2 * n_llm,
-                "flash_attention_qkv_bwd_dq": n_llm, "flash_attention_qkv_bwd_dkv": n_llm}
+                "flash_attention_qkv_bwd_kernel": n_llm}
     want = {n: per_step.get(n, 0) * TRAIN_STEPS for n in counts}
     if counts != want:
         raise RuntimeError(f"stage 1: launches {counts} for {TRAIN_STEPS} steps, expected {want}")
@@ -3148,9 +3139,8 @@ def run_stage1_slice(device, px_u8, n_vit: int, n_llm: int, smi: str) -> dict:
 
 def training_counters(fa):
     """Every attention kernel's wrapper, for launch counts of a training run."""
-    return (fa.flash_attention_qkv, fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
-            fa.flash_attention_qkv_bwd_dkv, fa.flash_attention, fa.flash_attention_lse,
-            fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    return (fa.flash_attention_qkv, fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_kernel,
+            fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_bwd_kernel)
 
 
 # --------------------------------------------------------------- InternVL2-26B --
@@ -3271,9 +3261,8 @@ def run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi) -> dict:
     before = [c.launches for c in training_counters(fa)]
     g_kernel = eval_grads(model)
     grad_launches = [c.launches - b for c, b in zip(training_counters(fa), before)]
-    # forward + recompute, one backward: K2 lse, dq, dk/dv and K1 lse, K3a, K3b
-    want_launches = [0, 2 * DEPTH_CUT, DEPTH_CUT, DEPTH_CUT, 0, 2 * DEPTH_CUT, DEPTH_CUT,
-                     DEPTH_CUT]
+    # forward + recompute, one backward: K1 lse, K3 and K2 lse, K2's backward
+    want_launches = [0, 2 * DEPTH_CUT, DEPTH_CUT, 0, 2 * DEPTH_CUT, DEPTH_CUT]
     if grad_launches != want_launches:
         raise RuntimeError(f"26B x{DEPTH_CUT}: the backward launched {grad_launches}, "
                            f"expected {want_launches}")
@@ -3391,9 +3380,8 @@ def run_26b(device, ids, mask, px_u8, videos, ids_pn, mask_pn, smi) -> dict:
             log = [json.loads(line) for line in f]
     losses = [r["loss"] for r in log]
     steady_ms = (log[-1]["time"] - log[-2]["time"]) * 1e3
-    per_step = {"flash_attention_lse": 2 * n_vit, "flash_attention_bwd_dq": n_vit,
-                "flash_attention_bwd_dkv": n_vit, "flash_attention_qkv_lse": 2 * n_llm,
-                "flash_attention_qkv_bwd_dq": n_llm, "flash_attention_qkv_bwd_dkv": n_llm}
+    per_step = {"flash_attention_lse": 2 * n_vit, "flash_attention_bwd_kernel": n_vit,
+                "flash_attention_qkv_lse": 2 * n_llm, "flash_attention_qkv_bwd_kernel": n_llm}
     want = {n: per_step.get(n, 0) * TRAIN_STEPS for n in train_counts}
     if train_counts != want:
         raise RuntimeError(f"26B train: launches {train_counts} for {TRAIN_STEPS} steps, "
@@ -3877,8 +3865,7 @@ def run_remat_policy(cfg, device, ids, mask, px_u8, smi, *, full_ms: float,
                           dtype=torch.float32)
     batch = {"input_ids": ids[:, 0], "pixels_u8": px_u8, "attention_mask": mask[:, 0],
              "mos": mos}
-    kernels = (fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
-               fa.flash_attention_qkv_bwd_dkv)
+    kernels = (fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_kernel)
     grads, out = {}, {}
     for label, policy in (("full", None), ("policy", REMAT_POLICY)):
         with tempfile.TemporaryDirectory() as out_dir:
@@ -3918,8 +3905,7 @@ def run_remat_policy(cfg, device, ids, mask, px_u8, smi, *, full_ms: float,
             gc.collect()
             torch.cuda.empty_cache()
     n = cfg.vision.num_hidden_layers + cfg.llm.num_hidden_layers
-    want = {"flash_attention_qkv_lse": 2 * n, "flash_attention_qkv_bwd_dq": n,
-            "flash_attention_qkv_bwd_dkv": n}
+    want = {"flash_attention_qkv_lse": 2 * n, "flash_attention_qkv_bwd_kernel": n}
     if out["full"]["counts"] != want or out["policy"]["counts"] != want:
         raise RuntimeError(f"remat policy: launches {out}, expected {want} (the attention "
                            "recomputed under both)")
@@ -4484,11 +4470,11 @@ P15_CLI_CUT = 2  # layers per tower of 15g's checkpoint
 @contextlib.contextmanager
 def tally_heads(fa):
     """The fused-qkv kernels' launches inside the block by form and head
-    shape, {"<bhsd | bsd | lse | dq | dkv> <hq>/<hkv>/<D>": n}: each wrapper
+    shape, {"<bhsd | bsd | lse | bwd> <hq>/<hkv>/<D>": n}: each wrapper
     counts its kernel's launches, and one model runs it at two head shapes
     (its ViT's and its decoder's). A launch is tallied where it returned."""
     tally: dict = {}
-    real_fwd, real_bwd = fa._launch_fwd, fa._launch_bwd
+    real_fwd, real_bwd = fa._launch_fwd, fa._launch_qkv_bwd
 
     def add(form, qkv, hq, hkv):
         key = f"{form} {hq}/{hkv}/{qkv.shape[-1]}"
@@ -4499,11 +4485,11 @@ def tally_heads(fa):
         add("lse" if args[6] else args[5], *args[:3])
         return out
 
-    def bwd(*args):  # (name, qkv, out, dout, lse, delta, dqkv, hq, hkv, causal, kv_valid)
+    def bwd(*args):  # (qkv, out, dout, lse, delta, dqkv, hq, hkv, causal, kv_valid)
         real_bwd(*args)
-        add("dkv" if args[0].endswith("dkv") else "dq", args[1], args[7], args[8])
+        add("bwd", args[0], args[6], args[7])
 
-    with mock.patch.object(fa, "_launch_fwd", fwd), mock.patch.object(fa, "_launch_bwd", bwd):
+    with mock.patch.object(fa, "_launch_fwd", fwd), mock.patch.object(fa, "_launch_qkv_bwd", bwd):
         yield tally
 
 
@@ -4571,8 +4557,8 @@ def p15_counters():
 
     return (fa.flash_attention_qkv, fa.flash_attention, qf.layernorm_quant, qf.gelu_quant,
             qf.quant_rows, qf.rmsnorm_quant, qf.silu_mul_quant, wo.int8_matmul, wo.int4_matmul,
-            fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
-            fa.flash_attention_qkv_bwd_dkv, dec.decode_attention, dec.cached_decode_attention)
+            fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_kernel, dec.decode_attention,
+            dec.cached_decode_attention)
 
 
 def run_p15_slice(cfg, name: str, mode: str, device, chunks, ids_pn, mask_pn, ids, mask, px_u8,
@@ -5025,8 +5011,8 @@ def run_phase16(device, smi, ids, mask, px_u8, *, n_vit: int, n_llm: int) -> dic
             r["step_ms"] = [(b - a) * 1e3 for a, b in zip(times[1:], times[2:])]
             if len(r["losses"]) != steps or not np.isfinite(r["losses"]).all():
                 raise RuntimeError(f"16a {label}: losses {r['losses']}, expected {steps}")
-            per_mb = {"flash_attention_qkv_lse": 2 * layers, "flash_attention_qkv_bwd_dq": layers,
-                      "flash_attention_qkv_bwd_dkv": layers}
+            per_mb = {"flash_attention_qkv_lse": 2 * layers,
+                      "flash_attention_qkv_bwd_kernel": layers}
             want = {k: 0 for k in r["counts"]}
             want.update({k: steps * v for k, v in per_mb.items()})
             if r["counts"] != want:
@@ -5279,7 +5265,7 @@ def run_phase17(device, smi) -> dict:
     pos = torch.arange(s, device=device).expand(b, s)
     cos, sin = p17_rope(cfg.llm, s, device)
     counters = (fa.flash_attention_qkv, fa.flash_attention_qkv_lse,
-                fa.flash_attention_qkv_bwd_dq, fa.flash_attention_qkv_bwd_dkv,
+                fa.flash_attention_qkv_bwd_kernel,
                 dec.cached_decode_attention)
 
     def reset():
@@ -5482,7 +5468,7 @@ def run_phase17(device, smi) -> dict:
         worst = max(errs, key=errs.get)
         hv, hl = cfg.vision.num_attention_heads // t, cfg.llm.num_attention_heads // t
         kv = cfg.llm.num_key_value_heads // t
-        want_tally = {f"{form} {h}/{k}/{dd}": t for form in ("lse", "dq", "dkv")
+        want_tally = {f"{form} {h}/{k}/{dd}": t for form in ("lse", "bwd")
                       for h, k, dd in ((hv, hv, 64), (hl, kv, cfg.llm.head_dim))}
         if dict(tally) != want_tally or errs[worst] > TRAIN_GRAD_TOL:
             raise RuntimeError(f"17b tensor {t}: launches by head shape {dict(tally)}, "
@@ -5621,7 +5607,7 @@ def run_stage1_resume(device, px_u8, n_vit: int, n_llm: int, smi: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     per_step = {"flash_attention_qkv": n_vit, "flash_attention_qkv_lse": 2 * n_llm,
-                "flash_attention_qkv_bwd_dq": n_llm, "flash_attention_qkv_bwd_dkv": n_llm}
+                "flash_attention_qkv_bwd_kernel": n_llm}
     want = {n: per_step.get(n, 0) * P18_STEPS for n in counts}
     if counts != want:
         raise RuntimeError(f"18b: launches {counts} after the restore, expected {want}")
@@ -5811,9 +5797,8 @@ def main() -> int:
         counters = (fa.flash_attention_qkv, qf.layernorm_quant, qf.gelu_quant, qf.quant_rows,
                     qf.rmsnorm_quant, qf.silu_mul_quant,
                     fa.flash_attention, wo.int8_matmul, wo.int4_matmul,
-                    fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_dq,
-                    fa.flash_attention_qkv_bwd_dkv, dec.decode_attention,
-                    dec.cached_decode_attention)
+                    fa.flash_attention_qkv_lse, fa.flash_attention_qkv_bwd_kernel,
+                    dec.decode_attention, dec.cached_decode_attention)
         for c in counters:
             c.launches = 0
         wo.int8_matmul.form_launches = dict.fromkeys(wo.FORMS, 0)
@@ -5835,7 +5820,7 @@ def main() -> int:
         names = ("flash_attention_qkv", "layernorm_quant", "gelu_quant", "quant_rows",
                  "rmsnorm_quant", "silu_mul_quant",
                  "flash_attention", "int8_matmul", "int4_matmul", "flash_attention_qkv_lse",
-                 "flash_attention_qkv_bwd_dq", "flash_attention_qkv_bwd_dkv",
+                 "flash_attention_qkv_bwd_kernel",
                  "decode_attention", "cached_decode_attention")
         return {n: per_forward_launches.get(n, 0) * CHUNKS for n in names}
 
@@ -6203,6 +6188,15 @@ def main() -> int:
         "32 MiB past that), q tiles aligned to the end of the sequence (the ragged one first, "
         "from row 0), the K/V ring, the consumers' turns and a second Q buffer carried from one "
         "item into the next; not causal: one block per (q tile, q head, sample)")
+    # the backward's one kernel a key tile (csrc/flash_attn_bwd.cu's header)
+    bwd_design = (
+        "three launches: delta (and the dQ order's counters set to 0); one block per (128-key "
+        "tile, kv head, sample) computing S^T, dP^T, dV, dK and dQ's share (5 products a "
+        "(query, key) pair, the Pallas pair's 7 less S and dP run twice), dK / dV in registers "
+        "summed over the group, dQ's share one item later by the two consumer warpgroups in "
+        "turn, added by a writer warp into an fp32 running sum per q tile in a fixed order "
+        "(first write, then bulk fp32 reductions, each after the q tile's counter reads its "
+        "rank); dq from the sums, scaled, in bf16")
     kernels = [
         dict(name="flash_attn_qkv_fwd", **fwd_src, design=fwd_design, launches=launches_bhsd,
              max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
@@ -6230,28 +6224,18 @@ def main() -> int:
              library=sdpa_note + " (forward; it keeps its own logsumexp)",
              unit="one training micro-batch: first pass and recompute, 2 x (24 + 24) launches",
              shapes=train_shapes),
-        dict(name="flash_attn_qkv_bwd_dq", **bwd_src,
+        dict(name="flash_attn_qkv_bwd", **bwd_src, design=bwd_design,
              replaces="aigv_assessor_tpu/ops/pallas_attention.py:384",
-             launches=train_counts["flash_attention_qkv_bwd_dq"],
-             max_abs_err=max(r["max_abs_err"]["dq"] for r in train_shapes.values()),
-             ms=per_unit(train_shapes, "dq_ms"), plain_ms=per_unit(train_shapes, "plain_bwd_ms"),
-             bound_ms=per_unit_bound("dq"),
-             bound_by=train_shapes["vit"]["bounds"]["dq"]["bound_by"],
+             also_replaces="aigv_assessor_tpu/ops/pallas_attention.py:455",
+             launches=train_counts["flash_attention_qkv_bwd_kernel"],
+             max_abs_err=max(max(r["max_abs_err"].values()) for r in train_shapes.values()),
+             ms=per_unit(train_shapes, "bwd_ms"), plain_ms=per_unit(train_shapes, "plain_bwd_ms"),
+             bound_ms=per_unit_bound("bwd"),
+             bound_by=train_shapes["vit"]["bounds"]["bwd"]["bound_by"],
              library_ms=per_unit(train_shapes, "library_bwd_ms"),
-             library=sdpa_note + ": its backward gives dq, dk and dv in one call, so the same "
-             "time stands beside both backward kernels; plain_ms is the whole plain backward",
-             unit="one training micro-batch: 24 + 24 launches"),
-        dict(name="flash_attn_qkv_bwd_dkv", **bwd_src,
-             replaces="aigv_assessor_tpu/ops/pallas_attention.py:455",
-             launches=train_counts["flash_attention_qkv_bwd_dkv"],
-             max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"])
-                             for r in train_shapes.values()),
-             ms=per_unit(train_shapes, "dkv_ms"), plain_ms=per_unit(train_shapes, "plain_bwd_ms"),
-             bound_ms=per_unit_bound("dkv"),
-             bound_by=train_shapes["vit"]["bounds"]["dkv"]["bound_by"],
-             library_ms=per_unit(train_shapes, "library_bwd_ms"),
-             library="as for flash_attn_qkv_bwd_dq",
-             unit="one training micro-batch: 24 + 24 launches"),
+             library=sdpa_note + ": its backward alone gives dq, dk and dv in one call; "
+             "plain_ms is the whole plain backward",
+             unit="one training micro-batch: 24 + 24 calls of the entry (its three launches)"),
     ]
     llm_sep = separate["llm"]
     kernels.append(dict(
@@ -6363,7 +6347,7 @@ def main() -> int:
                f"{{}} launches at the vit_6b_train shape ({unit26[0]} frames)")
     k2 = separate_train["vit_6b_train"]
 
-    def k2_entry(name, key, kind, counter, replaces, times, library_ms, library):
+    def k2_entry(name, key, kind, counter, replaces, times, library_ms, library, design):
         return dict(
             name=name, route="cuda", source=f"aigv_assessor_torch/csrc/{key}",
             replaces=f"aigv_assessor_tpu/ops/pallas_attention.py:{replaces}",
@@ -6371,26 +6355,26 @@ def main() -> int:
             max_abs_err=max((r["lse_max_abs_err"] if kind == "fwd_lse" else
                              max(r["max_abs_err"][g] for g in kind_grads[kind]))
                             for r in separate_train.values()),
-            ms=times * n_vit26 * k2[f"{kind_ms[kind]}_ms"],
+            ms=times * n_vit26 * k2[f"{kind_ms[kind]}_ms"], design=design,
             plain_ms=times * n_vit26 * k2["plain_lse_ms" if kind == "fwd_lse" else "plain_bwd_ms"],
             bound_ms=times * n_vit26 * k2["bounds"][kind]["bound_ms"],
             bound_by=k2["bounds"][kind]["bound_by"], library_ms=times * n_vit26 * library_ms,
             library=library, unit=k2_unit.format(times * n_vit26), shapes=separate_train)
 
-    kind_grads = {"dq": ("dq",), "dkv": ("dk", "dv")}
-    kind_ms = {"fwd_lse": "lse", "dq": "dq", "dkv": "dkv"}
+    kind_grads = {"bwd": ("dq", "dk", "dv")}
+    kind_ms = {"fwd_lse": "lse", "bwd": "bwd"}
     k2_lib = ("F.scaled_dot_product_attention on head-major views of the same q, k, v, k and "
               "v cut at kv_valid")
     kernels += [
         k2_entry("flash_attn_fwd_lse", "flash_attn_fwd.cu", "fwd_lse", "flash_attention_lse",
-                 352, 2, k2["library_ms"], k2_lib + " (forward; it keeps its own logsumexp)"),
-        k2_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "dq", "flash_attention_bwd_dq", 602,
-                 1, k2["library_bwd_ms"], k2_lib + ": its backward alone (on a kept forward) "
-                 "gives dq, dk and dv in one call, so the same time stands beside both backward "
-                 "kernels (its forward + backward is under shapes, library_fwd_bwd_ms); plain_ms "
-                 "is the whole plain backward"),
-        k2_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "dkv", "flash_attention_bwd_dkv",
-                 618, 1, k2["library_bwd_ms"], "as for flash_attn_bwd_dq"),
+                 352, 2, k2["library_ms"], k2_lib + " (forward; it keeps its own logsumexp)",
+                 fwd_design),
+        dict(k2_entry("flash_attn_bwd", "flash_attn_bwd.cu", "bwd", "flash_attention_bwd_kernel",
+                      602, 1, k2["library_bwd_ms"], k2_lib + ": its backward alone (on a kept "
+                      "forward) gives dq, dk and dv in one call (its forward + backward is under "
+                      "shapes, library_fwd_bwd_ms); plain_ms is the whole plain backward",
+                      bwd_design),
+             also_replaces="aigv_assessor_tpu/ops/pallas_attention.py:618"),
     ]
     m8 = [fp8[f"{name}_m8"] for name in FP8_SHAPES]
     kernels.append(dict(
@@ -6444,25 +6428,17 @@ def main() -> int:
              unit=f"one InternVL2-4B training micro-batch of {P15_TRAIN_VIDEOS} videos: first "
              f"pass and recompute, 2 x {n4} decoder launches; launches: 15e's at 32/32/96",
              shapes=p15["train"]),
-        dict(name="flash_attn_qkv_bwd_dq_d96", **bwd_src,
+        dict(name="flash_attn_qkv_bwd_d96", **bwd_src, design=bwd_design,
              replaces="aigv_assessor_tpu/ops/pallas_attention.py:384",
-             launches=train_tally.get("dq 32/32/96", 0), max_abs_err=t15["max_abs_err"]["dq"],
-             ms=n4 * t15["dq_ms"], plain_ms=n4 * t15["plain_bwd_ms"],
-             bound_ms=n4 * t15["bounds"]["dq"]["bound_ms"],
-             bound_by=t15["bounds"]["dq"]["bound_by"], library_ms=n4 * t15["library_bwd_ms"],
-             library="as for flash_attn_qkv_bwd_dq",
-             unit=f"one InternVL2-4B training micro-batch: {n4} decoder launches; launches: "
-             "15e's at 32/32/96"),
-        dict(name="flash_attn_qkv_bwd_dkv_d96", **bwd_src,
-             replaces="aigv_assessor_tpu/ops/pallas_attention.py:455",
-             launches=train_tally.get("dkv 32/32/96", 0),
-             max_abs_err=max(t15["max_abs_err"]["dk"], t15["max_abs_err"]["dv"]),
-             ms=n4 * t15["dkv_ms"], plain_ms=n4 * t15["plain_bwd_ms"],
-             bound_ms=n4 * t15["bounds"]["dkv"]["bound_ms"],
-             bound_by=t15["bounds"]["dkv"]["bound_by"], library_ms=n4 * t15["library_bwd_ms"],
-             library="as for flash_attn_qkv_bwd_dq",
-             unit=f"one InternVL2-4B training micro-batch: {n4} decoder launches; launches: "
-             "15e's at 32/32/96"),
+             also_replaces="aigv_assessor_tpu/ops/pallas_attention.py:455",
+             launches=train_tally.get("bwd 32/32/96", 0),
+             max_abs_err=max(t15["max_abs_err"].values()),
+             ms=n4 * t15["bwd_ms"], plain_ms=n4 * t15["plain_bwd_ms"],
+             bound_ms=n4 * t15["bounds"]["bwd"]["bound_ms"],
+             bound_by=t15["bounds"]["bwd"]["bound_by"], library_ms=n4 * t15["library_bwd_ms"],
+             library="as for flash_attn_qkv_bwd",
+             unit=f"one InternVL2-4B training micro-batch: {n4} decoder calls of the entry; "
+             "launches: 15e's at 32/32/96"),
         dict(name="flash_attn_fwd_d96", route="cuda", design=fwd_design,
              source="aigv_assessor_torch/csrc/flash_attn_fwd.cu",
              replaces="aigv_assessor_tpu/ops/pallas_attention.py:352",
@@ -6497,15 +6473,15 @@ def main() -> int:
             shapes={key: r}))
     ids_by_name = {
         "flash_attn_qkv_fwd": "K1 bhsd", "flash_attn_qkv_fwd_bsd": "K1 bsd",
-        "flash_attn_qkv_fwd_lse": "K1 lse", "flash_attn_qkv_bwd_dq": "K3a",
-        "flash_attn_qkv_bwd_dkv": "K3b", "flash_attn_fwd": "K2 fwd",
+        "flash_attn_qkv_fwd_lse": "K1 lse", "flash_attn_qkv_bwd": "K3a / K3b",
+        "flash_attn_fwd": "K2 fwd",
         "weight_only_int8_matmul": "K6", "weight_only_int4_matmul": "K7", "ln_quant": "K4a",
         "gelu_quant": "K4b", "ident_quant": "K4c", "rmsnorm_quant": "K5a",
         "silu_mul_quant": "K5b", "decode_attention": "K8", "flash_attn_fwd_lse": "K2 lse",
-        "flash_attn_bwd_dq": "K2 dq", "flash_attn_bwd_dkv": "K2 dk/dv", "fp8_matmul": "K9",
+        "flash_attn_bwd": "K2 dq / dk-dv", "fp8_matmul": "K9",
         "flash_attn_qkv_fwd_d96": "K1 bhsd D=96", "flash_attn_qkv_fwd_qwen2": "K1 bhsd 14/2",
-        "flash_attn_qkv_fwd_lse_d96": "K1 lse D=96", "flash_attn_qkv_bwd_dq_d96": "K3a D=96",
-        "flash_attn_qkv_bwd_dkv_d96": "K3b D=96", "flash_attn_fwd_d96": "K2 fwd D=96",
+        "flash_attn_qkv_fwd_lse_d96": "K1 lse D=96", "flash_attn_qkv_bwd_d96": "K3a / K3b D=96",
+        "flash_attn_fwd_d96": "K2 fwd D=96",
         "decode_attention_d96": "K8 D=96", "decode_attention_qwen2": "K8 14/2"}
     # the entry points' paths (phases 7c and 12), each run with the counts at 0
     s2, s1 = train_clis["stage2"]["counts"], train_clis["stage1"]["counts"]
@@ -6520,8 +6496,7 @@ def main() -> int:
         "ident_quant": {"serve_w8a8": w8a8_serve["quant_rows"]},
     }
     for kernel, counter in (("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
-                            ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
-                            ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+                            ("flash_attn_qkv_bwd", "flash_attention_qkv_bwd_kernel")):
         by_path[kernel] = {"train_cli_stage2": s2[counter], "train_cli_stage1": s1[counter],
                            "train_vit_remat_policy (13e, one micro-batch)":
                            remat["policy"]["counts"][counter]}
@@ -6584,8 +6559,7 @@ def main() -> int:
         f"internvl2_{m} (15, ViT)": t[key]["tally"].get("bsd 16/16/64", 0)
         for m, t, key in (("4b_w8a8", s4, "w8a8"), ("4b_w8a8_fused", s4, "w8a8_fused"),
                           ("1b_w8a8", s1b, "w8a8"))})
-    for kernel, form in (("flash_attn_qkv_fwd_lse", "lse"), ("flash_attn_qkv_bwd_dq", "dq"),
-                         ("flash_attn_qkv_bwd_dkv", "dkv")):
+    for kernel, form in (("flash_attn_qkv_fwd_lse", "lse"), ("flash_attn_qkv_bwd", "bwd")):
         by_path[kernel]["internvl2_4b_train (15e, ViT)"] = train_tally.get(f"{form} 16/16/64", 0)
     for kernel, counter in (("ln_quant", "layernorm_quant"), ("gelu_quant", "gelu_quant"),
                             ("ident_quant", "quant_rows"), ("rmsnorm_quant", "rmsnorm_quant"),
@@ -6603,8 +6577,7 @@ def main() -> int:
     # 1), sharded scoring (one chunk)
     fsdp_counts = p16["train"]["fsdp"]["counts"]
     for kernel, counter in (("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
-                            ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
-                            ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+                            ("flash_attn_qkv_bwd", "flash_attention_qkv_bwd_kernel")):
         by_path[kernel]["stage2_train_fsdp2 (16a, 3 steps)"] = fsdp_counts[counter]
     p16_bf16, p16_w8a8 = p16["score"]["bf16"]["counts"], p16["score"]["w8a8"]["counts"]
     by_path["flash_attn_qkv_fwd"]["sharded_scoring (16b, one chunk)"] = (
@@ -6621,8 +6594,7 @@ def main() -> int:
         by_path["flash_attn_qkv_fwd"][f"tensor_{t}_shards (17a, one layer each)"] = (
             p17["a"][t]["counts"].get("flash_attention_qkv", 0))
         for kernel, counter in (("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
-                                ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
-                                ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+                                ("flash_attn_qkv_bwd", "flash_attention_qkv_bwd_kernel")):
             by_path[kernel][f"tensor_{t}_shards (17b, one layer each)"] = (
                 p17["b"][t]["counts"].get(counter, 0))
         by_path.setdefault("decode_attention", {})[f"tensor_{t}_shards (17c, one step)"] = (
@@ -6631,8 +6603,7 @@ def main() -> int:
     # and stepped (K1 for the frozen ViT, K1 lse, K3a, K3b for the decoder)
     for kernel, counter in (("flash_attn_qkv_fwd", "flash_attention_qkv"),
                             ("flash_attn_qkv_fwd_lse", "flash_attention_qkv_lse"),
-                            ("flash_attn_qkv_bwd_dq", "flash_attention_qkv_bwd_dq"),
-                            ("flash_attn_qkv_bwd_dkv", "flash_attention_qkv_bwd_dkv")):
+                            ("flash_attn_qkv_bwd", "flash_attention_qkv_bwd_kernel")):
         by_path[kernel][f"stage1_resumed (18b, {P18_STEPS} steps)"] = p18["b"]["counts"][counter]
     for k in kernels:
         k["id"] = ids_by_name[k["name"]]

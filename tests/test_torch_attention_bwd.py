@@ -25,8 +25,7 @@ from aigv_assessor_torch.ops.flash_attention import (
     FlashAttentionQKV,
     flash_attention_qkv,
     flash_attention_qkv_bwd,
-    flash_attention_qkv_bwd_dkv,
-    flash_attention_qkv_bwd_dq,
+    flash_attention_qkv_bwd_kernel,
     flash_attention_qkv_lse,
     plain_attention_qkv,
     plain_attention_qkv_bwd,
@@ -148,8 +147,7 @@ def test_autograd_function_on_cpu_runs_the_plain_versions(name):
     _, hq, hkv, _, _, causal, kv_valid = case
     qkv, dout = _inputs(3, case)
     kw = dict(causal=causal, kv_valid=kv_valid)
-    counters = (flash_attention_qkv, flash_attention_qkv_lse, flash_attention_qkv_bwd_dq,
-                flash_attention_qkv_bwd_dkv)
+    counters = (flash_attention_qkv, flash_attention_qkv_lse, flash_attention_qkv_bwd_kernel)
     before = [c.launches for c in counters]
     t = torch.from_numpy(qkv).requires_grad_()
     out = fused_qkv_attention(t, hq, hkv, **kw)
@@ -205,9 +203,7 @@ def test_backward_kernel_wrappers_are_cuda_only():
     qkv, dout = (torch.from_numpy(a) for a in _inputs(7, case))
     out, lse = plain_attention_qkv(qkv, 4, 4, return_lse=True)
     delta = (dout * out).sum(-1)
-    # the dq entry reads out and writes delta; the dk/dv entry reads delta
+    # the entry reads out and writes delta, then dq, dk and dv
     with pytest.raises(ValueError, match="runs on cuda"):
-        flash_attention_qkv_bwd_dq(qkv, out, dout, lse, torch.empty_like(delta),
-                                   torch.empty_like(qkv), 4, 4)
-    with pytest.raises(ValueError, match="runs on cuda"):
-        flash_attention_qkv_bwd_dkv(qkv, dout, lse, delta, torch.empty_like(qkv), 4, 4)
+        flash_attention_qkv_bwd_kernel(qkv, out, dout, lse, torch.empty_like(delta),
+                                       torch.empty_like(qkv), 4, 4)

@@ -3,17 +3,17 @@ against `jax.grad` of the JAX package's attention at the kernels' tile
 borders.
 
 `chip_smoke.py` and tests/test_torch_gpu.py compare the Hopper backward
-kernels (the dq kernel: q tiles of 128 rows at D = 128 and 192 at D = 64, K/V
-tiles of 64 keys; the dk/dv kernel: key tiles of 128, 64 per warpgroup, q
-tiles of 64 rows) with `plain_attention_qkv_bwd` and
+kernel (one block per key tile of 128, 64 per warpgroup, over q tiles of 64
+rows; dQ summed over the key tiles) with `plain_attention_qkv_bwd` and
 `plain_flash_attention_bwd`. Here those two plain versions meet `jax.grad`
 of the JAX package's XLA path (`fused_qkv_attention` and
 `multi_head_attention` with `impl="xla"`, in both layouts) on the same fp32
 inputs from a numpy seed, at atol = rtol = 1e-4 (two softmax formulations,
 one summation order apart; tests/test_torch_attention_bwd.py's TOL): one
-row, rows one short of and one past each tile, causal at a ragged S, G = 6,
-kv_valid = 1 and inside a tile, and non-causal Sq > Skv and Sq < Skv. Keys
-past kv_valid hold +-1e3, which the mask must keep out of every gradient.
+row, rows one short of and one past each tile, causal at a ragged S, G = 6
+and 7, kv_valid = 1, inside a tile and one past the last full tile (1025 of
+1032), and non-causal Sq > Skv and Sq < Skv. Keys past kv_valid hold +-1e3,
+which the mask must keep out of every gradient.
 """
 
 import jax
@@ -44,6 +44,15 @@ EDGES = {
     "kv_valid_1": (2, 129, 129, 2, 2, 64, False, 1),
     "sq_gt_skv": (2, 300, 129, 4, 2, 64, False, 100),
     "sq_lt_skv_g6": (1, 63, 257, 6, 1, 128, False, 200),
+    # the one-kernel backward's 128-key tiles: Skv one short of, one past and
+    # one past two tiles; the ViTs' kv_valid 1025 of 1032 (one valid key in
+    # the last tile) at D = 64 and 128; Qwen2-0.5B's 14 / 2 heads causal
+    "skv127": (1, 100, 127, 4, 2, 64, False, None),
+    "skv129": (1, 100, 129, 2, 2, 128, False, None),
+    "s257": (1, 257, 257, 2, 2, 128, False, None),
+    "kv1025_d64": (1, 1032, 1032, 1, 1, 64, False, 1025),
+    "kv1025_d128": (1, 1032, 1032, 1, 1, 128, False, 1025),
+    "s193_causal_g7": (1, 193, 193, 14, 2, 64, True, None),
 }
 SELF_EDGES = [name for name, case in EDGES.items() if case[1] == case[2]]
 

@@ -28,8 +28,7 @@ from aigv_assessor_torch.ops.flash_attention import (
     FlashAttention,
     flash_attention,
     flash_attention_bwd,
-    flash_attention_bwd_dkv,
-    flash_attention_bwd_dq,
+    flash_attention_bwd_kernel,
     flash_attention_lse,
     plain_flash_attention,
     plain_flash_attention_bwd,
@@ -166,8 +165,7 @@ def test_autograd_function_on_cpu_runs_the_plain_versions(name):
     case = CASES[name]
     kw = dict(causal=case[6], kv_valid=case[7])
     q, k, v, dout = (torch.from_numpy(t) for t in _inputs(3, case, "bshd"))
-    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv)
+    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_kernel)
     before = [c.launches for c in counters]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = multi_head_attention(*leaves, **kw)
@@ -220,10 +218,7 @@ def test_training_kernel_wrappers_are_cuda_only():
     q, k, v, dout = (torch.from_numpy(t) for t in _inputs(7, case, "bshd"))
     out, lse = flash_attention_lse(q, k, v)
     delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
-    # the dq entry reads out and writes delta; the dk/dv entry reads delta
+    # the entry reads out and writes delta, then dq, dk and dv
     with pytest.raises(ValueError, match="runs on cuda"):
-        flash_attention_bwd_dq(q, k, v, out, dout, lse, torch.empty_like(delta),
-                               torch.empty_like(q))
-    with pytest.raises(ValueError, match="runs on cuda"):
-        flash_attention_bwd_dkv(q, k, v, dout, lse, delta, torch.empty_like(k),
-                                torch.empty_like(v))
+        flash_attention_bwd_kernel(q, k, v, out, dout, lse, torch.empty_like(delta),
+                                   torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))

@@ -10,15 +10,17 @@ jax-free, so that it runs where jax is not installed:
   Tolerance atol = rtol = 2e-2, about four bf16 ulps at the outputs' scale.
   Its dense `bsd` output equals its `bhsd` output transposed, bit for bit:
   only the store addresses differ.
-- The forward with logsumexp (K1 lse) and the backward kernels (K3a dq, K3b
-  dk/dv). `out` is bit-equal to the forward without logsumexp; the logsumexp
+- The forward with logsumexp (K1 lse) and the backward kernel (K3a / K3b, one
+  kernel a key tile). `out` is bit-equal to the forward without logsumexp; the logsumexp
   is within 1e-4 of the plain fp32 one; dq, dk and dv are each within 2e-3
   relative L2 of `plain_attention_qkv_bwd`, which rounds p and ds to bf16
   where the kernels do (the JAX kernels keep them fp32), so what is left is
   the summation order and the bf16 rounding of the results. Also at the
-  backward kernels' tile borders and internlm2-chat-20b's shape; delta as
-  the dq kernel writes it within 1e-5 relative L2 of the fp32 expression;
-  a second run of both kernels bit-equal to the first (no atomics).
+  backward kernel's tile borders and internlm2-chat-20b's shape; delta as
+  its first launch writes it within 1e-5 relative L2 of the fp32 expression;
+  a second run bit-equal to the first (dQ summed over the key tiles in a
+  fixed order); captured in a CUDA graph and replayed three times bit-equal,
+  and two backwards at once on two streams each bit-equal to its run alone.
   `FlashAttentionQKV` is run end to end through `torch.autograd.grad`.
 - The fused quantize kernels (K4a-c, K5a, K5b) at the 2B path's shapes, at
   the 8B decoder's 14336-wide SwiGLU feed, at a ragged row count and at
@@ -41,7 +43,7 @@ jax-free, so that it runs where jax is not installed:
   equalities above; and views that a TMA tensor map cannot describe (a row
   stride off 16 bytes, a base off 16 bytes) raise before any launch.
 - K2's training forms: the forward with logsumexp (out bit-equal to the
-  forward without, lse within 1e-4) and the dq and dk/dv kernels on three
+  forward without, lse within 1e-4) and the backward kernel on three
   tensors (each within 2e-3 relative L2 of `plain_flash_attention_bwd`, dk /
   dv of masked keys exactly 0, delta within 1e-5, a second run bit-equal),
   at the small shapes and the forward's tile borders in both layouts and at
@@ -122,13 +124,11 @@ from aigv_assessor_torch.tools.quant_fuse_ab import PRODUCERS, tie_grid
 from aigv_assessor_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
-    flash_attention_bwd_dkv,
-    flash_attention_bwd_dq,
+    flash_attention_bwd_kernel,
     flash_attention_lse,
     flash_attention_qkv,
     flash_attention_qkv_bwd,
-    flash_attention_qkv_bwd_dkv,
-    flash_attention_qkv_bwd_dq,
+    flash_attention_qkv_bwd_kernel,
     flash_attention_qkv_lse,
     plain_attention_qkv,
     plain_attention_qkv_bwd,
@@ -176,12 +176,12 @@ SHAPES = {
     "s2113_causal_g7": (1, 14, 2, 2113, 64, True, None),
 }
 # shapes for the backward: both head dims, GQA with groups of 2, 4 and 6,
-# causal and not, a garbage tail, and the borders of the kernels' tiles (the
-# dq kernel's q tiles of 128 rows at D = 128 and 192 at D = 64 over K/V tiles
-# of 64 keys; the dk/dv kernel's key tiles of 128, 64 per warpgroup, over q
-# tiles of 64 rows): one row, rows one short of and one past a tile, kv_valid
-# = 1 and one past a tile; and internlm2-chat-20b's attention (InternVL2-26B's
-# decoder, 2 videos)
+# causal and not, a garbage tail, and the borders of the kernel's tiles (key
+# tiles of 128, 64 per warpgroup, over q tiles of 64 rows; earlier kernels'
+# q tiles of 128 and 192 rows and K/V tiles of 64 keys): one row, rows one
+# short of and one past a tile, kv_valid = 1, one past a tile and 1025 of
+# 1032 (one valid key in the last tile); internlm2-chat-20b's attention
+# (InternVL2-26B's decoder, 2 videos); Qwen2-0.5B's 14 / 2 heads causal
 BWD_SHAPES = {
     "ragged": SHAPES["ragged"],
     "gqa2_causal_d128": (2, 4, 2, 200, 128, True, None),
@@ -201,8 +201,12 @@ BWD_SHAPES = {
     "s65_causal_d96": (2, 4, 2, 65, 96, True, None),
     "s191_causal_d96": (1, 8, 2, 191, 96, True, None),
     "qwen2_g7": (2, 14, 2, 2113, 64, True, None),
+    "s257_d128": (1, 2, 2, 257, 128, False, None),
+    "kv1025_d64": (2, 4, 4, 1032, 64, False, 1025),
+    "kv1025_d128": (2, 4, 4, 1032, 128, False, 1025),
+    "s193_causal_g7": (1, 14, 2, 193, 64, True, None),
 }
-DELTA_TOL = 1e-5  # delta from the dq kernel against the fp32 expression, relative L2
+DELTA_TOL = 1e-5  # delta from the backward's first launch against the fp32 expression, rel L2
 ZERO_GRAD_ATOL = 1e-3  # dq and dk where every row has one valid key: 0 in exact arithmetic
 
 
@@ -343,11 +347,10 @@ def test_backward_kernels_match_plain(cuda, name):
     qkv, dout = make_qkv(shape, cuda, seed=4), make_dout(shape, cuda)
     kw = dict(causal=causal, kv_valid=kv_valid)
     out, lse = flash_attention_qkv_lse(qkv, hq, hkv, **kw)
-    before = flash_attention_qkv_bwd_dq.launches, flash_attention_qkv_bwd_dkv.launches
+    before = flash_attention_qkv_bwd_kernel.launches
     got = flash_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
     torch.cuda.synchronize()
-    assert (flash_attention_qkv_bwd_dq.launches, flash_attention_qkv_bwd_dkv.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert flash_attention_qkv_bwd_kernel.launches == before + 1
     want = plain_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
     assert got.shape == qkv.shape and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     if min(shape[3], kv_valid or shape[3]) == 1:
@@ -360,11 +363,11 @@ def test_backward_kernels_match_plain(cuda, name):
             assert relative_l2(got[:, part], want[:, part]) <= BWD_TOL
     if kv_valid is not None:  # nothing flows back into the masked keys
         assert not got[:, hq:, kv_valid:].any()
-    # the entries one by one: the dq kernel writes delta, the dk/dv kernel
-    # reads it; a second run gives the same bits (no atomics)
+    # the entry into given buffers: delta as its first launch writes it; a
+    # second run gives the same bits (dQ summed over the key tiles in a fixed
+    # order)
     delta, again = torch.empty_like(lse), torch.empty_like(qkv)
-    flash_attention_qkv_bwd_dq(qkv, out, dout, lse, delta, again, hq, hkv, **kw)
-    flash_attention_qkv_bwd_dkv(qkv, dout, lse, delta, again, hq, hkv, **kw)
+    flash_attention_qkv_bwd_kernel(qkv, out, dout, lse, delta, again, hq, hkv, **kw)
     torch.cuda.synchronize()
     assert relative_l2(delta, (dout.float() * out.float()).sum(-1)) <= DELTA_TOL
     assert torch.equal(again, got)
@@ -379,7 +382,7 @@ def test_autograd_function_end_to_end(cuda):
     proj = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen, device=cuda)
     proj = proj.to(torch.bfloat16).requires_grad_()
     dout = make_dout((b, hq, hkv, s, d, True, None), cuda)
-    counters = (flash_attention_qkv_lse, flash_attention_qkv_bwd_dq, flash_attention_qkv_bwd_dkv)
+    counters = (flash_attention_qkv_lse, flash_attention_qkv_bwd_kernel)
     before = [c.launches for c in counters]
     view = proj.view(b, s, hq + 2 * hkv, d).transpose(1, 2)
     out = fused_qkv_attention(view, hq, hkv, causal=True)
@@ -394,6 +397,54 @@ def test_autograd_function_end_to_end(cuda):
     assert relative_l2(got, want) <= 1e-2  # autograd keeps p and ds in fp32
 
 
+@pytest.mark.parametrize("name", ["llm", "vit"])
+def test_backward_replays_in_a_graph(cuda, name):
+    """The backward's three launches (delta and the counters' reset, the key
+    tiles' kernel, dq's convert) captured in a CUDA graph, their workspace
+    from the graph's pool, and replayed three times: bit-equal to the eager
+    call every time, at the 2B decoder's and the 2B ViT's shapes."""
+    shape = SHAPES[name]
+    _, hq, hkv, _, _, causal, kv_valid = shape
+    qkv, dout = make_qkv(shape, cuda, seed=8), make_dout(shape, cuda, seed=9)
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    out, lse = flash_attention_qkv_lse(qkv, hq, hkv, **kw)
+    want = flash_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_backward_on_two_streams(cuda):
+    """Two backwards at once on two streams (the 2B decoder's shape and the
+    ViT's), each with its own workspace and counters: each bit-equal to its
+    run alone."""
+    runs = []
+    for name, seed in (("llm", 10), ("vit", 11)):
+        shape = SHAPES[name]
+        _, hq, hkv, _, _, causal, kv_valid = shape
+        qkv, dout = make_qkv(shape, cuda, seed=seed), make_dout(shape, cuda, seed=seed)
+        kw = dict(causal=causal, kv_valid=kv_valid)
+        out, lse = flash_attention_qkv_lse(qkv, hq, hkv, **kw)
+        alone = flash_attention_qkv_bwd(qkv, out, lse, dout, hq, hkv, **kw)
+        runs.append(((qkv, out, lse, dout, hq, hkv), kw, alone))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for stream, (args, kw, _) in zip(streams, runs):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            got.append(flash_attention_qkv_bwd(*args, **kw))
+    torch.cuda.synchronize()
+    for g, (_, _, alone) in zip(got, runs):
+        assert torch.equal(g, alone)
+
+
 def test_training_wrappers_raise_rather_than_fall_back(cuda):
     shape = BWD_SHAPES["ragged"]
     qkv, dout = make_qkv(shape, cuda), make_dout(shape, cuda)
@@ -406,24 +457,25 @@ def test_training_wrappers_raise_rather_than_fall_back(cuda):
         flash_attention_qkv(qkv.float().requires_grad_(), 4, 4)
     with pytest.raises(ValueError, match="forward-only"):
         flash_attention_qkv(qkv.clone().requires_grad_(), 4, 4, out_layout="bsd")
-    # the dq entry takes out before dout; the dk/dv entry takes no out
-    kernels = (lambda *a, **kw: flash_attention_qkv_bwd_dq(a[0], out, *a[1:], **kw),
-               flash_attention_qkv_bwd_dkv)
-    for kernel in kernels:
-        with pytest.raises(ValueError, match="dout"):
-            kernel(qkv, dout.float(), lse, delta, dqkv, 4, 4, kv_valid=150)
-        with pytest.raises(ValueError, match="lse"):
-            kernel(qkv, dout, lse.double(), delta, dqkv, 4, 4, kv_valid=150)
-        with pytest.raises(ValueError, match="contiguous head dim"):
-            kernel(qkv, dout.transpose(2, 3).contiguous().transpose(2, 3), lse, delta, dqkv,
-                   4, 4, kv_valid=150)
-        with pytest.raises(ValueError, match="contiguous"):
-            kernel(qkv, dout, lse.transpose(1, 2).contiguous().transpose(1, 2), delta, dqkv,
-                   4, 4, kv_valid=150)
-        with pytest.raises(ValueError, match="delta"):
-            kernel(qkv, dout, lse, delta[:, :2], dqkv, 4, 4, kv_valid=150)
-    with pytest.raises(ValueError, match="out"):  # the dq entry reads out
-        flash_attention_qkv_bwd_dq(qkv, out.float(), dout, lse, delta, dqkv, 4, 4, kv_valid=150)
+    # the entry takes out before dout
+    def kernel(qkv_, *rest, **kw):
+        return flash_attention_qkv_bwd_kernel(qkv_, out, *rest, **kw)
+
+    with pytest.raises(ValueError, match="dout"):
+        kernel(qkv, dout.float(), lse, delta, dqkv, 4, 4, kv_valid=150)
+    with pytest.raises(ValueError, match="lse"):
+        kernel(qkv, dout, lse.double(), delta, dqkv, 4, 4, kv_valid=150)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        kernel(qkv, dout.transpose(2, 3).contiguous().transpose(2, 3), lse, delta, dqkv,
+               4, 4, kv_valid=150)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(qkv, dout, lse.transpose(1, 2).contiguous().transpose(1, 2), delta, dqkv,
+               4, 4, kv_valid=150)
+    with pytest.raises(ValueError, match="delta"):
+        kernel(qkv, dout, lse, delta[:, :2], dqkv, 4, 4, kv_valid=150)
+    with pytest.raises(ValueError, match="out"):  # the entry reads out
+        flash_attention_qkv_bwd_kernel(qkv, out.float(), dout, lse, delta, dqkv, 4, 4,
+                                       kv_valid=150)
 
 
 # (rows, cols) of each feed on the 2B path: the ViT's (32 frames x 1032
@@ -586,6 +638,16 @@ SEPARATE = {
     "cross_gqa_d96": (2, 127, 257, 12, 2, 96, False, None),
     # one q row past a 192-row q tile, kv_valid one past a 96-key tile
     "s193_kv97_d96": (1, 193, 193, 8, 2, 96, False, 97),
+    # the backward's 128-key tiles: Skv one short of, one past and one past
+    # two tiles, kv_valid 1025 of 1032 at D = 64 and 128, and Qwen2-0.5B's 14
+    # / 2 heads causal at 193 and 2113 rows
+    "skv127_d64": (2, 100, 127, 4, 2, 64, False, None),
+    "skv129_d128": (2, 100, 129, 4, 2, 128, False, None),
+    "s257_d128": (1, 257, 257, 4, 4, 128, False, None),
+    "kv1025_d64": (1, 1032, 1032, 4, 4, 64, False, 1025),
+    "kv1025_d128": (1, 1032, 1032, 4, 4, 128, False, 1025),
+    "s193_causal_g7": (1, 193, 193, 14, 2, 64, True, None),
+    "s2113_causal_g7": (1, 2113, 2113, 14, 2, 64, True, None),
 }
 
 
@@ -653,15 +715,14 @@ def test_separate_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="layout"):
         flash_attention(q, k, v, layout="sbhd")
     # a tensor that needs a gradient goes through FlashAttention's kernels
-    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv)
+    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_kernel)
     before = [c.launches for c in counters]
     qg = q.clone().requires_grad_()
     out = flash_attention(qg, k, v, causal=True)
     assert "FlashAttention" in type(out.grad_fn).__name__
     (grad,) = torch.autograd.grad(out, qg, torch.ones_like(out))
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1, 1]
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1]
     assert grad.shape == q.shape and torch.isfinite(grad).all()
 
 
@@ -686,13 +747,12 @@ def check_separate_training(q, k, v, kw, seed=15):
     """The three training kernels on (q, k, v) against the plain versions."""
     gen = torch.Generator(device=q.device).manual_seed(seed)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(torch.bfloat16)
-    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv)
+    counters = (flash_attention, flash_attention_lse, flash_attention_bwd_kernel)
     before = [c.launches for c in counters]
     out, lse = flash_attention_lse(q, k, v, **kw)
     dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1, 1]
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1]
     assert torch.equal(out, flash_attention(q, k, v, **kw))
     _, want_lse = plain_flash_attention(q, k, v, return_lse=True, **kw)
     assert lse.shape == want_lse.shape and lse.dtype == torch.float32
@@ -711,12 +771,11 @@ def check_separate_training(q, k, v, kw, seed=15):
     if kv_valid is not None:  # nothing flows back into the masked keys
         assert not dk.narrow(seq, kv_valid, k.shape[seq] - kv_valid).any()
         assert not dv.narrow(seq, kv_valid, k.shape[seq] - kv_valid).any()
-    # the entries one by one: delta from the dq kernel; a second run gives the
-    # same bits (no atomics)
+    # the entry into given buffers: delta from its first launch; a second run
+    # gives the same bits (dQ summed over the key tiles in a fixed order)
     delta = torch.empty_like(lse)
     again = [torch.empty_like(t) for t in (dq, dk, dv)]
-    flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, again[0], **kw)
-    flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *again[1:], **kw)
+    flash_attention_bwd_kernel(q, k, v, out, dout, lse, delta, *again, **kw)
     torch.cuda.synchronize()
     want_delta = (dout.float() * out.float()).sum(-1)
     if kw["layout"] == "bshd":
@@ -753,7 +812,7 @@ def test_separate_autograd_function_end_to_end(cuda):
         q, k, v = t.split(h * d, dim=-1)
         return (x.reshape(b, n, h, d) for x in (q, k, v))
 
-    counters = (flash_attention_lse, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    counters = (flash_attention_lse, flash_attention_bwd_kernel)
     before = [c.launches for c in counters]
     out = multi_head_attention(*split(proj), kv_valid=kv_valid)
     (got,) = torch.autograd.grad(out, proj, dout)
@@ -776,22 +835,23 @@ def test_separate_training_wrappers_raise_rather_than_fall_back(cuda):
     with pytest.raises(ValueError, match="layout"):
         flash_attention_lse(q, k, v, layout="sbhd")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    kernel = flash_attention_bwd_kernel
     with pytest.raises(ValueError, match="dout"):
-        flash_attention_bwd_dq(q, k, v, out, dout.float(), lse, delta, dq)
+        kernel(q, k, v, out, dout.float(), lse, delta, dq, dk, dv)
     with pytest.raises(ValueError, match="out"):
-        flash_attention_bwd_dq(q, k, v, out[:, :100], dout, lse, delta, dq)
+        kernel(q, k, v, out[:, :100], dout, lse, delta, dq, dk, dv)
     with pytest.raises(ValueError, match="lse"):
-        flash_attention_bwd_dq(q, k, v, out, dout, lse[:, :2], delta, dq)
+        kernel(q, k, v, out, dout, lse[:, :2], delta, dq, dk, dv)
     with pytest.raises(ValueError, match="delta"):
-        flash_attention_bwd_dq(q, k, v, out, dout, lse, delta.double(), dq)
+        kernel(q, k, v, out, dout, lse, delta.double(), dq, dk, dv)
     with pytest.raises(ValueError, match="dq"):
-        flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, dq[:, :100])
+        kernel(q, k, v, out, dout, lse, delta, dq[:, :100], dk, dv)
     with pytest.raises(ValueError, match="strides"):  # D not contiguous
-        flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk.transpose(1, 3).contiguous()
-                                .transpose(1, 3), dv)
+        kernel(q, k, v, out, dout, lse, delta, dq,
+               dk.transpose(1, 3).contiguous().transpose(1, 3), dv)
     with pytest.raises(ValueError, match="contiguous"):
-        flash_attention_bwd_dkv(q, k, v, dout, lse.transpose(1, 2).contiguous().transpose(1, 2),
-                                delta, dk, dv)
+        kernel(q, k, v, out, dout, lse.transpose(1, 2).contiguous().transpose(1, 2), delta, dq,
+               dk, dv)
 
 
 
@@ -855,9 +915,9 @@ def test_separate_forward_at_tile_borders(cuda, name, layout, with_lse):
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("name", list(EDGES))
 def test_separate_training_kernels_at_tile_borders(cuda, name, layout):
-    """K2's forward with logsumexp, dq and dk/dv at each border (Sq > Skv
+    """K2's forward with logsumexp and its backward at each border (Sq > Skv
     and Sq < Skv among them), in both layouts: against the plain versions,
-    delta from the dq kernel, and a second run bit-equal."""
+    delta from the backward's first launch, and a second run bit-equal."""
     case = EDGES[name]
     q, k, v = make_edge(case, cuda, seed=31)
     if layout == "bhsd":

@@ -238,22 +238,45 @@ def test_causal_forward_is_one_persistent_form():
 
 
 def test_backward_attention_runs_on_wgmma_and_tma():
-    """The flash-attention backward's source (dq and dk/dv, both pairs of
-    entries) issues every product as Hopper `wgmma` on TMA-loaded tiles,
-    computes delta inside the dq kernel and keeps no `mma.sync` path."""
+    """The flash-attention backward's source (both entries) issues every
+    product as Hopper `wgmma` on TMA-loaded tiles, computes delta in a launch
+    of its own from `out` and keeps no `mma.sync` path."""
     from aigv_assessor_torch.ops import cuda_build
 
     csrc = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
     bwd = (csrc / "flash_attn_bwd.cu").read_text()
     assert "mma.sync.aligned" not in bwd
     assert "mma_fragments" not in bwd and "mma_16816" not in bwd and "ldmatrix" not in bwd
-    for wrapper in ("wgmma_ss_n64", "wgmma_rs_n128_mn", "wgmma_rs_n64_mn", "tma_load_4d",
-                    "tma_store_4d", "setmaxnreg_inc", "mbar_wait", "flash_bwd_dq_kernel",
-                    "flash_bwd_dkv_kernel"):
+    for wrapper in ("wgmma_ss_n64", "wgmma_rs_n128_mn", "wgmma_rs_n64_mn", "wgmma_ss_n128_tt",
+                    "tma_load_4d", "tma_store_4d", "setmaxnreg_inc", "mbar_wait",
+                    "flash_bwd_kernel", "flash_bwd_delta_kernel"):
         assert wrapper + "(" in bwd or wrapper + "<" in bwd, wrapper
-    for entry in ("aigv_flash_attn_qkv_bwd_dq", "aigv_flash_attn_bwd_dq"):
+    for entry in ("aigv_flash_attn_qkv_bwd", "aigv_flash_attn_bwd"):
         head = bwd[bwd.index(f"int {entry}("):]
         assert "const void* out" in head[: head.index(")")], entry  # delta from out, inside
+
+
+def test_backward_is_one_kernel_a_key_tile():
+    """One kernel a key tile computes dK, dV and dQ's share: no dq-only
+    kernel or entry is left; dQ's shares go into the running sums by bulk
+    copies and reductions in the order the q tile's counter sets (a wait on
+    the counter before the add, a release after it), never by an unordered
+    atomic; no switch or environment read selects another form."""
+    from aigv_assessor_torch.ops import cuda_build
+
+    csrc = cuda_build.Path(cuda_build.__file__).resolve().parents[1] / "csrc"
+    bwd = (csrc / "flash_attn_bwd.cu").read_text()
+    assert "flash_bwd_dq_kernel" not in bwd and "flash_bwd_dkv_kernel" not in bwd
+    assert "_bwd_dq(" not in bwd and "_bwd_dkv(" not in bwd
+    assert bwd.count("__global__") == 3  # delta, the key tiles' kernel, dq's convert
+    start = bwd.index("void writer(")
+    writer = bwd[start:bwd.index("__global__", start)]
+    waited, added = writer.index("wait_counter("), writer.index("bulk_reduce_add_f32(")
+    assert waited < added and "red_release_gpu_inc(" in writer and "bulk_wait_all()" in writer
+    assert "atomicAdd" not in bwd and "atomicAdd" not in (csrc / "hopper.cuh").read_text()
+    assert "red.global.add" not in bwd
+    for source in (bwd, (csrc.parent / "ops" / "flash_attention.py").read_text()):
+        assert "getenv" not in source and "environ" not in source
 
 
 # ------------------------------------------------------------------- norms --
