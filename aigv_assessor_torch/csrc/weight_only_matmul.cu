@@ -38,34 +38,47 @@
 // cores' bf16 rate, and the decode must not take the tensor cores' time. The
 // design swaps the operands, y^T = w . x^T, and decodes in registers: one
 // persistent block per SM walks tiles of 128 channels x 256 rows of x (n
-// within m), 64 K per step, warp-specialised:
-// - one producer thread: TMA loads into two rings with full and empty
-//   mbarriers: x tiles (bf16 [256 rows][64], 128-byte swizzle, K-major; 4
+// within m), 64 K per step, with two consumer warpgroups of 64 channels each
+// and no other warp (8 warps: a thread may hold 255 registers):
+// - TMA loads, issued by the first consumer's thread 0 into two rings with
+//   full and empty mbarriers, each slot's next tile as soon as every warp has
+//   released it: x tiles (bf16 [256 rows][64], 128-byte swizzle, K-major; 4
 //   stages) and raw weight tiles ([128 channels][128 bytes], 128-byte
-//   swizzle: 2 int8 or 4 int4 steps a load; 4 stages). The maps are encoded
+//   swizzle: 2 int8 or 4 int4 steps a load; 2 stages). The maps are encoded
 //   on the host per call (cuTensorMapEncodeTiled through
 //   cudaGetDriverEntryPoint, so nothing links libcuda); TMA zero-fills beyond
 //   M, N and the row's bytes, so the tails need no code;
-// - two consumer warpgroups of 64 channels each: per k16, wgmma m64n256k16
-//   with the weight as the register-sourced A operand and the x tile as B
-//   from shared memory. A lane's A fragment holds K positions {2t, 2t + 1,
-//   2t + 8, 2t + 9} of two channel rows, which the storage layout does not
-//   keep together: ldmatrix brings each lane 4 bytes of a row's 16-byte
-//   chunk, two (int8) or four (int4) shuffles within the lane's quad gather
-//   its own bytes, and the exact decode makes them bf16 pairs, nothing
-//   repacked beforehand. A warpgroup makes a step's fragments while the
-//   other's products run on the tensor cores. The epilogue applies scale[n]
-//   and bias[n] in fp32 (the accumulator's rows are channels), rounds once
-//   and stores directly, predicated (rows of y need not be aligned: the LM
-//   head's 92553 columns are not), while the producer already fills the
-//   next tile's stages.
-// The first design decoded on the producer side: decode warps wrote each
-// step's bf16 weight tile into shared memory in the 128-byte swizzle for SS
-// products (A = x, B = the decoded tile). On an H100 its best form (256 x
-// 128 tiles, 4 decoded tiles, 3 decode warps) took 1.2-1.25x this one's time
-// (PERF.md): the decoded tile's writes and the products' reads of it were
-// shared-memory traffic this form does not have, and its decode warps set
-// the pace.
+// - per k16, wgmma m64n256k16 with the weight as the register-sourced A
+//   operand and the x tile as B from shared memory. A lane's A fragment holds
+//   K positions {2t, 2t + 1, 2t + 8, 2t + 9} of two channel rows, which the
+//   storage layout does not keep together: ldmatrix brings each lane 4 bytes
+//   of a row's 16-byte chunk, two (int8) or four (int4) shuffles within the
+//   lane's quad gather its own bytes, and the exact decode makes them bf16
+//   pairs, nothing repacked beforehand. A consumer keeps two sets of
+//   fragments: a step's four products go in flight behind the previous
+//   step's (wgmma.wait_group 1), and the next step is decoded while they
+//   run, so the decode overlaps the warpgroup's own products, not only the
+//   other's;
+// - the epilogue applies scale[n] and bias[n] in fp32 (the accumulator's rows
+//   are channels), rounds once, and stmatrix writes the bf16 tile transposed
+//   into a staging tile of the consumer's own, which one TMA store writes to
+//   y while the next tile's products run (or, where y's rows are off 16
+//   bytes, as the LM head's 92553 columns are, the threads store it element
+//   by element);
+// - the products are as wide as the tile's rows of x need (256, 128 or 64):
+//   the 4 rows of a prefill's last m tile (8452 = 33 x 256 + 4) cost a
+//   quarter of a tile's products, so that at the 2B wo / w2 (544 tiles) the
+//   fifth round on 132 SMs is 16 short tiles, not 16 whole ones.
+// Why 8 warps: a producer warp or warpgroup beside the consumers (9 warps;
+// 12 with setmaxnreg 40 / 232) leaves a warp scheduler 3 warps, and ptxas
+// then holds every thread to 168 registers: the accumulator's 128 and the
+// fragments spilled, and ptxas serialized the products for want of
+// registers (C7512; PERF.md).
+// Decoding into shared memory instead, for SS products on a bf16 weight tile
+// (decode warps beside the consumers), took 1.2-1.25x the time of a decode
+// in registers on an H100 (PERF.md): the decoded tile's writes and reads
+// were shared-memory traffic this form does not have, and the decode warps
+// set the pace.
 //
 // GEMV (M at or below the decode threshold): the decode matvec of
 // decode_matvec.cuh, shared with the fp8 matmul (fp8_matmul.cu). What bounds
@@ -93,6 +106,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "decode_matvec.cuh"
 #include "hopper.cuh"
@@ -334,13 +348,23 @@ namespace gemm {
 
 using namespace hopper;
 
-constexpr int BM = 256;          // rows of x per tile: the products' n
-constexpr int BN = 128;          // channels per tile: two consumer warpgroups of 64
-constexpr int BK = 64;           // K per step: one 128-byte swizzle row of bf16 x
-constexpr int RAW_BYTES = 128;   // weight bytes of a channel per raw load: 2 / 4 steps
-constexpr int X_STAGES = 4;      // x tiles in flight
-constexpr int R_STAGES = 4;      // raw weight tiles in flight
-constexpr int THREADS = 256 + 32;  // two consumer warpgroups, then the producer warp
+// Both consumer warpgroups work on one tile of 128 channels, one 64-channel
+// half each, and share its x and weight tiles. (Ping-pong, each warpgroup on
+// 64-channel tiles of its own with rings of its own, taking turns at the
+// tensor cores, read every x tile twice as often and took 1.45-1.55x this
+// schedule's time on an H100: PERF.md.)
+constexpr int BM = 256;         // rows of x per tile: the widest product n
+constexpr int WG_CH = 64;       // channels of one consumer warpgroup
+constexpr int BN = 2 * WG_CH;   // channels per tile
+constexpr int BK = 64;          // K per step: one 128-byte swizzle row of bf16 x
+constexpr int RAW_BYTES = 128;  // weight bytes of a channel per raw tile: 2 / 4 steps
+constexpr int X_STAGES = 4;     // x tiles in flight
+constexpr int R_STAGES = 2;     // raw weight tiles in flight
+// Two consumer warpgroups and no other warp, so that a thread may hold 255
+// registers (see the top of the file).
+constexpr int THREADS = 2 * 128;
+constexpr int ARRIVALS = 8;     // one per consumer warp reading a tile
+constexpr int STORE_BAR = 1;    // named barriers 1, 2: a consumer's epilogue
 
 template <int BITS>
 struct Fmt {
@@ -349,20 +373,34 @@ struct Fmt {
 };
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base: the x
-// ring, the raw ring, then the barriers: 192 KB.
+// ring, the raw ring, each consumer's staged y tile ([BM rows][64 channels]
+// bf16 in the 128-byte swizzle, the box of y's tensor map), the barriers.
 struct Smem {
   static constexpr int X = BM * BK * 2;
   static constexpr int R = BN * RAW_BYTES;
+  static constexpr int Y = BM * WG_CH * 2;
   static constexpr int R_OFF = X_STAGES * X;
-  static constexpr int BAR_OFF = R_OFF + R_STAGES * R;
+  static constexpr int Y_OFF = R_OFF + R_STAGES * R;
+  static constexpr int BAR_OFF = Y_OFF + 2 * Y;
   static constexpr int BYTES = BAR_OFF + 8 * 2 * (X_STAGES + R_STAGES) + 1024;
+  static_assert(BYTES <= 232448, "more shared memory than a block may have");
 };
 
-struct Barriers {
+// The block's walk over its tiles, blockIdx.x + r * gridDim.x for r = 0, 1,
+// ... (n within m), and its rings: step ks of the r-th tile is x position
+// r * k_steps + ks, its raw tile r * raws + ks / STEPS_PER_RAW.
+struct Walk {
+  unsigned char* sX;
+  unsigned char* sR;
   uint64_t* xfull;   // [X_STAGES] x tile landed (TMA)
   uint64_t* xempty;  // [X_STAGES] x tile multiplied
   uint64_t* rfull;   // [R_STAGES] raw tile landed (TMA)
   uint64_t* rempty;  // [R_STAGES] raw tile decoded
+  int tiles, n_tiles, k_steps;
+  int raws;  // raw tiles a tile: ceil(k_steps / STEPS_PER_RAW)
+  int row0;  // the warp's first channel in a raw tile
+  int lane;
+  __device__ __forceinline__ int tile(int r) const { return blockIdx.x + r * gridDim.x; }
 };
 
 // Words of the quad (the four lanes of one fragment row): lane t of the
@@ -423,138 +461,253 @@ __device__ __forceinline__ void fragments(const unsigned char* raw, int sub, int
   }
 }
 
-// One consumer warpgroup: channels c * 64 .. c * 64 + 63 of every tile of
-// the block, all BM rows of x. y^T = w . x^T: the decoded weight is the
-// product's register-sourced A, x its B from shared memory. Each step's
-// fragments are made while the other warpgroup's products run, and used
-// before the next step's are made (one set of 16 registers: a second one
-// would not fit the 168 beside the 128 of the accumulator).
-template <int BITS>
-__device__ __forceinline__ void consumer(const unsigned char* sX, const unsigned char* sR,
-                                         Barriers bar, const float* __restrict__ scale,
-                                         const __nv_bfloat16* __restrict__ bias,
-                                         __nv_bfloat16* __restrict__ y, int M, int N,
-                                         long long ldy, int n_tiles, int tiles, int k_steps,
-                                         int c) {
-  using F = Fmt<BITS>;
-  const int tid = threadIdx.x % 128;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int row0 = c * 64 + warp * 16;  // the warp's first channel of the tile
-  float acc[BM / 2];
-#pragma unroll
-  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
-  uint32_t a[4][4];  // the A fragments of a step's four k16 products
-  int it = 0, jr = 0;  // steps and raw tiles so far
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
-    for (int ks = 0; ks < k_steps; ++ks, ++it) {
-      const int sub = ks % F::STEPS_PER_RAW, rs = jr % R_STAGES, xs = it % X_STAGES;
-      if (sub == 0) mbar_wait(bar.rfull + rs, (jr / R_STAGES) & 1);
-      fragments<BITS>(sR + rs * Smem::R, sub, row0, lane, a);
-      mbar_wait(bar.xfull + xs, (it / X_STAGES) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        wgmma_rs_n256(acc, a[s], make_desc_sw128(sX + xs * Smem::X + s * 32, 16, 1024),
-                      ks > 0 || s > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) fence_regs(a[s]);  // read by the products until here
-      const bool raw_done = sub == F::STEPS_PER_RAW - 1 || ks == k_steps - 1;
-      if (lane == 0) {  // one arrival per warp
-        mbar_arrive(bar.xempty + xs);
-        if (raw_done) mbar_arrive(bar.rempty + rs);
-      }
-      jr += raw_done;
-    }
+// The TMA loads of the rings (no producer warp: see THREADS), issued by the
+// first consumer's thread 0 in walk order: every slot filled at the start,
+// then each slot's next tile once every warp has released it, x tiles as the
+// products release them, raw tiles as the decode does.
+struct Loader {
+  const CUtensorMap* tx;
+  const CUtensorMap* tw;
+  int xr, xks;  // the next x load: step xks of the walk's xr-th tile
+  int rr, rj;   // the next raw load: raw tile rj of the walk's rr-th tile
+  bool issuer;
+};
 
-    // y = acc * scale (+ bias) in fp32, rounded to bf16 once: the
-    // accumulator's rows are channels g and g + 8, its columns rows of x
-    const int ch0 = n0 + row0 + g, ch1 = ch0 + 8;
-    const float s0 = ch0 < N ? scale[ch0] : 0.f, s1 = ch1 < N ? scale[ch1] : 0.f;
-    const float b0 = bias != nullptr && ch0 < N ? __bfloat162float(bias[ch0]) : 0.f;
-    const float b1 = bias != nullptr && ch1 < N ? __bfloat162float(bias[ch1]) : 0.f;
+__device__ __forceinline__ void issue_x(const Walk& w, Loader& ld) {
+  const int tile = w.tile(ld.xr);
+  if (!ld.issuer || tile >= w.tiles) return;
+  const int it = ld.xr * w.k_steps + ld.xks, xs = it % X_STAGES;
+  mbar_wait(w.xempty + xs, ((it / X_STAGES) & 1) ^ 1);
+  mbar_arrive_expect_tx(w.xfull + xs, Smem::X);
+  tma_load_2d(w.sX + xs * Smem::X, ld.tx, w.xfull + xs, ld.xks * BK, tile / w.n_tiles * BM);
+  if (++ld.xks == w.k_steps) {
+    ld.xks = 0;
+    ++ld.xr;
+  }
+}
+
+__device__ __forceinline__ void issue_raw(const Walk& w, Loader& ld) {
+  const int tile = w.tile(ld.rr);
+  if (!ld.issuer || tile >= w.tiles) return;
+  const int jr = ld.rr * w.raws + ld.rj, rs = jr % R_STAGES;
+  mbar_wait(w.rempty + rs, ((jr / R_STAGES) & 1) ^ 1);
+  mbar_arrive_expect_tx(w.rfull + rs, Smem::R);
+  tma_load_2d(w.sR + rs * Smem::R, ld.tw, w.rfull + rs, ld.rj * RAW_BYTES,
+              tile % w.n_tiles * BN);
+  if (++ld.rj == w.raws) {
+    ld.rj = 0;
+    ++ld.rr;
+  }
+}
+
+// keeps the compiler from moving accesses of a set of fragments across the
+// asynchronous products that read it
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
 #pragma unroll
-    for (int j = 0; j < BM / 8; ++j) {
+  for (int s = 0; s < 4; ++s) fence_regs(a[s]);
+}
+
+// Step ks of the tile whose raw tiles start at jr0: waits for its raw tile
+// if the step opens one, decodes the step's fragments into `a`, and releases
+// the raw tile after its last step (its bytes are in registers then).
+template <int BITS>
+__device__ __forceinline__ void decode_step(const Walk& w, Loader& ld, int jr0, int ks,
+                                            uint32_t (&a)[4][4]) {
+  using F = Fmt<BITS>;
+  const int sub = ks % F::STEPS_PER_RAW, jr = jr0 + ks / F::STEPS_PER_RAW, rs = jr % R_STAGES;
+  if (sub == 0) mbar_wait(w.rfull + rs, (jr / R_STAGES) & 1);
+  fragments<BITS>(w.sR + rs * Smem::R, sub, w.row0, w.lane, a);
+  if (sub == F::STEPS_PER_RAW - 1 || ks == w.k_steps - 1) {
+    if (w.lane == 0) mbar_arrive(w.rempty + rs);
+    issue_raw(w, ld);
+  }
+}
+
+// The step's four k16 products, NW rows of x wide, as one group: A the
+// decoded weight from registers, B the x tile from shared memory.
+template <int NW>
+__device__ __forceinline__ void products(float (&acc)[BM / 2], uint32_t (&a)[4][4],
+                                         const unsigned char* x_tile, bool first) {
+  wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = m0 + j * 8 + t * 2 + e;
-        if (r >= M) continue;
-        __nv_bfloat16* dst = y + static_cast<long long>(r) * ldy;
-        if (ch0 < N) dst[ch0] = __float2bfloat16_rn(acc[4 * j + e] * s0 + b0);
-        if (ch1 < N) dst[ch1] = __float2bfloat16_rn(acc[4 * j + 2 + e] * s1 + b1);
-      }
+  for (int s = 0; s < 4; ++s) {
+    const uint64_t desc = make_desc_sw128(x_tile + s * 32, 16, 1024);
+    if constexpr (NW == 256)
+      wgmma_rs_n256(acc, a[s], desc, !first || s > 0);
+    else if constexpr (NW == 128)
+      wgmma_rs_n128(acc, a[s], desc, !first || s > 0);
+    else
+      wgmma_rs_n64(acc, a[s], desc, !first || s > 0);
+  }
+  wgmma_commit();
+}
+
+// Step ks: its products from `use` go in flight behind the previous step's;
+// once those are done, the previous x tile is released (and the next load
+// issued into it), and step ks + 1 is decoded into `fill` (which they read)
+// while step ks's products run.
+template <int BITS, int NW>
+__device__ __forceinline__ void step(const Walk& w, Loader& ld, float (&acc)[BM / 2], int it0,
+                                     int jr0, int ks, uint32_t (&use)[4][4],
+                                     uint32_t (&fill)[4][4]) {
+  const int it = it0 + ks, xs = it % X_STAGES;
+  mbar_wait(w.xfull + xs, (it / X_STAGES) & 1);
+  products<NW>(acc, use, w.sX + xs * Smem::X, ks == 0);
+  wgmma_wait<1>();
+  fence_frags(fill);
+  if (ks > 0) {
+    if (w.lane == 0) mbar_arrive(w.xempty + (it + X_STAGES - 1) % X_STAGES);
+    issue_x(w, ld);
+  }
+  if (ks + 1 < w.k_steps) decode_step<BITS>(w, ld, jr0, ks + 1, fill);
+}
+
+// All products of the walk's r-th tile into `acc`, NW rows of x wide.
+template <int BITS, int NW>
+__device__ __forceinline__ void tile_products(const Walk& w, Loader& ld, float (&acc)[BM / 2],
+                                              int r) {
+  const int it0 = r * w.k_steps, jr0 = r * w.raws;
+  uint32_t a0[4][4], a1[4][4];  // two sets of A fragments: one read, one decoded
+  decode_step<BITS>(w, ld, jr0, 0, a0);
+  for (int ks = 0; ks < w.k_steps; ks += 2) {
+    step<BITS, NW>(w, ld, acc, it0, jr0, ks, a0, a1);
+    if (ks + 1 < w.k_steps) step<BITS, NW>(w, ld, acc, it0, jr0, ks + 1, a1, a0);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_frags(a0);
+  fence_frags(a1);
+  if (w.lane == 0) mbar_arrive(w.xempty + (it0 + w.k_steps - 1) % X_STAGES);
+  issue_x(w, ld);
+}
+
+// y = acc * scale (+ bias) in fp32, rounded to bf16 once, for the first NW
+// rows of the tile: stmatrix writes the warpgroup's [rows][64 channels] into
+// sY transposed (the accumulator's rows are channels) in the 128-byte
+// swizzle; one TMA store writes them to y (rows beyond M and channels beyond
+// N clipped), or, where y's rows are off 16 bytes (the LM head's 92553
+// columns), the threads store them element by element. The store's reads of
+// sY are waited for at the next tile's epilogue.
+template <int NW>
+__device__ __forceinline__ void store_tile(const float (&acc)[BM / 2], unsigned char* sY,
+                                           const CUtensorMap* ty, __nv_bfloat16* __restrict__ y,
+                                           bool tma_y, const float (&sb)[4], int M, int N,
+                                           long long ldy, int m0, int c0, int c) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  if (tid == 0 && tma_y) tma_store_wait_read();  // the previous tile's store has read sY
+  named_barrier_sync(STORE_BAR + c, 128);
+  const int q = lane >> 3, r = lane & 7, chunk = 2 * warp + (q & 1);
+#pragma unroll
+  for (int j = 0; j < NW / 8; j += 2) {
+    const int row = 8 * (j + (q >> 1)) + r;
+    stmatrix_x4_trans(sY + row * 128 + ((chunk ^ r) << 4),
+                      pack_bf16(acc[4 * j] * sb[0] + sb[2], acc[4 * j + 1] * sb[0] + sb[2]),
+                      pack_bf16(acc[4 * j + 2] * sb[1] + sb[3], acc[4 * j + 3] * sb[1] + sb[3]),
+                      pack_bf16(acc[4 * j + 4] * sb[0] + sb[2], acc[4 * j + 5] * sb[0] + sb[2]),
+                      pack_bf16(acc[4 * j + 6] * sb[1] + sb[3], acc[4 * j + 7] * sb[1] + sb[3]));
+  }
+  if (tma_y) {
+    fence_proxy_async();
+    named_barrier_sync(STORE_BAR + c, 128);
+    if (tid == 0) {
+      tma_store_2d(ty, sY, c0, m0);
+      tma_store_commit();
     }
+    return;
+  }
+  named_barrier_sync(STORE_BAR + c, 128);
+  for (int i = tid; i < NW * 8; i += 128) {  // 8 threads a row: its 128 bytes
+    const int row = i >> 3, ch = c0 + (i & 7) * 8;
+    if (m0 + row >= M || ch >= N) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(sY + row * 128 + (((i & 7) ^ (row & 7)) << 4));
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    __nv_bfloat16* dst = y + static_cast<long long>(m0 + row) * ldy + ch;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (ch + k < N) dst[k] = e[k];
   }
 }
 
 // One persistent block per SM, tiles in order of n within m, so that the
-// blocks in flight share the weight and few x rows through L2.
+// blocks in flight share the weight and few x rows through L2, and the
+// short last m tile comes last. Consumer c = 0, 1 takes channels c * 64 ..
+// c * 64 + 63 of every tile.
 template <int BITS>
 __global__ void __launch_bounds__(THREADS, 1)
 weight_only_gemm_kernel(const __grid_constant__ CUtensorMap tx,
-                        const __grid_constant__ CUtensorMap tw, const float* __restrict__ scale,
+                        const __grid_constant__ CUtensorMap tw,
+                        const __grid_constant__ CUtensorMap ty, const float* __restrict__ scale,
                         const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                        int M, int N, int K, long long ldy) {
+                        int M, int N, int K, long long ldy, bool tma_y) {
   using F = Fmt<BITS>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* sX = smem;
-  unsigned char* sR = smem + Smem::R_OFF;
-  Barriers bar;
-  bar.xfull = reinterpret_cast<uint64_t*>(smem + Smem::BAR_OFF);
-  bar.xempty = bar.xfull + X_STAGES;
-  bar.rfull = bar.xempty + X_STAGES;
-  bar.rempty = bar.rfull + R_STAGES;
+  const int c = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32;
+  Walk w;
+  w.sX = smem;
+  w.sR = smem + Smem::R_OFF;
+  w.xfull = reinterpret_cast<uint64_t*>(smem + Smem::BAR_OFF);
+  w.xempty = w.xfull + X_STAGES;
+  w.rfull = w.xempty + X_STAGES;
+  w.rempty = w.rfull + R_STAGES;
+  w.n_tiles = (N + BN - 1) / BN;
+  w.tiles = (M + BM - 1) / BM * w.n_tiles;
+  w.k_steps = (K + BK - 1) / BK;
+  w.raws = (w.k_steps + F::STEPS_PER_RAW - 1) / F::STEPS_PER_RAW;
+  w.row0 = c * WG_CH + warp * 16;
+  w.lane = tid % 32;
+  unsigned char* sY = smem + Smem::Y_OFF + c * Smem::Y;
+  Loader ld{&tx, &tw, 0, 0, 0, 0, tid == 0 && c == 0};
 
-  const int n_tiles = (N + BN - 1) / BN;
-  const int tiles = (M + BM - 1) / BM * n_tiles;
-  const int k_steps = (K + BK - 1) / BK;
-
-  if (threadIdx.x == 0) {
+  if (ld.issuer) {
     for (int s = 0; s < X_STAGES; ++s) {
-      mbar_init(bar.xfull + s, 1);
-      mbar_init(bar.xempty + s, 8);  // one per consumer warp
+      mbar_init(w.xfull + s, 1);
+      mbar_init(w.xempty + s, ARRIVALS);
     }
     for (int s = 0; s < R_STAGES; ++s) {
-      mbar_init(bar.rfull + s, 1);
-      mbar_init(bar.rempty + s, 8);
+      mbar_init(w.rfull + s, 1);
+      mbar_init(w.rempty + s, ARRIVALS);
     }
     fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 256) {
-    consumer<BITS>(sX, sR, bar, scale, bias, y, M, N, ldy, n_tiles, tiles, k_steps,
-                   threadIdx.x / 128);
-  } else if (threadIdx.x == 256) {  // the producer: one thread issues every load
     prefetch_tensormap(&tx);
     prefetch_tensormap(&tw);
-    int it = 0, jr = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
-      for (int ks = 0; ks < k_steps; ++ks, ++it) {
-        if (ks % F::STEPS_PER_RAW == 0) {
-          const int rs = jr % R_STAGES;
-          mbar_wait(bar.rempty + rs, ((jr / R_STAGES) & 1) ^ 1);
-          mbar_arrive_expect_tx(bar.rfull + rs, Smem::R);
-          tma_load_2d(sR + rs * Smem::R, &tw, bar.rfull + rs, ks * F::STEP_BYTES, n0);
-          ++jr;
-        }
-        const int xs = it % X_STAGES;
-        mbar_wait(bar.xempty + xs, ((it / X_STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(bar.xfull + xs, Smem::X);
-        tma_load_2d(sX + xs * Smem::X, &tx, bar.xfull + xs, ks * BK, m0);
-      }
+  }
+  __syncthreads();
+  for (int k = 0; k < X_STAGES; ++k) issue_x(w, ld);  // every slot filled
+  for (int k = 0; k < R_STAGES; ++k) issue_raw(w, ld);
+
+  const int g = w.lane / 4;
+  float acc[BM / 2];
+  for (int r = 0; w.tile(r) < w.tiles; ++r) {
+    const int tile = w.tile(r);
+    const int m0 = tile / w.n_tiles * BM, c0 = tile % w.n_tiles * BN + c * WG_CH;
+    // scale and bias of the thread's channels c0 + 16 warp + g and + 8
+    float sb[4];
+    const int ch0 = c0 + warp * 16 + g, ch1 = ch0 + 8;
+    sb[0] = ch0 < N ? scale[ch0] : 0.f;
+    sb[1] = ch1 < N ? scale[ch1] : 0.f;
+    sb[2] = bias != nullptr && ch0 < N ? __bfloat162float(bias[ch0]) : 0.f;
+    sb[3] = bias != nullptr && ch1 < N ? __bfloat162float(bias[ch1]) : 0.f;
+    // the products' width: the tile's rows of x, rounded up to 64, 128 or 256
+    // (the last m tile of a prefill, e.g. 4 rows of 8452, costs a quarter)
+    const int rows = M - m0;
+    if (rows > 128) {
+      tile_products<BITS, 256>(w, ld, acc, r);
+      store_tile<256>(acc, sY, &ty, y, tma_y, sb, M, N, ldy, m0, c0, c);
+    } else if (rows > 64) {
+      tile_products<BITS, 128>(w, ld, acc, r);
+      store_tile<128>(acc, sY, &ty, y, tma_y, sb, M, N, ldy, m0, c0, c);
+    } else {
+      tile_products<BITS, 64>(w, ld, acc, r);
+      store_tile<64>(acc, sY, &ty, y, tma_y, sb, M, N, ldy, m0, c0, c);
     }
   }
+  if (tid == 0 && tma_y) tma_store_wait_read();
 }
 
 // A [rows][inner] matrix with a row stride of `stride` bytes as a 2-d tensor
 // map, boxes of [box_rows][box_inner] in the 128-byte swizzle; elements
-// beyond the extents read as 0
+// beyond the extents read as 0 and are not written
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, long long inner,
               long long rows, long long stride, int box_inner, int box_rows) {
   const PFN_cuTensorMapEncodeTiled encode = encode_tiled();
@@ -575,10 +728,16 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, vo
   const long long w_bytes = BITS == INT8 ? K : (K + 1) / 2;
   if (M <= 0 || N <= 0 || K <= 0 || ldx < K || ldw < w_bytes || ldy < N)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tx, tw;
+  CUtensorMap tx, tw, ty;
   // what TMA cannot describe: a base or a row stride off 16 bytes
   if (!make_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, ldx * 2, BK, BM) ||
       !make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, w_bytes, N, ldw, RAW_BYTES, BN))
+    return static_cast<int>(cudaErrorInvalidPitchValue);
+  // y through TMA stores where its rows allow it, else by the threads
+  const bool tma_y = reinterpret_cast<uintptr_t>(y) % 16 == 0 && ldy % 8 == 0;
+  if (!tma_y)
+    memset(&ty, 0, sizeof(ty));
+  else if (!make_map(&ty, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, y, N, M, ldy * 2, WG_CH, BM))
     return static_cast<int>(cudaErrorInvalidPitchValue);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -588,11 +747,13 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, vo
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  if (tiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // ring positions (a block's tiles x steps) must fit an int
+  if (tiles > 0x7FFFFFFF / ((K + BK - 1) / BK + 1))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   kernel<<<grid, THREADS, Smem::BYTES, static_cast<cudaStream_t>(stream)>>>(
-      tx, tw, static_cast<const float*>(scale), static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(y), M, N, K, ldy);
+      tx, tw, ty, static_cast<const float*>(scale), static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(y), M, N, K, ldy, tma_y);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,7 +36,7 @@ CTX, FRAMES, IMAGE, TEXT, BATCH = 7, 8, 448, 64, 4
 MODES = ("bf16", "w8a8", "w8a8_fused", "int8", "int4")
 KINDS = (  # (label, substrings of the kernel's name)
     ("decode_attention", ("decode_attention",)),  # K8, either source's kernels
-    ("attention_fwd", ("flash_fwd_kernel",)),
+    ("attention_fwd", ("flash_fwd_",)),  # flash_fwd_kernel, flash_fwd_causal_kernel
     # K6 / K7: the GEMM and unaligned forms, and the GEMV form's decode
     # matvec instantiated for the int8 / int4 weights
     ("weight_only_matmul", ("weight_only_", "int8weights", "int4weights")),

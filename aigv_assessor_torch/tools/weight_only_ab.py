@@ -3,23 +3,38 @@ of this checkout against other versions of their sources, on one CUDA card,
 in one process.
 
     python -m aigv_assessor_torch.tools.weight_only_ab [--fp8-only] \\
-        [--allow-unequal NAME] [NAME=DIR ...]
+        [--prefill-only] [--check-only] [--allow-unequal NAME] \\
+        [--variant BASE.EDIT ...] [NAME=DIR ...]
 
 Each DIR holds another `weight_only_matmul.cu` and `fp8_matmul.cu` (and the
 headers they include), e.g. the parent commit's `aigv_assessor_torch/csrc`
 unpacked with `git archive`. Every version, the checkout's own ("tree")
-first, is built with nvcc (`-Xptxas -v`: registers and spills are printed).
-A version whose library has the GEMM and GEMV entries is run in each of its
-forms (`ops/int8_matmul._launch_form`); an older one through its single
-entry, the name the unaligned form keeps; an older `fp8_matmul.cu` through
-its single entry, whichever form the wrapper picks. `--fp8-only` skips K6 /
-K7.
-`--allow-unequal NAME` marks a diagnostic version (e.g. one whose products
-are skipped): its checks are printed and do not fail the run.
+first, is built with nvcc (`-Xptxas -v`: registers and spills are printed,
+and summed per kernel on a `registers` line; a spill in the tree's GEMM
+kernel fails the run). A version whose library has the GEMM and GEMV
+entries is run in each of its forms (`ops/int8_matmul._launch_form`); an
+older one through its single entry, the name the unaligned form keeps; an
+older `fp8_matmul.cu` through its single entry, whichever form the wrapper
+picks. `--fp8-only` skips K6 / K7; `--prefill-only` times K6 / K7's GEMM
+form alone (no decode rows, no threshold, no K9); `--check-only` times
+nothing. `--allow-unequal NAME` marks a diagnostic version (e.g. one whose
+products are skipped): its checks are printed and do not fail the run.
+
+`--variant BASE.EDIT` builds a copy of version BASE's `weight_only_matmul.cu`
+(BASE is "tree" or a NAME) with one of EDITS applied to its GEMM form, as
+the version "BASE.EDIT": `products_only` (constant A fragments in place of
+the ldmatrix, the shuffles and the decode: the products, the rings and the
+epilogue), `decode_only` (no products: the rings, the decode and the
+epilogue), `no_store` (constant fragments and no store of y: the products
+and the rings): diagnostics that give wrong results and are timed at the 2B
+shapes only.
 
 Checks: every form of every version against `plain_int8_matmul` /
 `plain_int4_matmul` in fp64 at small shapes that cross its borders
-(relative L2 at most WO_TOL, an all-zero channel exactly 0). K9 against
+(relative L2 at most WO_TOL, an all-zero channel exactly 0), and the GEMM
+form at GEMM_EDGES (tile counts around the SM count and its multiples, the
+2B wo / w2's 544 tiles, a last m tile of 4 rows) with a second launch and a
+CUDA graph replay bit-equal to the first. K9 against
 `plain_fp8_matmul` (FP8_TOL) at FP8_CHECKS (M = 1..17, N below and across
 the 16-channel tiles, K below one 64-byte step, off 16 bytes, tile counts on
 both sides of each border where the plan changes), on a weight that holds
@@ -32,8 +47,10 @@ identity's rows and scale 1, y is the weight's columns as
 Times, by CUDA graph replay, the versions in turns (tree, others, others
 reversed, tree), with `F.linear` in bf16 on the dequantized weight in the
 same process:
-- M = 8452 at wqkv, wo, w1 (= w3) and w2: each version's GEMM form or its
-  single kernel;
+- M = 8452 at the 2B decoder's wqkv, wo, w1 (= w3) and w2, and at the
+  decoder projections of InternVL2-26B, -4B and -1B (OTHER_PREFILL): each
+  version's GEMM form or its single kernel, with a `bit_equal` map (each
+  version's y against the tree's);
 - M = 1, 4, 8 at the same projections, the fp8 probe's fused w13 (2048 ->
   16384) and the LM head (2048 -> 92553, M = 4): the GEMV form or the single
   kernel, cycling over weight copies that together exceed the 50 MB L2, as a
@@ -50,7 +67,9 @@ SASS per version (`cuobjdump -sass`): K9's E4M3 instantiations (the stream
 and the tile body), each one's main loop (the backward branch that spans
 the most HMMA) and the instructions a lane issues there per weight byte
 (each HMMA takes 8 weight bytes of every lane), counted in the code, not as
-executed.
+executed; and a `sass_in_tree` line per other version: which of its K6 /
+K7 kernels (the GEMV and unaligned forms' among them) compile to the same
+SASS as one of the tree's.
 
 Prints the card's name and power limit, then one JSON line per shape: ms per
 call of each run, the bound (max of FLOPs / 989 TFLOP/s and bytes / 3.35
@@ -82,8 +101,46 @@ L2_BYTES = 50e6
 PREFILL_ROWS = 4 * 2113
 PROJECTIONS = {"wqkv": (2048, 4096), "wo": (2048, 2048), "w1": (2048, 8192),
                "w2": (8192, 2048)}
+# (K, N) of the other decoders' projections at the same rows: InternVL2-26B
+# (internlm2-chat-20b: 6144 wide, 48 / 8 heads of 128, 16384 MLP), -4B
+# (Phi-3-mini: 3072, 32 / 32 heads of 96, fused gate_up of 2 x 8192), -1B
+# (Qwen2-0.5B: 896, 14 / 2 heads of 64, 4864 MLP)
+OTHER_PREFILL = {
+    "26b_wqkv": (6144, 8192), "26b_wo": (6144, 6144), "26b_w1": (6144, 16384),
+    "26b_w2": (16384, 6144),
+    "4b_qkv": (3072, 9216), "4b_o": (3072, 3072), "4b_gate_up": (3072, 16384),
+    "4b_down": (8192, 3072),
+    "1b_wqkv": (896, 1152), "1b_wo": (896, 896), "1b_w1": (896, 4864), "1b_w2": (4864, 896)}
+# (M, K, N) where the GEMM form's schedule changes on 132 SMs: tile counts
+# (256 rows x 128 channels) of 131, 132, 133, 143, 263, 264, 265, 527, 528
+# and 529, the 2B wo / w2's 544 (33 full m tiles and one of 4 rows), and a
+# last m tile of 100 and of 200 rows
+GEMM_EDGES = [(33536, 64, 128), (2816, 256, 1536), (34048, 64, 128), (2816, 256, 1537),
+              (67328, 64, 128), (5632, 64, 1536), (13568, 64, 640), (7936, 64, 2176),
+              (8448, 64, 2048), (5888, 64, 2944), (PREFILL_ROWS, 2048, 2048),
+              (612, 256, 384), (456, 256, 384)]
 DECODE = {**PROJECTIONS, "w13": (2048, 16384)}
 DECODE_ROWS = (1, 4, 8)
+# Edits of a `weight_only_matmul.cu` for `--variant`, applied to its GEMM form
+# (the text from `namespace gemm {` on): groups of (pattern, replacement)
+# alternatives, each group to match at least once. The patterns fit this
+# checkout's source and the one before it.
+CONSTANT_FRAGMENTS = (r"fragments<BITS>\(([^;]*?),\s*(\w+)\);",
+                      r"for (int s_ = 0; s_ < 4; ++s_) for (int j_ = 0; j_ < 4; ++j_) "
+                      r"\2[s_][j_] = 0x3F803F80u;")
+EDITS = {
+    "products_only": [[CONSTANT_FRAGMENTS]],
+    # each fragment register summed into one accumulator, so that the decode
+    # is not dead code
+    "decode_only": [[(r"wgmma_rs_n(\d+)\(\s*acc\s*,\s*([^,]+?),[^;]*;",
+                      r"acc[0] += __uint_as_float((\2)[0] ^ (\2)[1] ^ (\2)[2] ^ (\2)[3]);")]],
+    # the stores behind a condition that never holds (M > 0), so that the
+    # products are not dead code
+    "no_store": [[CONSTANT_FRAGMENTS],
+                 [(r"if \(ch(\d) < N\) dst\[ch\1\] = ", r"if (ch\1 < N && M < 0) dst[ch\1] = "),
+                  (r"store_tile<", r"if (M < 0) store_tile<")]],
+}
+DIAGNOSTICS = ("products_only", "decode_only", "no_store")
 LM_HEAD = (2048, 92553)
 THRESHOLD_ROWS = (4, 8, 16, 32, 64)
 FP8_SHAPES = {"wqkv": (2048, 4096), "w13": (2048, 16384), "w2": (8192, 2048)}
@@ -137,6 +194,60 @@ def bound(bits: int, m: int, k: int, n: int) -> float:
 
 def relative_l2(x, y) -> float:
     return ((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
+
+
+def edited_source(base: Path, edit: str, out: Path) -> Path:
+    """A copy of the directory `base` (a `weight_only_matmul.cu` and its
+    headers) in `out`, with EDITS[edit] applied to its GEMM form."""
+    out.mkdir(parents=True, exist_ok=True)
+    for f in base.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, out / f.name)
+    text = (base / "weight_only_matmul.cu").read_text()
+    at = text.index("namespace gemm {")
+    head, body = text[:at], text[at:]
+    for group in EDITS[edit]:
+        hits = 0
+        for pattern, repl in group:
+            body, n = re.subn(pattern, repl, body, flags=re.S)
+            hits += n
+        if not hits:
+            raise RuntimeError(f"--variant {edit}: no match for {group} in {base}")
+    (out / "weight_only_matmul.cu").write_text(head + body)
+    return out
+
+
+def ptxas_summary(text: str) -> dict:
+    """`nvcc -Xptxas -v` output (the `# libNAME.so` headers of
+    `cuda_build.build`) -> {library: {kernel: registers, spill bytes,
+    warnings}}, the K6 / K7 kernels only (`weight_only`, `decode_matvec`)."""
+    out, lib, fn = {}, None, None
+    for line in text.splitlines():
+        if line.startswith("# lib"):
+            lib, fn = line[2:].strip(), None
+            out[lib] = {}
+            continue
+        loss = re.search(r"(?:Performance Loss|serialized).*'([\w$]+)'", line)
+        if lib is not None and loss and re.search(r"weight_only|decode_matvec", loss.group(1)):
+            out[lib].setdefault(loss.group(1), {"registers": None, "spill_bytes": 0,
+                                                "warnings": []})["warnings"].append(line.strip())
+            continue
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if found:
+            fn = found.group(1)
+            continue
+        if lib is None or fn is None or not re.search(r"weight_only|decode_matvec", fn):
+            continue
+        entry = out[lib].setdefault(fn, {"registers": None, "spill_bytes": 0, "warnings": []})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            entry["spill_bytes"] += int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            entry["registers"] = int(regs.group(1))
+        if "warning" in line.lower():
+            entry["warnings"].append(line.strip())
+    return out
 
 
 def sass_counts(lib_path: Path) -> dict:
@@ -208,18 +319,30 @@ def exact_convert(f8, device, form=None):
 
 
 def main(argv=None) -> int:
+    import contextlib
+    import io
+
     from aigv_assessor_torch.ops import cuda_build
     from aigv_assessor_torch.ops import fp8_matmul as f8
     from aigv_assessor_torch.ops import int8_matmul as wo
+    from aigv_assessor_torch.tools.decode_attention_ab import same_sass
 
     if not torch.cuda.is_available():
         print("weight_only_ab needs a CUDA card", file=sys.stderr)
         return 1
     args = list(argv if argv is not None else sys.argv[1:])
-    fp8_only = "--fp8-only" in args
-    unequal_ok = {args[i + 1] for i, a in enumerate(args) if a == "--allow-unequal"}
-    args = [a for i, a in enumerate(args) if a not in ("--fp8-only", "--allow-unequal")
-            and (i == 0 or args[i - 1] != "--allow-unequal")]
+    flags = {a for a in args if a in ("--fp8-only", "--prefill-only", "--check-only", "--no-check")}
+    fp8_only, prefill_only = "--fp8-only" in flags, "--prefill-only" in flags
+    check_only, no_check = "--check-only" in flags, "--no-check" in flags
+    valued = {"--allow-unequal": [], "--variant": [], "--shapes": []}
+    rest = []
+    it = iter(a for a in args if a not in flags)
+    for a in it:
+        if a in valued:
+            valued[a].append(next(it))
+        else:
+            rest.append(a)
+    unequal_ok = set(valued["--allow-unequal"])
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -231,21 +354,47 @@ def main(argv=None) -> int:
         for entry in f8._ENTRIES.values():
             setattr(lib, entry, lib.aigv_fp8_matmul)
 
+    def library(source, declare, folder, name):
+        lib = cuda_build.CudaLibrary(source, declare)
+        lib.source = (Path(folder) / source).resolve()
+        lib.path = cuda_build.BUILD_DIR / f"lib{Path(source).stem}_{name}.so"
+        return lib
+
     versions = {"tree": (wo.LIB, f8.LIB)}
-    for arg in args:
+    folders = {"tree": cuda_build.CSRC}
+    for arg in rest:
         name, _, folder = arg.partition("=")
-        libs = []
-        for source, declare in (("weight_only_matmul.cu", wo._declare),
-                                ("fp8_matmul.cu", f8._declare)):
-            lib = cuda_build.CudaLibrary(source, declare)
-            lib.source = (Path(folder) / source).resolve()
-            lib.path = cuda_build.BUILD_DIR / f"lib{Path(source).stem}_{name}.so"
-            libs.append(lib)
-        versions[name] = tuple(libs)
-    every = [lib for pair in versions.values() for lib in pair[1 if fp8_only else 0:]]
+        folders[name] = Path(folder)
+        versions[name] = (library("weight_only_matmul.cu", wo._declare, folder, name),
+                          library("fp8_matmul.cu", f8._declare, folder, name))
+    diagnostic = set()
+    for spec in valued["--variant"]:
+        base, _, edit = spec.rpartition(".")
+        if edit not in EDITS or base not in folders:
+            raise SystemExit(f"--variant {spec}: BASE.EDIT with BASE in {list(folders)} and "
+                             f"EDIT in {list(EDITS)}")
+        folder = edited_source(folders[base], edit,
+                               cuda_build.BUILD_DIR.parent / "variants" / spec)
+        versions[spec] = (library("weight_only_matmul.cu", wo._declare, folder, spec),
+                          versions[base][1])  # K9 as its base has it
+        if edit in DIAGNOSTICS:
+            diagnostic.add(spec)
+            unequal_ok.add(spec)
+    every = list(dict.fromkeys(lib for pair in versions.values()
+                               for lib in pair[1 if fp8_only else 0:]))
     for lib in every:
         lib.path.unlink(missing_ok=True)
-    cuda_build.build(every, verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        cuda_build.build(every, verbose=True)
+    print(log.getvalue(), end="", flush=True)
+    ok = True
+    registers = ptxas_summary(log.getvalue())
+    print(f"registers: {json.dumps(registers)}", flush=True)
+    for kernel, entry in registers.get(wo.LIB.path.name, {}).items():
+        if "gemm" in kernel and (entry["spill_bytes"] or entry["warnings"]):
+            print(f"FAILED: the tree's GEMM kernel {kernel} spills or is serialized: {entry}")
+            ok = False
     # the forms each version's library has; an older library has only the
     # entries the unaligned form keeps
     forms = {}
@@ -256,7 +405,8 @@ def main(argv=None) -> int:
             wlib._declare = lambda lib, fs=tuple(forms[name]): wo._declare(lib, fs)
         if not hasattr(ctypes.CDLL(str(flib.path)), f8._ENTRIES["stream"]):
             flib._declare = declare_single  # an older version: one entry takes both forms
-        print(f"{name} K9 SASS: {json.dumps(sass_counts(flib.path))}", flush=True)
+        if not prefill_only:
+            print(f"{name} K9 SASS: {json.dumps(sass_counts(flib.path))}", flush=True)
 
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -285,9 +435,16 @@ def main(argv=None) -> int:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         return f8.fp8_form(m, k, n, x, w8, sms), f8.launch_plan(m, n, k)._asdict()
 
-    # checks
-    ok = True
-    for name in versions:
+    def check(label, name, got, want, n):
+        nonlocal ok
+        rel = relative_l2(got, want)
+        good = bool(torch.isfinite(got).all()) and rel <= WO_TOL and not got[:, n // 2].any()
+        ok &= good or name in unequal_ok
+        print(f"{label}: rel L2 {rel:.3e} {'ok' if good else 'FAILED'}", flush=True)
+        return good
+
+    # checks (a diagnostic version is only timed)
+    for name in [v for v in versions if v not in diagnostic and not no_check]:
         use(name)
         for bits in () if fp8_only else (8, 4):
             plain = wo.plain_int8_matmul if bits == 8 else wo.plain_int4_matmul
@@ -296,14 +453,30 @@ def main(argv=None) -> int:
                 want = plain(x.double(), q, s, out_dtype=torch.float64)
                 aligned = wo.weight_only_form(m, k, n, bits, x, q) != "unaligned"
                 for form in [f for f in forms[name] if f != "gemm" or aligned]:
-                    got = run(form, bits, x, q, s)
-                    torch.cuda.synchronize()
-                    rel = relative_l2(got, want)
-                    good = (bool(torch.isfinite(got).all()) and rel <= WO_TOL
-                            and not got[:, n // 2].any())
-                    ok &= good or name in unequal_ok
-                    print(f"{name} int{bits} {form} M={m} K={k} N={n}: rel L2 "
-                          f"{rel:.3e} {'ok' if good else 'FAILED'}", flush=True)
+                    check(f"{name} int{bits} {form} M={m} K={k} N={n}", name,
+                          run(form, bits, x, q, s), want, n)
+            if "gemm" not in forms[name]:
+                continue
+            # the GEMM form where its schedule changes: against the plain
+            # version, a second launch and a graph replay bit-equal
+            for m, k, n in GEMM_EDGES:
+                x, q, s, _ = operands(bits, m, k, n)
+                got, again = run("gemm", bits, x, q, s), run("gemm", bits, x, q, s)
+                static = torch.empty_like(got)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    static.copy_(run("gemm", bits, x, q, s))
+                graph.replay()
+                torch.cuda.synchronize()
+                same = torch.equal(got, again) and torch.equal(got, static)
+                good = check(f"{name} int{bits} gemm edge M={m} K={k} N={n} "
+                             f"({-(-m // 256) * -(-n // 128)} tiles), rerun and replay "
+                             f"{'bit-equal' if same else 'DIFFER'}", name,
+                             got, plain(x.double(), q, s, out_dtype=torch.float64), n)
+                ok &= same or name in unequal_ok
+                del x, q, s, got, again, static, graph
+        if prefill_only:
+            continue
         k9_ok = True
         for m, k, n in FP8_CHECKS:
             w = torch.randn((n, k), generator=gen, device=device) * 0.02
@@ -358,6 +531,16 @@ def main(argv=None) -> int:
                   f"{'equal' if good else 'DIFFERS'}", flush=True)
         ok &= k9_ok or name in unequal_ok
 
+    if not fp8_only:
+        for name in versions:
+            if name != "tree":
+                print(f"sass_in_tree {name}: "
+                      f"{json.dumps(same_sass(versions['tree'][0].path, versions[name][0].path))}",
+                      flush=True)
+    if check_only:
+        use("tree")
+        return 0 if ok else 1
+
     order = list(versions) + list(versions)[::-1]
 
     def report(label, bits, m, k, n, runs, linear_ms, **extra):
@@ -371,19 +554,33 @@ def main(argv=None) -> int:
             "vs_linear": {key: v / linear_ms for key, v in best.items()}, **extra,
             "card": card}), flush=True)
 
-    # prefill: the GEMM form (or an older version's single kernel)
+    # prefill: the GEMM form (or an older version's single kernel), F.linear
+    # in the middle of the turns
+    prefill = {**PROJECTIONS, **OTHER_PREFILL}
+    if valued["--shapes"]:  # a comma-separated subset
+        prefill = {k: v for k, v in prefill.items() if k in valued["--shapes"][-1].split(",")}
     for bits in () if fp8_only else (8, 4):
-        for label, (k, n) in PROJECTIONS.items():
+        for label, (k, n) in prefill.items():
             x, q, s, deq = operands(bits, PREFILL_ROWS, k, n)
-            runs = {}
-            for name in order:
+            runs, equal, ys = {}, {}, {}
+            linear = None
+            for i, name in enumerate(order):
+                if i == len(versions):
+                    linear = graph_ms([lambda: F.linear(x, deq)] * 3, 10)
+                if name in diagnostic and label not in PROJECTIONS:
+                    continue
                 use(name)
                 form = "gemm" if "gemm" in forms[name] else "unaligned"
                 runs.setdefault(f"{name}/{form}", []).append(graph_ms(
                     [lambda f=form: run(f, bits, x, q, s)] * 3, 10))
-            linear = graph_ms([lambda: F.linear(x, deq)] * 3, 10)
-            report(label, bits, PREFILL_ROWS, k, n, runs, linear)
-            del x, q, s, deq
+                if name not in ys:
+                    ys[name] = run(form, bits, x, q, s)
+                    equal[name] = torch.equal(ys[name], ys["tree"])
+            report(label, bits, PREFILL_ROWS, k, n, runs, linear, bit_equal=equal)
+            del x, q, s, deq, ys
+    if prefill_only:
+        use("tree")
+        return 0 if ok else 1
 
     # decode and the threshold: weight copies beyond the L2
     def cycled(fn, weights, iters=20):
@@ -393,6 +590,7 @@ def main(argv=None) -> int:
     decode_cases.append(("lm_head", 4, *LM_HEAD))
     threshold = [(label, m, *PROJECTIONS[label])
                  for label in ("wqkv", "w2") for m in THRESHOLD_ROWS]
+    plain_versions = [name for name in order if name not in diagnostic]
     for bits in () if fp8_only else (8, 4):
         for kind, cases in (("decode", decode_cases), ("threshold", threshold)):
             for label, m, k, n in cases:
@@ -400,7 +598,7 @@ def main(argv=None) -> int:
                 copies = int(2 * L2_BYTES // q.numel()) + 1
                 qs = [q] + [q.clone() for _ in range(copies - 1)]
                 runs = {}
-                for name in order if kind == "decode" else ["tree", "tree"]:
+                for name in plain_versions if kind == "decode" else ["tree", "tree"]:
                     use(name)
                     if kind == "threshold":
                         variants = ["gemv", "gemm"]
@@ -428,7 +626,7 @@ def main(argv=None) -> int:
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         runs, plan = {}, {}
         calls = ws if copies > 1 else ws * 20
-        for name in order:
+        for name in plain_versions:
             use(name)
             plan[name] = fp8_plan(m, k, n)
             runs.setdefault(f"{name}/fp8", []).append(

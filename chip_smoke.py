@@ -85,8 +85,13 @@ Phases, each printing one line or more (and failing the run by raising):
      M = 8 / 9 / 16 / 17 / 64 / 65 / 127 / 128 / 129 / 255 / 256 / 257, N =
      127 / 128 / 129 / 255 / 256 / 257, K = 64 / 160 / 100; each through the
      wrapper, which must take the expected form,
-     and through every form that takes it) and for int4 at an odd K (the
-     unaligned form): relative L2 at most WO_TOL from the plain version,
+     and through every form that takes it), the GEMM form where its schedule
+     changes (WO_GEMM_EDGES: 131 to 529 tiles on 132 SMs, the 2B wo / w2's
+     544 with a last m tile of 4 rows; a second launch and a CUDA graph
+     replay bit-equal to the first), at the 26B / 4B / 1B decoders'
+     projections with M = 8452 (WO_OTHER, timed beside `F.linear`), and for
+     int4 at an odd K (the unaligned form): relative L2 at most WO_TOL from
+     the plain version,
      which multiplies the same bf16 inputs in fp32; against that version
      rounded to bf16, all but WO_UNEQUAL_SHARE of the elements equal and all
      but WO_ULP_SHARE within one bf16 ulp; and exactly 0 for an all-zero
@@ -687,6 +692,22 @@ WO_BORDERS = [(8, 2048, 2048), (9, 2048, 2048), (16, 2048, 2048), (17, 2048, 204
               (64, 2048, 2048), (65, 2048, 2048), (127, 2048, 255), (128, 2048, 256),
               (129, 2048, 257), (255, 2048, 127), (256, 2048, 128), (257, 2048, 129),
               (300, 64, 1024), (300, 160, 1024), (300, 100, 1024)]
+# (M, K, N) where the GEMM form's schedule changes on 132 SMs, each through
+# the wrapper, then a second launch and a CUDA graph replay bit-equal to the
+# first: tile counts (256 rows x 128 channels) of 131, 132, 133, 143, 263,
+# 264, 265, 527, 528 and 529, the 2B wo / w2's 544 (33 full m tiles and one
+# of 4 rows, whose products run 64 wide), last m tiles of 100 and 200 rows
+WO_GEMM_EDGES = [(33536, 64, 128), (2816, 256, 1536), (34048, 64, 128), (2816, 256, 1537),
+                 (67328, 64, 128), (5632, 64, 1536), (13568, 64, 640), (7936, 64, 2176),
+                 (8448, 64, 2048), (5888, 64, 2944), (PREFILL_ROWS, 2048, 2048),
+                 (PREFILL_ROWS, 8192, 2048), (612, 256, 384), (456, 256, 384)]
+# (K, N) of the other decoders' projections at the prefill's rows, the GEMM
+# form: InternVL2-26B (internlm2-chat-20b), -4B (Phi-3-mini, fused qkv and
+# gate_up), -1B (Qwen2-0.5B)
+WO_OTHER = {"26b_wqkv": (6144, 8192), "26b_wo": (6144, 6144), "26b_w1": (6144, 16384),
+            "26b_w2": (16384, 6144), "4b_qkv": (3072, 9216), "4b_o": (3072, 3072),
+            "4b_gate_up": (3072, 16384), "4b_down": (8192, 3072), "1b_wqkv": (896, 1152),
+            "1b_wo": (896, 896), "1b_w1": (896, 4864), "1b_w2": (4864, 896)}
 L2_BYTES = 50e6
 # fp8 decode matmul (K9) vs its plain version rounded to bf16, relative L2:
 # both sum exact products (e4m3 x bf16) in fp32, so what is left is the
@@ -1388,6 +1409,48 @@ def check_weight_only(wo, device) -> dict:
               f"L2 of every form that takes it): " + "; ".join(
                   f"{key} {r['form']} " + ", ".join(f"{f} {v:.2e}" for f, v in r["forms"].items())
                   for key, r in borders.items()))
+        # the GEMM form where its schedule changes: a rerun and a replay
+        # bit-equal (the fp32 sums run in a fixed order)
+        edges = {}
+        for m, k, n in WO_GEMM_EDGES:
+            x, q, scale, _ = operands(bits, m, k, n)
+            label = f"int{bits} GEMM edge M={m} K={k} N={n}"
+            rel, err = compare(label, through(kernel, "gemm", label), plain, x, q, scale)
+            gemm = lambda: wo._launch_form("gemm", bits, x, q, scale)  # noqa: E731
+            first, again = gemm(), gemm()
+            static = torch.empty_like(first)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static.copy_(gemm())
+            graph.replay()
+            torch.cuda.synchronize()
+            if not (torch.equal(first, again) and torch.equal(first, static)):
+                raise RuntimeError(f"{label}: a second launch or a graph replay differs")
+            edges[f"{m}x{k}x{n}"] = dict(tiles=-(-m // 256) * -(-n // 128), rel_l2=rel,
+                                         max_abs_err=err, bit_equal=True)
+            del x, q, scale, first, again, static, graph
+        table["gemm_edges"] = edges
+        phase("kernel", f"int{bits} matmul, GEMM form where its schedule changes (M x K x N: "
+              f"tiles, rel L2; each rerun and graph replay bit-equal): " + "; ".join(
+                  f"{key}: {r['tiles']}, {r['rel_l2']:.2e}" for key, r in edges.items()))
+        # the other decoders' projections at the prefill's rows
+        others = {}
+        for label, (k, n) in WO_OTHER.items():
+            x, q, scale, deq = operands(bits, PREFILL_ROWS, k, n)
+            rel, err = compare(f"int{bits} {label}", through(kernel, "gemm", label), plain, x, q,
+                               scale)
+            b_o, by_o = bound_ms(*work(bits, PREFILL_ROWS, k, n))
+            others[label] = dict(
+                K=k, N=n, M=PREFILL_ROWS, rel_l2=rel, max_abs_err=err,
+                ms=graph_ms([lambda: kernel(x, q, scale)] * 3, 10),
+                library_ms=graph_ms([lambda: torch.nn.functional.linear(x, deq)] * 3, 10),
+                bound_ms=b_o, bound_by=by_o)
+            del x, q, scale, deq
+        table["other_models"] = others
+        phase("kernel", f"int{bits} matmul, the GEMM form at the 26B / 4B / 1B decoders' "
+              f"projections, M={PREFILL_ROWS} (ms, F.linear ms, bound ms): " + "; ".join(
+                  f"{key} {r['ms']:.4f} / {r['library_ms']:.4f} / {r['bound_ms']:.4f}"
+                  for key, r in others.items()))
         if bits == 4:
             k, n = ODD_K
             x, q, scale, _ = operands(bits, DECODE_ROWS[0], k, n)
@@ -6259,7 +6322,8 @@ def main() -> int:
                                             table[name]["decode"][m][key])
                                for name, (_, _, per_layer) in PROJECTIONS.items())
         checked = [r for r in table.values() if "max_abs_err" in r]
-        checked += list(table["borders"].values())
+        checked += [*table["borders"].values(), *table["gemm_edges"].values(),
+                    *table["other_models"].values()]
         m_dec = DECODE_ROWS[0]
         kernels.append(dict(
             name=f"weight_only_int{bits}_matmul", route="cuda",

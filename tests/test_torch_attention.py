@@ -15,6 +15,7 @@ with Sq != Skv, `kv_valid`, D = 64 and 128.
 The kernels themselves are tested on the card in tests/test_torch_gpu.py.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ against:
 - autograd through the plain forward, and `torch.autograd.gradcheck` in fp64.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import jax
 import jax.numpy as jnp
 import numpy as np

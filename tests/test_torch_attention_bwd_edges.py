@@ -16,6 +16,7 @@ and 7, kv_valid = 1, inside a tile and one past the last full tile (1025 of
 which the mask must keep out of every gradient.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ dense `bsd` form takes no 64-wide heads under GQA), K2 in `bhsd` and
 `bshd`. One module fixture runs JAX once per case.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ tile, causal at a ragged S, G = 6, and non-causal Sq > Skv and Sq < Skv.
 Keys past kv_valid hold +-1e3, which the mask must keep out.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -17,6 +17,7 @@ which the CUDA kernels are held against on the card, against:
 - `torch.autograd.gradcheck` of `FlashAttention` in fp64.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import jax
 import jax.numpy as jnp
 import numpy as np

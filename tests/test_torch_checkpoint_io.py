@@ -27,6 +27,7 @@ conversions the stored quantized ones. Against JAX:
 - W8A8 with a weight-only mode refused with JAX's text.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import functools
 import json

@@ -27,6 +27,7 @@ config.json, tokenizer.json) at the tiny stage-2 scale.
   ImageNet statistics, as JAX's CLI normalizes there) to 1e-6.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import contextlib
 import csv
 import dataclasses

@@ -19,6 +19,7 @@ runs it.
   forward at the same positions.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 
 import jax

@@ -24,6 +24,7 @@ on the CPU.
   versions' own answer for every producer.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 from unittest import mock
 

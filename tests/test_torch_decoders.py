@@ -13,6 +13,7 @@ classifier; 2e-3 for W8A8 logits (tests/test_torch_decode.py's W8A8 bound: a
 last-bit difference can flip an int8 value); configs and weights exactly.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import json
 import os

@@ -25,6 +25,7 @@ them.
   the logged losses within tests/test_torch_train_cli_stage1.py's GRAD_TOL.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import json
 import os
 import socket

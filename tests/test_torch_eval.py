@@ -29,6 +29,7 @@ seed), the meta JSONs that point at them, and a meta with two entries.
 One JAX run per CLI mode, shared through module-scoped fixtures.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import csv
 import json
 import os

@@ -14,6 +14,7 @@
   `msgpack` package.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import builtins
 
 import flax.serialization as fser

@@ -15,6 +15,7 @@
   operands raise.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import importlib.util
 import os
 

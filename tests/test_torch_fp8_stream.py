@@ -23,6 +23,7 @@ persistent split-K kernel's borders, on the CPU.
   fixture runs every Pallas case once.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import importlib.util
 import os
 from collections import Counter

@@ -19,6 +19,7 @@ The CUDA kernels are held against these plain versions on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import contextlib
 import os
 from unittest import mock

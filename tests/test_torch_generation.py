@@ -15,6 +15,7 @@ on the CPU in fp32, on one set of weights (`state_dict_from_jax`).
   `shared_prefix=True` end to end.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 
 import jax

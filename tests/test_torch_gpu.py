@@ -998,12 +998,20 @@ WO_TOL = 2e-3
 # form), M = 127 / 128 / 129 with N = 255 / 256 / 257 (two of the GEMM's
 # 128-channel tiles), M = 255 / 256 / 257 (its 256-row tiles) with N = 127 /
 # 128 / 129, K = 64 (one step), K = 160 (a ragged last step), K = 100 (rows
-# off 16 bytes: unaligned), and the LM head's N = 92553
+# off 16 bytes: unaligned), and the LM head's N = 92553; then WO_GEMM_EDGES
 WO_SHAPES = [(300, 2048, 512), (1, 2048, 256), (4, 1024, 1001), (70, 200, 130), (33, 2047, 96),
              (8, 2048, 1024), (9, 2048, 1024), (16, 2048, 1024), (17, 2048, 1024),
              (64, 2048, 1024), (65, 2048, 1024), (127, 2048, 255), (128, 2048, 256),
              (129, 2048, 257), (255, 1024, 127), (256, 1024, 128), (257, 1024, 129),
              (300, 64, 512), (300, 160, 512), (300, 100, 512), (4, 2048, 92553)]
+# (M, K, N) where the GEMM form's schedule changes on 132 SMs (tiles of 256
+# rows x 128 channels): 131, 132, 133, 143, 264, 528 tiles, the 2B wo's 544
+# (33 full m tiles and one of 4 rows, whose products run 64 wide) at a short
+# K, and last m tiles of 100 and 200 rows (products 128 and 256 wide)
+WO_GEMM_EDGES = [(33536, 64, 128), (2816, 256, 1536), (34048, 64, 128), (2816, 256, 1537),
+                 (5632, 64, 1536), (8448, 64, 2048), (4 * 2113, 256, 2048), (612, 256, 384),
+                 (456, 256, 384)]
+WO_SHAPES += WO_GEMM_EDGES
 
 
 def make_weight_only(bits, m, k, n, device, bias, seed=13):
@@ -1051,6 +1059,28 @@ def test_weight_only_each_form_matches_plain(cuda, bits, form):
     assert (kernel.launches, kernel.form_launches) == before
     assert got.shape == (m, n) and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     assert relative_l2(got, plain(x, q, scale, b, out_dtype=torch.float32)) <= WO_TOL
+
+
+@pytest.mark.parametrize("shape", WO_GEMM_EDGES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_weight_only_gemm_form_reruns_bit_equal(cuda, bits, shape):
+    """The GEMM form sums each output in a fixed order: a second launch and
+    a CUDA graph replay give the first launch's bits, where the schedule
+    changes as on the model's shapes."""
+    m, k, n = shape
+    x, q, scale, b = make_weight_only(bits, m, k, n, cuda, True)
+
+    def gemm():
+        return wo._launch_form("gemm", bits, x, q, scale, b)
+
+    first, again = gemm(), gemm()
+    static = torch.empty_like(first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static.copy_(gemm())
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, static)
 
 
 def test_weight_only_wrappers_count_launches_by_form(cuda):

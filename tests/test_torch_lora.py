@@ -7,6 +7,7 @@ order. Dropout cannot be matched bit for bit between the frameworks, so the
 differential cases run without it and dropout is tested on its own.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -31,6 +31,7 @@ and the teacher-forced JAX forward that the forward and distance tests both
 read.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ dense kernel [in, out] is the port's weight [out, in], a conv kernel
 layer dim. The layout map is checked on the shapes too. Exact equality.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import logging
 import os

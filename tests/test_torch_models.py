@@ -8,6 +8,7 @@ takes the kernel's plain version; the tolerance is atol/rtol 2e-4, as the
 JAX package's own differential tests hold (STATUS.md).
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 
 import jax

@@ -4,6 +4,7 @@ Inputs come from a numpy seed and go through both functions in fp32; the
 port must agree to atol 1e-5 (one rounding order apart at most).
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import os
 import subprocess

@@ -27,6 +27,7 @@ The JAX side runs once per module: one initialization, one compiled step
 reused for every further step.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import hashlib
 import json

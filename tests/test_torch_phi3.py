@@ -16,6 +16,7 @@ last-bit difference can flip an int8 value); 2e-4 for int8 / int4
 in numpy fp32); LoRA gradients 1e-4 relative to each leaf's largest value.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import os
 

@@ -16,6 +16,7 @@ tower against the JAX converter, bit for bit. The tower under W8A8, int8
 and int4: tests/test_torch_lora_quant.py.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import json
 

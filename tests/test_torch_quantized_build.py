@@ -16,6 +16,7 @@ and from weights. Also: the JAX package's `quantize_for_serving` of the
 same weights with adapters gives the same int8 tree, the adapters kept
 float."""
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 
 import jax

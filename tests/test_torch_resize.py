@@ -1,5 +1,6 @@
 """`ops/preprocess.resize_normalize` with a real resize against JAX's
 (`jax.image.resize(method="bicubic")`), on the CPU, at the model's 448 px
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 from the frame sizes the scoring path meets: 512x640, 720x1280, 300x500,
 336x336 (growing) and 448x448 (no resize), under each normalization.
 

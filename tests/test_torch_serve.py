@@ -22,6 +22,7 @@ scores. One service of each package per module.
   card, `ScoringService(device="cuda")` raises.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import http.client
 import io
 import json

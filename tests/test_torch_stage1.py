@@ -18,6 +18,7 @@ and the memory-lean model build.
   fp32 draw cast to bf16.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import numpy as np
 import pytest
 import torch

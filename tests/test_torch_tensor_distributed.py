@@ -26,6 +26,7 @@ rank) and leaves the decoder whole, its 2 kv heads not dividing.
   against JAX's CLI with the same flags: the logged losses within GRAD_TOL.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import json
 import os
 import socket

@@ -23,6 +23,7 @@
   a split input's dropout mask equal to the whole activation's.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import copy
 import dataclasses
 import sys

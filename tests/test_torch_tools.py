@@ -23,6 +23,7 @@ bit:
   both, which without it both skip.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import contextlib
 import io
 import json

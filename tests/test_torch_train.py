@@ -14,6 +14,7 @@ the gradient by its own magnitude, so a 2e-4 relative gradient error moves a
 parameter by at most lr * 2e-4).
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 import json
 import os

@@ -19,6 +19,7 @@ best slot as JAX writes them. With no card and no `--device`, the CLI
 raises.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import json
 
 import jax

@@ -20,6 +20,7 @@ state bit for bit, and the resumed run logs step 3 first; the JAX CLI's
 checkpoints restore into the port's trainer bit for bit.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import contextlib
 import json
 

@@ -22,6 +22,7 @@ remat policies, on the CPU.
   the training CLI.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import collections
 import dataclasses
 

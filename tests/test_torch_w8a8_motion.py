@@ -14,6 +14,7 @@ against the JAX package's `w8a8_dynamic_matmul` and `SlowFastR50` under
   stem's, no fusion's; the state_dict and the default are unchanged.
 """
 
+from tests import _torch_threads  # noqa: F401  (before torch does work)
 import dataclasses
 
 import jax
